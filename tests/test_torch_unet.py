@@ -1,0 +1,80 @@
+"""The port's U-Net against the flax U-Net, through the weight bridge.
+
+Same random weights and inputs (numpy seeds; BN statistics jittered through
+crc32 as tests/test_quant.py does) go through ``tpuseg.models.unet.UNet``
+and ``tpuseg_torch.models.unet.UNet`` in float32 on the CPU; eval-mode
+logits must agree to 2e-4 (the f32 conv sum order differs between XLA and
+PyTorch's CPU kernels)."""
+
+import zlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tpuseg.models.unet import UNet as JaxUNet
+from tpuseg.models.unet import init_variables
+from tpuseg_torch.models.unet import UNet, init_unet
+from tpuseg_torch.utils.jax_bridge import flax_to_state_dict, unet_from_flax
+
+
+def jax_model_and_vars(impl="conv_transpose", feats=4, ncls=2, channels=1):
+    """A flax U-Net in f32 with numpy variables and jittered BN stats."""
+    model = JaxUNet(num_classes=ncls, base_features=feats, dtype=jnp.float32,
+                    deconv_impl=impl)
+    variables = init_variables(model, jax.random.PRNGKey(0), num_channels=channels)
+
+    def jitter(path, x):
+        name = "/".join(str(p.key) for p in path)
+        rng = np.random.default_rng(zlib.crc32(name.encode()))
+        if name.endswith("mean"):
+            return rng.normal(0, 0.3, x.shape).astype(np.float32)
+        return rng.uniform(0.5, 2.0, x.shape).astype(np.float32)
+
+    stats = jax.tree_util.tree_map_with_path(jitter, variables["batch_stats"])
+    params = jax.tree_util.tree_map(np.asarray, variables["params"])
+    return model, {"params": params, "batch_stats": stats}
+
+
+@pytest.mark.parametrize("impl", ["conv_transpose", "pixel_shuffle"])
+def test_eval_logits_match_flax(impl):
+    model, variables = jax_model_and_vars(impl)
+    x = np.random.default_rng(1).normal(0, 1, (2, 48, 32, 1)).astype(np.float32)
+    want = np.asarray(model.apply(variables, jnp.asarray(x), train=False))
+    port = unet_from_flax(variables, 2, 1, 4, torch.float32, impl)
+    with torch.no_grad():
+        got = port(torch.from_numpy(x)).numpy()
+    assert got.shape == want.shape == (2, 48, 32, 2)
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
+
+
+def test_bridge_covers_every_parameter():
+    """The bridge fills every entry of the port's state_dict with the shape
+    the port expects (nothing left at its init value)."""
+    _, variables = jax_model_and_vars(feats=4, ncls=3, channels=2)
+    sd = flax_to_state_dict(variables)
+    ref = UNet(3, 2, 4).state_dict()
+    assert set(sd) == set(ref)
+    for k, v in ref.items():
+        assert tuple(sd[k].shape) == tuple(v.shape), k
+
+
+def test_bf16_forward_tracks_f32():
+    """dtype=bfloat16 runs the same network: bf16 logits stay close to the
+    f32 ones (bf16 keeps ~3 significant digits per layer)."""
+    torch.manual_seed(0)
+    model = init_unet(UNet(2, 1, 4, torch.float32), torch.Generator().manual_seed(3)).eval()
+    x = torch.from_numpy(np.random.default_rng(2).normal(0, 1, (1, 32, 32, 1)).astype(np.float32))
+    with torch.no_grad():
+        f32 = model(x)
+        model.dtype = torch.bfloat16
+        bf16 = model(x)
+    assert bf16.dtype == torch.float32
+    assert torch.corrcoef(torch.stack([f32.flatten(), bf16.flatten()]))[0, 1] > 0.99
+
+
+def test_rejects_non_multiple_of_16():
+    with pytest.raises(ValueError, match="multiples of 16"):
+        UNet(2, 1, 4)(torch.zeros(1, 40, 32, 1))

@@ -1,0 +1,255 @@
+"""Whole-image inference: batched small images and halo-tiled large ones.
+
+Counterpart of ``tpuseg/infer/tiled.py`` (reference ``UNet/inference.py:
+27-173``). The geometry is the JAX package's, line for line: one fixed
+tile shape per image with slide-to-fit edge windows, a zone of
+responsibility of ``tile - 2*radius`` around the ERF-measured radius,
+reflect padding to x16, the same trim order. What changes with PyTorch:
+
+- the image crosses to the device once in its native dtype, the z-score
+  (with the reference's std<=1 guard) runs there, tiles are cut, run in
+  ``batch_size`` chunks by a Python loop (``lax.map`` in JAX) and stitched
+  on the device, and the mask crosses back once;
+- eager execution needs no program cache and no static-shape padding: a
+  short last chunk simply runs as a smaller batch.
+
+The streaming engine (images larger than host RAM) waits for a later
+slice.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from tpuseg_torch import RADIUS, SIZE_FACTOR
+
+TILE_SIZE = 1024  # inference.py:24
+# auto-tile search ceiling, kept from the JAX package (sized for a TPU
+# v5e's memory there; the H100 envelope is not measured yet)
+MAX_AUTO_TILE = 1536
+
+PredictFn = Callable[[torch.Tensor], torch.Tensor]
+
+
+def max_auto_tile(per_device_batch: int) -> int:
+    """Tile cap for auto-tile at a given per-device batch: a larger batch
+    shrinks the tile so ``batch x tile^2`` stays inside the envelope the
+    1536 ceiling was set for; smaller batches do not raise the cap."""
+    budget = 8 * MAX_AUTO_TILE * MAX_AUTO_TILE  # per-device pixels
+    cap = int((budget / max(1, per_device_batch)) ** 0.5)
+    return min(MAX_AUTO_TILE, cap // SIZE_FACTOR * SIZE_FACTOR)
+
+
+def choose_tile_size(height: int, width: int, radius: int = RADIUS,
+                     min_tile: int = 512, max_tile: int = MAX_AUTO_TILE,
+                     chunk: int = 8) -> int:
+    """Pick the tile size minimizing computed tile slots for one image:
+    multiples of 16 minimizing ``ceil(n_tiles/chunk) * chunk * tile^2``,
+    ties toward smaller tiles (``tpuseg.infer.tiled.choose_tile_size``)."""
+    best = None
+    lo = max(min_tile, ((3 * radius + SIZE_FACTOR - 1) // SIZE_FACTOR) * SIZE_FACTOR)
+    for tile in range(lo, max_tile + 1, SIZE_FACTOR):
+        zor = tile - 2 * radius
+        if zor < radius:
+            continue
+        n_tiles = -(-height // zor) * (-(-width // zor))
+        slots = -(-n_tiles // chunk) * chunk
+        key = (slots * tile * tile, tile)
+        if best is None or key < best[0]:
+            best = (key, tile)
+    if best is None:
+        raise ValueError(
+            f"no valid tile size in [{lo}, {max_tile}] for radius {radius}")
+    return best[1]
+
+
+def _pad_to_multiple(img: np.ndarray) -> Tuple[np.ndarray, int, int]:
+    """Reflect-pad bottom/right so H,W are multiples of 16 (inference.py:29-47)."""
+    pad_y = (-img.shape[0]) % SIZE_FACTOR
+    pad_x = (-img.shape[1]) % SIZE_FACTOR
+    if img.ndim == 2:
+        img = img[..., None]
+    if pad_x > 0 or pad_y > 0:
+        img = np.pad(img, ((0, pad_y), (0, pad_x), (0, 0)), mode="reflect")
+    return img, pad_y, pad_x
+
+
+def make_predict_fn(model: torch.nn.Module) -> PredictFn:
+    """NHWC float batch -> int32 argmax labels, on the model's device."""
+
+    @torch.inference_mode()
+    def predict(batch: torch.Tensor) -> torch.Tensor:
+        return torch.argmax(model(batch), dim=-1).to(torch.int32)
+
+    return predict
+
+
+def _to_device(img: np.ndarray, device) -> torch.Tensor:
+    """Ship ``img`` in its native dtype and widen it on the device. uint16
+    (the microscopy corpus' type) has no CUDA arithmetic in torch, so its
+    bits travel as int16 and are masked back to 0..65535 there."""
+    img = np.ascontiguousarray(img)
+    if img.dtype == np.uint16:
+        t = torch.from_numpy(img.view(np.int16)).to(device).to(torch.int32)
+        return (t & 0xFFFF).to(torch.float32)
+    if img.dtype in (np.uint8, np.int8, np.int16, np.int32, np.float32):
+        return torch.from_numpy(img).to(device).to(torch.float32)
+    return torch.from_numpy(img.astype(np.float32)).to(device)
+
+
+def _zscore(x: torch.Tensor, mean: torch.Tensor, std: torch.Tensor) -> torch.Tensor:
+    """imagereader.py:33-66 with its std<=1 mean-shift-only guard;
+    ``mean``/``std`` broadcast over the trailing channel axis."""
+    centered = x - mean
+    return torch.where(std <= 1.0, centered, centered / std)
+
+
+def _check_tile_geometry(tile_size: int, radius: int, zor: int) -> None:
+    """User-facing geometry validation: ValueError with the rule named."""
+    if tile_size % SIZE_FACTOR or radius % SIZE_FACTOR:
+        raise ValueError(
+            f"tile_size and radius must be multiples of {SIZE_FACTOR} "
+            f"(4 pool/2 stages), got tile_size={tile_size} radius={radius}")
+    if zor < radius:
+        raise ValueError(
+            f"tile size too small for the receptive-field halo: zone "
+            f"{zor} < radius {radius} (need tile_size >= 3*radius)")
+
+
+def _zor_placements(height: int, width: int, zor: int, tile_size: int,
+                    radius: int, clamp_h: int, clamp_w: int,
+                    ) -> List[Tuple[int, int, int, int, int, int]]:
+    """The halo/zone grid: ``(zone_y, zone_x, zone_y_end, zone_x_end,
+    window_y, window_x)`` per tile, zones clamped to (height, width),
+    windows slid-to-fit inside (clamp_h, clamp_w)."""
+    placements = []
+    for i in range(0, height, zor):
+        for j in range(0, width, zor):
+            y_end_z = min(i + zor, height)
+            x_end_z = min(j + zor, width)
+            y_st = min(max(i - radius, 0), clamp_h - tile_size)
+            x_st = min(max(j - radius, 0), clamp_w - tile_size)
+            placements.append((i, j, y_end_z, x_end_z, y_st, x_st))
+    return placements
+
+
+def inference_single_batch(imgs: List[np.ndarray], predict_fn: PredictFn,
+                           batch_size: int = 8, stats=None,
+                           device="cuda") -> List[np.ndarray]:
+    """Batched small-image path: same-shape images run ``batch_size`` at a
+    time with the z-score fused on the device, so raw integer pixels ship.
+    ``stats`` are per-image ``zscore_stats`` pairs (computed here if not
+    given)."""
+    from tpuseg_torch.data.preprocess import zscore_stats
+
+    if not imgs:
+        return []
+    if any(im.shape != imgs[0].shape for im in imgs):
+        raise ValueError(
+            f"inference_single_batch needs same-shape images, got "
+            f"{sorted({im.shape for im in imgs})}")
+    if stats is None:
+        stats = [zscore_stats(im) for im in imgs]
+    elif len(stats) != len(imgs):
+        raise ValueError(f"{len(stats)} stats for {len(imgs)} images")
+    padded = [_pad_to_multiple(im) for im in imgs]
+    pad_y, pad_x = padded[0][1], padded[0][2]
+
+    preds: List[np.ndarray] = []
+    for s in range(0, len(padded), batch_size):
+        group = np.stack([p[0] for p in padded[s:s + batch_size]])
+        gstats = stats[s:s + batch_size]
+        mean = torch.from_numpy(np.stack([m for m, _ in gstats]).astype(np.float32))
+        std = torch.from_numpy(np.stack([sd for _, sd in gstats]).astype(np.float32))
+        x = _zscore(_to_device(group, device), mean.to(device)[:, None, None, :],
+                    std.to(device)[:, None, None, :])
+        preds.extend(predict_fn(x).cpu().numpy())
+
+    h, w = preds[0].shape
+    return [p[:h - pad_y, :w - pad_x] for p in preds]
+
+
+def _forward_tiles(predict_fn: PredictFn, padded: torch.Tensor, placements,
+                   tile_size: int, chunk: int) -> torch.Tensor:
+    """Cut the windows of ``placements`` out of the device image and run
+    them ``chunk`` at a time; returns ``(n_tiles, tile, tile)`` labels."""
+    preds = []
+    for s in range(0, len(placements), chunk):
+        tiles = torch.stack([
+            padded[y_st:y_st + tile_size, x_st:x_st + tile_size]
+            for (_, _, _, _, y_st, x_st) in placements[s:s + chunk]])
+        preds.append(predict_fn(tiles))
+    return torch.cat(preds)
+
+
+def inference_tiled(
+    img: np.ndarray,
+    predict_fn: PredictFn,
+    tile_size: int = TILE_SIZE,
+    radius: int = RADIUS,
+    batch_size: int = 8,
+    num_classes: Optional[int] = None,
+    norm_stats: Optional[Tuple[np.ndarray, np.ndarray]] = None,
+    device="cuda",
+) -> np.ndarray:
+    """Large-image path (inference.py:27-136): ZoR grid with ERF halos,
+    fixed-shape slide-to-fit windows, batched device execution.
+
+    ``norm_stats`` (per-channel ``(mean, std)`` from ``zscore_stats``): when
+    given, ``img`` ships in its native dtype and the z-score runs on the
+    device; otherwise ``img`` is taken as already normalized.
+
+    Returns the mask as uint8 when ``num_classes <= 256`` was given (the
+    device emits bytes — a quarter of the transfer), int32 otherwise.
+    """
+    if img.ndim not in (2, 3):
+        raise IOError("Invalid number of dimensions for input image. "
+                      "Expecting HW or HWC dimension ordering.")
+    img, pad_y, pad_x = _pad_to_multiple(img)
+    height, width = img.shape[0], img.shape[1]
+
+    zor = tile_size - 2 * radius  # zone of responsibility, inference.py:58
+    _check_tile_geometry(tile_size, radius, zor)
+
+    # guarantee full-size windows exist: reflect-pad skinny dims up to tile
+    extra_y = max(0, tile_size - height)
+    extra_x = max(0, tile_size - width)
+    if extra_y or extra_x:
+        img = np.pad(img, ((0, extra_y), (0, extra_x), (0, 0)), mode="reflect")
+    full_h, full_w = img.shape[0], img.shape[1]
+    placements = _zor_placements(height, width, zor, tile_size, radius,
+                                 full_h, full_w)
+
+    padded = _to_device(img, device)
+    if norm_stats is not None:
+        mean, std = (torch.from_numpy(np.asarray(s, np.float32).reshape(-1)).to(device)
+                     for s in norm_stats)
+        padded = _zscore(padded, mean, std)
+    preds = _forward_tiles(predict_fn, padded, placements, tile_size, batch_size)
+
+    shrink_u8 = num_classes is not None and num_classes <= 256
+    mask = torch.zeros((height, width), dtype=torch.uint8 if shrink_u8 else torch.int32,
+                       device=padded.device)
+    for k, (i, j, y_end_z, x_end_z, y_st, x_st) in enumerate(placements):
+        mask[i:y_end_z, j:x_end_z] = preds[k, i - y_st:y_end_z - y_st,
+                                           j - x_st:x_end_z - x_st]
+    mask = mask.cpu().numpy()
+    return mask[:height - pad_y, :width - pad_x]
+
+
+def minimize_dtype(mask: np.ndarray) -> np.ndarray:
+    """Shrink the label dtype for saving (inference.py:215-220). Masks with
+    negative labels stay int32 — an unsigned cast would wrap them."""
+    if mask.size == 0:
+        return mask.astype(np.uint8)
+    if mask.min() < 0:
+        return mask.astype(np.int32)
+    mx = mask.max()
+    if mx <= 255:
+        return mask.astype(np.uint8)
+    if mx < 65536:
+        return mask.astype(np.uint16)
+    return mask.astype(np.int32)
