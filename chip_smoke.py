@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path once on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's serving and training paths once on one
+NVIDIA card.
 
     python3 chip_smoke.py [--seed N] [--out results.json]
 
@@ -10,9 +11,13 @@ package. Phases, each fatal on failure:
 1. setup: print the card (``nvidia-smi``) and build every CUDA kernel of
    the path from ``tpuseg_torch/csrc`` (one ``nvcc`` per source, in
    parallel);
-2. kernels: call each kernel's wrapper on card tensors at the shape the
-   serving path gives it, hold the result against its plain PyTorch
-   version, and time both with CUDA events beside the card's bound;
+2. kernels: call each kernel's wrapper on card tensors at the shape its
+   main path gives it (K2, the blocked head+argmax: serving; K1, the row
+   shear: training), hold the result against its plain PyTorch version,
+   and time both in turns (K2 with CUDA events; K1, shorter than its
+   wrapper's host time, by profiler device time with the L2 flushed),
+   beside the card's bound and a PyTorch library call that computes the
+   same function where one exists;
 3. reference: on a small input, the full-width int8_blocked engine on the
    card against the same engine on the CPU (whose arithmetic the CPU tests
    pin to the JAX package), and the folded f32 walk on the card against
@@ -23,7 +28,23 @@ package. Phases, each fatal on failure:
    launch counters zeroed just before and read just after, check every
    mask, serve it again with ``--quantize int8`` and compare the masks,
    then time the tiled engines on the 4096^2 image and profile one
-   int8_blocked pass (device time by kernel, busy share).
+   int8_blocked pass (device time by kernel, busy share);
+5. training reference: one f32 train step at base 4 on 64^2 inputs on the
+   card (cuDNN TF32 off) against the same step on the CPU, from the same
+   weights and batch, dropout off;
+6. training main path: write 64 train and 16 test records (512^2 uint16
+   images, uint8 masks from a thresholded smooth random field) with the
+   port's RecordWriter, train through ``tpuseg_torch.cli.train`` at base
+   64, bf16, batch 8, 20 steps between test epochs, 2 epochs, device
+   augmentation on, with the shear kernel's launch count zeroed just before
+   and read just after (it must be 3 per train step); check the losses,
+   test_loss.csv and the checkpoint, serve a test image with the trained
+   checkpoint through ``tpuseg_torch.cli.inference --quantize none``; then
+   time steady-state train steps (img/s, median of 3 windows), record peak
+   memory, profile a few steps (device time by kernel and group, busy
+   share, the augmentation's share), compare the trained batch's loss with
+   running and with batch BatchNorm statistics, and time a step with
+   BatchNorm skipped.
 
 The last lines are ``{"kernels": [...]}``, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``. Without a card it exits 1 and prints
@@ -42,6 +63,14 @@ import time
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}  # H100 SXM dense tensor-core rates
 MAIN_SHAPE = (8, 512, 512, 256)  # dec1b edge of 8 tiles of 1024^2 at base 64
+F32_OPS = 67e12  # H100 SXM float32 outside the tensor cores
+# K1 at the training shape: batch 8 x (1 image + 1 mask channel) rows of
+# 512^2, mirror-padded by int(0.3536 * 512) + 3 = 184 on each side
+SHEAR_N, SHEAR_H, SHEAR_W = 16, 512, 512
+SHEAR_WP = SHEAR_W + 2 * (int(0.3536 * SHEAR_W) + 3)
+TRAIN_SIZE, TRAIN_BATCH, N_TRAIN, N_TEST = 512, 8, 64, 16
+TEST_EVERY, EPOCHS, LOG_EVERY = 20, 2, 7
+TRAIN_LR = 1e-3  # warmup epoch at 1e-4: a few dozen steps must move the loss
 NCLS = 2
 TILE, BATCH = 1024, 8
 BIG, SMALL, N_SMALL = 4096, 256, 4
@@ -73,6 +102,31 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms_cold(fn, reps: int) -> float:
+    """Mean device time of the kernels ``fn`` launches, from the profiler's
+    device timestamps, with the L2 cache flushed before each call (a 128 MB
+    ``bitwise_not_``, whose kernel is left out of the sum). Unlike events
+    around the call, it does not count the host's time to launch: a call
+    shorter than its own Python wrapper would otherwise time the wrapper."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.zeros(32 * 2 ** 20, dtype=torch.int32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.bitwise_not_()
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and "bitwise_not" not in e.key)
+    if total == 0:
+        raise RuntimeError("the profiler saw no device time for the timed call")
+    return total / 1e3 / reps
 
 
 def head_inputs(fp: bool, seed: int, dev):
@@ -137,6 +191,69 @@ def phase_kernels(seed: int, dev) -> dict:
             f"(plain {(p1 + p2) / 2:.3f} ms, bound {max(t_bytes, t_ops):.4f} ms)")
         del x, sv, wt, epi
         torch.cuda.empty_cache()
+    return out
+
+
+def phase_shear(seed: int, dev) -> dict:
+    """K1 at the training shape: the kernel bit-equal to its plain version,
+    and the kernel, the plain version and F.grid_sample (bilinear,
+    align_corners=True, on [N, 1, H, Wp]: the same 1-D blend, the
+    yardstick) timed in turns by their device time with the L2 flushed
+    before each call. The kernel is shorter than its wrapper's host time,
+    so CUDA events around back-to-back calls (also recorded) time the
+    host, not the kernel."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpuseg_torch.ops import warp
+
+    n, h, w, wp = SHEAR_N, SHEAR_H, SHEAR_W, SHEAR_WP
+    g = torch.Generator(device=dev).manual_seed(seed)
+    img = torch.rand((n, h, wp), generator=g, device=dev) * 4000
+    shift = torch.randint(0, wp - w, (n, h), generator=g, device=dev, dtype=torch.int32)
+    frac = torch.rand((n, h), generator=g, device=dev)
+    got = warp._shear_rows(img, shift, frac, w)
+    want = warp._shear_rows_plain(img, shift, frac, w)
+    torch.cuda.synchronize()
+    max_err = (got - want).abs().max().item()
+    if got.shape != (n, h, w) or not torch.equal(got, want):
+        raise AssertionError(f"shear kernel differs from plain: shape {tuple(got.shape)}, "
+                             f"max abs err {max_err}")
+    # grid_sample's sample points: x = s + c + f in padded columns, y = row
+    px = shift[..., None].float() + torch.arange(w, device=dev) + frac[..., None]
+    gx = 2 * px / (wp - 1) - 1
+    gy = (2 * torch.arange(h, device=dev, dtype=torch.float32) / (h - 1) - 1)[None, :, None]
+    grid = torch.stack([gx, gy.expand(n, h, w)], dim=-1)
+    inp = img[:, None]
+
+    def lib():
+        return F.grid_sample(inp, grid, mode="bilinear", align_corners=True)
+
+    lib_err = (lib()[:, 0] - want).abs().max().item()
+    del got, want
+    runs = {"plain": [], "kernel": [], "library": []}
+    fns = {"plain": lambda: warp._shear_rows_plain(img, shift, frac, w),
+           "kernel": lambda: warp._shear_rows(img, shift, frac, w), "library": lib}
+    for order in (("plain", "kernel", "library"), ("library", "kernel", "plain")):
+        for k in order:
+            runs[k].append(device_ms_cold(fns[k], 20))
+    events_ms = cuda_ms(fns["kernel"], 50)
+    nbytes = n * h * ((w + 1) * 4 + w * 4 + 8)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 3 * n * h * w / F32_OPS * 1e3
+    out = {"max_abs_err": max_err, "bit_equal": True,
+           "ms": sum(runs["kernel"]) / 2, "ms_runs": runs["kernel"],
+           "events_ms_back_to_back": events_ms,
+           "plain_ms": sum(runs["plain"]) / 2, "plain_ms_runs": runs["plain"],
+           "library_ms": sum(runs["library"]) / 2, "library_ms_runs": runs["library"],
+           "library_max_abs_err": lib_err,
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "bytes": nbytes, "shape": [n, h, wp, w]}
+    log(f"shear kernel [{n},{h},{wp}]->{w}: bit-equal, {out['ms']:.4f} ms device time "
+        f"(events around back-to-back calls: {events_ms:.4f}), "
+        f"plain {out['plain_ms']:.4f} ms, grid_sample "
+        f"{out['library_ms']:.4f} ms (max err {lib_err:.2e}), bound {out['bound_ms']:.4f} ms")
     return out
 
 
@@ -214,21 +331,38 @@ def phase_reference(model, seed: int, dev) -> dict:
     return {"folded_f32_rel_err": logit_err, "int8_blocked_card_vs_cpu_agree": agree}
 
 
-def phase_profile(fn, big, radius: int, stats, dev) -> dict:
-    """Where the time goes: one tiled pass over the BIG^2 image under
-    ``torch.profiler``; device time by kernel and the kernels' share of the
-    pass's wall time (one stream, so kernel times add; the wall time
+# kernel-name fragments -> group, first match wins (a name heuristic)
+KERNEL_GROUPS = (
+    ("K1 shear_rows", ("shear_rows",)),
+    ("K2 head_argmax", ("head_argmax",)),
+    ("layout transposes", ("nchwToNhwc", "nhwcToNchw")),
+    ("cuDNN / GEMM", ("cudnn", "xmma", "gemm", "cutlass", "sm90_", "sm80_", "wgrad", "dgrad")),
+    ("reductions", ("reduce_kernel",)),
+    ("copies and casts", ("copy", "Cat", "Memcpy", "Memset")),
+    ("elementwise", ("elementwise",)),
+)
+
+
+def kernel_group(name: str) -> str:
+    for group, keys in KERNEL_GROUPS:
+        if any(k in name for k in keys):
+            return group
+    return "other"
+
+
+def device_profile(run, what: str) -> dict:
+    """Where the time goes: ``run()`` under ``torch.profiler``; device time
+    by kernel and by group of kernels (``KERNEL_GROUPS``), and the kernels'
+    share of the wall time (one stream, so kernel times add; the wall time
     includes the profiler's own cost)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from tpuseg_torch.infer.tiled import inference_tiled
-
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        inference_tiled(big, fn, TILE, radius, BATCH, NCLS, stats, dev)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = sorted(((e.key, e.device_time_total / 1e3, e.count)
@@ -236,15 +370,33 @@ def phase_profile(fn, big, radius: int, stats, dev) -> dict:
                      key=lambda r: -r[1])
     busy_ms = sum(ms for _, ms, _ in kernels)
     if busy_ms == 0:
-        log("profile: the profiler saw no device time (busy share not measured)")
-        return {"wall_ms": wall_ms, "busy_ms": None, "top": []}
-    log(f"profile: {wall_ms:.1f} ms wall, kernels {busy_ms:.1f} ms "
+        log(f"profile {what}: the profiler saw no device time (busy share not measured)")
+        return {"wall_ms": wall_ms, "busy_ms": None, "top": [], "by_group": {},
+                "by_kernel": {}}
+    log(f"profile {what}: {wall_ms:.1f} ms wall, kernels {busy_ms:.1f} ms "
         f"({busy_ms / wall_ms:.1%} busy), {sum(n for _, _, n in kernels)} launches")
+    groups: dict = {}
+    for k, ms, _ in kernels:
+        groups[kernel_group(k)] = groups.get(kernel_group(k), 0.0) + ms
+    by_group = {g: {"ms": ms, "share": ms / busy_ms}
+                for g, ms in sorted(groups.items(), key=lambda r: -r[1])}
+    log("  by group: " + ", ".join(f"{g} {v['ms']:.2f} ms ({v['share']:.1%})"
+                                   for g, v in by_group.items()))
     top = [{"kernel": k[:120], "ms": ms, "share": ms / busy_ms, "count": n}
            for k, ms, n in kernels[:12]]
     for r in top:
         log(f"  {r['ms']:9.2f} ms {r['share']:6.1%} x{r['count']:<5d} {r['kernel']}")
-    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "top": top}
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "top": top, "by_group": by_group,
+            "by_kernel": {k: [ms, n] for k, ms, n in kernels}}
+
+
+def phase_profile(fn, big, radius: int, stats, dev) -> dict:
+    """One tiled int8_blocked pass over the BIG^2 image, profiled."""
+    from tpuseg_torch.infer.tiled import inference_tiled
+
+    return device_profile(
+        lambda: inference_tiled(big, fn, TILE, radius, BATCH, NCLS, stats, dev),
+        "tiled int8_blocked")
 
 
 def phase_main(seed: int, work: str, dev, card: str) -> dict:
@@ -349,6 +501,253 @@ def phase_main(seed: int, work: str, dev, card: str) -> dict:
     return res
 
 
+def phase_train_reference(seed: int, dev) -> dict:
+    """One f32 train step at base 4 on 64^2 inputs, on the card with cuDNN's
+    TF32 off and on the CPU, from the same weights and batch, dropout off.
+    Tolerances (those of tests/test_torch_steps.py, where the CPU step is
+    held to the JAX package's): loss rtol 1e-5; every gradient within 1e-3
+    of its tensor's largest; parameters >= 99.5% within atol 1e-6 + rtol
+    1e-4 and all within lr/4 (Keras Adam's normalized update turns last-bit
+    gradient differences near |g| ~ eps into visible fractions of lr)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from tpuseg_torch.models.unet import UNet, init_unet
+    from tpuseg_torch.train.steps import KerasAdam, TrainState, train_step
+
+    lr = 1e-3
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        cpu_model = init_unet(UNet(NCLS, 1, 4, torch.float32), torch.Generator().manual_seed(seed))
+        cpu_model.dropout_rate = 0.0
+        card_model = copy.deepcopy(cpu_model).to(dev)
+        rng = np.random.default_rng(seed + 2)
+        x = torch.from_numpy(rng.normal(0, 1, (2, 64, 64, 1)).astype(np.float32))
+        y = torch.nn.functional.one_hot((x[..., 0] + torch.from_numpy(
+            rng.normal(0, 0.5, (2, 64, 64)).astype(np.float32)) > 0).long(), NCLS).float()
+        states = {}
+        for name, model, d in (("cpu", cpu_model, "cpu"), ("card", card_model, dev)):
+            st = TrainState(model, KerasAdam(model.parameters(), lr=lr),
+                            torch.Generator(device=d), torch.Generator(device=d))
+            m = train_step(st, x.to(d), y.to(d))
+            states[name] = (st, m["loss"].item())
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    (cpu, cpu_loss), (card, card_loss) = states["cpu"], states["card"]
+    loss_rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    grad_err = 0.0
+    n_ok = n_all = 0
+    max_diff = 0.0
+    for (name, pc), (_, pg) in zip(cpu.model.named_parameters(), card.model.named_parameters()):
+        gc, gg = pc.grad, pg.grad.cpu()
+        grad_err = max(grad_err, ((gg - gc).abs().max() / gc.abs().max()).item())
+        d = (pg.detach().cpu() - pc.detach()).abs()
+        n_all += d.numel()
+        n_ok += int((d <= 1e-6 + 1e-4 * pc.detach().abs()).sum())
+        max_diff = max(max_diff, d.max().item())
+    res = {"loss_card": card_loss, "loss_cpu": cpu_loss, "loss_rel_err": loss_rel,
+           "grad_rel_err": grad_err, "params_within_tol": n_ok / n_all,
+           "param_max_abs_diff": max_diff, "lr": lr}
+    log(f"train reference (base 4, 64^2, f32, TF32 off): loss card {card_loss:.7f} "
+        f"cpu {cpu_loss:.7f} (rel {loss_rel:.2e}), grad rel err {grad_err:.2e}, params "
+        f"within tol {n_ok / n_all:.5f}, max diff {max_diff:.2e}")
+    if not (loss_rel <= 1e-5 and grad_err <= 1e-3 and n_ok / n_all >= 0.995
+            and max_diff <= lr / 4):
+        raise AssertionError(f"train step on the card vs the CPU out of tolerance: {res}")
+    return res
+
+
+def write_train_dbs(work: str, seed: int):
+    """N_TRAIN + N_TEST records of TRAIN_SIZE^2 uint16 images with uint8
+    masks, in the record layout of bench.py (keys tileNNNN:0,1). The mask
+    thresholds a smoothed random field (blobs) and the image is brighter
+    inside them, under smooth and pixel noise: a learnable task."""
+    import numpy as np
+    from scipy.ndimage import gaussian_filter
+
+    from tpuseg_torch.data.build_db import serialize_image_mask_pair
+    from tpuseg_torch.data.recordstore import RecordWriter
+
+    rng = np.random.default_rng(seed + 3)
+    paths = []
+    for name, n in (("train", N_TRAIN), ("test", N_TEST)):
+        path = os.path.join(work, f"{name}.lmdb")
+        with RecordWriter(path) as w:
+            for i in range(n):
+                field = gaussian_filter(rng.normal(0, 1, (TRAIN_SIZE, TRAIN_SIZE)), 12)
+                msk = (field > 0).astype(np.uint8)
+                shade = gaussian_filter(rng.normal(0, 1, (TRAIN_SIZE, TRAIN_SIZE)), 40)
+                img = (2000.0 + 1200.0 * msk + 400.0 * shade / shade.std()
+                       + rng.normal(0, 250, (TRAIN_SIZE, TRAIN_SIZE)))
+                w.put(f"tile{i:04d}:0,1", serialize_image_mask_pair(
+                    np.clip(img, 0, 65535).astype(np.uint16), msk))
+        paths.append(path)
+    return paths
+
+
+def phase_train(seed: int, work: str, dev, card: str) -> dict:
+    import numpy as np
+    import torch
+
+    from tpuseg_torch.aug.device import DeviceAugmentParams, augment_and_preprocess_batch
+    from tpuseg_torch.cli.inference import main as infer_cli
+    from tpuseg_torch.cli.train import main as train_cli
+    from tpuseg_torch.data.build_db import deserialize_image_mask_pair
+    from tpuseg_torch.data.recordstore import RecordReader
+    from tpuseg_torch.infer import head_kernel
+    from tpuseg_torch.models import unet as unet_mod
+    from tpuseg_torch.models.unet import DROPOUT_RATE, UNet
+    from tpuseg_torch.ops import warp
+    from tpuseg_torch.ops.losses import cce_from_logits, reference_scalar_loss
+    from tpuseg_torch.train.steps import create_train_state, eval_step, make_raw_steps
+    from tpuseg_torch.utils.checkpoint import load_model
+    from tpuseg_torch.utils.imagio import imread, imwrite
+
+    res: dict = {"reference": phase_train_reference(seed, dev)}
+    t0 = time.perf_counter()
+    train_db, test_db = write_train_dbs(work, seed)
+    res["db_write_s"] = time.perf_counter() - t0
+    out = os.path.join(work, "train_out")
+
+    # the main path: launch counts zeroed just before, read just after
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    warp.LAUNCHES = 0
+    head_kernel.LAUNCHES = 0
+    t0 = time.perf_counter()
+    result = train_cli([
+        "--train_database", train_db, "--test_database", test_db, "--output_dir", out,
+        "--batch_size", str(TRAIN_BATCH), "--test_every_n_steps", str(TEST_EVERY),
+        "--max_epochs", str(EPOCHS), "--seed", str(seed), "--device", "cuda",
+        "--base_features", str(BASE), "--dtype", "bfloat16",
+        "--log_every_n_steps", str(LOG_EVERY), "--reader_count", "2",
+        "--learning_rate", str(TRAIN_LR)])
+    torch.cuda.synchronize()
+    res["main_path_s"] = time.perf_counter() - t0
+    res["launches"] = {"shear_rows": warp.LAUNCHES, "blocked_head_argmax": head_kernel.LAUNCHES}
+    res["peak_mem_gib_main"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    res["steps"] = result.steps
+    res["train_losses"] = result.train_losses
+    res["test_loss"] = result.test_loss
+    res["cli_images_per_sec"] = result.images_per_sec
+    log(f"train main path: {result.steps} steps in {res['main_path_s']:.1f} s, "
+        f"{warp.LAUNCHES} shear launches, losses {[round(v, 4) for v in result.train_losses]}, "
+        f"test {result.test_loss}")
+    if result.steps != EPOCHS * (TEST_EVERY + 1):
+        raise AssertionError(f"{result.steps} train steps, expected {EPOCHS * (TEST_EVERY + 1)}")
+    if warp.LAUNCHES != 3 * result.steps:
+        raise AssertionError(f"{warp.LAUNCHES} shear launches for {result.steps} train "
+                             "steps: expected 3 per step (x, y, x shears)")
+    if not (np.isfinite(result.train_losses).all() and np.isfinite(result.test_loss).all()):
+        raise AssertionError(f"non-finite losses: {result.train_losses} {result.test_loss}")
+    if not result.train_losses[-1] < result.train_losses[0]:
+        raise AssertionError(f"train loss did not fall: {result.train_losses}")
+    with open(os.path.join(out, "test_loss.csv")) as f:
+        rows = [line for line in f if line.strip()]
+    if len(rows) != EPOCHS:
+        raise AssertionError(f"test_loss.csv has {len(rows)} rows, expected {EPOCHS}")
+
+    # the trained checkpoint serves through the inference CLI
+    ckpt = result.checkpoint_path
+    model = load_model(ckpt, dtype="bfloat16", device=dev)
+    if model.config() != {"num_classes": NCLS, "num_channels": 1, "base_features": BASE,
+                          "deconv_impl": "conv_transpose"}:
+        raise AssertionError(f"checkpoint config {model.config()}")
+    with RecordReader(test_db) as r:
+        img, msk = deserialize_image_mask_pair(r.get_at(0))
+    imgdir = os.path.join(work, "train_serve_in")
+    os.makedirs(imgdir, exist_ok=True)
+    imwrite(os.path.join(imgdir, "test0.tif"), np.ascontiguousarray(img[..., 0]))
+    written = infer_cli(["--checkpoint_filepath", ckpt, "--image_folder", imgdir,
+                         "--output_folder", os.path.join(work, "train_serve_out"),
+                         "--number_classes", str(NCLS), "--number_channels", "1",
+                         "--base_features", str(BASE), "--device", "cuda",
+                         "--quantize", "none", "--seed", str(seed)])
+    pred = imread(written[0])
+    if pred.shape != msk.shape or not np.isin(pred, np.arange(NCLS)).all():
+        raise AssertionError(f"served mask {pred.shape} {np.unique(pred)[:8]}")
+    res["served_pixel_accuracy"] = float((pred == msk).mean())
+    log(f"trained checkpoint served test0: pixel accuracy {res['served_pixel_accuracy']:.4f}")
+
+    # steady-state train steps on one raw batch held on the card
+    state = create_train_state(UNet(NCLS, 1, BASE, "bfloat16"), seed, TRAIN_LR, dev)
+    params = DeviceAugmentParams()
+    tstep, _ = make_raw_steps(NCLS, params)
+    with RecordReader(train_db) as r:
+        recs = [deserialize_image_mask_pair(r.get_at(i)) for i in range(TRAIN_BATCH)]
+    raw_img = torch.from_numpy(np.stack([a.astype(np.int32) for a, _ in recs])).to(dev)
+    raw_msk = torch.from_numpy(np.stack([m for _, m in recs])).to(dev)
+    for _ in range(3):
+        tstep(state, raw_img, raw_msk)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    windows = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            m = tstep(state, raw_img, raw_msk)
+        m["loss"].item()
+        windows.append(TRAIN_BATCH * 10 / (time.perf_counter() - t0))
+    res["img_per_s_windows"] = windows
+    res["img_per_s"] = sorted(windows)[1]
+    res["peak_mem_gib_steady"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_ms = cuda_ms(lambda: tstep(state, raw_img, raw_msk), 10, 1)
+    aug_ms = cuda_ms(lambda: augment_and_preprocess_batch(
+        state.aug_generator, raw_img, raw_msk, params, NCLS), 10, 1)
+    res["step_ms"] = step_ms
+    res["augment_ms"] = aug_ms
+    res["augment_share"] = aug_ms / step_ms
+    log(f"train steps (512^2, batch 8, base 64, bf16, device augmentation) on {card}: "
+        f"{res['img_per_s']:.2f} img/s (median of {[round(v, 2) for v in windows]}), "
+        f"step {step_ms:.2f} ms, augmentation {aug_ms:.2f} ms ({aug_ms / step_ms:.1%}), "
+        f"peak {res['peak_mem_gib_steady']:.2f} GiB")
+
+    def three_steps():
+        for _ in range(3):
+            tstep(state, raw_img, raw_msk)
+
+    prof = device_profile(three_steps, "3 train steps")
+    shear_ms = sum(ms for k, (ms, _) in prof["by_kernel"].items() if "shear_rows" in k)
+    prof["shear_kernel_ms"] = shear_ms
+    prof["shear_kernel_share"] = shear_ms / prof["busy_ms"] if prof["busy_ms"] else None
+    del prof["by_kernel"]
+    res["profile_train"] = prof
+
+    # BatchNorm after a few dozen steps: the trained batch's loss in eval
+    # mode (running statistics, momentum 0.99) against the same weights
+    # normalised with the batch's own statistics (this forward updates the
+    # running statistics; nothing reads them afterwards)
+    images, labels = augment_and_preprocess_batch(None, raw_img, raw_msk, params, NCLS,
+                                                  augment=False)
+    bn = {"steps": state.step, "loss_running_stats": eval_step(state, images, labels)["loss"].item()}
+    state.model.train()
+    state.model.dropout_rate = 0.0
+    with torch.no_grad():
+        logits = state.model(images)
+    state.model.dropout_rate = DROPOUT_RATE
+    bn["loss_batch_stats"] = reference_scalar_loss(cce_from_logits(logits, labels),
+                                                   TRAIN_BATCH).item()
+    # timing only, last because it ruins the weights: the step with every
+    # BatchNorm (and its f32 casts) skipped bounds what a fused BatchNorm
+    # kernel could save
+    real_bn = unet_mod._bn
+    unet_mod._bn = lambda x, bn_module, dtype: x
+    try:
+        bn["step_ms_without_bn"] = cuda_ms(lambda: tstep(state, raw_img, raw_msk), 10, 1)
+    finally:
+        unet_mod._bn = real_bn
+    res["bn_check"] = bn
+    log(f"after {bn['steps']} steps on one batch: loss {bn['loss_running_stats']:.4f} with "
+        f"running statistics, {bn['loss_batch_stats']:.4f} with batch statistics; step "
+        f"{bn['step_ms_without_bn']:.2f} ms with BatchNorm skipped (timing only) against "
+        f"{step_ms:.2f} ms")
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -385,8 +784,10 @@ def main() -> int:
                 log(f"  {name}: {line.strip()}")
 
     kern = phase_kernels(args.seed, dev)
+    shear = phase_shear(args.seed, dev)
     work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke")
     main_res = phase_main(args.seed, work, dev, card)
+    train_res = phase_train(args.seed, work, dev, card)
 
     fp, s8 = kern["fp"], kern["int8"]
     kernels = [{
@@ -402,9 +803,23 @@ def main() -> int:
         "tolerance": "fp head: labels agree on >= 0.9999 (f32 sum order); "
                      "int8 head: labels bit-equal",
         "agree": fp["agree"], "int8_variant": s8,
+    }, {
+        "name": "shear_rows", "route": "cuda",
+        "source": "tpuseg_torch/csrc/shear_rows.cu",
+        "replaces": "tpuseg/ops/warp.py:67",
+        "also_replaces": "tpuseg/ops/warp.py:147",
+        "launches": train_res["launches"]["shear_rows"],
+        "max_abs_err": shear["max_abs_err"], "ms": shear["ms"],
+        "plain_ms": shear["plain_ms"], "bound_ms": shear["bound_ms"],
+        "bound_by": shear["bound_by"], "library_ms": shear["library_ms"],
+        "library_call": "F.grid_sample(mode='bilinear', align_corners=True) on [N,1,H,Wp]",
+        "library_max_abs_err": shear["library_max_abs_err"],
+        "timing": "device time per call from the profiler, L2 flushed before each",
+        "shape": shear["shape"],
+        "tolerance": "bit-equal to the plain version",
     }]
     summary = {"card": card, "torch": torch.__version__, "build_s": build_s,
-               "kernels": kern, "main": main_res,
+               "kernels": kern, "shear": shear, "main": main_res, "train": train_res,
                "total_s": time.perf_counter() - t_start}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

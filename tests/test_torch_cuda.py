@@ -76,3 +76,110 @@ def test_head_kernel_rejects_bad_inputs(cuda):
                                         epi, 2, fp=False)
     with pytest.raises(ValueError):
         head_kernel.blocked_head_argmax(x, sv, wt, epi, 9, fp=False)
+
+
+# --- K1: the row shear (tpuseg_torch/csrc/shear_rows.cu) --------------------
+
+def _shear_inputs(n, h, wp, w, seed, dev, shifts=None):
+    rng = np.random.default_rng(seed)
+    img = torch.from_numpy(rng.normal(0, 1, (n, h, wp)).astype(np.float32)).to(dev)
+    if shifts is None:
+        shifts = rng.integers(0, wp - w, (n, h))
+    shift = torch.from_numpy(np.asarray(shifts, np.int32).reshape(n, h)).to(dev)
+    frac = torch.from_numpy(rng.random((n, h)).astype(np.float32)).to(dev)
+    return img, shift, frac
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, h, wp, w", [
+    (2, 32, 64, 40),     # the CPU tests' shape class
+    (3, 7, 50, 37),      # W not a multiple of 4 or 32, H not a multiple of 8
+    (1, 1, 300, 129),    # N = 1, H = 1, W past one warp pass
+    (16, 64, 880, 512),  # the training shape's row width
+])
+def test_shear_kernel_bit_equal_to_plain(cuda, n, h, wp, w):
+    from tpuseg_torch.ops import warp
+
+    img, shift, frac = _shear_inputs(n, h, wp, w, n * 100 + h, cuda)
+    before = warp.LAUNCHES
+    got = warp._shear_rows(img, shift, frac, w)
+    torch.cuda.synchronize()
+    assert warp.LAUNCHES == before + 1
+    want = warp._shear_rows_plain(img, shift, frac, w)
+    assert got.shape == (n, h, w) and got.dtype == torch.float32
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_shear_kernel_clip_ends(cuda):
+    """Shifts at both ends of the clip range (0 and Wp-W-1), and beyond it
+    (the kernel clamps as the plain version does)."""
+    from tpuseg_torch.ops import warp
+
+    n, h, wp, w = 2, 6, 45, 30
+    shifts = [0, wp - w - 1, 0, wp - w - 1, -5, wp] * 2
+    img, shift, frac = _shear_inputs(n, h, wp, w, 5, cuda, shifts)
+    got = warp._shear_rows(img, shift, frac, w)
+    assert torch.equal(got, warp._shear_rows_plain(img, shift, frac, w))
+    # at shift 0 the first output column blends padded columns 0 and 1
+    f = frac[0, 0]
+    assert torch.equal(got[0, 0, 0], img[0, 0, 0] * (1 - f) + img[0, 0, 1] * f)
+
+
+@pytest.mark.cuda
+def test_shear_kernel_rejects_bad_inputs(cuda):
+    from tpuseg_torch.ops import warp
+
+    img, shift, frac = _shear_inputs(2, 4, 40, 20, 1, cuda)
+    with pytest.raises(TypeError):
+        warp._shear_rows(img.double(), shift, frac, 20)
+    with pytest.raises(TypeError):
+        warp._shear_rows(img, shift.long(), frac, 20)
+    with pytest.raises(ValueError):
+        warp._shear_rows(img, shift[:, :3], frac, 20)
+    with pytest.raises(ValueError):
+        warp._shear_rows(img, shift, frac, 40)  # no room for the +1 tap
+    with pytest.raises(ValueError):
+        warp._shear_rows(img, shift.cpu(), frac, 20)
+    with pytest.raises(ValueError):
+        warp._shear_rows(img.transpose(1, 2).contiguous().transpose(1, 2), shift, frac, 20)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h, w", [(64, 64), (48, 64)])
+def test_augment_on_card_matches_cpu(cuda, h, w):
+    """A full augment_and_preprocess pass on the card (shears through K1)
+    against the same draws on the CPU: images to atol 1e-4 after z-score,
+    masks on >= 0.999 of pixels (round of an interpolated 0.5 can flip)."""
+    from tpuseg_torch.aug import device as aug
+    from tpuseg_torch.ops import warp
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(h + w)
+    b, c = 4, 1
+    imgs = torch.from_numpy(rng.integers(0, 4096, (b, h, w, c)).astype(np.float32))
+    msks = torch.from_numpy((rng.random((b, h, w)) > 0.5).astype(np.uint8))
+    p = aug.DeviceAugmentParams(intensity_severity=0.1)
+    draws = aug.draw_augmentation(torch.Generator().manual_seed(3), b, h, w, c, p)
+    ci, cm = aug.apply_augmentation(imgs, msks, draws, p)
+    want_img, want_lbl = aug.preprocess(ci, cm.to(torch.int32), 2)
+    before = warp.LAUNCHES
+    gi, gm = aug.apply_augmentation(imgs.to(cuda), msks.to(cuda), draws.to(cuda), p)
+    got_img, got_lbl = aug.preprocess(gi, gm.to(torch.int32), 2)
+    torch.cuda.synchronize()
+    assert warp.LAUNCHES == before + 3  # x, y and x shears
+    np.testing.assert_allclose(got_img.cpu().numpy(), want_img.numpy(), rtol=0, atol=1e-4)
+    agree = (got_lbl.cpu() == want_lbl).all(-1).float().mean().item()
+    assert agree >= 0.999, agree
+
+
+@pytest.mark.cuda
+def test_prefetch_to_card_widens_and_orders(cuda):
+    from tpuseg_torch.train.prefetch import device_prefetch
+
+    batches = [(np.full((2, 64, 64, 1), 65535 - i, np.uint16),
+                np.full((2, 64, 64), i % 2, np.uint8)) for i in range(12)]
+    for i, (img, msk) in enumerate(device_prefetch(iter(batches), cuda, depth=3)):
+        assert img.device.type == "cuda" and img.dtype == torch.int32
+        assert int(img.sum().item()) == (65535 - i) * img.numel()
+        assert int(msk.sum().item()) == (i % 2) * msk.numel()

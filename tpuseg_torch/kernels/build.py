@@ -34,6 +34,10 @@ SOURCES = {
                                     _I, _I, _I, _I, _I, _I, _P]),
         "tpuseg_cuda_error_string": (ctypes.c_char_p, [_I]),
     }),
+    "shear_rows": ("shear_rows.cu", {
+        "tpuseg_shear_rows": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
+        "tpuseg_cuda_error_string": (ctypes.c_char_p, [_I]),
+    }),
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -9,10 +9,11 @@ maps a flax checkpoint onto this module one tensor at a time.
 - the deconv block is a bias-free 2x2/stride-2 transposed conv -> BN, in
   the ``conv_transpose`` or ``pixel_shuffle`` form (a 1x1 conv to
   ``4*features`` followed by a phase-major depth-to-space);
-- Dropout(0.5) after enc4 and after the bottleneck; concat order is
-  (skip, up); the 1x1 head is a full conv block (ReLU and BN included);
-- BatchNorm uses the Keras constants: eps 1e-3, momentum 0.99 — 0.01 in
-  torch's convention (``running = (1 - m) * running + m * batch``).
+- Dropout(0.5) after enc4 and after the bottleneck, its mask drawn from
+  the generator passed to :meth:`UNet.forward` (not torch's global one);
+  concat order is (skip, up); the 1x1 head is a full conv block (ReLU and
+  BN included);
+- BatchNorm uses the Keras constants: eps 1e-3, momentum 0.99.
 
 Layout: :meth:`UNet.forward` takes and returns NHWC, like the JAX model;
 inside, tensors are NCHW views with channels-last strides, the layout
@@ -20,9 +21,13 @@ cuDNN runs fastest. ``dtype=torch.bfloat16`` computes each conv in bf16
 on bf16-cast fp32 parameters and each BatchNorm in fp32 before casting
 back to bf16 — where flax puts its casts.
 
-Train-mode BatchNorm is not a parity target yet: torch updates
-``running_var`` with the unbiased batch variance, flax with the biased one
-(the training slice pins that choice).
+Train-mode BatchNorm is computed by hand to match flax, not through
+``nn.BatchNorm2d``: batch statistics over N,H,W in float32 with the biased
+variance ``E[x^2] - E[x]^2`` (flax's fast variance, clipped at 0), the
+output ``(x - mean) * (rsqrt(var + eps) * scale) + bias``, and the running
+update ``running = 0.99 * running + 0.01 * batch`` on that biased variance
+(``nn.BatchNorm2d`` would update ``running_var`` with the unbiased one).
+Eval mode normalizes with the running statistics through ``F.batch_norm``.
 """
 
 from __future__ import annotations
@@ -41,8 +46,9 @@ DECONV_KERNEL_SIZE = 2  # ref model.py:22
 POOLING_STRIDE = 2  # ref model.py:23
 
 # Keras layer defaults the reference inherits implicitly.
-BN_MOMENTUM = 0.01  # Keras momentum 0.99 in torch's convention
+BN_MOMENTUM = 0.99  # running = m * running + (1 - m) * batch; torch's m is 0.01
 BN_EPSILON = 1e-3
+DROPOUT_RATE = 0.5  # ref model.py:105, 112
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -53,7 +59,27 @@ def as_dtype(dtype: Union[str, torch.dtype]) -> torch.dtype:
 
 def _bn(x: torch.Tensor, bn: nn.BatchNorm2d, dtype: torch.dtype) -> torch.Tensor:
     # flax promotes to fp32 for the normalization and casts the result back
-    return bn(x.float()).to(dtype)
+    if not bn.training:
+        return bn(x.float()).to(dtype)
+    xf = x.float()
+    mean = xf.mean((0, 2, 3))
+    var = torch.clamp_min((xf * xf).mean((0, 2, 3)) - mean * mean, 0.0)
+    with torch.no_grad():  # flax's update, in its own convention
+        m = BN_MOMENTUM
+        bn.running_mean.copy_(m * bn.running_mean + (1 - m) * mean)
+        bn.running_var.copy_(m * bn.running_var + (1 - m) * var)
+    mul = torch.rsqrt(var + bn.eps) * bn.weight
+    y = (xf - mean[:, None, None]) * mul[:, None, None] + bn.bias[:, None, None]
+    return y.to(dtype)
+
+
+def _dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]
+             ) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep with probability ``1 - rate`` and scale the
+    kept values by ``1 / (1 - rate)``; the mask comes from ``generator``."""
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class ConvBlock(nn.Module):
@@ -62,7 +88,7 @@ class ConvBlock(nn.Module):
     def __init__(self, cin: int, features: int, kernel: int = KERNEL_SIZE):
         super().__init__()
         self.conv = nn.Conv2d(cin, features, kernel, padding=kernel // 2)
-        self.bn = nn.BatchNorm2d(features, eps=BN_EPSILON, momentum=BN_MOMENTUM)
+        self.bn = nn.BatchNorm2d(features, eps=BN_EPSILON, momentum=1 - BN_MOMENTUM)
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         c = self.conv
@@ -96,7 +122,7 @@ class DeconvBlock(nn.Module):
         else:
             self.deconv = nn.ConvTranspose2d(cin, features, DECONV_KERNEL_SIZE,
                                              stride=POOLING_STRIDE, bias=False)
-        self.bn = nn.BatchNorm2d(features, eps=BN_EPSILON, momentum=BN_MOMENTUM)
+        self.bn = nn.BatchNorm2d(features, eps=BN_EPSILON, momentum=1 - BN_MOMENTUM)
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         w = self.deconv.weight.to(dtype)
@@ -145,8 +171,8 @@ class UNet(nn.Module):
             self.add_module(f"{name}b", ConvBlock(feats, feats))
             cin = feats
         self.head = ConvBlock(f, num_classes, kernel=1)
-        self.drop4 = nn.Dropout(0.5)
-        self.drop5 = nn.Dropout(0.5)
+        # 0 turns dropout off in train mode too (the parity tests do)
+        self.dropout_rate = DROPOUT_RATE
 
     def config(self) -> dict:
         """Constructor arguments, as the port's checkpoint stores them."""
@@ -155,7 +181,11 @@ class UNet(nn.Module):
                 "base_features": self.base_features,
                 "deconv_impl": self.deconv_impl}
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """NHWC batch -> NHWC float32 logits. In train mode BatchNorm uses
+        (and updates) batch statistics and dropout draws its masks from
+        ``generator`` (on ``x``'s device; None uses torch's global one)."""
         if x.ndim != 4:
             raise ValueError(f"UNet expects NHWC input, got shape {tuple(x.shape)}")
         if x.shape[1] % SIZE_FACTOR or x.shape[2] % SIZE_FACTOR:
@@ -173,8 +203,13 @@ class UNet(nn.Module):
         enc1 = pair("enc1", x)
         enc2 = pair("enc2", _pool(enc1))
         enc3 = pair("enc3", _pool(enc2))
-        enc4 = self.drop4(pair("enc4", _pool(enc3)))
-        bott = self.drop5(pair("bottleneck", _pool(enc4)))
+        def drop(x):
+            if not self.training or not self.dropout_rate:
+                return x
+            return _dropout(x, self.dropout_rate, generator)
+
+        enc4 = drop(pair("enc4", _pool(enc3)))
+        bott = drop(pair("bottleneck", _pool(enc4)))
 
         def up(x, skip, name):
             x = getattr(self, f"{name}up")(x, dt)
