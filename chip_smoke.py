@@ -12,12 +12,13 @@ package. Phases, each fatal on failure:
    the path from ``tpuseg_torch/csrc`` (one ``nvcc`` per source, in
    parallel);
 2. kernels: call each kernel's wrapper on card tensors at the shape its
-   main path gives it (K2, the blocked head+argmax: serving; K1, the row
-   shear: training), hold the result against its plain PyTorch version,
-   and time both in turns (K2 with CUDA events; K1, shorter than its
-   wrapper's host time, by profiler device time with the L2 flushed),
+   main path gives it (K2, the blocked head+argmax: serving, both heads,
+   which must take its mma route; K1, the row shear: training), hold the
+   result against its plain PyTorch version, and time both in turns by
+   profiler device time with the L2 flushed (K2 also with CUDA events),
    beside the card's bound and a PyTorch library call that computes the
-   same function where one exists;
+   same function where one exists; K2's mma kernels' registers and spills
+   come from the build log, and a spill fails;
 3. reference: on a small input, the full-width int8_blocked engine on the
    card against the same engine on the CPU (whose arithmetic the CPU tests
    pin to the JAX package), and the folded f32 walk on the card against
@@ -56,6 +57,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -147,20 +149,79 @@ def head_inputs(fp: bool, seed: int, dev):
     return x, sv, wt, epi
 
 
+def ptxas_report(text: str) -> dict:
+    """Registers and spill bytes of each kernel in a ``-Xptxas -v`` log,
+    keyed by the (mangled) entry name."""
+    report: dict = {}
+    fn = None
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties for )([\w$]+)", line)
+        if m:
+            fn = m.group(1)
+            report.setdefault(fn, {})
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            report[fn]["spill_stores"] = int(m.group(1))
+            report[fn]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            report[fn]["registers"] = int(m.group(1))
+    return report
+
+
+def kernel_label(mangled: str) -> str:
+    """A readable label for a mangled kernel name from a ptxas log:
+    head_mma_kernel<fp, nt, breg> spelled out, others with the
+    anonymous-namespace prefix cut."""
+    m = re.search(r"head_mma_kernelILb(\d)ELi(\d)ELb(\d)E", mangled)
+    if m:
+        return f"head_mma_kernel<fp={m.group(1)},nt={m.group(2)},breg={m.group(3)}>"
+    return re.sub(r"^_ZN.*?_cu_[0-9a-f]{8}\d+", "", mangled)[:60]
+
+
+def head_build_report() -> dict:
+    """K2's mma kernels: registers and spills from this process's build
+    log (logged by ``main``). A spill in a kernel of the mma route is a
+    defect and fails."""
+    from tpuseg_torch.kernels import build
+
+    text = build.BUILD_LOGS.get("head_argmax")
+    if text is None:
+        log("head_argmax was not built by this process: registers and spills not read")
+        return {}
+    report = {kernel_label(k): v for k, v in ptxas_report(text).items()
+              if "head_mma_kernel" in k}
+    if not report:
+        raise AssertionError("no head_mma_kernel in the head_argmax build log")
+    spills = {k: r for k, r in report.items()
+              if r.get("spill_stores", 0) or r.get("spill_loads", 0)}
+    if spills:
+        raise AssertionError(f"mma-route kernels spill: {spills}")
+    return report
+
+
 def phase_kernels(seed: int, dev) -> dict:
     """K2 at the serving shape: the kernel against its plain version in
-    both variants (the fp head is the served default), timed in turns
-    (plain, kernel, kernel, plain)."""
+    both variants (the fp head is the served default), both on the mma
+    route, timed in turns (plain, kernel, kernel, plain) two ways: CUDA
+    events around back-to-back calls, and profiler device time with the L2
+    flushed before each call."""
     import torch
 
     from tpuseg_torch.infer import head_kernel as hk
 
-    out = {}
+    out = {"build": head_build_report()}
     for fp in (True, False):
         x, sv, wt, epi = head_inputs(fp, seed, dev)
+        route = hk.kernel_route(x.dtype, wt.dtype, fp)
         got = hk.blocked_head_argmax(x, sv, wt, epi, NCLS, fp=fp)
         want = hk._blocked_head_argmax_plain(x, sv, wt, epi, NCLS, fp)
         torch.cuda.synchronize()
+        if route != "mma" or hk.LAST_ROUTE != route:
+            raise AssertionError(f"head kernel fp={fp} took the {hk.LAST_ROUTE} route, not mma")
         if got.shape != (MAIN_SHAPE[0], 2 * MAIN_SHAPE[1], 2 * MAIN_SHAPE[2]) \
                 or got.dtype != torch.int32:
             raise AssertionError(f"head kernel returned {tuple(got.shape)} {got.dtype}")
@@ -171,24 +232,38 @@ def phase_kernels(seed: int, dev) -> dict:
         if not fp and not torch.equal(got, want):
             raise AssertionError(f"int8 head kernel differs from plain (agreement {agree})")
         del got, want
-        p1 = cuda_ms(lambda: hk._blocked_head_argmax_plain(x, sv, wt, epi, NCLS, fp), 3, 1)
-        k1 = cuda_ms(lambda: hk.blocked_head_argmax(x, sv, wt, epi, NCLS, fp=fp), 20)
-        k2 = cuda_ms(lambda: hk.blocked_head_argmax(x, sv, wt, epi, NCLS, fp=fp), 20)
-        p2 = cuda_ms(lambda: hk._blocked_head_argmax_plain(x, sv, wt, epi, NCLS, fp), 3, 1)
+        fns = {"plain": (lambda: hk._blocked_head_argmax_plain(x, sv, wt, epi, NCLS, fp), 3),
+               "kernel": (lambda: hk.blocked_head_argmax(x, sv, wt, epi, NCLS, fp=fp), 20)}
+        events = {"plain": [], "kernel": []}
+        device = {"plain": [], "kernel": []}
+        for name in ("plain", "kernel", "kernel", "plain"):
+            fn, reps = fns[name]
+            events[name].append(cuda_ms(fn, reps, 1))
+            device[name].append(device_ms_cold(fn, reps))
         b, h, w, c4 = MAIN_SHAPE
         nbytes = (x.numel() * x.element_size() + sv.numel() * 4
                   + wt.numel() * wt.element_size() + epi.numel() * 4 + b * 4 * h * w * 4)
         ops = 2 * b * h * w * c4 * 4 * NCLS
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / PEAK_OPS["bf16" if fp else "int8"] * 1e3
-        out["fp" if fp else "int8"] = {
-            "agree": agree, "max_abs_err": max_err, "ms": (k1 + k2) / 2,
-            "ms_runs": [k1, k2], "plain_ms": (p1 + p2) / 2, "plain_ms_runs": [p1, p2],
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        bound = max(t_bytes, t_ops)
+        ms, ev_ms = sum(device["kernel"]) / 2, sum(events["kernel"]) / 2
+        out["fp" if fp else "int8"] = r = {
+            "route": route, "agree": agree, "max_abs_err": max_err,
+            "ms": ms, "ms_runs": device["kernel"],
+            "events_ms": ev_ms, "events_ms_runs": events["kernel"],
+            "plain_ms": sum(device["plain"]) / 2, "plain_ms_runs": device["plain"],
+            "plain_events_ms": sum(events["plain"]) / 2,
+            "plain_events_ms_runs": events["plain"],
+            "bound_ms": bound, "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "share_of_bound": bound / ms, "events_share_of_bound": bound / ev_ms,
             "bytes": nbytes, "ops": ops}
-        log(f"head kernel fp={fp}: agree {agree}, {out['fp' if fp else 'int8']['ms']:.4f} ms "
-            f"(plain {(p1 + p2) / 2:.3f} ms, bound {max(t_bytes, t_ops):.4f} ms)")
+        log(f"head kernel fp={fp} ({route} route): agree {agree}; device time (L2 flushed) "
+            f"{device['kernel'][0]:.4f} / {device['kernel'][1]:.4f} ms "
+            f"({r['share_of_bound']:.1%} of bound), events {events['kernel'][0]:.4f} / "
+            f"{events['kernel'][1]:.4f} ms ({r['events_share_of_bound']:.1%}); plain "
+            f"{r['plain_ms']:.3f} ms device, {r['plain_events_ms']:.3f} ms events; "
+            f"bound {bound:.4f} ms ({r['bound_by']})")
         del x, sv, wt, epi
         torch.cuda.empty_cache()
     return out
@@ -334,7 +409,7 @@ def phase_reference(model, seed: int, dev) -> dict:
 # kernel-name fragments -> group, first match wins (a name heuristic)
 KERNEL_GROUPS = (
     ("K1 shear_rows", ("shear_rows",)),
-    ("K2 head_argmax", ("head_argmax",)),
+    ("K2 head_argmax", ("head_mma_kernel", "head_fp_kernel", "head_s8_kernel")),
     ("layout transposes", ("nchwToNhwc", "nhwcToNchw")),
     ("cuDNN / GEMM", ("cudnn", "xmma", "gemm", "cutlass", "sm90_", "sm80_", "wgrad", "dgrad")),
     ("reductions", ("reduce_kernel",)),
@@ -779,9 +854,9 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     log(f"built {sorted(build.SOURCES)} in {build_s:.1f} s")
     for name, text in build.BUILD_LOGS.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+        for fn, r in sorted(ptxas_report(text).items()):
+            log(f"  {name}: {kernel_label(fn)}: {r.get('registers')} registers, spill "
+                f"stores {r.get('spill_stores')} B, spill loads {r.get('spill_loads')} B")
 
     kern = phase_kernels(args.seed, dev)
     shear = phase_shear(args.seed, dev)
@@ -799,7 +874,10 @@ def main() -> int:
         "bound_ms": fp["bound_ms"], "bound_by": fp["bound_by"], "library_ms": None,
         "library_note": "no single PyTorch call computes head + per-phase argmax + "
                         "depth-to-space",
-        "shape": list(MAIN_SHAPE), "ncls": NCLS,
+        "timing": "device time per call from the profiler, L2 flushed before each; "
+                  "events_ms: CUDA events around back-to-back calls",
+        "events_ms": fp["events_ms"], "share_of_bound": fp["share_of_bound"],
+        "kernel_route": fp["route"], "shape": list(MAIN_SHAPE), "ncls": NCLS,
         "tolerance": "fp head: labels agree on >= 0.9999 (f32 sum order); "
                      "int8 head: labels bit-equal",
         "agree": fp["agree"], "int8_variant": s8,

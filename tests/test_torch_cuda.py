@@ -46,6 +46,7 @@ def test_head_kernel_matches_plain(cuda, ncls, fp):
     got = head_kernel.blocked_head_argmax(x, sv, wt, epi, ncls, fp=fp)
     torch.cuda.synchronize()
     assert head_kernel.LAUNCHES == before + 1
+    assert head_kernel.LAST_ROUTE == "mma"
     want = head_kernel._blocked_head_argmax_plain(x, sv, wt, epi, ncls, fp)
     assert got.shape == (3, 68, 140) and got.dtype == torch.int32
     if fp:
@@ -54,15 +55,68 @@ def test_head_kernel_matches_plain(cuda, ncls, fp):
         assert torch.equal(got, want)
 
 
+def _check_mma_case(dev, ncls, fp, seed, b, h, w, c4):
+    x, sv, wt, epi = _inputs(ncls, fp, seed, b, h, w, c4, dev)
+    before = head_kernel.LAUNCHES
+    got = head_kernel.blocked_head_argmax(x, sv, wt, epi, ncls, fp=fp)
+    torch.cuda.synchronize()
+    assert head_kernel.LAUNCHES == before + 1
+    assert head_kernel.LAST_ROUTE == "mma"
+    want = head_kernel._blocked_head_argmax_plain(x, sv, wt, epi, ncls, fp)
+    assert got.shape == (b, 2 * h, 2 * w) and got.dtype == torch.int32
+    if fp:
+        assert (got == want).float().mean().item() >= 0.999
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fp", [True, False])
+@pytest.mark.parametrize("ncls", [1, 2, 3, 5, 8])
+@pytest.mark.parametrize("c4", [16, 32, 48, 256, 320, 512])
+def test_head_kernel_mma_tiling_edges(cuda, c4, ncls, fp):
+    """The mma route at the edges of its tiling: a ragged k-group (C4 = 16,
+    32, 48), one full register chunk (256, the serving width), two chunks
+    with a ragged last one (320) and two full ones (512); 2*9*13 = 234
+    pixels, not a
+    multiple of the 16-pixel tile. int8 head bit-equal, fp head >= 0.999."""
+    _check_mma_case(cuda, ncls, fp, 100 * ncls + c4, 2, 9, 13, c4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fp", [True, False])
+def test_head_kernel_mma_serving_width(cuda, fp):
+    """The serving width (C4 = 256, ncls = 2) at a small b, h, w whose
+    widths are not multiples of 16 (3*40*37 = 4440 pixels)."""
+    _check_mma_case(cuda, 2, fp, 11, 3, 40, 37, 256)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("xdtype", [torch.bfloat16, torch.float32])
 def test_head_kernel_fp_edge(cuda, xdtype):
-    """An fp edge into the head (bf16/f32 activations, sv None)."""
+    """An fp edge into the head (bf16/f32 activations, sv None) takes the
+    general route."""
     x, _, wt, epi = _inputs(2, True, 7, 2, 16, 24, 32, cuda)
     xf = (x.float() * 0.05).to(xdtype)
     got = head_kernel.blocked_head_argmax(xf, None, wt, epi, 2, fp=True)
+    torch.cuda.synchronize()
+    assert head_kernel.LAST_ROUTE == "general"
     ones = torch.ones(32, device=cuda)
     want = head_kernel._blocked_head_argmax_plain(xf, ones, wt, epi, 2, True)
+    assert (got == want).float().mean().item() >= 0.999
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ncls", [2, 5])
+def test_head_kernel_f32_weight_takes_general_route(cuda, ncls):
+    """An f32 weight (products the tensor cores cannot form exactly) takes
+    the general route, with int8 activations."""
+    x, sv, wt, epi = _inputs(ncls, True, 30 + ncls, 2, 9, 13, 64, cuda)
+    wt = wt.float()
+    got = head_kernel.blocked_head_argmax(x, sv, wt, epi, ncls, fp=True)
+    torch.cuda.synchronize()
+    assert head_kernel.LAST_ROUTE == "general"
+    want = head_kernel._blocked_head_argmax_plain(x, sv, wt, epi, ncls, True)
     assert (got == want).float().mean().item() >= 0.999
 
 

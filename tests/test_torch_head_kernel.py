@@ -96,6 +96,18 @@ def test_sv_none_means_ones():
     assert (got.numpy() == want).mean() >= 0.999
 
 
+@pytest.mark.parametrize("xdtype, wtdtype, fp, route", [
+    (torch.int8, torch.bfloat16, True, "mma"),      # the served fp head
+    (torch.int8, torch.int8, False, "mma"),         # the int8 head
+    (torch.bfloat16, torch.bfloat16, True, "general"),  # fp edge into the head
+    (torch.float32, torch.bfloat16, True, "general"),
+    (torch.int8, torch.float32, True, "general"),   # f32 weight
+    (torch.float32, torch.float32, True, "general"),
+])
+def test_kernel_route_choice(xdtype, wtdtype, fp, route):
+    assert head_kernel.kernel_route(xdtype, wtdtype, fp) == route
+
+
 def test_other_devices_raise():
     x, sv, wt, epi = _inputs(2, True, seed=0)
     with pytest.raises(ValueError, match="cuda or cpu"):

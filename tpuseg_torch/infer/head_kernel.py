@@ -16,6 +16,13 @@ On a CUDA tensor it launches the hand-written kernel in
 Nothing falls back from one to the other. ``LAUNCHES`` counts kernel
 launches.
 
+The kernel has two routes, chosen here from dtypes by :func:`kernel_route`
+and passed to the C entry: ``"mma"`` (tensor cores fed from registers) for
+int8 activations with a bf16 (fp head) or int8 (int8 head) weight, the
+serving path; ``"general"`` for an fp edge into the head (bf16/f32
+activations) or an f32 weight. ``LAST_ROUTE`` names the route of the last
+launch.
+
 Numerics: the int8 head accumulates int8 x int8 in int32 — exact — and
 rounds its epilogue where the plain version does, so labels are
 bit-equal. The fp head computes the same products (a product of two bf16
@@ -34,12 +41,24 @@ _MAX_KERNEL_CLASSES = 8
 
 # Kernel launches since the counter was last reset (CPU calls don't count).
 LAUNCHES = 0
+# The route of the last kernel launch ("mma" or "general").
+LAST_ROUTE = None
 
 _DTYPE_CODES = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}
+_ROUTE_CODES = {"general": 0, "mma": 1}
 
 
 def head_kernel_eligible(ncls: int) -> bool:
     return ncls <= _MAX_KERNEL_CLASSES
+
+
+def kernel_route(x_dtype: torch.dtype, wt_dtype: torch.dtype, fp: bool) -> str:
+    """``"mma"`` for int8 activations with a bf16 weight (fp head) or an int8
+    weight (int8 head); ``"general"`` for bf16/f32 activations or an f32
+    weight, whose f32 products the tensor cores cannot form exactly."""
+    if x_dtype == torch.int8 and wt_dtype == (torch.bfloat16 if fp else torch.int8):
+        return "mma"
+    return "general"
 
 
 def _blocked_head_argmax_plain(x: torch.Tensor, sv: torch.Tensor,
@@ -90,10 +109,11 @@ def _check(x, sv, wt, epi, ncls: int, fp: bool) -> None:
 
 
 def _launch(x, sv, wt, epi, ncls: int, fp: bool) -> torch.Tensor:
-    global LAUNCHES
+    global LAUNCHES, LAST_ROUTE
     from tpuseg_torch.kernels.build import load
 
     _check(x, sv, wt, epi, ncls, fp)
+    route = kernel_route(x.dtype, wt.dtype, fp)
     lib = load("head_argmax")
     b, h, w, c4 = x.shape
     out = torch.empty((b, 2 * h, 2 * w), dtype=torch.int32, device=x.device)
@@ -102,11 +122,12 @@ def _launch(x, sv, wt, epi, ncls: int, fp: bool) -> torch.Tensor:
         err = lib.tpuseg_head_argmax(
             x.data_ptr(), _DTYPE_CODES[x.dtype], sv.data_ptr(), wt.data_ptr(),
             _DTYPE_CODES[wt.dtype], epi.data_ptr(), out.data_ptr(),
-            b, h, w, c4, ncls, int(fp), stream)
+            b, h, w, c4, ncls, int(fp), _ROUTE_CODES[route], stream)
     if err:
         msg = lib.tpuseg_cuda_error_string(err).decode()
-        raise RuntimeError(f"head_argmax kernel launch failed: {msg} ({err})")
+        raise RuntimeError(f"head_argmax kernel launch failed ({route} route): {msg} ({err})")
     LAUNCHES += 1
+    LAST_ROUTE = route
     return out
 
 

@@ -31,7 +31,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SOURCES = {
     "head_argmax": ("head_argmax.cu", {
         "tpuseg_head_argmax": (_I, [_P, _I, _P, _P, _I, _P, _P,
-                                    _I, _I, _I, _I, _I, _I, _P]),
+                                    _I, _I, _I, _I, _I, _I, _I, _P]),
         "tpuseg_cuda_error_string": (ctypes.c_char_p, [_I]),
     }),
     "shear_rows": ("shear_rows.cu", {
