@@ -23,12 +23,13 @@ package. Phases, each fatal on failure:
    card against the same engine on the CPU (whose arithmetic the CPU tests
    pin to the JAX package), and the folded f32 walk on the card against
    the f32 model on the CPU;
-4. main path: serve a folder (one 4096^2 and four 256^2 uint16 images) with
-   a full-width random U-Net (base 64, 1 channel, 2 classes) through
+4. main path: move the random U-Net's (base 64, 1 channel, 2 classes)
+   head shift for class 1 so that about half the pixels take each class;
+   serve a folder (one 4096^2 and four 256^2 uint16 images) through
    ``python -m tpuseg_torch.cli.inference --quantize int8_blocked`` with the
    launch counters zeroed just before and read just after, check every
-   mask, serve it again with ``--quantize int8`` and compare the masks,
-   then time the tiled engines on the 4096^2 image and profile one
+   mask, serve it again with ``--quantize int8`` (no K2) and compare the
+   masks, then time the tiled engines on the 4096^2 image and profile one
    int8_blocked pass (device time by kernel, busy share);
 5. training reference: one f32 train step at base 4 on 64^2 inputs on the
    card (cuDNN TF32 off) against the same step on the CPU, from the same
@@ -45,7 +46,27 @@ package. Phases, each fatal on failure:
    memory, profile a few steps (device time by kernel and group, busy
    share, the augmentation's share), compare the trained batch's loss with
    running and with batch BatchNorm statistics, and time a step with
-   BatchNorm skipped.
+   BatchNorm skipped;
+7. whole-slide streaming, end to end: write phase 4's 4096^2 image as a
+   tiled BigTIFF (tile 512); run the int8_blocked predict function through
+   ``inference_tiled_streaming`` and ``inference_tiled`` with equal
+   statistics (labels agree on >= 0.9999, K2 launched once per chunk of
+   each zone row); stream the 4096^2 and 8192^2 slides through K2 and
+   through the same engine with K2's plain version as the head (masks
+   agree on >= 0.9999 at every shape the path gives K2); time both
+   engines in turns, and profile one streamed pass beside the host's
+   decode and deflate times alone; then, each as its own process reaped
+   with ``os.wait4`` (wall time, peak RSS, K2 launches), the inference CLI
+   in RAM (``--calibration_out``) and streaming (``--streaming
+   --calibration_in``) at 4096^2 and 8192^2, masks agreeing on >= 0.999;
+   the ``tpuseg_torch.cli.evaluate`` entry point on the streamed masks
+   against the in-RAM ones (pixel accuracy equal to numpy's agreement, and
+   ``segmentation_metrics`` on card tensors giving the host's confusion
+   counts); 8 tiled-BigTIFF slide pairs built by ``cli.build_lmdb`` (keys
+   as ``tiling_boxes`` implies), converted to LMDB by ``cli.convert_db`` and
+   one back (records byte-equal), and a few train steps through
+   ``tpuseg_torch.cli.train`` on the LMDB copies (finite losses, 3 shear
+   launches a step).
 
 The last lines are ``{"kernels": [...]}``, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``. Without a card it exits 1 and prints
@@ -55,6 +76,8 @@ no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import os
 import re
@@ -77,6 +100,11 @@ NCLS = 2
 TILE, BATCH = 1024, 8
 BIG, SMALL, N_SMALL = 4096, 256, 4
 BASE = 64  # the reference width (model.py:20)
+# phase 7: slides as tiled BigTIFF (tile 512), streamed at BIG^2 and BIG2^2;
+# N_SLIDES slide pairs of SLIDE^2 for the database tools, then one epoch of
+# SLIDE_TEST_EVERY + 1 train steps at SLIDE_BASE on their LMDB copies
+STREAM_TILE, BIG2 = 512, 8192
+N_SLIDES, SLIDE, SLIDE_BASE, SLIDE_TEST_EVERY = 8, 1024, 16, 4
 
 
 def log(msg: str) -> None:
@@ -495,6 +523,9 @@ def phase_main(seed: int, work: str, dev, card: str) -> dict:
     model = make_model(seed)
     save_model(ckpt, model)
     res["reference"] = phase_reference(model, seed, dev)
+    big = imread(os.path.join(imgdir, "big.tif"))
+    res["head_shift"] = balance_model(ckpt, big, dev)
+    log(f"balanced model: head BatchNorm shift for class 1 moved by {res['head_shift']:.4f}")
     cal = os.path.join(work, "cal.json")
     common = ["--checkpoint_filepath", ckpt, "--image_folder", imgdir,
               "--number_classes", str(NCLS), "--number_channels", "1",
@@ -524,7 +555,8 @@ def phase_main(seed: int, work: str, dev, card: str) -> dict:
     log(f"main path: {len(written)} masks in {res['main_path_s']:.2f} s, "
         f"{head_kernel.LAUNCHES} head kernel launches, peak {res['peak_mem_gib']:.2f} GiB")
 
-    # dense int8 from the same scales: the same quantized network
+    # dense int8 from the same scales: the same quantized network, without
+    # the blocked edges and K2
     out_dense = os.path.join(work, "masks_int8")
     cli(common + ["--output_folder", out_dense, "--quantize", "int8", "--calibration_in", cal])
     agree = {}
@@ -536,15 +568,19 @@ def phase_main(seed: int, work: str, dev, card: str) -> dict:
         np.prod(s) for s in shapes.values())
     res["int8_blocked_vs_int8_agree"] = float(total)
     res["int8_blocked_vs_int8_agree_per_image"] = agree
+    res["class1_share_big"] = float((imread(os.path.join(out_blocked, "big.tif")) == 1).mean())
     if total < 0.999:
         raise AssertionError(f"int8_blocked vs int8 masks agree on {total} < 0.999: {agree}")
-    log(f"int8_blocked vs int8 mask agreement {total}")
+    if not 0.01 < res["class1_share_big"] < 0.99:
+        raise AssertionError(f"class 1 takes {res['class1_share_big']} of big.tif's pixels; "
+                             "the mask comparison could not fail")
+    log(f"int8_blocked vs int8 mask agreement {total}, class 1 "
+        f"{res['class1_share_big']:.4f} of big.tif")
 
     # tiled engines on the big image, timed in turns; every dispatch of the
     # blocked engine must launch the kernel
     bf16 = load_model(ckpt, dtype="bfloat16", device=dev)
     radius = estimate_radius(bf16, 1, rng=np.random.default_rng(seed))
-    big = imread(os.path.join(imgdir, "big.tif"))
     small = [imread(os.path.join(imgdir, f"small{i}.tif")) for i in range(N_SMALL)]
     fns = {"none": make_predict_fn(bf16)}
     for mode in ("int8_blocked", "int8"):
@@ -635,13 +671,24 @@ def phase_train_reference(seed: int, dev) -> dict:
     return res
 
 
-def write_train_dbs(work: str, seed: int):
-    """N_TRAIN + N_TEST records of TRAIN_SIZE^2 uint16 images with uint8
-    masks, in the record layout of bench.py (keys tileNNNN:0,1). The mask
-    thresholds a smoothed random field (blobs) and the image is brighter
-    inside them, under smooth and pixel noise: a learnable task."""
+def blob_pair(rng, n: int):
+    """An n^2 uint16 image and its uint8 mask: the mask thresholds a
+    smoothed random field (blobs) and the image is brighter inside them,
+    under smooth and pixel noise: a learnable task."""
     import numpy as np
     from scipy.ndimage import gaussian_filter
+
+    field = gaussian_filter(rng.normal(0, 1, (n, n)), 12)
+    msk = (field > 0).astype(np.uint8)
+    shade = gaussian_filter(rng.normal(0, 1, (n, n)), 40)
+    img = 2000.0 + 1200.0 * msk + 400.0 * shade / shade.std() + rng.normal(0, 250, (n, n))
+    return np.clip(img, 0, 65535).astype(np.uint16), msk
+
+
+def write_train_dbs(work: str, seed: int):
+    """N_TRAIN + N_TEST records of TRAIN_SIZE^2 ``blob_pair``s, in the
+    record layout of bench.py (keys tileNNNN:0,1)."""
+    import numpy as np
 
     from tpuseg_torch.data.build_db import serialize_image_mask_pair
     from tpuseg_torch.data.recordstore import RecordWriter
@@ -652,13 +699,7 @@ def write_train_dbs(work: str, seed: int):
         path = os.path.join(work, f"{name}.lmdb")
         with RecordWriter(path) as w:
             for i in range(n):
-                field = gaussian_filter(rng.normal(0, 1, (TRAIN_SIZE, TRAIN_SIZE)), 12)
-                msk = (field > 0).astype(np.uint8)
-                shade = gaussian_filter(rng.normal(0, 1, (TRAIN_SIZE, TRAIN_SIZE)), 40)
-                img = (2000.0 + 1200.0 * msk + 400.0 * shade / shade.std()
-                       + rng.normal(0, 250, (TRAIN_SIZE, TRAIN_SIZE)))
-                w.put(f"tile{i:04d}:0,1", serialize_image_mask_pair(
-                    np.clip(img, 0, 65535).astype(np.uint16), msk))
+                w.put(f"tile{i:04d}:0,1", serialize_image_mask_pair(*blob_pair(rng, TRAIN_SIZE)))
         paths.append(path)
     return paths
 
@@ -823,6 +864,467 @@ def phase_train(seed: int, work: str, dev, card: str) -> dict:
     return res
 
 
+# run as `python -c`: the module's own main under a thread that samples the
+# process's resident set every 5 ms, with a mark where the runner's
+# load_model returns (before it: imports, the CUDA context, the model;
+# after it: calibration, reading, serving and writing the slide); then the
+# K2 wrapper's count, the peaks and the process's own ru_maxrss
+_COUNTED_CLI = """import os, resource, runpy, sys, threading, time
+from tpuseg_torch.infer import head_kernel, runner
+PAGE = os.sysconf("SC_PAGE_SIZE")
+def rss():
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * PAGE
+mem = {{"peak": 0, "loaded": 0, "peak_after_load": 0}}
+def sample():
+    while True:
+        r = rss()
+        mem["peak"] = max(mem["peak"], r)
+        if mem["loaded"]:
+            mem["peak_after_load"] = max(mem["peak_after_load"], r)
+        time.sleep(0.005)
+load_model = runner.load_model
+def marked_load_model(*args, **kwargs):
+    model = load_model(*args, **kwargs)
+    mem["loaded"] = mem["peak_after_load"] = rss()
+    return model
+runner.load_model = marked_load_model
+threading.Thread(target=sample, daemon=True).start()
+sys.argv[0] = {module!r}
+runpy.run_module({module!r}, run_name="__main__")
+print("K2_LAUNCHES", head_kernel.LAUNCHES)
+for key, value in mem.items():
+    print("RSS", key, value)
+print("RU_MAXRSS_KB", resource.getrusage(resource.RUSAGE_SELF).ru_maxrss)
+"""
+
+
+def run_cli(module: str, args, logbase: str, counted: bool = False) -> dict:
+    """``python -m module args`` as its own process from the checkout's
+    root, reaped with ``os.wait4``: wall time, standard output and, with
+    ``counted``, the K2 launches and the peaks of the resident set sampled
+    inside that process (``_COUNTED_CLI``). wait4's ``ru_maxrss`` and the child's own are kept
+    beside it (``wait4_maxrss_mib``, ``ru_maxrss_mib``) but are no child's
+    alone on Linux: exec records the high-water mark of the memory image
+    it replaces, and Python spawns from a vfork that shares this (large)
+    process's image. Fails on a non-zero exit."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = ([sys.executable, "-c", _COUNTED_CLI.format(module=module)] if counted
+           else [sys.executable, "-m", module])
+    with open(logbase + ".out", "w") as out, open(logbase + ".err", "w") as err:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd + list(args), cwd=root, stdout=out, stderr=err)
+        _, status, usage = os.wait4(proc.pid, 0)
+        wall = time.perf_counter() - t0
+    proc.returncode = os.waitstatus_to_exitcode(status)
+    with open(logbase + ".out") as f:
+        stdout = f.read()
+    if proc.returncode != 0:
+        with open(logbase + ".err") as f:
+            raise AssertionError(f"{module} exited {proc.returncode}: {f.read()[-3000:]}")
+    res = {"wall_s": wall, "wait4_maxrss_mib": usage.ru_maxrss / 1024, "stdout": stdout}
+    if counted:
+        res["k2_launches"] = int(re.search(r"^K2_LAUNCHES (\d+)$", stdout, re.M).group(1))
+        rss = {k: int(v) / 2 ** 20 for k, v in re.findall(r"^RSS (\w+) (\d+)$", stdout, re.M)}
+        res["peak_rss_mib"] = rss["peak"]
+        res["rss_at_load_mib"] = rss["loaded"]
+        # what the slide adds: calibration, reading, serving and writing it
+        res["slide_rss_mib"] = rss["peak_after_load"] - rss["loaded"]
+        res["ru_maxrss_mib"] = int(re.search(r"^RU_MAXRSS_KB (\d+)$", stdout, re.M)
+                                   .group(1)) / 1024
+    return res
+
+
+def stream_chunks(height: int, width: int, radius: int) -> list:
+    """The batch of each K2 launch of one streamed int8_blocked pass: one
+    launch per chunk of at most BATCH windows in each zone row."""
+    zor = TILE - 2 * radius
+    rows, cols = -(-height // zor), -(-width // zor)
+    return [min(BATCH, cols - c) for _ in range(rows) for c in range(0, cols, BATCH)]
+
+
+def stream_launches(height: int, width: int, radius: int) -> int:
+    return len(stream_chunks(height, width, radius))
+
+
+@contextlib.contextmanager
+def plain_head():
+    """K2's wrapper with the kernel's launch swapped for its plain version
+    on the same card tensors: the predict function then runs K2-free and
+    counts no launch. Yields the shapes of the activations it is given."""
+    from tpuseg_torch.infer import head_kernel
+
+    launch, shapes = head_kernel._launch, []
+
+    def plain(x, sv, wt, epi, ncls, fp):
+        shapes.append(list(x.shape))
+        return head_kernel._blocked_head_argmax_plain(x, sv, wt, epi, ncls, fp)
+
+    head_kernel._launch = plain
+    try:
+        yield shapes
+    finally:
+        head_kernel._launch = launch
+
+
+def in_ram_launches(height: int, width: int, radius: int) -> int:
+    """K2 launches of one tiled int8_blocked pass: one per chunk of at most
+    BATCH windows over the whole grid."""
+    zor = TILE - 2 * radius
+    rows, cols = -(-height // zor), -(-width // zor)
+    return -(-rows * cols // BATCH)
+
+
+def phase_stream_engine(work: str, dev, radius: int) -> dict:
+    """Streaming against in-RAM on the BIG^2 image written as a tiled
+    BigTIFF: labels, K2 launches (counts zeroed just before the streamed
+    pass, read just after); K2 against its plain version at the streamed
+    shapes, end to end, at BIG^2 and BIG2^2; both engines timed in turns,
+    one streamed pass profiled, and the host's share alone: reading the
+    slide's regions (decode) and writing the mask (deflate)."""
+    import numpy as np
+    import torch
+
+    from tpuseg_torch.data.preprocess import zscore_stats
+    from tpuseg_torch.infer import head_kernel
+    from tpuseg_torch.infer.runner import InferenceConfig, _quantized_predict_fn
+    from tpuseg_torch.infer.tiled import inference_tiled, inference_tiled_streaming
+    from tpuseg_torch.utils.bigtiff import BigTiffReader, read_bigtiff, write_bigtiff
+    from tpuseg_torch.utils.checkpoint import load_model
+
+    src = os.path.join(work, f"slides{BIG}", "slide.tif")
+    big = read_bigtiff(src)
+    ckpt = os.path.join(work, "model.pt")
+    # calibrated on the slide as the in-RAM CLI calibrates
+    cfg = InferenceConfig(ckpt, work, work, NCLS, 1, base_features=BASE,
+                          quantize="int8_blocked")
+    fn = _quantized_predict_fn(cfg, load_model(ckpt, dtype="bfloat16", device=dev), [src],
+                               dev)[0]
+    stats = zscore_stats(big)
+    out = os.path.join(work, "stream_engine")
+    os.makedirs(out, exist_ok=True)
+    mask_path = os.path.join(out, "slide.tif")
+
+    def in_ram():
+        return inference_tiled(big, fn, TILE, radius, BATCH, NCLS, stats, dev)
+
+    def streaming(side=BIG, dst=mask_path):
+        with BigTiffReader(os.path.join(work, f"slides{side}", "slide.tif")) as reader:
+            inference_tiled_streaming(reader, fn, dst, TILE, radius, BATCH,
+                                      num_classes=NCLS, norm_stats=stats, progress=False,
+                                      device=dev)
+
+    want = in_ram()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    head_kernel.LAUNCHES = 0
+    streaming()
+    torch.cuda.synchronize()
+    res = {"launches": head_kernel.LAUNCHES,
+           "expected_launches": stream_launches(BIG, BIG, radius),
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    if res["launches"] != res["expected_launches"]:
+        raise AssertionError(f"streamed pass launched K2 {res['launches']} times, expected "
+                             f"{res['expected_launches']}")
+    got = read_bigtiff(mask_path)
+    if got.shape != want.shape or got.dtype != np.uint8:
+        raise AssertionError(f"streamed mask {got.shape} {got.dtype}, in-RAM {want.shape}")
+    res["pixels_differing"] = int((got != want).sum())
+    res["agree"] = 1.0 - res["pixels_differing"] / got.size
+    if res["agree"] < 0.9999:
+        raise AssertionError(f"streamed vs in-RAM labels agree on {res['agree']} < 0.9999")
+
+    # K2 against its plain version at the shapes this path gives it
+    # ([5, ...] a zone row at BIG^2; [8, ...] and [2, ...] at BIG2^2): each
+    # slide streamed through K2 and through the same engine with the plain
+    # head, the masks compared. The int8 sums are exact and the fp head's
+    # f32 sums run in another order: labels agree on >= 0.9999, and on a
+    # balanced model, so that the comparison can fail
+    res["vs_plain"] = {}
+    for side in (BIG, BIG2):
+        k2_path = mask_path if side == BIG else os.path.join(out, f"slide{side}.tif")
+        if side != BIG:
+            streaming(side, k2_path)
+        plain_path = os.path.join(out, f"slide{side}_plain.tif")
+        before = head_kernel.LAUNCHES
+        with plain_head() as shapes:
+            streaming(side, plain_path)
+        want_shapes = [[b] + list(MAIN_SHAPE[1:]) for b in stream_chunks(side, side, radius)]
+        if head_kernel.LAUNCHES != before or shapes != want_shapes:
+            raise AssertionError(f"{side}^2 plain-head pass: {head_kernel.LAUNCHES - before} K2 "
+                                 f"launches, head shapes {shapes} vs {want_shapes}")
+        a, b = read_bigtiff(k2_path), read_bigtiff(plain_path)
+        n = int((a != b).sum())
+        r = res["vs_plain"][side] = {
+            "pixels_differing": n, "agree": 1.0 - n / b.size,
+            "class1_share": float((b == 1).mean()),
+            "head_batches": sorted(set(s[0] for s in shapes))}
+        if a.shape != (side, side) or r["agree"] < 0.9999:
+            raise AssertionError(f"{side}^2: K2's streamed mask {a.shape} agrees with the "
+                                 f"plain head's on {r['agree']} < 0.9999")
+        if not 0.01 < r["class1_share"] < 0.99:
+            raise AssertionError(f"{side}^2: class 1 takes {r['class1_share']} of the pixels; "
+                                 "the comparison could not fail")
+        log(f"streamed {side}^2, K2 vs plain head (batches {r['head_batches']}, "
+            f"{len(shapes)} calls): {n} pixels differ (agreement {r['agree']}), class 1 "
+            f"{r['class1_share']:.4f} of the pixels")
+    times = {"in_ram": [], "streaming": []}
+    for name in ("in_ram", "streaming", "streaming", "in_ram"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (in_ram if name == "in_ram" else streaming)()
+        times[name].append(time.perf_counter() - t0)
+    res["s"] = times
+    res["mp_s"] = {k: BIG * BIG / 1e6 / (sum(v) / len(v)) for k, v in times.items()}
+    log(f"streamed vs in-RAM {BIG}^2 int8_blocked: {res['pixels_differing']} pixels differ "
+        f"(agreement {res['agree']}), K2 launches {res['launches']} (expected "
+        f"{res['expected_launches']}), MP/s streamed {res['mp_s']['streaming']:.2f}, in RAM "
+        f"{res['mp_s']['in_ram']:.2f}, peak device memory streamed {res['peak_mem_gib']:.2f} GiB")
+
+    res["profile"] = device_profile(streaming, f"streamed int8_blocked {BIG}^2")
+    zor = TILE - 2 * radius
+    t0 = time.perf_counter()
+    with BigTiffReader(src) as reader:
+        for y in range(0, BIG, zor):
+            reader.read_region(y, 0, min(zor, BIG - y), BIG)
+    res["host_decode_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    write_bigtiff(os.path.join(out, "deflate.tif"), want, tile=(zor, zor))
+    res["host_deflate_s"] = time.perf_counter() - t0
+    log(f"host alone: reading the slide's regions {res['host_decode_s']:.3f} s, writing the "
+        f"mask {res['host_deflate_s']:.3f} s")
+    return res
+
+
+def phase_stream_clis(work: str, dev, radius: int) -> dict:
+    """The inference CLI disk to disk, in RAM and streaming, at BIG^2 and
+    BIG2^2, each in its own process; then the evaluate CLI on the BIG^2
+    masks, and the same counts from ``segmentation_metrics`` on the card."""
+    import numpy as np
+    import torch
+
+    from tpuseg_torch.cli.evaluate import main as evaluate_cli
+    from tpuseg_torch.ops import metrics
+    from tpuseg_torch.utils.bigtiff import BigTiffReader, read_bigtiff
+
+    common = ["--checkpoint_filepath", os.path.join(work, "model.pt"),
+              "--number_classes", str(NCLS), "--number_channels", "1",
+              "--base_features", str(BASE), "--device", dev.type, "--tile_size", str(TILE),
+              "--batch_size", str(BATCH), "--radius", str(radius),
+              "--quantize", "int8_blocked"]
+    res: dict = {"runs": {}, "agree": {}}
+    for side in (BIG, BIG2):
+        # the in-RAM run calibrates on the slide; the streamed run reuses
+        # its scales, so the two masks come from one quantized network
+        cal = os.path.join(work, f"cal_slide{side}.json")
+        for mode in ("in_ram", "streaming"):
+            extra = (["--calibration_out", cal] if mode == "in_ram"
+                     else ["--calibration_in", cal, "--streaming"])
+            tag = f"{mode}{side}"
+            r = run_cli("tpuseg_torch.cli.inference",
+                        common + extra + ["--image_folder", os.path.join(work, f"slides{side}"),
+                                          "--output_folder", os.path.join(work, f"masks_{tag}")],
+                        os.path.join(work, f"cli_{tag}"), counted=True)
+            del r["stdout"]
+            r["mp_s"] = side * side / 1e6 / r["wall_s"]
+            want = (stream_launches if mode == "streaming" else in_ram_launches)(side, side, radius)
+            if r["k2_launches"] != want:
+                raise AssertionError(f"{tag}: K2 launched {r['k2_launches']} times, expected {want}")
+            res["runs"][tag] = r
+            log(f"CLI {mode} {side}^2 disk to disk: {r['wall_s']:.2f} s ({r['mp_s']:.2f} MP/s, "
+                f"process start included), peak RSS sampled {r['peak_rss_mib']:.0f} MiB, "
+                f"{r['rss_at_load_mib']:.0f} when the model was loaded, the slide's part "
+                f"{r['slide_rss_mib']:.0f} (ru_maxrss {r['ru_maxrss_mib']:.0f}, wait4 "
+                f"{r['wait4_maxrss_mib']:.0f}), K2 launches {r['k2_launches']}")
+        a, b = (read_bigtiff(os.path.join(work, f"masks_{m}{side}", "slide.tif"))
+                for m in ("streaming", "in_ram"))
+        res["agree"][side] = float((a == b).mean())
+        if a.shape != (side, side) or res["agree"][side] < 0.999:
+            raise AssertionError(f"{side}^2: streamed mask {a.shape} agrees with the in-RAM "
+                                 f"one on {res['agree'][side]} < 0.999")
+    log(f"CLI streamed vs in-RAM mask agreement: {res['agree']}")
+
+    # the evaluate CLI is host-only: its entry point runs in this process
+    pred_dir, truth_dir = (os.path.join(work, f"masks_{m}{BIG}") for m in ("streaming", "in_ram"))
+    stdout = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(stdout):
+        rc = evaluate_cli(["--pred_folder", pred_dir, "--truth_folder", truth_dir,
+                           "--number_classes", str(NCLS)])
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"evaluate CLI returned {rc}")
+    ev = json.loads(stdout.getvalue())
+    a, b = (read_bigtiff(os.path.join(d, "slide.tif")) for d in (pred_dir, truth_dir))
+    agree = float((a == b).mean())
+    grids = {}
+    for what, d in (("pred", pred_dir), ("truth", truth_dir)):
+        with BigTiffReader(os.path.join(d, "slide.tif")) as rd:
+            grids[what] = [rd.tile_height, rd.tile_width]
+    if abs(ev["pixel_accuracy"] - agree) > 1e-12:
+        raise AssertionError(f"evaluate pixel_accuracy {ev['pixel_accuracy']} vs numpy "
+                             f"agreement {agree}")
+    card = metrics.segmentation_metrics(torch.from_numpy(a).to(dev),
+                                        torch.from_numpy(b).to(dev), NCLS)
+    cm_card = card["confusion"].cpu().numpy()
+    cm_host = metrics._bincount_cm(a, b, NCLS)
+    if not np.array_equal(cm_card, cm_host):
+        raise AssertionError(f"confusion on the card {cm_card.tolist()} vs host "
+                             f"{cm_host.tolist()}")
+    res["evaluate"] = {"cli": ev, "numpy_agree": agree, "tile_grids": grids,
+                       "confusion": cm_host.tolist(), "wall_s": wall,
+                       "card_pixel_accuracy": card["pixel_accuracy"].item(),
+                       "card_mean_iou": card["mean_iou"].item()}
+    log(f"evaluate CLI (pred tiles {grids['pred']}, truth tiles {grids['truth']}): pixel "
+        f"accuracy {ev['pixel_accuracy']!r} = numpy {agree!r}, mIoU {ev['mean_iou']:.6f}; "
+        f"card confusion {cm_card.tolist()} equals the host's")
+    return res
+
+
+def phase_slide_data(seed: int, work: str, dev) -> dict:
+    """N_SLIDES tiled-BigTIFF pairs built by the build CLI, converted to
+    LMDB and one back by the convert CLI, then trained on as LMDB through
+    the train CLI with the shear launch count zeroed just before and read
+    just after."""
+    import random
+
+    import numpy as np
+    import torch
+
+    from tpuseg_torch.cli.train import main as train_cli
+    from tpuseg_torch.data.build_db import tiling_boxes
+    from tpuseg_torch.data.recordstore import LmdbRecordReader, RecordReader
+    from tpuseg_torch.ops import warp
+    from tpuseg_torch.utils.bigtiff import write_bigtiff
+
+    res: dict = {}
+    folders = {k: os.path.join(work, f"slide_{k}") for k in ("images", "masks")}
+    for d in folders.values():
+        os.makedirs(d, exist_ok=True)
+    rng = np.random.default_rng(seed + 5)
+    masks = {}
+    for i in range(N_SLIDES):
+        name = f"slide{i}.tif"
+        img, masks[name] = blob_pair(rng, SLIDE)
+        write_bigtiff(os.path.join(folders["images"], name), img, tile=(STREAM_TILE, STREAM_TILE))
+        write_bigtiff(os.path.join(folders["masks"], name), masks[name],
+                      tile=(STREAM_TILE, STREAM_TILE))
+    dbdir = os.path.join(work, "slide_dbs")
+    r = run_cli("tpuseg_torch.cli.build_lmdb",
+                ["--image_folder", folders["images"], "--mask_folder", folders["masks"],
+                 "--output_folder", dbdir, "--dataset_name", "slides", "--use_tiling", "1",
+                 "--tile_size", str(STREAM_TILE), "--seed", str(seed)],
+                os.path.join(work, "cli_build"))
+    res["build_s"] = r["wall_s"]
+
+    # the split and the keys that the seed and tiling_boxes imply
+    names = [f for f in os.listdir(folders["masks"]) if f.endswith(".tif")]
+    random.Random(seed).shuffle(names)
+    n_train = int(0.8 * len(names))
+
+    def records(db):
+        with RecordReader(db) as rd:
+            return type(rd), [(k, rd.get_at(i)) for i, k in enumerate(rd.keys())]
+
+    dbs, res["records"] = {}, {}
+    for split, split_names in (("train", names[:n_train]), ("test", names[n_train:])):
+        want = sorted(
+            f"{os.path.splitext(n)[0]}_i{y}_j{x}:"
+            f"{','.join(str(c) for c in np.unique(masks[n][y:ye, x:xe]))}".encode()
+            for n in split_names for y, x, ye, xe in tiling_boxes(SLIDE, SLIDE, STREAM_TILE))
+        db = dbs[split] = os.path.join(dbdir, f"{split}-slides.lmdb")
+        kind, recs = records(db)
+        if [k for k, _ in recs] != want:
+            raise AssertionError(f"{split}: keys {[k for k, _ in recs][:4]}... vs "
+                                 f"{want[:4]}... ({len(recs)} vs {len(want)})")
+        res["records"][split] = len(recs)
+        ref = os.path.join(dbdir, f"{split}-slides-ref.lmdb")
+        run_cli("tpuseg_torch.cli.convert_db", ["--input_database", db, "--output_database",
+                                                ref, "--format", "lmdb"],
+                os.path.join(work, f"cli_convert_{split}"))
+        ref_kind, ref_recs = records(ref)
+        if ref_kind is not LmdbRecordReader or ref_recs != recs:
+            raise AssertionError(f"{split}: the LMDB copy ({ref_kind.__name__}) differs")
+        dbs[split + "_ref"] = ref
+    back = os.path.join(dbdir, "train-slides-back.lmdb")
+    run_cli("tpuseg_torch.cli.convert_db", ["--input_database", dbs["train_ref"],
+                                            "--output_database", back, "--format", "tsr"],
+            os.path.join(work, "cli_convert_back"))
+    back_kind, back_recs = records(back)
+    if back_kind is not RecordReader or back_recs != records(dbs["train"])[1]:
+        raise AssertionError("train database converted to LMDB and back differs")
+    log(f"build CLI: {res['records']} records of {STREAM_TILE}^2 from {N_SLIDES} slides of "
+        f"{SLIDE}^2, keys as tiling_boxes implies; LMDB copies and the round trip "
+        "byte-equal")
+
+    torch.cuda.synchronize()
+    warp.LAUNCHES = 0
+    result = train_cli([
+        "--train_database", dbs["train_ref"], "--test_database", dbs["test_ref"],
+        "--output_dir", os.path.join(work, "slide_train"), "--batch_size", str(TRAIN_BATCH),
+        "--test_every_n_steps", str(SLIDE_TEST_EVERY), "--max_epochs", "1",
+        "--seed", str(seed), "--device", dev.type, "--base_features", str(SLIDE_BASE),
+        "--dtype", "bfloat16", "--reader_count", "2", "--learning_rate", str(TRAIN_LR)])
+    torch.cuda.synchronize()
+    res["train"] = {"steps": result.steps, "shear_launches": warp.LAUNCHES,
+                    "train_losses": result.train_losses, "test_loss": result.test_loss}
+    log(f"train CLI on the LMDB copies (base {SLIDE_BASE}): {result.steps} steps, "
+        f"{warp.LAUNCHES} shear launches, losses {result.train_losses}, test {result.test_loss}")
+    if result.steps != SLIDE_TEST_EVERY + 1 or warp.LAUNCHES != 3 * result.steps:
+        raise AssertionError(f"{result.steps} steps and {warp.LAUNCHES} shear launches: "
+                             f"expected {SLIDE_TEST_EVERY + 1} and 3 per step")
+    if not (np.isfinite(result.train_losses).all() and np.isfinite(result.test_loss).all()):
+        raise AssertionError(f"non-finite losses: {result.train_losses} {result.test_loss}")
+    return res
+
+
+def balance_model(ckpt: str, big, dev) -> float:
+    """The random U-Net labels nearly every pixel of ``big`` 0. Move the
+    head's BatchNorm shift for class 1 by the median logit margin over the
+    centre of ``big`` (f32, on the card) and save the result over ``ckpt``:
+    about half the pixels then take each class, many near a tie, so the
+    masks compared in phases 4 and 7 can differ where they would. Returns
+    the shift."""
+    import numpy as np
+    import torch
+
+    from tpuseg_torch.data.preprocess import zscore_stats
+    from tpuseg_torch.infer.tiled import _zscore
+    from tpuseg_torch.utils.checkpoint import load_model, save_model
+
+    model = load_model(ckpt, dtype="float32", device=dev)
+    mean, std = (torch.from_numpy(np.asarray(s, np.float32).reshape(-1)).to(dev)
+                 for s in zscore_stats(big))
+    c, h = BIG // 2, TILE // 2
+    crop = torch.from_numpy(big[c - h:c + h, c - h:c + h].astype(np.float32)).to(dev)
+    with torch.no_grad():
+        logits = model(_zscore(crop[None, ..., None], mean, std))
+        shift = (logits[..., 0] - logits[..., 1]).median().item()
+        model.head.bn.bias[1] += shift
+    save_model(ckpt, model)
+    return shift
+
+
+def phase_stream(seed: int, work: str, dev, radius: int) -> dict:
+    """Phase 7: the slides, then whole-slide streaming end to end with
+    phase 4's balanced model."""
+    import numpy as np
+
+    from tpuseg_torch.utils.bigtiff import write_bigtiff
+    from tpuseg_torch.utils.imagio import imread
+
+    big = imread(os.path.join(work, "images", "big.tif"))
+    for side in (BIG, BIG2):
+        folder = os.path.join(work, f"slides{side}")
+        os.makedirs(folder, exist_ok=True)
+        img = np.tile(big, (side // BIG, side // BIG))
+        write_bigtiff(os.path.join(folder, "slide.tif"), img, tile=(STREAM_TILE, STREAM_TILE),
+                      level=1)
+    return {"engine": phase_stream_engine(work, dev, radius),
+            "clis": phase_stream_clis(work, dev, radius),
+            "data": phase_slide_data(seed, work, dev)}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -863,6 +1365,7 @@ def main() -> int:
     work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke")
     main_res = phase_main(args.seed, work, dev, card)
     train_res = phase_train(args.seed, work, dev, card)
+    stream_res = phase_stream(args.seed, work, dev, main_res["radius"])
 
     fp, s8 = kern["fp"], kern["int8"]
     kernels = [{
@@ -870,6 +1373,9 @@ def main() -> int:
         "source": "tpuseg_torch/csrc/head_argmax.cu",
         "replaces": "tpuseg/infer/head_kernel.py:83",
         "launches": main_res["launches"]["blocked_head_argmax"],
+        "launches_streaming": stream_res["engine"]["launches"],
+        "launches_by_cli_run": {k: r["k2_launches"]
+                                for k, r in stream_res["clis"]["runs"].items()},
         "max_abs_err": fp["max_abs_err"], "ms": fp["ms"], "plain_ms": fp["plain_ms"],
         "bound_ms": fp["bound_ms"], "bound_by": fp["bound_by"], "library_ms": None,
         "library_note": "no single PyTorch call computes head + per-phase argmax + "
@@ -881,6 +1387,8 @@ def main() -> int:
         "tolerance": "fp head: labels agree on >= 0.9999 (f32 sum order); "
                      "int8 head: labels bit-equal",
         "agree": fp["agree"], "int8_variant": s8,
+        "streamed_vs_plain_head_agree": {side: r["agree"] for side, r
+                                         in stream_res["engine"]["vs_plain"].items()},
     }, {
         "name": "shear_rows", "route": "cuda",
         "source": "tpuseg_torch/csrc/shear_rows.cu",
@@ -898,6 +1406,7 @@ def main() -> int:
     }]
     summary = {"card": card, "torch": torch.__version__, "build_s": build_s,
                "kernels": kern, "shear": shear, "main": main_res, "train": train_res,
+               "stream": stream_res,
                "total_s": time.perf_counter() - t_start}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

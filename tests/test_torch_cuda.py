@@ -237,3 +237,70 @@ def test_prefetch_to_card_widens_and_orders(cuda):
         assert img.device.type == "cuda" and img.dtype == torch.int32
         assert int(img.sum().item()) == (65535 - i) * img.numel()
         assert int(msk.sum().item()) == (i % 2) * msk.numel()
+
+
+# --- streaming serving and metrics on the card -------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantize", ["none", "int8_blocked"])
+def test_streaming_on_card_matches_cpu(cuda, tmp_path, quantize):
+    """inference_tiled_streaming on the card against the same call on the
+    CPU (a base-4 U-Net, f32 convs with TF32 off): >= 0.999 of labels
+    agree; under int8_blocked K2 launches once per chunk of each zone row."""
+    import copy
+
+    from tpuseg_torch.data.preprocess import zscore_stats
+    from tpuseg_torch.infer import quant, tiled
+    from tpuseg_torch.models.unet import UNet, init_unet
+    from tpuseg_torch.utils import bigtiff
+
+    model = init_unet(UNet(2, 1, 4, torch.float32), torch.Generator().manual_seed(0)).eval()
+    img = np.random.default_rng(8).integers(0, 4096, (640, 480)).astype(np.uint16)
+    stats = zscore_stats(img)
+    src = str(tmp_path / "slide.tif")
+    bigtiff.write_bigtiff(src, img, tile=(128, 128))
+    if quantize == "none":
+        fns = {"cpu": tiled.make_predict_fn(model),
+               "cuda": tiled.make_predict_fn(copy.deepcopy(model).to(cuda))}
+    else:
+        folded = quant.fold_variables(model)
+        crop = (img[192:448, 112:368].astype(np.float32) - stats[0]) / stats[1]
+        fn = quant.make_quantized_predict_fn(
+            folded, quant.calibrate(folded, [crop], device="cpu"), blocked_edges=True)
+        fns = {"cpu": fn, "cuda": fn}
+    tile, radius, batch = 288, 96, 2
+    out = {}
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        for dev in ("cpu", "cuda"):
+            head_kernel.LAUNCHES = 0
+            path = str(tmp_path / f"{dev}.tif")
+            with bigtiff.BigTiffReader(src) as reader:
+                tiled.inference_tiled_streaming(reader, fns[dev], path, tile, radius, batch,
+                                                num_classes=2, norm_stats=stats,
+                                                progress=False, device=dev)
+            out[dev] = (bigtiff.read_bigtiff(path), head_kernel.LAUNCHES)
+    (want, cpu_launches), (got, launches) = out["cpu"], out["cuda"]
+    assert got.shape == want.shape == img.shape and got.dtype == np.uint8
+    assert (got == want).mean() >= 0.999
+    assert cpu_launches == 0
+    zor = tile - 2 * radius
+    n_rows, n_cols = -(-640 // zor), -(-480 // zor)
+    assert launches == (n_rows * -(-n_cols // batch) if quantize == "int8_blocked" else 0)
+
+
+@pytest.mark.cuda
+def test_confusion_matrix_on_card_matches_host(cuda):
+    from tpuseg_torch.ops import metrics
+
+    rng = np.random.default_rng(2)
+    pred = rng.integers(0, 4, (3, 130, 70)).astype(np.int64)
+    true = rng.integers(0, 4, (3, 130, 70)).astype(np.int64)
+    pred[rng.random(pred.shape) < 0.02] = 255
+    true[rng.random(true.shape) < 0.02] = -1
+    got = metrics.confusion_matrix(torch.from_numpy(pred).to(cuda),
+                                   torch.from_numpy(true).to(cuda), 4)
+    assert got.device.type == "cuda" and got.dtype == torch.int32
+    np.testing.assert_array_equal(got.cpu().numpy(), metrics._bincount_cm(pred, true, 4))
+    m = metrics.segmentation_metrics(torch.from_numpy(pred).to(cuda),
+                                     torch.from_numpy(true).to(cuda), 4)
+    assert torch.equal(m["confusion"], got)

@@ -113,7 +113,6 @@ def test_erf_radius_matches_tpuseg(ckpts):
 
 
 @pytest.mark.parametrize("extra, exc", [
-    (("--streaming",), NotImplementedError),
     (("--multihost", "1"), NotImplementedError),
     (("--quantize", "none", "--calibration_out", "x.json"), ValueError),
 ])
@@ -138,7 +137,7 @@ def test_cli_cuda_without_a_card_raises(ckpts, tmp_path):
 
 
 def test_port_imports_neither_jax_nor_tpuseg():
-    """Every tpuseg_torch module (35 with the training slice) imports in a
+    """Every tpuseg_torch module (40 with the streaming slice) imports in a
     fresh interpreter without pulling in jax, flax, orbax, protobuf or
     anything of tpuseg."""
     code = (
@@ -147,7 +146,7 @@ def test_port_imports_neither_jax_nor_tpuseg():
         "for m in mods: importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'orbax', 'tpuseg') or k.startswith('google.protobuf'))\n"
-        "assert len(mods) >= 35, mods\n"
+        "assert len(mods) >= 40, mods\n"
         "assert not bad, bad\n"
         "print(len(mods))\n")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

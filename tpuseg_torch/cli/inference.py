@@ -1,8 +1,10 @@
 """CLI: segment a folder of images with a trained checkpoint, on the card.
 
 Flags mirror ``tpuseg.cli.inference`` (reference ``UNet/inference.py:
-231-241``) plus ``--device``. ``--streaming`` and ``--multihost`` are
-accepted and raise ``NotImplementedError``: they come with later slices.
+231-241``) plus ``--device``. ``--streaming`` segments tiled-BigTIFF slides
+larger than host RAM as a rolling strip through the device.
+``--multihost`` is accepted and raises ``NotImplementedError``: it comes
+with the multi-GPU slice.
 """
 
 import argparse
@@ -54,8 +56,9 @@ def main(argv=None):
                         help="choose the tile size per image to minimize computed "
                              "pixels instead of the fixed --tile_size")
     parser.add_argument("--streaming", dest="streaming", action="store_true",
-                        help="stream tiled-BigTIFF inputs window-by-window "
-                             "(not ported yet: raises)")
+                        help="stream tiled-BigTIFF inputs as a rolling strip of "
+                             "rows (images larger than host RAM); masks are "
+                             "written incrementally as tiled BigTIFF")
     parser.add_argument("--quantize", dest="quantize", type=str, default="none",
                         choices=list(QUANTIZE_MODES),
                         help="int8: post-training-quantized serving path "

@@ -12,8 +12,9 @@ holding ``data.tsr``:
     records (u32 key_len | u64 val_len | key | value) ...
     index   (u32 key_len | u64 val_offset | u64 val_len | key) ... in key order
 
-Reading reference-built LMDB databases (``LmdbRecordReader``) waits for a
-later slice; such a directory raises here.
+``RecordReader(db)`` also reads databases the reference built (LMDB,
+``data.mdb``): it detects them and serves them through
+:class:`LmdbRecordReader` over the pure-Python codec in ``lmdb_compat.py``.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from __future__ import annotations
 import mmap
 import os
 import struct
-from typing import List, Optional
+from typing import Iterator, List, Optional
 
 _MAGIC = b"TSRSTOR1"
 _HEADER = struct.Struct("<8sQQ")  # magic, count, index_offset
@@ -96,7 +97,20 @@ class RecordWriter:
 class RecordReader:
     """Read-only, memory-mapped view of a database directory; safe to open
     independently in each reader process (the pages are shared through the
-    page cache)."""
+    page cache).
+
+    A directory holding ``data.mdb`` instead of ``data.tsr`` (or an
+    ``MDB_NOSUBDIR`` single data file) is a reference-built LMDB database:
+    ``RecordReader(db)`` then returns an :class:`LmdbRecordReader`, the
+    same interface, so ImageReader and training read it unconverted."""
+
+    def __new__(cls, db_dir: str):
+        if cls is RecordReader and not os.path.exists(_data_path(db_dir)):
+            from tpuseg_torch.data import lmdb_compat
+
+            if lmdb_compat.lmdb_data_path(db_dir) is not None:
+                return super().__new__(LmdbRecordReader)
+        return super().__new__(cls)
 
     def __init__(self, db_dir: str):
         path = _data_path(db_dir)
@@ -164,6 +178,10 @@ class RecordReader:
         _, off, length = self._index[i]
         return bytes(self._mm[off:off + length])
 
+    def __iter__(self) -> Iterator[bytes]:
+        for i in range(len(self)):
+            yield self.get_at(i)
+
     def close(self) -> None:
         if self._mm is not None:
             self._mm.close()
@@ -174,3 +192,32 @@ class RecordReader:
 
     def __exit__(self, *exc):
         self.close()
+
+
+class LmdbRecordReader(RecordReader):
+    """RecordReader interface over a reference-built LMDB database; keys
+    come back in LMDB's sorted cursor order, the contract tsrstore's sorted
+    index gives (``tpuseg.data.recordstore.LmdbRecordReader``)."""
+
+    def __init__(self, db_dir: str):
+        from tpuseg_torch.data import lmdb_compat
+
+        self._r = lmdb_compat.LmdbReader(db_dir)
+
+    def __len__(self) -> int:
+        return len(self._r)
+
+    def keys(self) -> List[bytes]:
+        return self._r.keys()
+
+    def get(self, key) -> bytes:
+        return self._r.get(key)
+
+    def get_at(self, i: int) -> bytes:
+        return self._r.get_at(i)
+
+    def __iter__(self) -> Iterator[bytes]:
+        return iter(self._r)
+
+    def close(self) -> None:
+        self._r.close()

@@ -2,12 +2,14 @@
 inference.py:176-227), counterpart of ``tpuseg/infer/runner.py``: load the
 checkpoint, read images ahead of the device work with their whole-image
 z-score statistics (the normalization itself runs on the device), batch
-sub-tile images and halo-tile large ones, then dtype-minimize and save.
+sub-tile images and halo-tile large ones, then dtype-minimize and save;
+with ``streaming``, stream tiled-BigTIFF slides through the device as a
+rolling strip and write their masks incrementally.
 
 Runs on ``cfg.device`` — the card by default; asking for it without one
-raises instead of carrying on on the CPU. Streaming whole-slide inference,
-multi-host striping and multi-GPU tile sharding wait for later slices and
-raise ``NotImplementedError`` when asked for.
+raises instead of carrying on on the CPU. Multi-host striping and
+multi-GPU tile sharding wait for the multi-GPU slice and raise
+``NotImplementedError`` when asked for.
 """
 
 from __future__ import annotations
@@ -53,7 +55,8 @@ class InferenceConfig:
     # shard the tile grid over all local GPUs: waits for the multi-GPU
     # slice, so with more than one visible GPU it raises; a no-op on one
     data_parallel: bool = True
-    # stream tiled-BigTIFF inputs window by window: waits for a later slice
+    # stream tiled-BigTIFF inputs as a rolling strip of rows (images larger
+    # than host RAM); masks are written incrementally as tiled BigTIFF
     streaming: bool = False
     # overlap the next image's disk read + stats with device compute
     read_ahead: bool = True
@@ -107,13 +110,58 @@ def _erf_rng(cfg: InferenceConfig) -> Optional[np.random.Generator]:
     return None if cfg.seed is None else np.random.default_rng(cfg.seed)
 
 
-def _auto_tile(cfg: InferenceConfig, height: int, width: int, radius: int) -> int:
+def _inference_streaming(cfg: InferenceConfig, model, predict_fn,
+                         img_filepath_list: List[str], device: torch.device,
+                         calib_cache: Optional[dict] = None) -> List[str]:
+    """Whole-slide streaming mode: every input must be a tiled BigTIFF; its
+    rows stream through the device and the mask is written incrementally,
+    so images larger than host RAM segment end to end."""
+    from tpuseg_torch.infer.tiled import inference_tiled_streaming
+    from tpuseg_torch.utils.bigtiff import BigTiffReader
+
+    radius = cfg.radius
+    written = []
+    print("Starting streaming inference of file list")
+    for i, img_filepath in enumerate(img_filepath_list):
+        _, slide_name = os.path.split(img_filepath)
+        print(f"{i}/{len(img_filepath_list)} : {slide_name}")
+        out_path = os.path.join(cfg.output_folder, slide_name)
+        if os.path.realpath(out_path) == os.path.realpath(img_filepath):
+            # the writer would truncate the slide the reader is still
+            # reading regions from
+            raise ValueError(
+                f"streaming inference cannot write over its input: {img_filepath}")
+        with BigTiffReader(img_filepath) as reader:
+            print(f"  img.shape={reader.shape}")
+            _check_channels(reader.shape, cfg.number_channels, img_filepath)
+            if radius is None:
+                radius = estimate_radius(model, cfg.number_channels, rng=_erf_rng(cfg))
+                print(f'Estimated radius based on ERF : "{radius}"')
+            tile = cfg.tile_size
+            if cfg.auto_tile:
+                tile = _auto_tile(cfg, reader.height, reader.width, radius,
+                                  max_dim=min(reader.height, reader.width))
+            # int8 calibration already scanned this slide for its stats
+            cached = (calib_cache or {}).pop(img_filepath, None)
+            inference_tiled_streaming(
+                reader, predict_fn, out_path, tile, radius, cfg.batch_size,
+                num_classes=cfg.number_classes,
+                norm_stats=None if cached is None else cached[1], device=device)
+        written.append(out_path)
+    return written
+
+
+def _auto_tile(cfg: InferenceConfig, height: int, width: int, radius: int,
+               max_dim: Optional[int] = None) -> int:
     """The per-image tile choice for ``--auto_tile`` (slot-cost-optimal,
-    capped by the batch), degrading to the configured tile when no
-    halo-valid size exists and that tile is itself valid."""
+    capped by the batch and by ``max_dim``, since streaming needs slide >=
+    tile), degrading to the configured tile when no halo-valid size exists
+    and that tile is itself valid."""
     from tpuseg_torch.infer.tiled import choose_tile_size, max_auto_tile
 
     cap = max_auto_tile(cfg.batch_size)
+    if max_dim is not None:
+        cap = min(cap, (max_dim // 16) * 16)
     try:
         tile = choose_tile_size(height, width, radius, min_tile=min(512, cap),
                                 max_tile=cap, chunk=cfg.batch_size)
@@ -149,11 +197,14 @@ def _quantized_predict_fn(cfg: InferenceConfig, model, img_filepath_list: List[s
     halo-tiled dispatch and the one for batched small images (the same
     object except under ``int8_auto``), and a map from each calibration
     path to ``(decoded image or None, (mean, std))`` that the inference pass
-    reuses. ``cfg.calibration_in`` loads persisted scales instead."""
+    reuses (for a streamed slide only its stats: the streaming engine reads
+    the slide itself). ``cfg.calibration_in`` loads persisted scales
+    instead."""
     if cfg.quantize not in QUANTIZE_MODES[1:]:
         raise ValueError(f'unknown quantize mode "{cfg.quantize}" '
                          '(use "none", "int8", "int8_blocked" or "int8_auto")')
     from tpuseg_torch.infer import quant
+    from tpuseg_torch.utils.bigtiff import BigTiffReader
 
     def _fns(folded, ranges):
         def build(blocked):
@@ -178,19 +229,33 @@ def _quantized_predict_fn(cfg: InferenceConfig, model, img_filepath_list: List[s
     calib_cache: dict = {}
     cached_bytes = 0
     for p in _calibration_sample(img_filepath_list, cfg.calibration_images):
-        img = imread(p)
-        _check_channels(img.shape, cfg.number_channels, p)
-        mean, std = zscore_stats(img)  # whole-image stats, as inference uses
-        h = min(img.shape[0], _CALIB_MAX_DIM)
-        w = min(img.shape[1], _CALIB_MAX_DIM)
-        y0, x0 = (img.shape[0] - h) // 2, (img.shape[1] - w) // 2
-        crop = np.array(img[y0:y0 + h, x0:x0 + w], np.float32)
-        if cached_bytes + img.nbytes <= _CALIB_CACHE_BYTES:
-            calib_cache[p] = (img, (mean, std))
-            cached_bytes += img.nbytes
-        else:
+        if cfg.streaming:
+            with BigTiffReader(p) as reader:
+                _check_channels(reader.shape, cfg.number_channels, p)
+                # the stats streaming inference normalizes with: a window's
+                # own stats can misfit (a blank center tripping the std<=1
+                # guard while the slide's std does not)
+                mean, std = reader.streaming_zscore_stats()
+                h = min(reader.height, _CALIB_MAX_DIM)
+                w = min(reader.width, _CALIB_MAX_DIM)
+                crop = reader.read_region((reader.height - h) // 2,
+                                          (reader.width - w) // 2, h, w)
             calib_cache[p] = (None, (mean, std))
-            del img
+        else:
+            img = imread(p)
+            _check_channels(img.shape, cfg.number_channels, p)
+            mean, std = zscore_stats(img)  # whole-image stats, as inference uses
+            h = min(img.shape[0], _CALIB_MAX_DIM)
+            w = min(img.shape[1], _CALIB_MAX_DIM)
+            y0, x0 = (img.shape[0] - h) // 2, (img.shape[1] - w) // 2
+            crop = np.array(img[y0:y0 + h, x0:x0 + w], np.float32)
+            if cached_bytes + img.nbytes <= _CALIB_CACHE_BYTES:
+                calib_cache[p] = (img, (mean, std))
+                cached_bytes += img.nbytes
+            else:
+                calib_cache[p] = (None, (mean, std))
+                del img
+        crop = np.asarray(crop, np.float32)
         if crop.ndim == 2:
             crop = crop[..., None]
         raw.append((crop, mean, std))
@@ -266,10 +331,6 @@ def _check_supported(cfg: InferenceConfig) -> None:
         raise ValueError("calibration_in skips calibration, so there are no "
                          "fresh scales for calibration_out — pass one or the "
                          "other")
-    if cfg.streaming:
-        raise NotImplementedError(
-            "streaming whole-slide inference is not ported yet (it comes "
-            "with the streaming-serving slice); use tpuseg for --streaming")
 
 
 def inference(cfg: InferenceConfig) -> List[str]:
@@ -313,6 +374,10 @@ def inference(cfg: InferenceConfig) -> List[str]:
     else:
         predict_fn, small_predict_fn, calib_cache = _quantized_predict_fn(
             cfg, model, img_filepath_list, device)
+
+    if cfg.streaming:
+        return _inference_streaming(cfg, model, predict_fn, img_filepath_list, device,
+                                    calib_cache)
 
     radius = cfg.radius
     written = []

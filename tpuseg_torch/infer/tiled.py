@@ -13,13 +13,14 @@ reflect padding to x16, the same trim order. What changes with PyTorch:
 - eager execution needs no program cache and no static-shape padding: a
   short last chunk simply runs as a smaller batch.
 
-The streaming engine (images larger than host RAM) waits for a later
-slice.
+:func:`inference_tiled_streaming` segments tiled-BigTIFF slides larger than
+host RAM with the same geometry, as a rolling strip of rows on the device;
+its masks equal :func:`inference_tiled`'s given the same statistics.
 """
 
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Tuple
+from typing import Any, Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -87,17 +88,29 @@ def make_predict_fn(model: torch.nn.Module) -> PredictFn:
     return predict
 
 
-def _to_device(img: np.ndarray, device) -> torch.Tensor:
-    """Ship ``img`` in its native dtype and widen it on the device. uint16
-    (the microscopy corpus' type) has no CUDA arithmetic in torch, so its
-    bits travel as int16 and are masked back to 0..65535 there."""
+def _host_tensor(img: np.ndarray) -> torch.Tensor:
+    """``img``'s bits as a host tensor in the dtype that ships: native
+    where torch has the type, uint16 (the microscopy corpus' type, which
+    has no CUDA arithmetic in torch) as its int16 bits, float32 otherwise."""
     img = np.ascontiguousarray(img)
     if img.dtype == np.uint16:
-        t = torch.from_numpy(img.view(np.int16)).to(device).to(torch.int32)
-        return (t & 0xFFFF).to(torch.float32)
+        return torch.from_numpy(img.view(np.int16))
     if img.dtype in (np.uint8, np.int8, np.int16, np.int32, np.float32):
-        return torch.from_numpy(img).to(device).to(torch.float32)
-    return torch.from_numpy(img.astype(np.float32)).to(device)
+        return torch.from_numpy(img)
+    return torch.from_numpy(img.astype(np.float32))
+
+
+def _widen(t: torch.Tensor, uint16: bool) -> torch.Tensor:
+    """float32 pixels from a shipped tensor; uint16 bits are masked back to
+    0..65535."""
+    if uint16:
+        return (t.to(torch.int32) & 0xFFFF).to(torch.float32)
+    return t.to(torch.float32)
+
+
+def _to_device(img: np.ndarray, device) -> torch.Tensor:
+    """Ship ``img`` in its native dtype and widen it on the device."""
+    return _widen(_host_tensor(img).to(device), img.dtype == np.uint16)
 
 
 def _zscore(x: torch.Tensor, mean: torch.Tensor, std: torch.Tensor) -> torch.Tensor:
@@ -136,6 +149,17 @@ def _zor_placements(height: int, width: int, zor: int, tile_size: int,
     return placements
 
 
+def inference_single(img: np.ndarray, predict_fn: PredictFn, device="cuda") -> np.ndarray:
+    """Small-image path (inference.py:139-173): pad to x16, one forward,
+    argmax, unpad. ``img`` is taken as already normalized."""
+    if img.ndim not in (2, 3):
+        raise IOError("Invalid number of dimensions for input image. "
+                      "Expecting HW or HWC dimension ordering.")
+    img, pad_y, pad_x = _pad_to_multiple(img)
+    pred = predict_fn(_to_device(img[None], device))[0].cpu().numpy()
+    return pred[:pred.shape[0] - pad_y, :pred.shape[1] - pad_x]
+
+
 def inference_single_batch(imgs: List[np.ndarray], predict_fn: PredictFn,
                            batch_size: int = 8, stats=None,
                            device="cuda") -> List[np.ndarray]:
@@ -172,15 +196,15 @@ def inference_single_batch(imgs: List[np.ndarray], predict_fn: PredictFn,
     return [p[:h - pad_y, :w - pad_x] for p in preds]
 
 
-def _forward_tiles(predict_fn: PredictFn, padded: torch.Tensor, placements,
+def _forward_tiles(predict_fn: PredictFn, padded: torch.Tensor, windows,
                    tile_size: int, chunk: int) -> torch.Tensor:
-    """Cut the windows of ``placements`` out of the device image and run
-    them ``chunk`` at a time; returns ``(n_tiles, tile, tile)`` labels."""
+    """Cut the windows at ``(window_y, window_x)`` out of the device image
+    and run them ``chunk`` at a time; returns ``(n_tiles, tile, tile)``
+    labels."""
     preds = []
-    for s in range(0, len(placements), chunk):
-        tiles = torch.stack([
-            padded[y_st:y_st + tile_size, x_st:x_st + tile_size]
-            for (_, _, _, _, y_st, x_st) in placements[s:s + chunk]])
+    for s in range(0, len(windows), chunk):
+        tiles = torch.stack([padded[y_st:y_st + tile_size, x_st:x_st + tile_size]
+                             for (y_st, x_st) in windows[s:s + chunk]])
         preds.append(predict_fn(tiles))
     return torch.cat(preds)
 
@@ -194,7 +218,8 @@ def inference_tiled(
     num_classes: Optional[int] = None,
     norm_stats: Optional[Tuple[np.ndarray, np.ndarray]] = None,
     device="cuda",
-) -> np.ndarray:
+    device_output: bool = False,
+):
     """Large-image path (inference.py:27-136): ZoR grid with ERF halos,
     fixed-shape slide-to-fit windows, batched device execution.
 
@@ -203,7 +228,9 @@ def inference_tiled(
     device; otherwise ``img`` is taken as already normalized.
 
     Returns the mask as uint8 when ``num_classes <= 256`` was given (the
-    device emits bytes — a quarter of the transfer), int32 otherwise.
+    device emits bytes — a quarter of the transfer), int32 otherwise; with
+    ``device_output`` as the cropped tensor on the device, for callers that
+    keep post-processing (metrics, encoding) there.
     """
     if img.ndim not in (2, 3):
         raise IOError("Invalid number of dimensions for input image. "
@@ -228,7 +255,8 @@ def inference_tiled(
         mean, std = (torch.from_numpy(np.asarray(s, np.float32).reshape(-1)).to(device)
                      for s in norm_stats)
         padded = _zscore(padded, mean, std)
-    preds = _forward_tiles(predict_fn, padded, placements, tile_size, batch_size)
+    preds = _forward_tiles(predict_fn, padded, [p[4:] for p in placements], tile_size,
+                           batch_size)
 
     shrink_u8 = num_classes is not None and num_classes <= 256
     mask = torch.zeros((height, width), dtype=torch.uint8 if shrink_u8 else torch.int32,
@@ -236,8 +264,165 @@ def inference_tiled(
     for k, (i, j, y_end_z, x_end_z, y_st, x_st) in enumerate(placements):
         mask[i:y_end_z, j:x_end_z] = preds[k, i - y_st:y_end_z - y_st,
                                            j - x_st:x_end_z - x_st]
-    mask = mask.cpu().numpy()
-    return mask[:height - pad_y, :width - pad_x]
+    mask = mask[:height - pad_y, :width - pad_x]
+    return mask if device_output else mask.cpu().numpy()
+
+
+def _strip_row(predict_fn: PredictFn, strip: torch.Tensor, xs, tile_size: int,
+               batch_size: int, width: int, band_h: int, y_off: int,
+               shrink_u8: bool) -> torch.Tensor:
+    """One zone row of the streaming path (``_build_strip_row_program`` in
+    JAX): cut the row's windows out of the normalized ``(tile, width, C)``
+    device strip, run them ``batch_size`` at a time, and stitch the trimmed
+    zones into a ``(band_h, width)`` band. ``y_off = zone_y - window_y``."""
+    preds = _forward_tiles(predict_fn, strip, [(0, x_st) for (_, _, x_st) in xs],
+                           tile_size, batch_size)
+    band = torch.empty((band_h, width), dtype=torch.uint8 if shrink_u8 else torch.int32,
+                       device=strip.device)
+    for k, (j, x_end_z, x_st) in enumerate(xs):
+        band[:, j:x_end_z] = preds[k, y_off:y_off + band_h, j - x_st:x_end_z - x_st]
+    return band
+
+
+def inference_tiled_streaming(
+    reader,
+    predict_fn: PredictFn,
+    out_path: str,
+    tile_size: int = TILE_SIZE,
+    radius: int = RADIUS,
+    batch_size: int = 8,
+    num_classes: Optional[int] = None,
+    norm_stats: Optional[Tuple[np.ndarray, np.ndarray]] = None,
+    compression_level: int = 6,
+    progress: bool = True,
+    device="cuda",
+) -> str:
+    """Whole-slide inference for images larger than host RAM
+    (``tpuseg.infer.tiled.inference_tiled_streaming``): the ZoR/halo grid of
+    :func:`inference_tiled`, streamed as a rolling ``(tile, width, C)`` strip
+    on the device. Per zone row the host reads only the fresh rows (the
+    :class:`~tpuseg_torch.utils.bigtiff.BigTiffReader` ``reader`` decodes
+    only the tiles they overlap, on a producer thread one row ahead), ships
+    them once in their native dtype, and the device z-scores them, rolls
+    the strip, runs the row's windows and stitches the trimmed zone band,
+    which an incremental tiled BigTIFF writer with (zor, zor) tiles appends
+    to ``out_path``. Peak host memory is a strip of fresh rows plus a band
+    or two, whatever the slide's size.
+
+    On the card, transfers overlap compute: the fresh rows go up from
+    pinned memory without blocking, and band k comes down into pinned
+    memory behind a CUDA event, which is waited on only after row k+1 is
+    queued, so the host deflates band k while the card runs row k+1.
+
+    ``norm_stats`` defaults to the reader's single-pass float64 statistics;
+    given equal stats the mask equals :func:`inference_tiled`'s. The mask is
+    uint8 at <= 256 classes, uint16 at <= 65536, int32 otherwise. On any
+    failure the writer is aborted and the reading thread released.
+
+    Returns ``out_path``.
+    """
+    from tpuseg_torch.utils.bigtiff import BigTiffTileWriter
+    from tpuseg_torch.utils.queues import prefetch_iter
+
+    height, width = reader.height, reader.width
+    if height < tile_size or width < tile_size:
+        raise ValueError(
+            f"streaming path expects a whole-slide image >= {tile_size}px per "
+            f"dim, got {height}x{width} — use inference_tiled/_single instead")
+    zor = tile_size - 2 * radius
+    _check_tile_geometry(tile_size, radius, zor)
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+
+    if norm_stats is None:
+        norm_stats = reader.streaming_zscore_stats()
+    mean, std = (torch.from_numpy(np.asarray(s, np.float32).reshape(-1)).to(device)
+                 for s in norm_stats)
+
+    if num_classes is not None and num_classes <= 256:
+        out_dtype: Any = np.uint8
+    elif num_classes is not None and num_classes <= 65536:
+        out_dtype = np.uint16
+    else:
+        out_dtype = np.int32
+    shrink = num_classes is not None and num_classes <= 256
+
+    # row geometry from a width-1 call and column geometry from a height-1
+    # call of the shared grid definition: their outer product is the
+    # in-RAM grid, so the two paths cannot disagree
+    rows = [(i, y_end_z - i, i - y_st, y_st)  # (zone_y, band_h, y_off, window_y)
+            for (i, _, y_end_z, _, y_st, _)
+            in _zor_placements(height, 1, zor, tile_size, radius, height, tile_size)]
+    xs = [(j, x_end_z, x_st)
+          for (_, j, _, x_end_z, _, x_st)
+          in _zor_placements(1, width, zor, tile_size, radius, tile_size, width)]
+    n_cols = len(xs)
+    uint16 = np.dtype(reader.dtype) == np.uint16
+
+    def fresh_rows():
+        """Per zone row, the rows its window adds below the last strip (None
+        when it adds none), as a host tensor ready to ship: pinned on the
+        card, so the upload does not block."""
+        prev_end = 0  # exclusive end of the last strip already shipped
+        for _, _, _, y_st in rows:
+            d = y_st + tile_size - prev_end
+            prev_end = y_st + tile_size
+            if d == 0:
+                yield None
+                continue
+            t = _host_tensor(reader.read_region(prev_end - d, 0, d, width))
+            yield t.pin_memory() if on_card else t
+
+    writer = BigTiffTileWriter(out_path, (height, width), out_dtype,
+                               tile=(zor, zor), level=compression_level)
+    done = 0
+
+    def start_download(band_dev):
+        """Queue band k's copy to the host; returns (host tensor, event)."""
+        if not on_card:
+            return band_dev, None
+        host = torch.empty(band_dev.shape, dtype=band_dev.dtype, pin_memory=True)
+        host.copy_(band_dev, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return host, event
+
+    def write_band(pending):
+        nonlocal done
+        host, event = pending
+        if event is not None:
+            event.synchronize()  # band k only: row k+1 keeps running
+        band = host.numpy()
+        for j, x_end_z, _ in xs:
+            writer.put_tile(band[:, j:x_end_z].astype(out_dtype))
+        done += n_cols
+        if progress:
+            print(f"  streamed {done}/{len(rows) * n_cols} zones", flush=True)
+
+    strip = None  # the device-resident, normalized (tile, width, C) window
+    pending = None  # band k, on its way to the host while row k+1 runs
+    produced = prefetch_iter(fresh_rows(), maxsize=1, name="tpuseg-torch-stream-read")
+    try:
+        with torch.inference_mode():
+            for (_, band_h, y_off, _), new in zip(rows, produced):
+                if new is not None:
+                    fresh = _zscore(_widen(new.to(device, non_blocking=True), uint16),
+                                    mean, std)
+                    strip = fresh if strip is None else torch.cat([strip[fresh.shape[0]:], fresh])
+                band = _strip_row(predict_fn, strip, xs, tile_size, batch_size, width,
+                                  band_h, y_off, shrink)
+                if pending is not None:
+                    write_band(pending)
+                pending = start_download(band)
+            if pending is not None:
+                write_band(pending)
+        writer.close()
+    except BaseException:
+        writer.abort()
+        raise
+    finally:
+        produced.close()  # stops the reading thread on every exit path
+    return out_path
 
 
 def minimize_dtype(mask: np.ndarray) -> np.ndarray:
