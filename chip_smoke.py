@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving and training paths once on one
-NVIDIA card.
+"""Drive the PyTorch/CUDA port's serving, training and migration paths once
+on one NVIDIA card.
 
     python3 chip_smoke.py [--seed N] [--out results.json]
 
@@ -66,7 +66,20 @@ package. Phases, each fatal on failure:
    as ``tiling_boxes`` implies), converted to LMDB by ``cli.convert_db`` and
    one back (records byte-equal), and a few train steps through
    ``tpuseg_torch.cli.train`` on the LMDB copies (finite losses, 3 shear
-   launches a step).
+   launches a step);
+8. migration and tooling: write phase 4's balanced model as a Keras 2
+   reference ``tf.train.Checkpoint`` with the port's numpy bundle writer
+   (no TensorFlow anywhere), import it through
+   ``tpuseg_torch.cli.import_checkpoint`` (weights bit-equal, tensorflow
+   never loaded), serve phase 4's folder from it through ``cli.inference
+   --quantize int8_blocked`` (K2 launched as often as in phase 4, masks
+   agreeing with phase 4's on >= 0.9999), then resume training from it
+   through ``cli.train --resume_checkpoint --profile_steps 5`` on phase 6's
+   databases (base 64, bf16, batch 8, two epochs of 7 steps; 3 shear
+   launches a step); ``trace_analysis.analyze`` of the profiled window must
+   count 5 steps and 15 shear launches and give a busy share, and the
+   TensorBoard event files must read back (CRCs) with one scalar per tag
+   per logged window and test epoch.
 
 The last lines are ``{"kernels": [...]}``, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``. Without a card it exits 1 and prints
@@ -105,6 +118,9 @@ BASE = 64  # the reference width (model.py:20)
 # SLIDE_TEST_EVERY + 1 train steps at SLIDE_BASE on their LMDB copies
 STREAM_TILE, BIG2 = 512, 8192
 N_SLIDES, SLIDE, SLIDE_BASE, SLIDE_TEST_EVERY = 8, 1024, 16, 4
+# phase 8: the resumed run's epochs of MIGRATE_TEST_EVERY + 1 steps, the
+# first PROFILE_STEPS of epoch 1 traced
+MIGRATE_TEST_EVERY, MIGRATE_LOG_EVERY, PROFILE_STEPS = 6, 3, 5
 
 
 def log(msg: str) -> None:
@@ -434,33 +450,17 @@ def phase_reference(model, seed: int, dev) -> dict:
     return {"folded_f32_rel_err": logit_err, "int8_blocked_card_vs_cpu_agree": agree}
 
 
-# kernel-name fragments -> group, first match wins (a name heuristic)
-KERNEL_GROUPS = (
-    ("K1 shear_rows", ("shear_rows",)),
-    ("K2 head_argmax", ("head_mma_kernel", "head_fp_kernel", "head_s8_kernel")),
-    ("layout transposes", ("nchwToNhwc", "nhwcToNchw")),
-    ("cuDNN / GEMM", ("cudnn", "xmma", "gemm", "cutlass", "sm90_", "sm80_", "wgrad", "dgrad")),
-    ("reductions", ("reduce_kernel",)),
-    ("copies and casts", ("copy", "Cat", "Memcpy", "Memset")),
-    ("elementwise", ("elementwise",)),
-)
-
-
-def kernel_group(name: str) -> str:
-    for group, keys in KERNEL_GROUPS:
-        if any(k in name for k in keys):
-            return group
-    return "other"
-
-
 def device_profile(run, what: str) -> dict:
     """Where the time goes: ``run()`` under ``torch.profiler``; device time
-    by kernel and by group of kernels (``KERNEL_GROUPS``), and the kernels'
-    share of the wall time (one stream, so kernel times add; the wall time
-    includes the profiler's own cost)."""
+    by kernel and by group of kernels (``trace_analysis.KERNEL_GROUPS``, the
+    grouping ``python -m tpuseg_torch.utils.trace_analysis`` uses), and the
+    kernels' share of the wall time (one stream, so kernel times add; the
+    wall time includes the profiler's own cost)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from tpuseg_torch.utils.trace_analysis import kernel_group
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1325,6 +1325,174 @@ def phase_stream(seed: int, work: str, dev, radius: int) -> dict:
             "data": phase_slide_data(seed, work, dev)}
 
 
+def phase_migration(seed: int, work: str, dev, main_res: dict, train_res: dict) -> dict:
+    """Phase 8: phase 4's balanced model written as a Keras 2 reference
+    checkpoint without TensorFlow, imported through the import CLI (weights
+    bit-equal, TensorFlow never loaded), served through K2 as phase 4 served
+    it (K2's count zeroed just before, read just after), then resumed through
+    the train CLI on phase 6's databases with a profiled window (K1's count
+    zeroed just before, read just after) whose trace the trace analysis
+    reads, and whose event files are read back."""
+    import glob
+
+    import numpy as np
+    import torch
+
+    from tpuseg_torch.cli.import_checkpoint import main as import_cli
+    from tpuseg_torch.cli.inference import main as infer_cli
+    from tpuseg_torch.cli.train import main as train_cli
+    from tpuseg_torch.infer import head_kernel
+    from tpuseg_torch.ops import warp
+    from tpuseg_torch.utils import tb_events, trace_analysis
+    from tpuseg_torch.utils.imagio import imread
+    from tpuseg_torch.utils.tf_bundle import write_bundle
+    from tpuseg_torch.utils.tf_export import keras2_checkpoint_tensors
+
+    t_phase = time.perf_counter()
+    res: dict = {}
+    sd = torch.load(os.path.join(work, "model.pt"), map_location="cpu",
+                    weights_only=True)["state_dict"]
+    t0 = time.perf_counter()
+    tensors = keras2_checkpoint_tensors(sd)
+    tensors["optimizer/iter/.ATTRIBUTES/VARIABLE_VALUE"] = np.int64(0)
+    prefix = write_bundle(os.path.join(work, "tfckpt", "ckpt"), tensors)
+    res["write_s"] = time.perf_counter() - t0
+    res["checkpoint_bytes"] = sum(os.path.getsize(p) for p in glob.glob(prefix + ".*"))
+
+    imported_dir = os.path.join(work, "imported")
+    t0 = time.perf_counter()
+    geometry = import_cli(["--tf_checkpoint", os.path.dirname(prefix),
+                           "--output_folder", imported_dir])
+    res["import_s"] = time.perf_counter() - t0
+    if "tensorflow" in sys.modules:
+        raise AssertionError("the import loaded tensorflow")
+    if geometry != {"number_channels": 1, "base_features": BASE, "number_classes": NCLS}:
+        raise AssertionError(f"imported geometry {geometry}")
+    imported = os.path.join(imported_dir, "ckpt")
+    got = torch.load(imported, map_location="cpu", weights_only=True)["state_dict"]
+    differ = sorted(k for k in sd if k not in got or not torch.equal(got[k], sd[k]))
+    if set(got) != set(sd) or differ:
+        raise AssertionError(f"imported weights differ from the model's: {differ[:5]}")
+    log(f"migration: Keras 2 reference checkpoint of {res['checkpoint_bytes'] / 1e6:.1f} MB "
+        f"written in {res['write_s']:.2f} s without TensorFlow; imported in "
+        f"{res['import_s']:.2f} s ({len(sd)} tensors bit-equal, tensorflow not loaded)")
+
+    # serve phase 4's folder from the imported checkpoint, as phase 4 did
+    imgdir = os.path.join(work, "images")
+    out = os.path.join(work, "masks_imported")
+    cal = os.path.join(work, "cal_imported.json")
+    torch.cuda.synchronize()
+    head_kernel.LAUNCHES = 0
+    t0 = time.perf_counter()
+    written = infer_cli(["--checkpoint_filepath", imported, "--image_folder", imgdir,
+                         "--output_folder", out, "--number_classes", str(NCLS),
+                         "--number_channels", "1", "--base_features", str(BASE),
+                         "--device", dev.type, "--tile_size", str(TILE),
+                         "--batch_size", str(BATCH), "--seed", str(seed),
+                         "--quantize", "int8_blocked", "--calibration_out", cal])
+    torch.cuda.synchronize()
+    res["serve_s"] = time.perf_counter() - t0
+    res["k2_launches"] = head_kernel.LAUNCHES
+    want_launches = main_res["launches"]["blocked_head_argmax"]
+    if res["k2_launches"] != want_launches:
+        raise AssertionError(f"serving the imported checkpoint launched K2 "
+                             f"{res['k2_launches']} times, phase 4 {want_launches}")
+    same = total = 0
+    for path in written:
+        name = os.path.basename(path)
+        a, b = imread(path), imread(os.path.join(work, "masks_int8_blocked", name))
+        if a.shape != b.shape:
+            raise AssertionError(f"{name}: mask {a.shape} vs phase 4's {b.shape}")
+        same += int((a == b).sum())
+        total += a.size
+    res["agree_with_phase4"] = same / total
+    res["pixels_differing"] = total - same
+    with open(cal) as f, open(os.path.join(work, "cal.json")) as g:
+        mine, theirs = json.load(f)["act_ranges"], json.load(g)["act_ranges"]
+    res["calibration_max_rel_diff"] = max(abs(mine[k] - theirs[k]) / max(abs(theirs[k]), 1e-30)
+                                          for k in theirs)
+    log(f"served the imported checkpoint (int8_blocked): {len(written)} masks in "
+        f"{res['serve_s']:.2f} s, K2 launches {res['k2_launches']} (phase 4: "
+        f"{want_launches}), masks agree with phase 4's on {res['agree_with_phase4']!r} "
+        f"({res['pixels_differing']} pixels differ), calibration ranges within "
+        f"{res['calibration_max_rel_diff']:.2e} of phase 4's")
+    if res["agree_with_phase4"] < 0.9999:
+        raise AssertionError(f"masks agree with phase 4's on {res['agree_with_phase4']} < 0.9999")
+
+    # resume training from the imported checkpoint, epoch 1 profiled
+    tout = os.path.join(work, "migrated_train")
+    torch.cuda.synchronize()
+    warp.LAUNCHES = 0
+    t0 = time.perf_counter()
+    result = train_cli([
+        "--train_database", os.path.join(work, "train.lmdb"),
+        "--test_database", os.path.join(work, "test.lmdb"), "--output_dir", tout,
+        "--resume_checkpoint", imported, "--profile_steps", str(PROFILE_STEPS),
+        "--batch_size", str(TRAIN_BATCH), "--test_every_n_steps", str(MIGRATE_TEST_EVERY),
+        "--max_epochs", "2", "--seed", str(seed), "--device", dev.type,
+        "--base_features", str(BASE), "--dtype", "bfloat16",
+        "--log_every_n_steps", str(MIGRATE_LOG_EVERY), "--reader_count", "2",
+        "--learning_rate", str(TRAIN_LR)])
+    torch.cuda.synchronize()
+    res["train_s"] = time.perf_counter() - t0
+    steps = 2 * (MIGRATE_TEST_EVERY + 1)
+    res["train"] = {"steps": result.steps, "shear_launches": warp.LAUNCHES,
+                    "train_losses": result.train_losses, "test_loss": result.test_loss}
+    if result.steps != steps or warp.LAUNCHES != 3 * steps:
+        raise AssertionError(f"{result.steps} steps and {warp.LAUNCHES} shear launches: "
+                             f"expected {steps} and 3 per step")
+    if not (np.isfinite(result.train_losses).all() and np.isfinite(result.test_loss).all()):
+        raise AssertionError(f"non-finite losses: {result.train_losses} {result.test_loss}")
+    trace = trace_analysis.analyze(os.path.join(tout, "profile"), top=12)
+    if trace["device_plane"] is None:
+        raise AssertionError(f"the profiled window holds no device events: {trace['note']}")
+    shear = trace["groups"].get("K1 shear_rows", {}).get("count", 0)
+    res["trace"] = {k: v for k, v in trace.items() if k != "top_kernels"}
+    res["trace"]["top_kernels"] = [[ms, share, n, name[:120]]
+                                   for ms, share, n, name in trace["top_kernels"]]
+    log(f"resumed training: {result.steps} steps in {res['train_s']:.1f} s, {warp.LAUNCHES} "
+        f"shear launches, losses {[round(v, 4) for v in result.train_losses]}, test "
+        f"{result.test_loss}; trace of {trace['steps']} steps: {trace['total_ms']:.1f} ms of "
+        f"device time ({trace['ms_per_step']:.1f} ms/step), busy {trace['busy_share']:.1%} "
+        f"of {trace['window_ms']:.1f} ms (steps "
+        f"{', '.join(f'{ms:.1f}' for ms in trace['step_wall_ms'])} ms), K1 launches {shear}")
+    phase6 = train_res["profile_train"]["by_group"]
+    for group, g in trace["groups"].items():
+        was = phase6.get(group, {}).get("share")
+        log(f"  {group:<18} {g['ms']:9.2f} ms {g['share']:6.1%} x{g['count']:<6d} (phase 6 "
+            f"profile_train: {'-' if was is None else f'{was:.1%}'})")
+    if trace["steps"] != PROFILE_STEPS or shear != 3 * PROFILE_STEPS or \
+            trace["busy_share"] is None:
+        raise AssertionError(f"trace: {trace['steps']} steps, {shear} shear launches, busy "
+                             f"{trace['busy_share']}: expected {PROFILE_STEPS}, "
+                             f"{3 * PROFILE_STEPS} and a share")
+
+    # the event files: CRCs checked by reading, scalars per tag counted
+    (tb,) = glob.glob(os.path.join(tout, "tensorboard-*"))
+    counts = {}
+    for split in ("train", "test"):
+        (path,) = glob.glob(os.path.join(tb, split, "events.out.tfevents.*"))
+        events = tb_events.read_events(path)
+        if events[0].get("file_version") != tb_events.FILE_VERSION:
+            raise AssertionError(f"{path}: first event {events[0]}")
+        counts[split] = {}
+        for e in events[1:]:
+            counts[split][e["tag"]] = counts[split].get(e["tag"], 0) + 1
+        if split == "train":
+            losses = [e["value"] for e in events if e.get("tag") == "loss"]
+            if losses != [float(np.float32(v)) for v in result.train_losses]:
+                raise AssertionError(f"train loss events {losses} vs {result.train_losses}")
+    n = len(result.train_losses)
+    want = {"train": {"loss": n, "accuracy": n, "images_per_sec": n - 1},
+            "test": {"loss": 2, "accuracy": 2}}
+    res["event_counts"] = counts
+    if counts != want:
+        raise AssertionError(f"event counts {counts}, expected {want}")
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"event files: {counts}, CRCs checked; phase 8 took {res['phase_s']:.1f} s")
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1366,6 +1534,7 @@ def main() -> int:
     main_res = phase_main(args.seed, work, dev, card)
     train_res = phase_train(args.seed, work, dev, card)
     stream_res = phase_stream(args.seed, work, dev, main_res["radius"])
+    migration_res = phase_migration(args.seed, work, dev, main_res, train_res)
 
     fp, s8 = kern["fp"], kern["int8"]
     kernels = [{
@@ -1376,6 +1545,7 @@ def main() -> int:
         "launches_streaming": stream_res["engine"]["launches"],
         "launches_by_cli_run": {k: r["k2_launches"]
                                 for k, r in stream_res["clis"]["runs"].items()},
+        "launches_migration": migration_res["k2_launches"],
         "max_abs_err": fp["max_abs_err"], "ms": fp["ms"], "plain_ms": fp["plain_ms"],
         "bound_ms": fp["bound_ms"], "bound_by": fp["bound_by"], "library_ms": None,
         "library_note": "no single PyTorch call computes head + per-phase argmax + "
@@ -1395,6 +1565,7 @@ def main() -> int:
         "replaces": "tpuseg/ops/warp.py:67",
         "also_replaces": "tpuseg/ops/warp.py:147",
         "launches": train_res["launches"]["shear_rows"],
+        "launches_migration": migration_res["train"]["shear_launches"],
         "max_abs_err": shear["max_abs_err"], "ms": shear["ms"],
         "plain_ms": shear["plain_ms"], "bound_ms": shear["bound_ms"],
         "bound_by": shear["bound_by"], "library_ms": shear["library_ms"],
@@ -1406,7 +1577,7 @@ def main() -> int:
     }]
     summary = {"card": card, "torch": torch.__version__, "build_s": build_s,
                "kernels": kern, "shear": shear, "main": main_res, "train": train_res,
-               "stream": stream_res,
+               "stream": stream_res, "migration": migration_res,
                "total_s": time.perf_counter() - t_start}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -166,3 +166,50 @@ def test_preprocess_and_host_augment_copies():
     b = jax_augment_image(img, msk, rng=np.random.default_rng(1), **kw)
     np.testing.assert_array_equal(a[0], b[0])
     np.testing.assert_array_equal(a[1], b[1])
+
+
+@pytest.fixture(scope="module")
+def multiclass_db(tmp_path_factory):
+    """12 records of 3-channel uint16 images with 4-class masks; keys list
+    the classes present (as the database build writes them), so class 3
+    is rare and class-balanced sampling changes the draw."""
+    db = str(tmp_path_factory.mktemp("mc") / "train-mc.lmdb")
+    rng = np.random.default_rng(0)
+    with RecordWriter(db) as w:
+        for i in range(12):
+            img = rng.integers(0, 65535, (16, 16, 3), dtype=np.uint16)
+            msk = rng.integers(0, 2, (16, 16)).astype(np.uint8)
+            if i % 3 == 1:
+                msk[msk == 1] = 2
+            if i == 5:
+                msk[:4][msk[:4] == 0] = 3
+            classes = ",".join(str(c) for c in np.unique(msk))
+            w.put(f"img{i:03d}:{classes}".encode(), tbuild.serialize_image_mask_pair(img, msk))
+    return db
+
+
+@pytest.mark.parametrize("raw_mode", [True, False])
+def test_balanced_multiclass_reader_matches_tpuseg(multiclass_db, raw_mode):
+    """balance_classes=True with K=4 classes over C=3 channels: the seeded
+    readers draw the same records in the same order; raw samples are
+    equal, and the host path gives equal augmented z-scored images and
+    4-class one-hot labels."""
+    kw = dict(use_augmentation=not raw_mode, balance_classes=True, shuffle=True,
+              num_workers=1, number_classes=4, raw_mode=raw_mode, layout="nhwc", seed=21)
+    out = []
+    for cls in (ImageReader, JaxReader):
+        with cls(multiclass_db, **kw) as r:
+            assert [len(k) for k in r.keys] == [12, 8, 4, 1]
+            batches = r.batches(4)
+            out.append([next(batches) for _ in range(5)])
+            batches.close()
+    for (gi, gl), (wi, wl) in zip(*out):
+        assert gi.shape == (4, 16, 16, 3)
+        assert gl.shape == ((4, 16, 16) if raw_mode else (4, 16, 16, 4))
+        assert gi.dtype == wi.dtype and gl.dtype == wl.dtype
+        np.testing.assert_array_equal(gi, wi)
+        np.testing.assert_array_equal(gl, wl)
+    if raw_mode:
+        # class-balanced: the one record with class 3 is drawn far above 1/12
+        drawn = np.concatenate([lbl for _, lbl in out[0]])
+        assert (drawn == 3).any(axis=(1, 2)).sum() >= 2

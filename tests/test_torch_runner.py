@@ -137,16 +137,17 @@ def test_cli_cuda_without_a_card_raises(ckpts, tmp_path):
 
 
 def test_port_imports_neither_jax_nor_tpuseg():
-    """Every tpuseg_torch module (40 with the streaming slice) imports in a
-    fresh interpreter without pulling in jax, flax, orbax, protobuf or
-    anything of tpuseg."""
+    """Every tpuseg_torch module (47 with the migration and tooling slice)
+    imports in a fresh interpreter without pulling in jax, flax, orbax,
+    TensorFlow, protobuf or anything of tpuseg."""
     code = (
         "import importlib, pkgutil, sys, tpuseg_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(tpuseg_torch.__path__, 'tpuseg_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'orbax', 'tpuseg') or k.startswith('google.protobuf'))\n"
-        "assert len(mods) >= 40, mods\n"
+        "('jax', 'jaxlib', 'flax', 'orbax', 'tpuseg', 'tensorflow') "
+        "or k.startswith('google.protobuf'))\n"
+        "assert len(mods) >= 47, mods\n"
         "assert not bad, bad\n"
         "print(len(mods))\n")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

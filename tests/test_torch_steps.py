@@ -111,6 +111,33 @@ def no_flax_dropout(monkeypatch):
     monkeypatch.setattr(nn.Dropout, "__call__", lambda self, x, *a, **k: x)
 
 
+def _assert_state_close(jstate, port):
+    """Parameters and BatchNorm running statistics after training, within
+    the tolerances of the module docstring."""
+    want = flax_to_state_dict({"params": jax.tree_util.tree_map(np.asarray, jstate.params),
+                               "batch_stats": jax.tree_util.tree_map(np.asarray,
+                                                                     jstate.batch_stats)})
+    got = port.state_dict()
+    n_par = n_par_ok = n_stat = n_stat_ok = 0
+    for k, v in want.items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        a, b = got[k].numpy(), v.numpy()
+        d = np.abs(a - b)
+        if "running" in k:
+            n_stat += d.size
+            n_stat_ok += int((d <= 1e-7 + 1e-5 * np.abs(b)).sum())
+            assert (d <= 1e-6 + 1e-3 * np.abs(b)).all(), (k, d.max())
+        else:
+            n_par += d.size
+            n_par_ok += int((d <= 1e-6 + 1e-4 * np.abs(b)).sum())
+            assert d.max() <= LR / 4, (k, d.max())
+    print(f"params within tolerance {n_par_ok / n_par:.5f}, "
+          f"running stats {n_stat_ok / n_stat:.5f}")
+    assert n_par_ok / n_par >= 0.995
+    assert n_stat_ok / n_stat >= 0.98
+
+
 def test_three_train_steps_match_tpuseg(no_flax_dropout):
     model = JaxUNet(num_classes=2, base_features=4, dtype=jnp.float32)
     variables = init_variables(model, jax.random.PRNGKey(0), num_channels=1)
@@ -148,29 +175,38 @@ def test_three_train_steps_match_tpuseg(no_flax_dropout):
                 assert err < 1e-3, (name, err)
     assert state.step == 3 and state.optimizer.param_groups[0]["step"] == 3
 
-    want = as_state_dict(jstate.params, jstate.batch_stats)
-    got = port.state_dict()
-    n_par = n_par_ok = n_stat = n_stat_ok = 0
-    for k, v in want.items():
-        if k.endswith("num_batches_tracked"):
-            continue
-        a, b = got[k].numpy(), v.numpy()
-        d = np.abs(a - b)
-        if "running" in k:
-            n_stat += d.size
-            n_stat_ok += int((d <= 1e-7 + 1e-5 * np.abs(b)).sum())
-            assert (d <= 1e-6 + 1e-3 * np.abs(b)).all(), (k, d.max())
-        else:
-            n_par += d.size
-            n_par_ok += int((d <= 1e-6 + 1e-4 * np.abs(b)).sum())
-            assert d.max() <= LR / 4, (k, d.max())
-    print(f"params within tolerance {n_par_ok / n_par:.5f}, "
-          f"running stats {n_stat_ok / n_stat:.5f}")
-    assert n_par_ok / n_par >= 0.995
-    assert n_stat_ok / n_stat >= 0.98
+    _assert_state_close(jstate, port)
 
     # eval after training: the updated running statistics in use
     x, y = _batches(1, seed=9)[0]
+    jm = jsteps.eval_step(model, jstate, jnp.asarray(x), jnp.asarray(y))
+    m = eval_step(state, torch.from_numpy(x), torch.from_numpy(y))
+    np.testing.assert_allclose(m["loss"].item(), float(jm["loss"]), rtol=1e-5)
+
+
+def test_train_step_matches_tpuseg_with_3_channels_and_4_classes(no_flax_dropout):
+    """C=3 inputs and K=4 classes through one train step and an eval step,
+    at the tolerances of the 3-step test."""
+    model = JaxUNet(num_classes=4, base_features=4, dtype=jnp.float32)
+    variables = jax.tree_util.tree_map(
+        np.asarray, init_variables(model, jax.random.PRNGKey(2), num_channels=3))
+    jstate = jsteps.create_train_state(model, jax.random.PRNGKey(0), 3, LR)
+    jstate = jstate.replace(params=variables["params"], batch_stats=variables["batch_stats"])
+    port = unet_from_flax(variables, 4, 3, 4, torch.float32)
+    port.dropout_rate = 0.0
+    state = TrainState(port, KerasAdam(port.parameters(), lr=LR),
+                       torch.Generator(), torch.Generator())
+    rng = np.random.default_rng(5)
+    x = rng.normal(0, 1, (2, 32, 32, 3)).astype(np.float32)
+    lbl = np.digitize(x.sum(-1) + rng.normal(0, 0.5, x.shape[:3]), [-1.0, 0.0, 1.0])
+    y = np.eye(4, dtype=np.float32)[lbl]
+    assert set(np.unique(lbl)) == {0, 1, 2, 3}
+    jstate, jm = jsteps.train_step(model, jsteps.make_optimizer(), jstate, jnp.asarray(x),
+                                   jnp.asarray(y))
+    m = train_step(state, torch.from_numpy(x), torch.from_numpy(y))
+    np.testing.assert_allclose(m["loss"].item(), float(jm["loss"]), rtol=1e-5)
+    np.testing.assert_allclose(m["accuracy"].item(), float(jm["accuracy"]), atol=1e-6)
+    _assert_state_close(jstate, port)
     jm = jsteps.eval_step(model, jstate, jnp.asarray(x), jnp.asarray(y))
     m = eval_step(state, torch.from_numpy(x), torch.from_numpy(y))
     np.testing.assert_allclose(m["loss"].item(), float(jm["loss"]), rtol=1e-5)

@@ -32,6 +32,7 @@ from tpuseg_torch.utils import bigtiff as tbt
 from tpuseg_torch.utils.jax_bridge import unet_from_flax
 
 from test_torch_runner import _port_args, ckpts  # noqa: F401 (fixture)
+from test_torch_tiled import port_cli_args, write_checkpoints
 from test_torch_unet import jax_model_and_vars
 
 TILE, RADIUS, BATCH = 288, 96, 2
@@ -226,6 +227,32 @@ def test_runner_streaming_matches_tpuseg(ckpts, tmp_path, extra):  # noqa: F811
         assert set(got) == set(want)
         for k, v in want.items():
             assert got[k] == pytest.approx(v, rel=1e-4), k
+
+
+def test_streaming_three_channels_four_classes_matches_tpuseg(tmp_path):
+    """C=3 / K=4 slides streamed through tpuseg's runner and the port's CLI,
+    --quantize none in f32: labels agree on >= 0.999 of pixels."""
+    jax_path, port_path = write_checkpoints(str(tmp_path))
+    folder = str(tmp_path / "slides")
+    os.makedirs(folder)
+    rng = np.random.default_rng(7)
+    shapes = {"a.tif": (200, 180), "b.tif": (176, 240)}
+    for name, shape in shapes.items():
+        tbt.write_bigtiff(os.path.join(folder, name),
+                          rng.integers(0, 4096, shape + (3,)).astype(np.uint16), tile=(64, 64))
+    jax_inference(JaxConfig(
+        checkpoint_filepath=jax_path, image_folder=folder, output_folder=str(tmp_path / "jax"),
+        number_classes=4, number_channels=3, tile_size=64, radius=16, batch_size=2,
+        dtype="float32", base_features=4, data_parallel=False, streaming=True,
+        quantize="none"))
+    main(port_cli_args(port_path, folder, str(tmp_path / "port"), "--streaming"))
+    for name, shape in shapes.items():
+        got = tbt.read_bigtiff(str(tmp_path / "port" / name))
+        want = jbt.read_bigtiff(str(tmp_path / "jax" / name))
+        assert got.shape == want.shape == shape and got.dtype == want.dtype == np.uint8
+        assert got.max() <= 3 and len(np.unique(want)) > 1
+        agree = (got == want).mean()
+        assert agree >= 0.999, (name, agree)
 
 
 def test_inference_single_matches_tpuseg(engines):

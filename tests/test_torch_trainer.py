@@ -105,7 +105,7 @@ def test_resume_continues_steps_and_history(dbs, tmp_path):
 
 
 @pytest.mark.parametrize("extra", [("--spatial", "2"), ("--shard_optimizer", "1"),
-                                   ("--profile_steps", "3"), ("--multihost", "1")])
+                                   ("--spatial", "4"), ("--multihost", "1")])
 def test_train_cli_rejects_what_is_not_ported(dbs, tmp_path, extra):
     with pytest.raises(NotImplementedError):
         train_main(_args(dbs, str(tmp_path / "out"), *_base(extra)))

@@ -78,3 +78,26 @@ def test_bf16_forward_tracks_f32():
 def test_rejects_non_multiple_of_16():
     with pytest.raises(ValueError, match="multiples of 16"):
         UNet(2, 1, 4)(torch.zeros(1, 40, 32, 1))
+
+
+def test_probabilities_and_apply_nchw_match_flax():
+    """The reference-contract softmax outputs: ``UNet.probabilities`` (NHWC)
+    and ``apply_nchw`` (NCHW in, NHWC out), against tpuseg's, within the
+    logits' tolerance."""
+    from tpuseg.models.unet import apply_nchw as jax_apply_nchw
+    from tpuseg_torch.models.unet import apply_nchw
+
+    model, variables = jax_model_and_vars(feats=4, ncls=3, channels=2)
+    port = unet_from_flax(variables, 3, 2, 4, torch.float32)
+    x = np.random.default_rng(3).normal(0, 1, (2, 32, 48, 2)).astype(np.float32)
+    want = np.asarray(model.apply(variables, jnp.asarray(x), train=False,
+                                  method=JaxUNet.probabilities))
+    nchw = np.ascontiguousarray(x.transpose(0, 3, 1, 2))
+    want_nchw = np.asarray(jax_apply_nchw(model, variables, jnp.asarray(nchw), train=False))
+    with torch.no_grad():
+        got = port.probabilities(torch.from_numpy(x)).numpy()
+        got_nchw = apply_nchw(port, torch.from_numpy(nchw)).numpy()
+    assert got.shape == got_nchw.shape == want.shape == (2, 32, 48, 3)
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(got_nchw, want_nchw, rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(got.sum(-1), 1.0, rtol=1e-6)

@@ -5,10 +5,13 @@
 
 Flags mirror ``tpuseg.cli.train`` (reference ``UNet/train.py:211-234``:
 names, defaults, help) plus ``--device`` and ``--base_features`` (the
-width, as the inference CLI takes it). Flags that wait for later slices
-are accepted with their single-GPU defaults and rejected with a message
-(``NotImplementedError``) otherwise: ``--multihost``, ``--spatial``,
-``--shard_optimizer`` (multi-GPU) and ``--profile_steps`` (tooling).
+width, as the inference CLI takes it). ``--profile_steps N`` traces N steps
+of epoch 1 into ``O/profile`` (read it with ``python -m
+tpuseg_torch.utils.trace_analysis O/profile``), and the TensorBoard event
+files go to ``O/tensorboard-<timestamp>/{train,test}``. The multi-GPU
+flags (``--multihost``, ``--spatial``, ``--shard_optimizer``) are accepted
+with their single-GPU defaults and rejected with a message
+(``NotImplementedError``) otherwise.
 """
 
 import argparse
@@ -79,8 +82,10 @@ def main(argv=None):
                         help="spatial partitioning over groups of N GPUs (not "
                              "ported yet: raises when not 1)")
     parser.add_argument("--profile_steps", dest="profile_steps", type=int, default=0,
-                        help="device trace of the first N steady-state steps "
-                             "(not ported yet: raises when not 0)")
+                        help="torch.profiler trace of the first N steady-state steps "
+                             "(epoch 1) into <output_dir>/profile; read it with "
+                             "python -m tpuseg_torch.utils.trace_analysis (tpuseg "
+                             "extension)")
     parser.add_argument("--batch_echo", dest="batch_echo", type=int, default=1,
                         help="data echoing (arXiv:1907.05550): optimizer steps per "
                              "fetched batch; with device augmentation each echo "

@@ -88,6 +88,16 @@ def make_predict_fn(model: torch.nn.Module) -> PredictFn:
     return predict
 
 
+def make_softmax_fn(model: torch.nn.Module) -> PredictFn:
+    """NHWC float batch -> softmax probabilities (reference-contract output)."""
+
+    @torch.inference_mode()
+    def softmax(batch: torch.Tensor) -> torch.Tensor:
+        return torch.softmax(model(batch), dim=-1)
+
+    return softmax
+
+
 def _host_tensor(img: np.ndarray) -> torch.Tensor:
     """``img``'s bits as a host tensor in the dtype that ships: native
     where torch has the type, uint16 (the microscopy corpus' type, which

@@ -224,6 +224,17 @@ class UNet(nn.Module):
         logits = self.head(dec1, dt)
         return logits.permute(0, 2, 3, 1).float()
 
+    def probabilities(self, x: torch.Tensor,
+                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Reference-contract output: softmax over the class axis (model.py:142)."""
+        return torch.softmax(self.forward(x, generator), dim=-1)
+
+
+def apply_nchw(model: UNet, images_nchw: torch.Tensor, **kwargs) -> torch.Tensor:
+    """Reference-layout entry point: NCHW in, NHWC softmax out (model.py:73,
+    139-142)."""
+    return model.probabilities(images_nchw.permute(0, 2, 3, 1), **kwargs)
+
 
 def init_unet(model: UNet, generator: Optional[torch.Generator] = None) -> UNet:
     """Keras initialization (glorot_uniform kernels, zero biases, BN

@@ -14,8 +14,17 @@ Counterpart of ``tpuseg/train/trainer.py`` (the reference
   because the reference breaks on ``step > size`` (train.py:137, 155);
 - train metrics accumulate on the card over a window of
   ``log_every_n_steps`` steps and are read back once per window; per-step
-  and per-epoch lines are printed, and ``test_loss.csv`` is rewritten
-  every epoch (train.py:173-176);
+  and per-epoch lines are printed, ``test_loss.csv`` is rewritten every
+  epoch (train.py:173-176), and the same scalars go to TensorBoard event
+  files under ``tensorboard-<timestamp>/{train,test}`` (train.py:110-119,
+  146-148, 167-169): ``loss``, ``accuracy`` and ``images_per_sec`` per
+  logged window, the test ``loss`` and ``accuracy`` per epoch, at
+  tpuseg's steps (``utils/tb_events.py`` writes them without protobuf);
+- ``profile_steps`` N > 0 traces the first N steps of epoch 1 (epoch 0
+  warms up) with ``torch.profiler`` into ``<output>/profile``
+  (``utils/profiling.trace``; ``python -m tpuseg_torch.utils.trace_analysis``
+  reads it); while it records, every step is read back, so the window
+  closes at an exact step;
 - a checkpoint is written (in the background) only when the test loss
   improves, never for a non-finite loss (train.py:181-184);
 - early stopping: best epoch = first within 1e-4 of the minimum; stop when
@@ -23,15 +32,13 @@ Counterpart of ``tpuseg/train/trainer.py`` (the reference
 - resume restores the full state and the test-loss history.
 
 Runs on ``config.device`` — the card by default; asking for it without one
-raises. What waits for later slices raises ``NotImplementedError``:
-``spatial_partitions > 1`` and ``shard_optimizer`` (multi-GPU), and
-``profile_steps`` (tooling). TensorBoard event files are not written (no
-TensorBoard writer is installed beside the card); the printed lines and
-``test_loss.csv`` carry the same numbers.
+raises. ``spatial_partitions > 1`` and ``shard_optimizer`` wait for the
+multi-GPU slice and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import datetime
 import os
 import time
 from dataclasses import dataclass, field
@@ -47,6 +54,7 @@ from tpuseg_torch.train.prefetch import device_prefetch
 from tpuseg_torch.train.steps import create_train_state, make_raw_steps, make_steps
 from tpuseg_torch.utils.checkpoint import AsyncCheckpointWriter, restore_train_state
 from tpuseg_torch.utils.profiling import ThroughputMeter
+from tpuseg_torch.utils.tb_events import EventFileWriter
 
 CONVERGENCE_TOLERANCE = 1e-4  # train.py:187
 
@@ -81,7 +89,8 @@ class TrainConfig:
     # multi-GPU options: the single-GPU defaults only, until that slice
     shard_optimizer: bool = False
     spatial_partitions: int = 1
-    # device traces of training steps: waits for the tooling slice
+    # torch.profiler trace of the first N steps of epoch 1 (after the
+    # warmup epoch) into <output_folder>/profile; 0 disables
     profile_steps: int = 0
     # data echoing (arXiv:1907.05550): optimizer steps per fetched batch;
     # with device augmentation each echo re-augments the raw batch
@@ -123,9 +132,14 @@ def _check_single_gpu(cfg: TrainConfig) -> None:
     if cfg.shard_optimizer:
         raise NotImplementedError(
             "shard_optimizer is not ported yet (it comes with the multi-GPU slice)")
-    if cfg.profile_steps:
-        raise NotImplementedError(
-            "profile_steps is not ported yet (it comes with the tooling slice)")
+
+
+def _summary_writers(output_folder: str):
+    """The train and test event writers, in ``tensorboard-<timestamp>/
+    {train,test}`` (tpuseg's layout)."""
+    current_time = datetime.datetime.now().strftime("%Y%m%dT%H%M%S")
+    root = os.path.join(output_folder, "tensorboard-" + current_time)
+    return EventFileWriter(os.path.join(root, "train")), EventFileWriter(os.path.join(root, "test"))
 
 
 def _resumed_history(cfg: TrainConfig) -> List[float]:
@@ -234,6 +248,8 @@ def train_model(config: TrainConfig) -> TrainResult:
     ckpt_writer = AsyncCheckpointWriter()
     meter = ThroughputMeter()
     train_iter = None
+    profile_ctx = profiler = None
+    train_writer, test_writer = _summary_writers(cfg.output_folder)
 
     try:
         print("Starting Readers")
@@ -259,6 +275,14 @@ def train_model(config: TrainConfig) -> TrainResult:
                 cur_train_epoch_size = train_epoch_size
                 state.lr = cfg.learning_rate
 
+            if cfg.profile_steps and epoch == 1:
+                # epoch 1 = the first steady-state epoch (epoch 0 warms up)
+                from tpuseg_torch.utils.profiling import trace
+
+                profile_ctx = trace(os.path.join(cfg.output_folder, "profile"), device)
+                profiler = profile_ctx.__enter__()
+                print(f"Profiling {cfg.profile_steps} steps -> {cfg.output_folder}/profile")
+
             start_time = time.time()
             log_every = max(1, int(cfg.log_every_n_steps))
             echo = max(1, int(cfg.batch_echo))
@@ -282,17 +306,33 @@ def train_model(config: TrainConfig) -> TrainResult:
                 win_acc = (metrics["accuracy"] if win_acc is None
                            else win_acc + metrics["accuracy"])
                 win_count += 1
-                if step % log_every == log_every - 1 or step == cur_train_epoch_size:
+                # profiling reads every step back, to close at an exact step
+                if (step % log_every == log_every - 1 or step == cur_train_epoch_size
+                        or profile_ctx is not None):
                     loss = win_loss.item() / win_count  # syncs the step chain
                     acc = win_acc.item() / win_count
                     meter.update(win_images)
                     print(f"Train Epoch {epoch}: Batch {step}/{train_epoch_size}: "
                           f"Loss {loss} Accuracy = {acc}")
+                    global_step = int(epoch * train_epoch_size + step)
+                    train_writer.add_scalar("loss", loss, global_step)
+                    train_writer.add_scalar("accuracy", acc, global_step)
+                    if meter.images_per_sec:
+                        train_writer.add_scalar("images_per_sec", meter.images_per_sec,
+                                                global_step)
                     train_losses.append(loss)
                     final_train_loss = loss
                     win_loss = win_acc = None
                     win_count = 0
                     win_images = 0
+                if profile_ctx is not None:
+                    # at the requested step count, or at the epoch's end if
+                    # the epoch is shorter: never record into later epochs
+                    if step + 1 >= cfg.profile_steps or step == cur_train_epoch_size:
+                        profile_ctx.__exit__(None, None, None)
+                        profile_ctx = profiler = None
+                    else:
+                        profiler.step()
             if meter.images_per_sec:
                 print(f"Train images/s (last {meter.window} windows): {meter.images_per_sec}")
 
@@ -320,6 +360,8 @@ def train_model(config: TrainConfig) -> TrainResult:
             test_loss.append(sum_loss.item() / n_eval)
             mean_acc = sum_acc.item() / n_eval
             print(f"Test Epoch: {epoch}: Loss = {test_loss[-1]} Accuracy = {mean_acc}")
+            test_writer.add_scalar("loss", test_loss[-1], int((epoch + 1) * train_epoch_size))
+            test_writer.add_scalar("accuracy", mean_acc, int((epoch + 1) * train_epoch_size))
 
             with open(os.path.join(cfg.output_folder, "test_loss.csv"), "w") as csvfile:
                 for v in test_loss:
@@ -362,6 +404,8 @@ def train_model(config: TrainConfig) -> TrainResult:
         # non-daemon and loop forever, so skipping it (e.g. because a
         # background write re-raised) would hang the process at exit
         try:
+            if profile_ctx is not None:
+                profile_ctx.__exit__(None, None, None)
             ckpt_writer.wait()  # flush any in-flight checkpoint write
             if train_iter is not None:
                 train_iter.close()
@@ -370,6 +414,8 @@ def train_model(config: TrainConfig) -> TrainResult:
             train_reader.shutdown()
             print("Shutting down test_reader")
             test_reader.shutdown()
+            train_writer.close()
+            test_writer.close()
 
     if not saved_checkpoint:
         # nothing was written to this run's output dir: don't hand callers

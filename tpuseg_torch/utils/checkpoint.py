@@ -9,10 +9,13 @@
   resume.
 
 :func:`load_model` reads either kind, so a trained checkpoint serves
-through ``tpuseg_torch.cli.inference`` as it is. Orbax checkpoints of the
-JAX package need jax to read; converting them waits for the tooling slice —
-until then :mod:`tpuseg_torch.utils.jax_bridge` maps in-memory flax
-variables.
+through ``tpuseg_torch.cli.inference`` as it is. A reference TensorFlow
+checkpoint becomes a training checkpoint through
+``tpuseg_torch.cli.import_checkpoint`` (no TensorFlow needed) and goes back
+through ``cli.export_checkpoint``; the JAX package's orbax checkpoints need
+jax to read, so ``scripts/convert_orbax_checkpoint.py`` converts them both
+ways beside ``tpuseg`` (:mod:`tpuseg_torch.utils.jax_bridge` maps the
+variables).
 """
 
 from __future__ import annotations
@@ -38,17 +41,19 @@ def _to_cpu(obj):
     return obj
 
 
-def _write(path: str, doc: dict) -> None:
+def write_checkpoint(path: str, doc: dict) -> None:
+    """``torch.save`` ``doc`` to ``path`` through a temp file and
+    ``os.replace``: a reader never sees half a file."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     tmp = f"{path}.tmp"
     torch.save(doc, tmp)
-    os.replace(tmp, path)  # a reader never sees half a file
+    os.replace(tmp, path)
 
 
 def save_model(path: str, model: UNet) -> None:
     """Write ``model``'s config and weights (CPU tensors) to ``path``,
     atomically (temp file + ``os.replace``)."""
-    _write(path, {"config": model.config(), "state_dict": _to_cpu(model.state_dict())})
+    write_checkpoint(path, {"config": model.config(), "state_dict": _to_cpu(model.state_dict())})
 
 
 def load_model(path: str, dtype: Union[str, torch.dtype] = torch.bfloat16,
@@ -79,8 +84,8 @@ def train_checkpoint(state) -> dict:
 
 def restore_train_state(path: str, state):
     """Load a training checkpoint into ``state`` in place (weights,
-    optimizer, step, lr, generators) and return it. The checkpoint's model
-    must have ``state``'s configuration."""
+    optimizer, step, lr, and the generators where it holds them) and
+    return it. The checkpoint's model must have ``state``'s configuration."""
     doc = torch.load(path, map_location="cpu", weights_only=True)
     if "optimizer" not in doc:
         raise ValueError(f"{path} is a model checkpoint, not a training checkpoint: "
@@ -90,8 +95,9 @@ def restore_train_state(path: str, state):
                          f"{state.model.config()}")
     state.model.load_state_dict(doc["state_dict"])
     state.optimizer.load_state_dict(doc["optimizer"])
-    state.aug_generator.set_state(doc["rng"]["augment"])
-    state.dropout_generator.set_state(doc["rng"]["dropout"])
+    if "rng" in doc:  # an imported checkpoint has none: the run's seed draws
+        state.aug_generator.set_state(doc["rng"]["augment"])
+        state.dropout_generator.set_state(doc["rng"]["dropout"])
     state.step = int(doc["step"])
     state.lr = float(doc["lr"])
     return state
@@ -117,7 +123,7 @@ class AsyncCheckpointWriter:
 
     def _run(self, path: str, doc: dict) -> None:
         try:
-            _write(path, doc)
+            write_checkpoint(path, doc)
         except BaseException as e:  # re-raised on the caller's thread
             self._error = e
 

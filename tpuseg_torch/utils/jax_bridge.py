@@ -1,4 +1,4 @@
-"""Flax U-Net variables -> the port's ``state_dict``.
+"""Flax U-Net variables <-> the port's ``state_dict``.
 
 Takes the JAX package's ``{"params": ..., "batch_stats": ...}`` as nested
 dicts of **numpy** arrays (the caller converts them, e.g. with
@@ -15,6 +15,10 @@ as :class:`tpuseg_torch.models.unet.UNet` names them.
   permutes to ``(in, out, kh, kw)``.
 - ``pixel_shuffle`` deconv: a 1x1 conv, HWIO -> OIHW like any conv; the
   model's depth-to-space uses the JAX package's phase-major order.
+
+:func:`state_dict_to_flax` is the exact inverse (transposes and flips
+only), for serving a port-trained model with the JAX package
+(``scripts/convert_orbax_checkpoint.py``).
 """
 
 from __future__ import annotations
@@ -55,6 +59,32 @@ def flax_to_state_dict(variables, deconv_impl: str = "conv_transpose"
     for name in params:
         sd[f"{name}.bn.num_batches_tracked"] = torch.tensor(0)
     return sd
+
+
+def state_dict_to_flax(state_dict, deconv_impl: str = "conv_transpose") -> dict:
+    """The port's ``state_dict`` -> ``{"params", "batch_stats"}`` nested
+    dicts of float32 numpy arrays, as the JAX package's U-Net names them."""
+    def arr(name):
+        return np.asarray(state_dict[name].detach().cpu(), np.float32)
+
+    def to_hwio(w):
+        return np.ascontiguousarray(w.transpose(2, 3, 1, 0))
+
+    blocks = list(dict.fromkeys(k.split(".")[0] for k in state_dict))
+    params, stats = {}, {}
+    for name in blocks:
+        if f"{name}.deconv.weight" in state_dict:
+            w = arr(f"{name}.deconv.weight")
+            k = (to_hwio(w) if deconv_impl == "pixel_shuffle"
+                 else np.ascontiguousarray(np.flip(w.transpose(2, 3, 0, 1), (0, 1))))
+            params[name] = {"deconv": {"kernel": k}}
+        else:
+            params[name] = {"conv": {"kernel": to_hwio(arr(f"{name}.conv.weight")),
+                                     "bias": arr(f"{name}.conv.bias")}}
+        params[name]["bn"] = {"scale": arr(f"{name}.bn.weight"), "bias": arr(f"{name}.bn.bias")}
+        stats[name] = {"bn": {"mean": arr(f"{name}.bn.running_mean"),
+                              "var": arr(f"{name}.bn.running_var")}}
+    return {"params": params, "batch_stats": stats}
 
 
 def unet_from_flax(variables, num_classes: int, num_channels: int,
