@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving, training and migration paths once
-on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's serving, training, migration and
+multi-GPU paths once on one NVIDIA card.
 
     python3 chip_smoke.py [--seed N] [--out results.json]
 
@@ -79,7 +79,26 @@ package. Phases, each fatal on failure:
    launches a step); ``trace_analysis.analyze`` of the profiled window must
    count 5 steps and 15 shear launches and give a busy share, and the
    TensorBoard event files must read back (CRCs) with one scalar per tag
-   per logged window and test epoch.
+   per logged window and test epoch;
+9. multi-GPU on the one card: (a) ``tpuseg_torch.cli.train --multihost 1
+   --shard_optimizer 1`` under ``python -m torch.distributed.run
+   --standalone --nproc_per_node 1`` on phase 6's databases (base 64,
+   bf16, batch 8, two epochs of 7 steps): the child joins NCCL, its losses
+   are finite and fall, 3 K1 launches a step counted in the child; its
+   checkpoint serves phase 4's folder with phase 4's K2 launch count; in
+   this process the steady img/s of the DDP + sync-BN + ZeRO-1 step at
+   world size 1 beside the plain step, in turns (reported, not gated);
+   (b) two gloo ranks on the card (base 16, 256^2, f32 with TF32 off,
+   augmentation and dropout on, ZeRO-1, batch 4 each) against one process
+   of batch 8 over 3 steps: the ranks bit-equal, the first loss and
+   gradients and the later losses within ``phase_multigpu_gloo``'s
+   tolerances, 3 K1 launches a step on each rank; (c) phase 4's 4096^2
+   image with ``inference_tiled(..., devices=[card, card])`` against
+   ``devices=[card]`` for ``int8_blocked`` and ``none``: masks bit-equal,
+   K2 launched once per full chunk of each shard; (d) two torchrun ranks of
+   ``cli.inference --multihost 1 --device cuda:0 --quantize int8_blocked``
+   stripe phase 4's folder: each mask written once, agreeing with phase
+   4's on >= 0.9999, the calibration scales equal on both ranks.
 
 The last lines are ``{"kernels": [...]}``, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``. Without a card it exits 1 and prints
@@ -851,7 +870,7 @@ def phase_train(seed: int, work: str, dev, card: str) -> dict:
     # BatchNorm (and its f32 casts) skipped bounds what a fused BatchNorm
     # kernel could save
     real_bn = unet_mod._bn
-    unet_mod._bn = lambda x, bn_module, dtype: x
+    unet_mod._bn = lambda x, bn_module, dtype, group=None: x
     try:
         bn["step_ms_without_bn"] = cuda_ms(lambda: tstep(state, raw_img, raw_msk), 10, 1)
     finally:
@@ -1493,6 +1512,488 @@ def phase_migration(seed: int, work: str, dev, main_res: dict, train_res: dict) 
     return res
 
 
+# phase 9: multi-GPU paths on one card. (a) NCCL at world size 1 through
+# torchrun: two epochs of MG_TEST_EVERY + 1 steps; (b) two gloo ranks of
+# DP_BATCH against one process of 2 * DP_BATCH at DP_BASE, DP_SIZE^2, f32,
+# DP_STEPS steps, ZeRO-1; (c) tiles sharded over [card, card]; (d) two
+# striped serving ranks
+MG_TEST_EVERY, MG_LOG_EVERY = 6, 3
+DP_BASE, DP_SIZE, DP_BATCH, DP_STEPS = 16, 256, 4, 3
+# (b)'s gradient gate: per-tensor relative L2 error of the first step's
+# gradients. Last-bit differences in the BatchNorm sums grow through the
+# f32 variance's cancellation to about 1e-2 at these shapes; with the
+# sync-BN all-reduce's gradient cut, the error is of order 1
+DP_GRAD_L2 = 5e-2
+
+# run by torchrun: the module's main with the launch counters read after,
+# "{rank}" in an argument replaced by the rank
+_TORCHRUN_CHILD = """import importlib, json, os, sys
+
+if __name__ == "__main__":  # the readers' forkserver workers import __main__
+    from tpuseg_torch.infer import head_kernel
+    from tpuseg_torch.ops import warp
+    rank = os.environ["RANK"]
+    args = [a.replace("{rank}", rank) for a in sys.argv[2:]]
+    result = importlib.import_module(sys.argv[1]).main(args)
+    out = {"k1_launches": warp.LAUNCHES, "k2_launches": head_kernel.LAUNCHES}
+    if isinstance(result, list):
+        out["written"] = result
+    else:
+        out.update(steps=result.steps, train_losses=result.train_losses,
+                   test_loss=result.test_loss, checkpoint_path=result.checkpoint_path)
+    print(f"RANK {rank} RESULT " + json.dumps(out), flush=True)
+"""
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def wait_all(procs, timeout: float) -> None:
+    """Wait for every process; on a timeout or a failure kill the process
+    groups still alive (each started in a session of its own)."""
+    import signal
+
+    deadline = time.perf_counter() + timeout
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+
+
+def run_torchrun(nproc: int, module: str, args, logbase: str, timeout: float = 600) -> dict:
+    """``module``'s main under ``python -m torch.distributed.run --standalone
+    --nproc_per_node nproc`` from the checkout's root, each rank counting
+    its K1 and K2 launches (``_TORCHRUN_CHILD``): wall time, output and
+    each rank's result. Fails on a non-zero exit."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    script = logbase + "_child.py"
+    with open(script, "w") as f:
+        f.write(_TORCHRUN_CHILD)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(nproc), script, module, *args]
+    # the child script lives in the work folder: the checkout goes on its path
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (root, os.environ.get("PYTHONPATH")) if p))
+    with open(logbase + ".out", "w") as out, open(logbase + ".err", "w") as err:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, cwd=root, env=env, stdout=out, stderr=err,
+                                start_new_session=True)
+        wait_all([proc], timeout)
+        wall = time.perf_counter() - t0
+    with open(logbase + ".out") as f:
+        stdout = f.read()
+    if proc.returncode != 0:
+        with open(logbase + ".err") as f:
+            raise AssertionError(f"torchrun {module} exited {proc.returncode}: "
+                                 f"{f.read()[-3000:]}")
+    ranks = {int(r): json.loads(j)
+             for r, j in re.findall(r"^RANK (\d+) RESULT (.*)$", stdout, re.M)}
+    if sorted(ranks) != list(range(nproc)):
+        raise AssertionError(f"torchrun {module}: results of ranks {sorted(ranks)}")
+    return {"wall_s": wall, "stdout": stdout, "ranks": ranks}
+
+
+def raw_batch(path: str, n: int, dev):
+    """The first ``n`` records of a database as a raw card batch."""
+    import numpy as np
+    import torch
+
+    from tpuseg_torch.data.build_db import deserialize_image_mask_pair
+    from tpuseg_torch.data.recordstore import RecordReader
+
+    with RecordReader(path) as r:
+        recs = [deserialize_image_mask_pair(r.get_at(i)) for i in range(n)]
+    return (torch.from_numpy(np.stack([a.astype(np.int32) for a, _ in recs])).to(dev),
+            torch.from_numpy(np.stack([m for _, m in recs])).to(dev))
+
+
+def dp_worker(rank: int, world: int, port: int, seed: int, out_path: str,
+              device: str = "cuda:0") -> None:
+    """Phase 9 (b)'s rank ``rank`` of ``world`` on the card (world 1: one
+    process, no process group): DP_STEPS raw steps at DP_BASE, f32 with
+    TF32 off, augmentation and dropout on, this rank's DP_BATCH rows of
+    each global batch (ZeRO-1 with a group); saves its losses, first-step
+    gradients, final state and K1 launches to ``out_path``."""
+    import numpy as np
+    import torch
+
+    from tpuseg_torch.models.unet import UNet
+    from tpuseg_torch.ops import warp
+    from tpuseg_torch.parallel import distributed
+    from tpuseg_torch.parallel import mesh as mesh_lib
+    from tpuseg_torch.train.steps import create_train_state
+
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device)
+    try:
+        if world > 1:
+            distributed.initialize_distributed(f"127.0.0.1:{port}", world, rank,
+                                               backend="gloo", timeout_s=300)
+        state = create_train_state(UNet(NCLS, 1, DP_BASE, "float32"), seed, TRAIN_LR, dev)
+        mesh = mesh_lib.make_mesh(dev)
+        tstep, _ = mesh_lib.make_parallel_raw_steps(state.model, mesh, NCLS,
+                                                    shard_optimizer=world > 1, state=state)
+        rng = np.random.default_rng(seed + 9)
+        pairs = [blob_pair(rng, DP_SIZE) for _ in range(DP_STEPS * 2 * DP_BATCH)]
+        per = 2 * DP_BATCH // world
+        warp.LAUNCHES = 0
+        out = {"losses": [], "grads": [], "world": world,
+               "optimizer": type(state.optimizer).__name__}
+        for step in range(DP_STEPS):
+            mine = pairs[step * 2 * DP_BATCH:][rank * per:(rank + 1) * per]
+            img = torch.from_numpy(np.stack([a[..., None].astype(np.int32) for a, _ in mine]))
+            msk = torch.from_numpy(np.stack([m for _, m in mine]))
+            out["losses"].append(tstep(state, img.to(dev), msk.to(dev))["loss"].item())
+            # copies: on the CPU .cpu() would alias the state updated in place
+            out["grads"].append({k: p.grad.detach().cpu().clone() for k, p in
+                                 state.model.named_parameters()})
+            if step == 0:
+                out["state_dict0"] = {k: v.detach().cpu().clone()
+                                      for k, v in state.model.state_dict().items()}
+        out["k1_launches"] = warp.LAUNCHES
+        out["state_dict"] = {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
+        torch.save(out, out_path)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+        distributed.shutdown_distributed()
+
+
+def phase_multigpu_nccl(seed: int, work: str, dev, main_res: dict, train_res: dict) -> dict:
+    """Phase 9 (a): the train CLI under torchrun at world size 1 (NCCL,
+    DDP, sync-BN, ZeRO-1) on phase 6's databases, its checkpoint served as
+    phase 4 served its model, and in this process the steady img/s of the
+    DDP + sync-BN + ZeRO-1 step beside the plain step, in turns."""
+    import numpy as np
+    import torch
+
+    from tpuseg_torch.aug.device import DeviceAugmentParams
+    from tpuseg_torch.cli.inference import main as infer_cli
+    from tpuseg_torch.infer import head_kernel
+    from tpuseg_torch.models.unet import UNet
+    from tpuseg_torch.parallel import distributed
+    from tpuseg_torch.parallel import mesh as mesh_lib
+    from tpuseg_torch.train.steps import create_train_state, make_raw_steps
+    from tpuseg_torch.utils.imagio import imread
+
+    res: dict = {}
+    steps = 2 * (MG_TEST_EVERY + 1)
+    run = run_torchrun(1, "tpuseg_torch.cli.train", [
+        "--train_database", os.path.join(work, "train.lmdb"),
+        "--test_database", os.path.join(work, "test.lmdb"),
+        "--output_dir", os.path.join(work, "mg_train"), "--multihost", "1",
+        "--shard_optimizer", "1", "--batch_size", str(TRAIN_BATCH),
+        "--test_every_n_steps", str(MG_TEST_EVERY), "--max_epochs", "2", "--seed", str(seed),
+        "--device", dev.type, "--base_features", str(BASE), "--dtype", "bfloat16",
+        "--log_every_n_steps", str(MG_LOG_EVERY), "--reader_count", "2",
+        "--learning_rate", str(TRAIN_LR)], os.path.join(work, "mg_train_log"))
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    r = run["ranks"][0]
+    res["cli"] = {"wall_s": run["wall_s"], **{k: r[k] for k in ("steps", "k1_launches",
+                                                               "train_losses", "test_loss")}}
+    joined = re.search(r"backend (\w+)", run["stdout"])
+    res["backend"] = joined.group(1) if joined else None
+    log(f"(a) torchrun world 1: backend {res['backend']}, {r['steps']} steps in "
+        f"{run['wall_s']:.1f} s, {r['k1_launches']} K1 launches, losses "
+        f"{[round(v, 4) for v in r['train_losses']]}, test {r['test_loss']}")
+    if res["backend"] != backend:
+        raise AssertionError(f"the world-size-1 run joined {res['backend']}, not {backend}")
+    if "devices = 1 over 1 host(s), global_batch_size = 8" not in run["stdout"]:
+        raise AssertionError("the world-size-1 run did not print its data-parallel layout")
+    if r["steps"] != steps or r["k1_launches"] != 3 * steps:
+        raise AssertionError(f"{r['steps']} steps, {r['k1_launches']} K1 launches: expected "
+                             f"{steps} and 3 per step")
+    losses = r["train_losses"]
+    if not (np.isfinite(losses).all() and np.isfinite(r["test_loss"]).all()
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"losses not finite and falling: {losses} {r['test_loss']}")
+
+    # its checkpoint serves phase 4's folder as phase 4 served (radius pinned)
+    out = os.path.join(work, "mg_served")
+    head_kernel.LAUNCHES = 0
+    written = infer_cli(["--checkpoint_filepath", r["checkpoint_path"], "--image_folder",
+                         os.path.join(work, "images"), "--output_folder", out,
+                         "--number_classes", str(NCLS), "--number_channels", "1",
+                         "--base_features", str(BASE), "--device", dev.type, "--tile_size",
+                         str(TILE), "--batch_size", str(BATCH), "--radius",
+                         str(main_res["radius"]), "--quantize", "int8_blocked"])
+    torch.cuda.synchronize()
+    res["served_k2_launches"] = head_kernel.LAUNCHES
+    want = main_res["launches"]["blocked_head_argmax"]
+    for path in written:
+        m = imread(path)
+        if not np.isin(m, np.arange(NCLS)).all():
+            raise AssertionError(f"{path}: labels {np.unique(m)[:8]}")
+    if len(written) != 1 + N_SMALL or res["served_k2_launches"] != want:
+        raise AssertionError(f"served {len(written)} masks with {res['served_k2_launches']} "
+                             f"K2 launches; phase 4: {1 + N_SMALL}, {want}")
+    log(f"(a) its checkpoint served phase 4's folder: {len(written)} masks, "
+        f"{res['served_k2_launches']} K2 launches (phase 4: {want})")
+
+    # steady img/s: the DDP + sync-BN + ZeRO-1 step at world size 1 (NCCL)
+    # beside the plain step, 3 windows of 10 steps each, in turns
+    distributed.initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0, backend=backend)
+    try:
+        mesh = mesh_lib.make_mesh(dev)
+        params = DeviceAugmentParams()
+        raw_img, raw_msk = raw_batch(os.path.join(work, "train.lmdb"), TRAIN_BATCH, dev)
+        plain_state = create_train_state(UNet(NCLS, 1, BASE, "bfloat16"), seed, TRAIN_LR, dev)
+        dp_state = create_train_state(UNet(NCLS, 1, BASE, "bfloat16"), seed, TRAIN_LR, dev)
+        arms = {"plain": (plain_state, make_raw_steps(NCLS, params)[0]),
+                "ddp_syncbn_zero1": (dp_state, mesh_lib.make_parallel_raw_steps(
+                    dp_state.model, mesh, NCLS, params, shard_optimizer=True,
+                    state=dp_state)[0])}
+        mesh_lib.warm_collectives(mesh)
+        for state, step in arms.values():
+            for _ in range(3):
+                step(state, raw_img, raw_msk)
+        windows = {k: [] for k in arms}
+        for order in (("plain", "ddp_syncbn_zero1"), ("ddp_syncbn_zero1", "plain"),
+                      ("plain", "ddp_syncbn_zero1")):
+            for k in order:
+                state, step = arms[k]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(10):
+                    m = step(state, raw_img, raw_msk)
+                m["loss"].item()
+                windows[k].append(TRAIN_BATCH * 10 / (time.perf_counter() - t0))
+    finally:
+        distributed.shutdown_distributed()
+    res["img_per_s_windows"] = windows
+    res["img_per_s"] = {k: sorted(v)[1] for k, v in windows.items()}
+    res["ratio"] = res["img_per_s"]["ddp_syncbn_zero1"] / res["img_per_s"]["plain"]
+    log(f"(a) steady img/s ({TRAIN_SIZE}^2, batch {TRAIN_BATCH}, base {BASE}, bf16), median "
+        "of 3 windows in turns: "
+        f"plain {res['img_per_s']['plain']:.2f}, DDP + sync-BN + ZeRO-1 at world size 1 "
+        f"{res['img_per_s']['ddp_syncbn_zero1']:.2f} ({res['ratio']:.3f}x; phase 6 plain "
+        f"{train_res['img_per_s']:.2f})")
+    return res
+
+
+def phase_multigpu_gloo(seed: int, work: str, dev) -> dict:
+    """Phase 9 (b): two gloo ranks on the one card (DP_BATCH each, ZeRO-1)
+    against one process on the global batch, in this process. Gates: the
+    ranks bit-equal to each other; the first step's loss rtol 1e-5, its
+    gradients within DP_GRAD_L2 per tensor and its BatchNorm running
+    statistics atol 1e-5 (tests/test_parallel.py); the later losses rtol
+    1e-3; 3 K1 launches a step on each rank. Each step's gradient error and
+    the parameters after the first and the last step are reported, not
+    gated: the statistics' last-bit differences (the ranks sum in another
+    order) pass through the f32 variance E[x^2] - E[x]^2, which cancels on
+    channels whose mean is large against their spread, and Keras Adam's
+    normalized update and the following steps amplify what is left."""
+    import numpy as np
+    import torch
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    port = free_port()
+    paths = [os.path.join(work, f"dp_rank{r}.pt") for r in range(2)]
+    procs = []
+    for r in range(2):
+        with open(os.path.join(work, f"dp_rank{r}.log"), "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", f"import chip_smoke; chip_smoke.dp_worker({r}, 2, "
+                                       f"{port}, {seed}, {paths[r]!r}, {str(dev)!r})"],
+                cwd=root, stdout=f, stderr=subprocess.STDOUT, start_new_session=True))
+    t0 = time.perf_counter()
+    ref_path = os.path.join(work, "dp_one.pt")
+    try:
+        dp_worker(0, 1, 0, seed, ref_path, str(dev))
+    finally:
+        wait_all(procs, 600)
+    wall = time.perf_counter() - t0
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            with open(os.path.join(work, f"dp_rank{r}.log")) as f:
+                raise AssertionError(f"gloo rank {r} exited {p.returncode}: {f.read()[-3000:]}")
+    ranks = [torch.load(p, weights_only=False) for p in paths]
+    one = torch.load(ref_path, weights_only=False)
+    differ = [k for k in ranks[0]["state_dict"]
+              if not torch.equal(ranks[0]["state_dict"][k], ranks[1]["state_dict"][k])]
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(ranks[0]["losses"], one["losses"])]
+    grad_l2 = [max(((got[k] - g).norm() / g.norm()).item() for k, g in want.items())
+               for got, want in zip(ranks[0]["grads"], one["grads"])]
+
+    def params_close(got, want):
+        """Share of parameter elements within tests/test_torch_steps.py's
+        atol 1e-6 + rtol 1e-4, the largest parameter difference, and the
+        largest BatchNorm running-statistics difference."""
+        n = n_ok = 0
+        max_diff = max_stat = 0.0
+        for k, v in want.items():
+            if "num_batches" in k:
+                continue
+            d = (got[k] - v).abs()
+            if "running" in k:
+                max_stat = max(max_stat, d.max().item())
+                continue
+            n += d.numel()
+            n_ok += int((d <= 1e-6 + 1e-4 * v.abs()).sum())
+            max_diff = max(max_diff, d.max().item())
+        return n_ok / n, max_diff, max_stat
+
+    first = params_close(ranks[0]["state_dict0"], one["state_dict0"])
+    last = params_close(ranks[0]["state_dict"], one["state_dict"])
+    res = {"wall_s": wall, "losses_ranks": [r["losses"] for r in ranks],
+           "losses_one": one["losses"], "loss_rel_err": loss_rel,
+           "grad_l2_rel_err_max_by_step": grad_l2, "ranks_state_differ": differ,
+           "params_within_steps_tol": {"first_step": first[0], "last_step": last[0]},
+           "param_max_abs_diff": {"first_step": first[1], "last_step": last[1]},
+           "bn_running_max_abs_diff_first_step": first[2],
+           "k1_launches_ranks": [r["k1_launches"] for r in ranks],
+           "optimizer_ranks": [r["optimizer"] for r in ranks]}
+    log(f"(b) two gloo ranks of {DP_BATCH} on one card (base {DP_BASE}, {DP_SIZE}^2, f32, "
+        f"ZeRO-1) vs one process of {2 * DP_BATCH}: loss rel err {loss_rel}, gradient L2 "
+        f"rel err max by step {[f'{e:.2e}' for e in grad_l2]}, ranks' states differ in "
+        f"{len(differ)} tensors; after the first step parameters within the step "
+        f"tolerance {first[0]:.4f} (max diff {first[1]:.2e}), BN running statistics max "
+        f"diff {first[2]:.2e}; after step {DP_STEPS} {last[0]:.4f} (max diff "
+        f"{last[1]:.2e}); K1 launches {res['k1_launches_ranks']}, {wall:.1f} s")
+    if differ or ranks[0]["losses"] != ranks[1]["losses"]:
+        raise AssertionError(f"the ranks diverged: {differ[:5]}")
+    if (loss_rel[0] > 1e-5 or max(loss_rel[1:]) > 1e-3 or grad_l2[0] > DP_GRAD_L2
+            or first[2] > 1e-5):
+        raise AssertionError(f"two ranks against one process out of tolerance: {res}")
+    if res["k1_launches_ranks"] != [3 * DP_STEPS] * 2 or \
+            res["optimizer_ranks"] != ["ZeroRedundancyOptimizer"] * 2:
+        raise AssertionError(f"ranks: {res['k1_launches_ranks']} K1 launches, optimizers "
+                             f"{res['optimizer_ranks']}")
+    return res
+
+
+def sharded_launches(n_tiles: int, shards: int) -> int:
+    """K2 launches of one tiled pass with a device list of ``shards``
+    entries: every chunk full, the last group padded."""
+    group = BATCH * shards
+    return -(-n_tiles // group) * shards
+
+
+def phase_multigpu_serving(seed: int, work: str, dev, main_res: dict) -> dict:
+    """Phase 9 (c) and (d): the 4096^2 image with its tiles sharded over
+    [card, card] against [card] (masks bit-equal, K2 launches as
+    predicted), and two torchrun ranks of the inference CLI striping phase
+    4's folder on cuda:0 (each mask written once, agreeing with phase 4's,
+    calibration scales equal on both ranks)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from tpuseg_torch.data.preprocess import zscore_stats
+    from tpuseg_torch.infer import head_kernel
+    from tpuseg_torch.infer.runner import InferenceConfig, _quantized_predict_fn
+    from tpuseg_torch.infer.tiled import inference_tiled, make_predict_fn
+    from tpuseg_torch.utils.checkpoint import load_model
+    from tpuseg_torch.utils.imagio import imread
+
+    res: dict = {"sharded": {}}
+    ckpt, imgdir, cal = (os.path.join(work, n) for n in ("model.pt", "images", "cal.json"))
+    bf16 = load_model(ckpt, dtype="bfloat16", device=dev)
+    big = imread(os.path.join(imgdir, "big.tif"))
+    stats = zscore_stats(big)
+    radius = main_res["radius"]
+    side = -(-BIG // (TILE - 2 * radius))
+    n_tiles = side * side
+    cfg = InferenceConfig(ckpt, imgdir, work, NCLS, 1, base_features=BASE,
+                          quantize="int8_blocked", calibration_in=cal)
+    replicas = {"int8_blocked": _quantized_predict_fn(cfg, bf16, [], dev, replicas=2)[0],
+                "none": [make_predict_fn(bf16), make_predict_fn(copy.deepcopy(bf16))]}
+    for mode, fns in replicas.items():
+        out = {}
+        masks = {}
+        for name, devs in (("one", [dev]), ("two", [dev, dev])):
+            torch.cuda.synchronize()
+            head_kernel.LAUNCHES = 0
+            t0 = time.perf_counter()
+            masks[name] = inference_tiled(big, fns[:len(devs)], TILE, radius, BATCH, NCLS,
+                                          stats, dev, devices=devs)
+            out[f"{name}_s"] = time.perf_counter() - t0
+            out[f"k2_{name}"] = head_kernel.LAUNCHES
+        plain = inference_tiled(big, fns[0], TILE, radius, BATCH, NCLS, stats, dev)
+        out["pixels_differing"] = int((masks["one"] != masks["two"]).sum())
+        out["agree_with_unpadded_engine"] = float((masks["one"] == plain).mean())
+        want = ({"one": sharded_launches(n_tiles, 1), "two": sharded_launches(n_tiles, 2)}
+                if mode == "int8_blocked" else {"one": 0, "two": 0})
+        out["k2_predicted"] = want
+        res["sharded"][mode] = out
+        log(f"(c) {mode}: {n_tiles} tiles over [card, card] against [card]: "
+            f"{out['pixels_differing']} pixels differ, K2 launches {out['k2_one']} and "
+            f"{out['k2_two']} (predicted {want['one']} and {want['two']}), "
+            f"{out['one_s']:.2f} and {out['two_s']:.2f} s; against the unpadded engine "
+            f"{out['agree_with_unpadded_engine']}")
+        if out["pixels_differing"] or (out["k2_one"], out["k2_two"]) != (want["one"],
+                                                                        want["two"]):
+            raise AssertionError(f"sharded serving ({mode}): {out}")
+
+    # (d) the folder striped over two torchrun ranks on cuda:0
+    out_dir = os.path.join(work, "mg_striped")
+    run = run_torchrun(2, "tpuseg_torch.cli.inference", [
+        "--checkpoint_filepath", ckpt, "--image_folder", imgdir, "--output_folder", out_dir,
+        "--number_classes", str(NCLS), "--number_channels", "1", "--base_features", str(BASE),
+        "--device", "cuda:0" if dev.type == "cuda" else "cpu", "--tile_size", str(TILE),
+        "--batch_size", str(BATCH),
+        "--seed", str(seed), "--quantize", "int8_blocked", "--multihost", "1",
+        "--calibration_out", os.path.join(work, "mg_cal_rank{rank}.json")],
+        os.path.join(work, "mg_serve_log"))
+    written = [os.path.basename(p) for r in sorted(run["ranks"])
+               for p in run["ranks"][r]["written"]]
+    same = total = 0
+    for name in written:
+        a = imread(os.path.join(out_dir, name))
+        b = imread(os.path.join(work, "masks_int8_blocked", name))
+        if a.shape != b.shape:
+            raise AssertionError(f"{name}: mask {a.shape} vs phase 4's {b.shape}")
+        same += int((a == b).sum())
+        total += a.size
+    scales = []
+    for r in range(2):
+        with open(os.path.join(work, f"mg_cal_rank{r}.json")) as f:
+            scales.append(json.load(f)["act_ranges"])
+    with open(cal) as f:
+        phase4 = json.load(f)["act_ranges"]
+    res["striped"] = {
+        "wall_s": run["wall_s"], "written_by_rank": {r: run["ranks"][r]["written"]
+                                                     for r in sorted(run["ranks"])},
+        "k2_launches_ranks": [run["ranks"][r]["k2_launches"] for r in range(2)],
+        "agree_with_phase4": same / total, "pixels_differing": total - same,
+        "scales_equal_across_ranks": scales[0] == scales[1],
+        "scales_max_rel_diff_phase4": max(abs(scales[0][k] - v) / max(abs(v), 1e-30)
+                                          for k, v in phase4.items())}
+    st = res["striped"]
+    log(f"(d) two striped ranks on cuda:0: {len(written)} masks written "
+        f"({[len(v) for v in st['written_by_rank'].values()]} per rank) in "
+        f"{run['wall_s']:.1f} s, agreeing with phase 4's on {st['agree_with_phase4']!r} "
+        f"({st['pixels_differing']} pixels differ), K2 launches {st['k2_launches_ranks']}, "
+        f"scales equal across ranks: {st['scales_equal_across_ranks']}, within "
+        f"{st['scales_max_rel_diff_phase4']:.2e} of phase 4's")
+    if sorted(written) != sorted(os.listdir(imgdir)) or len(set(written)) != len(written):
+        raise AssertionError(f"striped ranks wrote {written}")
+    if not st["scales_equal_across_ranks"] or st["agree_with_phase4"] < 0.9999:
+        raise AssertionError(f"striped serving: {st}")
+    return res
+
+
+def phase_multigpu(seed: int, work: str, dev, main_res: dict, train_res: dict) -> dict:
+    """Phase 9: the multi-GPU paths on the one card (module docstring)."""
+    t0 = time.perf_counter()
+    res = {"nccl": phase_multigpu_nccl(seed, work, dev, main_res, train_res),
+           "gloo": phase_multigpu_gloo(seed, work, dev)}
+    res.update(phase_multigpu_serving(seed, work, dev, main_res))
+    res["phase_s"] = time.perf_counter() - t0
+    log(f"phase 9 took {res['phase_s']:.1f} s")
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1535,6 +2036,7 @@ def main() -> int:
     train_res = phase_train(args.seed, work, dev, card)
     stream_res = phase_stream(args.seed, work, dev, main_res["radius"])
     migration_res = phase_migration(args.seed, work, dev, main_res, train_res)
+    multigpu_res = phase_multigpu(args.seed, work, dev, main_res, train_res)
 
     fp, s8 = kern["fp"], kern["int8"]
     kernels = [{
@@ -1546,6 +2048,11 @@ def main() -> int:
         "launches_by_cli_run": {k: r["k2_launches"]
                                 for k, r in stream_res["clis"]["runs"].items()},
         "launches_migration": migration_res["k2_launches"],
+        "launches_multigpu": {
+            "served_nccl_world1_checkpoint": multigpu_res["nccl"]["served_k2_launches"],
+            "tiled_one_shard": multigpu_res["sharded"]["int8_blocked"]["k2_one"],
+            "tiled_two_shards": multigpu_res["sharded"]["int8_blocked"]["k2_two"],
+            "striped_ranks": multigpu_res["striped"]["k2_launches_ranks"]},
         "max_abs_err": fp["max_abs_err"], "ms": fp["ms"], "plain_ms": fp["plain_ms"],
         "bound_ms": fp["bound_ms"], "bound_by": fp["bound_by"], "library_ms": None,
         "library_note": "no single PyTorch call computes head + per-phase argmax + "
@@ -1566,6 +2073,8 @@ def main() -> int:
         "also_replaces": "tpuseg/ops/warp.py:147",
         "launches": train_res["launches"]["shear_rows"],
         "launches_migration": migration_res["train"]["shear_launches"],
+        "launches_multigpu": {"nccl_world1_cli": multigpu_res["nccl"]["cli"]["k1_launches"],
+                              "gloo_two_ranks": multigpu_res["gloo"]["k1_launches_ranks"]},
         "max_abs_err": shear["max_abs_err"], "ms": shear["ms"],
         "plain_ms": shear["plain_ms"], "bound_ms": shear["bound_ms"],
         "bound_by": shear["bound_by"], "library_ms": shear["library_ms"],
@@ -1577,7 +2086,7 @@ def main() -> int:
     }]
     summary = {"card": card, "torch": torch.__version__, "build_s": build_s,
                "kernels": kern, "shear": shear, "main": main_res, "train": train_res,
-               "stream": stream_res, "migration": migration_res,
+               "stream": stream_res, "migration": migration_res, "multigpu": multigpu_res,
                "total_s": time.perf_counter() - t_start}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -1,0 +1,236 @@
+"""Two processes in one gloo process group on the CPU, through the port's
+entry points: ``train_model`` (replicated and ZeRO-1) and ``cli.inference
+--multihost 1``. Counterpart of tests/test_multihost_integration.py.
+
+Training (base 2, 32^2, batch 1 per process, 2 steps between test
+epochs): both processes report the global batch and identical test-loss
+trajectories, rank 0 alone writes the artifacts, the ZeRO-1 run resumes
+from its checkpoint, and rank 0's checkpoint restores into a one-process
+template. Serving (base 4, int8_blocked): the two processes' stripes of
+the folder give the masks one process gives, from the same calibration
+scales."""
+
+import json
+import os
+import socket
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from tpuseg_torch.data.build_db import serialize_image_mask_pair
+from tpuseg_torch.data.recordstore import RecordWriter
+
+REPO = Path(__file__).resolve().parents[1]
+
+TRAIN_CHILD = textwrap.dedent("""
+    import os, sys
+
+    # the __main__ guard is load-bearing: the readers' forkserver workers
+    # would otherwise join the process group again
+    if __name__ == "__main__":
+        rank, port = int(sys.argv[1]), sys.argv[2]
+        train_db, test_db, out = sys.argv[3:6]
+        zero = sys.argv[6] == "1"
+        import numpy as np
+        import torch
+        torch.set_num_threads(1)
+        from tpuseg_torch.parallel import distributed
+        distributed.initialize_distributed(f"127.0.0.1:{port}", 2, rank, backend="gloo",
+                                           timeout_s=120)
+        from tpuseg_torch.train.trainer import TrainConfig, train_model
+        kw = dict(batch_size=1, test_every_n_steps=2, early_stopping_count=5,
+                  dtype="float32", base_features=2, seed=0, device="cpu",
+                  shard_optimizer=zero)
+        result = train_model(TrainConfig(train_db, test_db, out, max_epochs=2, **kw))
+        print("RESULT", rank, result.epochs_run, result.steps,
+              ",".join(f"{v:.7f}" for v in result.test_loss))
+        ckpt = os.path.join(out, "checkpoint", "ckpt")
+        if zero:  # every process restores host-locally and goes on
+            again = train_model(TrainConfig(train_db, test_db, out + "_resume", max_epochs=3,
+                                            resume_checkpoint=ckpt, **kw))
+            print("RESUMED", rank, again.epochs_run, again.steps,
+                  ",".join(f"{v:.7f}" for v in again.test_loss))
+        if rank == 0:  # into a one-process template
+            from tpuseg_torch.models.unet import UNet
+            from tpuseg_torch.train.steps import create_train_state
+            from tpuseg_torch.utils.checkpoint import restore_train_state
+            template = create_train_state(UNet(2, 1, 2, "float32"), 1, 3e-4, "cpu")
+            restore_train_state(ckpt, template)
+            moments = [t for st in template.optimizer.state.values() for t in st.values()]
+            n = len(list(template.model.parameters()))
+            assert len(template.optimizer.state) == n
+            total = float(sum(t.abs().sum() for t in moments))
+            assert np.isfinite(total) and total > 0
+            print("RESTORED", rank, template.step, template.optimizer.param_groups[0]["step"],
+                  total)
+        distributed.shutdown_distributed()
+""")
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _env(**extra):
+    return dict(os.environ, PYTHONPATH=str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", ""),
+                **extra)
+
+
+def _communicate(procs, timeout=300):
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=timeout)
+            outs.append((p.returncode, out, err))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for rc, out, err in outs:
+        assert rc == 0, f"child failed:\n{out[-2000:]}\n{err[-4000:]}"
+    return outs
+
+
+@pytest.fixture(scope="module")
+def dbs(tmp_path_factory):
+    root = tmp_path_factory.mktemp("mh")
+    rng = np.random.default_rng(0)
+
+    def make(path, n):
+        with RecordWriter(str(path)) as w:
+            for i in range(n):
+                img = rng.normal(500, 100, (32, 32, 1)).astype(np.uint16)
+                msk = (img[..., 0] > 500).astype(np.uint8)
+                w.put(f"img{i:03d}:0,1", serialize_image_mask_pair(img, msk))
+        return str(path)
+
+    return make(root / "train-mh.lmdb", 16), make(root / "test-mh.lmdb", 8)
+
+
+def _lines(out, tag):
+    return [line.split()[2:] for line in out.splitlines() if line.startswith(tag + " ")]
+
+
+@pytest.mark.parametrize("zero", [False, True], ids=["replicated", "zero1"])
+def test_two_process_train_model(dbs, tmp_path, zero):
+    script = tmp_path / "child.py"
+    script.write_text(TRAIN_CHILD)
+    out = str(tmp_path / "out")
+    port = str(_free_port())
+    outs = _communicate([
+        subprocess.Popen([sys.executable, str(script), str(rank), port, *dbs, out,
+                          "1" if zero else "0"], env=_env(), cwd=str(REPO),
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for rank in range(2)])
+    for _, stdout, _ in outs:
+        assert "devices = 2 over 2 host(s), global_batch_size = 2" in stdout
+    # the test loss is a global mean: identical on both processes
+    results = [_lines(o[1], "RESULT") for o in outs]
+    assert results[0] == results[1] and len(results[0]) == 1
+    epochs, steps, losses = results[0][0]
+    assert (epochs, steps) == ("2", "6") and len(losses.split(",")) == 2
+    if zero:
+        resumed = [_lines(o[1], "RESUMED") for o in outs]
+        assert resumed[0] == resumed[1]
+        epochs, steps, losses = resumed[0][0]
+        assert int(steps) >= 6 + 3 and losses.split(",")[:2] == results[0][0][2].split(",")
+        assert all("Resumed training state" in o[1] for o in outs)
+    (restored,) = _lines(outs[0][1], "RESTORED")
+    assert restored[0] == restored[1] and int(restored[0]) in (3, 6)
+    # artifacts written once, by rank 0
+    assert os.path.isfile(os.path.join(out, "checkpoint", "ckpt"))
+    with open(os.path.join(out, "test_loss.csv")) as f:
+        assert [f"{float(v):.7f}" for v in f.read().split()] == results[0][0][2].split(",")
+    assert len([d for d in os.listdir(out) if d.startswith("tensorboard-")]) == 1
+
+
+def test_spatial_partitions_raise(dbs, tmp_path):
+    from tpuseg_torch.train.trainer import TrainConfig, train_model
+
+    with pytest.raises(NotImplementedError, match="spatial"):
+        train_model(TrainConfig(*dbs, str(tmp_path / "out"), device="cpu",
+                                spatial_partitions=2))
+
+
+@pytest.fixture(scope="module")
+def served(tmp_path_factory):
+    """A base-4 checkpoint and a folder of four images (one tiled)."""
+    from tpuseg_torch.utils.checkpoint import save_model
+    from tpuseg_torch.utils.imagio import imwrite
+    from tpuseg_torch.utils.jax_bridge import unet_from_flax
+
+    from test_torch_unet import jax_model_and_vars
+
+    root = tmp_path_factory.mktemp("serve")
+    _, variables = jax_model_and_vars()
+    ckpt = str(root / "port.pt")
+    save_model(ckpt, unet_from_flax(variables, 2, 1, 4, torch.float32))
+    imgdir = root / "imgs"
+    imgdir.mkdir()
+    rng = np.random.default_rng(0)
+    for name, shape in {"a_small.tif": (48, 40), "b_big.tif": (100, 140),
+                        "c_small.tif": (48, 40), "d_small.tif": (48, 40)}.items():
+        imwrite(str(imgdir / name), rng.integers(0, 4096, shape).astype(np.uint16))
+    return ckpt, str(imgdir)
+
+
+def _serve_args(served, out, cal):
+    ckpt, imgdir = served
+    return ["--checkpoint_filepath", ckpt, "--image_folder", imgdir, "--output_folder", out,
+            "--number_classes", "2", "--number_channels", "1", "--base_features", "4",
+            "--tile_size", "64", "--batch_size", "2", "--radius", "16", "--device", "cpu",
+            "--quantize", "int8_blocked", "--calibration_out", cal]
+
+
+def test_two_process_inference_stripes_the_folder(served, tmp_path):
+    """Two torchrun-style processes of cli.inference --multihost 1: each
+    writes its stripe, the masks are one process's, and both derive the
+    one process's calibration scales."""
+    from tpuseg_torch.cli.inference import main
+    from tpuseg_torch.utils.imagio import imread
+
+    one_out, multi_out = str(tmp_path / "one"), str(tmp_path / "multi")
+    main(_serve_args(served, one_out, str(tmp_path / "cal_one.json")))
+    port = str(_free_port())
+    code = ("import sys, torch; torch.set_num_threads(1); "
+            "from tpuseg_torch.cli.inference import main; main(sys.argv[1:])")
+    outs = _communicate([
+        subprocess.Popen([sys.executable, "-c", code, "--multihost", "1",
+                          *_serve_args(served, multi_out, str(tmp_path / f"cal{rank}.json"))],
+                         env=_env(RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK=str(rank),
+                                  LOCAL_WORLD_SIZE="2", MASTER_ADDR="127.0.0.1",
+                                  MASTER_PORT=port),
+                         cwd=str(REPO), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                         text=True)
+        for rank in range(2)])
+    assert "process 0/2: segmenting 2 of 4 images" in outs[0][1]
+    assert "process 1/2: segmenting 2 of 4 images" in outs[1][1]
+    names = sorted(os.listdir(one_out))
+    assert sorted(os.listdir(multi_out)) == names and len(names) == 4
+    for name in names:
+        a, b = imread(os.path.join(one_out, name)), imread(os.path.join(multi_out, name))
+        assert a.shape == b.shape
+        np.testing.assert_array_equal(a, b)
+    scales = [json.load(open(tmp_path / f)) for f in ("cal_one.json", "cal0.json", "cal1.json")]
+    assert scales[0] == scales[1] == scales[2]
+
+
+def test_empty_stripe_warns_and_writes_nothing(served, tmp_path, capsys):
+    from tpuseg_torch.infer.runner import InferenceConfig, inference
+
+    ckpt, imgdir = served
+    written = inference(InferenceConfig(
+        ckpt, imgdir, str(tmp_path / "out"), 2, 1, base_features=4, tile_size=64,
+        batch_size=2, radius=16, device="cpu", quantize="int8_blocked",
+        calibration_out=str(tmp_path / "cal.json"), process_index=5, process_count=6))
+    assert written == []
+    out = capsys.readouterr().out
+    assert "stripe of 4 images is empty" in out and "NOT written by this process" in out
+    assert not os.path.exists(tmp_path / "cal.json")

@@ -113,10 +113,14 @@ def test_erf_radius_matches_tpuseg(ckpts):
 
 
 @pytest.mark.parametrize("extra, exc", [
-    (("--multihost", "1"), NotImplementedError),
+    (("--multihost", "1"), RuntimeError),
     (("--quantize", "none", "--calibration_out", "x.json"), ValueError),
 ])
-def test_cli_refuses_what_is_not_ported(ckpts, tmp_path, extra, exc):
+def test_cli_refuses_what_is_not_ported(ckpts, tmp_path, extra, exc, monkeypatch):
+    """--multihost without torchrun's environment has no process group to
+    join; calibration files need a quantized mode."""
+    for var in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(var, raising=False)
     _, port_path, _ = ckpts
     imgdir = str(tmp_path / "imgs")
     os.makedirs(imgdir)
@@ -137,9 +141,9 @@ def test_cli_cuda_without_a_card_raises(ckpts, tmp_path):
 
 
 def test_port_imports_neither_jax_nor_tpuseg():
-    """Every tpuseg_torch module (47 with the migration and tooling slice)
-    imports in a fresh interpreter without pulling in jax, flax, orbax,
-    TensorFlow, protobuf or anything of tpuseg."""
+    """Every tpuseg_torch module (51 with the data-parallel slice's
+    ``parallel`` package) imports in a fresh interpreter without pulling in
+    jax, flax, orbax, TensorFlow, protobuf or anything of tpuseg."""
     code = (
         "import importlib, pkgutil, sys, tpuseg_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(tpuseg_torch.__path__, 'tpuseg_torch.')]\n"
@@ -147,7 +151,9 @@ def test_port_imports_neither_jax_nor_tpuseg():
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'orbax', 'tpuseg', 'tensorflow') "
         "or k.startswith('google.protobuf'))\n"
-        "assert len(mods) >= 47, mods\n"
+        "assert len(mods) >= 51, mods\n"
+        "assert {'tpuseg_torch.parallel.distributed', 'tpuseg_torch.parallel.mesh', "
+        "'tpuseg_torch.parallel.dryrun'} <= set(mods), mods\n"
         "assert not bad, bad\n"
         "print(len(mods))\n")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

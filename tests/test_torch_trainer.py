@@ -104,10 +104,17 @@ def test_resume_continues_steps_and_history(dbs, tmp_path):
         assert len([line for line in f if line.strip()]) == 3
 
 
-@pytest.mark.parametrize("extra", [("--spatial", "2"), ("--shard_optimizer", "1"),
+@pytest.mark.parametrize("extra", [("--spatial", "2"),
+                                   ("--shard_optimizer", "1", "--spatial", "2"),
                                    ("--spatial", "4"), ("--multihost", "1")])
-def test_train_cli_rejects_what_is_not_ported(dbs, tmp_path, extra):
-    with pytest.raises(NotImplementedError):
+def test_train_cli_rejects_what_is_not_ported(dbs, tmp_path, extra, monkeypatch):
+    """Spatial partitioning is not ported (ZeRO-1 is, but not with it);
+    --multihost without torchrun's environment has no process group to
+    join."""
+    for var in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(var, raising=False)
+    exc = RuntimeError if "--multihost" in extra else NotImplementedError
+    with pytest.raises(exc, match="torchrun" if exc is RuntimeError else "spatial"):
         train_main(_args(dbs, str(tmp_path / "out"), *_base(extra)))
 
 

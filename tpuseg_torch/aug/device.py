@@ -75,6 +75,11 @@ class AugmentDraws:
         return AugmentDraws(**{f.name: getattr(self, f.name).to(device)
                                for f in dataclasses.fields(self)})
 
+    def rows(self, start: int, stop: int) -> "AugmentDraws":
+        """The draws of samples ``start:stop``."""
+        return AugmentDraws(**{f.name: getattr(self, f.name)[start:stop]
+                               for f in dataclasses.fields(self)})
+
 
 def draw_augmentation(generator: Optional[torch.Generator], b: int, h: int, w: int,
                       c: int, p: DeviceAugmentParams,
@@ -244,13 +249,22 @@ def augment_and_preprocess_batch(
     params: DeviceAugmentParams = DeviceAugmentParams(),
     num_classes: int = 2,
     augment: bool = True,
+    shard: Tuple[int, int] = (0, 1),
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Raw uint batch -> (normalized float32 images, one-hot float32
-    labels), on the batch's device, with draws from ``generator``."""
+    labels), on the batch's device, with draws from ``generator``.
+
+    ``shard = (rank, world)``: the batch is rank's slice of a global batch
+    of ``world`` equal slices (data parallelism); the draws are made for
+    the global batch and this rank keeps its rows, so the ranks augment as
+    one process of the global batch does from the same generator state."""
     images = images.float()
     if augment:
         b, h, w, c = images.shape
-        draws = draw_augmentation(generator, b, h, w, c, params, images.device)
+        rank, world = shard
+        draws = draw_augmentation(generator, b * world, h, w, c, params, images.device)
+        if world > 1:
+            draws = draws.rows(rank * b, (rank + 1) * b)
         images, masks_f = apply_augmentation(images, masks, draws, params)
         masks = masks_f.to(torch.int32)
     return preprocess(images, masks, num_classes)

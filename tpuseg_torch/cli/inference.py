@@ -2,9 +2,11 @@
 
 Flags mirror ``tpuseg.cli.inference`` (reference ``UNet/inference.py:
 231-241``) plus ``--device``. ``--streaming`` segments tiled-BigTIFF slides
-larger than host RAM as a rolling strip through the device.
-``--multihost`` is accepted and raises ``NotImplementedError``: it comes
-with the multi-GPU slice.
+larger than host RAM as a rolling strip through the device. Each tile group
+shards over every visible GPU (``--no_data_parallel``: one); ``--multihost
+1`` under torchrun (``python -m torch.distributed.run --nproc_per_node N -m
+tpuseg_torch.cli.inference --multihost 1 ...``) joins a gloo process group
+and stripes the sorted folder over the processes, each on its own GPU.
 """
 
 import argparse
@@ -31,9 +33,10 @@ def main(argv=None):
                         help="format (extension) of the input images. E.g {tif, jpg, png)",
                         default="tif")
     parser.add_argument("--device", dest="device", type=str, default="cuda",
-                        choices=["cuda", "cpu"],
-                        help="where to run; cuda (default) raises when no card "
-                             "is available instead of running on the CPU")
+                        help="where to run: cuda (default; every visible GPU, or "
+                             "the process's own under torchrun), cuda:N (that GPU "
+                             "alone) or cpu; cuda raises when no card is available "
+                             "instead of running on the CPU")
     parser.add_argument("--tile_size", dest="tile_size", type=int, default=1024,
                         help="tile size for large-image tiling")
     parser.add_argument("--batch_size", dest="batch_size", type=int, default=8,
@@ -47,8 +50,7 @@ def main(argv=None):
                         help="first-level feature depth the checkpoint was built with")
     parser.add_argument("--no_data_parallel", dest="data_parallel", action="store_false",
                         help="run on one card even when several are visible "
-                             "(sharding tiles over GPUs is not ported yet and "
-                             "raises)")
+                             "instead of sharding each tile group over them")
     parser.add_argument("--no_read_ahead", dest="read_ahead", action="store_false",
                         help="read images synchronously instead of prefetching the "
                              "next one (halves peak host memory)")
@@ -88,15 +90,12 @@ def main(argv=None):
                         help="seed the ERF probe's noise image so the measured "
                              "halo radius is reproducible across runs")
     parser.add_argument("--multihost", dest="multihost", type=int, default=0,
-                        help="stripe the folder across hosts (not ported yet: "
-                             "raises when 1)")
+                        help="join torchrun's process group (gloo: serving has no "
+                             "device collectives) and stripe the sorted folder over "
+                             "the processes")
     args = parser.parse_args(argv)
 
-    if args.multihost:
-        raise NotImplementedError(
-            "--multihost is not ported yet (it comes with the multi-GPU slice)")
-
-    return inference(InferenceConfig(
+    cfg = InferenceConfig(
         checkpoint_filepath=args.checkpoint_filepath,
         image_folder=args.image_folder,
         output_folder=args.output_folder,
@@ -119,7 +118,17 @@ def main(argv=None):
         calibration_in=args.calibration_in,
         calibration_out=args.calibration_out,
         seed=args.seed,
-    ))
+    )
+
+    if not args.multihost:
+        return inference(cfg)
+    from tpuseg_torch.parallel import distributed
+
+    distributed.initialize_distributed(backend="gloo")
+    try:
+        return inference(cfg)
+    finally:
+        distributed.shutdown_distributed()
 
 
 if __name__ == "__main__":

@@ -8,10 +8,20 @@ names, defaults, help) plus ``--device`` and ``--base_features`` (the
 width, as the inference CLI takes it). ``--profile_steps N`` traces N steps
 of epoch 1 into ``O/profile`` (read it with ``python -m
 tpuseg_torch.utils.trace_analysis O/profile``), and the TensorBoard event
-files go to ``O/tensorboard-<timestamp>/{train,test}``. The multi-GPU
-flags (``--multihost``, ``--spatial``, ``--shard_optimizer``) are accepted
-with their single-GPU defaults and rejected with a message
-(``NotImplementedError``) otherwise.
+files go to ``O/tensorboard-<timestamp>/{train,test}``.
+
+Data parallelism runs one process per GPU under torchrun, ``--batch_size``
+per GPU:
+
+    python -m torch.distributed.run --nproc_per_node N -m tpuseg_torch.cli.train \
+        --multihost 1 [--shard_optimizer 1] ...
+
+``--multihost 1`` joins the process group from torchrun's environment
+(NCCL on the card, gloo with ``--device cpu``) and raises without it;
+``--shard_optimizer 1`` shards the Adam moments over the ranks (ZeRO-1).
+``scripts/batch_train_multihost_torch.sh`` launches it on several nodes.
+``--spatial N`` other than 1 is not ported yet and raises
+``NotImplementedError``.
 """
 
 import argparse
@@ -76,8 +86,9 @@ def main(argv=None):
                         help="training checkpoint (<output>/checkpoint/ckpt) to "
                              "resume the full training state from (tpuseg extension)")
     parser.add_argument("--shard_optimizer", dest="shard_optimizer", type=int, default=0,
-                        help="ZeRO-1 weight-update sharding over GPUs (not ported "
-                             "yet: raises when 1)")
+                        help="ZeRO-1 weight-update sharding: each GPU of the "
+                             "process group holds and updates 1/N of the Adam "
+                             "moments (tpuseg extension)")
     parser.add_argument("--spatial", dest="spatial", type=int, default=1,
                         help="spatial partitioning over groups of N GPUs (not "
                              "ported yet: raises when not 1)")
@@ -97,7 +108,9 @@ def main(argv=None):
                              "mean is printed. 1 = reference-parity per-step prints "
                              "(tpuseg extension)")
     parser.add_argument("--multihost", dest="multihost", type=int, default=0,
-                        help="multi-host training (not ported yet: raises when 1)")
+                        help="join torchrun's process group and train data-parallel, "
+                             "one process per GPU, --batch_size per GPU (tpuseg "
+                             "extension)")
     # augmentation severities: hard-coded class attributes in the reference
     # (imagereader.py:79-85, README.md:176-189); promoted to flags here
     parser.add_argument("--rotation_flag", type=int, default=1)
@@ -111,10 +124,6 @@ def main(argv=None):
     parser.add_argument("--intensity_severity", type=float, default=0.0,
                         help="additive intensity shift as a fraction of dynamic range")
     args = parser.parse_args(argv)
-
-    if args.multihost:
-        raise NotImplementedError(
-            "--multihost is not ported yet (it comes with the multi-GPU slice)")
 
     from tpuseg_torch.data.reader import AugmentParams
 
@@ -155,7 +164,18 @@ def main(argv=None):
         augment_params=augment_params,
         device=args.device,
     )
-    return train_model(cfg)
+    if not args.multihost:
+        return train_model(cfg)
+    from tpuseg_torch.parallel import distributed
+
+    backend = distributed.initialize_distributed(
+        backend="gloo" if args.device == "cpu" else None)
+    print(f"process {distributed.process_index()} of {distributed.process_count()}, "
+          f"backend {backend}")
+    try:
+        return train_model(cfg)
+    finally:
+        distributed.shutdown_distributed()
 
 
 if __name__ == "__main__":

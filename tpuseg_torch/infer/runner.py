@@ -7,13 +7,19 @@ with ``streaming``, stream tiled-BigTIFF slides through the device as a
 rolling strip and write their masks incrementally.
 
 Runs on ``cfg.device`` — the card by default; asking for it without one
-raises instead of carrying on on the CPU. Multi-host striping and
-multi-GPU tile sharding wait for the multi-GPU slice and raise
-``NotImplementedError`` when asked for.
+raises instead of carrying on on the CPU. With ``data_parallel`` each tile
+group shards over the GPUs this process owns, one model replica each
+(``infer/tiled.py``): every visible GPU when the process is its node's
+only one, ``cuda:LOCAL_RANK`` under a multi-process torchrun, and an
+explicit ``cuda:N`` always. Several processes (``cli.inference --multihost
+1``) stripe the sorted folder: process k of n segments images k, k+n, ...,
+and int8 calibration samples the whole folder, so every process derives
+the same scales.
 """
 
 from __future__ import annotations
 
+import copy
 import os
 from dataclasses import dataclass
 from typing import List, Optional
@@ -23,6 +29,7 @@ import torch
 
 from tpuseg_torch.data.preprocess import zscore_stats
 from tpuseg_torch.infer.erf import estimate_radius
+from tpuseg_torch.parallel import distributed
 from tpuseg_torch.infer.tiled import (
     TILE_SIZE,
     inference_single_batch,
@@ -50,10 +57,10 @@ class InferenceConfig:
     radius: Optional[int] = None  # None -> ERF probe (reference behavior)
     dtype: str = "bfloat16"
     base_features: int = 64
-    # "cuda" (default) or "cpu"; "cuda" without a card raises
+    # "cuda" (default), "cuda:N" or "cpu"; "cuda" without a card raises
     device: str = "cuda"
-    # shard the tile grid over all local GPUs: waits for the multi-GPU
-    # slice, so with more than one visible GPU it raises; a no-op on one
+    # shard each tile group over the GPUs this process owns (module
+    # docstring); a no-op with one
     data_parallel: bool = True
     # stream tiled-BigTIFF inputs as a rolling strip of rows (images larger
     # than host RAM); masks are written incrementally as tiled BigTIFF
@@ -75,6 +82,9 @@ class InferenceConfig:
     # persisted int8 calibration: load (skipping calibration) / write
     calibration_in: Optional[str] = None
     calibration_out: Optional[str] = None
+    # this process's stripe of the folder (None: ask the process group)
+    process_index: Optional[int] = None
+    process_count: Optional[int] = None
 
 
 def resolve_device(name: str) -> torch.device:
@@ -88,6 +98,32 @@ def resolve_device(name: str) -> torch.device:
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"device must be cuda or cpu, got {name!r}")
     return device
+
+
+def _serving_devices(cfg: InferenceConfig):
+    """``(device, devices)``: the device the image and the stitching live
+    on, and the GPUs each tile group shards over (None: ``device`` alone).
+    ``cuda`` without an index is every visible GPU for the node's only
+    process, and ``cuda:LOCAL_RANK`` under a multi-process torchrun."""
+    device = resolve_device(cfg.device)
+    if device.type != "cuda" or device.index is not None:
+        return device, None
+    if distributed.local_world_size() > 1:
+        return torch.device("cuda", distributed.local_rank()), None
+    n = torch.cuda.device_count()
+    if not cfg.data_parallel or n == 1:
+        return device, None
+    devices = [torch.device("cuda", i) for i in range(n)]
+    return devices[0], devices
+
+
+def _fp_replicas(model, devices):
+    """The fp predict function, or one per entry of ``devices``: the model
+    for the first, a copy on each other entry's device."""
+    if devices is None:
+        return make_predict_fn(model)
+    return [make_predict_fn(model if i == 0 else copy.deepcopy(model).to(d))
+            for i, d in enumerate(devices)]
 
 
 def load_model(cfg: InferenceConfig, device: torch.device):
@@ -112,7 +148,8 @@ def _erf_rng(cfg: InferenceConfig) -> Optional[np.random.Generator]:
 
 def _inference_streaming(cfg: InferenceConfig, model, predict_fn,
                          img_filepath_list: List[str], device: torch.device,
-                         calib_cache: Optional[dict] = None) -> List[str]:
+                         calib_cache: Optional[dict] = None,
+                         devices=None) -> List[str]:
     """Whole-slide streaming mode: every input must be a tiled BigTIFF; its
     rows stream through the device and the mask is written incrementally,
     so images larger than host RAM segment end to end."""
@@ -146,7 +183,8 @@ def _inference_streaming(cfg: InferenceConfig, model, predict_fn,
             inference_tiled_streaming(
                 reader, predict_fn, out_path, tile, radius, cfg.batch_size,
                 num_classes=cfg.number_classes,
-                norm_stats=None if cached is None else cached[1], device=device)
+                norm_stats=None if cached is None else cached[1], device=device,
+                devices=devices)
         written.append(out_path)
     return written
 
@@ -188,7 +226,7 @@ _CALIB_CACHE_BYTES = 1 << 30
 
 
 def _quantized_predict_fn(cfg: InferenceConfig, model, img_filepath_list: List[str],
-                          device: torch.device):
+                          device: torch.device, replicas: Optional[int] = None):
     """Build the int8 serving predict_fns (infer/quant.py), calibrating on
     central crops of an evenly-spaced sample of the folder, normalized as
     inference normalizes them, on ``device``.
@@ -199,7 +237,10 @@ def _quantized_predict_fn(cfg: InferenceConfig, model, img_filepath_list: List[s
     path to ``(decoded image or None, (mean, std))`` that the inference pass
     reuses (for a streamed slide only its stats: the streaming engine reads
     the slide itself). ``cfg.calibration_in`` loads persisted scales
-    instead."""
+    instead. With ``replicas``, each of the two is a list of that many
+    predict functions from the one calibration, one per shard: each keeps
+    its folded int8 weights, scales and head constants on the device of the
+    batches it is given."""
     if cfg.quantize not in QUANTIZE_MODES[1:]:
         raise ValueError(f'unknown quantize mode "{cfg.quantize}" '
                          '(use "none", "int8", "int8_blocked" or "int8_auto")')
@@ -208,9 +249,12 @@ def _quantized_predict_fn(cfg: InferenceConfig, model, img_filepath_list: List[s
 
     def _fns(folded, ranges):
         def build(blocked):
-            return quant.make_quantized_predict_fn(
-                folded, ranges, deconv_impl=model.deconv_impl,
-                blocked_edges=blocked)
+            if replicas is None:
+                return quant.make_quantized_predict_fn(
+                    folded, ranges, deconv_impl=model.deconv_impl, blocked_edges=blocked)
+            return [quant.make_quantized_predict_fn(
+                folded, ranges, deconv_impl=model.deconv_impl, blocked_edges=blocked)
+                for _ in range(replicas)]
 
         if cfg.quantize == "int8_auto":
             return build(True), build(False)
@@ -337,13 +381,7 @@ def inference(cfg: InferenceConfig) -> List[str]:
     """Segment every ``*.image_format`` file in ``image_folder``; returns
     the list of written mask paths."""
     _check_supported(cfg)
-    device = resolve_device(cfg.device)
-    if (cfg.data_parallel and device.type == "cuda"
-            and torch.cuda.device_count() > 1):
-        raise NotImplementedError(
-            f"{torch.cuda.device_count()} GPUs are visible: sharding tiles "
-            "over them comes with the multi-GPU slice. Pass "
-            "--no_data_parallel (or expose one GPU) to run on one card")
+    device, devices = _serving_devices(cfg)
 
     print("Arguments:")
     print(f"checkpoint_filepath = {cfg.checkpoint_filepath}")
@@ -360,24 +398,43 @@ def inference(cfg: InferenceConfig) -> List[str]:
         os.path.join(cfg.image_folder, fn)
         for fn in sorted(os.listdir(cfg.image_folder)) if fn.endswith(f".{fmt}")
     ]
+    # int8 calibration samples the GLOBAL sorted folder, fixed before the
+    # striping, so every process derives the same scales and masks
+    global_filepath_list = img_filepath_list
+    n = cfg.process_count if cfg.process_count is not None else distributed.process_count()
+    if n > 1:
+        # images are independent: each process segments its stride of the
+        # sorted folder and writes its masks under their own names
+        me = cfg.process_index if cfg.process_index is not None else distributed.process_index()
+        print(f"process {me}/{n}: segmenting {len(img_filepath_list[me::n])} of "
+              f"{len(img_filepath_list)} images")
+        img_filepath_list = img_filepath_list[me::n]
+    if devices is not None:
+        print(f"Sharding tile groups over {len(devices)} local GPUs")
 
     model = load_model(cfg, device)
     calib_cache: dict = {}
     if cfg.quantize == "none" or not img_filepath_list:
         if cfg.quantize != "none":
             skipped = (f"; requested --calibration_out {cfg.calibration_out} "
-                       "was NOT written" if cfg.calibration_out else "")
-            print(f"WARNING: no images matched --image_format "
-                  f"{cfg.image_format} in {cfg.image_folder} — int8 "
-                  f"calibration skipped{skipped}")
-        predict_fn = small_predict_fn = make_predict_fn(model)
+                       "was NOT written by this process" if cfg.calibration_out else "")
+            why = (f"this process's stripe of {len(global_filepath_list)} images is empty"
+                   if global_filepath_list else
+                   f"no images matched --image_format {cfg.image_format} in "
+                   f"{cfg.image_folder}")
+            print(f"WARNING: {why} — int8 calibration skipped{skipped}")
+        predict_fn = small_predict_fn = _fp_replicas(model, devices)
     else:
         predict_fn, small_predict_fn, calib_cache = _quantized_predict_fn(
-            cfg, model, img_filepath_list, device)
+            cfg, model, global_filepath_list, device,
+            None if devices is None else len(devices))
+        # the reuse cache only helps for this process's images
+        mine = set(img_filepath_list)
+        calib_cache = {p: v for p, v in calib_cache.items() if p in mine}
 
     if cfg.streaming:
         return _inference_streaming(cfg, model, predict_fn, img_filepath_list, device,
-                                    calib_cache)
+                                    calib_cache, devices)
 
     radius = cfg.radius
     written = []
@@ -394,7 +451,7 @@ def inference(cfg: InferenceConfig) -> List[str]:
             return
         masks = inference_single_batch(
             [im for _, im, _ in small_buf], small_predict_fn, cfg.batch_size,
-            stats=[st for _, _, st in small_buf], device=device)
+            stats=[st for _, _, st in small_buf], device=device, devices=devices)
         for (p, _, _), mask in zip(small_buf, masks):
             _save(mask, p)
         small_buf.clear()
@@ -418,14 +475,14 @@ def inference(cfg: InferenceConfig) -> List[str]:
                 tile = _auto_tile(cfg, img.shape[0], img.shape[1], radius)
             mask = inference_tiled(img, predict_fn, tile, radius, cfg.batch_size,
                                    num_classes=cfg.number_classes,
-                                   norm_stats=stats, device=device)
+                                   norm_stats=stats, device=device, devices=devices)
             _save(mask, img_filepath)
         else:
             # batch sub-tile images; flush preserves the folder's file order
             if small_buf and small_buf[-1][1].shape != img.shape:
                 _flush_small()
             small_buf.append((img_filepath, img, stats))
-            if len(small_buf) == cfg.batch_size:
+            if len(small_buf) == cfg.batch_size * len(devices or [device]):
                 _flush_small()
     _flush_small()
     return written

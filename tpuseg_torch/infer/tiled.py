@@ -11,7 +11,15 @@ reflect padding to x16, the same trim order. What changes with PyTorch:
   ``batch_size`` chunks by a Python loop (``lax.map`` in JAX) and stitched
   on the device, and the mask crosses back once;
 - eager execution needs no program cache and no static-shape padding: a
-  short last chunk simply runs as a smaller batch.
+  short last chunk simply runs as a smaller batch;
+- ``devices`` (a list) shards each group of ``batch_size x len(devices)``
+  tiles over the entries, one chunk of ``batch_size`` on each entry's
+  replica of the predict function (the JAX package's tile sharding over a
+  mesh). The chunks are launched from this thread in turn, so the cards
+  overlap, and gathered in order. With ``devices`` every chunk is full: the
+  last group is padded by repeating the first tiles, as the JAX package
+  pads its mesh, so one entry and several run the same chunks and give the
+  same masks. Replicas are per entry, not per distinct device.
 
 :func:`inference_tiled_streaming` segments tiled-BigTIFF slides larger than
 host RAM with the same geometry, as a rolling strip of rows on the device;
@@ -98,6 +106,28 @@ def make_softmax_fn(model: torch.nn.Module) -> PredictFn:
     return softmax
 
 
+def _as_device(d) -> torch.device:
+    """``d`` as a device with an index (``cuda`` is the current card)."""
+    d = torch.device(d)
+    if d.type == "cuda" and d.index is None:
+        d = torch.device("cuda", torch.cuda.current_device())
+    return d
+
+
+def _shards(predict_fn, device, devices):
+    """``(devices, predict functions, pad)`` of one dispatch: ``device``
+    alone with ``predict_fn`` and short last chunks, or each entry of
+    ``devices`` with its replica — ``predict_fn`` is then one callable for
+    every entry or a sequence with one per entry — and full chunks."""
+    if devices is None:
+        return [_as_device(device)], [predict_fn], False
+    devices = [_as_device(d) for d in devices]
+    fns = [predict_fn] * len(devices) if callable(predict_fn) else list(predict_fn)
+    if not devices or len(fns) != len(devices):
+        raise ValueError(f"{len(fns)} predict functions for {len(devices)} devices")
+    return devices, fns, True
+
+
 def _host_tensor(img: np.ndarray) -> torch.Tensor:
     """``img``'s bits as a host tensor in the dtype that ships: native
     where torch has the type, uint16 (the microscopy corpus' type, which
@@ -172,11 +202,13 @@ def inference_single(img: np.ndarray, predict_fn: PredictFn, device="cuda") -> n
 
 def inference_single_batch(imgs: List[np.ndarray], predict_fn: PredictFn,
                            batch_size: int = 8, stats=None,
-                           device="cuda") -> List[np.ndarray]:
+                           device="cuda", devices=None) -> List[np.ndarray]:
     """Batched small-image path: same-shape images run ``batch_size`` at a
     time with the z-score fused on the device, so raw integer pixels ship.
     ``stats`` are per-image ``zscore_stats`` pairs (computed here if not
-    given)."""
+    given). With ``devices``, groups of ``batch_size x len(devices)``
+    images shard over them, a short group padded by repeating its last
+    image (the module docstring)."""
     from tpuseg_torch.data.preprocess import zscore_stats
 
     if not imgs:
@@ -191,31 +223,54 @@ def inference_single_batch(imgs: List[np.ndarray], predict_fn: PredictFn,
         raise ValueError(f"{len(stats)} stats for {len(imgs)} images")
     padded = [_pad_to_multiple(im) for im in imgs]
     pad_y, pad_x = padded[0][1], padded[0][2]
+    devs, fns, pad = _shards(predict_fn, device, devices)
+    group_size = batch_size * len(devs)
 
     preds: List[np.ndarray] = []
-    for s in range(0, len(padded), batch_size):
-        group = np.stack([p[0] for p in padded[s:s + batch_size]])
-        gstats = stats[s:s + batch_size]
-        mean = torch.from_numpy(np.stack([m for m, _ in gstats]).astype(np.float32))
-        std = torch.from_numpy(np.stack([sd for _, sd in gstats]).astype(np.float32))
-        x = _zscore(_to_device(group, device), mean.to(device)[:, None, None, :],
-                    std.to(device)[:, None, None, :])
-        preds.extend(predict_fn(x).cpu().numpy())
+    for s in range(0, len(padded), group_size):
+        group = [p[0] for p in padded[s:s + group_size]]
+        gstats = list(stats[s:s + group_size])
+        k = len(group)
+        while pad and len(group) < group_size:
+            group.append(group[-1])
+            gstats.append(gstats[-1])
+        outs = []
+        for i, (d, fn) in enumerate(zip(devs, fns)):
+            part = slice(i * batch_size, (i + 1) * batch_size)
+            mean = torch.from_numpy(np.stack([m for m, _ in gstats[part]]).astype(np.float32))
+            std = torch.from_numpy(np.stack([sd for _, sd in gstats[part]]).astype(np.float32))
+            x = _zscore(_to_device(np.stack(group[part]), d), mean.to(d)[:, None, None, :],
+                        std.to(d)[:, None, None, :])
+            outs.append(fn(x))
+        preds.extend(np.concatenate([o.cpu().numpy() for o in outs])[:k])
 
     h, w = preds[0].shape
     return [p[:h - pad_y, :w - pad_x] for p in preds]
 
 
-def _forward_tiles(predict_fn: PredictFn, padded: torch.Tensor, windows,
-                   tile_size: int, chunk: int) -> torch.Tensor:
+def _forward_tiles(shards, padded: torch.Tensor, windows, tile_size: int,
+                   chunk: int) -> torch.Tensor:
     """Cut the windows at ``(window_y, window_x)`` out of the device image
-    and run them ``chunk`` at a time; returns ``(n_tiles, tile, tile)``
-    labels."""
+    and run them ``chunk`` at a time on each of ``shards`` (from
+    :func:`_shards`) in turn; returns at least ``(n_tiles, tile, tile)``
+    labels, on ``padded``'s device (pad tiles last)."""
+    devs, fns, pad = shards
+    group = chunk * len(devs)
+    if pad:  # repeat the first windows up to whole groups
+        windows = list(windows) + [windows[i % len(windows)]
+                                   for i in range((-len(windows)) % group)]
+    images = {padded.device: padded}  # the image on each shard's device
     preds = []
-    for s in range(0, len(windows), chunk):
-        tiles = torch.stack([padded[y_st:y_st + tile_size, x_st:x_st + tile_size]
-                             for (y_st, x_st) in windows[s:s + chunk]])
-        preds.append(predict_fn(tiles))
+    for s in range(0, len(windows), group):
+        outs = []
+        for i, (d, fn) in enumerate(zip(devs, fns)):
+            part = windows[s + i * chunk:s + (i + 1) * chunk]
+            img = images.get(d)
+            if img is None:
+                img = images[d] = padded.to(d)
+            outs.append(fn(torch.stack([img[y_st:y_st + tile_size, x_st:x_st + tile_size]
+                                        for (y_st, x_st) in part])))
+        preds.extend(o.to(padded.device) for o in outs)
     return torch.cat(preds)
 
 
@@ -229,9 +284,12 @@ def inference_tiled(
     norm_stats: Optional[Tuple[np.ndarray, np.ndarray]] = None,
     device="cuda",
     device_output: bool = False,
+    devices=None,
 ):
     """Large-image path (inference.py:27-136): ZoR grid with ERF halos,
-    fixed-shape slide-to-fit windows, batched device execution.
+    fixed-shape slide-to-fit windows, batched device execution; with
+    ``devices``, tile groups sharded over them (the module docstring) and
+    the mask stitched on ``device``.
 
     ``norm_stats`` (per-channel ``(mean, std)`` from ``zscore_stats``): when
     given, ``img`` ships in its native dtype and the z-score runs on the
@@ -265,8 +323,8 @@ def inference_tiled(
         mean, std = (torch.from_numpy(np.asarray(s, np.float32).reshape(-1)).to(device)
                      for s in norm_stats)
         padded = _zscore(padded, mean, std)
-    preds = _forward_tiles(predict_fn, padded, [p[4:] for p in placements], tile_size,
-                           batch_size)
+    preds = _forward_tiles(_shards(predict_fn, device, devices), padded,
+                           [p[4:] for p in placements], tile_size, batch_size)
 
     shrink_u8 = num_classes is not None and num_classes <= 256
     mask = torch.zeros((height, width), dtype=torch.uint8 if shrink_u8 else torch.int32,
@@ -278,14 +336,15 @@ def inference_tiled(
     return mask if device_output else mask.cpu().numpy()
 
 
-def _strip_row(predict_fn: PredictFn, strip: torch.Tensor, xs, tile_size: int,
+def _strip_row(shards, strip: torch.Tensor, xs, tile_size: int,
                batch_size: int, width: int, band_h: int, y_off: int,
                shrink_u8: bool) -> torch.Tensor:
     """One zone row of the streaming path (``_build_strip_row_program`` in
     JAX): cut the row's windows out of the normalized ``(tile, width, C)``
-    device strip, run them ``batch_size`` at a time, and stitch the trimmed
-    zones into a ``(band_h, width)`` band. ``y_off = zone_y - window_y``."""
-    preds = _forward_tiles(predict_fn, strip, [(0, x_st) for (_, _, x_st) in xs],
+    device strip, run them ``batch_size`` at a time on ``shards`` (from
+    :func:`_shards`), and stitch the trimmed zones into a ``(band_h,
+    width)`` band. ``y_off = zone_y - window_y``."""
+    preds = _forward_tiles(shards, strip, [(0, x_st) for (_, _, x_st) in xs],
                            tile_size, batch_size)
     band = torch.empty((band_h, width), dtype=torch.uint8 if shrink_u8 else torch.int32,
                        device=strip.device)
@@ -306,6 +365,7 @@ def inference_tiled_streaming(
     compression_level: int = 6,
     progress: bool = True,
     device="cuda",
+    devices=None,
 ) -> str:
     """Whole-slide inference for images larger than host RAM
     (``tpuseg.infer.tiled.inference_tiled_streaming``): the ZoR/halo grid of
@@ -329,6 +389,9 @@ def inference_tiled_streaming(
     uint8 at <= 256 classes, uint16 at <= 65536, int32 otherwise. On any
     failure the writer is aborted and the reading thread released.
 
+    ``devices`` shards each zone row's windows as :func:`inference_tiled`
+    shards its tiles; the strip lives on ``device``.
+
     Returns ``out_path``.
     """
     from tpuseg_torch.utils.bigtiff import BigTiffTileWriter
@@ -341,6 +404,7 @@ def inference_tiled_streaming(
             f"dim, got {height}x{width} — use inference_tiled/_single instead")
     zor = tile_size - 2 * radius
     _check_tile_geometry(tile_size, radius, zor)
+    shards = _shards(predict_fn, device, devices)
     device = torch.device(device)
     on_card = device.type == "cuda"
 
@@ -419,7 +483,7 @@ def inference_tiled_streaming(
                     fresh = _zscore(_widen(new.to(device, non_blocking=True), uint16),
                                     mean, std)
                     strip = fresh if strip is None else torch.cat([strip[fresh.shape[0]:], fresh])
-                band = _strip_row(predict_fn, strip, xs, tile_size, batch_size, width,
+                band = _strip_row(shards, strip, xs, tile_size, batch_size, width,
                                   band_h, y_off, shrink)
                 if pending is not None:
                     write_band(pending)

@@ -28,11 +28,16 @@ output ``(x - mean) * (rsqrt(var + eps) * scale) + bias``, and the running
 update ``running = 0.99 * running + 0.01 * batch`` on that biased variance
 (``nn.BatchNorm2d`` would update ``running_var`` with the unbiased one).
 Eval mode normalizes with the running statistics through ``F.batch_norm``.
+
+Data parallelism (``tpuseg_torch/parallel/mesh.py``) sets
+``UNet.process_group``; train mode then takes the batch statistics of the
+global batch (sync-BN, the JAX package's sharded semantics) and draws each
+dropout mask for the global batch, keeping this rank's rows.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -57,13 +62,31 @@ def as_dtype(dtype: Union[str, torch.dtype]) -> torch.dtype:
     return DTYPES[dtype] if isinstance(dtype, str) else dtype
 
 
-def _bn(x: torch.Tensor, bn: nn.BatchNorm2d, dtype: torch.dtype) -> torch.Tensor:
+def _batch_moments(xf: torch.Tensor, group) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-channel mean and biased variance of NCHW ``xf`` over N, H, W,
+    from per-channel ``[sum x, sum x^2, n]`` in f32: of this batch, or with
+    a process ``group`` of the global batch (sync-BN), the sums all-reduced
+    through the differentiable all-reduce, so every rank's gradient also
+    carries the other ranks' dependence on its activations. Sums, not
+    means: a mean's backward divides a full-size gradient, a sum's only
+    broadcasts one."""
+    n = xf.shape[0] * xf.shape[2] * xf.shape[3]
+    stats = torch.stack([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3)),
+                         xf.new_full((xf.shape[1],), float(n))])
+    if group is not None:
+        from torch.distributed.nn.functional import all_reduce
+
+        stats = all_reduce(stats, group=group)
+    mean = stats[0] / stats[2]
+    return mean, torch.clamp_min(stats[1] / stats[2] - mean * mean, 0.0)
+
+
+def _bn(x: torch.Tensor, bn: nn.BatchNorm2d, dtype: torch.dtype, group=None) -> torch.Tensor:
     # flax promotes to fp32 for the normalization and casts the result back
     if not bn.training:
         return bn(x.float()).to(dtype)
     xf = x.float()
-    mean = xf.mean((0, 2, 3))
-    var = torch.clamp_min((xf * xf).mean((0, 2, 3)) - mean * mean, 0.0)
+    mean, var = _batch_moments(xf, group)
     with torch.no_grad():  # flax's update, in its own convention
         m = BN_MOMENTUM
         bn.running_mean.copy_(m * bn.running_mean + (1 - m) * mean)
@@ -73,12 +96,24 @@ def _bn(x: torch.Tensor, bn: nn.BatchNorm2d, dtype: torch.dtype) -> torch.Tensor
     return y.to(dtype)
 
 
-def _dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]
-             ) -> torch.Tensor:
+def _dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
+             group=None) -> torch.Tensor:
     """flax ``nn.Dropout``: keep with probability ``1 - rate`` and scale the
-    kept values by ``1 / (1 - rate)``; the mask comes from ``generator``."""
+    kept values by ``1 / (1 - rate)``; the mask comes from ``generator``.
+    With a process ``group`` the mask is drawn for the global batch (every
+    rank's local batch stacked in rank order) and this rank keeps its rows,
+    so the ranks drop out as one process of the global batch does from the
+    same generator state."""
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    if group is None:
+        mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    else:
+        import torch.distributed as dist
+
+        b = x.shape[0]
+        first = dist.get_rank(group) * b
+        shape = (b * dist.get_world_size(group), *x.shape[1:])
+        mask = torch.rand(shape, generator=generator, device=x.device)[first:first + b] < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -90,10 +125,10 @@ class ConvBlock(nn.Module):
         self.conv = nn.Conv2d(cin, features, kernel, padding=kernel // 2)
         self.bn = nn.BatchNorm2d(features, eps=BN_EPSILON, momentum=1 - BN_MOMENTUM)
 
-    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dtype: torch.dtype, group=None) -> torch.Tensor:
         c = self.conv
         x = F.conv2d(x, c.weight.to(dtype), c.bias.to(dtype), padding=c.padding)
-        return _bn(F.relu(x), self.bn, dtype)
+        return _bn(F.relu(x), self.bn, dtype, group)
 
 
 def depth_to_space(y: torch.Tensor) -> torch.Tensor:
@@ -124,13 +159,13 @@ class DeconvBlock(nn.Module):
                                              stride=POOLING_STRIDE, bias=False)
         self.bn = nn.BatchNorm2d(features, eps=BN_EPSILON, momentum=1 - BN_MOMENTUM)
 
-    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dtype: torch.dtype, group=None) -> torch.Tensor:
         w = self.deconv.weight.to(dtype)
         if self.impl == "pixel_shuffle":
             x = depth_to_space(F.conv2d(x, w))
         else:
             x = F.conv_transpose2d(x, w, stride=POOLING_STRIDE)
-        return _bn(x, self.bn, dtype)
+        return _bn(x, self.bn, dtype, group)
 
 
 def _pool(x: torch.Tensor) -> torch.Tensor:
@@ -173,6 +208,10 @@ class UNet(nn.Module):
         self.head = ConvBlock(f, num_classes, kernel=1)
         # 0 turns dropout off in train mode too (the parity tests do)
         self.dropout_rate = DROPOUT_RATE
+        # data parallelism (parallel/mesh.py): the process group train-mode
+        # BatchNorm reduces its statistics over and dropout draws its global
+        # mask for; None trains on this process's batch alone
+        self.process_group = None
 
     def config(self) -> dict:
         """Constructor arguments, as the port's checkpoint stores them."""
@@ -194,11 +233,13 @@ class UNet(nn.Module):
                 f"Input H,W must be multiples of {SIZE_FACTOR} to allow integer "
                 f"sized downscaled feature maps; got H={x.shape[1]}, W={x.shape[2]}")
         dt = self.dtype
+        # train-mode collectives only: eval BatchNorm reads running statistics
+        group = self.process_group if self.training else None
         x = x.to(dt).permute(0, 3, 1, 2)  # NCHW view, channels-last strides
 
         def pair(name, x):
-            x = getattr(self, f"{name}a")(x, dt)
-            return getattr(self, f"{name}b")(x, dt)
+            x = getattr(self, f"{name}a")(x, dt, group)
+            return getattr(self, f"{name}b")(x, dt, group)
 
         enc1 = pair("enc1", x)
         enc2 = pair("enc2", _pool(enc1))
@@ -206,13 +247,13 @@ class UNet(nn.Module):
         def drop(x):
             if not self.training or not self.dropout_rate:
                 return x
-            return _dropout(x, self.dropout_rate, generator)
+            return _dropout(x, self.dropout_rate, generator, group)
 
         enc4 = drop(pair("enc4", _pool(enc3)))
         bott = drop(pair("bottleneck", _pool(enc4)))
 
         def up(x, skip, name):
-            x = getattr(self, f"{name}up")(x, dt)
+            x = getattr(self, f"{name}up")(x, dt, group)
             # concat order (skip, up), model.py:117
             return pair(name, torch.cat([skip, x], dim=1))
 
@@ -221,7 +262,7 @@ class UNet(nn.Module):
         dec2 = up(dec3, enc2, "dec2")
         dec1 = up(dec2, enc1, "dec1")
         # 1x1 head through the full conv block (ReLU+BN), ref model.py:136
-        logits = self.head(dec1, dt)
+        logits = self.head(dec1, dt, group)
         return logits.permute(0, 2, 3, 1).float()
 
     def probabilities(self, x: torch.Tensor,

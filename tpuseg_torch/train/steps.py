@@ -15,7 +15,7 @@ changes it without rebuilding anything.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -121,16 +121,21 @@ def create_train_state(model: UNet, seed: int, learning_rate: float,
 
 
 def train_step(state: TrainState, images: torch.Tensor, labels: torch.Tensor,
-               label_smoothing: float = 0.0) -> Dict[str, torch.Tensor]:
+               label_smoothing: float = 0.0,
+               forward: Optional[torch.nn.Module] = None) -> Dict[str, torch.Tensor]:
     """One optimization step, in place on ``state``.
 
     images: [N,H,W,C] float32 (already normalized); labels: [N,H,W,classes]
-    one-hot. Loss scaling follows model.py:211-215 with global batch = N.
-    Returns device scalars ``loss`` and ``accuracy`` (of the pre-update
-    forward, as the JAX step does)."""
+    one-hot. Loss scaling follows model.py:211-215 with batch = N, this
+    process's batch: under data parallelism DDP's mean of the ranks'
+    gradients then gives the global batch's. ``forward`` is the module the
+    forward runs through (a ``DistributedDataParallel`` wrapper of
+    ``state.model``; default ``state.model``). Returns device scalars
+    ``loss`` and ``accuracy`` (of the pre-update forward, as the JAX step
+    does)."""
     model = state.model
     model.train()
-    logits = model(images, generator=state.dropout_generator)
+    logits = (forward or model)(images, generator=state.dropout_generator)
     per_pixel = cce_from_logits(logits, labels, label_smoothing)
     loss = reference_scalar_loss(per_pixel, images.shape[0])
     state.optimizer.zero_grad(set_to_none=True)
@@ -157,11 +162,13 @@ def eval_step(state: TrainState, images: torch.Tensor, labels: torch.Tensor,
 StepFn = Callable[[TrainState, torch.Tensor, torch.Tensor], Dict[str, torch.Tensor]]
 
 
-def make_steps(label_smoothing: float = 0.0) -> Tuple[StepFn, StepFn]:
+def make_steps(label_smoothing: float = 0.0,
+               forward: Optional[torch.nn.Module] = None) -> Tuple[StepFn, StepFn]:
     """(train_step, eval_step) over host-preprocessed batches: float32
-    z-scored images and one-hot integer labels."""
+    z-scored images and one-hot integer labels. ``forward``: as in
+    :func:`train_step`."""
     def tstep(state, images, labels):
-        return train_step(state, images, labels.float(), label_smoothing)
+        return train_step(state, images, labels.float(), label_smoothing, forward)
 
     def estep(state, images, labels):
         return eval_step(state, images, labels.float(), label_smoothing)
@@ -170,12 +177,16 @@ def make_steps(label_smoothing: float = 0.0) -> Tuple[StepFn, StepFn]:
 
 
 def make_raw_steps(num_classes: int, aug_params=None, augment: bool = True,
-                   label_smoothing: float = 0.0) -> Tuple[StepFn, StepFn]:
+                   label_smoothing: float = 0.0,
+                   forward: Optional[torch.nn.Module] = None,
+                   shard: Tuple[int, int] = (0, 1)) -> Tuple[StepFn, StepFn]:
     """(train_step, eval_step) over RAW uint batches: augmentation (from the
     state's augmentation generator), z-score and one-hot run on the batch's
     device before forward/backward/Adam — the composition of
     ``tpuseg.train.steps.compose_raw_steps``. Eval never augments and draws
-    nothing."""
+    nothing. ``forward``: as in :func:`train_step`; ``shard = (rank,
+    world)``: the batch is rank's slice of the global batch, whose draws
+    are made (``aug.device.augment_and_preprocess_batch``)."""
     from tpuseg_torch.aug.device import DeviceAugmentParams, augment_and_preprocess_batch
 
     if aug_params is None:
@@ -183,8 +194,8 @@ def make_raw_steps(num_classes: int, aug_params=None, augment: bool = True,
 
     def tstep(state: TrainState, raw_images, raw_masks):
         images, labels = augment_and_preprocess_batch(
-            state.aug_generator, raw_images, raw_masks, aug_params, num_classes, augment)
-        return train_step(state, images, labels, label_smoothing)
+            state.aug_generator, raw_images, raw_masks, aug_params, num_classes, augment, shard)
+        return train_step(state, images, labels, label_smoothing, forward)
 
     def estep(state: TrainState, raw_images, raw_masks):
         images, labels = augment_and_preprocess_batch(

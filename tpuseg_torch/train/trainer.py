@@ -32,8 +32,18 @@ Counterpart of ``tpuseg/train/trainer.py`` (the reference
 - resume restores the full state and the test-loss history.
 
 Runs on ``config.device`` — the card by default; asking for it without one
-raises. ``spatial_partitions > 1`` and ``shard_optimizer`` wait for the
-multi-GPU slice and raise ``NotImplementedError``.
+raises.
+
+Data parallelism (``parallel/``): in a process group (``cli.train
+--multihost 1`` under torchrun, one process per GPU) each rank trains on
+``cuda:LOCAL_RANK`` with ``batch_size`` samples, its readers striped by rank,
+so the global batch is ``batch_size x world``; the steps run through DDP
+with sync-BN and global metrics (``shard_optimizer``: ZeRO-1), every rank
+takes the same early-stopping and checkpoint decisions, and rank 0 alone
+writes the checkpoint, ``test_loss.csv`` and the TensorBoard files. A
+process that sees several GPUs without a process group raises rather than
+train on one of them. ``spatial_partitions > 1`` is not ported yet and
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -50,8 +60,10 @@ import torch
 from tpuseg_torch.data.reader import AugmentParams, ImageReader
 from tpuseg_torch.infer.runner import resolve_device
 from tpuseg_torch.models.unet import UNet
+from tpuseg_torch.parallel import distributed
+from tpuseg_torch.parallel import mesh as mesh_lib
 from tpuseg_torch.train.prefetch import device_prefetch
-from tpuseg_torch.train.steps import create_train_state, make_raw_steps, make_steps
+from tpuseg_torch.train.steps import create_train_state
 from tpuseg_torch.utils.checkpoint import AsyncCheckpointWriter, restore_train_state
 from tpuseg_torch.utils.profiling import ThroughputMeter
 from tpuseg_torch.utils.tb_events import EventFileWriter
@@ -86,8 +98,9 @@ class TrainConfig:
     device_augment: bool = True
     # a training checkpoint to resume the full state from
     resume_checkpoint: Optional[str] = None
-    # multi-GPU options: the single-GPU defaults only, until that slice
+    # ZeRO-1: the Adam moments sharded over the process group's ranks
     shard_optimizer: bool = False
+    # spatial partitioning over groups of N GPUs: not ported yet (raises)
     spatial_partitions: int = 1
     # torch.profiler trace of the first N steps of epoch 1 (after the
     # warmup epoch) into <output_folder>/profile; 0 disables
@@ -118,25 +131,48 @@ class TrainResult:
 def _device_seed(seed: Optional[int]) -> int:
     """The run's seed: the configured one, or fresh entropy when unseeded —
     a fixed default would replay identical dropout and augmentation streams
-    across nominally independent runs."""
+    across nominally independent runs. The ranks of a process group must
+    agree on it (the model and the generators are replicated), so rank 0's
+    draw is broadcast."""
     if seed is not None:
         return seed
-    return int.from_bytes(os.urandom(4), "little")
+    return distributed.broadcast_seed(int.from_bytes(os.urandom(4), "little"))
 
 
-def _check_single_gpu(cfg: TrainConfig) -> None:
-    if cfg.spatial_partitions != 1:
-        raise NotImplementedError(
-            f"spatial_partitions={cfg.spatial_partitions} is not ported yet "
-            "(it comes with the multi-GPU slice)")
-    if cfg.shard_optimizer:
-        raise NotImplementedError(
-            "shard_optimizer is not ported yet (it comes with the multi-GPU slice)")
+def _train_device(cfg: TrainConfig) -> torch.device:
+    """The device this process trains on: ``cfg.device``, and under a process
+    group on the card its GPU, ``cuda:LOCAL_RANK``. Several visible GPUs
+    without a process group raise: training would use one of them."""
+    device = resolve_device(cfg.device)
+    if device.type != "cuda":
+        return device
+    if distributed.is_initialized():
+        return torch.device("cuda", distributed.local_rank())
+    n = torch.cuda.device_count()
+    if n > 1:
+        raise RuntimeError(
+            f"{n} GPUs are visible but no process group is initialized, so training "
+            f"would use one of them: launch one process per GPU with `torchrun "
+            f"--nproc_per_node {n} -m tpuseg_torch.cli.train --multihost 1 ...`, or "
+            "expose one GPU (CUDA_VISIBLE_DEVICES)")
+    return device
+
+
+class _NullWriter:
+    """The event writer of a rank that does not write (rank 0 does)."""
+
+    def add_scalar(self, *args) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
 
 
 def _summary_writers(output_folder: str):
     """The train and test event writers, in ``tensorboard-<timestamp>/
-    {train,test}`` (tpuseg's layout)."""
+    {train,test}`` (tpuseg's layout); null writers off rank 0."""
+    if distributed.process_index() != 0:
+        return _NullWriter(), _NullWriter()
     current_time = datetime.datetime.now().strftime("%Y%m%dT%H%M%S")
     root = os.path.join(output_folder, "tensorboard-" + current_time)
     return EventFileWriter(os.path.join(root, "train")), EventFileWriter(os.path.join(root, "test"))
@@ -188,6 +224,22 @@ def _device_params(ap: AugmentParams):
     )
 
 
+def _barrier_after_first(it, name: str):
+    """Yield from ``it``, with every process meeting at a host barrier once
+    its first item is ready (reader start-up time differs per process and
+    is the last unsynchronized wait before step one); closes ``it`` on
+    close, so the prefetch thread stops."""
+    try:
+        first = True
+        for item in it:
+            if first:
+                distributed.host_barrier(name)
+            first = False
+            yield item
+    finally:
+        it.close()
+
+
 def train_model(config: TrainConfig) -> TrainResult:
     cfg = config
     print(f"batch_size = {cfg.batch_size}")
@@ -202,17 +254,28 @@ def train_model(config: TrainConfig) -> TrainResult:
     print(f"early_stopping count = {cfg.early_stopping_count}")
     print(f"reader_count = {cfg.reader_count}")
 
-    _check_single_gpu(cfg)
-    device = resolve_device(cfg.device)
+    if cfg.spatial_partitions < 1:
+        raise ValueError(f"spatial_partitions must be >= 1, got {cfg.spatial_partitions}")
+    device = _train_device(cfg)
     print(f"device = {device}")
+    mesh = mesh_lib.make_mesh(device, spatial=cfg.spatial_partitions)
+    rank = mesh.rank
+    global_batch_size = cfg.batch_size * mesh.world
+    local_batch_size = distributed.process_local_batch_size(global_batch_size)
+    print(f"devices = {mesh.world} over {distributed.host_count()} host(s), "
+          f"global_batch_size = {global_batch_size}")
     os.makedirs(cfg.output_folder, exist_ok=True)
     raw = cfg.device_augment
 
+    # rank-striped readers: seeded shuffled streams differ per rank and the
+    # strided test walk partitions the keys over the ranks
+    host_kw = dict(process_index=rank, process_count=mesh.world)
     print("Setting up test image reader")
     test_reader = ImageReader(
         cfg.test_database, use_augmentation=False, shuffle=False,
         num_workers=cfg.reader_count, balance_classes=False,
-        number_classes=cfg.number_classes, layout="nhwc", seed=cfg.seed, raw_mode=raw)
+        number_classes=cfg.number_classes, layout="nhwc", seed=cfg.seed, raw_mode=raw,
+        **host_kw)
     print(f"Test Reader has {test_reader.get_image_count()} images")
 
     print("Setting up training image reader")
@@ -220,7 +283,8 @@ def train_model(config: TrainConfig) -> TrainResult:
         cfg.train_database, use_augmentation=cfg.use_augmentation and not raw,
         shuffle=True, num_workers=cfg.reader_count,
         balance_classes=cfg.balance_classes, number_classes=cfg.number_classes,
-        layout="nhwc", seed=cfg.seed, augment_params=cfg.augment_params, raw_mode=raw)
+        layout="nhwc", seed=cfg.seed, augment_params=cfg.augment_params, raw_mode=raw,
+        **host_kw)
     print(f"Train Reader has {train_reader.get_image_count()} images")
 
     number_channels = train_reader.get_image_size()[2]
@@ -229,16 +293,22 @@ def train_model(config: TrainConfig) -> TrainResult:
     resumed = False
     resumed_history: List[float] = []
     if cfg.resume_checkpoint:
+        # every process restores host-locally
         restore_train_state(cfg.resume_checkpoint, state)
         resumed = state.step > 0
         print(f"Resumed training state from {cfg.resume_checkpoint} at step {state.step}")
         resumed_history = _resumed_history(cfg)
+    mesh_lib.replicate_state(state, mesh)
     if raw:
-        tstep, estep = make_raw_steps(cfg.number_classes, _device_params(cfg.augment_params),
-                                      augment=cfg.use_augmentation,
-                                      label_smoothing=cfg.label_smoothing)
+        tstep, estep = mesh_lib.make_parallel_raw_steps(
+            model, mesh, cfg.number_classes, _device_params(cfg.augment_params),
+            augment=cfg.use_augmentation, label_smoothing=cfg.label_smoothing,
+            shard_optimizer=cfg.shard_optimizer, state=state)
     else:
-        tstep, estep = make_steps(cfg.label_smoothing)
+        tstep, estep = mesh_lib.make_parallel_steps(
+            model, mesh, cfg.label_smoothing, shard_optimizer=cfg.shard_optimizer,
+            state=state)
+    mesh_lib.warm_collectives(mesh)
 
     checkpoint_path = os.path.join(cfg.output_folder, "checkpoint", "ckpt")
     train_epoch_size = cfg.test_every_n_steps  # train.py:99
@@ -255,7 +325,9 @@ def train_model(config: TrainConfig) -> TrainResult:
         print("Starting Readers")
         train_reader.startup()
         test_reader.startup()
-        train_iter = device_prefetch(train_reader.batches(cfg.batch_size), device)
+        train_iter = _barrier_after_first(
+            device_prefetch(train_reader.batches(local_batch_size), device),
+            "tpuseg_torch:first-batch")
 
         # resumed runs continue the epoch numbering and skip the lr/10
         # warmup epoch — the restored optimizer is already warm
@@ -275,7 +347,7 @@ def train_model(config: TrainConfig) -> TrainResult:
                 cur_train_epoch_size = train_epoch_size
                 state.lr = cfg.learning_rate
 
-            if cfg.profile_steps and epoch == 1:
+            if cfg.profile_steps and epoch == 1 and rank == 0:
                 # epoch 1 = the first steady-state epoch (epoch 0 warms up)
                 from tpuseg_torch.utils.profiling import trace
 
@@ -299,7 +371,7 @@ def train_model(config: TrainConfig) -> TrainResult:
                             "train stream ended: a train reader worker died (see the "
                             "Reader Error banner above) or the train database is "
                             "smaller than one batch") from None
-                    win_images += cfg.batch_size
+                    win_images += global_batch_size
                 metrics = tstep(state, images, labels)
                 # device-side accumulation: lazy adds, no host sync
                 win_loss = metrics["loss"] if win_loss is None else win_loss + metrics["loss"]
@@ -340,7 +412,7 @@ def train_model(config: TrainConfig) -> TrainResult:
             # producer thread stops consuming the shared reader queue
             sum_loss = sum_acc = None
             n_eval = 0
-            test_iter = device_prefetch(test_reader.batches(cfg.batch_size), device)
+            test_iter = device_prefetch(test_reader.batches(local_batch_size), device)
             try:
                 for _ in range(int(test_epoch_size) + 1):
                     try:
@@ -363,15 +435,18 @@ def train_model(config: TrainConfig) -> TrainResult:
             test_writer.add_scalar("loss", test_loss[-1], int((epoch + 1) * train_epoch_size))
             test_writer.add_scalar("accuracy", mean_acc, int((epoch + 1) * train_epoch_size))
 
-            with open(os.path.join(cfg.output_folder, "test_loss.csv"), "w") as csvfile:
-                for v in test_loss:
-                    csvfile.write(str(v) + "\n")
+            if rank == 0:  # peers would clobber the same file
+                with open(os.path.join(cfg.output_folder, "test_loss.csv"), "w") as csvfile:
+                    for v in test_loss:
+                        csvfile.write(str(v) + "\n")
 
             print(f"Epoch took: {time.time() - start_time} s")
 
             # checkpoint-on-best (train.py:181-184), in the background. A
             # non-finite loss never saves and never counts as best: argmin
-            # would select a NaN and overwrite the stored best checkpoint
+            # would select a NaN and overwrite the stored best checkpoint.
+            # The test loss is global, so every rank decides alike (a ZeRO-1
+            # save gathers the moments from every rank; rank 0 writes)
             if (np.isfinite(test_loss[-1])
                     and (len(test_loss) - 1) == int(np.nanargmin(test_loss))):
                 print(f"Test loss improved: {np.nanmin(test_loss)}, saving checkpoint")
@@ -399,6 +474,10 @@ def train_model(config: TrainConfig) -> TrainResult:
                           f"epochs including the {len(resumed_history)} resumed from history")
                 break
             epoch += 1
+        # leave together: no process may act on this run's artifacts (resume
+        # from the checkpoint) before rank 0's write has landed
+        ckpt_writer.wait()
+        distributed.host_barrier("tpuseg_torch:train-exit")
     finally:
         # reader shutdown must be unconditional: the forkserver workers are
         # non-daemon and loop forever, so skipping it (e.g. because a

@@ -6,7 +6,9 @@
   trainer calls, at ``<output>/checkpoint/ckpt``) holds the same two keys
   plus the optimizer state (moments, step count, lr), the step, the lr and
   both generator states — everything :func:`restore_train_state` needs to
-  resume.
+  resume. A data-parallel run's checkpoint is the same file, written by
+  rank 0 alone (a ZeRO-1 optimizer's shards gathered into ``KerasAdam``'s
+  layout), so it resumes on any number of GPUs.
 
 :func:`load_model` reads either kind, so a trained checkpoint serves
 through ``tpuseg_torch.cli.inference`` as it is. A reference TensorFlow
@@ -27,6 +29,7 @@ from typing import Optional, Union
 import torch
 
 from tpuseg_torch.models.unet import UNet
+from tpuseg_torch.parallel.distributed import process_index
 
 
 def _to_cpu(obj):
@@ -67,14 +70,47 @@ def load_model(path: str, dtype: Union[str, torch.dtype] = torch.bfloat16,
     return model.to(device).eval()
 
 
-def train_checkpoint(state) -> dict:
+def _is_zero(optimizer) -> bool:
+    from torch.distributed.optim import ZeroRedundancyOptimizer
+
+    return isinstance(optimizer, ZeroRedundancyOptimizer)
+
+
+# the keys of a KerasAdam parameter group besides its parameters
+_ADAM_GROUP_KEYS = ("lr", "betas", "eps", "step")
+
+
+def optimizer_state(optimizer) -> Optional[dict]:
+    """The optimizer's state dict in ``KerasAdam``'s own layout. A ZeRO-1
+    optimizer's shards are gathered to rank 0 (every rank must call this)
+    and mapped to that layout — moments keyed by the parameter's index in
+    the model, one parameter group — so its checkpoint resumes in a
+    single-GPU run and the reverse; ranks other than 0 get None."""
+    if not _is_zero(optimizer):
+        return optimizer.state_dict()
+    optimizer.consolidate_state_dict(to=0)
+    if process_index() != 0:
+        return None
+    sd = optimizer.state_dict()
+    groups = [{**{k: g[k] for k in _ADAM_GROUP_KEYS}, "params": list(g["params"])}
+              for g in sd["param_groups"]]
+    return {"state": {i: st for i, st in sd["state"].items() if st is not None},
+            "param_groups": groups}
+
+
+def train_checkpoint(state) -> Optional[dict]:
     """A training checkpoint of ``state`` (a ``train.steps.TrainState``),
     snapshotted to the CPU: the caller may go on updating the state in
-    place as soon as this returns."""
+    place as soon as this returns. Under a process group every rank calls
+    it (a ZeRO-1 optimizer gathers its shards) and only rank 0 gets the
+    checkpoint; the others get None."""
+    opt = optimizer_state(state.optimizer)
+    if process_index() != 0:
+        return None
     return {
         "config": state.model.config(),
         "state_dict": _to_cpu(state.model.state_dict()),
-        "optimizer": _to_cpu(state.optimizer.state_dict()),
+        "optimizer": _to_cpu(opt),
         "step": int(state.step),
         "lr": float(state.lr),
         "rng": {"augment": state.aug_generator.get_state(),
@@ -85,7 +121,9 @@ def train_checkpoint(state) -> dict:
 def restore_train_state(path: str, state):
     """Load a training checkpoint into ``state`` in place (weights,
     optimizer, step, lr, and the generators where it holds them) and
-    return it. The checkpoint's model must have ``state``'s configuration."""
+    return it. The checkpoint's model must have ``state``'s configuration.
+    Every process restores host-locally; a ZeRO-1 optimizer keeps only its
+    partition's moments."""
     doc = torch.load(path, map_location="cpu", weights_only=True)
     if "optimizer" not in doc:
         raise ValueError(f"{path} is a model checkpoint, not a training checkpoint: "
@@ -128,8 +166,12 @@ class AsyncCheckpointWriter:
             self._error = e
 
     def save(self, path: str, state) -> None:
+        """Snapshot ``state`` and write it in the background. Under a
+        process group every rank calls this and rank 0 alone writes."""
         self.wait()
         doc = train_checkpoint(state)
+        if doc is None:
+            return
         self._thread = threading.Thread(target=self._run, args=(path, doc), daemon=True)
         self._thread.start()
 
