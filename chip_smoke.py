@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving, training, migration and
-multi-GPU paths once on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's serving, training, migration,
+multi-GPU and spatial paths once on one NVIDIA card.
 
     python3 chip_smoke.py [--seed N] [--out results.json]
 
@@ -98,7 +98,22 @@ package. Phases, each fatal on failure:
    K2 launched once per full chunk of each shard; (d) two torchrun ranks of
    ``cli.inference --multihost 1 --device cuda:0 --quantize int8_blocked``
    stripe phase 4's folder: each mask written once, agreeing with phase
-   4's on >= 0.9999, the calibration scales equal on both ranks.
+   4's on >= 0.9999, the calibration scales equal on both ranks;
+10. spatial partitioning on the one card, two gloo ranks on cuda:0 whose
+   halo exchanges take the host-staged route (NCCL refuses two ranks on one
+   card): (a) phase 9 (b)'s run on a (1, 2) mesh, each rank augmenting the
+   global batch and training on half of its rows, against phase 9 (b)'s
+   one process, with (b)'s gates, and an eval step before training (loss
+   rtol 1e-5, accuracy within ``SP_EVAL_ACC_ATOL``); (b) the main path,
+   ``train_model(TrainConfig(spatial_partitions=2))`` in two processes
+   joined over ``tcp://`` with gloo, on phase 6's databases (base 64, bf16,
+   512^2, global batch 8, two epochs of 7 steps), K1's count zeroed just
+   before and read just after in each: the same losses on both ranks,
+   finite and falling, 3 K1 launches a step on each, one checkpoint (rank
+   0's), which serves phase 4's folder with phase 4's K2 count; then each
+   rank times steady spatial steps (against phase 6's plain step: overhead,
+   not scaling, on a shared card), its peak device memory, and the halo
+   exchange's route, bytes a step and share of profiled steps.
 
 The last lines are ``{"kernels": [...]}``, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``. Without a card it exits 1 and prints
@@ -1617,12 +1632,14 @@ def raw_batch(path: str, n: int, dev):
 
 
 def dp_worker(rank: int, world: int, port: int, seed: int, out_path: str,
-              device: str = "cuda:0") -> None:
-    """Phase 9 (b)'s rank ``rank`` of ``world`` on the card (world 1: one
-    process, no process group): DP_STEPS raw steps at DP_BASE, f32 with
-    TF32 off, augmentation and dropout on, this rank's DP_BATCH rows of
-    each global batch (ZeRO-1 with a group); saves its losses, first-step
-    gradients, final state and K1 launches to ``out_path``."""
+              device: str = "cuda:0", spatial: int = 1) -> None:
+    """Phase 9 (b)'s and phase 10 (a)'s rank ``rank`` of ``world`` on the
+    card (world 1: one process, no process group) on a mesh of ``spatial``
+    row shards: an eval step, then DP_STEPS raw steps at DP_BASE, f32 with
+    TF32 off, augmentation and dropout on, this rank's data shard of each
+    global batch of 2 * DP_BATCH (ZeRO-1 with a group); saves its eval,
+    losses, gradients, state, K1 launches and halo counts to
+    ``out_path``."""
     import numpy as np
     import torch
 
@@ -1640,20 +1657,25 @@ def dp_worker(rank: int, world: int, port: int, seed: int, out_path: str,
             distributed.initialize_distributed(f"127.0.0.1:{port}", world, rank,
                                                backend="gloo", timeout_s=300)
         state = create_train_state(UNet(NCLS, 1, DP_BASE, "float32"), seed, TRAIN_LR, dev)
-        mesh = mesh_lib.make_mesh(dev)
-        tstep, _ = mesh_lib.make_parallel_raw_steps(state.model, mesh, NCLS,
-                                                    shard_optimizer=world > 1, state=state)
+        mesh = mesh_lib.make_mesh(dev, spatial=spatial)
+        tstep, estep = mesh_lib.make_parallel_raw_steps(state.model, mesh, NCLS,
+                                                        shard_optimizer=world > 1, state=state)
         rng = np.random.default_rng(seed + 9)
         pairs = [blob_pair(rng, DP_SIZE) for _ in range(DP_STEPS * 2 * DP_BATCH)]
-        per = 2 * DP_BATCH // world
-        warp.LAUNCHES = 0
-        out = {"losses": [], "grads": [], "world": world,
-               "optimizer": type(state.optimizer).__name__}
-        for step in range(DP_STEPS):
-            mine = pairs[step * 2 * DP_BATCH:][rank * per:(rank + 1) * per]
+        per = 2 * DP_BATCH // mesh.data
+
+        def batch(step):
+            mine = pairs[step * 2 * DP_BATCH:][mesh.data_rank * per:(mesh.data_rank + 1) * per]
             img = torch.from_numpy(np.stack([a[..., None].astype(np.int32) for a, _ in mine]))
-            msk = torch.from_numpy(np.stack([m for _, m in mine]))
-            out["losses"].append(tstep(state, img.to(dev), msk.to(dev))["loss"].item())
+            return img.to(dev), torch.from_numpy(np.stack([m for _, m in mine])).to(dev)
+
+        m = estep(state, *batch(0))
+        out = {"losses": [], "grads": [], "world": world,
+               "optimizer": type(state.optimizer).__name__,
+               "eval": [m["loss"].item(), m["accuracy"].item()]}
+        warp.LAUNCHES = 0
+        for step in range(DP_STEPS):
+            out["losses"].append(tstep(state, *batch(step))["loss"].item())
             # copies: on the CPU .cpu() would alias the state updated in place
             out["grads"].append({k: p.grad.detach().cpu().clone() for k, p in
                                  state.model.named_parameters()})
@@ -1662,10 +1684,46 @@ def dp_worker(rank: int, world: int, port: int, seed: int, out_path: str,
                                       for k, v in state.model.state_dict().items()}
         out["k1_launches"] = warp.LAUNCHES
         out["state_dict"] = {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
+        if mesh.halo is not None:
+            out["halo"] = {"route": mesh.halo.route, "exchanges": mesh.halo.exchanges,
+                           "bytes_sent": mesh.halo.bytes_sent}
         torch.save(out, out_path)
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
         distributed.shutdown_distributed()
+
+
+def serve_phase4_folder(ckpt: str, work: str, out_name: str, dev, main_res: dict) -> int:
+    """Serve phase 4's folder from the training checkpoint ``ckpt`` through
+    ``cli.inference --quantize int8_blocked`` as phase 4 served (radius
+    pinned), with K2's count zeroed just before and read just after; fails
+    unless every mask holds class labels and K2 launched as often as in
+    phase 4. Returns K2's launches."""
+    import numpy as np
+    import torch
+
+    from tpuseg_torch.cli.inference import main as infer_cli
+    from tpuseg_torch.infer import head_kernel
+    from tpuseg_torch.utils.imagio import imread
+
+    head_kernel.LAUNCHES = 0
+    written = infer_cli(["--checkpoint_filepath", ckpt, "--image_folder",
+                         os.path.join(work, "images"), "--output_folder",
+                         os.path.join(work, out_name), "--number_classes", str(NCLS),
+                         "--number_channels", "1", "--base_features", str(BASE), "--device",
+                         dev.type, "--tile_size", str(TILE), "--batch_size", str(BATCH),
+                         "--radius", str(main_res["radius"]), "--quantize", "int8_blocked"])
+    torch.cuda.synchronize()
+    launches = head_kernel.LAUNCHES
+    want = main_res["launches"]["blocked_head_argmax"]
+    for path in written:
+        m = imread(path)
+        if not np.isin(m, np.arange(NCLS)).all():
+            raise AssertionError(f"{path}: labels {np.unique(m)[:8]}")
+    if len(written) != 1 + N_SMALL or launches != want:
+        raise AssertionError(f"served {len(written)} masks with {launches} K2 launches; "
+                             f"phase 4: {1 + N_SMALL}, {want}")
+    return launches
 
 
 def phase_multigpu_nccl(seed: int, work: str, dev, main_res: dict, train_res: dict) -> dict:
@@ -1677,13 +1735,10 @@ def phase_multigpu_nccl(seed: int, work: str, dev, main_res: dict, train_res: di
     import torch
 
     from tpuseg_torch.aug.device import DeviceAugmentParams
-    from tpuseg_torch.cli.inference import main as infer_cli
-    from tpuseg_torch.infer import head_kernel
     from tpuseg_torch.models.unet import UNet
     from tpuseg_torch.parallel import distributed
     from tpuseg_torch.parallel import mesh as mesh_lib
     from tpuseg_torch.train.steps import create_train_state, make_raw_steps
-    from tpuseg_torch.utils.imagio import imread
 
     res: dict = {}
     steps = 2 * (MG_TEST_EVERY + 1)
@@ -1718,26 +1773,10 @@ def phase_multigpu_nccl(seed: int, work: str, dev, main_res: dict, train_res: di
         raise AssertionError(f"losses not finite and falling: {losses} {r['test_loss']}")
 
     # its checkpoint serves phase 4's folder as phase 4 served (radius pinned)
-    out = os.path.join(work, "mg_served")
-    head_kernel.LAUNCHES = 0
-    written = infer_cli(["--checkpoint_filepath", r["checkpoint_path"], "--image_folder",
-                         os.path.join(work, "images"), "--output_folder", out,
-                         "--number_classes", str(NCLS), "--number_channels", "1",
-                         "--base_features", str(BASE), "--device", dev.type, "--tile_size",
-                         str(TILE), "--batch_size", str(BATCH), "--radius",
-                         str(main_res["radius"]), "--quantize", "int8_blocked"])
-    torch.cuda.synchronize()
-    res["served_k2_launches"] = head_kernel.LAUNCHES
-    want = main_res["launches"]["blocked_head_argmax"]
-    for path in written:
-        m = imread(path)
-        if not np.isin(m, np.arange(NCLS)).all():
-            raise AssertionError(f"{path}: labels {np.unique(m)[:8]}")
-    if len(written) != 1 + N_SMALL or res["served_k2_launches"] != want:
-        raise AssertionError(f"served {len(written)} masks with {res['served_k2_launches']} "
-                             f"K2 launches; phase 4: {1 + N_SMALL}, {want}")
-    log(f"(a) its checkpoint served phase 4's folder: {len(written)} masks, "
-        f"{res['served_k2_launches']} K2 launches (phase 4: {want})")
+    res["served_k2_launches"] = serve_phase4_folder(r["checkpoint_path"], work, "mg_served",
+                                                    dev, main_res)
+    log(f"(a) its checkpoint served phase 4's folder: {1 + N_SMALL} masks, "
+        f"{res['served_k2_launches']} K2 launches (phase 4's count)")
 
     # steady img/s: the DDP + sync-BN + ZeRO-1 step at world size 1 (NCCL)
     # beside the plain step, 3 windows of 10 steps each, in turns
@@ -1780,6 +1819,30 @@ def phase_multigpu_nccl(seed: int, work: str, dev, main_res: dict, train_res: di
     return res
 
 
+def start_children(work: str, name: str, calls, env=None) -> list:
+    """Start each of ``calls`` (Python source calling a function of this
+    module) as a process of its own in the checkout's root, in a session of
+    its own (``wait_all`` kills it), with its output in
+    ``work/{name}{i}.log``."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = []
+    for i, call in enumerate(calls):
+        with open(os.path.join(work, f"{name}{i}.log"), "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", f"import chip_smoke; chip_smoke.{call}"],
+                cwd=root, stdout=f, stderr=subprocess.STDOUT, start_new_session=True,
+                env=dict(os.environ, **(env or {}))))
+    return procs
+
+
+def check_children(procs, work: str, name: str) -> None:
+    """Fail with the end of its log when a child exited other than 0."""
+    for i, p in enumerate(procs):
+        if p.returncode != 0:
+            with open(os.path.join(work, f"{name}{i}.log")) as f:
+                raise AssertionError(f"{name} {i} exited {p.returncode}: {f.read()[-3000:]}")
+
+
 def phase_multigpu_gloo(seed: int, work: str, dev) -> dict:
     """Phase 9 (b): two gloo ranks on the one card (DP_BATCH each, ZeRO-1)
     against one process on the global batch, in this process. Gates: the
@@ -1795,16 +1858,10 @@ def phase_multigpu_gloo(seed: int, work: str, dev) -> dict:
     import numpy as np
     import torch
 
-    root = os.path.dirname(os.path.abspath(__file__))
     port = free_port()
     paths = [os.path.join(work, f"dp_rank{r}.pt") for r in range(2)]
-    procs = []
-    for r in range(2):
-        with open(os.path.join(work, f"dp_rank{r}.log"), "w") as f:
-            procs.append(subprocess.Popen(
-                [sys.executable, "-c", f"import chip_smoke; chip_smoke.dp_worker({r}, 2, "
-                                       f"{port}, {seed}, {paths[r]!r}, {str(dev)!r})"],
-                cwd=root, stdout=f, stderr=subprocess.STDOUT, start_new_session=True))
+    procs = start_children(work, "dp_rank", [
+        f"dp_worker({r}, 2, {port}, {seed}, {paths[r]!r}, {str(dev)!r})" for r in range(2)])
     t0 = time.perf_counter()
     ref_path = os.path.join(work, "dp_one.pt")
     try:
@@ -1812,10 +1869,7 @@ def phase_multigpu_gloo(seed: int, work: str, dev) -> dict:
     finally:
         wait_all(procs, 600)
     wall = time.perf_counter() - t0
-    for r, p in enumerate(procs):
-        if p.returncode != 0:
-            with open(os.path.join(work, f"dp_rank{r}.log")) as f:
-                raise AssertionError(f"gloo rank {r} exited {p.returncode}: {f.read()[-3000:]}")
+    check_children(procs, work, "dp_rank")
     ranks = [torch.load(p, weights_only=False) for p in paths]
     one = torch.load(ref_path, weights_only=False)
     differ = [k for k in ranks[0]["state_dict"]
@@ -1994,6 +2048,272 @@ def phase_multigpu(seed: int, work: str, dev, main_res: dict, train_res: dict) -
     return res
 
 
+# phase 10: spatial partitioning on the one card, two gloo ranks on cuda:0
+# (NCCL refuses two ranks on one card), so the halos take the host-staged
+# gloo route. (a) phase 9 (b)'s run at spatial 2 (data 1) against its one
+# process; (b) train_model(spatial_partitions=2) in two processes on phase
+# 6's databases, two epochs of SP_TEST_EVERY + 1 steps, then each rank
+# times SP_WINDOWS windows of SP_STEPS steady steps and profiles
+# SP_PROFILED steps
+SP_TEST_EVERY, SP_LOG_EVERY = 6, 3
+SP_WINDOWS, SP_STEPS, SP_PROFILED = 3, 5, 3
+# (a)'s eval accuracy: a pixel of 2 * DP_BATCH * DP_SIZE^2 is 1.9e-6, and
+# cuDNN may pick another algorithm for a half image, which can flip a
+# near-tied argmax
+SP_EVAL_ACC_ATOL = 1e-5
+
+
+def spatial_train_worker(rank: int, port: int, seed: int, work: str, out_path: str,
+                         device: str = "cuda:0") -> None:
+    """Phase 10 (b)'s rank ``rank`` of 2 (``LOCAL_WORLD_SIZE=2`` in its
+    environment: one host): ``train_model(spatial_partitions=2)`` on phase
+    6's databases at base 64, bf16, a global batch of TRAIN_BATCH, with
+    K1's count zeroed just before and read just after; then steady steps of
+    the same spatial step on a raw batch held on the card, timed, with the
+    device memory's peak, and SP_PROFILED steps profiled for the halo
+    exchange's share. Saves its results as JSON to ``out_path``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpuseg_torch.aug.device import DeviceAugmentParams
+    from tpuseg_torch.models.unet import UNet
+    from tpuseg_torch.ops import warp
+    from tpuseg_torch.parallel import distributed
+    from tpuseg_torch.parallel import mesh as mesh_lib
+    from tpuseg_torch.train.steps import create_train_state
+    from tpuseg_torch.train.trainer import TrainConfig, train_model
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    distributed.initialize_distributed(f"127.0.0.1:{port}", 2, rank, backend="gloo",
+                                       timeout_s=600)
+    try:
+        train_db, test_db = (os.path.join(work, f"{n}.lmdb") for n in ("train", "test"))
+        if cuda:
+            torch.cuda.init()  # the peak counters exist once CUDA is initialised
+            torch.cuda.reset_peak_memory_stats(dev)
+        warp.LAUNCHES = 0
+        t0 = time.perf_counter()
+        result = train_model(TrainConfig(
+            train_db, test_db, os.path.join(work, "sp_train"), batch_size=TRAIN_BATCH,
+            test_every_n_steps=SP_TEST_EVERY, max_epochs=2, seed=seed, dtype="bfloat16",
+            base_features=BASE, spatial_partitions=2, log_every_n_steps=SP_LOG_EVERY,
+            reader_count=2, learning_rate=TRAIN_LR, device=dev.type))
+        sync()
+        out = {"wall_s": time.perf_counter() - t0, "k1_launches": warp.LAUNCHES,
+               "steps": result.steps, "train_losses": result.train_losses,
+               "test_loss": result.test_loss, "checkpoint_path": result.checkpoint_path,
+               "peak_mem_gib_main": (torch.cuda.max_memory_allocated(dev) / 2 ** 30
+                                     if cuda else None)}
+
+        # the steady spatial step (DDP, sync-BN, halos) on one raw batch
+        mesh = mesh_lib.make_mesh(dev, spatial=2)
+        state = create_train_state(UNet(NCLS, 1, BASE, "bfloat16"), seed, TRAIN_LR, dev)
+        tstep, _ = mesh_lib.make_parallel_raw_steps(state.model, mesh, NCLS,
+                                                    DeviceAugmentParams())
+        raw_img, raw_msk = raw_batch(train_db, TRAIN_BATCH, dev)
+        halo = mesh.halo
+        for _ in range(3):
+            tstep(state, raw_img, raw_msk)
+        sync()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        sent = halo.exchanges, halo.bytes_sent
+        windows = []
+        for _ in range(SP_WINDOWS):
+            sync()
+            t0 = time.perf_counter()
+            for _ in range(SP_STEPS):
+                m = tstep(state, raw_img, raw_msk)
+            m["loss"].item()
+            windows.append((time.perf_counter() - t0) * 1e3 / SP_STEPS)
+        n = SP_WINDOWS * SP_STEPS
+        out.update(step_ms_windows=windows, step_ms=sorted(windows)[len(windows) // 2],
+                   peak_mem_gib_steady=(torch.cuda.max_memory_allocated(dev) / 2 ** 30
+                                        if cuda else None),
+                   halo_route=halo.route, exchanges_per_step=(halo.exchanges - sent[0]) / n,
+                   halo_bytes_per_step=(halo.bytes_sent - sent[1]) / n)
+        activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+        sync()
+        with profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            for _ in range(SP_PROFILED):
+                tstep(state, raw_img, raw_msk)
+            sync()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        events = prof.key_averages()
+        halo_ms = sum(e.cpu_time_total for e in events
+                      if e.key.startswith("halo_exchange:")) / 1e3
+        # the gloo ops' ranges (on gloo's threads; an asynchronous op, as
+        # DDP's bucket all-reduces are, overlaps the step) and this rank's
+        # kernel time (the other rank's kernels share the card)
+        gloo_ms = {e.key: e.cpu_time_total / 1e3 for e in events if e.key.startswith("gloo:")}
+        busy_ms = sum(e.device_time_total for e in events
+                      if e.device_type == DeviceType.CUDA) / 1e3
+        out["profile"] = {"steps": SP_PROFILED, "wall_ms": wall_ms, "halo_ms": halo_ms,
+                          "halo_share": halo_ms / wall_ms, "gloo_ms": gloo_ms,
+                          "kernel_ms": busy_ms, "kernel_share": busy_ms / wall_ms}
+        with open(out_path, "w") as f:
+            json.dump(out, f)
+    finally:
+        distributed.shutdown_distributed()
+
+
+def phase_spatial_parity(seed: int, work: str, dev) -> dict:
+    """Phase 10 (a): phase 9 (b)'s two gloo ranks at spatial 2 (data 1: each
+    rank augments the global batch and trains on 128 of its 256 rows)
+    against phase 9 (b)'s one process, with its gates (module docstring),
+    and the eval step before training held to one process's: loss rtol
+    1e-5, accuracy within SP_EVAL_ACC_ATOL."""
+    import torch
+
+    port = free_port()
+    paths = [os.path.join(work, f"sp_rank{r}.pt") for r in range(2)]
+    t0 = time.perf_counter()
+    procs = start_children(work, "sp_rank", [
+        f"dp_worker({r}, 2, {port}, {seed}, {paths[r]!r}, {str(dev)!r}, spatial=2)"
+        for r in range(2)], env={"LOCAL_WORLD_SIZE": "2"})
+    wait_all(procs, 600)
+    wall = time.perf_counter() - t0
+    check_children(procs, work, "sp_rank")
+    ranks = [torch.load(p, weights_only=False) for p in paths]
+    one = torch.load(os.path.join(work, "dp_one.pt"), weights_only=False)
+    differ = [k for k in ranks[0]["state_dict"]
+              if not torch.equal(ranks[0]["state_dict"][k], ranks[1]["state_dict"][k])]
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(ranks[0]["losses"], one["losses"])]
+    grad_l2 = [max(((got[k] - g).norm() / g.norm()).item() for k, g in want.items())
+               for got, want in zip(ranks[0]["grads"], one["grads"])]
+    stat = max((ranks[0]["state_dict0"][k] - v).abs().max().item()
+               for k, v in one["state_dict0"].items() if "running" in k)
+    eval_rel = abs(ranks[0]["eval"][0] - one["eval"][0]) / abs(one["eval"][0])
+    eval_acc = abs(ranks[0]["eval"][1] - one["eval"][1])
+    res = {"wall_s": wall, "losses_ranks": [r["losses"] for r in ranks],
+           "losses_one": one["losses"], "loss_rel_err": loss_rel,
+           "grad_l2_rel_err_max_by_step": grad_l2, "ranks_state_differ": differ,
+           "bn_running_max_abs_diff_first_step": stat,
+           "eval_ranks": [r["eval"] for r in ranks], "eval_one": one["eval"],
+           "eval_loss_rel_err": eval_rel, "eval_acc_abs_err": eval_acc,
+           "k1_launches_ranks": [r["k1_launches"] for r in ranks],
+           "halo_ranks": [r["halo"] for r in ranks]}
+    log(f"(a) two gloo ranks at spatial 2 on one card (base {DP_BASE}, {DP_SIZE}^2, f32, "
+        f"ZeRO-1, global batch {2 * DP_BATCH}) vs one process: loss rel err {loss_rel}, "
+        f"gradient L2 rel err max by step {[f'{e:.2e}' for e in grad_l2]}, BN running "
+        f"statistics max diff {stat:.2e}, eval loss rel err {eval_rel:.2e} and accuracy "
+        f"diff {eval_acc:.2e}, ranks' states differ in {len(differ)} tensors; K1 launches "
+        f"{res['k1_launches_ranks']}; halo {ranks[0]['halo']}; {wall:.1f} s")
+    if differ or ranks[0]["losses"] != ranks[1]["losses"] or \
+            ranks[0]["eval"] != ranks[1]["eval"]:
+        raise AssertionError(f"the ranks diverged: {differ[:5]}")
+    if (loss_rel[0] > 1e-5 or max(loss_rel[1:]) > 1e-3 or grad_l2[0] > DP_GRAD_L2
+            or stat > 1e-5 or eval_rel > 1e-5 or eval_acc > SP_EVAL_ACC_ATOL):
+        raise AssertionError(f"spatial ranks against one process out of tolerance: {res}")
+    if res["k1_launches_ranks"] != [3 * DP_STEPS] * 2:
+        raise AssertionError(f"ranks: {res['k1_launches_ranks']} K1 launches")
+    return res
+
+
+def phase_spatial_train(seed: int, work: str, dev, main_res: dict, train_res: dict) -> dict:
+    """Phase 10 (b), the slice's main path: ``train_model(spatial_partitions
+    =2)`` in two processes on cuda:0 over gloo (``spatial_train_worker``).
+    Gates: both ranks report the same losses, finite and falling; 3 K1
+    launches a step on each; one checkpoint, from rank 0, which serves phase
+    4's folder with phase 4's K2 count. Reports the steady step against
+    phase 6's plain step (two ranks share the card: overhead, not scaling),
+    the halo exchange's route, bytes and share of a profiled step, and the
+    peak device memory per rank."""
+    import numpy as np
+
+    import shutil
+
+    out = os.path.join(work, "sp_train")
+    shutil.rmtree(out, ignore_errors=True)  # its artifacts are counted below
+    port = free_port()
+    paths = [os.path.join(work, f"sp_train_rank{r}.json") for r in range(2)]
+    t0 = time.perf_counter()
+    procs = start_children(work, "sp_train_rank", [
+        f"spatial_train_worker({r}, {port}, {seed}, {work!r}, {paths[r]!r}, {str(dev)!r})"
+        for r in range(2)], env={"LOCAL_WORLD_SIZE": "2"})
+    wait_all(procs, 900)
+    wall = time.perf_counter() - t0
+    check_children(procs, work, "sp_train_rank")
+    ranks = []
+    for path in paths:
+        with open(path) as f:
+            ranks.append(json.load(f))
+    with open(os.path.join(work, "sp_train_rank0.log")) as f:
+        stdout = f.read()
+    steps = 2 * (SP_TEST_EVERY + 1)
+    r0 = ranks[0]
+    res = {"wall_s": wall, "steps": r0["steps"], "train_losses": r0["train_losses"],
+           "test_loss": r0["test_loss"], "k1_launches_ranks": [r["k1_launches"] for r in ranks],
+           "halo_route": r0["halo_route"], "exchanges_per_step": r0["exchanges_per_step"],
+           "halo_bytes_per_step": r0["halo_bytes_per_step"],
+           "step_ms_ranks": [r["step_ms"] for r in ranks],
+           "step_ms_windows_ranks": [r["step_ms_windows"] for r in ranks],
+           "plain_step_ms_phase6": train_res["step_ms"],
+           "profile_ranks": [r["profile"] for r in ranks],
+           "peak_mem_gib_main_ranks": [r["peak_mem_gib_main"] for r in ranks],
+           "peak_mem_gib_steady_ranks": [r["peak_mem_gib_steady"] for r in ranks],
+           "peak_mem_gib_steady_phase6": train_res["peak_mem_gib_steady"]}
+    log(f"(b) train_model(spatial_partitions=2), two ranks on one card: {r0['steps']} steps "
+        f"in {r0['wall_s']:.1f} s, K1 launches {res['k1_launches_ranks']}, losses "
+        f"{[round(v, 4) for v in r0['train_losses']]}, test {r0['test_loss']}")
+    for r in ranks[1:]:
+        if (r["train_losses"], r["test_loss"], r["steps"]) != \
+                (r0["train_losses"], r0["test_loss"], r0["steps"]):
+            raise AssertionError(f"the ranks report different runs: {r0} {r}")
+    if f"devices = 2 over 1 host(s), global_batch_size = {TRAIN_BATCH}" not in stdout:
+        raise AssertionError("the spatial run did not print its layout")
+    if f"halo route {r0['halo_route']}" not in stdout:
+        raise AssertionError("the spatial run did not name its halo route")
+    if r0["steps"] != steps or res["k1_launches_ranks"] != [3 * steps] * 2:
+        raise AssertionError(f"{r0['steps']} steps, {res['k1_launches_ranks']} K1 launches: "
+                             f"expected {steps} and 3 per step on each rank")
+    losses = r0["train_losses"]
+    if not (np.isfinite(losses).all() and np.isfinite(r0["test_loss"]).all()
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"losses not finite and falling: {losses} {r0['test_loss']}")
+    boards = [d for d in os.listdir(out) if d.startswith("tensorboard-")]
+    if not os.path.isfile(r0["checkpoint_path"]) or len(boards) != 1:
+        raise AssertionError(f"artifacts: checkpoint {r0['checkpoint_path']}, event folders "
+                             f"{boards}")
+    res["served_k2_launches"] = serve_phase4_folder(r0["checkpoint_path"], work,
+                                                    "sp_served", dev, main_res)
+    prof = r0["profile"]
+    log(f"(b) its checkpoint served phase 4's folder with {res['served_k2_launches']} K2 "
+        f"launches (phase 4's count)")
+    log(f"(b) steady spatial step ({TRAIN_SIZE}^2, global batch {TRAIN_BATCH}, base {BASE}, "
+        f"bf16, two ranks on one card): {res['step_ms_ranks']} ms a step on each rank "
+        f"(median of {SP_WINDOWS} windows of {SP_STEPS}) against phase 6's plain step "
+        f"{train_res['step_ms']:.2f} ms; halo route {r0['halo_route']}, "
+        f"{r0['exchanges_per_step']:.0f} exchanges and {r0['halo_bytes_per_step'] / 1e6:.2f} "
+        f"MB sent a step a rank; halo share of {SP_PROFILED} profiled steps "
+        f"{[round(p['halo_share'], 4) for p in res['profile_ranks']]} "
+        f"({prof['halo_ms']:.1f} of {prof['wall_ms']:.1f} ms on rank 0; its kernels "
+        f"{prof['kernel_ms']:.1f} ms, gloo ops' ranges "
+        f"{ {k: round(v, 1) for k, v in prof['gloo_ms'].items()} } ms); peak memory per "
+        f"rank {res['peak_mem_gib_steady_ranks']} GiB steady, "
+        f"{res['peak_mem_gib_main_ranks']} GiB in train_model (phase 6 steady: "
+        f"{train_res['peak_mem_gib_steady']})")
+    return res
+
+
+def phase_spatial(seed: int, work: str, dev, main_res: dict, train_res: dict) -> dict:
+    """Phase 10: spatial partitioning on the one card (module docstring)."""
+    import torch
+
+    if dev.type == "cuda":  # the ranks share the card with this process
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = {"parity": phase_spatial_parity(seed, work, dev),
+           "train": phase_spatial_train(seed, work, dev, main_res, train_res)}
+    res["phase_s"] = time.perf_counter() - t0
+    log(f"phase 10 took {res['phase_s']:.1f} s")
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2037,6 +2357,7 @@ def main() -> int:
     stream_res = phase_stream(args.seed, work, dev, main_res["radius"])
     migration_res = phase_migration(args.seed, work, dev, main_res, train_res)
     multigpu_res = phase_multigpu(args.seed, work, dev, main_res, train_res)
+    spatial_res = phase_spatial(args.seed, work, dev, main_res, train_res)
 
     fp, s8 = kern["fp"], kern["int8"]
     kernels = [{
@@ -2053,6 +2374,8 @@ def main() -> int:
             "tiled_one_shard": multigpu_res["sharded"]["int8_blocked"]["k2_one"],
             "tiled_two_shards": multigpu_res["sharded"]["int8_blocked"]["k2_two"],
             "striped_ranks": multigpu_res["striped"]["k2_launches_ranks"]},
+        "launches_spatial": {
+            "served_spatial_checkpoint": spatial_res["train"]["served_k2_launches"]},
         "max_abs_err": fp["max_abs_err"], "ms": fp["ms"], "plain_ms": fp["plain_ms"],
         "bound_ms": fp["bound_ms"], "bound_by": fp["bound_by"], "library_ms": None,
         "library_note": "no single PyTorch call computes head + per-phase argmax + "
@@ -2075,6 +2398,9 @@ def main() -> int:
         "launches_migration": migration_res["train"]["shear_launches"],
         "launches_multigpu": {"nccl_world1_cli": multigpu_res["nccl"]["cli"]["k1_launches"],
                               "gloo_two_ranks": multigpu_res["gloo"]["k1_launches_ranks"]},
+        "launches_spatial": {
+            "train_model_ranks": spatial_res["train"]["k1_launches_ranks"],
+            "parity_ranks": spatial_res["parity"]["k1_launches_ranks"]},
         "max_abs_err": shear["max_abs_err"], "ms": shear["ms"],
         "plain_ms": shear["plain_ms"], "bound_ms": shear["bound_ms"],
         "bound_by": shear["bound_by"], "library_ms": shear["library_ms"],
@@ -2087,6 +2413,7 @@ def main() -> int:
     summary = {"card": card, "torch": torch.__version__, "build_s": build_s,
                "kernels": kern, "shear": shear, "main": main_res, "train": train_res,
                "stream": stream_res, "migration": migration_res, "multigpu": multigpu_res,
+               "spatial": spatial_res,
                "total_s": time.perf_counter() - t_start}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

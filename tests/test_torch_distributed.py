@@ -57,6 +57,23 @@ def test_process_local_batch_checks_data_shards(monkeypatch):
         distributed.process_local_batch_size(24, data_shards=16)
     # one shard per process (the default): any per-process batch splits
     assert distributed.process_local_batch_size(12) == 3
+    # spatial pairs: 2 data shards over 4 processes, and each group's
+    # first process reads its shard's whole batch (tests/test_distributed.py
+    # passes data_shards for the same reason)
+    assert distributed.process_local_batch_size(12, data_shards=2) == 6
+    with pytest.raises(ValueError, match="not divisible by 2 data shards"):
+        distributed.process_local_batch_size(13, data_shards=2)
+
+
+def test_spatial_groups_may_not_straddle_hosts(monkeypatch):
+    """Counterpart of tests/test_distributed.py's straddle test: spatial
+    groups of 4 consecutive ranks on hosts of 2 processes would cross the
+    network for every halo; groups of 2 stay inside a host."""
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", "2")
+    with pytest.raises(ValueError, match="straddle"):
+        distributed.check_spatial_groups(4)
+    distributed.check_spatial_groups(2)
+    distributed.check_spatial_groups(1)
 
 
 def test_single_process_defaults(no_torchrun):
@@ -181,14 +198,19 @@ def test_trainer_refuses_several_gpus_without_a_group(monkeypatch, no_torchrun):
 
 
 def test_dryrun_two_gloo_ranks():
-    """Two CPU ranks: data-parallel, ZeRO-1 and raw steps agree across the
-    ranks, and sharded tiled serving equals one shard for every engine."""
+    """Two CPU ranks on a (1, 2) spatial mesh, as dryrun_multichip makes
+    one: the train, ZeRO-1 and raw steps agree across the ranks through the
+    halo exchange, and sharded tiled serving equals one shard for every
+    engine."""
     from tpuseg_torch.parallel.dryrun import dryrun_multigpu
 
     if torch.cuda.is_available():
         pytest.skip("with two cards the dry run takes them; this test pins the CPU path")
     res = dryrun_multigpu(2, timeout_s=240)
     assert res["ranks"] == 2 and res["backend"] == "gloo"
+    assert res["mesh"] == [1, 2] and res["halo_route"] == "gloo"
+    # 3 train steps of 18 + 17 exchanges and 3 eval steps of 18
+    assert res["halo_exchanges"] == 3 * (35 + 18)
     for k in ("data_parallel", "zero1", "raw_zero1"):
         assert 0 < res[k] < 10
     # ZeRO-1 is the same update: the first loss (before it) is equal

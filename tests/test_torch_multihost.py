@@ -2,11 +2,12 @@
 entry points: ``train_model`` (replicated and ZeRO-1) and ``cli.inference
 --multihost 1``. Counterpart of tests/test_multihost_integration.py.
 
-Training (base 2, 32^2, batch 1 per process, 2 steps between test
-epochs): both processes report the global batch and identical test-loss
-trajectories, rank 0 alone writes the artifacts, the ZeRO-1 run resumes
-from its checkpoint, and rank 0's checkpoint restores into a one-process
-template. Serving (base 4, int8_blocked): the two processes' stripes of
+Training (base 2, 32^2, batch 1 per replica, 2 steps between test
+epochs; replicated, ZeRO-1, and spatially partitioned over the two
+processes as one replica): both processes report the global batch and
+identical test-loss trajectories, rank 0 alone writes the artifacts, the
+ZeRO-1 run resumes from its checkpoint, and rank 0's checkpoint restores
+into a one-process template. Serving (base 4, int8_blocked): the two processes' stripes of
 the folder give the masks one process gives, from the same calibration
 scales."""
 
@@ -35,7 +36,7 @@ TRAIN_CHILD = textwrap.dedent("""
     if __name__ == "__main__":
         rank, port = int(sys.argv[1]), sys.argv[2]
         train_db, test_db, out = sys.argv[3:6]
-        zero = sys.argv[6] == "1"
+        zero, spatial = sys.argv[6] == "1", int(sys.argv[7])
         import numpy as np
         import torch
         torch.set_num_threads(1)
@@ -45,7 +46,7 @@ TRAIN_CHILD = textwrap.dedent("""
         from tpuseg_torch.train.trainer import TrainConfig, train_model
         kw = dict(batch_size=1, test_every_n_steps=2, early_stopping_count=5,
                   dtype="float32", base_features=2, seed=0, device="cpu",
-                  shard_optimizer=zero)
+                  shard_optimizer=zero, spatial_partitions=spatial)
         result = train_model(TrainConfig(train_db, test_db, out, max_epochs=2, **kw))
         print("RESULT", rank, result.epochs_run, result.steps,
               ",".join(f"{v:.7f}" for v in result.test_loss))
@@ -118,19 +119,30 @@ def _lines(out, tag):
     return [line.split()[2:] for line in out.splitlines() if line.startswith(tag + " ")]
 
 
-@pytest.mark.parametrize("zero", [False, True], ids=["replicated", "zero1"])
-def test_two_process_train_model(dbs, tmp_path, zero):
+@pytest.mark.parametrize("zero,spatial", [(False, 1), (True, 1), (False, 2)],
+                         ids=["replicated", "zero1", "spatial"])
+def test_two_process_train_model(dbs, tmp_path, zero, spatial):
+    """The spatial case is tests/test_multihost_integration.py's: the two
+    processes are one host's spatial group, one replica, so the global
+    batch halves; the first process reads and the halos cross between
+    them."""
     script = tmp_path / "child.py"
     script.write_text(TRAIN_CHILD)
     out = str(tmp_path / "out")
     port = str(_free_port())
+    # explicit initialization is one process per host unless told otherwise
+    env = _env(LOCAL_WORLD_SIZE="2") if spatial > 1 else _env()
     outs = _communicate([
         subprocess.Popen([sys.executable, str(script), str(rank), port, *dbs, out,
-                          "1" if zero else "0"], env=_env(), cwd=str(REPO),
+                          "1" if zero else "0", str(spatial)], env=env, cwd=str(REPO),
                          stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         for rank in range(2)])
+    hosts = 1 if spatial > 1 else 2
     for _, stdout, _ in outs:
-        assert "devices = 2 over 2 host(s), global_batch_size = 2" in stdout
+        assert (f"devices = 2 over {hosts} host(s), global_batch_size = {2 // spatial}"
+                in stdout)
+        if spatial > 1:
+            assert "halo route gloo" in stdout
     # the test loss is a global mean: identical on both processes
     results = [_lines(o[1], "RESULT") for o in outs]
     assert results[0] == results[1] and len(results[0]) == 1
@@ -152,11 +164,13 @@ def test_two_process_train_model(dbs, tmp_path, zero):
 
 
 def test_spatial_partitions_raise(dbs, tmp_path):
+    """A spatial group of 2 needs 2 processes; and N must be positive."""
     from tpuseg_torch.train.trainer import TrainConfig, train_model
 
-    with pytest.raises(NotImplementedError, match="spatial"):
-        train_model(TrainConfig(*dbs, str(tmp_path / "out"), device="cpu",
-                                spatial_partitions=2))
+    for spatial in (2, 0):
+        with pytest.raises(ValueError, match="spatial"):
+            train_model(TrainConfig(*dbs, str(tmp_path / "out"), device="cpu",
+                                    spatial_partitions=spatial))
 
 
 @pytest.fixture(scope="module")

@@ -285,7 +285,9 @@ def test_make_mesh_without_a_group_and_spatial():
 
     m = mesh_lib.make_mesh("cpu")
     assert (m.world, m.rank, m.group) == (1, 0, None)
-    with pytest.raises(NotImplementedError, match="spatial"):
+    assert (m.data, m.spatial, m.data_rank, m.spatial_rank, m.halo) == (1, 1, 0, 0, None)
+    # one process cannot form a spatial group of 2
+    with pytest.raises(ValueError, match="not divisible by spatial=2"):
         mesh_lib.make_mesh("cpu", spatial=2)
 
 

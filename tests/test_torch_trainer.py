@@ -108,12 +108,12 @@ def test_resume_continues_steps_and_history(dbs, tmp_path):
                                    ("--shard_optimizer", "1", "--spatial", "2"),
                                    ("--spatial", "4"), ("--multihost", "1")])
 def test_train_cli_rejects_what_is_not_ported(dbs, tmp_path, extra, monkeypatch):
-    """Spatial partitioning is not ported (ZeRO-1 is, but not with it);
-    --multihost without torchrun's environment has no process group to
-    join."""
+    """A single process cannot form a spatial group of 2 or 4 GPUs (with
+    ZeRO-1 or without); --multihost without torchrun's environment has no
+    process group to join."""
     for var in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
         monkeypatch.delenv(var, raising=False)
-    exc = RuntimeError if "--multihost" in extra else NotImplementedError
+    exc = RuntimeError if "--multihost" in extra else ValueError
     with pytest.raises(exc, match="torchrun" if exc is RuntimeError else "spatial"):
         train_main(_args(dbs, str(tmp_path / "out"), *_base(extra)))
 

@@ -20,8 +20,14 @@ per GPU:
 (NCCL on the card, gloo with ``--device cpu``) and raises without it;
 ``--shard_optimizer 1`` shards the Adam moments over the ranks (ZeRO-1).
 ``scripts/batch_train_multihost_torch.sh`` launches it on several nodes.
-``--spatial N`` other than 1 is not ported yet and raises
-``NotImplementedError``.
+
+``--spatial N`` shards each image's rows over groups of N GPUs of one host,
+with a halo exchange around every 3x3 conv (``parallel/halo.py``): a group
+is one replica, so the global batch is ``--batch_size`` x GPUs / N, and the
+image height must be a multiple of 16 N:
+
+    torchrun --nproc_per_node N -m tpuseg_torch.cli.train --multihost 1 \
+        --spatial N ...
 """
 
 import argparse
@@ -90,8 +96,11 @@ def main(argv=None):
                              "process group holds and updates 1/N of the Adam "
                              "moments (tpuseg extension)")
     parser.add_argument("--spatial", dest="spatial", type=int, default=1,
-                        help="spatial partitioning over groups of N GPUs (not "
-                             "ported yet: raises when not 1)")
+                        help="spatial partitioning: each image's rows sharded over "
+                             "a group of N GPUs of one host, with a halo exchange "
+                             "around every 3x3 conv; a group is one replica, so the "
+                             "global batch is batch_size x GPUs / N; the image "
+                             "height must be a multiple of 16 N (tpuseg extension)")
     parser.add_argument("--profile_steps", dest="profile_steps", type=int, default=0,
                         help="torch.profiler trace of the first N steady-state steps "
                              "(epoch 1) into <output_dir>/profile; read it with "

@@ -32,7 +32,11 @@ Eval mode normalizes with the running statistics through ``F.batch_norm``.
 Data parallelism (``tpuseg_torch/parallel/mesh.py``) sets
 ``UNet.process_group``; train mode then takes the batch statistics of the
 global batch (sync-BN, the JAX package's sharded semantics) and draws each
-dropout mask for the global batch, keeping this rank's rows.
+dropout mask for the global batch, keeping this rank's rows. Spatial
+partitioning also sets ``UNet.halo`` (``parallel/halo.py``): the input is
+this rank's rows of each image, every 3x3 conv pads them with the
+neighbouring ranks' rows (in eval mode too) and convolves with ``padding=(0,
+1)``, and each dropout mask is drawn at the level's full height.
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from tpuseg_torch import SIZE_FACTOR
+from tpuseg_torch.parallel.halo import check_height
 
 BASELINE_FEATURE_DEPTH = 64  # ref model.py:20
 KERNEL_SIZE = 3  # ref model.py:21
@@ -97,11 +102,12 @@ def _bn(x: torch.Tensor, bn: nn.BatchNorm2d, dtype: torch.dtype, group=None) -> 
 
 
 def _dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
-             group=None) -> torch.Tensor:
+             group=None, halo=None) -> torch.Tensor:
     """flax ``nn.Dropout``: keep with probability ``1 - rate`` and scale the
     kept values by ``1 / (1 - rate)``; the mask comes from ``generator``.
     With a process ``group`` the mask is drawn for the global batch (every
-    rank's local batch stacked in rank order) and this rank keeps its rows,
+    data shard's batch stacked in order, at the full height of the ``halo``'s
+    spatial group) and this rank keeps its batch rows and its image rows,
     so the ranks drop out as one process of the global batch does from the
     same generator state."""
     keep = 1.0 - rate
@@ -110,24 +116,33 @@ def _dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
     else:
         import torch.distributed as dist
 
-        b = x.shape[0]
-        first = dist.get_rank(group) * b
-        shape = (b * dist.get_world_size(group), *x.shape[1:])
-        mask = torch.rand(shape, generator=generator, device=x.device)[first:first + b] < keep
+        s, sr = (halo.size, halo.rank) if halo is not None else (1, 0)
+        b, h = x.shape[0], x.shape[2]
+        first = dist.get_rank(group) // s * b
+        shape = (b * dist.get_world_size(group) // s, x.shape[1], h * s, x.shape[3])
+        mask = torch.rand(shape, generator=generator, device=x.device)
+        mask = mask[first:first + b, :, sr * h:(sr + 1) * h] < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class ConvBlock(nn.Module):
-    """Conv(kxk, same, stride 1) -> ReLU -> BatchNorm (ref model.py:28-37)."""
+    """Conv(kxk, same, stride 1) -> ReLU -> BatchNorm (ref model.py:28-37).
+    With a ``halo`` a 3x3 conv takes its row padding from the neighbouring
+    ranks."""
 
     def __init__(self, cin: int, features: int, kernel: int = KERNEL_SIZE):
         super().__init__()
         self.conv = nn.Conv2d(cin, features, kernel, padding=kernel // 2)
         self.bn = nn.BatchNorm2d(features, eps=BN_EPSILON, momentum=1 - BN_MOMENTUM)
 
-    def forward(self, x: torch.Tensor, dtype: torch.dtype, group=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dtype: torch.dtype, group=None,
+                halo=None) -> torch.Tensor:
         c = self.conv
-        x = F.conv2d(x, c.weight.to(dtype), c.bias.to(dtype), padding=c.padding)
+        padding = c.padding
+        if halo is not None and padding[0]:
+            x = halo(x)
+            padding = (0, padding[1])
+        x = F.conv2d(x, c.weight.to(dtype), c.bias.to(dtype), padding=padding)
         return _bn(F.relu(x), self.bn, dtype, group)
 
 
@@ -212,6 +227,10 @@ class UNet(nn.Module):
         # BatchNorm reduces its statistics over and dropout draws its global
         # mask for; None trains on this process's batch alone
         self.process_group = None
+        # spatial partitioning (parallel/halo.py): the exchange every 3x3
+        # conv pads its rows through, in train and eval mode; None pads
+        # with zeros
+        self.halo = None
 
     def config(self) -> dict:
         """Constructor arguments, as the port's checkpoint stores them."""
@@ -227,6 +246,10 @@ class UNet(nn.Module):
         ``generator`` (on ``x``'s device; None uses torch's global one)."""
         if x.ndim != 4:
             raise ValueError(f"UNet expects NHWC input, got shape {tuple(x.shape)}")
+        halo = self.halo
+        if halo is not None:
+            # x holds this rank's rows: the whole image is halo.size times taller
+            check_height(x.shape[1] * halo.size, halo.size)
         if x.shape[1] % SIZE_FACTOR or x.shape[2] % SIZE_FACTOR:
             # same contract the reference enforces at imagereader.py:136-139
             raise ValueError(
@@ -234,12 +257,13 @@ class UNet(nn.Module):
                 f"sized downscaled feature maps; got H={x.shape[1]}, W={x.shape[2]}")
         dt = self.dtype
         # train-mode collectives only: eval BatchNorm reads running statistics
+        # (the halo exchange runs in both modes)
         group = self.process_group if self.training else None
         x = x.to(dt).permute(0, 3, 1, 2)  # NCHW view, channels-last strides
 
         def pair(name, x):
-            x = getattr(self, f"{name}a")(x, dt, group)
-            return getattr(self, f"{name}b")(x, dt, group)
+            x = getattr(self, f"{name}a")(x, dt, group, halo)
+            return getattr(self, f"{name}b")(x, dt, group, halo)
 
         enc1 = pair("enc1", x)
         enc2 = pair("enc2", _pool(enc1))
@@ -247,7 +271,7 @@ class UNet(nn.Module):
         def drop(x):
             if not self.training or not self.dropout_rate:
                 return x
-            return _dropout(x, self.dropout_rate, generator, group)
+            return _dropout(x, self.dropout_rate, generator, group, halo)
 
         enc4 = drop(pair("enc4", _pool(enc3)))
         bott = drop(pair("bottleneck", _pool(enc4)))

@@ -14,7 +14,9 @@ and keeps the JAX package's semantics:
   host-side barriers and broadcasts;
 - each process's readers produce only ``global_batch // world`` samples
   (:func:`process_local_batch_size`), the rows
-  :func:`process_local_batch_slice` names;
+  :func:`process_local_batch_slice` names; under spatial partitioning a
+  spatial group's first process reads its data shard's batch, and the
+  groups stay inside one host (:func:`check_spatial_groups`);
 - ``make_hybrid_mesh`` needs no counterpart: torchrun numbers ranks
   host-contiguously (node k owns ranks ``[k*n, (k+1)*n)`` for n processes
   per node), which is the layout ``make_hybrid_mesh`` builds by sorting
@@ -166,19 +168,40 @@ def broadcast_seed(value: int) -> int:
     return int(t.item())
 
 
+def check_spatial_groups(spatial: int) -> None:
+    """Raise unless spatial groups of ``spatial`` consecutive ranks stay
+    inside one host: torchrun numbers ranks host-contiguously, so a host's
+    process count must divide by ``spatial``. A group that straddled hosts
+    would put every halo exchange on the network between them."""
+    local = local_world_size()
+    if local % spatial:
+        raise ValueError(
+            f"{local} processes per host not divisible by spatial={spatial}: spatial "
+            "groups would straddle hosts")
+
+
 def process_local_batch_size(global_batch: int,
                              data_shards: Optional[int] = None) -> int:
     """How many samples this process's readers produce per step.
 
     ``data_shards`` is the global data-axis size (defaults to one per
-    process: each process owns one GPU)."""
+    process: each process owns one GPU). Under spatial partitioning there
+    are fewer data shards than processes: a spatial group's processes
+    share one data shard, whose whole batch its first process reads
+    (``mesh.spatial_feed``)."""
     n = process_count()
+    shards = data_shards or n
+    if shards < n:
+        if n % shards or global_batch % shards:
+            raise ValueError(f"global batch {global_batch} over {n} processes not "
+                             f"divisible by {shards} data shards")
+        return global_batch // shards
     if global_batch % n:
         raise ValueError(f"global batch {global_batch} not divisible by {n} hosts")
     local = global_batch // n
     # fail here, with the numbers named, rather than inside the prefetch
     # thread: every data shard of this process needs whole samples
-    shards_per_host = max((data_shards or n) // n, 1)
+    shards_per_host = shards // n
     if local % shards_per_host:
         raise ValueError(
             f"per-host batch {local} (global {global_batch} / {n} hosts) not "

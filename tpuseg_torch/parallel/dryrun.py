@@ -1,11 +1,13 @@
 """A dry run of data parallelism: ``dryrun_multigpu(n)``.
 
-Counterpart of ``__graft_entry__.dryrun_multichip`` in the JAX package,
-without the spatial axis (not ported yet). It starts ``n`` ranks, one
-process each: one per GPU (NCCL) when ``n`` GPUs are visible, else gloo
-ranks on the CPU. Every rank runs, at base 4 on 64^2 inputs:
+Counterpart of ``__graft_entry__.dryrun_multichip`` in the JAX package. It
+starts ``n`` ranks, one process each: one per GPU (NCCL) when ``n`` GPUs
+are visible, else gloo ranks on the CPU. As ``dryrun_multichip`` does, an
+even ``n`` makes a ``(n / 2, 2)`` mesh, each image's rows sharded over
+spatial pairs with the halo exchange. Every rank runs, at base 4 on 64^2
+inputs (32 rows a rank):
 
-- one data-parallel train and eval step on preprocessed batches;
+- one train and eval step on preprocessed batches;
 - one ZeRO-1 step;
 - one raw step (device augmentation, ZeRO-1), the trainer's default path;
 
@@ -94,20 +96,22 @@ def _rank_main(rank: int, world: int, port: int, cuda: bool, results) -> None:
             f"127.0.0.1:{port}", world, rank, backend="nccl" if cuda else "gloo",
             timeout_s=120)
         device = torch.device("cuda", rank) if cuda else torch.device("cpu")
-        mesh = mesh_lib.make_mesh(device)
+        mesh = mesh_lib.make_mesh(device, spatial=2 if world % 2 == 0 else 1)
         mesh_lib.warm_collectives(mesh)
         rng = np.random.default_rng(1)
-        x = rng.normal(0, 1, (world * BATCH, SIZE, SIZE, 1)).astype(np.float32)
-        rows = slice(rank * BATCH, (rank + 1) * BATCH)
-        img = torch.from_numpy(x[rows]).to(device)
+        x = rng.normal(0, 1, (mesh.data * BATCH, SIZE, SIZE, 1)).astype(np.float32)
+        # this rank's data shard, full images: the steps keep its rows
+        shard = slice(mesh.data_rank * BATCH, (mesh.data_rank + 1) * BATCH)
+        img = torch.from_numpy(x[shard]).to(device)
         lbl = torch.nn.functional.one_hot((img[..., 0] > 0).long(), 2).float()
-        raw = torch.from_numpy((np.abs(x[rows]) * 1000).astype(np.int32)).to(device)
+        raw = torch.from_numpy((np.abs(x[shard]) * 1000).astype(np.int32)).to(device)
         msk = (raw[..., 0] > 700).to(torch.uint8)
-        res = {"backend": backend, "device": str(device)}
-        for name, shard in (("data_parallel", False), ("zero1", True)):
+        res = {"backend": backend, "device": str(device), "mesh": [mesh.data, mesh.spatial],
+               "halo_route": mesh.halo.route if mesh.halo else None}
+        for name, zero in (("data_parallel", False), ("zero1", True)):
             state = create_train_state(UNet(2, 1, 4, "float32"), 0, 1e-3, device)
             tstep, estep = mesh_lib.make_parallel_steps(state.model, mesh,
-                                                        shard_optimizer=shard, state=state)
+                                                        shard_optimizer=zero, state=state)
             res[name] = _finite(tstep(state, img, lbl)["loss"].item(), name)
             res[name + "_eval"] = _finite(estep(state, img, lbl)["loss"].item(), name)
         state = create_train_state(UNet(2, 1, 4, "float32"), 4, 1e-3, device)
@@ -115,6 +119,7 @@ def _rank_main(rank: int, world: int, port: int, cuda: bool, results) -> None:
                                                         shard_optimizer=True, state=state)
         res["raw_zero1"] = _finite(tstep(state, raw, msk)["loss"].item(), "raw")
         res["raw_zero1_eval"] = _finite(estep(state, raw, msk)["loss"].item(), "raw eval")
+        res["halo_exchanges"] = mesh.halo.exchanges if mesh.halo else 0
         if rank == 0:
             devices = ([torch.device("cuda", i) for i in range(world)] if cuda
                        else [device, device])

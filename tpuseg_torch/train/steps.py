@@ -22,6 +22,7 @@ import torch
 
 from tpuseg_torch.models.unet import UNet, init_unet
 from tpuseg_torch.ops.losses import categorical_accuracy, cce_from_logits, reference_scalar_loss
+from tpuseg_torch.parallel.halo import local_rows
 
 
 class KerasAdam(torch.optim.Optimizer):
@@ -163,15 +164,20 @@ StepFn = Callable[[TrainState, torch.Tensor, torch.Tensor], Dict[str, torch.Tens
 
 
 def make_steps(label_smoothing: float = 0.0,
-               forward: Optional[torch.nn.Module] = None) -> Tuple[StepFn, StepFn]:
+               forward: Optional[torch.nn.Module] = None,
+               rows: Tuple[int, int] = (0, 1)) -> Tuple[StepFn, StepFn]:
     """(train_step, eval_step) over host-preprocessed batches: float32
     z-scored images and one-hot integer labels. ``forward``: as in
-    :func:`train_step`."""
+    :func:`train_step`; ``rows = (rank, size)``: the steps take rank's
+    share of the batch's rows (spatial partitioning,
+    ``parallel.halo.local_rows``)."""
     def tstep(state, images, labels):
-        return train_step(state, images, labels.float(), label_smoothing, forward)
+        return train_step(state, local_rows(images, rows), local_rows(labels, rows).float(),
+                          label_smoothing, forward)
 
     def estep(state, images, labels):
-        return eval_step(state, images, labels.float(), label_smoothing)
+        return eval_step(state, local_rows(images, rows), local_rows(labels, rows).float(),
+                         label_smoothing)
 
     return tstep, estep
 
@@ -179,14 +185,17 @@ def make_steps(label_smoothing: float = 0.0,
 def make_raw_steps(num_classes: int, aug_params=None, augment: bool = True,
                    label_smoothing: float = 0.0,
                    forward: Optional[torch.nn.Module] = None,
-                   shard: Tuple[int, int] = (0, 1)) -> Tuple[StepFn, StepFn]:
+                   shard: Tuple[int, int] = (0, 1),
+                   rows: Tuple[int, int] = (0, 1)) -> Tuple[StepFn, StepFn]:
     """(train_step, eval_step) over RAW uint batches: augmentation (from the
     state's augmentation generator), z-score and one-hot run on the batch's
     device before forward/backward/Adam — the composition of
     ``tpuseg.train.steps.compose_raw_steps``. Eval never augments and draws
     nothing. ``forward``: as in :func:`train_step`; ``shard = (rank,
     world)``: the batch is rank's slice of the global batch, whose draws
-    are made (``aug.device.augment_and_preprocess_batch``)."""
+    are made (``aug.device.augment_and_preprocess_batch``); ``rows``: as in
+    :func:`make_steps`, taken after augmentation and normalization, which
+    see the full images."""
     from tpuseg_torch.aug.device import DeviceAugmentParams, augment_and_preprocess_batch
 
     if aug_params is None:
@@ -195,12 +204,14 @@ def make_raw_steps(num_classes: int, aug_params=None, augment: bool = True,
     def tstep(state: TrainState, raw_images, raw_masks):
         images, labels = augment_and_preprocess_batch(
             state.aug_generator, raw_images, raw_masks, aug_params, num_classes, augment, shard)
-        return train_step(state, images, labels, label_smoothing, forward)
+        return train_step(state, local_rows(images, rows), local_rows(labels, rows),
+                          label_smoothing, forward)
 
     def estep(state: TrainState, raw_images, raw_masks):
         images, labels = augment_and_preprocess_batch(
             None, raw_images, raw_masks, aug_params, num_classes, augment=False)
-        return eval_step(state, images, labels, label_smoothing)
+        return eval_step(state, local_rows(images, rows), local_rows(labels, rows),
+                         label_smoothing)
 
     return tstep, estep
 

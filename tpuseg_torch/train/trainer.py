@@ -42,8 +42,15 @@ with sync-BN and global metrics (``shard_optimizer``: ZeRO-1), every rank
 takes the same early-stopping and checkpoint decisions, and rank 0 alone
 writes the checkpoint, ``test_loss.csv`` and the TensorBoard files. A
 process that sees several GPUs without a process group raises rather than
-train on one of them. ``spatial_partitions > 1`` is not ported yet and
-raises ``NotImplementedError``.
+train on one of them.
+
+Spatial partitioning (``spatial_partitions`` N > 1, ``parallel/halo.py``):
+the ranks form a ``(data, spatial)`` mesh of groups of N consecutive ranks
+on one host; a group is one replica, so the global batch is ``batch_size x
+world / N``. Each group's first rank reads its data shard (readers striped
+by data index) and broadcasts the raw batch over the group; every rank
+augments the full images and trains on its ``H / N`` rows of each, with a
+halo exchange around every 3x3 conv. ``H`` must be a multiple of ``16 N``.
 """
 
 from __future__ import annotations
@@ -62,6 +69,7 @@ from tpuseg_torch.infer.runner import resolve_device
 from tpuseg_torch.models.unet import UNet
 from tpuseg_torch.parallel import distributed
 from tpuseg_torch.parallel import mesh as mesh_lib
+from tpuseg_torch.parallel.halo import check_height
 from tpuseg_torch.train.prefetch import device_prefetch
 from tpuseg_torch.train.steps import create_train_state
 from tpuseg_torch.utils.checkpoint import AsyncCheckpointWriter, restore_train_state
@@ -100,7 +108,10 @@ class TrainConfig:
     resume_checkpoint: Optional[str] = None
     # ZeRO-1: the Adam moments sharded over the process group's ranks
     shard_optimizer: bool = False
-    # spatial partitioning over groups of N GPUs: not ported yet (raises)
+    # spatial partitioning: each image's rows sharded over a group of N
+    # GPUs of one host, with a halo exchange around every 3x3 conv; a group
+    # is one replica, so the global batch is batch_size x (GPUs / N). The
+    # image height must be a multiple of 16 N
     spatial_partitions: int = 1
     # torch.profiler trace of the first N steps of epoch 1 (after the
     # warmup epoch) into <output_folder>/profile; 0 disables
@@ -260,16 +271,20 @@ def train_model(config: TrainConfig) -> TrainResult:
     print(f"device = {device}")
     mesh = mesh_lib.make_mesh(device, spatial=cfg.spatial_partitions)
     rank = mesh.rank
-    global_batch_size = cfg.batch_size * mesh.world
-    local_batch_size = distributed.process_local_batch_size(global_batch_size)
+    # a replica is one spatial group, so replicas are the data shards
+    global_batch_size = cfg.batch_size * mesh.data
+    local_batch_size = distributed.process_local_batch_size(global_batch_size,
+                                                            data_shards=mesh.data)
     print(f"devices = {mesh.world} over {distributed.host_count()} host(s), "
           f"global_batch_size = {global_batch_size}")
     os.makedirs(cfg.output_folder, exist_ok=True)
     raw = cfg.device_augment
+    # the spatial group's first rank reads and broadcasts (mesh.spatial_feed)
+    reads = mesh.spatial_rank == 0
 
-    # rank-striped readers: seeded shuffled streams differ per rank and the
-    # strided test walk partitions the keys over the ranks
-    host_kw = dict(process_index=rank, process_count=mesh.world)
+    # readers striped by data shard: seeded shuffled streams differ per
+    # shard and the strided test walk partitions the keys over the shards
+    host_kw = dict(process_index=mesh.data_rank, process_count=mesh.data)
     print("Setting up test image reader")
     test_reader = ImageReader(
         cfg.test_database, use_augmentation=False, shuffle=False,
@@ -288,6 +303,7 @@ def train_model(config: TrainConfig) -> TrainResult:
     print(f"Train Reader has {train_reader.get_image_count()} images")
 
     number_channels = train_reader.get_image_size()[2]
+    check_height(train_reader.get_image_size()[0], mesh.spatial)
     model = UNet(cfg.number_classes, number_channels, cfg.base_features, cfg.dtype)
     state = create_train_state(model, _device_seed(cfg.seed), cfg.learning_rate, device)
     resumed = False
@@ -322,12 +338,16 @@ def train_model(config: TrainConfig) -> TrainResult:
     train_writer, test_writer = _summary_writers(cfg.output_folder)
 
     try:
-        print("Starting Readers")
-        train_reader.startup()
-        test_reader.startup()
-        train_iter = _barrier_after_first(
-            device_prefetch(train_reader.batches(local_batch_size), device),
-            "tpuseg_torch:first-batch")
+        def batches(reader):
+            # the group's first rank reads; the others receive its batches
+            it = device_prefetch(reader.batches(local_batch_size), device) if reads else None
+            return mesh_lib.spatial_feed(it, mesh)
+
+        if reads:
+            print("Starting Readers")
+            train_reader.startup()
+            test_reader.startup()
+        train_iter = _barrier_after_first(batches(train_reader), "tpuseg_torch:first-batch")
 
         # resumed runs continue the epoch numbering and skip the lr/10
         # warmup epoch — the restored optimizer is already warm
@@ -412,7 +432,7 @@ def train_model(config: TrainConfig) -> TrainResult:
             # producer thread stops consuming the shared reader queue
             sum_loss = sum_acc = None
             n_eval = 0
-            test_iter = device_prefetch(test_reader.batches(local_batch_size), device)
+            test_iter = batches(test_reader)
             try:
                 for _ in range(int(test_epoch_size) + 1):
                     try:
