@@ -113,7 +113,15 @@ package. Phases, each fatal on failure:
    0's), which serves phase 4's folder with phase 4's K2 count; then each
    rank times steady spatial steps (against phase 6's plain step: overhead,
    not scaling, on a shared card), its peak device memory, and the halo
-   exchange's route, bytes a step and share of profiled steps.
+   exchange's route, bytes a step and share of profiled steps; (c) heights
+   whose pool windows straddle the two ranks, so each rank gathers the
+   rows of the level ``halo.split_level`` names before its pool: (i) (a)'s
+   run at 240 x 256 (gathered at level 3) against its own one process,
+   with (a)'s gates and the exchange and gather counts the split implies;
+   (ii) ``train_model(spatial_partitions=2)`` on 528^2 records (level 3),
+   one epoch of 7 steps: the same losses on both ranks, finite and falling,
+   3 K1 launches a step on each, 2 gathers a steady step; its steady step
+   beside (b)'s, the gather's bytes and profiled share, and peak memory.
 
 The last lines are ``{"kernels": [...]}``, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``. Without a card it exits 1 and prints
@@ -705,23 +713,25 @@ def phase_train_reference(seed: int, dev) -> dict:
     return res
 
 
-def blob_pair(rng, n: int):
-    """An n^2 uint16 image and its uint8 mask: the mask thresholds a
-    smoothed random field (blobs) and the image is brighter inside them,
-    under smooth and pixel noise: a learnable task."""
+def blob_pair(rng, n: int, width: int = 0):
+    """An n x width (default n^2) uint16 image and its uint8 mask: the mask
+    thresholds a smoothed random field (blobs) and the image is brighter
+    inside them, under smooth and pixel noise: a learnable task."""
     import numpy as np
     from scipy.ndimage import gaussian_filter
 
-    field = gaussian_filter(rng.normal(0, 1, (n, n)), 12)
+    shape = (n, width or n)
+    field = gaussian_filter(rng.normal(0, 1, shape), 12)
     msk = (field > 0).astype(np.uint8)
-    shade = gaussian_filter(rng.normal(0, 1, (n, n)), 40)
-    img = 2000.0 + 1200.0 * msk + 400.0 * shade / shade.std() + rng.normal(0, 250, (n, n))
+    shade = gaussian_filter(rng.normal(0, 1, shape), 40)
+    img = 2000.0 + 1200.0 * msk + 400.0 * shade / shade.std() + rng.normal(0, 250, shape)
     return np.clip(img, 0, 65535).astype(np.uint16), msk
 
 
-def write_train_dbs(work: str, seed: int):
-    """N_TRAIN + N_TEST records of TRAIN_SIZE^2 ``blob_pair``s, in the
-    record layout of bench.py (keys tileNNNN:0,1)."""
+def write_train_dbs(work: str, seed: int, size: int = TRAIN_SIZE, n_train: int = N_TRAIN,
+                    n_test: int = N_TEST):
+    """``n_train`` + ``n_test`` records of ``size``^2 ``blob_pair``s in
+    ``work``, in the record layout of bench.py (keys tileNNNN:0,1)."""
     import numpy as np
 
     from tpuseg_torch.data.build_db import serialize_image_mask_pair
@@ -729,11 +739,12 @@ def write_train_dbs(work: str, seed: int):
 
     rng = np.random.default_rng(seed + 3)
     paths = []
-    for name, n in (("train", N_TRAIN), ("test", N_TEST)):
+    os.makedirs(work, exist_ok=True)
+    for name, n in (("train", n_train), ("test", n_test)):
         path = os.path.join(work, f"{name}.lmdb")
         with RecordWriter(path) as w:
             for i in range(n):
-                w.put(f"tile{i:04d}:0,1", serialize_image_mask_pair(*blob_pair(rng, TRAIN_SIZE)))
+                w.put(f"tile{i:04d}:0,1", serialize_image_mask_pair(*blob_pair(rng, size)))
         paths.append(path)
     return paths
 
@@ -1632,14 +1643,14 @@ def raw_batch(path: str, n: int, dev):
 
 
 def dp_worker(rank: int, world: int, port: int, seed: int, out_path: str,
-              device: str = "cuda:0", spatial: int = 1) -> None:
-    """Phase 9 (b)'s and phase 10 (a)'s rank ``rank`` of ``world`` on the
-    card (world 1: one process, no process group) on a mesh of ``spatial``
-    row shards: an eval step, then DP_STEPS raw steps at DP_BASE, f32 with
-    TF32 off, augmentation and dropout on, this rank's data shard of each
-    global batch of 2 * DP_BATCH (ZeRO-1 with a group); saves its eval,
-    losses, gradients, state, K1 launches and halo counts to
-    ``out_path``."""
+              device: str = "cuda:0", spatial: int = 1, height: int = DP_SIZE) -> None:
+    """Phase 9 (b)'s and phase 10 (a)'s and (c)'s rank ``rank`` of ``world``
+    on the card (world 1: one process, no process group) on a mesh of
+    ``spatial`` row shards: an eval step, then DP_STEPS raw steps at
+    DP_BASE on ``height`` x DP_SIZE images, f32 with TF32 off, augmentation
+    and dropout on, this rank's data shard of each global batch of 2 *
+    DP_BATCH (ZeRO-1 with a group); saves its eval, losses, gradients,
+    state, K1 launches and halo and gather counts to ``out_path``."""
     import numpy as np
     import torch
 
@@ -1661,7 +1672,7 @@ def dp_worker(rank: int, world: int, port: int, seed: int, out_path: str,
         tstep, estep = mesh_lib.make_parallel_raw_steps(state.model, mesh, NCLS,
                                                         shard_optimizer=world > 1, state=state)
         rng = np.random.default_rng(seed + 9)
-        pairs = [blob_pair(rng, DP_SIZE) for _ in range(DP_STEPS * 2 * DP_BATCH)]
+        pairs = [blob_pair(rng, height, DP_SIZE) for _ in range(DP_STEPS * 2 * DP_BATCH)]
         per = 2 * DP_BATCH // mesh.data
 
         def batch(step):
@@ -1686,7 +1697,8 @@ def dp_worker(rank: int, world: int, port: int, seed: int, out_path: str,
         out["state_dict"] = {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
         if mesh.halo is not None:
             out["halo"] = {"route": mesh.halo.route, "exchanges": mesh.halo.exchanges,
-                           "bytes_sent": mesh.halo.bytes_sent}
+                           "bytes_sent": mesh.halo.bytes_sent, "gathers": mesh.halo.gathers,
+                           "gather_bytes": mesh.halo.gather_bytes}
         torch.save(out, out_path)
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
@@ -2061,17 +2073,28 @@ SP_WINDOWS, SP_STEPS, SP_PROFILED = 3, 5, 3
 # cuDNN may pick another algorithm for a half image, which can flip a
 # near-tied argmax
 SP_EVAL_ACC_ATOL = 1e-5
+# (c): heights whose pool windows straddle the two ranks. (i) (a)'s run on
+# SP_PARITY_H x DP_SIZE images (a rank's rows 120, 60, 30, 15 down the
+# levels: gathered at level 3); (ii) train_model on SP_SIZE^2 records (264,
+# 132, 66, 33: level 3), one epoch of SP_TEST_EVERY + 1 steps. That epoch
+# is the warmup at lr / 10, so SP_LR puts it at phase 6's TRAIN_LR
+SP_PARITY_H = 240
+SP_SIZE, SP_N_TRAIN, SP_N_TEST, SP_LR, SP_STRADDLE_WINDOWS = 528, 24, 16, 10 * TRAIN_LR, 2
 
 
 def spatial_train_worker(rank: int, port: int, seed: int, work: str, out_path: str,
-                         device: str = "cuda:0") -> None:
-    """Phase 10 (b)'s rank ``rank`` of 2 (``LOCAL_WORLD_SIZE=2`` in its
-    environment: one host): ``train_model(spatial_partitions=2)`` on phase
-    6's databases at base 64, bf16, a global batch of TRAIN_BATCH, with
-    K1's count zeroed just before and read just after; then steady steps of
-    the same spatial step on a raw batch held on the card, timed, with the
-    device memory's peak, and SP_PROFILED steps profiled for the halo
-    exchange's share. Saves its results as JSON to ``out_path``."""
+                         device: str = "cuda:0", dbs: str = "", epochs: int = 2,
+                         lr: float = TRAIN_LR, out_name: str = "sp_train",
+                         windows: int = SP_WINDOWS) -> None:
+    """Phase 10 (b)'s and (c)'s rank ``rank`` of 2 (``LOCAL_WORLD_SIZE=2`` in
+    its environment: one host): ``train_model(spatial_partitions=2)`` for
+    ``epochs`` epochs on the databases in ``dbs`` (default ``work``: phase
+    6's) at base 64, bf16, a global batch of TRAIN_BATCH, with K1's count
+    zeroed just before and read just after; then ``windows`` windows of
+    steady steps of the same spatial step on a raw batch held on the card,
+    timed, with the device memory's peak, and SP_PROFILED steps profiled
+    for the halo exchange's and the row gather's shares. Saves its results
+    as JSON to ``out_path``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2090,17 +2113,17 @@ def spatial_train_worker(rank: int, port: int, seed: int, work: str, out_path: s
     distributed.initialize_distributed(f"127.0.0.1:{port}", 2, rank, backend="gloo",
                                        timeout_s=600)
     try:
-        train_db, test_db = (os.path.join(work, f"{n}.lmdb") for n in ("train", "test"))
+        train_db, test_db = (os.path.join(dbs or work, f"{n}.lmdb") for n in ("train", "test"))
         if cuda:
             torch.cuda.init()  # the peak counters exist once CUDA is initialised
             torch.cuda.reset_peak_memory_stats(dev)
         warp.LAUNCHES = 0
         t0 = time.perf_counter()
         result = train_model(TrainConfig(
-            train_db, test_db, os.path.join(work, "sp_train"), batch_size=TRAIN_BATCH,
-            test_every_n_steps=SP_TEST_EVERY, max_epochs=2, seed=seed, dtype="bfloat16",
+            train_db, test_db, os.path.join(work, out_name), batch_size=TRAIN_BATCH,
+            test_every_n_steps=SP_TEST_EVERY, max_epochs=epochs, seed=seed, dtype="bfloat16",
             base_features=BASE, spatial_partitions=2, log_every_n_steps=SP_LOG_EVERY,
-            reader_count=2, learning_rate=TRAIN_LR, device=dev.type))
+            reader_count=2, learning_rate=lr, device=dev.type))
         sync()
         out = {"wall_s": time.perf_counter() - t0, "k1_launches": warp.LAUNCHES,
                "steps": result.steps, "train_losses": result.train_losses,
@@ -2120,21 +2143,23 @@ def spatial_train_worker(rank: int, port: int, seed: int, work: str, out_path: s
         sync()
         if cuda:
             torch.cuda.reset_peak_memory_stats(dev)
-        sent = halo.exchanges, halo.bytes_sent
-        windows = []
-        for _ in range(SP_WINDOWS):
+        sent = halo.exchanges, halo.bytes_sent, halo.gathers, halo.gather_bytes
+        step_ms = []
+        for _ in range(windows):
             sync()
             t0 = time.perf_counter()
             for _ in range(SP_STEPS):
                 m = tstep(state, raw_img, raw_msk)
             m["loss"].item()
-            windows.append((time.perf_counter() - t0) * 1e3 / SP_STEPS)
-        n = SP_WINDOWS * SP_STEPS
-        out.update(step_ms_windows=windows, step_ms=sorted(windows)[len(windows) // 2],
+            step_ms.append((time.perf_counter() - t0) * 1e3 / SP_STEPS)
+        n = windows * SP_STEPS
+        out.update(step_ms_windows=step_ms, step_ms=sorted(step_ms)[len(step_ms) // 2],
                    peak_mem_gib_steady=(torch.cuda.max_memory_allocated(dev) / 2 ** 30
                                         if cuda else None),
                    halo_route=halo.route, exchanges_per_step=(halo.exchanges - sent[0]) / n,
-                   halo_bytes_per_step=(halo.bytes_sent - sent[1]) / n)
+                   halo_bytes_per_step=(halo.bytes_sent - sent[1]) / n,
+                   gathers_per_step=(halo.gathers - sent[2]) / n,
+                   gather_bytes_per_step=(halo.gather_bytes - sent[3]) / n)
         activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
         sync()
         with profile(activities=activities) as prof:
@@ -2146,6 +2171,8 @@ def spatial_train_worker(rank: int, port: int, seed: int, work: str, out_path: s
         events = prof.key_averages()
         halo_ms = sum(e.cpu_time_total for e in events
                       if e.key.startswith("halo_exchange:")) / 1e3
+        gather_ms = sum(e.cpu_time_total for e in events
+                        if e.key.startswith(("row_gather:", "row_gather_backward:"))) / 1e3
         # the gloo ops' ranges (on gloo's threads; an asynchronous op, as
         # DDP's bucket all-reduces are, overlaps the step) and this rank's
         # kernel time (the other rank's kernels share the card)
@@ -2153,7 +2180,8 @@ def spatial_train_worker(rank: int, port: int, seed: int, work: str, out_path: s
         busy_ms = sum(e.device_time_total for e in events
                       if e.device_type == DeviceType.CUDA) / 1e3
         out["profile"] = {"steps": SP_PROFILED, "wall_ms": wall_ms, "halo_ms": halo_ms,
-                          "halo_share": halo_ms / wall_ms, "gloo_ms": gloo_ms,
+                          "halo_share": halo_ms / wall_ms, "gather_ms": gather_ms,
+                          "gather_share": gather_ms / wall_ms, "gloo_ms": gloo_ms,
                           "kernel_ms": busy_ms, "kernel_share": busy_ms / wall_ms}
         with open(out_path, "w") as f:
             json.dump(out, f)
@@ -2161,25 +2189,36 @@ def spatial_train_worker(rank: int, port: int, seed: int, work: str, out_path: s
         distributed.shutdown_distributed()
 
 
-def phase_spatial_parity(seed: int, work: str, dev) -> dict:
-    """Phase 10 (a): phase 9 (b)'s two gloo ranks at spatial 2 (data 1: each
-    rank augments the global batch and trains on 128 of its 256 rows)
-    against phase 9 (b)'s one process, with its gates (module docstring),
-    and the eval step before training held to one process's: loss rtol
-    1e-5, accuracy within SP_EVAL_ACC_ATOL."""
+def phase_spatial_parity(seed: int, work: str, dev, height: int = DP_SIZE,
+                         label: str = "(a)") -> dict:
+    """Phase 10 (a), and (c) (i) at another ``height``: phase 9 (b)'s two
+    gloo ranks at spatial 2 (data 1: each rank augments the global batch
+    and trains on half of its rows) against one process (phase 9 (b)'s at
+    DP_SIZE rows, else run here while the ranks run), with its gates
+    (module docstring), and the eval step before training held to one
+    process's: loss rtol 1e-5, accuracy within SP_EVAL_ACC_ATOL. The halo
+    exchanges and row gathers must be those ``halo.split_level`` implies."""
     import torch
 
+    from tpuseg_torch.parallel.halo import split_level
+
+    name = "sp_rank" if height == DP_SIZE else f"sp{height}_rank"
     port = free_port()
-    paths = [os.path.join(work, f"sp_rank{r}.pt") for r in range(2)]
+    paths = [os.path.join(work, f"{name}{r}.pt") for r in range(2)]
     t0 = time.perf_counter()
-    procs = start_children(work, "sp_rank", [
-        f"dp_worker({r}, 2, {port}, {seed}, {paths[r]!r}, {str(dev)!r}, spatial=2)"
-        for r in range(2)], env={"LOCAL_WORLD_SIZE": "2"})
-    wait_all(procs, 600)
+    procs = start_children(work, name, [
+        f"dp_worker({r}, 2, {port}, {seed}, {paths[r]!r}, {str(dev)!r}, spatial=2, "
+        f"height={height})" for r in range(2)], env={"LOCAL_WORLD_SIZE": "2"})
+    one_path = os.path.join(work, "dp_one.pt" if height == DP_SIZE else f"sp{height}_one.pt")
+    try:
+        if height != DP_SIZE:
+            dp_worker(0, 1, 0, seed, one_path, str(dev), height=height)
+    finally:
+        wait_all(procs, 600)
     wall = time.perf_counter() - t0
-    check_children(procs, work, "sp_rank")
+    check_children(procs, work, name)
     ranks = [torch.load(p, weights_only=False) for p in paths]
-    one = torch.load(os.path.join(work, "dp_one.pt"), weights_only=False)
+    one = torch.load(one_path, weights_only=False)
     differ = [k for k in ranks[0]["state_dict"]
               if not torch.equal(ranks[0]["state_dict"][k], ranks[1]["state_dict"][k])]
     loss_rel = [abs(a - b) / abs(b) for a, b in zip(ranks[0]["losses"], one["losses"])]
@@ -2189,16 +2228,25 @@ def phase_spatial_parity(seed: int, work: str, dev) -> dict:
                for k, v in one["state_dict0"].items() if "running" in k)
     eval_rel = abs(ranks[0]["eval"][0] - one["eval"][0]) / abs(one["eval"][0])
     eval_acc = abs(ranks[0]["eval"][1] - one["eval"][1])
-    res = {"wall_s": wall, "losses_ranks": [r["losses"] for r in ranks],
+    level = split_level(height, 2)
+    # an eval step's forward and DP_STEPS train steps' forward and backward
+    # (enc1a's input takes no gradient): the row-sharded levels' 3x3 convs
+    # exchange, and a gather runs once each way
+    convs = 18 if level is None else 4 * (level + 1)
+    want_counts = {"exchanges": convs + DP_STEPS * (2 * convs - 1),
+                   "gathers": 0 if level is None else 1 + 2 * DP_STEPS}
+    res = {"height": height, "split_level": level, "wall_s": wall,
+           "losses_ranks": [r["losses"] for r in ranks],
            "losses_one": one["losses"], "loss_rel_err": loss_rel,
            "grad_l2_rel_err_max_by_step": grad_l2, "ranks_state_differ": differ,
            "bn_running_max_abs_diff_first_step": stat,
            "eval_ranks": [r["eval"] for r in ranks], "eval_one": one["eval"],
            "eval_loss_rel_err": eval_rel, "eval_acc_abs_err": eval_acc,
            "k1_launches_ranks": [r["k1_launches"] for r in ranks],
-           "halo_ranks": [r["halo"] for r in ranks]}
-    log(f"(a) two gloo ranks at spatial 2 on one card (base {DP_BASE}, {DP_SIZE}^2, f32, "
-        f"ZeRO-1, global batch {2 * DP_BATCH}) vs one process: loss rel err {loss_rel}, "
+           "halo_ranks": [r["halo"] for r in ranks], "want_counts": want_counts}
+    log(f"{label} two gloo ranks at spatial 2 on one card (base {DP_BASE}, {height} x "
+        f"{DP_SIZE}, f32, ZeRO-1, global batch {2 * DP_BATCH}; rows gathered at level "
+        f"{level}) vs one process: loss rel err {loss_rel}, "
         f"gradient L2 rel err max by step {[f'{e:.2e}' for e in grad_l2]}, BN running "
         f"statistics max diff {stat:.2e}, eval loss rel err {eval_rel:.2e} and accuracy "
         f"diff {eval_acc:.2e}, ranks' states differ in {len(differ)} tensors; K1 launches "
@@ -2211,6 +2259,9 @@ def phase_spatial_parity(seed: int, work: str, dev) -> dict:
         raise AssertionError(f"spatial ranks against one process out of tolerance: {res}")
     if res["k1_launches_ranks"] != [3 * DP_STEPS] * 2:
         raise AssertionError(f"ranks: {res['k1_launches_ranks']} K1 launches")
+    for r in ranks:
+        if {k: r["halo"][k] for k in want_counts} != want_counts:
+            raise AssertionError(f"halo counts {r['halo']}, expected {want_counts}")
     return res
 
 
@@ -2300,6 +2351,94 @@ def phase_spatial_train(seed: int, work: str, dev, main_res: dict, train_res: di
     return res
 
 
+def phase_spatial_straddle_train(seed: int, work: str, dev, train_b: dict) -> dict:
+    """Phase 10 (c) (ii): ``train_model(spatial_partitions=2)`` in two
+    processes on cuda:0 over gloo on SP_SIZE^2 records, whose fourth pool
+    window straddles the ranks (``spatial_train_worker``). Gates: both
+    ranks report the same losses, finite and falling; the trainer names the
+    gathered level; 3 K1 launches a step on each; 2 row gathers a steady
+    step. Reports the steady step against (b)'s, the gather's bytes a step
+    and share of the profiled steps, and the peak device memory per rank."""
+    import shutil
+
+    import numpy as np
+
+    from tpuseg_torch.parallel.halo import split_level
+
+    dbs = os.path.join(work, f"sp{SP_SIZE}")
+    t0 = time.perf_counter()
+    write_train_dbs(dbs, seed, SP_SIZE, SP_N_TRAIN, SP_N_TEST)
+    write_s = time.perf_counter() - t0
+    name = f"sp{SP_SIZE}_train"
+    shutil.rmtree(os.path.join(work, name), ignore_errors=True)
+    port = free_port()
+    paths = [os.path.join(work, f"{name}_rank{r}.json") for r in range(2)]
+    t0 = time.perf_counter()
+    procs = start_children(work, f"{name}_rank", [
+        f"spatial_train_worker({r}, {port}, {seed}, {work!r}, {paths[r]!r}, {str(dev)!r}, "
+        f"dbs={dbs!r}, epochs=1, lr={SP_LR!r}, out_name={name!r}, "
+        f"windows={SP_STRADDLE_WINDOWS})" for r in range(2)], env={"LOCAL_WORLD_SIZE": "2"})
+    wait_all(procs, 600)
+    wall = time.perf_counter() - t0
+    check_children(procs, work, f"{name}_rank")
+    ranks = []
+    for path in paths:
+        with open(path) as f:
+            ranks.append(json.load(f))
+    with open(os.path.join(work, f"{name}_rank0.log")) as f:
+        stdout = f.read()
+    steps = SP_TEST_EVERY + 1
+    level = split_level(SP_SIZE, 2)
+    r0 = ranks[0]
+    res = {"size": SP_SIZE, "split_level": level, "write_dbs_s": write_s, "wall_s": wall,
+           "steps": r0["steps"], "train_losses": r0["train_losses"],
+           "test_loss": r0["test_loss"], "k1_launches_ranks": [r["k1_launches"] for r in ranks],
+           "halo_route": r0["halo_route"], "exchanges_per_step": r0["exchanges_per_step"],
+           "halo_bytes_per_step": r0["halo_bytes_per_step"],
+           "gathers_per_step": r0["gathers_per_step"],
+           "gather_bytes_per_step": r0["gather_bytes_per_step"],
+           "step_ms_ranks": [r["step_ms"] for r in ranks],
+           "step_ms_windows_ranks": [r["step_ms_windows"] for r in ranks],
+           "step_ms_ranks_b": train_b["step_ms_ranks"],
+           "profile_ranks": [r["profile"] for r in ranks],
+           "peak_mem_gib_main_ranks": [r["peak_mem_gib_main"] for r in ranks],
+           "peak_mem_gib_steady_ranks": [r["peak_mem_gib_steady"] for r in ranks],
+           "peak_mem_gib_steady_ranks_b": train_b["peak_mem_gib_steady_ranks"]}
+    log(f"(c) (ii) train_model(spatial_partitions=2) on {SP_SIZE}^2 records (rows gathered "
+        f"at level {level}), two ranks on one card: {r0['steps']} steps in "
+        f"{r0['wall_s']:.1f} s, K1 launches {res['k1_launches_ranks']}, losses "
+        f"{[round(v, 4) for v in r0['train_losses']]}, test {r0['test_loss']}")
+    for r in ranks[1:]:
+        if (r["train_losses"], r["test_loss"], r["steps"]) != \
+                (r0["train_losses"], r0["test_loss"], r0["steps"]):
+            raise AssertionError(f"the ranks report different runs: {r0} {r}")
+    if f"rows gathered at level {level}, before pool {level + 1}" not in stdout:
+        raise AssertionError("the straddling run did not name its gathered level")
+    if r0["steps"] != steps or res["k1_launches_ranks"] != [3 * steps] * 2:
+        raise AssertionError(f"{r0['steps']} steps, {res['k1_launches_ranks']} K1 launches: "
+                             f"expected {steps} and 3 per step on each rank")
+    losses = r0["train_losses"]
+    if not (np.isfinite(losses).all() and np.isfinite(r0["test_loss"]).all()
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"losses not finite and falling: {losses} {r0['test_loss']}")
+    if any(r["gathers_per_step"] != 2 for r in ranks):
+        raise AssertionError(f"row gathers a step: {[r['gathers_per_step'] for r in ranks]}")
+    prof = r0["profile"]
+    log(f"(c) (ii) steady straddling step ({SP_SIZE}^2, global batch {TRAIN_BATCH}, base "
+        f"{BASE}, bf16): {res['step_ms_ranks']} ms a step on each rank (median of "
+        f"{SP_STRADDLE_WINDOWS} windows of {SP_STEPS}) against (b)'s {train_b['step_ms_ranks']} "
+        f"at {TRAIN_SIZE}^2; row gather {r0['gathers_per_step']:.0f} calls and "
+        f"{r0['gather_bytes_per_step'] / 1e6:.2f} MB a step a rank, its share of "
+        f"{SP_PROFILED} profiled steps {[round(p['gather_share'], 4) for p in res['profile_ranks']]} "
+        f"({prof['gather_ms']:.1f} of {prof['wall_ms']:.1f} ms on rank 0); halo "
+        f"{r0['exchanges_per_step']:.0f} exchanges, {r0['halo_bytes_per_step'] / 1e6:.2f} MB "
+        f"a step, share {[round(p['halo_share'], 4) for p in res['profile_ranks']]}; peak "
+        f"memory per rank {res['peak_mem_gib_steady_ranks']} GiB steady, "
+        f"{res['peak_mem_gib_main_ranks']} GiB in train_model ((b) steady: "
+        f"{train_b['peak_mem_gib_steady_ranks']})")
+    return res
+
+
 def phase_spatial(seed: int, work: str, dev, main_res: dict, train_res: dict) -> dict:
     """Phase 10: spatial partitioning on the one card (module docstring)."""
     import torch
@@ -2309,8 +2448,13 @@ def phase_spatial(seed: int, work: str, dev, main_res: dict, train_res: dict) ->
     t0 = time.perf_counter()
     res = {"parity": phase_spatial_parity(seed, work, dev),
            "train": phase_spatial_train(seed, work, dev, main_res, train_res)}
+    t_c = time.perf_counter()
+    res["straddle"] = {
+        "parity": phase_spatial_parity(seed, work, dev, SP_PARITY_H, "(c) (i)"),
+        "train": phase_spatial_straddle_train(seed, work, dev, res["train"])}
+    res["straddle"]["phase_s"] = time.perf_counter() - t_c
     res["phase_s"] = time.perf_counter() - t0
-    log(f"phase 10 took {res['phase_s']:.1f} s")
+    log(f"phase 10 took {res['phase_s']:.1f} s, (c) {res['straddle']['phase_s']:.1f} s of it")
     return res
 
 
@@ -2400,7 +2544,9 @@ def main() -> int:
                               "gloo_two_ranks": multigpu_res["gloo"]["k1_launches_ranks"]},
         "launches_spatial": {
             "train_model_ranks": spatial_res["train"]["k1_launches_ranks"],
-            "parity_ranks": spatial_res["parity"]["k1_launches_ranks"]},
+            "parity_ranks": spatial_res["parity"]["k1_launches_ranks"],
+            "straddle_train_model_ranks": spatial_res["straddle"]["train"]["k1_launches_ranks"],
+            "straddle_parity_ranks": spatial_res["straddle"]["parity"]["k1_launches_ranks"]},
         "max_abs_err": shear["max_abs_err"], "ms": shear["ms"],
         "plain_ms": shear["plain_ms"], "bound_ms": shear["bound_ms"],
         "bound_by": shear["bound_by"], "library_ms": shear["library_ms"],

@@ -200,8 +200,8 @@ def test_trainer_refuses_several_gpus_without_a_group(monkeypatch, no_torchrun):
 def test_dryrun_two_gloo_ranks():
     """Two CPU ranks on a (1, 2) spatial mesh, as dryrun_multichip makes
     one: the train, ZeRO-1 and raw steps agree across the ranks through the
-    halo exchange, and sharded tiled serving equals one shard for every
-    engine."""
+    halo exchange, a 48-row step gathers its rows at level 3, and sharded
+    tiled serving equals one shard for every engine."""
     from tpuseg_torch.parallel.dryrun import dryrun_multigpu
 
     if torch.cuda.is_available():
@@ -216,6 +216,11 @@ def test_dryrun_two_gloo_ranks():
     # ZeRO-1 is the same update: the first loss (before it) is equal
     assert res["zero1"] == res["data_parallel"]
     assert set(res["serving"]) == {"none", "int8", "int8_blocked"}
+    # 48 rows: 3 a rank at level 3, gathered before the fourth pool; a
+    # train step gathers forward and backward, an eval step forward
+    st = res["straddle"]
+    assert st["split_level"] == 3 and st["gathers"] == 3
+    assert 0 < st["loss"] < 10 and 0 < st["eval"] < 10
 
 
 def _stub_python(bin_dir: Path, capture: Path) -> None:

@@ -4,7 +4,8 @@ entry points: ``train_model`` (replicated and ZeRO-1) and ``cli.inference
 
 Training (base 2, 32^2, batch 1 per replica, 2 steps between test
 epochs; replicated, ZeRO-1, and spatially partitioned over the two
-processes as one replica): both processes report the global batch and
+processes as one replica, also on 48 x 32 records, whose fourth pool
+window straddles the two): both processes report the global batch and
 identical test-loss trajectories, rank 0 alone writes the artifacts, the
 ZeRO-1 run resumes from its checkpoint, and rank 0's checkpoint restores
 into a one-process template. Serving (base 4, int8_blocked): the two processes' stripes of
@@ -104,28 +105,32 @@ def dbs(tmp_path_factory):
     root = tmp_path_factory.mktemp("mh")
     rng = np.random.default_rng(0)
 
-    def make(path, n):
+    def make(path, n, height):
         with RecordWriter(str(path)) as w:
             for i in range(n):
-                img = rng.normal(500, 100, (32, 32, 1)).astype(np.uint16)
+                img = rng.normal(500, 100, (height, 32, 1)).astype(np.uint16)
                 msk = (img[..., 0] > 500).astype(np.uint8)
                 w.put(f"img{i:03d}:0,1", serialize_image_mask_pair(img, msk))
         return str(path)
 
-    return make(root / "train-mh.lmdb", 16), make(root / "test-mh.lmdb", 8)
+    # height -> (train, test)
+    return {h: (make(root / f"train-mh{h}.lmdb", 16, h), make(root / f"test-mh{h}.lmdb", 8, h))
+            for h in (32, 48)}
 
 
 def _lines(out, tag):
     return [line.split()[2:] for line in out.splitlines() if line.startswith(tag + " ")]
 
 
-@pytest.mark.parametrize("zero,spatial", [(False, 1), (True, 1), (False, 2)],
-                         ids=["replicated", "zero1", "spatial"])
-def test_two_process_train_model(dbs, tmp_path, zero, spatial):
+@pytest.mark.parametrize("zero,spatial,height",
+                         [(False, 1, 32), (True, 1, 32), (False, 2, 32), (False, 2, 48)],
+                         ids=["replicated", "zero1", "spatial", "spatial_straddling"])
+def test_two_process_train_model(dbs, tmp_path, zero, spatial, height):
     """The spatial case is tests/test_multihost_integration.py's: the two
     processes are one host's spatial group, one replica, so the global
     batch halves; the first process reads and the halos cross between
-    them."""
+    them. At 48 rows a process holds 3 at level 3, and the trainer gathers
+    them before the fourth pool."""
     script = tmp_path / "child.py"
     script.write_text(TRAIN_CHILD)
     out = str(tmp_path / "out")
@@ -133,7 +138,7 @@ def test_two_process_train_model(dbs, tmp_path, zero, spatial):
     # explicit initialization is one process per host unless told otherwise
     env = _env(LOCAL_WORLD_SIZE="2") if spatial > 1 else _env()
     outs = _communicate([
-        subprocess.Popen([sys.executable, str(script), str(rank), port, *dbs, out,
+        subprocess.Popen([sys.executable, str(script), str(rank), port, *dbs[height], out,
                           "1" if zero else "0", str(spatial)], env=env, cwd=str(REPO),
                          stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         for rank in range(2)])
@@ -143,6 +148,7 @@ def test_two_process_train_model(dbs, tmp_path, zero, spatial):
                 in stdout)
         if spatial > 1:
             assert "halo route gloo" in stdout
+            assert ("rows gathered at level 3" in stdout) == (height == 48)
     # the test loss is a global mean: identical on both processes
     results = [_lines(o[1], "RESULT") for o in outs]
     assert results[0] == results[1] and len(results[0]) == 1
@@ -169,7 +175,7 @@ def test_spatial_partitions_raise(dbs, tmp_path):
 
     for spatial in (2, 0):
         with pytest.raises(ValueError, match="spatial"):
-            train_model(TrainConfig(*dbs, str(tmp_path / "out"), device="cpu",
+            train_model(TrainConfig(*dbs[32], str(tmp_path / "out"), device="cpu",
                                     spatial_partitions=spatial))
 
 

@@ -9,8 +9,8 @@ child processes. Counterpart of tests/test_parallel.py's spatial step.
   weight gradient (the ranks' partial sums added: another summation order
   over up to 216 products of order 1) within atol 1e-6 + rtol 1e-5;
 - one process on the global batch against ``(data, spatial) = (1, 2)`` and
-  ``(2, 2)`` meshes (base 4, 64^2, a global batch of 4 over 2 steps, so a
-  rank's 32 rows stay a multiple of 16), on the raw and the host paths,
+  ``(2, 2)`` meshes (base 4, 64^2, a global batch of 4 over 2 steps; a
+  rank's 32 rows keep every pool on one rank), on the raw and the host paths,
   augmentation and dropout on, every rank's state bit-equal, with
   tests/test_torch_parallel.py's tolerances. In float32 the forward: the
   first step's loss rtol 1e-5 and accuracy atol 1e-6, its running
@@ -32,7 +32,15 @@ child processes. Counterpart of tests/test_parallel.py's spatial step.
   spatial=2)`` step on its 8-device CPU mesh, the same flax weights through
   the bridge, float32, dropout off and average pooling in both (no max
   pool route to flip): the tolerances of tests/test_torch_steps.py;
-- a height the JAX package takes and the port refuses.
+- heights whose pool windows straddle two ranks (``halo.split_level``):
+  the row gather alone at spatial 2 and 4 against ``gather_rows_reference``
+  (its forward exact, its backward, a sum over the ranks, within fp32 atol
+  1e-6); 48 x 32 images on the (1, 2) mesh (rows gathered at level 3) and
+  the (1, 4) mesh (level 2) against one process, with the tolerances
+  above, max pooling in f64; the (2, 2) mesh at 48 rows against JAX's (4,
+  2) mesh as at 64;
+- the heights the JAX package refuses (not a multiple of 16, or not of
+  the spatial size) raise ``ValueError`` in both packages.
 """
 
 import os
@@ -61,12 +69,12 @@ HALO_CHILD = textwrap.dedent("""
         import torch.nn.functional as F
         torch.set_num_threads(1)
         from tpuseg_torch.parallel import distributed, mesh as mesh_lib
-        from tpuseg_torch.parallel.halo import pad_rows_reference
+        from tpuseg_torch.parallel.halo import gather_rows_reference, pad_rows_reference
         distributed.initialize_distributed(f"127.0.0.1:{port}", world, rank,
                                            backend="gloo", timeout_s=120)
         mesh = mesh_lib.make_mesh("cpu", spatial=world)
         data = np.load(f"{work}/halo.npz")
-        x, w, b, gy = (torch.from_numpy(data[k]) for k in ("x", "w", "b", "gy"))
+        x, w, b, gy, gz = (torch.from_numpy(data[k]) for k in ("x", "w", "b", "gy", "gz"))
         h = x.shape[2] // world
         rows = slice(rank * h, (rank + 1) * h)
         shards = [x[:, :, r * h:(r + 1) * h].contiguous(memory_format=torch.channels_last)
@@ -76,10 +84,17 @@ HALO_CHILD = textwrap.dedent("""
         padded = mesh.halo(xl)
         y = F.conv2d(padded, wl, b, padding=(0, 1))
         (y * gy[:, :, rows]).sum().backward()
+        xg = shards[rank].clone().requires_grad_()
+        full = mesh.halo.gather(xg)
+        (full * gz[rank]).sum().backward()
         torch.save({"padded": padded.detach(), "want_padded": pad_rows_reference(shards)[rank],
                     "y": y.detach(), "gx": xl.grad, "gw": wl.grad,
                     "channels_last": padded.is_contiguous(memory_format=torch.channels_last),
-                    "exchanges": mesh.halo.exchanges, "route": mesh.halo.route},
+                    "exchanges": mesh.halo.exchanges, "route": mesh.halo.route,
+                    "full": full.detach(), "want_full": gather_rows_reference(shards)[rank],
+                    "full_channels_last": full.is_contiguous(memory_format=torch.channels_last),
+                    "g_shard": xg.grad, "gathers": mesh.halo.gathers,
+                    "gather_bytes": mesh.halo.gather_bytes},
                    f"{work}/halo_{world}_{rank}.pt")
         distributed.shutdown_distributed()
 """)
@@ -108,9 +123,6 @@ STEP_CHILD = textwrap.dedent("""
 
         mesh = mesh_lib.make_mesh("cpu", spatial=spatial)
         mesh_lib.warm_collectives(mesh)
-        data = np.load(f"{work}/data.npz")
-        per = data["img"].shape[1] // mesh.data
-        shard = slice(mesh.data_rank * per, (mesh.data_rank + 1) * per)
         # float64 runs: .float() keeps float64 (BatchNorm's and the logits'
         # promotion to float32)
         to_float = torch.Tensor.float
@@ -118,7 +130,11 @@ STEP_CHILD = textwrap.dedent("""
                                                  else to_float(t, *a, **k))
         real_all_reduce, max_pool = dnn.all_reduce, unet._pool
         for mode in modes:
-            path, _, variant = mode.partition("_")
+            # "mode@tag": the batches of data{tag}.npz
+            path, _, variant = mode.partition("@")[0].partition("_")
+            data = np.load(f"{work}/data{mode.partition('@')[2]}.npz")
+            per = data["img"].shape[1] // mesh.data
+            shard = slice(mesh.data_rank * per, (mesh.data_rank + 1) * per)
             unet._pool = (lambda x: F.avg_pool2d(x, 2)) if variant == "avg" else max_pool
             state = create_train_state(unet.UNet(2, 1, 4, "float32"), 0, 1e-3, "cpu")  # LR
             if variant == "f64":
@@ -145,6 +161,7 @@ STEP_CHILD = textwrap.dedent("""
             calls = []
             dnn.all_reduce = lambda *a, **k: calls.append(1) or real_all_reduce(*a, **k)
             sent = mesh.halo.exchanges if mesh.halo else 0
+            gathered = mesh.halo.gathers if mesh.halo else 0
             for step in range(xs.shape[0]):
                 m = tstep(state, *batch(step))
                 out["loss"].append(m["loss"].item())
@@ -153,6 +170,7 @@ STEP_CHILD = textwrap.dedent("""
                     dnn.all_reduce = real_all_reduce
                     out["bn_allreduces_step0"] = len(calls)
                     out["exchanges_step0"] = (mesh.halo.exchanges if mesh.halo else 0) - sent
+                    out["gathers_step0"] = (mesh.halo.gathers if mesh.halo else 0) - gathered
                     out["state_dict_step0"] = {k: v.clone() for k, v in
                                                state.model.state_dict().items()}
                     out["grads_step0"] = {k: p.grad.clone() for k, p in
@@ -189,26 +207,42 @@ def _launch(script, args_by_rank):
                 p.kill()
 
 
-@pytest.mark.parametrize("spatial", [2, 4])
-def test_halo_exchange_matches_the_unsharded_conv(tmp_path, spatial):
-    rng = np.random.default_rng(spatial)
-    n, cin, cout = 2, int(rng.integers(2, 5)), 3
-    h, w = int(rng.integers(1, 4)), int(rng.integers(3, 10))
-    x = rng.normal(0, 1, (n, cin, h * spatial, w)).astype(np.float32)
-    wt = rng.normal(0, 0.3, (cout, cin, 3, 3)).astype(np.float32)
-    b = rng.normal(0, 0.1, cout).astype(np.float32)
-    gy = rng.normal(0, 1, (n, cout, h * spatial, w)).astype(np.float32)
-    np.savez(tmp_path / "halo.npz", x=x, w=wt, b=b, gy=gy)
-    script = str(tmp_path / "child.py")
+@pytest.fixture(scope="module")
+def halo_runs(tmp_path_factory):
+    """The exchange and the gather at spatial 2 and 4, all ranks at once;
+    spatial -> (the inputs, each rank's results)."""
+    work = tmp_path_factory.mktemp("halo")
+    script = str(work / "child.py")
     Path(script).write_text(HALO_CHILD)
-    port = _free_port()
-    _launch(script, [(r, spatial, port, tmp_path) for r in range(spatial)])
-    ranks = [torch.load(tmp_path / f"halo_{spatial}_{r}.pt") for r in range(spatial)]
+    runs = {}
+    for spatial in (2, 4):
+        rng = np.random.default_rng(spatial)
+        n, cin, cout = 2, int(rng.integers(2, 5)), 3
+        h, w = int(rng.integers(1, 4)), int(rng.integers(3, 10))
+        x = rng.normal(0, 1, (n, cin, h * spatial, w)).astype(np.float32)
+        wt = rng.normal(0, 0.3, (cout, cin, 3, 3)).astype(np.float32)
+        b = rng.normal(0, 0.1, cout).astype(np.float32)
+        gy = rng.normal(0, 1, (n, cout, h * spatial, w)).astype(np.float32)
+        # each rank's upstream gradient of the gathered rows
+        gz = rng.normal(0, 1, (spatial, *x.shape)).astype(np.float32)
+        (work / str(spatial)).mkdir()
+        np.savez(work / str(spatial) / "halo.npz", x=x, w=wt, b=b, gy=gy, gz=gz)
+        runs[spatial] = dict(x=x, w=wt, b=b, gy=gy, gz=gz)
+    ports = {spatial: _free_port() for spatial in runs}
+    _launch(script, [(r, spatial, ports[spatial], work / str(spatial))
+                     for spatial in runs for r in range(spatial)])
+    return {spatial: (data, [torch.load(work / str(spatial) / f"halo_{spatial}_{r}.pt")
+                             for r in range(spatial)])
+            for spatial, data in runs.items()}
 
-    xt = torch.from_numpy(x).requires_grad_()
-    wtt = torch.from_numpy(wt).requires_grad_()
-    want = torch.nn.functional.conv2d(xt, wtt, torch.from_numpy(b), padding=1)
-    (want * torch.from_numpy(gy)).sum().backward()
+
+@pytest.mark.parametrize("spatial", [2, 4])
+def test_halo_exchange_matches_the_unsharded_conv(halo_runs, spatial):
+    data, ranks = halo_runs[spatial]
+    xt = torch.from_numpy(data["x"]).requires_grad_()
+    wtt = torch.from_numpy(data["w"]).requires_grad_()
+    want = torch.nn.functional.conv2d(xt, wtt, torch.from_numpy(data["b"]), padding=1)
+    (want * torch.from_numpy(data["gy"])).sum().backward()
     for r, got in enumerate(ranks):
         assert torch.equal(got["padded"], got["want_padded"]), r
         assert got["channels_last"] and got["route"] == "gloo"
@@ -225,27 +259,54 @@ def test_halo_exchange_matches_the_unsharded_conv(tmp_path, spatial):
     torch.testing.assert_close(sum(g["gw"] for g in ranks), wtt.grad, atol=1e-6, rtol=1e-5)
 
 
-def _data(work, seed=7, steps=2, batch=4, size=64):
+@pytest.mark.parametrize("spatial", [2, 4])
+def test_row_gather_matches_one_process(halo_runs, spatial):
+    """Every rank holds the full height after the gather; a shard's gradient
+    is every rank's upstream gradient at its rows, summed."""
+    from tpuseg_torch.parallel.halo import gather_rows_reference
+
+    data, ranks = halo_runs[spatial]
+    x = torch.from_numpy(data["x"])
+    h = x.shape[2] // spatial
+    shards = [x[:, :, r * h:(r + 1) * h].clone().requires_grad_() for r in range(spatial)]
+    want = gather_rows_reference(shards)
+    sum((w * torch.from_numpy(g)).sum() for w, g in zip(want, data["gz"])).backward()
+    for r, got in enumerate(ranks):
+        assert torch.equal(got["full"], x) and torch.equal(got["want_full"], x), r
+        assert got["full_channels_last"]
+        torch.testing.assert_close(got["g_shard"], shards[r].grad, atol=1e-6, rtol=0)
+        # one gather forward (this rank's rows) and one all-reduce backward
+        # (the full height)
+        assert got["gathers"] == 2
+        assert got["gather_bytes"] == 4 * (x.numel() // spatial + x.numel())
+
+
+def _data(work, seed=7, steps=2, batch=4, size=(64, 64), tag=""):
     """``steps`` raw global batches (uint16-range images, uint8 masks) and
-    as many preprocessed ones (z-scored images, one-hot labels)."""
+    as many preprocessed ones (z-scored images, one-hot labels), saved as
+    ``data{tag}.npz``."""
     rng = np.random.default_rng(seed)
-    img = rng.integers(0, 4000, (steps, batch, size, size, 1)).astype(np.int32)
+    img = rng.integers(0, 4000, (steps, batch, *size, 1)).astype(np.int32)
     msk = (img[..., 0] + rng.normal(0, 600, img.shape[:4]) > 2000).astype(np.uint8)
-    x = rng.normal(0, 1, (steps, batch, size, size, 1)).astype(np.float32)
+    x = rng.normal(0, 1, (steps, batch, *size, 1)).astype(np.float32)
     y = np.eye(2, dtype=np.float32)[(x[..., 0] + rng.normal(0, 0.5, x.shape[:4]) > 0)
                                     .astype(np.int32)]
-    np.savez(os.path.join(work, "data.npz"), img=img, msk=msk, x=x, y=y)
+    np.savez(os.path.join(work, f"data{tag}.npz"), img=img, msk=msk, x=x, y=y)
     return x, y
 
 
 MODES = "raw,host,raw_f64,host_f64"
-MESHES = {"one": (1, 1, MODES), "1x2": (2, 2, MODES), "2x2": (4, 2, MODES + ",jax_avg")}
+# 48 x 32 images: a pool window straddles two ranks at spatial 2 and 4
+STRADDLE = "@48"
+MODES_48 = ",".join(m + STRADDLE for m in MODES.split(","))
+MESHES = {"one": (1, 1, MODES + "," + MODES_48), "1x2": (2, 2, MODES + "," + MODES_48),
+          "1x4": (4, 4, MODES_48), "2x2": (4, 2, MODES + ",jax_avg,jax_avg" + STRADDLE)}
 
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """One process, a (1, 2) mesh and a (2, 2) mesh, all at once, each
-    child running its modes in turn; and the flax weights of the "jax"
+    """One process, a (1, 2), a (1, 4) and a (2, 2) mesh, all at once,
+    each child running its modes in turn; and the flax weights of the "jax"
     mode, whose JAX step the test runs."""
     import jax
 
@@ -254,7 +315,8 @@ def runs(tmp_path_factory):
     from tpuseg_torch.utils.jax_bridge import flax_to_state_dict
 
     work = tmp_path_factory.mktemp("spatial")
-    x, y = _data(str(work))
+    batches = {"": _data(str(work)),
+               STRADDLE: _data(str(work), seed=8, size=(48, 32), tag=STRADDLE[1:])}
     import jax.numpy as jnp
 
     model = JaxUNet(num_classes=2, base_features=4, dtype=jnp.float32)
@@ -273,7 +335,7 @@ def runs(tmp_path_factory):
         return [torch.load(work / f"out_{mode}_{world}_{spatial}_{r}.pt", weights_only=False)
                 for r in range(world)]
 
-    return {"load": load, "model": model, "variables": variables, "x": x, "y": y}
+    return {"load": load, "model": model, "variables": variables, "batches": batches}
 
 
 def _assert_same_ranks(ranks):
@@ -295,38 +357,44 @@ def _assert_forward_close(got, one):
             assert d.max() <= 1e-5, (k, d.max())
 
 
-def _assert_counts(got, one):
-    # sync-BN over every rank; every 3x3 conv (18) exchanged forward, and
-    # backward all but enc1a, whose input (the images) takes no gradient
+def _assert_counts(got, one, level=None):
+    """sync-BN over every rank; every 3x3 conv of the row-sharded levels
+    (all 18, or the 4 of each level down to the gathered ``level``)
+    exchanged forward, and backward all but enc1a, whose input (the images)
+    takes no gradient; with a ``level``, one gather forward and one
+    backward."""
+    convs = 18 if level is None else 4 * (level + 1)
     assert got["bn_allreduces_step0"] == 23 and one["bn_allreduces_step0"] == 0
-    assert got["exchanges_step0"] == 18 + 17 and one["exchanges_step0"] == 0
+    assert got["exchanges_step0"] == 2 * convs - 1 and one["exchanges_step0"] == 0
+    assert got["gathers_step0"] == (0 if level is None else 2)
+    assert one["gathers_step0"] == 0
 
 
-@pytest.mark.parametrize("mode", ["raw", "host"])
-@pytest.mark.parametrize("mesh", ["1x2", "2x2"])
-def test_spatial_mesh_matches_one_process_on_the_global_batch(runs, mesh, mode):
-    """Dropout on, and on the raw path augmentation too: drawn for the
-    global batch at the full height, so the mesh trains as one process
-    (the forward in float32, the whole training in float64: module
+def _assert_mesh_matches_one_process(runs, mesh, mode, level=None):
+    """The forward in float32, the whole training in float64 (module
     docstring)."""
     ranks = runs["load"](mesh, mode)
     (one,) = runs["load"]("one", mode)
     _assert_same_ranks(ranks)
     got = ranks[0]
     _assert_forward_close(got, one)
-    _assert_counts(got, one)
+    _assert_counts(got, one, level)
 
-    ranks = runs["load"](mesh, mode + "_f64")
-    (one,) = runs["load"]("one", mode + "_f64")
+    path, _, tag = mode.partition("@")
+    ranks = runs["load"](mesh, f"{path}_f64@{tag}" if tag else path + "_f64")
+    (one,) = runs["load"]("one", f"{path}_f64@{tag}" if tag else path + "_f64")
     _assert_same_ranks(ranks)
     got = ranks[0]
     _assert_forward_close(got, one)
-    _assert_counts(got, one)
+    _assert_counts(got, one, level)
     np.testing.assert_allclose(got["loss"], one["loss"], rtol=1e-5)
     np.testing.assert_allclose(got["acc"], one["acc"], atol=1e-6)
+    errs = {}
     for k, g in one["grads_step0"].items():
-        err = (got["grads_step0"][k] - g).abs().max() / g.abs().max()
-        assert err < 1e-3, (k, err)
+        errs[k] = ((got["grads_step0"][k] - g).abs().max() / g.abs().max()).item()
+        assert errs[k] < 1e-3, (k, errs[k])
+    print(f"{mesh} {mode}: first-step gradient error at most {max(errs.values()):.1e} of "
+          f"a tensor's largest")
     n = n_ok = 0
     for k, v in one["state_dict_step0"].items():
         d = (got["state_dict_step0"][k] - v).abs()
@@ -341,10 +409,31 @@ def test_spatial_mesh_matches_one_process_on_the_global_batch(runs, mesh, mode):
                                        rtol=0, err_msg=k)
 
 
-def test_spatial_mesh_matches_jax_spatial_mesh_step(runs, monkeypatch):
+@pytest.mark.parametrize("mode", ["raw", "host"])
+@pytest.mark.parametrize("mesh", ["1x2", "2x2"])
+def test_spatial_mesh_matches_one_process_on_the_global_batch(runs, mesh, mode):
+    """Dropout on, and on the raw path augmentation too: drawn for the
+    global batch at the full height, so the mesh trains as one process
+    (the forward in float32, the whole training in float64: module
+    docstring)."""
+    _assert_mesh_matches_one_process(runs, mesh, mode)
+
+
+@pytest.mark.parametrize("mode", ["raw", "host"])
+@pytest.mark.parametrize("mesh, level", [("1x2", 3), ("1x4", 2)])
+def test_spatial_mesh_matches_one_process_where_pools_straddle_ranks(runs, mesh, level,
+                                                                     mode):
+    """48 rows: a rank holds 24, 12, 6, 3 rows at spatial 2 and 12, 6, 3 at
+    spatial 4, so the rows are gathered before the pool that leaves level
+    3 (spatial 2) or 2 (spatial 4); dropout, augmentation and max pooling
+    on, the module docstring's tolerances."""
+    _assert_mesh_matches_one_process(runs, mesh, mode + STRADDLE, level)
+
+
+def _assert_matches_jax_spatial_mesh(runs, monkeypatch, tag):
     """The port's (2, 2) mesh against the JAX package's (4, 2) mesh on its
-    8-device CPU mesh: the same flax weights and global batch, dropout off
-    and average pooling in both."""
+    8-device CPU mesh, on the batches of ``data{tag}.npz``: the same flax
+    weights and global batch, dropout off and average pooling in both."""
     import flax.linen as nn
     import jax
     import jax.numpy as jnp
@@ -359,7 +448,8 @@ def test_spatial_mesh_matches_jax_spatial_mesh_step(runs, monkeypatch):
 
     monkeypatch.setattr(nn.Dropout, "__call__", lambda self, x, *a, **k: x)
     monkeypatch.setattr(junet, "_pool", lambda x: nn.avg_pool(x, (2, 2), strides=(2, 2)))
-    model, variables, x, y = runs["model"], runs["variables"], runs["x"], runs["y"]
+    model, variables = runs["model"], runs["variables"]
+    x, y = runs["batches"][tag]
     mesh = jmesh.make_mesh(data=4, spatial=2)
     assert STEPS_LR == LR
     jstate = jsteps.create_train_state(model, jax.random.PRNGKey(0), 1, LR)
@@ -372,26 +462,78 @@ def test_spatial_mesh_matches_jax_spatial_mesh_step(runs, monkeypatch):
                                                     jnp.asarray(y[step])))
         want.append((float(m["loss"]), float(m["accuracy"])))
 
-    got = runs["load"]("2x2", "jax_avg")
+    got = runs["load"]("2x2", "jax_avg" + tag)
     _assert_same_ranks(got)
     np.testing.assert_allclose(got[0]["loss"], [w[0] for w in want], rtol=1e-5)
     np.testing.assert_allclose(got[0]["acc"], [w[1] for w in want], atol=1e-6)
     port = UNet(2, 1, 4, "float32")
     port.load_state_dict(got[0]["state_dict"])
     _assert_state_close(jax.tree_util.tree_map(np.asarray, jstate), port)
+    return got[0]
 
 
-def test_port_refuses_heights_the_jax_package_takes():
-    """48 rows over 2 ranks: the JAX package's rules hold (a multiple of 16
-    that divides by 2), but a rank's 24 rows would split a pool window."""
-    from tpuseg_torch.parallel.halo import check_height, local_rows
-    from tpuseg_torch import SIZE_FACTOR
+def test_spatial_mesh_matches_jax_spatial_mesh_step(runs, monkeypatch):
+    """At 64 rows: every pool stays on one rank."""
+    assert _assert_matches_jax_spatial_mesh(runs, monkeypatch, "")["gathers_step0"] == 0
 
-    assert 48 % SIZE_FACTOR == 0 and 48 % 2 == 0
-    for call in (lambda: check_height(48, 2), lambda: local_rows(torch.zeros(1, 48, 16, 1),
-                                                                (0, 2))):
-        with pytest.raises(ValueError, match=r"multiple of 16 and divide by spatial=2.*"
-                                             r"multiple of 16\*2 = 32"):
+
+def test_spatial_mesh_matches_jax_spatial_mesh_step_where_pools_straddle_ranks(
+        runs, monkeypatch):
+    """At 48 rows the port gathers level 3's rows (24, 12, 6, 3 a rank);
+    GSPMD splits the fourth pool's window between two devices."""
+    got = _assert_matches_jax_spatial_mesh(runs, monkeypatch, STRADDLE)
+    assert got["gathers_step0"] == 2
+
+
+@pytest.mark.parametrize("height, spatial, level", [
+    (48, 2, 3), (32, 4, 3), (528, 2, 3), (48, 4, 2), (16, 8, 1), (16, 16, 0),
+    (64, 2, None), (512, 8, None), (48, 1, None)])
+def test_split_level(height, spatial, level):
+    """The level whose rows are gathered: the first (0-3) where a rank's
+    rows are odd; the port takes the height and each rank its share."""
+    from tpuseg_torch.parallel.halo import check_height, local_rows, split_level
+
+    assert split_level(height, spatial) == level
+    check_height(height, spatial)
+    t = torch.arange(height).reshape(1, height, 1, 1).expand(2, height, 16, 1)
+    h = height // spatial
+    for r in range(spatial):
+        assert torch.equal(local_rows(t, (r, spatial)), t[:, r * h:(r + 1) * h])
+
+
+@pytest.mark.parametrize("height, spatial", [(40, 2), (64, 3), (24, 4)])
+def test_heights_the_jax_package_refuses_raise_in_both_packages(height, spatial):
+    """Not a multiple of 16 (40, 24) or not of the spatial size (64 over
+    3): the JAX package refuses to shard the batch or to run the model on
+    it, and the port's rule, its row split and its model raise alike."""
+    import types
+
+    import jax
+    import jax.numpy as jnp
+
+    from tpuseg.models.unet import UNet as JaxUNet
+    from tpuseg.models.unet import init_variables
+    from tpuseg.parallel import mesh as jmesh
+    from tpuseg_torch.models.unet import UNet
+    from tpuseg_torch.parallel.halo import check_height, local_rows, split_level
+
+    model = JaxUNet(num_classes=2, base_features=4, dtype=jnp.float32)
+    variables = init_variables(model, jax.random.PRNGKey(0), num_channels=1)
+    mesh = jmesh.make_mesh(devices=jax.devices()[:spatial], data=1, spatial=spatial)
+    x = np.zeros((1, height, 32, 1), np.float32)
+    with pytest.raises(ValueError):
+        xs, _ = jmesh.shard_batch(mesh, x, np.zeros((1, height, 32, 2), np.float32))
+        model.apply(variables, xs)
+
+    for call in (lambda: check_height(height, spatial),
+                 lambda: split_level(height, spatial),
+                 lambda: local_rows(torch.from_numpy(x), (0, spatial))):
+        with pytest.raises(ValueError, match=rf"image height {height} cannot be partitioned "
+                                             rf"over spatial={spatial}: the height must be a "
+                                             rf"multiple of 16 and divide by spatial"):
             call()
-    check_height(64, 2)
-    check_height(48, 1)
+    if height % spatial == 0:
+        port = UNet(2, 1, 4, "float32").eval()
+        port.halo = types.SimpleNamespace(size=spatial, rank=0)
+        with pytest.raises(ValueError, match=f"got H={height}"):
+            port(torch.zeros(1, height // spatial, 32, 1))

@@ -24,7 +24,8 @@ per GPU:
 ``--spatial N`` shards each image's rows over groups of N GPUs of one host,
 with a halo exchange around every 3x3 conv (``parallel/halo.py``): a group
 is one replica, so the global batch is ``--batch_size`` x GPUs / N, and the
-image height must be a multiple of 16 N:
+image height must be a multiple of 16 and of N (where a pool window would
+straddle two ranks, that level's rows are gathered):
 
     torchrun --nproc_per_node N -m tpuseg_torch.cli.train --multihost 1 \
         --spatial N ...
@@ -100,7 +101,8 @@ def main(argv=None):
                              "a group of N GPUs of one host, with a halo exchange "
                              "around every 3x3 conv; a group is one replica, so the "
                              "global batch is batch_size x GPUs / N; the image "
-                             "height must be a multiple of 16 N (tpuseg extension)")
+                             "height must be a multiple of 16 and of N (tpuseg "
+                             "extension)")
     parser.add_argument("--profile_steps", dest="profile_steps", type=int, default=0,
                         help="torch.profiler trace of the first N steady-state steps "
                              "(epoch 1) into <output_dir>/profile; read it with "

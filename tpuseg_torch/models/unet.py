@@ -36,7 +36,13 @@ dropout mask for the global batch, keeping this rank's rows. Spatial
 partitioning also sets ``UNet.halo`` (``parallel/halo.py``): the input is
 this rank's rows of each image, every 3x3 conv pads them with the
 neighbouring ranks' rows (in eval mode too) and convolves with ``padding=(0,
-1)``, and each dropout mask is drawn at the level's full height.
+1)``, and each dropout mask is drawn at the level's full height. Where a
+pool window would straddle two ranks (``halo.split_level``), the level's
+rows are gathered before that pool; the deeper levels and the deconv back
+run on the full rows, the same on every rank of the group (plain padding,
+BatchNorm sums all-reduced as before: every rank adds the same sums and
+counts, so the statistics do not change), and the rank keeps its rows of
+that deconv's output for the concat with its skip.
 """
 
 from __future__ import annotations
@@ -48,7 +54,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from tpuseg_torch import SIZE_FACTOR
-from tpuseg_torch.parallel.halo import check_height
+from tpuseg_torch.parallel.halo import split_level
 
 BASELINE_FEATURE_DEPTH = 64  # ref model.py:20
 KERNEL_SIZE = 3  # ref model.py:21
@@ -102,12 +108,13 @@ def _bn(x: torch.Tensor, bn: nn.BatchNorm2d, dtype: torch.dtype, group=None) -> 
 
 
 def _dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
-             group=None, halo=None) -> torch.Tensor:
+             group=None, halo=None, full_rows: bool = False) -> torch.Tensor:
     """flax ``nn.Dropout``: keep with probability ``1 - rate`` and scale the
     kept values by ``1 / (1 - rate)``; the mask comes from ``generator``.
     With a process ``group`` the mask is drawn for the global batch (every
     data shard's batch stacked in order, at the full height of the ``halo``'s
-    spatial group) and this rank keeps its batch rows and its image rows,
+    spatial group) and this rank keeps its batch rows and its image rows
+    (all of them where ``x`` already holds the full height, ``full_rows``),
     so the ranks drop out as one process of the global batch does from the
     same generator state."""
     keep = 1.0 - rate
@@ -118,10 +125,12 @@ def _dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
 
         s, sr = (halo.size, halo.rank) if halo is not None else (1, 0)
         b, h = x.shape[0], x.shape[2]
+        rows = slice(None) if full_rows else slice(sr * h, (sr + 1) * h)
         first = dist.get_rank(group) // s * b
-        shape = (b * dist.get_world_size(group) // s, x.shape[1], h * s, x.shape[3])
+        shape = (b * dist.get_world_size(group) // s, x.shape[1],
+                 h if full_rows else h * s, x.shape[3])
         mask = torch.rand(shape, generator=generator, device=x.device)
-        mask = mask[first:first + b, :, sr * h:(sr + 1) * h] < keep
+        mask = mask[first:first + b, :, rows] < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -247,46 +256,54 @@ class UNet(nn.Module):
         if x.ndim != 4:
             raise ValueError(f"UNet expects NHWC input, got shape {tuple(x.shape)}")
         halo = self.halo
-        if halo is not None:
-            # x holds this rank's rows: the whole image is halo.size times taller
-            check_height(x.shape[1] * halo.size, halo.size)
-        if x.shape[1] % SIZE_FACTOR or x.shape[2] % SIZE_FACTOR:
+        spatial = halo.size if halo is not None else 1
+        # x holds this rank's rows: the whole image is `spatial` times taller
+        height = x.shape[1] * spatial
+        if height % SIZE_FACTOR or x.shape[2] % SIZE_FACTOR:
             # same contract the reference enforces at imagereader.py:136-139
             raise ValueError(
                 f"Input H,W must be multiples of {SIZE_FACTOR} to allow integer "
-                f"sized downscaled feature maps; got H={x.shape[1]}, W={x.shape[2]}")
+                f"sized downscaled feature maps; got H={height}, W={x.shape[2]}")
+        # the level whose rows are gathered before its pool (None: no gather)
+        gather_at = split_level(height, spatial)
         dt = self.dtype
         # train-mode collectives only: eval BatchNorm reads running statistics
-        # (the halo exchange runs in both modes)
+        # (the halo exchange and the gather run in both modes)
         group = self.process_group if self.training else None
         x = x.to(dt).permute(0, 3, 1, 2)  # NCHW view, channels-last strides
+        # below the gathered level the rows are full: no halo
+        pad = [halo if gather_at is None or level <= gather_at else None
+               for level in range(5)]
 
-        def pair(name, x):
-            x = getattr(self, f"{name}a")(x, dt, group, halo)
-            return getattr(self, f"{name}b")(x, dt, group, halo)
+        def pair(name, x, level):
+            x = getattr(self, f"{name}a")(x, dt, group, pad[level])
+            return getattr(self, f"{name}b")(x, dt, group, pad[level])
 
-        enc1 = pair("enc1", x)
-        enc2 = pair("enc2", _pool(enc1))
-        enc3 = pair("enc3", _pool(enc2))
-        def drop(x):
+        def drop(x, level):
             if not self.training or not self.dropout_rate:
                 return x
-            return _dropout(x, self.dropout_rate, generator, group, halo)
+            return _dropout(x, self.dropout_rate, generator, group, halo,
+                            full_rows=pad[level] is None)
 
-        enc4 = drop(pair("enc4", _pool(enc3)))
-        bott = drop(pair("bottleneck", _pool(enc4)))
-
-        def up(x, skip, name):
+        skips = []
+        for level, name in enumerate(("enc1", "enc2", "enc3", "enc4")):
+            x = pair(name, x, level)
+            if name == "enc4":
+                x = drop(x, level)
+            skips.append(x)
+            if level == gather_at:
+                x = halo.gather(x)
+            x = _pool(x)
+        x = drop(pair("bottleneck", x, 4), 4)
+        for level, name in reversed(list(enumerate(("dec1", "dec2", "dec3", "dec4")))):
             x = getattr(self, f"{name}up")(x, dt, group)
+            if level == gather_at:
+                h = x.shape[2] // spatial
+                x = x[:, :, halo.rank * h:(halo.rank + 1) * h]
             # concat order (skip, up), model.py:117
-            return pair(name, torch.cat([skip, x], dim=1))
-
-        dec4 = up(bott, enc4, "dec4")
-        dec3 = up(dec4, enc3, "dec3")
-        dec2 = up(dec3, enc2, "dec2")
-        dec1 = up(dec2, enc1, "dec1")
+            x = pair(name, torch.cat([skips[level], x], dim=1), level)
         # 1x1 head through the full conv block (ReLU+BN), ref model.py:136
-        logits = self.head(dec1, dt, group)
+        logits = self.head(x, dt, group)
         return logits.permute(0, 2, 3, 1).float()
 
     def probabilities(self, x: torch.Tensor,

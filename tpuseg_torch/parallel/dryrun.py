@@ -10,6 +10,9 @@ inputs (32 rows a rank):
 - one train and eval step on preprocessed batches;
 - one ZeRO-1 step;
 - one raw step (device augmentation, ZeRO-1), the trainer's default path;
+- on a spatial mesh, one train and eval step at 48 rows (24 a rank), whose
+  fourth pool window straddles the pair: the rows are gathered at the
+  level ``halo.split_level`` names;
 
 and rank 0 serves one image through the tiled engines sharded over two
 shards (its GPUs, or the CPU twice) and over one, for ``none``, ``int8``
@@ -31,6 +34,7 @@ import torch
 
 SIZE = 64  # input side
 BATCH = 2  # per rank
+STRADDLE = 48  # rows of the spatial mesh's straddling step
 
 
 def _free_port() -> int:
@@ -79,6 +83,26 @@ def _serving(model, device, devices) -> dict:
     return out
 
 
+def _straddle(mesh, device, x, shard) -> dict:
+    """One train and eval step on ``x``'s first STRADDLE rows over the
+    spatial mesh: the split level, the losses and the gather's calls."""
+    from tpuseg_torch.models.unet import UNet
+    from tpuseg_torch.parallel import mesh as mesh_lib
+    from tpuseg_torch.parallel.halo import split_level
+    from tpuseg_torch.train.steps import create_train_state
+
+    img = torch.from_numpy(x[shard, :STRADDLE]).to(device)
+    lbl = torch.nn.functional.one_hot((img[..., 0] > 0).long(), 2).float()
+    state = create_train_state(UNet(2, 1, 4, "float32"), 5, 1e-3, device)
+    tstep, estep = mesh_lib.make_parallel_steps(state.model, mesh, state=state)
+    before = mesh.halo.gathers
+    loss = _finite(tstep(state, img, lbl)["loss"].item(), "straddle")
+    return {"height": STRADDLE, "split_level": split_level(STRADDLE, mesh.spatial),
+            "loss": loss, "eval": _finite(estep(state, img, lbl)["loss"].item(),
+                                          "straddle eval"),
+            "gathers": mesh.halo.gathers - before}
+
+
 def _rank_main(rank: int, world: int, port: int, cuda: bool, results) -> None:
     """One rank of the dry run; puts ``(rank, result or None, error or
     None)`` on ``results``."""
@@ -120,6 +144,8 @@ def _rank_main(rank: int, world: int, port: int, cuda: bool, results) -> None:
         res["raw_zero1"] = _finite(tstep(state, raw, msk)["loss"].item(), "raw")
         res["raw_zero1_eval"] = _finite(estep(state, raw, msk)["loss"].item(), "raw eval")
         res["halo_exchanges"] = mesh.halo.exchanges if mesh.halo else 0
+        if mesh.halo is not None:
+            res["straddle"] = _straddle(mesh, device, x, shard)
         if rank == 0:
             devices = ([torch.device("cuda", i) for i in range(world)] if cuda
                        else [device, device])
@@ -166,7 +192,7 @@ def dryrun_multigpu(n: int = 2, timeout_s: float = 300.0) -> dict:
                 p.join(timeout=10)
     keys = ("data_parallel", "zero1", "raw_zero1")
     for rank in range(1, n):
-        if any(got[rank][k] != got[0][k] for k in keys):
+        if any(got[rank].get(k) != got[0].get(k) for k in keys + ("straddle",)):
             raise AssertionError(f"ranks disagree on the global losses: {got}")
     out = dict(got[0])
     out["ranks"] = n

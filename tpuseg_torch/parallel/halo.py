@@ -25,6 +25,21 @@ and the tensor's device, never because another route failed:
 Activations are NCHW views with channels-last strides
 (``models/unet.py``); the padded tensor keeps that layout, and a row is
 sent as a packed ``[N, 1, W, C]`` block.
+
+**Heights.** The port takes the heights the JAX package takes under
+``spatial`` N: ``H % 16 == 0`` and ``H % N == 0`` (:func:`check_height`).
+Each rank holds ``h_l = H / (N 2^l)`` rows at level ``l`` of the U-Net
+(level 0 is enc1/dec1, level 4 the bottleneck), and a 2x2 pool stays on
+one rank while ``h_l`` is even. Where a pool window would straddle two
+ranks, at the first level ``L`` whose ``h_L`` is odd (:func:`split_level`),
+the model gathers that level's rows over the group before the pool
+(:meth:`Halo.gather`), computes every deeper level and the deconv back to
+level ``L`` on the full rows, the same on every rank of the group, and
+keeps this rank's rows of that deconv's output. The gather's backward
+all-reduces the full-height gradient over the group and keeps this rank's
+rows (a reduce-scatter; gloo has none). It takes the route of the halo
+rows: ``nccl`` card to card, ``gloo`` for CPU tensors, and host-staged
+over gloo for CUDA tensors.
 """
 
 from __future__ import annotations
@@ -38,18 +53,29 @@ from tpuseg_torch import SIZE_FACTOR
 
 
 def check_height(height: int, spatial: int) -> None:
-    """Raise unless ``height`` rows shard over ``spatial`` ranks with every
-    rank's rows a multiple of ``SIZE_FACTOR`` (16), so that each of the
-    four 2x2 pools stays on one rank. The JAX package asks less: ``H %
-    16 == 0`` and ``H % spatial == 0`` (GSPMD handles a pool window split
-    between two ranks); the port refuses the heights between the two."""
-    if spatial > 1 and height % (SIZE_FACTOR * spatial):
+    """Raise unless ``height`` rows shard over ``spatial`` ranks under the
+    JAX package's rules: the height a multiple of ``SIZE_FACTOR`` (16) and
+    divisible by ``spatial``."""
+    if spatial > 1 and (height % SIZE_FACTOR or height % spatial):
         raise ValueError(
             f"image height {height} cannot be partitioned over spatial={spatial}: the "
-            f"height must be a multiple of {SIZE_FACTOR} and divide by spatial={spatial} "
-            f"(the JAX package's rules), and each rank's {height}/{spatial} rows must be a "
-            f"multiple of {SIZE_FACTOR} so that the four 2x2 pools stay on one rank: "
-            f"H must be a multiple of {SIZE_FACTOR}*{spatial} = {SIZE_FACTOR * spatial}")
+            f"height must be a multiple of {SIZE_FACTOR} and divide by spatial={spatial}")
+
+
+def split_level(height: int, spatial: int) -> Optional[int]:
+    """The level (0-3) whose rows a spatial group of ``spatial`` ranks
+    gathers before its 2x2 pool, because each rank holds an odd number of
+    rows there (module docstring); None when every pool stays on one rank
+    (``height / spatial`` a multiple of 16). Raises as :func:`check_height`."""
+    check_height(height, spatial)
+    if spatial == 1:
+        return None
+    rows = height // spatial
+    for level in range(4):
+        if rows % 2:
+            return level
+        rows //= 2
+    return None
 
 
 def local_rows(t: torch.Tensor, rows: Tuple[int, int]) -> torch.Tensor:
@@ -101,9 +127,12 @@ def pad_rows(x: torch.Tensor, above: Optional[torch.Tensor],
 
 class Halo:
     """This rank's place in its spatial group and the exchange over it.
-    ``halo(x)`` pads NCHW ``x`` with its neighbours' rows, differentiably.
-    ``exchanges`` and ``bytes_sent`` count what it has sent (forward and
-    backward)."""
+    ``halo(x)`` pads NCHW ``x`` with its neighbours' rows, differentiably;
+    ``halo.gather(x)`` joins the group's rows into the full height.
+    ``exchanges`` and ``bytes_sent`` count what the exchange has sent,
+    ``gathers`` and ``gather_bytes`` the gather's collectives and their
+    bytes (this rank's rows forward, the full height backward), forward and
+    backward."""
 
     def __init__(self, group, device):
         self.group = group
@@ -116,19 +145,68 @@ class Halo:
                      if self.rank < self.size - 1 else None)
         self.exchanges = 0
         self.bytes_sent = 0
+        self.gathers = 0
+        self.gather_bytes = 0
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         return _HaloPad.apply(x, self)
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The group's NCHW row blocks, this rank's ``x`` among them, joined
+        in rank order into the full height, channels-last. Backward: the
+        full-height gradient summed over the group, this rank's rows."""
+        return _GatherRows.apply(x, self)
+
+    def _staged(self) -> bool:
+        """Whether the tensors go through host buffers (``gloo-host-staged``);
+        if so, first wait for the card's queued work, which the copies to
+        the host would wait for, so the profiled range holds the exchange or
+        the gather alone."""
+        staged = self.route == "gloo-host-staged"
+        if staged:
+            torch.cuda.current_stream(self.device).synchronize()
+        return staged
+
+    @staticmethod
+    def _host(t: torch.Tensor) -> torch.Tensor:
+        """A pinned host copy of ``t``."""
+        return torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t)
+
+    def all_gather_rows(self, x: torch.Tensor) -> torch.Tensor:
+        staged = self._staged()
+        with torch.profiler.record_function(f"row_gather:{self.route}"):
+            block = x.permute(0, 2, 3, 1).contiguous()  # NHWC
+            if staged:
+                block = self._host(block)
+            parts = [torch.empty_like(block) for _ in range(self.size)]
+            dist.all_gather(parts, block, group=self.group)
+            self.gathers += 1
+            self.gather_bytes += block.numel() * block.element_size()
+            full = torch.cat(parts, dim=1)
+            if staged:
+                full = full.to(self.device)
+        return full.permute(0, 3, 1, 2)
+
+    def reduce_rows(self, g: torch.Tensor) -> torch.Tensor:
+        """Full-height NCHW ``g`` summed over the group; this rank's rows."""
+        staged = self._staged()
+        with torch.profiler.record_function(f"row_gather_backward:{self.route}"):
+            t = g.permute(0, 2, 3, 1)  # NHWC
+            # a copy: the all-reduce works in place
+            t = self._host(t) if staged else t.clone(memory_format=torch.contiguous_format)
+            dist.all_reduce(t, group=self.group)
+            self.gathers += 1
+            self.gather_bytes += t.numel() * t.element_size()
+            h = t.shape[1] // self.size
+            mine = t[:, self.rank * h:(self.rank + 1) * h]
+            mine = mine.to(self.device) if staged else mine.contiguous()
+        return mine.permute(0, 3, 1, 2)
 
     def exchange(self, t: torch.Tensor):
         """Send NCHW ``t``'s first row to the rank above and its last row to
         the rank below; return (the row from above, the row from below) as
         NHWC rows, None at the group's edges."""
-        staged = self.route == "gloo-host-staged"
-        if staged:
-            # the copies below would wait for the card's queued work; wait
-            # here, so the profiled range holds the exchange alone
-            torch.cuda.current_stream(self.device).synchronize()
+        staged = self._staged()
         with torch.profiler.record_function(f"halo_exchange:{self.route}"):
             ops, recv = [], []
             for peer, i in ((self.up, 0), (self.down, t.shape[2] - 1)):
@@ -137,8 +215,7 @@ class Halo:
                     continue
                 row = _row(t, i)
                 if staged:
-                    row = torch.empty(row.shape, dtype=row.dtype,
-                                      pin_memory=True).copy_(row)
+                    row = self._host(row)
                 buf = torch.empty_like(row)
                 ops += [dist.P2POp(dist.isend, row, peer, self.group),
                         dist.P2POp(dist.irecv, buf, peer, self.group)]
@@ -178,6 +255,21 @@ class _HaloPad(torch.autograd.Function):
         return gx, None
 
 
+class _GatherRows(torch.autograd.Function):
+    """Forward: the group's row blocks joined into the full height.
+    Backward: every rank's full-height gradient summed, this rank's rows
+    kept."""
+
+    @staticmethod
+    def forward(ctx, x, halo: Halo):
+        ctx.halo = halo
+        return halo.all_gather_rows(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.halo.reduce_rows(g), None
+
+
 def pad_rows_reference(shards: List[torch.Tensor]) -> List[torch.Tensor]:
     """The whole exchange in one process: each of a spatial group's NCHW
     row shards (in rank order) padded with its neighbours' boundary rows,
@@ -189,3 +281,11 @@ def pad_rows_reference(shards: List[torch.Tensor]) -> List[torch.Tensor]:
         below = shards[r + 1][:, :, :1] if r < len(shards) - 1 else zero
         out.append(torch.cat([above, x, below], dim=2))
     return out
+
+
+def gather_rows_reference(shards: List[torch.Tensor]) -> List[torch.Tensor]:
+    """The whole gather in one process: what each rank of a spatial group
+    holds after :meth:`Halo.gather` of its NCHW row shard (in rank order),
+    the shards joined along the rows. Differentiable through ``torch.cat``:
+    a shard's gradient sums every rank's gradient at its rows."""
+    return [torch.cat(shards, dim=2) for _ in shards]

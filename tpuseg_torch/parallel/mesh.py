@@ -32,8 +32,10 @@ rows of every image in it:
   then keeps its rows;
 - **convs**: every 3x3 conv pads its rows with the neighbours' through the
   model's ``halo`` (``parallel/halo.py``), in train and eval mode; pools,
-  deconvs, the 1x1 head and the skips stay local, which needs every rank's
-  rows to be a multiple of 16 (``halo.check_height``);
+  deconvs, the 1x1 head and the skips stay local while a rank's rows at a
+  level are even; at the first level where they are odd
+  (``halo.split_level``) the rows are gathered before the pool, and the
+  levels below run on the full rows, the same on every rank of the group;
 - **BatchNorm, metrics, gradients**: over the world group, as without
   spatial partitioning: the statistics are those of every pixel of the
   global batch, each rank's loss is its rows' share of the global loss, and

@@ -50,7 +50,9 @@ on one host; a group is one replica, so the global batch is ``batch_size x
 world / N``. Each group's first rank reads its data shard (readers striped
 by data index) and broadcasts the raw batch over the group; every rank
 augments the full images and trains on its ``H / N`` rows of each, with a
-halo exchange around every 3x3 conv. ``H`` must be a multiple of ``16 N``.
+halo exchange around every 3x3 conv. ``H`` must be a multiple of 16 and
+of ``N``, as in the JAX package; where a pool window would straddle two
+ranks, the rows are gathered at that level (``halo.split_level``).
 """
 
 from __future__ import annotations
@@ -69,7 +71,7 @@ from tpuseg_torch.infer.runner import resolve_device
 from tpuseg_torch.models.unet import UNet
 from tpuseg_torch.parallel import distributed
 from tpuseg_torch.parallel import mesh as mesh_lib
-from tpuseg_torch.parallel.halo import check_height
+from tpuseg_torch.parallel.halo import split_level
 from tpuseg_torch.train.prefetch import device_prefetch
 from tpuseg_torch.train.steps import create_train_state
 from tpuseg_torch.utils.checkpoint import AsyncCheckpointWriter, restore_train_state
@@ -111,7 +113,7 @@ class TrainConfig:
     # spatial partitioning: each image's rows sharded over a group of N
     # GPUs of one host, with a halo exchange around every 3x3 conv; a group
     # is one replica, so the global batch is batch_size x (GPUs / N). The
-    # image height must be a multiple of 16 N
+    # image height must be a multiple of 16 and of N
     spatial_partitions: int = 1
     # torch.profiler trace of the first N steps of epoch 1 (after the
     # warmup epoch) into <output_folder>/profile; 0 disables
@@ -303,7 +305,11 @@ def train_model(config: TrainConfig) -> TrainResult:
     print(f"Train Reader has {train_reader.get_image_count()} images")
 
     number_channels = train_reader.get_image_size()[2]
-    check_height(train_reader.get_image_size()[0], mesh.spatial)
+    if mesh.spatial > 1:
+        level = split_level(train_reader.get_image_size()[0], mesh.spatial)
+        print("spatial partitioning: every pool on one rank" if level is None else
+              f"spatial partitioning: rows gathered at level {level}, before pool "
+              f"{level + 1} (its window would straddle two ranks)")
     model = UNet(cfg.number_classes, number_channels, cfg.base_features, cfg.dtype)
     state = create_train_state(model, _device_seed(cfg.seed), cfg.learning_rate, device)
     resumed = False
