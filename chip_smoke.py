@@ -10,15 +10,19 @@ package. Phases, each fatal on failure:
 
 1. setup: print the card (``nvidia-smi``) and build every CUDA kernel of
    the path from ``tpuseg_torch/csrc`` (one ``nvcc`` per source, in
-   parallel);
+   parallel), logging each kernel's registers and spills;
 2. kernels: call each kernel's wrapper on card tensors at the shape its
    main path gives it (K2, the blocked head+argmax: serving, both heads,
-   which must take its mma route; K1, the row shear: training), hold the
-   result against its plain PyTorch version, and time both in turns by
-   profiler device time with the L2 flushed (K2 also with CUDA events),
+   which must take its mma route; K3, the int8 conv with its epilogue
+   fused: serving, at each of the 21 block shapes of a predict call, on
+   codes and scales whose requantized outputs are not degenerate; K1, the
+   row shear: training), hold the result against its plain PyTorch
+   version (bit-equal for K1, K3 and the int8 K2), and time both in turns
+   by profiler device time with the L2 flushed (K2 also with CUDA events),
    beside the card's bound and a PyTorch library call that computes the
-   same function where one exists; K2's mma kernels' registers and spills
-   come from the build log, and a spill fails;
+   same function where one exists (for K3 the GEMM alone, ``_int_mm`` on
+   the prebuilt im2col); K2's mma kernels' registers and spills come from
+   the build log, and a spill fails;
 3. reference: on a small input, the full-width int8_blocked engine on the
    card against the same engine on the CPU (whose arithmetic the CPU tests
    pin to the JAX package), and the folded f32 walk on the card against
@@ -27,10 +31,14 @@ package. Phases, each fatal on failure:
    head shift for class 1 so that about half the pixels take each class;
    serve a folder (one 4096^2 and four 256^2 uint16 images) through
    ``python -m tpuseg_torch.cli.inference --quantize int8_blocked`` with the
-   launch counters zeroed just before and read just after, check every
-   mask, serve it again with ``--quantize int8`` (no K2) and compare the
-   masks, then time the tiled engines on the 4096^2 image and profile one
-   int8_blocked pass (device time by kernel, busy share);
+   launch counters zeroed just before and read just after (K3 launched 21
+   times per K2 launch, one of each per predict call), check every mask,
+   serve it again with K3's plain version swapped in on the card (masks
+   equal on every pixel, the first call's convs at phase 2's 21 shapes)
+   and with ``--quantize int8`` (no K2, 21 K3 launches per predict call)
+   and compare the masks, then time the tiled engines on the 4096^2 image
+   and profile one int8_blocked pass (device time by kernel and group, K3's
+   share, busy share);
 5. training reference: one f32 train step at base 4 on 64^2 inputs on the
    card (cuDNN TF32 off) against the same step on the CPU, from the same
    weights and batch, dropout off;
@@ -50,9 +58,10 @@ package. Phases, each fatal on failure:
 7. whole-slide streaming, end to end: write phase 4's 4096^2 image as a
    tiled BigTIFF (tile 512); run the int8_blocked predict function through
    ``inference_tiled_streaming`` and ``inference_tiled`` with equal
-   statistics (labels agree on >= 0.9999, K2 launched once per chunk of
-   each zone row); stream the 4096^2 and 8192^2 slides through K2 and
-   through the same engine with K2's plain version as the head (masks
+   statistics (labels agree on >= 0.9999, K2 launched once and K3 21 times
+   per chunk of each zone row); stream the 4096^2 and 8192^2 slides
+   through K2 and through the same engine with K2's plain version as the
+   head (masks
    agree on >= 0.9999 at every shape the path gives K2); time both
    engines in turns, and profile one streamed pass beside the host's
    decode and deflate times alone; then, each as its own process reaped
@@ -265,27 +274,29 @@ def kernel_label(mangled: str) -> str:
     m = re.search(r"head_mma_kernelILb(\d)ELi(\d)ELb(\d)E", mangled)
     if m:
         return f"head_mma_kernel<fp={m.group(1)},nt={m.group(2)},breg={m.group(3)}>"
+    m = re.search(r"int8_conv_kernelILi(\d)ELb(\d)E", mangled)
+    if m:
+        return f"int8_conv_kernel<mode={m.group(1)},aligned={m.group(2)}>"
     return re.sub(r"^_ZN.*?_cu_[0-9a-f]{8}\d+", "", mangled)[:60]
 
 
-def head_build_report() -> dict:
-    """K2's mma kernels: registers and spills from this process's build
-    log (logged by ``main``). A spill in a kernel of the mma route is a
-    defect and fails."""
+def build_report(lib: str, kernel: str, spill_fails: bool) -> dict:
+    """Registers and spills of the kernels named ``kernel`` in library
+    ``lib``, from this process's build log (logged by ``main``); with
+    ``spill_fails`` a spill is a defect and fails."""
     from tpuseg_torch.kernels import build
 
-    text = build.BUILD_LOGS.get("head_argmax")
+    text = build.BUILD_LOGS.get(lib)
     if text is None:
-        log("head_argmax was not built by this process: registers and spills not read")
+        log(f"{lib} was not built by this process: registers and spills not read")
         return {}
-    report = {kernel_label(k): v for k, v in ptxas_report(text).items()
-              if "head_mma_kernel" in k}
+    report = {kernel_label(k): v for k, v in ptxas_report(text).items() if kernel in k}
     if not report:
-        raise AssertionError("no head_mma_kernel in the head_argmax build log")
+        raise AssertionError(f"no {kernel} in the {lib} build log")
     spills = {k: r for k, r in report.items()
               if r.get("spill_stores", 0) or r.get("spill_loads", 0)}
-    if spills:
-        raise AssertionError(f"mma-route kernels spill: {spills}")
+    if spills and spill_fails:
+        raise AssertionError(f"{kernel} spills: {spills}")
     return report
 
 
@@ -299,7 +310,7 @@ def phase_kernels(seed: int, dev) -> dict:
 
     from tpuseg_torch.infer import head_kernel as hk
 
-    out = {"build": head_build_report()}
+    out = {"build": build_report("head_argmax", "head_mma_kernel", spill_fails=True)}
     for fp in (True, False):
         x, sv, wt, epi = head_inputs(fp, seed, dev)
         route = hk.kernel_route(x.dtype, wt.dtype, fp)
@@ -415,6 +426,141 @@ def phase_shear(seed: int, dev) -> dict:
         f"(events around back-to-back calls: {events_ms:.4f}), "
         f"plain {out['plain_ms']:.4f} ms, grid_sample "
         f"{out['library_ms']:.4f} ms (max err {lib_err:.2e}), bound {out['bound_ms']:.4f} ms")
+    return out
+
+
+def k3_blocks() -> list:
+    """K3's 21 calls in one int8_blocked predict call on the main path
+    (BATCH tiles of TILE^2, base BASE, fp_blocks enc1a and head), in the
+    walk's order: (block, x shape, kernel size, Cout, epilogue mode). At
+    batch 8, 1024^2, base 64: enc1b (8, 512, 512, 256) 3x3 -> 256, ...,
+    dec4up (8, 64, 64, 1024) 1x1 -> 2048, ..., dec1a (8, 512, 512, 512)
+    3x3 -> 256."""
+    b, f = BATCH, BASE
+
+    def at(level, c):  # level 1 is the blocked edge's and enc2's TILE/2
+        side = TILE >> level
+        return (b, side, side, c)
+
+    conv, up = "relu_requant", "affine_requant"
+    blocks = [("enc1b", at(1, 4 * f), 3, 4 * f, conv)]
+    cin = f
+    for level, name in enumerate(("enc2", "enc3", "enc4", "bottleneck"), start=1):
+        cout = 2 ** level * f
+        blocks += [(name + "a", at(level, cin), 3, cout, conv),
+                   (name + "b", at(level, cout), 3, cout, conv)]
+        cin = cout
+    for level, name in ((3, "dec4"), (2, "dec3"), (1, "dec2")):
+        cout = 2 ** level * f
+        blocks += [(name + "up", at(level + 1, 2 * cout), 1, 4 * cout, up),
+                   (name + "a", at(level, 2 * cout), 3, cout, conv),
+                   (name + "b", at(level, cout), 3, cout, conv)]
+    blocks += [("dec1up", at(1, 2 * f), 1, 4 * f, up),
+               ("dec1a", at(1, 8 * f), 3, 4 * f, conv),
+               ("dec1b", at(1, 4 * f), 3, 4 * f, conv)]
+    return blocks
+
+
+K3_PER_CALL = 21  # K3 launches of one predict call with the default fp_blocks
+
+
+def k3_inputs(shape, k: int, cout: int, mode: str, seed: int, dev):
+    """Random int8 codes and per-channel vectors that spread the requantized
+    codes over the int8 range: for codes uniform in [-127, 127] (E[x^2] =
+    5461) f(acc) * ws is about N(0, 1)."""
+    import numpy as np
+    import torch
+
+    from tpuseg_torch.infer import int8_conv as k3
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randint(-127, 128, shape, generator=g, device=dev, dtype=torch.int8)
+    cin = shape[-1]
+    rng = np.random.default_rng(seed)
+    wq = rng.integers(-127, 128, (k, k, cin, cout)).astype(np.int8)
+
+    def vec(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+
+    epi = k3.Epilogue(
+        mode, vec(rng.uniform(0.5, 1.5, cout) / (np.sqrt(k * k * cin) * 5461.0)),
+        None if mode == "affine_requant" else vec(rng.normal(0, 0.3, cout)),
+        vec(rng.uniform(0.5, 1.5, cout)), vec(rng.normal(0, 0.3, cout)),
+        vec(np.float32(2.0 / 127.0)))
+    return x, k3.Int8ConvWeights(wq), epi
+
+
+def phase_int8_conv(seed: int, dev) -> dict:
+    """K3 at each of the 21 block shapes of a main-path predict call:
+    bit-equal (``torch.equal``) to its plain version on non-degenerate
+    codes (>= 64 distinct, at most half clipped), then the kernel, the
+    plain version and the GEMM alone (``torch._int_mm`` on the prebuilt
+    im2col matrix, a yardstick the port never calls on the card) timed in
+    turns by profiler device time with the L2 flushed, beside the bound:
+    2*M*K*N operations (K = kh*kw*Cin, the blocked convs' zero taps
+    included) at the int8 peak, or the bytes (x, weights and epilogue
+    vectors read once, the int8 output written once)."""
+    import torch
+
+    from tpuseg_torch.infer import int8_conv as k3
+
+    out = {"build": build_report("int8_conv", "int8_conv_kernel", spill_fails=False),
+           "blocks": []}
+    for i, (name, shape, k, cout, mode) in enumerate(k3_blocks()):
+        x, op, epi = k3_inputs(shape, k, cout, mode, seed + i, dev)
+        got = k3.int8_conv(x, op, epi)
+        want = k3._int8_conv_plain(x, op, epi)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item() if got.shape == want.shape \
+            else float("inf")
+        if got.shape != want.shape or got.dtype != torch.int8 or not torch.equal(got, want):
+            raise AssertionError(f"K3 {name} {shape}: differs from plain (max abs err {err})")
+        codes = torch.unique(got).numel()
+        clipped = (got.abs() == 127).float().mean().item()
+        del got, want
+        if codes < 64 or clipped > 0.5:
+            raise AssertionError(f"K3 {name}: degenerate codes ({codes} distinct, "
+                                 f"{clipped:.1%} clipped)")
+        wm = op.plain(dev)
+        a = k3._im2col(k3._pad_same(x, op), x, op, wm.shape[1], 0, shape[1])
+        fns = {"plain": (lambda: k3._int8_conv_plain(x, op, epi), 1),
+               "kernel": (lambda: k3.int8_conv(x, op, epi), 5),
+               "library": (lambda: torch._int_mm(a, wm.t()), 3)}
+        runs = {n: [] for n in fns}
+        for order in (("plain", "kernel", "library"), ("library", "kernel", "plain")):
+            for n in order:
+                fn, reps = fns[n]
+                runs[n].append(device_ms_cold(fn, reps))
+        b, h, w, cin = shape
+        m, kk = b * h * w, k * k * cin
+        ops = 2 * m * kk * cout
+        nbytes = m * cin + cout * kk + 4 * cout * (3 if mode == "affine_requant" else 4) + 4 \
+            + m * cout
+        t_ops, t_bytes = ops / PEAK_OPS["int8"] * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        r = {"block": name, "shape": list(shape), "k": k, "cout": cout, "mode": mode,
+             "codes": codes, "clipped": clipped, "max_abs_err": err,
+             "ms": sum(runs["kernel"]) / 2, "ms_runs": runs["kernel"],
+             "plain_ms": sum(runs["plain"]) / 2, "plain_ms_runs": runs["plain"],
+             "library_ms": sum(runs["library"]) / 2, "library_ms_runs": runs["library"],
+             "bound_ms": max(t_ops, t_bytes),
+             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+             "ops": ops, "bytes": nbytes}
+        r["share_of_bound"] = r["bound_ms"] / r["ms"]
+        out["blocks"].append(r)
+        log(f"K3 {name:<11} {shape} {k}x{k} -> {cout:<4} {mode}: bit-equal, {codes} codes, "
+            f"{clipped:.2%} clipped; {r['ms_runs'][0]:.3f} / {r['ms_runs'][1]:.3f} ms "
+            f"({r['share_of_bound']:.1%} of {r['bound_ms']:.3f} ms, {r['bound_by']}), plain "
+            f"{r['plain_ms']:.3f}, _int_mm alone {r['library_ms']:.3f}")
+        del x, op, epi, a, wm
+        torch.cuda.empty_cache()
+    for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+        out[key] = sum(r[key] for r in out["blocks"])
+    out["share_of_bound"] = out["bound_ms"] / out["ms"]
+    out["ops"] = sum(r["ops"] for r in out["blocks"])
+    out["max_abs_err"] = max(r["max_abs_err"] for r in out["blocks"])
+    log(f"K3 over one predict call's 21 blocks: {out['ms']:.2f} ms ({out['share_of_bound']:.1%} "
+        f"of the {out['bound_ms']:.2f} ms bound, {out['ops'] / 1e12:.2f} TOP), plain "
+        f"{out['plain_ms']:.2f} ms, _int_mm alone {out['library_ms']:.2f} ms")
     return out
 
 
@@ -550,7 +696,7 @@ def phase_main(seed: int, work: str, dev, card: str) -> dict:
 
     from tpuseg_torch.cli.inference import main as cli
     from tpuseg_torch.data.preprocess import zscore_stats
-    from tpuseg_torch.infer import head_kernel
+    from tpuseg_torch.infer import head_kernel, int8_conv
     from tpuseg_torch.infer.erf import estimate_radius
     from tpuseg_torch.infer.runner import InferenceConfig, _quantized_predict_fn
     from tpuseg_torch.infer.tiled import (inference_single_batch, inference_tiled,
@@ -579,15 +725,20 @@ def phase_main(seed: int, work: str, dev, card: str) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     head_kernel.LAUNCHES = 0
+    int8_conv.LAUNCHES = 0
     t0 = time.perf_counter()
     written = cli(common + ["--output_folder", out_blocked, "--quantize", "int8_blocked",
                            "--calibration_out", cal])
     torch.cuda.synchronize()
     res["main_path_s"] = time.perf_counter() - t0
-    res["launches"] = {"blocked_head_argmax": head_kernel.LAUNCHES}
+    k2 = head_kernel.LAUNCHES
+    res["launches"] = {"blocked_head_argmax": k2, "int8_conv": int8_conv.LAUNCHES}
     res["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
-    if head_kernel.LAUNCHES == 0:
+    if k2 == 0:
         raise AssertionError("the int8_blocked main path launched no head kernel")
+    if int8_conv.LAUNCHES != K3_PER_CALL * k2:
+        raise AssertionError(f"the int8_blocked main path launched K3 {int8_conv.LAUNCHES} "
+                             f"times, not {K3_PER_CALL} x K2's {k2}")
     if sorted(os.path.basename(p) for p in written) != sorted(shapes):
         raise AssertionError(f"masks written: {written}")
     for name, shape in shapes.items():
@@ -595,12 +746,44 @@ def phase_main(seed: int, work: str, dev, card: str) -> dict:
         if m.shape != shape or not np.isin(m, np.arange(NCLS)).all():
             raise AssertionError(f"{name}: mask {m.shape} {m.dtype}, labels {np.unique(m)[:8]}")
     log(f"main path: {len(written)} masks in {res['main_path_s']:.2f} s, "
-        f"{head_kernel.LAUNCHES} head kernel launches, peak {res['peak_mem_gib']:.2f} GiB")
+        f"{k2} head kernel launches, {res['launches']['int8_conv']} K3 launches, "
+        f"peak {res['peak_mem_gib']:.2f} GiB")
+
+    # the same run with K3's plain version swapped in on the card: every
+    # pixel must agree, and the first call's convs take the 21 block shapes
+    # phase 2 holds K3 to
+    out_plain = os.path.join(work, "masks_int8_blocked_plain_conv")
+    int8_conv.LAUNCHES = head_kernel.LAUNCHES = 0
+    with plain_conv() as calls:
+        cli(common + ["--output_folder", out_plain, "--quantize", "int8_blocked",
+                      "--calibration_in", cal])
+    calls_k2 = [calls[i:i + K3_PER_CALL] for i in range(0, len(calls), K3_PER_CALL)]
+    want_call = [(b[1], b[2], b[3], b[4]) for b in k3_blocks()]
+    if int8_conv.LAUNCHES or len(calls) != K3_PER_CALL * head_kernel.LAUNCHES \
+            or head_kernel.LAUNCHES != k2 or want_call not in calls_k2:
+        raise AssertionError(f"plain-conv run: {int8_conv.LAUNCHES} K3 launches, {len(calls)} "
+                             f"plain calls, {head_kernel.LAUNCHES} K2 launches (want {k2}); "
+                             f"first call's convs {calls[:K3_PER_CALL]}")
+    differ = {}
+    for name in shapes:
+        a = imread(os.path.join(out_blocked, name))
+        b = imread(os.path.join(out_plain, name))
+        differ[name] = int((a != b).sum()) if a.shape == b.shape else -1
+    res["k3_vs_plain_conv_pixels_differing"] = differ
+    if any(differ.values()):
+        raise AssertionError(f"masks through K3 and through its plain version differ: {differ}")
+    log(f"int8_blocked through K3's plain version: {len(calls)} plain calls, masks equal on "
+        "every pixel")
 
     # dense int8 from the same scales: the same quantized network, without
     # the blocked edges and K2
     out_dense = os.path.join(work, "masks_int8")
+    int8_conv.LAUNCHES = 0
     cli(common + ["--output_folder", out_dense, "--quantize", "int8", "--calibration_in", cal])
+    res["launches"]["int8_conv_dense_cli"] = int8_conv.LAUNCHES
+    if int8_conv.LAUNCHES != K3_PER_CALL * k2:  # the same predict calls as the blocked run
+        raise AssertionError(f"--quantize int8 launched K3 {int8_conv.LAUNCHES} times, not "
+                             f"{K3_PER_CALL} x {k2} predict calls")
     agree = {}
     for name in shapes:
         a = imread(os.path.join(out_blocked, name))
@@ -633,11 +816,21 @@ def phase_main(seed: int, work: str, dev, card: str) -> dict:
     head_kernel.LAUNCHES = 0
     inference_single_batch(small, fns["int8_blocked"], BATCH, device=dev)
     res["launches_small_dispatch"] = head_kernel.LAUNCHES
-    head_kernel.LAUNCHES = 0
+    head_kernel.LAUNCHES = int8_conv.LAUNCHES = 0
     inference_tiled(big, fns["int8_blocked"], TILE, radius, BATCH, NCLS, stats, dev)
     res["launches_tiled_dispatch"] = head_kernel.LAUNCHES
+    res["k3_launches_tiled_dispatch"] = int8_conv.LAUNCHES
     if not (res["launches_small_dispatch"] and res["launches_tiled_dispatch"]):
         raise AssertionError(f"a dispatch launched no head kernel: {res}")
+    int8_conv.LAUNCHES = 0
+    inference_tiled(big, fns["int8"], TILE, radius, BATCH, NCLS, stats, dev)
+    res["k3_launches_tiled_dispatch_int8"] = int8_conv.LAUNCHES
+    calls = in_ram_launches(BIG, BIG, radius)
+    if res["k3_launches_tiled_dispatch"] != K3_PER_CALL * res["launches_tiled_dispatch"] \
+            or res["k3_launches_tiled_dispatch_int8"] != K3_PER_CALL * calls:
+        raise AssertionError(f"tiled K3 launches: int8_blocked {res['k3_launches_tiled_dispatch']}"
+                             f" (K2 {res['launches_tiled_dispatch']}), int8 "
+                             f"{res['k3_launches_tiled_dispatch_int8']} ({calls} predict calls)")
     times = {m: [] for m in fns}
     for rnd in range(3):
         for mode in (fns if rnd % 2 == 0 else list(fns)[::-1]):
@@ -650,7 +843,14 @@ def phase_main(seed: int, work: str, dev, card: str) -> dict:
     res["tiled_mp_s"] = {m: BIG * BIG / 1e6 / sorted(t)[1] for m, t in times.items()}
     log(f"tiled {BIG}^2 (tile {TILE}, radius {radius}, batch {BATCH}) MP/s on {card}, "
         "median of 3: " + ", ".join(f"{m} {v:.2f}" for m, v in res["tiled_mp_s"].items()))
-    res["profile_int8_blocked"] = phase_profile(fns["int8_blocked"], big, radius, stats, dev)
+    res["profile_int8_blocked"] = prof = phase_profile(fns["int8_blocked"], big, radius,
+                                                       stats, dev)
+    k3 = prof["by_group"].get("K3 int8_conv")
+    if prof["busy_ms"] is not None:
+        if k3 is None:
+            raise AssertionError("the profiled int8_blocked pass shows no K3 kernel")
+        log(f"K3 in the profiled int8_blocked pass: {k3['ms']:.2f} ms, {k3['share']:.1%} "
+            "of device time")
     return res
 
 
@@ -1012,6 +1212,26 @@ def plain_head():
         head_kernel._launch = launch
 
 
+@contextlib.contextmanager
+def plain_conv():
+    """K3's wrapper with the kernel's launch swapped for its plain version
+    on the same card tensors: the predict function then runs K3-free and
+    counts no launch. Yields (x shape, kernel size, Cout, mode) of each call."""
+    from tpuseg_torch.infer import int8_conv
+
+    launch, calls = int8_conv._launch, []
+
+    def plain(x, weights, epilogue):
+        calls.append((tuple(x.shape), weights.kh, weights.cout, epilogue.mode))
+        return int8_conv._int8_conv_plain(x, weights, epilogue)
+
+    int8_conv._launch = plain
+    try:
+        yield calls
+    finally:
+        int8_conv._launch = launch
+
+
 def in_ram_launches(height: int, width: int, radius: int) -> int:
     """K2 launches of one tiled int8_blocked pass: one per chunk of at most
     BATCH windows over the whole grid."""
@@ -1031,7 +1251,7 @@ def phase_stream_engine(work: str, dev, radius: int) -> dict:
     import torch
 
     from tpuseg_torch.data.preprocess import zscore_stats
-    from tpuseg_torch.infer import head_kernel
+    from tpuseg_torch.infer import head_kernel, int8_conv
     from tpuseg_torch.infer.runner import InferenceConfig, _quantized_predict_fn
     from tpuseg_torch.infer.tiled import inference_tiled, inference_tiled_streaming
     from tpuseg_torch.utils.bigtiff import BigTiffReader, read_bigtiff, write_bigtiff
@@ -1062,15 +1282,18 @@ def phase_stream_engine(work: str, dev, radius: int) -> dict:
     want = in_ram()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    head_kernel.LAUNCHES = 0
+    head_kernel.LAUNCHES = int8_conv.LAUNCHES = 0
     streaming()
     torch.cuda.synchronize()
-    res = {"launches": head_kernel.LAUNCHES,
+    res = {"launches": head_kernel.LAUNCHES, "k3_launches": int8_conv.LAUNCHES,
            "expected_launches": stream_launches(BIG, BIG, radius),
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
     if res["launches"] != res["expected_launches"]:
         raise AssertionError(f"streamed pass launched K2 {res['launches']} times, expected "
                              f"{res['expected_launches']}")
+    if res["k3_launches"] != K3_PER_CALL * res["expected_launches"]:
+        raise AssertionError(f"streamed pass launched K3 {res['k3_launches']} times, not "
+                             f"{K3_PER_CALL} per chunk ({res['expected_launches']} chunks)")
     got = read_bigtiff(mask_path)
     if got.shape != want.shape or got.dtype != np.uint8:
         raise AssertionError(f"streamed mask {got.shape} {got.dtype}, in-RAM {want.shape}")
@@ -1123,7 +1346,7 @@ def phase_stream_engine(work: str, dev, radius: int) -> dict:
     res["mp_s"] = {k: BIG * BIG / 1e6 / (sum(v) / len(v)) for k, v in times.items()}
     log(f"streamed vs in-RAM {BIG}^2 int8_blocked: {res['pixels_differing']} pixels differ "
         f"(agreement {res['agree']}), K2 launches {res['launches']} (expected "
-        f"{res['expected_launches']}), MP/s streamed {res['mp_s']['streaming']:.2f}, in RAM "
+        f"{res['expected_launches']}), K3 launches {res['k3_launches']}, MP/s streamed {res['mp_s']['streaming']:.2f}, in RAM "
         f"{res['mp_s']['in_ram']:.2f}, peak device memory streamed {res['peak_mem_gib']:.2f} GiB")
 
     res["profile"] = device_profile(streaming, f"streamed int8_blocked {BIG}^2")
@@ -2494,6 +2717,7 @@ def main() -> int:
                 f"stores {r.get('spill_stores')} B, spill loads {r.get('spill_loads')} B")
 
     kern = phase_kernels(args.seed, dev)
+    k3 = phase_int8_conv(args.seed, dev)
     shear = phase_shear(args.seed, dev)
     work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke")
     main_res = phase_main(args.seed, work, dev, card)
@@ -2555,9 +2779,35 @@ def main() -> int:
         "timing": "device time per call from the profiler, L2 flushed before each",
         "shape": shear["shape"],
         "tolerance": "bit-equal to the plain version",
+    }, {
+        "name": "int8_conv", "route": "cuda",
+        "source": "tpuseg_torch/csrc/int8_conv.cu",
+        "replaces": "tpuseg/infer/quant.py:173",
+        "replaces_note": "XLA-fused on the TPU, not a Pallas kernel: _conv_s8 and the "
+                         "epilogue XLA fuses behind it in _quantized_raw_fn (:496)",
+        "launches": main_res["launches"]["int8_conv"],
+        "launches_per_predict_call": K3_PER_CALL,
+        "launches_int8_cli": main_res["launches"]["int8_conv_dense_cli"],
+        "launches_tiled": {"int8_blocked": main_res["k3_launches_tiled_dispatch"],
+                           "int8": main_res["k3_launches_tiled_dispatch_int8"]},
+        "launches_streaming": stream_res["engine"]["k3_launches"],
+        "max_abs_err": k3["max_abs_err"], "ms": k3["ms"], "plain_ms": k3["plain_ms"],
+        "bound_ms": k3["bound_ms"], "bound_by": "operations",
+        "library_ms": k3["library_ms"],
+        "library_call": "torch._int_mm on the prebuilt im2col matrix (the GEMM alone, "
+                        "int32 out, no epilogue), summed over the 21 blocks",
+        "timing": "sums over the 21 block shapes of one main-path predict call of the device "
+                  "time per call from the profiler, L2 flushed before each",
+        "share_of_bound": k3["share_of_bound"],
+        "tolerance": "bit-equal (torch.equal) to the plain version at every block shape; "
+                     "masks through K3 equal those through the plain version on every pixel",
+        "blocks": [{k: r[k] for k in ("block", "shape", "k", "cout", "mode", "ms", "plain_ms",
+                                      "library_ms", "bound_ms", "bound_by", "codes")}
+                   for r in k3["blocks"]],
     }]
     summary = {"card": card, "torch": torch.__version__, "build_s": build_s,
-               "kernels": kern, "shear": shear, "main": main_res, "train": train_res,
+               "kernels": kern, "int8_conv": k3, "shear": shear, "main": main_res,
+               "train": train_res,
                "stream": stream_res, "migration": migration_res, "multigpu": multigpu_res,
                "spatial": spatial_res,
                "total_s": time.perf_counter() - t_start}

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from tpuseg_torch.infer import head_kernel
+from tpuseg_torch.infer import int8_conv as k3
 
 
 @pytest.fixture
@@ -130,6 +131,121 @@ def test_head_kernel_rejects_bad_inputs(cuda):
                                         epi, 2, fp=False)
     with pytest.raises(ValueError):
         head_kernel.blocked_head_argmax(x, sv, wt, epi, 9, fp=False)
+
+
+# --- K3: the int8 conv with its epilogue fused (csrc/int8_conv.cu) ---------
+
+K3_MODES = ["relu_requant", "relu_f32", "affine_requant"]
+
+
+def _k3_inputs(cin, cout, k, b, h, w, mode, seed, dev):
+    """Random codes and per-channel vectors that put f(acc) * ws near
+    N(0, 1), so the requantized codes are spread over the range."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.integers(-127, 128, (b, h, w, cin)).astype(np.int8)).to(dev)
+    wq = rng.integers(-127, 128, (k, k, cin, cout)).astype(np.int8)
+    ws = rng.uniform(0.5, 1.5, cout) / (np.sqrt(k * k * cin) * 5461.0)
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+
+    epi = k3.Epilogue(mode, t(ws),
+                      None if mode == "affine_requant" else t(rng.normal(0, 0.3, cout)),
+                      t(rng.uniform(0.5, 1.5, cout)), t(rng.normal(0, 0.3, cout)),
+                      None if mode == "relu_f32" else t(np.float32(2.0 / 127.0)))
+    return x, k3.Int8ConvWeights(wq), epi
+
+
+def _k3_check(dev, cin, cout, k, b, h, w, mode, seed):
+    x, op, epi = _k3_inputs(cin, cout, k, b, h, w, mode, seed, dev)
+    before = k3.LAUNCHES
+    got = k3.int8_conv(x, op, epi)
+    assert k3.LAUNCHES == before + 1
+    want = k3._int8_conv_plain(x, op, epi)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and got.shape == want.shape == (b, h, w, cout)
+    assert torch.equal(got, want), (got.float() - want.float()).abs().max().item()
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", K3_MODES)
+@pytest.mark.parametrize("k", [1, 3])
+@pytest.mark.parametrize("cout", [2, 5, 64, 256, 2048])
+@pytest.mark.parametrize("cin", [1, 3, 4, 64, 256, 512])
+def test_int8_conv_kernel_bit_equal_to_plain(cuda, cin, cout, k, mode):
+    seed = cin + 3 * cout + k
+    _k3_check(cuda, cin, cout, k, 1 + seed % 3, 9, 13, mode, seed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", K3_MODES)
+@pytest.mark.parametrize("cin, cout, k, b, h, w", [
+    (16, 24, 3, 2, 37, 45), (48, 130, 3, 1, 33, 17), (80, 128, 1, 3, 31, 29),
+    (128, 256, 3, 1, 64, 64), (4, 64, 3, 2, 40, 24), (1, 64, 3, 1, 35, 33)])
+def test_int8_conv_kernel_many_tiles(cuda, cin, cout, k, b, h, w, mode):
+    """Many M tiles with an M tail, N tails past 128, Cin past one K-step."""
+    _k3_check(cuda, cin, cout, k, b, h, w, mode, cin + cout + h)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["relu_requant", "affine_requant"])
+def test_int8_conv_kernel_codes_span_the_range(cuda, mode):
+    got = _k3_check(cuda, 64, 256, 3, 2, 24, 24, mode, 11)
+    codes = torch.unique(got)
+    # the ReLU keeps the negative codes to those of negative shifts t
+    assert codes.numel() >= (150 if mode == "relu_requant" else 200)
+    assert codes.max().item() == 127 and (mode == "relu_requant" or codes.min().item() == -127)
+    assert (got.abs() == 127).float().mean().item() < 0.5
+
+
+@pytest.mark.cuda
+def test_int8_conv_kernel_rejects_bad_inputs(cuda):
+    x, op, epi = _k3_inputs(32, 8, 3, 1, 6, 6, "relu_requant", 0, cuda)
+    before = k3.LAUNCHES
+    with pytest.raises(TypeError):
+        k3.int8_conv(x.float(), op, epi)
+    with pytest.raises(ValueError, match="contiguous"):
+        k3.int8_conv(x.transpose(1, 2), op, epi)
+    with pytest.raises(ValueError, match="aligned"):
+        buf = torch.zeros(x.numel() + 1, dtype=torch.int8, device=cuda)
+        k3.int8_conv(buf[1:].view(x.shape), op, epi)
+    with pytest.raises(ValueError, match="channels"):
+        k3.int8_conv(x[..., :16].contiguous(), op, epi)
+    with pytest.raises(ValueError, match="float32"):
+        k3.int8_conv(x, op, k3.Epilogue(epi.mode, epi.ws.cpu(), epi.b, epi.s, epi.t, epi.so))
+    with pytest.raises(ValueError, match="shape"):
+        k3.int8_conv(x, op, k3.Epilogue(epi.mode, epi.ws[:4], epi.b, epi.s, epi.t, epi.so))
+    with pytest.raises(ValueError, match="scalar"):
+        k3.int8_conv(x, op, k3.Epilogue(epi.mode, epi.ws, epi.b, epi.s, epi.t, epi.ws))
+    with pytest.raises(ValueError, match="5x5"):
+        k3.int8_conv(x, k3.Int8ConvWeights(np.zeros((5, 5, 32, 8), np.int8)), epi)
+    assert k3.LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blocked", [False, True])
+def test_int8_walk_launches_k3_per_block(cuda, blocked):
+    """A base-4 int8 predict call on the card launches K3 once per int8
+    block (21 with the default fp_blocks) and labels like the CPU walk
+    (>= 0.999: the fp enc1a block sums in another order on the card)."""
+    from tpuseg_torch.infer import quant
+    from tpuseg_torch.models.unet import UNet, init_unet
+
+    model = init_unet(UNet(2, 1, 4, torch.float32), torch.Generator().manual_seed(0)).eval()
+    x = torch.from_numpy(np.random.default_rng(3).normal(0, 1, (2, 64, 48, 1))
+                         .astype(np.float32))
+    folded = quant.fold_variables(model)
+    fn = quant.make_quantized_predict_fn(
+        folded, quant.calibrate(folded, [x[0, ..., 0].numpy()], device="cpu"),
+        blocked_edges=blocked)
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        before = k3.LAUNCHES
+        want = fn(x)
+        assert k3.LAUNCHES == before
+        got = fn(x.to(cuda)).cpu()
+    assert k3.LAUNCHES == before + 21
+    assert (got == want).float().mean().item() >= 0.999
 
 
 # --- K1: the row shear (tpuseg_torch/csrc/shear_rows.cu) --------------------

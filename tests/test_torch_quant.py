@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from tpuseg.infer import quant as jq
+from tpuseg_torch.infer import int8_conv
 from tpuseg_torch.infer import quant as tq
 from tpuseg_torch.utils.jax_bridge import unet_from_flax
 
@@ -150,13 +151,14 @@ def test_int8_conv_matches_exact_conv():
     rng = np.random.default_rng(9)
     x = rng.integers(-127, 128, (2, 9, 7, 3)).astype(np.int8)
     wq = rng.integers(-127, 128, (3, 3, 3, 5)).astype(np.int8)
-    op = tq._Int8Conv(wq)
-    old = tq._IM2COL_BYTES
-    tq._IM2COL_BYTES = 2 * 7 * op._wm.shape[1] * 2  # two output rows a chunk
+    op = int8_conv.Int8ConvWeights(wq)
+    old = int8_conv._IM2COL_BYTES
+    # two output rows a chunk
+    int8_conv._IM2COL_BYTES = 2 * 7 * op.plain(torch.device("cpu")).shape[1] * 2
     try:
-        got = op(torch.from_numpy(x), lambda y: y)
+        got = int8_conv._int8_conv_plain(torch.from_numpy(x), op, None)
     finally:
-        tq._IM2COL_BYTES = old
+        int8_conv._IM2COL_BYTES = old
     want = torch.nn.functional.conv2d(
         torch.from_numpy(x).double().permute(0, 3, 1, 2),
         torch.from_numpy(wq).double().permute(3, 2, 0, 1), padding=1)

@@ -141,8 +141,9 @@ def test_cli_cuda_without_a_card_raises(ckpts, tmp_path):
 
 
 def test_port_imports_neither_jax_nor_tpuseg():
-    """Every tpuseg_torch module (52 with the ``parallel`` package's
-    data-parallel and spatial modules) imports in a fresh interpreter without pulling in
+    """Every tpuseg_torch module (53 with the ``parallel`` package's
+    data-parallel and spatial modules and K3's ``infer.int8_conv``) imports
+    in a fresh interpreter without pulling in
     jax, flax, orbax, TensorFlow, protobuf or anything of tpuseg."""
     code = (
         "import importlib, pkgutil, sys, tpuseg_torch\n"
@@ -151,9 +152,10 @@ def test_port_imports_neither_jax_nor_tpuseg():
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'orbax', 'tpuseg', 'tensorflow') "
         "or k.startswith('google.protobuf'))\n"
-        "assert len(mods) >= 52, mods\n"
+        "assert len(mods) >= 53, mods\n"
         "assert {'tpuseg_torch.parallel.distributed', 'tpuseg_torch.parallel.mesh', "
-        "'tpuseg_torch.parallel.dryrun', 'tpuseg_torch.parallel.halo'} <= set(mods), mods\n"
+        "'tpuseg_torch.parallel.dryrun', 'tpuseg_torch.parallel.halo', "
+        "'tpuseg_torch.infer.int8_conv'} <= set(mods), mods\n"
         "assert not bad, bad\n"
         "print(len(mods))\n")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

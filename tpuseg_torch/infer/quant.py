@@ -15,13 +15,11 @@ space-to-depth ``int8_blocked`` walk). What is the same here, on purpose:
 What PyTorch changes:
 
 - **The int8 conv** is XLA's ``conv_general_dilated`` with int32
-  accumulation in the JAX package. Here it is an im2col built from shifted
-  slices (int8 ``F.unfold`` has no CUDA kernel) fed to ``torch._int_mm``
-  (cuBLASLt on the card), chunked over output rows so the im2col stays
-  under ``_IM2COL_BYTES``, with the block's epilogue applied per chunk.
-  ``_int_mm`` wants K and N multiples of 8 and M > 16 on CUDA, so K, N and
-  M are zero-padded where needed. A hand-written int8 implicit-GEMM conv
-  is later work.
+  accumulation in the JAX package, its epilogue fused by XLA. Here it is
+  :func:`tpuseg_torch.infer.int8_conv.int8_conv` (K3), handed the block's
+  epilogue as data: a hand-written implicit-GEMM kernel with the epilogue
+  fused on the card, im2col + ``torch._int_mm`` with the same epilogue on
+  the CPU.
 - **fp convs** (calibration, ``fp_blocks``) run in float32 on inputs and
   weights rounded to the compute dtype — the JAX package's bf16 operands
   with f32 accumulation — with cuDNN's TF32 turned off around them, since
@@ -43,6 +41,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from tpuseg_torch.infer.int8_conv import Epilogue, Int8ConvWeights, int8_conv
 from tpuseg_torch.models.unet import BN_EPSILON, POOLING_STRIDE, as_dtype
 
 # Ordered block names of the reference graph (model.py:85-146)
@@ -60,9 +59,6 @@ DEFAULT_PERCENTILE = 99.9
 
 # Calibration key for the network input (the z-scored image itself)
 INPUT_TAP = "input"
-
-# im2col bytes per chunk of the int8 conv
-_IM2COL_BYTES = 1 << 30
 
 Folded = Dict[str, Dict[str, np.ndarray]]
 
@@ -222,56 +218,6 @@ def _d2s(x: torch.Tensor) -> torch.Tensor:
     b, h, w, c4 = x.shape
     x = x.reshape(b, h, w, 2, 2, c4 // 4)
     return x.permute(0, 1, 3, 2, 4, 5).reshape(b, 2 * h, 2 * w, c4 // 4)
-
-
-def _pad8(n: int) -> int:
-    return -(-n // 8) * 8
-
-
-class _Int8Conv:
-    """A SAME int8 conv with int32 accumulation, kernel ``wq`` (HWIO int8),
-    as im2col + ``torch._int_mm``; the weight matrix is laid out once on
-    first use on each device."""
-
-    def __init__(self, wq: np.ndarray):
-        kh, kw, cin, cout = wq.shape
-        self.kh, self.kw, self.cout = kh, kw, cout
-        self.k = kh * kw * cin
-        wm = np.zeros((_pad8(cout), _pad8(self.k)), np.int8)  # (N, K), zero-padded
-        wm[:cout, :self.k] = wq.reshape(self.k, cout).T
-        self._wm = torch.from_numpy(wm)
-        self._dev: Dict[torch.device, torch.Tensor] = {}
-
-    def __call__(self, x: torch.Tensor,
-                 epilogue: Callable[[torch.Tensor], torch.Tensor]) -> torch.Tensor:
-        """``epilogue(int32 (B, rows, W, cout))`` per chunk of output rows;
-        returns its outputs stitched into ``(B, H, W, cout)``."""
-        wm = self._dev.get(x.device)
-        if wm is None:
-            wm = self._dev[x.device] = self._wm.to(x.device)
-        b, h, w, _ = x.shape
-        ph, pw = self.kh // 2, self.kw // 2
-        xp = F.pad(x, (0, 0, pw, pw, ph, ph)) if ph or pw else x
-        kp = wm.shape[1]
-        rows = max(1, min(h, _IM2COL_BYTES // max(1, b * w * kp)))
-        out = None
-        for r0 in range(0, h, rows):
-            r1 = min(h, r0 + rows)
-            cols = [xp[:, r0 + ky:r1 + ky, kx:kx + w]
-                    for ky in range(self.kh) for kx in range(self.kw)]
-            if kp > self.k:
-                cols.append(x.new_zeros((b, r1 - r0, w, kp - self.k)))
-            a = torch.cat(cols, dim=-1).reshape(-1, kp) if len(cols) > 1 \
-                else cols[0].reshape(-1, kp)
-            m = a.shape[0]
-            if m <= 16:  # cuBLASLt's int8 GEMM wants M > 16
-                a = torch.cat([a, a.new_zeros((17 - m, kp))])
-            y = torch._int_mm(a, wm.t())[:m, :self.cout]
-            y = epilogue(y.reshape(b, r1 - r0, w, self.cout))
-            if out is None:
-                out = y.new_empty((b, h, w, self.cout))
-            out[:, r0:r1] = y
-        return out
 
 
 def _percentile(a: torch.Tensor, q: float) -> torch.Tensor:
@@ -531,10 +477,12 @@ def _quantized_raw_fn(folded: Folded, act_ranges: Dict[str, float],
     # Scales divide as 0-dim device tensors: PyTorch's CUDA division by a
     # Python scalar multiplies by its reciprocal, which rounds differently
     # from the true division the JAX package does.
+    def so_vec(name, dev):
+        return vec(name, "so", dev, lambda: np.asarray(out_scale(name)))
+
     def emit(y, name):
         """Fused epilogue tail: requantize to the block's output range."""
-        so = vec(name, "so", y.device, lambda: np.asarray(out_scale(name)))
-        return torch.clamp(torch.round(y / so), -127, 127).to(torch.int8)
+        return torch.clamp(torch.round(y / so_vec(name, y.device)), -127, 127).to(torch.int8)
 
     def dequant(x, sv, name, key):
         return (x.float() * vec(name, key + "sv", x.device, lambda: sv)).to(dtype)
@@ -549,8 +497,8 @@ def _quantized_raw_fn(folded: Folded, act_ranges: Dict[str, float],
 
     def conv(name, key, x, sv, w_hwio, bias, s, t, last: bool):
         """One conv block: the fp form when ``name`` is in fp_blocks, else
-        the int8 conv with its epilogue fused per chunk. ``w_hwio``/``bias``
-        /``s``/``t`` are thunks producing numpy arrays (built once)."""
+        the int8 conv with its epilogue fused. ``w_hwio``/``bias``/``s``/
+        ``t`` are thunks producing numpy arrays (built once)."""
         dev = x.device
         b_, s_, t_ = (vec(name, key + k, dev, f) for k, f in
                       (("b", bias), ("s", s), ("t", t)))
@@ -561,14 +509,11 @@ def _quantized_raw_fn(folded: Folded, act_ranges: Dict[str, float],
             return y if last else emit(y, name)
         wq, wscale = cache.get((name, key + "q"), dev,
                                lambda: quantize_weight(w_hwio(), sv))
-        op = cache.get((name, key + "op"), dev, lambda: _Int8Conv(wq))
-        ws = vec(name, key + "ws", dev, lambda: wscale)
-
-        def epilogue(y32):
-            y = torch.clamp_min(y32.float() * ws + b_, 0.0) * s_ + t_
-            return y if last else emit(y, name)
-
-        return op(x, epilogue)
+        op = cache.get((name, key + "op"), dev, lambda: Int8ConvWeights(wq))
+        epi = cache.get((name, key + "epi"), dev, lambda: Epilogue(
+            "relu_f32" if last else "relu_requant", vec(name, key + "ws", dev, lambda: wscale),
+            b_, s_, t_, None if last else so_vec(name, dev)))
+        return int8_conv(x, op, epi)
 
     def conv_block(name, edge):
         x, sv = edge
@@ -606,9 +551,11 @@ def _quantized_raw_fn(folded: Folded, act_ranges: Dict[str, float],
                 return _block_weight_deconv(wq, deconv_impl), wscale
 
             wqb, wscale = cache.get((name, "qb"), dev, qb)
-            op = cache.get((name, "op"), dev, lambda: _Int8Conv(wqb))
-            ws = vec(name, "ws", dev, lambda: wscale)
-            y = op(x, lambda y32: emit(y32.float() * ws * s4 + t4, name))
+            op = cache.get((name, "op"), dev, lambda: Int8ConvWeights(wqb))
+            epi = cache.get((name, "epi"), dev, lambda: Epilogue(
+                "affine_requant", vec(name, "ws", dev, lambda: wscale), None, s4, t4,
+                so_vec(name, dev)))
+            y = int8_conv(x, op, epi)
         if not blocked_out:
             y = _d2s(y)  # the requantize is elementwise, so it commutes
         return y, np.full(y.shape[-1], out_scale(name), np.float32)
