@@ -223,6 +223,114 @@ def test_int8_conv_kernel_rejects_bad_inputs(cuda):
     assert k3.LAUNCHES == before
 
 
+def _k3_route_check(dev, x, op, epi, route, bn=None):
+    before = dict(k3.ROUTE_LAUNCHES)
+    got = k3._launch(x, op, epi, route=route, bn=bn)
+    assert k3.LAST_ROUTE == route and k3.ROUTE_LAUNCHES[route] == before[route] + 1
+    want = k3._int8_conv_plain(x, op, epi)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(got, want), (got.float() - want.float()).abs().max().item()
+
+
+def _k3_blocked_inputs(groups, b, h, w, mode, seed, dev):
+    """Codes blocked as the int8_blocked walk's edge convs are (3/4 of them
+    structural zeros), ws scaled by the fan-in of the non-zero taps."""
+    from tpuseg_torch.infer.quant import _block_weight
+
+    rng = np.random.default_rng(seed)
+    c0 = sum(groups)
+    cout = 4 * 64
+    x = torch.from_numpy(rng.integers(-127, 128, (b, h, w, 4 * c0)).astype(np.int8)).to(dev)
+    w0 = rng.integers(-127, 128, (3, 3, c0, cout // 4)).astype(np.float32)
+    wq = _block_weight(w0, groups).astype(np.int8)
+    ws = rng.uniform(0.5, 1.5, cout) / (np.sqrt(9 * c0) * 5461.0)
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+
+    epi = k3.Epilogue(mode, t(ws),
+                      None if mode == "affine_requant" else t(rng.normal(0, 0.3, cout)),
+                      t(rng.uniform(0.5, 1.5, cout)), t(rng.normal(0, 0.3, cout)),
+                      None if mode == "relu_f32" else t(np.float32(2.0 / 127.0)))
+    return x, k3.Int8ConvWeights(wq), epi
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", K3_MODES)
+@pytest.mark.parametrize("cout", [2, 5, 64, 128, 256, 2048])
+@pytest.mark.parametrize("cin", [16, 48, 64, 80, 512])
+def test_int8_conv_wgmma_route_bit_equal(cuda, cin, cout, mode):
+    """The wgmma route at the N-tile width its rule picks; W in {16, 64,
+    100, 512} across the cases, H = 13 (no multiple of any patch height
+    past 1), 1x1 where Cin is 512."""
+    w = (16, 64, 100, 512)[(cin // 16 + cout) % 4]
+    k = 1 if cin == 512 else 3
+    x, op, epi = _k3_inputs(cin, cout, k, 2, 13, w, mode, cin + cout + w, cuda)
+    _k3_route_check(cuda, x, op, epi, "wgmma")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", K3_MODES)
+@pytest.mark.parametrize("bn", [64, 128, 256])
+@pytest.mark.parametrize("cin, w", [(80, 100), (48, 16), (16, 64)])
+def test_int8_conv_wgmma_every_tile_width(cuda, cin, w, bn, mode):
+    """Every N-tile width, with an N tail (Cout 130) and a Cin tail."""
+    x, op, epi = _k3_inputs(cin, 130, 3, 1, 21, w, mode, bn + cin, cuda)
+    _k3_route_check(cuda, x, op, epi, "wgmma", bn)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", K3_MODES)
+@pytest.mark.parametrize("route", ["wgmma", "mma"])
+@pytest.mark.parametrize("groups", [(16,), (16, 16), (64,), (64, 64)])
+def test_int8_conv_blocked_weights_skip_zero_k_steps(cuda, groups, route, mode):
+    """Blocked weights run only their non-zero K-steps (a quarter per
+    output phase), on both routes."""
+    x, op, epi = _k3_blocked_inputs(groups, 2, 13, 100, mode, sum(groups) + len(groups), cuda)
+    if groups[0] == 64:  # a K-step is one input phase of a group: 9 of 36 per phase
+        assert (op.kernel(cuda).host_counts[64] == 9 * len(groups)).all()
+    _k3_route_check(cuda, x, op, epi, route)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", K3_MODES)
+@pytest.mark.parametrize("route, bn", [("wgmma", 64), ("wgmma", 128), ("wgmma", 256),
+                                       ("mma", 128)])
+def test_int8_conv_empty_skip_list(cuda, route, bn, mode):
+    """Output channels 128.. have all-zero weights: their N tiles run no
+    K-step and store the epilogue of zero sums."""
+    x, op, epi = _k3_inputs(64, 300, 3, 1, 13, 64, mode, 5, cuda)
+    wq = op._wq.copy()
+    wq[..., 128:] = 0
+    op = k3.Int8ConvWeights(wq)
+    counts = op.kernel(cuda).host_counts[bn]
+    assert counts[-1] == 0
+    _k3_route_check(cuda, x, op, epi, route, bn)
+
+
+@pytest.mark.cuda
+def test_int8_conv_route_rule_and_refusals(cuda):
+    """Cin % 16 != 0 takes the mma route; the wgmma route, an N tile the
+    route does not take and an unknown route raise and launch nothing."""
+    x, op, epi = _k3_inputs(4, 64, 3, 1, 9, 13, "relu_requant", 1, cuda)
+    k3.int8_conv(x, op, epi)
+    assert k3.LAST_ROUTE == "mma"
+    x16, op16, epi16 = _k3_inputs(16, 64, 3, 1, 9, 13, "relu_requant", 2, cuda)
+    k3.int8_conv(x16, op16, epi16)
+    assert k3.LAST_ROUTE == "wgmma"
+    before = k3.LAUNCHES
+    with pytest.raises(ValueError, match="Cin % 16"):
+        k3._launch(x, op, epi, route="wgmma")
+    with pytest.raises(ValueError, match="N tile"):
+        k3._launch(x16, op16, epi16, route="mma", bn=64)
+    with pytest.raises(ValueError, match="N tile"):
+        k3._launch(x16, op16, epi16, route="wgmma", bn=32)
+    with pytest.raises(ValueError, match="route"):
+        k3._launch(x16, op16, epi16, route="dense")
+    assert k3.LAUNCHES == before
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("blocked", [False, True])
 def test_int8_walk_launches_k3_per_block(cuda, blocked):

@@ -27,69 +27,176 @@
 // Bound: int8 tensor-core operations. On the serving path's blocks (batch 8 of
 // 1024^2 tiles at base 64) K = 9 * Cin is 576..9216 and N = Cout 128..2048, so
 // the arithmetic intensity 2*M*K*N / (M*Cin + N*K + M*Cout) is hundreds of
-// operations a byte, above the H100's 1,979 TOP/s / 3.35 TB/s = 591: e.g.
-// enc1b (x 8x512x512x256, 3x3, Cout 256) needs 2.47 TOP, 1.25 ms at the int8
-// peak, against 0.32 ms for its bytes.
+// operations a byte, above the H100's 1,979 TOP/s / 3.35 TB/s = 591. The
+// operations counted are those the weights need: the blocked edge convs
+// (enc1b, dec1a, dec1b of the int8_blocked walk) have exactly 3/4 structural
+// zeros, so enc1b (x 8x512x512x256, 3x3, Cout 256) needs 0.62 TOP, 0.31 ms at
+// the int8 peak, not the 2.47 TOP its dense shape would.
 //
-// Design (simple and right first; wgmma, TMA and a persistent grid are later
-// work): an implicit GEMM with M = B*H*W output pixels, N = Cout and
-// K = kh*kw*Cin, with no im2col in device memory. A block computes a 128 x 128
-// output tile with 8 warps (2 along M x 4 along N, 64 x 32 each) from K-steps
-// of 64 bytes. For Cin % 16 == 0 a K-step is one tap (ky, kx) times 64
-// channels of Cin, so each row of the A tile is a contiguous run of one input
-// pixel's channels: 4 16-byte cp.async per row, with src-size 0 (zero fill)
-// where the tap falls outside the image (SAME padding), past Cin (the weight
-// layout pads each tap's Cin to 64 with zeros), or past M. Rows of the B tile
-// are the weights of one output channel, laid out [Cout][K] (K-major, the
-// `col` operand) once per device by the wrapper; rows past Cout zero-fill.
-// Three stages of (A, B) tiles, 16 KB each, keep two K-steps in flight while
-// one is multiplied. Shared tiles have 64-byte rows whose 16-byte chunks are
-// XOR-swizzled with (row / 2) % 4, so the 8 row addresses of every ldmatrix
-// phase hit 8 distinct 4-bank groups. Fragments come through ldmatrix.x4 and
-// feed mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32, two per K-step.
-// For Cin % 16 != 0 (the input layer, Cin 1 or 4, when it is quantized) the
-// taps are packed instead, K = kh*kw*Cin padded once to 64, and the A tile is
-// gathered byte by byte with plain loads: slow, and off the served path.
-// The epilogue runs on the accumulator fragments in registers and stores int8
-// (mode 0, 2) or f32 (mode 1) straight into the NHWC output. Byte offsets are
-// 64-bit (the tensors reach 2^30 bytes); pixel and channel indices are 32-bit,
-// and the wrapper raises where B*H*W or the tile count would not fit.
+// Both routes: an implicit GEMM with M = output pixels, N = Cout and K =
+// kh*kw*Cin, no im2col in device memory, in K-steps of 64 bytes. The weights
+// are laid out [Cout][K] (K-major) once per device by the wrapper; for
+// Cin % 16 == 0 a K-step is one tap (ky, kx) times 64 channels of Cin (each
+// tap's Cin padded to 64 with zeros). Each N tile runs only the K-steps of its
+// skip list: those whose codes are not all zero within the tile
+// (int8_conv.py::_skip_lists), so the blocked convs' zero taps are neither
+// loaded nor multiplied; a tile whose list is empty stores the epilogue of
+// zero sums. The epilogue runs on the accumulators in registers and stores
+// int8 (mode 0, 2) or f32 (mode 1) straight into the NHWC output. Byte offsets
+// are 64-bit (the tensors reach 2^30 bytes); pixel and channel indices are
+// 32-bit, and the wrapper raises where they would not fit.
+//
+// Route "wgmma" (Cin % 16 == 0: every block of the served walk). A block of
+// 288 threads computes a 128-pixel x BN tile (BN 64, 128 or 256, chosen by the
+// wrapper), the 128 pixels a bh x bw patch of one image (bw 16..128, bh =
+// 128 / bw). Warp 8 is the producer: one thread walks the skip list and, for
+// each K-step, waits for a free stage of a ring of 4-6 in shared memory, arms
+// its mbarrier with the stage's bytes and issues two TMA loads: A, the box
+// {64 channels, bw, bh, 1} of a 4-D tensor map over x {Cin, W, H, B} at the
+// signed coordinates (c0, x0 + dx, y0 + dy, b), and B, the box {64, BN} of a
+// 2-D map over the weights {kp, Cout}. TMA fills every coordinate outside the
+// tensor with zeros, so SAME padding, the Cin tail and rows past Cout cost no
+// code. Both maps use the 64-byte swizzle, 16-byte chunk c of 64-byte row r at
+// r*64 + ((c ^ ((r >> 1) & 3)) << 4). Warps 0-7 are two consumer warpgroups
+// of 64 pixels each: per K-step, two wgmma.m64nBNk32.s32.s8.s8 read A and B
+// straight from the stage (descriptors with the 64B swizzle, 512 bytes between
+// 8-row groups, +32 bytes for the second k32); each group stays in flight
+// while the next is issued, and a stage goes back to the producer (one arrival
+// per warpgroup on its `empty` barrier) once wgmma.wait_group says it has been
+// read. The epilogue writes each warpgroup's int8 codes into a shared output
+// tile and stores it as 16-byte row segments (the f32 mode stores from the
+// registers); the patch's rows past H or W are masked there.
+//
+// Route "mma" (any Cin; the packed-tap layout of a quantized input layer, and
+// the yardstick the new route is timed against): a block of 256 threads
+// computes a 128 x 128 tile with 8 warps (2 along M x 4 along N, 64 x 32 each)
+// from three cp.async stages of 16 KB; a row of A is a contiguous run of one
+// input pixel's channels, 4 16-byte cp.async per row, with src-size 0 (zero
+// fill) where the tap leaves the image, past Cin or past M. Shared tiles use
+// the same swizzle, read through ldmatrix.x4 into
+// mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32, two per K-step. For
+// Cin % 16 != 0 the taps are packed, K = kh*kw*Cin padded once to 64, and the
+// A tile is gathered byte by byte with plain loads: slow, and off the served
+// path. A persistent grid (tried: no faster, the per-tile epilogue is not
+// overlapped with the next tile's products) and TMA stores are later work.
 
+#include <cuda.h>  // CUtensorMap and its enums only: the encoder comes from the runtime
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kBM = 128;      // output pixels per block
-constexpr int kBN = 128;      // output channels per block
-constexpr int kBK = 64;       // K bytes per step
-constexpr int kStages = 3;
-constexpr int kThreads = 256;
-constexpr int kTileBytes = kBM * kBK;  // an A or a B tile (kBM == kBN)
-constexpr int kSmemBytes = kStages * 2 * kTileBytes;
-static_assert(kBM == kBN, "A and B tiles share one size");
+constexpr int kBM = 128;  // output pixels per tile (both routes)
+constexpr int kBK = 64;   // K bytes per step (both routes)
 
 enum Mode { kReluRequant = 0, kReluF32 = 1, kAffineRequant = 2 };
+enum Route { kRouteMma = 0, kRouteWgmma = 1 };
 
-struct Params {
-  const int8_t* x;   // [B, H, W, Cin]
-  const int8_t* w;   // [Cout, kp]
-  const float* ws;   // [Cout]
-  const float* b;    // [Cout], modes 0 and 1
-  const float* s;    // [Cout]
-  const float* t;    // [Cout]
-  const float* so;   // scalar, modes 0 and 2
-  void* out;         // [B, H, W, Cout], int8 (modes 0, 2) or f32 (mode 1)
-  int h, w_, cin, cout, kh, kw, kp;
-  int m;             // B * H * W
-  int n_tiles;       // ceil(Cout / kBN)
-  int steps_per_tap; // aligned layout: ceil(Cin / kBK)
-  int kvalid;        // packed layout: kh * kw * Cin
+// Errors of the tensor-map encoder, returned beside cudaError_t codes.
+constexpr int kErrNoEncoder = -1;      // the driver has no cuTensorMapEncodeTiled
+constexpr int kErrEncodeBase = -1000;  // -1000 - the CUresult of a refused encode
+
+// ---- shared by both routes -------------------------------------------------
+
+// The epilogue's operands (see the header).
+struct Epi {
+  const float* ws;  // [Cout]
+  const float* b;   // [Cout], modes 0 and 1
+  const float* s;   // [Cout]
+  const float* t;   // [Cout]
+  const float* so;  // scalar, modes 0 and 2
+  void* out;        // [B, H, W, Cout], int8 (modes 0, 2) or f32 (mode 1)
+  int cout;
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
+
+template <int MODE>
+__device__ __forceinline__ float affine(int acc, float ws, float b, float s, float t) {
+  float y = __fmul_rn(__int2float_rn(acc), ws);
+  if (MODE != kAffineRequant) y = fmaxf(__fadd_rn(y, b), 0.0f);
+  return __fadd_rn(__fmul_rn(y, s), t);
+}
+
+__device__ __forceinline__ int requant(float y, float so) {
+  const float q = rintf(__fdiv_rn(y, so));
+  return __float2int_rn(fminf(fmaxf(q, -127.0f), 127.0f));
+}
+
+// The epilogue's per-channel vectors of output channels n and n1 (n1 == n
+// where n is the last channel).
+struct ChanPair {
+  float ws0, ws1, b0, b1, s0, s1, t0, t1;
+};
+
+template <int MODE>
+__device__ __forceinline__ ChanPair chan_pair(const Epi& e, int n, int n1) {
+  ChanPair c;
+  c.ws0 = __ldg(e.ws + n);
+  c.ws1 = __ldg(e.ws + n1);
+  c.s0 = __ldg(e.s + n);
+  c.s1 = __ldg(e.s + n1);
+  c.t0 = __ldg(e.t + n);
+  c.t1 = __ldg(e.t + n1);
+  c.b0 = MODE == kAffineRequant ? 0.0f : __ldg(e.b + n);
+  c.b1 = MODE == kAffineRequant ? 0.0f : __ldg(e.b + n1);
+  return c;
+}
+
+// Epilogue of the sums a0, a1 of channels n, n + 1 of one output pixel,
+// stored at element `off` = pixel * Cout + n (`two`: n + 1 < Cout; with an
+// even Cout the pair is one aligned store).
+template <int MODE>
+__device__ __forceinline__ void store_pair(const Epi& e, const ChanPair& c, long long off,
+                                           bool two, int a0, int a1, float so) {
+  const float y0 = affine<MODE>(a0, c.ws0, c.b0, c.s0, c.t0);
+  const float y1 = affine<MODE>(a1, c.ws1, c.b1, c.s1, c.t1);
+  const bool pair = two && (e.cout & 1) == 0;
+  if (MODE == kReluF32) {
+    float* o = static_cast<float*>(e.out) + off;
+    if (pair) {
+      *reinterpret_cast<float2*>(o) = make_float2(y0, y1);
+    } else {
+      o[0] = y0;
+      if (two) o[1] = y1;
+    }
+  } else {
+    const int q0 = requant(y0, so), q1 = requant(y1, so);
+    int8_t* o = static_cast<int8_t*>(e.out) + off;
+    if (pair) {
+      *reinterpret_cast<uint16_t*>(o) =
+          (uint16_t)((uint8_t)(int8_t)q0 | ((uint16_t)(uint8_t)(int8_t)q1 << 8));
+    } else {
+      o[0] = (int8_t)q0;
+      if (two) o[1] = (int8_t)q1;
+    }
+  }
+}
+
+// ---- route "mma": cp.async + ldmatrix + mma.sync ---------------------------
+
+constexpr int kMmaBN = 128;  // output channels per block
+constexpr int kMmaStages = 3;
+constexpr int kMmaThreads = 256;
+constexpr int kMmaTileBytes = kBM * kBK;  // an A or a B tile (kBM == kMmaBN)
+constexpr int kMmaSmemBytes = kMmaStages * 2 * kMmaTileBytes;
+static_assert(kBM == kMmaBN, "A and B tiles share one size");
+
+struct Params {
+  const int8_t* x;   // [B, H, W, Cin]
+  const int8_t* w;   // [Cout, kp]
+  const int* steps;  // [n_tiles, list_stride]: each N tile's skip list
+  const int* counts; // [n_tiles]
+  Epi e;
+  int h, w_, cin, cout, kh, kw, kp;
+  int list_stride;   // kp / kBK
+  int m;             // B * H * W
+  int n_tiles;       // ceil(Cout / kMmaBN)
+  int steps_per_tap; // aligned layout: ceil(Cin / kBK)
+  int kvalid;        // packed layout: kh * kw * Cin
+};
 
 // byte offset of 16-byte chunk `chunk` (0..3) of tile row `row`
 __device__ __forceinline__ uint32_t swz(int row, int chunk) {
@@ -125,20 +232,8 @@ __device__ __forceinline__ void mma_s8(int* c, const uint32_t* a, const uint32_t
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-template <int MODE>
-__device__ __forceinline__ float affine(int acc, float ws, float b, float s, float t) {
-  float y = __fmul_rn(__int2float_rn(acc), ws);
-  if (MODE != kAffineRequant) y = fmaxf(__fadd_rn(y, b), 0.0f);
-  return __fadd_rn(__fmul_rn(y, s), t);
-}
-
-__device__ __forceinline__ int requant(float y, float so) {
-  const float q = rintf(__fdiv_rn(y, so));
-  return __float2int_rn(fminf(fmaxf(q, -127.0f), 127.0f));
-}
-
 template <int MODE, bool ALIGNED>
-__global__ void __launch_bounds__(kThreads, 2) int8_conv_kernel(const Params p) {
+__global__ void __launch_bounds__(kMmaThreads, 2) int8_conv_kernel(const Params p) {
   extern __shared__ __align__(128) int8_t smem[];
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -147,10 +242,11 @@ __global__ void __launch_bounds__(kThreads, 2) int8_conv_kernel(const Params p) 
   const int warp_n = warp & 3;   // 0..3: columns warp_n*32 ..
   const int nt = (int)(blockIdx.x % (unsigned)p.n_tiles);
   const int m0 = (int)(blockIdx.x / (unsigned)p.n_tiles) * kBM;
-  const int n0 = nt * kBN;
+  const int n0 = nt * kMmaBN;
   const uint32_t base = smem_addr(smem);
   const int hw = p.h * p.w_;
-  const int ksteps = p.kp / kBK;
+  const int* list = p.steps + (long long)nt * p.list_stride;
+  const int count = __ldg(p.counts + nt);
 
   // Loader state. Aligned: thread tid copies chunk tid % 4 of tile rows
   // tid / 4 and tid / 4 + 64 of A and of B. Packed: thread tid gathers
@@ -179,9 +275,10 @@ __global__ void __launch_bounds__(kThreads, 2) int8_conv_kernel(const Params p) 
     brow[i] = p.w + (long long)(bok[i] ? n : 0) * p.kp + lchunk * 16;
   }
 
+  // K-step `step` (a listed one) into stage `slot`
   auto load_stage = [&](int step, int slot) {
-    const uint32_t a_s = base + slot * 2 * kTileBytes;
-    const uint32_t b_s = a_s + kTileBytes;
+    const uint32_t a_s = base + slot * 2 * kMmaTileBytes;
+    const uint32_t b_s = a_s + kMmaTileBytes;
 #pragma unroll
     for (int i = 0; i < 2; ++i)
       cp_async16(b_s + swz((tid >> 2) + 64 * i, lchunk), brow[i] + (long long)step * kBK,
@@ -241,18 +338,18 @@ __global__ void __launch_bounds__(kThreads, 2) int8_conv_kernel(const Params p) 
       for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0;
 
 #pragma unroll
-  for (int st = 0; st < kStages - 1; ++st) {
-    if (st < ksteps) load_stage(st, st);
+  for (int st = 0; st < kMmaStages - 1; ++st) {
+    if (st < count) load_stage(__ldg(list + st), st);
     cp_async_commit();
   }
-  for (int step = 0; step < ksteps; ++step) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();  // step's tile is in; every warp is done with the slot refilled next
-    const int next = step + kStages - 1;
-    if (next < ksteps) load_stage(next, next % kStages);
+  for (int i = 0; i < count; ++i) {
+    cp_async_wait<kMmaStages - 2>();
+    __syncthreads();  // step i's tile is in; every warp is done with the slot refilled next
+    const int next = i + kMmaStages - 1;
+    if (next < count) load_stage(__ldg(list + next), next % kMmaStages);
     cp_async_commit();
-    const uint32_t a_s = base + (step % kStages) * 2 * kTileBytes;
-    const uint32_t b_s = a_s + kTileBytes;
+    const uint32_t a_s = base + (i % kMmaStages) * 2 * kMmaTileBytes;
+    const uint32_t b_s = a_s + kMmaTileBytes;
 #pragma unroll
     for (int kk = 0; kk < kBK / 32; ++kk) {
       uint32_t bf[4][2];
@@ -280,133 +377,595 @@ __global__ void __launch_bounds__(kThreads, 2) int8_conv_kernel(const Params p) 
 
   // Epilogue on the C fragments: lane (g = lane / 4, q = lane % 4) holds
   // columns 2q, 2q + 1 of rows g and g + 8 of each 16 x 8 tile.
-  const float so = MODE == kReluF32 ? 1.0f : __ldg(p.so);
-  const bool even = (p.cout & 1) == 0;
+  const float so = MODE == kReluF32 ? 1.0f : __ldg(p.e.so);
 #pragma unroll
   for (int ni = 0; ni < 4; ++ni) {
     const int n = n0 + warp_n * 32 + ni * 8 + (lane & 3) * 2;
     if (n >= p.cout) continue;
     const bool two = n + 1 < p.cout;
-    const int n1 = two ? n + 1 : n;
-    const float ws0 = __ldg(p.ws + n), ws1 = __ldg(p.ws + n1);
-    const float s0 = __ldg(p.s + n), s1 = __ldg(p.s + n1);
-    const float t0 = __ldg(p.t + n), t1 = __ldg(p.t + n1);
-    const float b0 = MODE == kAffineRequant ? 0.0f : __ldg(p.b + n);
-    const float b1 = MODE == kAffineRequant ? 0.0f : __ldg(p.b + n1);
+    const ChanPair c = chan_pair<MODE>(p.e, n, two ? n + 1 : n);
 #pragma unroll
     for (int mi = 0; mi < 4; ++mi) {
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int m = m0 + warp_m * 64 + mi * 16 + (lane >> 2) + half * 8;
         if (m >= p.m) continue;
-        const float y0 = affine<MODE>(acc[mi][ni][2 * half], ws0, b0, s0, t0);
-        const float y1 = affine<MODE>(acc[mi][ni][2 * half + 1], ws1, b1, s1, t1);
-        const long long off = (long long)m * p.cout + n;
-        if (MODE == kReluF32) {
-          float* o = static_cast<float*>(p.out) + off;
-          if (two && even) {
-            *reinterpret_cast<float2*>(o) = make_float2(y0, y1);
-          } else {
-            o[0] = y0;
-            if (two) o[1] = y1;
-          }
-        } else {
-          const int q0 = requant(y0, so), q1 = requant(y1, so);
-          int8_t* o = static_cast<int8_t*>(p.out) + off;
-          if (two && even) {
-            *reinterpret_cast<uint16_t*>(o) =
-                (uint16_t)((uint8_t)(int8_t)q0 | ((uint16_t)(uint8_t)(int8_t)q1 << 8));
-          } else {
-            o[0] = (int8_t)q0;
-            if (two) o[1] = (int8_t)q1;
-          }
-        }
+        store_pair<MODE>(p.e, c, (long long)m * p.cout + n, two, acc[mi][ni][2 * half],
+                         acc[mi][ni][2 * half + 1], so);
       }
     }
   }
 }
 
+// ---- route "wgmma": TMA ring + warp-specialised wgmma ----------------------
+
+constexpr int kWgThreads = 288;  // two consumer warpgroups, then the producer warp
+
+template <int BN>
+struct WgCfg {
+  static constexpr int kStages = BN == 256 ? 6 : 4;
+  static constexpr int kABytes = kBM * kBK;  // 8 KB: 128 pixels x 64 bytes
+  static constexpr int kBBytes = BN * kBK;
+  static constexpr int kStageBytes = kABytes + kBBytes;  // a multiple of 1024
+  // the int8 output tile, rows padded by 16 bytes against bank conflicts
+  static constexpr int kOutStride = BN + 16;
+  static constexpr int kOutBytes = kBM * kOutStride;
+  // the stages, the output tile, the full and empty barriers, and slack to
+  // align to 1024
+  static constexpr int kSmemBytes = kStages * kStageBytes + kOutBytes + 16 * kStages + 1024;
+  static constexpr int kMinBlocks = BN == 256 ? 1 : 2;
+};
+
+struct WParams {
+  const int* steps;   // [n_tiles, list_stride]: each N tile's skip list
+  const int* counts;  // [n_tiles]
+  Epi e;
+  int h, w_, kh, kw;
+  int list_stride;    // kp / kBK
+  int steps_per_tap;  // ceil(Cin / kBK)
+  int bw_log2;        // patch width bw = 1 << bw_log2, height kBM >> bw_log2
+  int tiles_x, tiles_y, n_tiles;
+};
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// spin until the phase of `bar` with parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// wgmma descriptor of a K-major tile of 64-byte rows in the 64-byte swizzle:
+// start address >> 4 (bits 0-13), leading byte offset unused for swizzled
+// K-major tiles (1), 512 bytes between 8-row groups (bits 32-45, in 16-byte
+// units), layout type 2 = 64B swizzle (bits 62-63). The tile's 512-byte
+// swizzle atoms are aligned, so the base offset is 0; +32 bytes on `addr`
+// selects the second k32 of a 64-byte K-step.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(512 >> 4) << 32) |
+         (2ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving accesses of the accumulators across the
+// asynchronous wgmma (their values change behind its back until the wait).
+template <int R>
+__device__ __forceinline__ void fence_regs(int* d) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// D[64 x N] += A[64 x 32] * B[N x 32]^T, s8 x s8 -> s32, both from shared
+// memory; thread t of the warpgroup holds, for each 8-column group j,
+// d[4j], d[4j + 1] at row 16 * (t / 32) + (t % 32) / 4, columns 8j + 2 * (t % 4)
+// + {0, 1}, and d[4j + 2], d[4j + 3] 8 rows below.
+__device__ __forceinline__ void wgmma_m64n64(int* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p;\n}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_m64n128(int* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_m64n256(int* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p;\n}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
+        "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
+        "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+        "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]),
+        "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]),
+        "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <int BN>
+__device__ __forceinline__ void wgmma_k32(int* d, uint64_t da, uint64_t db) {
+  if constexpr (BN == 64) {
+    wgmma_m64n64(d, da, db);
+  } else if constexpr (BN == 128) {
+    wgmma_m64n128(d, da, db);
+  } else {
+    wgmma_m64n256(d, da, db);
+  }
+}
+
+template <int MODE, int BN>
+__global__ void __launch_bounds__(kWgThreads, WgCfg<BN>::kMinBlocks)
+    int8_conv_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                           const __grid_constant__ CUtensorMap wmap, const WParams p) {
+  using Cfg = WgCfg<BN>;
+  extern __shared__ uint8_t wsmem[];
+  const uint32_t base = (smem_addr(wsmem) + 1023u) & ~1023u;
+  const uint32_t out_tile = base + Cfg::kStages * Cfg::kStageBytes;
+  const uint32_t full0 = out_tile + Cfg::kOutBytes;  // full[s] at full0 + 8s
+  const uint32_t empty0 = full0 + 8 * Cfg::kStages;
+  const int tid = threadIdx.x;
+  const int nt = (int)(blockIdx.x % (unsigned)p.n_tiles);
+  int mt = (int)(blockIdx.x / (unsigned)p.n_tiles);
+  const int tx = mt % p.tiles_x;
+  mt /= p.tiles_x;
+  const int ty = mt % p.tiles_y;
+  const int img = mt / p.tiles_y;
+  const int x0 = tx << p.bw_log2;
+  const int y0 = ty * (kBM >> p.bw_log2);
+  const int n0 = nt * BN;
+  const int count = __ldg(p.counts + nt);
+
+  if (tid == 0) {
+    for (int s = 0; s < Cfg::kStages; ++s) {
+      mbar_init(full0 + 8 * s, 1);   // the producer's arrival + the stage's bytes
+      mbar_init(empty0 + 8 * s, 2);  // one arrival per consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= 256) {  // the producer warp: one thread issues every load
+    if (tid == 256) {
+      const int* list = p.steps + (long long)nt * p.list_stride;
+      for (int i = 0; i < count; ++i) {
+        const int slot = i % Cfg::kStages;
+        // a fresh barrier's phase "before 0" counts as complete: the first
+        // round finds every stage free
+        mbar_wait(empty0 + 8 * slot, ((i / Cfg::kStages) & 1) ^ 1);
+        const int step = __ldg(list + i);
+        const int tap = step / p.steps_per_tap;
+        const int c0 = (step - tap * p.steps_per_tap) * kBK;
+        const int ky = tap / p.kw;
+        const int dy = ky - p.kh / 2;
+        const int dx = tap - ky * p.kw - p.kw / 2;
+        const uint32_t a = base + slot * Cfg::kStageBytes;
+        const uint32_t bar = full0 + 8 * slot;
+        mbar_expect_tx(bar, Cfg::kStageBytes);  // zero-filled bytes count too
+        tma_load_4d(a, &xmap, bar, c0, x0 + dx, y0 + dy, img);
+        tma_load_2d(a + Cfg::kABytes, &wmap, bar, step * kBK, n0);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup wg: patch rows 64 * wg .. 64 * wg + 63
+  const int wg = tid >> 7;
+  int acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
+  for (int i = 0; i < count; ++i) {
+    const int slot = i % Cfg::kStages;
+    mbar_wait(full0 + 8 * slot, (i / Cfg::kStages) & 1);
+    const uint32_t a = base + slot * Cfg::kStageBytes + wg * (64 * kBK);
+    const uint32_t b = base + slot * Cfg::kStageBytes + Cfg::kABytes;
+    wgmma_fence();
+    wgmma_k32<BN>(acc, smem_desc(a), smem_desc(b));
+    wgmma_k32<BN>(acc, smem_desc(a + 32), smem_desc(b + 32));
+    wgmma_commit();
+    wgmma_wait<1>();  // step i - 1's products are done: its stage has been read
+    if (i > 0 && (tid & 127) == 0) mbar_arrive(empty0 + 8 * ((i - 1) % Cfg::kStages));
+  }
+  wgmma_wait<0>();
+  fence_regs<BN / 2>(acc);
+
+  const int t = tid & 127;
+  const int lane = t & 31;
+  if constexpr (MODE == kReluF32) {
+    // the f32 head (off the served path): straight from the registers
+    long long off[2];
+    bool ok[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = wg * 64 + (t >> 5) * 16 + (lane >> 2) + 8 * i;  // row of the patch
+      const int y = y0 + (r >> p.bw_log2);
+      const int x = x0 + (r & ((1 << p.bw_log2) - 1));
+      ok[i] = y < p.h && x < p.w_;
+      off[i] = (((long long)img * p.h + y) * p.w_ + x) * p.e.cout;
+    }
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int n = n0 + j * 8 + (lane & 3) * 2;
+      if (n >= p.e.cout) continue;
+      const bool two = n + 1 < p.e.cout;
+      const ChanPair c = chan_pair<MODE>(p.e, n, two ? n + 1 : n);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        if (ok[i])
+          store_pair<MODE>(p.e, c, off[i] + n, two, acc[4 * j + 2 * i],
+                           acc[4 * j + 2 * i + 1], 1.0f);
+    }
+  } else {
+    // int8 codes: into the warpgroup's 64 rows of the shared output tile,
+    // then out as 16-byte row segments, consecutive threads on consecutive
+    // bytes of a pixel's channels
+    const float so = __ldg(p.e.so);
+    const uint32_t rows = out_tile + wg * 64 * Cfg::kOutStride;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = j * 8 + (lane & 3) * 2;
+      const int n = n0 + col;
+      if (n >= p.e.cout) continue;
+      const bool two = n + 1 < p.e.cout;
+      const ChanPair c = chan_pair<MODE>(p.e, n, two ? n + 1 : n);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int q0 = requant(affine<MODE>(acc[4 * j + 2 * i], c.ws0, c.b0, c.s0, c.t0), so);
+        const int q1 =
+            requant(affine<MODE>(acc[4 * j + 2 * i + 1], c.ws1, c.b1, c.s1, c.t1), so);
+        const int rr = (t >> 5) * 16 + (lane >> 2) + 8 * i;
+        const uint16_t v = (uint16_t)((uint8_t)(int8_t)q0 | ((uint16_t)(uint8_t)(int8_t)q1 << 8));
+        asm volatile("st.shared.u16 [%0], %1;\n" ::"r"(rows + rr * Cfg::kOutStride + col),
+                     "h"(v)
+                     : "memory");
+      }
+    }
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");  // this warpgroup only
+    constexpr int kChunks = BN / 16;
+    const bool vec = (p.e.cout & 15) == 0;
+    int8_t* out = static_cast<int8_t*>(p.e.out);
+    for (int c = t; c < 64 * kChunks; c += 128) {
+      const int rr = c / kChunks;
+      const int col = (c - rr * kChunks) * 16;
+      const int r = wg * 64 + rr;
+      const int y = y0 + (r >> p.bw_log2);
+      const int x = x0 + (r & ((1 << p.bw_log2) - 1));
+      const int n = n0 + col;
+      if (y >= p.h || x >= p.w_ || n >= p.e.cout) continue;
+      uint32_t w0, w1, w2, w3;
+      asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+                   : "=r"(w0), "=r"(w1), "=r"(w2), "=r"(w3)
+                   : "r"(rows + rr * Cfg::kOutStride + col)
+                   : "memory");
+      int8_t* o = out + (((long long)img * p.h + y) * p.w_ + x) * p.e.cout + n;
+      if (vec && n + 16 <= p.e.cout) {
+        *reinterpret_cast<uint4*>(o) = make_uint4(w0, w1, w2, w3);
+      } else {
+        const uint32_t wv[4] = {w0, w1, w2, w3};
+        for (int k = 0; k < 16 && n + k < p.e.cout; ++k)
+          o[k] = (int8_t)(wv[k >> 2] >> (8 * (k & 3)));
+      }
+    }
+  }
+}
+
+// ---- host side ---------------------------------------------------------------
+
 template <int MODE, bool ALIGNED>
-cudaError_t launch(const Params& p, unsigned blocks, cudaStream_t stream) {
+cudaError_t launch_mma(const Params& p, unsigned blocks, cudaStream_t stream) {
   auto kernel = int8_conv_kernel<MODE, ALIGNED>;
-  const cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMmaSmemBytes);
   if (e != cudaSuccess) return e;
-  kernel<<<blocks, kThreads, kSmemBytes, stream>>>(p);
+  kernel<<<blocks, kMmaThreads, kMmaSmemBytes, stream>>>(p);
   return cudaGetLastError();
 }
 
 template <bool ALIGNED>
-cudaError_t dispatch(const Params& p, int mode, unsigned blocks, cudaStream_t stream) {
+cudaError_t dispatch_mma(const Params& p, int mode, unsigned blocks, cudaStream_t stream) {
   switch (mode) {
     case kReluRequant:
-      return launch<kReluRequant, ALIGNED>(p, blocks, stream);
+      return launch_mma<kReluRequant, ALIGNED>(p, blocks, stream);
     case kReluF32:
-      return launch<kReluF32, ALIGNED>(p, blocks, stream);
+      return launch_mma<kReluF32, ALIGNED>(p, blocks, stream);
     case kAffineRequant:
-      return launch<kAffineRequant, ALIGNED>(p, blocks, stream);
+      return launch_mma<kAffineRequant, ALIGNED>(p, blocks, stream);
   }
   return cudaErrorInvalidValue;
+}
+
+template <int MODE, int BN>
+cudaError_t launch_wgmma(const CUtensorMap& xmap, const CUtensorMap& wmap, const WParams& p,
+                         unsigned blocks, cudaStream_t stream) {
+  auto kernel = int8_conv_wgmma_kernel<MODE, BN>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WgCfg<BN>::kSmemBytes);
+  if (e != cudaSuccess) return e;
+  kernel<<<blocks, kWgThreads, WgCfg<BN>::kSmemBytes, stream>>>(xmap, wmap, p);
+  return cudaGetLastError();
+}
+
+template <int BN>
+cudaError_t dispatch_wgmma(const CUtensorMap& xmap, const CUtensorMap& wmap, const WParams& p,
+                           int mode, unsigned blocks, cudaStream_t stream) {
+  switch (mode) {
+    case kReluRequant:
+      return launch_wgmma<kReluRequant, BN>(xmap, wmap, p, blocks, stream);
+    case kReluF32:
+      return launch_wgmma<kReluF32, BN>(xmap, wmap, p, blocks, stream);
+    case kAffineRequant:
+      return launch_wgmma<kAffineRequant, BN>(xmap, wmap, p, blocks, stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// cuTensorMapEncodeTiled is a driver function: it is taken from the runtime's
+// entry-point query, so the library needs no -lcuda.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled_fn() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
+                                                           cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f,
+                                                  cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess && f != nullptr)
+      fn = reinterpret_cast<EncodeTiledFn>(f);
+  }
+  return fn;
+}
+
+// A tiled uint8 tensor map with the 64-byte swizzle; out-of-range
+// coordinates read as zero. Returns 0 or one of the kErr* codes.
+int encode_map(CUtensorMap* map, const void* ptr, cuuint32_t rank, const cuuint64_t* dims,
+               const cuuint64_t* strides, const cuuint32_t* box) {
+  const EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return kErrNoEncoder;
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r =
+      fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, rank, const_cast<void*>(ptr), dims, strides, box,
+         elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
+         CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kErrEncodeBase - (int)r;
 }
 
 }  // namespace
 
 extern "C" {
 
-// x: int8 [b, h, w, cin], 16-byte aligned; wm: int8 [cout, kp], laid out by
-// tpuseg_torch/infer/int8_conv.py::_kernel_layout (cin % 16 == 0: each tap's
-// cin padded to 64, kp = kh*kw*ceil(cin/64)*64; otherwise the taps packed,
-// kp = ceil(kh*kw*cin/64)*64); ws, b, s, t: f32 [cout] (b unused, may be
-// null, in mode 2); so: f32 scalar on the device (unused in mode 1); out:
-// [b, h, w, cout], int8 for modes 0 and 2, f32 for mode 1. Launches on
-// `stream` and returns the cudaError_t of the launch (0 on success); the
-// caller checked devices, dtypes and contiguity.
+// x: int8 [n_img, h, w, cin], 16-byte aligned; wm: int8 [cout, kp], laid out
+// by tpuseg_torch/infer/int8_conv.py::_kernel_layout (cin % 16 == 0: each
+// tap's cin padded to 64, kp = kh*kw*ceil(cin/64)*64; otherwise the taps
+// packed, kp = ceil(kh*kw*cin/64)*64); ws, b, s, t: f32 [cout] (b unused, may
+// be null, in mode 2); so: f32 scalar on the device (unused in mode 1); out:
+// [n_img, h, w, cout], int8 for modes 0 and 2, f32 for mode 1; steps, counts:
+// int32 [ceil(cout/bn), list_stride] and [ceil(cout/bn)], each N tile's skip
+// list (int8_conv.py::_skip_lists), list_stride = kp / 64. route 0 ("mma")
+// takes bn 128; route 1 ("wgmma") takes cin % 16 == 0, bn 64, 128 or 256 and
+// the patch width bw 16, 32, 64 or 128. Launches on `stream` and returns 0,
+// the cudaError_t of the launch, or a negative code of the tensor-map encoder
+// (tpuseg_cuda_error_string names each); the caller checked devices, dtypes
+// and contiguity.
 int tpuseg_int8_conv(const void* x, const void* wm, const float* ws, const float* b,
-                     const float* s, const float* t, const float* so, void* out, int n_img,
-                     int h, int w, int cin, int cout, int kh, int kw, int kp, int mode,
-                     void* stream) {
+                     const float* s, const float* t, const float* so, void* out,
+                     const int* steps, const int* counts, int list_stride, int n_img, int h,
+                     int w, int cin, int cout, int kh, int kw, int kp, int mode, int route,
+                     int bn, int bw, void* stream) {
   if (n_img <= 0 || h <= 0 || w <= 0 || cin <= 0 || cout <= 0) return (int)cudaErrorInvalidValue;
   if ((kh != 1 && kh != 3) || (kw != 1 && kw != 3)) return (int)cudaErrorInvalidValue;
   if (mode < 0 || mode > 2 || (mode != kAffineRequant && b == nullptr) ||
-      (mode != kReluF32 && so == nullptr))
+      (mode != kReluF32 && so == nullptr) || steps == nullptr || counts == nullptr)
     return (int)cudaErrorInvalidValue;
   const bool aligned = cin % 16 == 0;
   const long long taps = (long long)kh * kw;
   const long long want_kp = aligned ? taps * ((cin + kBK - 1) / kBK) * kBK
                                     : (taps * cin + kBK - 1) / kBK * kBK;
-  if (kp != want_kp || (aligned && (reinterpret_cast<uintptr_t>(x) & 15)) ||
+  if (kp != want_kp || list_stride != kp / kBK ||
+      (aligned && (reinterpret_cast<uintptr_t>(x) & 15)) ||
       (reinterpret_cast<uintptr_t>(wm) & 15))
     return (int)cudaErrorInvalidValue;
   const long long m = (long long)n_img * h * w;
-  const long long n_tiles = (cout + kBN - 1) / kBN;
-  const long long blocks = (m + kBM - 1) / kBM * n_tiles;
-  if (m >= (1LL << 31) || blocks >= (1LL << 31)) return (int)cudaErrorInvalidValue;
-  Params p;
-  p.x = static_cast<const int8_t*>(x);
-  p.w = static_cast<const int8_t*>(wm);
-  p.ws = ws;
-  p.b = b;
-  p.s = s;
-  p.t = t;
-  p.so = so;
-  p.out = out;
+  if (m >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  const Epi e = {ws, b, s, t, so, out, cout};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+
+  if (route == kRouteMma) {
+    if (bn != kMmaBN) return (int)cudaErrorInvalidValue;
+    const long long n_tiles = (cout + kMmaBN - 1) / kMmaBN;
+    const long long blocks = (m + kBM - 1) / kBM * n_tiles;
+    if (blocks >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+    Params p;
+    p.x = static_cast<const int8_t*>(x);
+    p.w = static_cast<const int8_t*>(wm);
+    p.steps = steps;
+    p.counts = counts;
+    p.e = e;
+    p.h = h;
+    p.w_ = w;
+    p.cin = cin;
+    p.cout = cout;
+    p.kh = kh;
+    p.kw = kw;
+    p.kp = kp;
+    p.list_stride = list_stride;
+    p.m = (int)m;
+    p.n_tiles = (int)n_tiles;
+    p.steps_per_tap = (cin + kBK - 1) / kBK;
+    p.kvalid = (int)(taps * cin);
+    return aligned ? (int)dispatch_mma<true>(p, mode, (unsigned)blocks, st)
+                   : (int)dispatch_mma<false>(p, mode, (unsigned)blocks, st);
+  }
+
+  if (route != kRouteWgmma || !aligned || (bn != 64 && bn != 128 && bn != 256))
+    return (int)cudaErrorInvalidValue;
+  int bw_log2 = -1;
+  for (int l = 4; l <= 7; ++l)
+    if (bw == (1 << l)) bw_log2 = l;
+  if (bw_log2 < 0) return (int)cudaErrorInvalidValue;
+  const int bh = kBM / bw;
+  WParams p;
+  p.steps = steps;
+  p.counts = counts;
+  p.e = e;
   p.h = h;
   p.w_ = w;
-  p.cin = cin;
-  p.cout = cout;
   p.kh = kh;
   p.kw = kw;
-  p.kp = kp;
-  p.m = (int)m;
-  p.n_tiles = (int)n_tiles;
+  p.list_stride = list_stride;
   p.steps_per_tap = (cin + kBK - 1) / kBK;
-  p.kvalid = (int)(taps * cin);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return aligned ? (int)dispatch<true>(p, mode, (unsigned)blocks, st)
-                 : (int)dispatch<false>(p, mode, (unsigned)blocks, st);
+  p.bw_log2 = bw_log2;
+  p.tiles_x = (w + bw - 1) / bw;
+  p.tiles_y = (h + bh - 1) / bh;
+  p.n_tiles = (cout + bn - 1) / bn;
+  const long long blocks = (long long)n_img * p.tiles_y * p.tiles_x * p.n_tiles;
+  if (blocks >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+
+  CUtensorMap xmap, wmap;
+  const cuuint64_t xdims[4] = {(cuuint64_t)cin, (cuuint64_t)w, (cuuint64_t)h,
+                               (cuuint64_t)n_img};
+  const cuuint64_t xstrides[3] = {(cuuint64_t)cin, (cuuint64_t)w * cin,
+                                  (cuuint64_t)h * w * cin};
+  const cuuint32_t xbox[4] = {(cuuint32_t)kBK, (cuuint32_t)bw, (cuuint32_t)bh, 1};
+  int err = encode_map(&xmap, x, 4, xdims, xstrides, xbox);
+  if (err != 0) return err;
+  const cuuint64_t wdims[2] = {(cuuint64_t)kp, (cuuint64_t)cout};
+  const cuuint64_t wstrides[1] = {(cuuint64_t)kp};
+  const cuuint32_t wbox[2] = {(cuuint32_t)kBK, (cuuint32_t)bn};
+  err = encode_map(&wmap, wm, 2, wdims, wstrides, wbox);
+  if (err != 0) return err;
+  switch (bn) {
+    case 64:
+      return (int)dispatch_wgmma<64>(xmap, wmap, p, mode, (unsigned)blocks, st);
+    case 128:
+      return (int)dispatch_wgmma<128>(xmap, wmap, p, mode, (unsigned)blocks, st);
+    default:
+      return (int)dispatch_wgmma<256>(xmap, wmap, p, mode, (unsigned)blocks, st);
+  }
+}
+
+// Dynamic shared memory of a block of `route` at N-tile width `bn`, in
+// bytes (0 for a width the route does not take).
+int tpuseg_int8_conv_smem_bytes(int route, int bn) {
+  if (route == kRouteMma) return bn == kMmaBN ? kMmaSmemBytes : 0;
+  switch (bn) {
+    case 64:
+      return WgCfg<64>::kSmemBytes;
+    case 128:
+      return WgCfg<128>::kSmemBytes;
+    case 256:
+      return WgCfg<256>::kSmemBytes;
+  }
+  return 0;
 }
 
 const char* tpuseg_cuda_error_string(int err) {
+  if (err == kErrNoEncoder) return "the CUDA driver has no cuTensorMapEncodeTiled";
+  if (err <= kErrEncodeBase)
+    return "cuTensorMapEncodeTiled refused the tensor map (the code is -1000 - its CUresult)";
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

@@ -22,7 +22,22 @@ On a CUDA tensor it launches the hand-written implicit-GEMM kernel in
 built from shifted slices (int8 ``F.unfold`` has no CUDA kernel) fed to
 ``torch._int_mm``, chunked over output rows so the im2col stays under
 ``_IM2COL_BYTES``, with the epilogue applied per chunk. Nothing falls back
-from one to the other. ``LAUNCHES`` counts kernel launches.
+from one to the other. ``LAUNCHES`` counts kernel launches,
+``ROUTE_LAUNCHES`` counts them by route, and ``LAST_ROUTE`` names the
+route of the last one.
+
+The kernel has two routes, chosen by :func:`kernel_route` from ``Cin``:
+``"wgmma"`` for ``Cin % 16 == 0`` (every block of the served walk): a
+producer warp keeps a ring of shared-memory stages full with TMA, the
+input tile as a ``bh x bw`` patch of one image (SAME padding and the Cin
+tail come from TMA's zero fill), and two consumer warpgroups multiply with
+``wgmma``; ``"mma"`` for any ``Cin`` (the packed-tap layout of a quantized
+input layer, and a yardstick): ``cp.async`` and ``mma.sync``. Both run
+only the 64-byte K-steps whose weight codes are not all zero within their
+N tile (:func:`_skip_lists`): the blocked edge convs' structural zeros,
+3/4 of their K-steps, are never loaded or multiplied. The N-tile width
+(:func:`n_tile_width`) and the patch width (:func:`patch_width`) are plain
+functions of shapes and skip counts.
 
 Both compute the same IEEE float operations in the same order, and the
 int32 sums are exact, so the kernel is bit-equal to the plain version.
@@ -38,8 +53,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-# Kernel launches since the counter was last reset (CPU calls don't count).
+# Kernel launches since the counter was last reset (CPU calls don't count),
+# in all and by route; the route of the last launch.
 LAUNCHES = 0
+ROUTES = ("wgmma", "mma")
+ROUTE_LAUNCHES = dict.fromkeys(ROUTES, 0)
+LAST_ROUTE = None
 
 # im2col bytes per chunk of the plain version
 _IM2COL_BYTES = 1 << 30
@@ -48,7 +67,24 @@ _IM2COL_BYTES = 1 << 30
 # padded to it in the kernel's weight layout.
 _KSTEP = 64
 
+# Output pixels per tile of either route (a bh x bw patch on "wgmma").
+_TILE_M = 128
+# N-tile widths of the "wgmma" route; the "mma" route's tile is 128 wide.
+N_TILES = (64, 128, 256)
+_MMA_BN = 128
+# Patch widths of the "wgmma" route (bh = 128 / bw).
+PATCH_WIDTHS = (16, 32, 64, 128)
+# The "wgmma" route's cost model at each N-tile width, in units of one K-step
+# of a 64-wide tile: one K-step of a tile, and the fixed cost of a tile (its
+# start, pipeline fill and epilogue). Fitted (least squares, relative error)
+# to the route's times at each width at the 21 block shapes of a predict call
+# (chip_smoke.py phase 2, `wgmma_ms_by_bn`; NVIDIA H100 80GB HBM3 at 700 W):
+# within 6% at widths 64 and 128, 25% at 256.
+_STEP_COST = {64: 1.0, 128: 1.41, 256: 2.61}
+_TILE_COST = {64: 10.3, 128: 23.7, 256: 65.7}
+
 MODES = {"relu_requant": 0, "relu_f32": 1, "affine_requant": 2}
+_ROUTE_CODES = {"mma": 0, "wgmma": 1}
 
 
 def _round_up(n: int, k: int) -> int:
@@ -108,11 +144,97 @@ def _kernel_layout(wq: np.ndarray) -> np.ndarray:
     return wm
 
 
+def _skip_lists(wm: np.ndarray, bn: int):
+    """For N tiles ``bn`` columns wide: ``(steps, counts)``, int32 arrays
+    ``(n_tiles, ksteps)`` and ``(n_tiles,)``. Row ``t`` of ``steps`` starts
+    with the ``counts[t]`` K-steps (64-byte slices of ``wm``'s K) whose codes
+    are not all zero in rows ``t*bn .. t*bn+bn-1``, in increasing order;
+    the rest of the row is -1. Found from the codes alone."""
+    cout, kp = wm.shape
+    ksteps = kp // _KSTEP
+    n_tiles = -(-cout // bn)
+    nz = np.zeros((n_tiles * bn, ksteps), bool)
+    nz[:cout] = (wm.reshape(cout, ksteps, _KSTEP) != 0).any(axis=2)
+    nz = nz.reshape(n_tiles, bn, ksteps).any(axis=1)
+    counts = nz.sum(axis=1).astype(np.int32)
+    steps = np.full((n_tiles, ksteps), -1, np.int32)
+    for t in range(n_tiles):
+        idx = np.flatnonzero(nz[t])
+        steps[t, :len(idx)] = idx
+    return steps, counts
+
+
+def needed_macs(wq: np.ndarray) -> int:
+    """Multiply-adds per output pixel that the weights need: for each
+    output channel, the input channels of each 64-byte K-step of its laid-out
+    row whose codes are not all zero (the zero padding of the layout not
+    counted). Dense random codes need ``kh*kw*cin*cout``; the blocked edge
+    convs' structural zeros drop out (a quarter of that for their 3x3s)."""
+    kh, kw, cin, _ = wq.shape
+    wm = _kernel_layout(wq)
+    cout, kp = wm.shape
+    ksteps = kp // _KSTEP
+    nz = (wm.reshape(cout, ksteps, _KSTEP) != 0).any(axis=2)
+    if cin % 16 == 0:
+        per_tap = -(-cin // _KSTEP)
+        c0 = (np.arange(ksteps) % per_tap) * _KSTEP
+        valid = np.minimum(_KSTEP, cin - c0)
+    else:
+        valid = np.minimum(_KSTEP, kh * kw * cin - np.arange(ksteps) * _KSTEP)
+    return int((nz * valid).sum())
+
+
+def kernel_route(cin: int) -> str:
+    """``"wgmma"`` where TMA can address ``x`` (its pixel stride, ``Cin``
+    bytes, a multiple of 16), else ``"mma"``."""
+    return "wgmma" if cin % 16 == 0 else "mma"
+
+
+def n_tile_width(route: str, cout: int, counts: Dict[int, np.ndarray]) -> int:
+    """The N-tile width of a launch: 128 on ``"mma"``; on ``"wgmma"`` the
+    width in :data:`N_TILES` whose tiles cost least, the K-steps they run
+    (``counts[bn]`` from :func:`_skip_lists`) at ``_STEP_COST`` plus each
+    tile at ``_TILE_COST``, the wider on a tie. A dense Cout = 64 conv
+    takes 64; so do the blocked convs, whose 64-wide tiles each skip 3/4
+    of their K-steps."""
+    if route == "mma":
+        return _MMA_BN
+    if route != "wgmma":
+        raise ValueError(f"route {route!r} not in {ROUTES}")
+    cost = {bn: int(np.asarray(counts[bn]).sum()) * _STEP_COST[bn]
+            + len(counts[bn]) * _TILE_COST[bn] for bn in N_TILES}
+    return min(N_TILES, key=lambda bn: (cost[bn], -bn))
+
+
+def patch_width(h: int, w: int) -> int:
+    """The ``"wgmma"`` route's patch width ``bw`` (``bh = 128 / bw``): the
+    one in :data:`PATCH_WIDTHS` whose patches cover ``h x w`` with the
+    fewest pixels, the wider on a tie."""
+    def area(bw):
+        bh = _TILE_M // bw
+        return -(-w // bw) * bw * (-(-h // bh) * bh)
+
+    return min(PATCH_WIDTHS, key=lambda bw: (area(bw), -bw))
+
+
+@dataclass(frozen=True)
+class KernelWeights:
+    """The kernel's operands of one conv on one device: the laid-out codes
+    ``wm`` ``(cout, kp)`` int8, and for each N-tile width the skip lists
+    (``steps``, ``counts``: int32 on the device) with the counts also on
+    the host (``host_counts``), for :func:`n_tile_width`."""
+
+    wm: torch.Tensor
+    steps: Dict[int, torch.Tensor]
+    counts: Dict[int, torch.Tensor]
+    host_counts: Dict[int, np.ndarray]
+
+
 class Int8ConvWeights:
     """The HWIO int8 codes ``wq`` of one conv, laid out once on each device
     that asks: ``(cout, kh*kw*cin)`` zero-padded to multiples of 8 for the
     plain version (``torch._int_mm`` wants K and N so), the kernel's
-    :func:`_kernel_layout` for CUDA launches."""
+    :func:`_kernel_layout` and skip lists for CUDA launches."""
 
     def __init__(self, wq: np.ndarray):
         if wq.dtype != np.int8 or wq.ndim != 4:
@@ -121,7 +243,7 @@ class Int8ConvWeights:
         self.k = self.kh * self.kw * self.cin
         self._wq = wq
         self._plain: Dict[torch.device, torch.Tensor] = {}
-        self._kernel: Dict[torch.device, torch.Tensor] = {}
+        self._kernel: Dict[torch.device, KernelWeights] = {}
 
     def plain(self, device: torch.device) -> torch.Tensor:
         wm = self._plain.get(device)
@@ -131,11 +253,17 @@ class Int8ConvWeights:
             wm = self._plain[device] = torch.from_numpy(a).to(device)
         return wm
 
-    def kernel(self, device: torch.device) -> torch.Tensor:
-        wm = self._kernel.get(device)
-        if wm is None:
-            wm = self._kernel[device] = torch.from_numpy(_kernel_layout(self._wq)).to(device)
-        return wm
+    def kernel(self, device: torch.device) -> KernelWeights:
+        kw = self._kernel.get(device)
+        if kw is None:
+            wm = _kernel_layout(self._wq)
+            lists = {bn: _skip_lists(wm, bn) for bn in sorted(set(N_TILES) | {_MMA_BN})}
+            kw = self._kernel[device] = KernelWeights(
+                torch.from_numpy(wm).to(device),
+                {bn: torch.from_numpy(st).to(device) for bn, (st, _) in lists.items()},
+                {bn: torch.from_numpy(c).to(device) for bn, (_, c) in lists.items()},
+                {bn: c for bn, (_, c) in lists.items()})
+        return kw
 
 
 def _im2col(xp: torch.Tensor, x: torch.Tensor, weights: Int8ConvWeights, kp: int,
@@ -183,7 +311,8 @@ def _int8_conv_plain(x: torch.Tensor, weights: Int8ConvWeights,
     return out
 
 
-def _check(x: torch.Tensor, weights: Int8ConvWeights, epilogue: Epilogue) -> None:
+def _check(x: torch.Tensor, weights: Int8ConvWeights, epilogue: Epilogue, route: str,
+           bn: int, bw: int) -> None:
     if x.dtype != torch.int8 or x.dim() != 4:
         raise TypeError(f"x must be 4-D int8 NHWC, got {x.dtype} {tuple(x.shape)}")
     b, h, w, cin = x.shape
@@ -197,6 +326,8 @@ def _check(x: torch.Tensor, weights: Int8ConvWeights, epilogue: Epilogue) -> Non
         raise ValueError("x must be contiguous")
     if x.data_ptr() % 16:
         raise ValueError("x must be 16-byte aligned for 16-byte copies")
+    if route == "wgmma" and cin % 16:
+        raise ValueError(f"the wgmma route needs Cin % 16 == 0 (TMA strides), got Cin {cin}")
     vecs = [("ws", epilogue.ws), ("s", epilogue.s), ("t", epilogue.t)]
     if epilogue.b is not None:
         vecs.append(("b", epilogue.b))
@@ -211,20 +342,36 @@ def _check(x: torch.Tensor, weights: Int8ConvWeights, epilogue: Epilogue) -> Non
     if epilogue.so is not None and epilogue.so.numel() != 1:
         raise ValueError(f"epilogue so must be a scalar, got {tuple(epilogue.so.shape)}")
     m = b * h * w
-    tiles = -(-m // 128) * -(-weights.cout // 128)
+    if route == "wgmma":
+        bh = _TILE_M // bw
+        m_tiles = b * -(-h // bh) * -(-w // bw)
+    else:
+        m_tiles = -(-m // _TILE_M)
+    tiles = m_tiles * -(-weights.cout // bn)
     if m >= 2 ** 31 or tiles >= 2 ** 31:
         raise ValueError(f"{m} output pixels ({tiles} tiles) exceed the kernel's "
                          "32-bit index range")
 
 
-def _launch(x: torch.Tensor, weights: Int8ConvWeights, epilogue: Epilogue) -> torch.Tensor:
-    global LAUNCHES
+def _launch(x: torch.Tensor, weights: Int8ConvWeights, epilogue: Epilogue,
+            route: Optional[str] = None, bn: Optional[int] = None) -> torch.Tensor:
+    """One kernel launch on ``route`` (default :func:`kernel_route`) with
+    N tiles ``bn`` wide (default :func:`n_tile_width`); ``chip_smoke.py``
+    passes both to time the routes and widths side by side."""
+    global LAUNCHES, LAST_ROUTE
     from tpuseg_torch.kernels.build import load
 
-    _check(x, weights, epilogue)
-    wm = weights.kernel(x.device)
-    lib = load("int8_conv")
     b, h, w, cin = x.shape
+    route = kernel_route(cin) if route is None else route
+    if route not in ROUTES:
+        raise ValueError(f"route {route!r} not in {ROUTES}")
+    op = weights.kernel(x.device)
+    bn = n_tile_width(route, weights.cout, op.host_counts) if bn is None else bn
+    if bn not in (N_TILES if route == "wgmma" else (_MMA_BN,)):
+        raise ValueError(f"N tile {bn} not taken by the {route} route")
+    bw = patch_width(h, w)
+    _check(x, weights, epilogue, route, bn, bw)
+    lib = load("int8_conv")
     dtype = torch.float32 if epilogue.mode == "relu_f32" else torch.int8
     out = torch.empty((b, h, w, weights.cout), dtype=dtype, device=x.device)
     e = epilogue
@@ -232,16 +379,21 @@ def _launch(x: torch.Tensor, weights: Int8ConvWeights, epilogue: Epilogue) -> to
     def ptr(t):
         return None if t is None else t.data_ptr()
 
+    steps = op.steps[bn]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.tpuseg_int8_conv(
-            x.data_ptr(), wm.data_ptr(), e.ws.data_ptr(), ptr(e.b), e.s.data_ptr(),
-            e.t.data_ptr(), ptr(e.so), out.data_ptr(), b, h, w, cin, weights.cout,
-            weights.kh, weights.kw, wm.shape[1], MODES[e.mode], stream)
+            x.data_ptr(), op.wm.data_ptr(), e.ws.data_ptr(), ptr(e.b), e.s.data_ptr(),
+            e.t.data_ptr(), ptr(e.so), out.data_ptr(), steps.data_ptr(),
+            op.counts[bn].data_ptr(), steps.shape[1], b, h, w, cin, weights.cout,
+            weights.kh, weights.kw, op.wm.shape[1], MODES[e.mode], _ROUTE_CODES[route], bn,
+            bw, stream)
     if err:
         msg = lib.tpuseg_cuda_error_string(err).decode()
-        raise RuntimeError(f"int8_conv kernel launch failed: {msg} ({err})")
+        raise RuntimeError(f"int8_conv kernel launch failed ({route} route): {msg} ({err})")
     LAUNCHES += 1
+    ROUTE_LAUNCHES[route] += 1
+    LAST_ROUTE = route
     return out
 
 
