@@ -17,15 +17,18 @@ package. Phases, each fatal on failure:
    fused: serving, at each of the 21 block shapes of a predict call, on
    codes and scales whose requantized outputs are not degenerate, the
    blocked edge convs' codes blocked as the main path's are, through both
-   of its routes, ``"wgmma"`` and ``"mma"``; K1, the row shear:
+   of its routes, ``"wgmma"`` and ``"mma"``; K5, the fp input conv with
+   its ReLU, folded BN and requantize: serving, batch 8 of 1024^2 tiles,
+   C 1 and 3, F 64, dense and phase-major; K1, the row shear:
    training), hold the result against its plain PyTorch version
-   (bit-equal for K1, K3 and the int8 K2), and time both in turns with
+   (bit-equal for K1, K3, K5 and the int8 K2), and time both in turns with
    the L2 flushed, by profiler device time (K2 also with CUDA events; K3
    by CUDA events around each call behind a spin kernel),
    beside the card's bound (K3's on the operations its weights need, and
    its dense bound) and a PyTorch library call that computes the same
    function where one exists (for K3 the GEMM alone, ``_int_mm`` on the
-   prebuilt im2col); K3 also at each N-tile width; K2's mma kernels'
+   prebuilt im2col; for K5 cuDNN's conv alone, beside the eager path K5
+   replaced); K3 also at each N-tile width; K2's mma kernels'
    registers and spills come from the build log, and a spill fails;
 3. reference: on a small input, the full-width int8_blocked engine on the
    card against the same engine on the CPU (whose arithmetic the CPU tests
@@ -36,15 +39,16 @@ package. Phases, each fatal on failure:
    serve a folder (one 4096^2 and four 256^2 uint16 images) through
    ``python -m tpuseg_torch.cli.inference --quantize int8_blocked`` with the
    launch counters zeroed just before and read just after (K3 launched 21
-   times per K2 launch, one of each per predict call, all on its
-   ``"wgmma"`` route), check every mask, serve it again with K3's plain
+   times and K5 once per K2 launch, one of each per predict call, K3 all
+   on its ``"wgmma"`` route), check every mask, serve it again with K3's plain
    version swapped in on the card (masks equal on every pixel, the first
    call's convs at phase 2's 21 shapes) and with ``--quantize int8`` (no
    K2, 21 K3 launches per predict call, again against the plain version
-   on every pixel) and compare the masks, then time the tiled engines on
-   the 4096^2 image
-   and profile one int8_blocked pass (device time by kernel and group, K3's
-   share, busy share);
+   on every pixel) and compare the masks, then serve both modes with K5's
+   plain version swapped in (masks equal on every pixel), time the tiled
+   engines on the 4096^2 image (K5 once per predict call in both int8
+   modes) and profile one pass of int8_blocked, int8 and none each (device
+   time by kernel and group, K3's and K5's shares, busy share);
 5. training reference: one f32 train step at base 4 on 64^2 inputs on the
    card (cuDNN TF32 off) against the same step on the CPU, from the same
    weights and batch, dropout off;
@@ -64,8 +68,8 @@ package. Phases, each fatal on failure:
 7. whole-slide streaming, end to end: write phase 4's 4096^2 image as a
    tiled BigTIFF (tile 512); run the int8_blocked predict function through
    ``inference_tiled_streaming`` and ``inference_tiled`` with equal
-   statistics (labels agree on >= 0.9999, K2 launched once and K3 21 times
-   per chunk of each zone row); stream the 4096^2 and 8192^2 slides
+   statistics (labels agree on >= 0.9999, K2 and K5 launched once and K3
+   21 times per chunk of each zone row); stream the 4096^2 and 8192^2 slides
    through K2 and through the same engine with K2's plain version as the
    head (masks
    agree on >= 0.9999 at every shape the path gives K2); time both
@@ -728,6 +732,156 @@ def phase_int8_conv(seed: int, dev) -> dict:
     return out
 
 
+K5_PER_CALL = 1  # K5 launches of one predict call (enc1a, default fp_blocks)
+
+
+def k5_inputs(c: int, seed: int, dev) -> list:
+    """A z-scored batch of BATCH tiles of TILE^2 with ``c`` channels and
+    enc1a's operands at width BASE: the kernel, epilogue vectors and an
+    output scale that spread the codes over the int8 range."""
+    import numpy as np
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((BATCH, TILE, TILE, c), generator=g, device=dev)
+    rng = np.random.default_rng(seed)
+    arrays = [rng.normal(0, 1, (3, 3, c, BASE)) / np.sqrt(9 * c), rng.normal(0, 0.3, BASE),
+              rng.uniform(0.5, 1.5, BASE), rng.normal(0, 0.3, BASE), np.asarray(2.5 / 127.0)]
+    return [x] + [torch.from_numpy(np.asarray(a, np.float32)).to(dev) for a in arrays]
+
+
+def eager_input_block(args: list, dtype, blocked: bool):
+    """The path K5 replaced, as ``quant.py`` ran it before: cuDNN's f32 conv
+    on operands rounded to ``dtype`` (the blocked walk's on the
+    space-to-depth batch with ``_block_weight``'s kernel), then the
+    epilogue and the requantize as eager passes. Returns it as a call, its
+    weights prepared once, as the walk cached them."""
+    import torch
+
+    from tpuseg_torch.infer import quant
+
+    x, w, b, s, t, so = args
+    if blocked:
+        w_oihw = quant._oihw(quant._block_weight(w.cpu().numpy(), (x.shape[-1],)), x.device)
+        b, s, t = (v.repeat(4) for v in (b, s, t))
+    else:
+        w_oihw = quant._oihw(w.cpu().numpy(), x.device)
+
+    def run():
+        xin = quant._s2d(x).to(dtype) if blocked else x
+        y = torch.clamp_min(quant._conv_fp(xin, w_oihw, dtype) + b, 0.0) * s + t
+        return torch.clamp(torch.round(y / so), -127, 127).to(torch.int8)
+
+    return run
+
+
+def phase_input_conv(seed: int, dev) -> dict:
+    """K5 at the main path's shapes (BATCH tiles of TILE^2, C 1, F BASE,
+    bf16 operands), in both layouts, and at C 3: the kernel bit-equal
+    (``torch.equal``) to its plain version on non-degenerate codes, and
+    beside the eager path it replaced (cuDNN's conv and eager passes; its
+    sums run in another order, so its codes are reported, not gated); then,
+    in turns with the L2 flushed, by CUDA events around each call
+    (:func:`events_ms_cold`), the kernel, the plain version and the eager
+    path in both layouts, and cuDNN's ``F.conv2d`` alone (f32 out, TF32 off,
+    on the rounded operands, as ``_conv_fp`` runs it: the product, a
+    yardstick the port no longer calls for enc1a). The bound: the input,
+    weights and vectors read once and the codes written once at the
+    card's memory rate, or the multiply-adds at the f32 CUDA-core peak,
+    whichever is longer."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpuseg_torch.infer import input_conv as k5
+    from tpuseg_torch.infer import quant
+
+    dtype = torch.bfloat16
+    out = {"build": build_report("input_conv", "input_conv_kernel", spill_fails=False),
+           "cases": []}
+    for c in (1, 3):
+        args = k5_inputs(c, seed + c, dev)
+        for blocked in (False, True):
+            before = k5.LAUNCHES
+            got = k5.input_conv(*args, dtype, blocked)
+            want = k5._input_conv_plain(*args, dtype, blocked)
+            eager = eager_input_block(args, dtype, blocked)()
+            torch.cuda.synchronize()
+            if k5.LAUNCHES != before + 1:
+                raise AssertionError(f"K5 C {c} blocked={blocked}: the wrapper did not launch")
+            err = (got.float() - want.float()).abs().max().item() \
+                if got.shape == want.shape else float("inf")
+            if got.shape != want.shape or got.dtype != torch.int8 or not torch.equal(got, want):
+                raise AssertionError(f"K5 C {c} blocked={blocked}: {tuple(got.shape)} "
+                                     f"{got.dtype} differs from plain (max abs err {err})")
+            codes = torch.unique(want).numel()
+            clipped = (want.abs() == 127).float().mean().item()
+            if codes < 64 or clipped > 0.5:
+                raise AssertionError(f"K5 C {c}: degenerate codes ({codes} distinct, "
+                                     f"{clipped:.1%} clipped)")
+            diff = (eager.int() - want.int()).abs()
+            r = {"c": c, "blocked": blocked, "shape": list(got.shape), "max_abs_err": err,
+                 "codes": codes, "clipped": clipped,
+                 "eager_codes_equal": (diff == 0).double().mean().item(),
+                 "eager_max_code_diff": diff.max().item()}
+            out["cases"].append(r)
+            log(f"K5 C {c} {'blocked' if blocked else 'dense'} {tuple(got.shape)}: bit-equal to "
+                f"plain, {codes} codes, {clipped:.2%} clipped; the eager path's codes equal on "
+                f"{r['eager_codes_equal']:.6f} (max diff {r['eager_max_code_diff']})")
+            del got, want, eager, diff
+        del args
+        torch.cuda.empty_cache()
+
+    args = k5_inputs(1, seed + 1, dev)
+    x, w = args[0], args[1]
+    xf = x.to(dtype).float().permute(0, 3, 1, 2)
+    wf = w.permute(3, 2, 0, 1).contiguous().to(dtype).float()
+
+    def library():
+        with quant._ieee_f32():
+            return F.conv2d(xf, wf, padding=1)
+
+    fns = {"library": (library, 5)}
+    for blocked in (False, True):
+        lay = "blocked" if blocked else "dense"
+        fns[f"kernel_{lay}"] = (lambda blocked=blocked: k5.input_conv(*args, dtype, blocked), 10)
+        fns[f"plain_{lay}"] = (
+            lambda blocked=blocked: k5._input_conv_plain(*args, dtype, blocked), 2)
+        fns[f"eager_{lay}"] = (eager_input_block(args, dtype, blocked), 3)
+    runs = {n: [] for n in fns}
+    for order in (list(fns), list(fns)[::-1]):
+        for n in order:
+            fn, reps = fns[n]
+            runs[n].append(events_ms_cold(fn, reps))
+    ms = {n: sum(r) / 2 for n, r in runs.items()}
+    b, h, wd, c = x.shape
+    nbytes = 4 * (x.numel() + w.numel() + 3 * BASE + 1) + b * h * wd * BASE
+    macs = b * h * wd * 9 * c * BASE
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, 2 * macs / F32_OPS * 1e3
+    out.update({"shape": list(x.shape), "f": BASE, "dtype": "bfloat16",
+                "ms": ms["kernel_blocked"], "ms_runs": runs["kernel_blocked"],
+                "dense_ms": ms["kernel_dense"], "dense_ms_runs": runs["kernel_dense"],
+                "plain_ms": ms["plain_blocked"], "plain_dense_ms": ms["plain_dense"],
+                "eager_ms": ms["eager_blocked"], "eager_dense_ms": ms["eager_dense"],
+                "eager_ms_runs": {k: runs[f"eager_{k}"] for k in ("dense", "blocked")},
+                "library_ms": ms["library"], "library_ms_runs": runs["library"],
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "bound_bytes_ms": t_bytes, "bound_ops_ms": t_ops, "bytes": nbytes, "macs": macs,
+                "max_abs_err": max(r["max_abs_err"] for r in out["cases"])})
+    out["share_of_bound"] = out["bound_ms"] / out["ms"]
+    out["dense_share_of_bound"] = out["bound_ms"] / out["dense_ms"]
+    log(f"K5 {tuple(x.shape)} -> {BASE} (bf16 operands): blocked {runs['kernel_blocked'][0]:.4f}"
+        f" / {runs['kernel_blocked'][1]:.4f} ms ({out['share_of_bound']:.1%} of the "
+        f"{out['bound_ms']:.4f} ms bound, {out['bound_by']}; ops {t_ops:.4f} ms), dense "
+        f"{out['dense_ms']:.4f} ms ({out['dense_share_of_bound']:.1%}); plain "
+        f"{out['plain_ms']:.3f} / {out['plain_dense_ms']:.3f} ms; the eager path it replaced "
+        f"{out['eager_ms']:.3f} / {out['eager_dense_ms']:.3f} ms; cuDNN F.conv2d alone "
+        f"{out['library_ms']:.4f} ms")
+    del args, x, w, xf, wf
+    torch.cuda.empty_cache()
+    return out
+
+
 def make_model(seed: int):
     """Full-width U-Net (base 64, 1 channel, 2 classes) with Keras-init
     random weights and jittered BN running statistics, from ``seed``."""
@@ -850,13 +1004,14 @@ def device_profile(run, what: str) -> dict:
             "by_kernel": {k: [ms, n] for k, ms, n in kernels}, "lead_in_seen": spins}
 
 
-def phase_profile(fn, big, radius: int, stats, dev) -> dict:
-    """One tiled int8_blocked pass over the BIG^2 image, profiled."""
+def phase_profile(fn, big, radius: int, stats, dev, mode: str) -> dict:
+    """One tiled pass of ``mode``'s predict function over the BIG^2 image,
+    profiled."""
     from tpuseg_torch.infer.tiled import inference_tiled
 
     return device_profile(
         lambda: inference_tiled(big, fn, TILE, radius, BATCH, NCLS, stats, dev),
-        "tiled int8_blocked")
+        f"tiled {mode}")
 
 
 def phase_main(seed: int, work: str, dev, card: str) -> dict:
@@ -865,7 +1020,7 @@ def phase_main(seed: int, work: str, dev, card: str) -> dict:
 
     from tpuseg_torch.cli.inference import main as cli
     from tpuseg_torch.data.preprocess import zscore_stats
-    from tpuseg_torch.infer import head_kernel, int8_conv
+    from tpuseg_torch.infer import head_kernel, input_conv, int8_conv
     from tpuseg_torch.infer.erf import estimate_radius
     from tpuseg_torch.infer.runner import InferenceConfig, _quantized_predict_fn
     from tpuseg_torch.infer.tiled import (inference_single_batch, inference_tiled,
@@ -895,6 +1050,7 @@ def phase_main(seed: int, work: str, dev, card: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     head_kernel.LAUNCHES = 0
     k3_reset()
+    input_conv.LAUNCHES = 0
     t0 = time.perf_counter()
     written = cli(common + ["--output_folder", out_blocked, "--quantize", "int8_blocked",
                            "--calibration_out", cal])
@@ -902,13 +1058,17 @@ def phase_main(seed: int, work: str, dev, card: str) -> dict:
     res["main_path_s"] = time.perf_counter() - t0
     k2 = head_kernel.LAUNCHES
     res["launches"] = {"blocked_head_argmax": k2, "int8_conv": int8_conv.LAUNCHES,
-                       "int8_conv_routes": k3_routes("the int8_blocked main path")}
+                       "int8_conv_routes": k3_routes("the int8_blocked main path"),
+                       "input_conv": input_conv.LAUNCHES}
     res["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     if k2 == 0:
         raise AssertionError("the int8_blocked main path launched no head kernel")
     if int8_conv.LAUNCHES != K3_PER_CALL * k2:
         raise AssertionError(f"the int8_blocked main path launched K3 {int8_conv.LAUNCHES} "
                              f"times, not {K3_PER_CALL} x K2's {k2}")
+    if input_conv.LAUNCHES != K5_PER_CALL * k2:
+        raise AssertionError(f"the int8_blocked main path launched K5 {input_conv.LAUNCHES} "
+                             f"times, not {K5_PER_CALL} x K2's {k2}")
     if sorted(os.path.basename(p) for p in written) != sorted(shapes):
         raise AssertionError(f"masks written: {written}")
     for name, shape in shapes.items():
@@ -917,7 +1077,7 @@ def phase_main(seed: int, work: str, dev, card: str) -> dict:
             raise AssertionError(f"{name}: mask {m.shape} {m.dtype}, labels {np.unique(m)[:8]}")
     log(f"main path: {len(written)} masks in {res['main_path_s']:.2f} s, "
         f"{k2} head kernel launches, {res['launches']['int8_conv']} K3 launches, "
-        f"peak {res['peak_mem_gib']:.2f} GiB")
+        f"{res['launches']['input_conv']} K5 launches, peak {res['peak_mem_gib']:.2f} GiB")
 
     # the same run with K3's plain version swapped in on the card: every
     # pixel must agree, and the first call's convs take the 21 block shapes
@@ -950,12 +1110,17 @@ def phase_main(seed: int, work: str, dev, card: str) -> dict:
     # the blocked edges and K2
     out_dense = os.path.join(work, "masks_int8")
     k3_reset()
+    input_conv.LAUNCHES = 0
     cli(common + ["--output_folder", out_dense, "--quantize", "int8", "--calibration_in", cal])
     res["launches"]["int8_conv_dense_cli"] = int8_conv.LAUNCHES
     res["launches"]["int8_conv_dense_cli_routes"] = k3_routes("--quantize int8")
+    res["launches"]["input_conv_dense_cli"] = input_conv.LAUNCHES
     if int8_conv.LAUNCHES != K3_PER_CALL * k2:  # the same predict calls as the blocked run
         raise AssertionError(f"--quantize int8 launched K3 {int8_conv.LAUNCHES} times, not "
                              f"{K3_PER_CALL} x {k2} predict calls")
+    if input_conv.LAUNCHES != K5_PER_CALL * k2:
+        raise AssertionError(f"--quantize int8 launched K5 {input_conv.LAUNCHES} times, not "
+                             f"{K5_PER_CALL} x {k2} predict calls")
     # and through K3's plain version: every pixel equal in this mode too
     out_dense_plain = os.path.join(work, "masks_int8_plain_conv")
     k3_reset()
@@ -976,6 +1141,32 @@ def phase_main(seed: int, work: str, dev, card: str) -> dict:
                              f"differ: {differ}")
     log(f"int8 through K3's plain version: {len(calls_dense)} plain calls, masks equal on "
         "every pixel")
+
+    # both modes again with K5's plain version swapped in on the card: every
+    # pixel must agree with the runs through K5
+    res["k5_vs_plain_pixels_differing"] = {}
+    for mode, out_k5 in (("int8_blocked", out_blocked), ("int8", out_dense)):
+        out_plain5 = os.path.join(work, f"masks_{mode}_plain_input_conv")
+        input_conv.LAUNCHES = 0
+        with plain_input_conv() as calls5:
+            cli(common + ["--output_folder", out_plain5, "--quantize", mode,
+                          "--calibration_in", cal])
+        want5 = [((BATCH, TILE, TILE, 1), mode == "int8_blocked")]
+        if input_conv.LAUNCHES or len(calls5) != K5_PER_CALL * k2 \
+                or not set(want5) <= set(calls5):
+            raise AssertionError(f"{mode} with K5's plain version: {input_conv.LAUNCHES} K5 "
+                                 f"launches, plain calls {calls5}")
+        differ = {}
+        for name in shapes:
+            a = imread(os.path.join(out_k5, name))
+            b = imread(os.path.join(out_plain5, name))
+            differ[name] = int((a != b).sum()) if a.shape == b.shape else -1
+        res["k5_vs_plain_pixels_differing"][mode] = differ
+        if any(differ.values()):
+            raise AssertionError(f"{mode} masks through K5 and through its plain version "
+                                 f"differ: {differ}")
+        log(f"{mode} through K5's plain version: {len(calls5)} plain calls, masks equal on "
+            "every pixel")
     agree = {}
     for name in shapes:
         a = imread(os.path.join(out_blocked, name))
@@ -1010,22 +1201,31 @@ def phase_main(seed: int, work: str, dev, card: str) -> dict:
     res["launches_small_dispatch"] = head_kernel.LAUNCHES
     head_kernel.LAUNCHES = 0
     k3_reset()
+    input_conv.LAUNCHES = 0
     inference_tiled(big, fns["int8_blocked"], TILE, radius, BATCH, NCLS, stats, dev)
     res["launches_tiled_dispatch"] = head_kernel.LAUNCHES
     res["k3_launches_tiled_dispatch"] = int8_conv.LAUNCHES
     res["k3_routes_tiled_dispatch"] = k3_routes("the tiled int8_blocked pass")
+    res["k5_launches_tiled_dispatch"] = input_conv.LAUNCHES
     if not (res["launches_small_dispatch"] and res["launches_tiled_dispatch"]):
         raise AssertionError(f"a dispatch launched no head kernel: {res}")
     k3_reset()
+    input_conv.LAUNCHES = 0
     inference_tiled(big, fns["int8"], TILE, radius, BATCH, NCLS, stats, dev)
     res["k3_launches_tiled_dispatch_int8"] = int8_conv.LAUNCHES
     res["k3_routes_tiled_dispatch_int8"] = k3_routes("the tiled int8 pass")
+    res["k5_launches_tiled_dispatch_int8"] = input_conv.LAUNCHES
     calls = in_ram_launches(BIG, BIG, radius)
     if res["k3_launches_tiled_dispatch"] != K3_PER_CALL * res["launches_tiled_dispatch"] \
             or res["k3_launches_tiled_dispatch_int8"] != K3_PER_CALL * calls:
         raise AssertionError(f"tiled K3 launches: int8_blocked {res['k3_launches_tiled_dispatch']}"
                              f" (K2 {res['launches_tiled_dispatch']}), int8 "
                              f"{res['k3_launches_tiled_dispatch_int8']} ({calls} predict calls)")
+    if res["k5_launches_tiled_dispatch"] != K5_PER_CALL * res["launches_tiled_dispatch"] \
+            or res["k5_launches_tiled_dispatch_int8"] != K5_PER_CALL * calls:
+        raise AssertionError(f"tiled K5 launches: int8_blocked {res['k5_launches_tiled_dispatch']}"
+                             f" (K2 {res['launches_tiled_dispatch']}), int8 "
+                             f"{res['k5_launches_tiled_dispatch_int8']} ({calls} predict calls)")
     times = {m: [] for m in fns}
     for rnd in range(3):
         for mode in (fns if rnd % 2 == 0 else list(fns)[::-1]):
@@ -1038,14 +1238,16 @@ def phase_main(seed: int, work: str, dev, card: str) -> dict:
     res["tiled_mp_s"] = {m: BIG * BIG / 1e6 / sorted(t)[1] for m, t in times.items()}
     log(f"tiled {BIG}^2 (tile {TILE}, radius {radius}, batch {BATCH}) MP/s on {card}, "
         "median of 3: " + ", ".join(f"{m} {v:.2f}" for m, v in res["tiled_mp_s"].items()))
-    res["profile_int8_blocked"] = prof = phase_profile(fns["int8_blocked"], big, radius,
-                                                       stats, dev)
-    k3 = prof["by_group"].get("K3 int8_conv")
-    if prof["busy_ms"] is not None:
-        if k3 is None:
-            raise AssertionError("the profiled int8_blocked pass shows no K3 kernel")
-        log(f"K3 in the profiled int8_blocked pass: {k3['ms']:.2f} ms, {k3['share']:.1%} "
-            "of device time")
+    for mode in ("int8_blocked", "int8", "none"):
+        res[f"profile_{mode}"] = prof = phase_profile(fns[mode], big, radius, stats, dev, mode)
+        if prof["busy_ms"] is None or mode == "none":
+            continue
+        for group in ("K3 int8_conv", "K5 input_conv"):
+            g = prof["by_group"].get(group)
+            if g is None:
+                raise AssertionError(f"the profiled {mode} pass shows no {group} kernel")
+            log(f"{group} in the profiled {mode} pass: {g['ms']:.2f} ms, {g['share']:.1%} "
+                "of device time")
     return res
 
 
@@ -1427,6 +1629,26 @@ def plain_conv():
         int8_conv._launch = launch
 
 
+@contextlib.contextmanager
+def plain_input_conv():
+    """K5's wrapper with the kernel's launch swapped for its plain version
+    on the same card tensors: the predict function then runs K5-free and
+    counts no launch. Yields (x shape, blocked) of each call."""
+    from tpuseg_torch.infer import input_conv
+
+    launch, calls = input_conv._launch, []
+
+    def plain(x, w, b, s, t, so, dtype, blocked):
+        calls.append((tuple(x.shape), blocked))
+        return input_conv._input_conv_plain(x, w, b, s, t, so, dtype, blocked)
+
+    input_conv._launch = plain
+    try:
+        yield calls
+    finally:
+        input_conv._launch = launch
+
+
 def in_ram_launches(height: int, width: int, radius: int) -> int:
     """K2 launches of one tiled int8_blocked pass: one per chunk of at most
     BATCH windows over the whole grid."""
@@ -1446,7 +1668,7 @@ def phase_stream_engine(work: str, dev, radius: int) -> dict:
     import torch
 
     from tpuseg_torch.data.preprocess import zscore_stats
-    from tpuseg_torch.infer import head_kernel, int8_conv
+    from tpuseg_torch.infer import head_kernel, input_conv, int8_conv
     from tpuseg_torch.infer.runner import InferenceConfig, _quantized_predict_fn
     from tpuseg_torch.infer.tiled import inference_tiled, inference_tiled_streaming
     from tpuseg_torch.utils.bigtiff import BigTiffReader, read_bigtiff, write_bigtiff
@@ -1479,10 +1701,11 @@ def phase_stream_engine(work: str, dev, radius: int) -> dict:
     torch.cuda.reset_peak_memory_stats()
     head_kernel.LAUNCHES = 0
     k3_reset()
+    input_conv.LAUNCHES = 0
     streaming()
     torch.cuda.synchronize()
     res = {"launches": head_kernel.LAUNCHES, "k3_launches": int8_conv.LAUNCHES,
-           "k3_routes": k3_routes("the streamed pass"),
+           "k3_routes": k3_routes("the streamed pass"), "k5_launches": input_conv.LAUNCHES,
            "expected_launches": stream_launches(BIG, BIG, radius),
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
     if res["launches"] != res["expected_launches"]:
@@ -1491,6 +1714,9 @@ def phase_stream_engine(work: str, dev, radius: int) -> dict:
     if res["k3_launches"] != K3_PER_CALL * res["expected_launches"]:
         raise AssertionError(f"streamed pass launched K3 {res['k3_launches']} times, not "
                              f"{K3_PER_CALL} per chunk ({res['expected_launches']} chunks)")
+    if res["k5_launches"] != K5_PER_CALL * res["expected_launches"]:
+        raise AssertionError(f"streamed pass launched K5 {res['k5_launches']} times, not "
+                             f"{K5_PER_CALL} per chunk ({res['expected_launches']} chunks)")
     got = read_bigtiff(mask_path)
     if got.shape != want.shape or got.dtype != np.uint8:
         raise AssertionError(f"streamed mask {got.shape} {got.dtype}, in-RAM {want.shape}")
@@ -1543,7 +1769,8 @@ def phase_stream_engine(work: str, dev, radius: int) -> dict:
     res["mp_s"] = {k: BIG * BIG / 1e6 / (sum(v) / len(v)) for k, v in times.items()}
     log(f"streamed vs in-RAM {BIG}^2 int8_blocked: {res['pixels_differing']} pixels differ "
         f"(agreement {res['agree']}), K2 launches {res['launches']} (expected "
-        f"{res['expected_launches']}), K3 launches {res['k3_launches']}, MP/s streamed {res['mp_s']['streaming']:.2f}, in RAM "
+        f"{res['expected_launches']}), K3 launches {res['k3_launches']}, K5 launches "
+        f"{res['k5_launches']}, MP/s streamed {res['mp_s']['streaming']:.2f}, in RAM "
         f"{res['mp_s']['in_ram']:.2f}, peak device memory streamed {res['peak_mem_gib']:.2f} GiB")
 
     res["profile"] = device_profile(streaming, f"streamed int8_blocked {BIG}^2")
@@ -2917,6 +3144,7 @@ def main() -> int:
 
     kern = phase_kernels(args.seed, dev)
     k3 = phase_int8_conv(args.seed, dev)
+    k5 = phase_input_conv(args.seed, dev)
     shear = phase_shear(args.seed, dev)
     work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke")
     main_res = phase_main(args.seed, work, dev, card)
@@ -3009,9 +3237,37 @@ def main() -> int:
                                       "bw", "ms", "mma_ms", "plain_ms", "library_ms",
                                       "bound_ms", "bound_by", "bound_dense_ms", "codes")}
                    for r in k3["blocks"]],
+    }, {
+        "name": "input_conv", "route": "cuda",
+        "source": "tpuseg_torch/csrc/input_conv.cu",
+        "replaces": "tpuseg/infer/quant.py:544",
+        "replaces_note": "XLA-fused on the TPU, not a Pallas kernel: conv_block's fp branch "
+                         "(:544-560, _conv_fp + ReLU + folded BN) and emit (:526), blocked at "
+                         ":665-674",
+        "launches": main_res["launches"]["input_conv"],
+        "launches_per_predict_call": K5_PER_CALL,
+        "launches_int8_cli": main_res["launches"]["input_conv_dense_cli"],
+        "launches_tiled": {"int8_blocked": main_res["k5_launches_tiled_dispatch"],
+                           "int8": main_res["k5_launches_tiled_dispatch_int8"]},
+        "launches_streaming": stream_res["engine"]["k5_launches"],
+        "max_abs_err": k5["max_abs_err"], "ms": k5["ms"], "plain_ms": k5["plain_ms"],
+        "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
+        "library_ms": k5["library_ms"],
+        "library_call": "F.conv2d on the bf16-rounded input and weights, f32 out, cuDNN "
+                        "TF32 off (the conv alone, as _conv_fp ran it)",
+        "dense_ms": k5["dense_ms"], "eager_ms": k5["eager_ms"],
+        "eager_dense_ms": k5["eager_dense_ms"],
+        "timing": "per call by CUDA events around it, L2 flushed and a 1 ms spin before "
+                  "each; ms is the blocked layout (the int8_blocked main path), dense_ms the "
+                  "int8 walk's",
+        "shape": k5["shape"], "f": k5["f"], "share_of_bound": k5["share_of_bound"],
+        "tolerance": "bit-equal (torch.equal) to the plain version in both layouts at the "
+                     "main path's shape and at C 3; masks through K5 equal those through "
+                     "the plain version on every pixel (int8_blocked and int8)",
     }]
     summary = {"card": card, "torch": torch.__version__, "build_s": build_s,
-               "kernels": kern, "int8_conv": k3, "shear": shear, "main": main_res,
+               "kernels": kern, "int8_conv": k3, "input_conv": k5, "shear": shear,
+               "main": main_res,
                "train": train_res,
                "stream": stream_res, "migration": migration_res, "multigpu": multigpu_res,
                "spatial": spatial_res, "profiler_fallbacks": len(TIMER_FALLBACKS),

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from tpuseg_torch.infer import head_kernel
+from tpuseg_torch.infer import input_conv as k5
 from tpuseg_torch.infer import int8_conv as k3
 
 
@@ -336,7 +337,7 @@ def test_int8_conv_route_rule_and_refusals(cuda):
 def test_int8_walk_launches_k3_per_block(cuda, blocked):
     """A base-4 int8 predict call on the card launches K3 once per int8
     block (21 with the default fp_blocks) and labels like the CPU walk
-    (>= 0.999: the fp enc1a block sums in another order on the card)."""
+    (>= 0.999: the fp head sums in another order on the card)."""
     from tpuseg_torch.infer import quant
     from tpuseg_torch.models.unet import UNet, init_unet
 
@@ -353,6 +354,121 @@ def test_int8_walk_launches_k3_per_block(cuda, blocked):
         assert k3.LAUNCHES == before
         got = fn(x.to(cuda)).cpu()
     assert k3.LAUNCHES == before + 21
+    assert (got == want).float().mean().item() >= 0.999
+
+
+# --- K5: the fp input conv with its epilogue fused (csrc/input_conv.cu) -----
+
+def _k5_inputs(b, h, w, c, f, seed, dev):
+    """A z-scored batch, a kernel, epilogue vectors and an output scale that
+    spread the codes over the int8 range, as card tensors."""
+    rng = np.random.default_rng(seed)
+    arrays = [rng.normal(0, 1, (b, h, w, c)), rng.normal(0, 1, (3, 3, c, f)) / np.sqrt(9 * c),
+              rng.normal(0, 0.3, f), rng.uniform(0.5, 1.5, f), rng.normal(0, 0.3, f),
+              np.asarray(2.5 / 127.0)]
+    return [torch.from_numpy(np.asarray(a, np.float32)).to(dev) for a in arrays]
+
+
+def _k5_check(dev, b, h, w, c, f, blocked, dtype=torch.bfloat16, seed=0):
+    args = _k5_inputs(b, h, w, c, f, seed, dev)
+    before = k5.LAUNCHES
+    got = k5.input_conv(*args, dtype, blocked)
+    torch.cuda.synchronize()
+    assert k5.LAUNCHES == before + 1
+    want = k5._input_conv_plain(*args, dtype, blocked)
+    assert got.dtype == torch.int8 and got.shape == want.shape
+    assert torch.equal(got, want)
+    return want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blocked", [False, True])
+@pytest.mark.parametrize("f", [4, 16, 64, 256])
+@pytest.mark.parametrize("c", [1, 3])
+def test_input_conv_kernel_bit_equal_to_plain(cuda, c, f, blocked):
+    """34 x 70 images: 5 x 3 tiles of 8 x 32, the last row and column of
+    tiles cut short."""
+    want = _k5_check(cuda, 2, 34, 70, c, f, blocked, seed=c * 1000 + f)
+    assert torch.unique(want).numel() >= 64 and (want.abs() == 127).float().mean() < 0.1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blocked", [False, True])
+@pytest.mark.parametrize("c", [1, 3])
+def test_input_conv_kernel_f32_operands(cuda, c, blocked):
+    """f32 operands: separate products and sums, no FMA."""
+    _k5_check(cuda, 2, 34, 70, c, 64, blocked, torch.float32, seed=c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,blocked", [(1, 1, 1, False), (3, 1, 5, False), (2, 9, 33, False),
+                                           (1, 2, 2, True), (5, 8, 32, True),
+                                           (1, 18, 66, True), (8, 128, 96, True)])
+def test_input_conv_kernel_image_edges(cuda, b, h, w, blocked):
+    """Images smaller than a tile, exactly one tile, odd tile counts: the
+    SAME zeros fall at every image edge."""
+    _k5_check(cuda, b, h, w, 1, 64, blocked, seed=h * w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [1, 4, 20, 40])
+def test_input_conv_kernel_scalar_tail(cuda, f):
+    """F % 16 != 0: byte stores, the last group of 16 cut short."""
+    for blocked in (False, True):
+        _k5_check(cuda, 2, 10, 36, 3, f, blocked, seed=f)
+
+
+@pytest.mark.cuda
+def test_input_conv_kernel_channel_chunks(cuda):
+    """40 input channels, 128 output: two chunks of 112 and 16 channels
+    (the weights of all 128 overflow a block's shared memory)."""
+    assert k5.chunk_width(40, 128) == 112
+    for blocked in (False, True):
+        _k5_check(cuda, 1, 12, 40, 40, 128, blocked, seed=40)
+
+
+@pytest.mark.cuda
+def test_input_conv_kernel_rejects_bad_inputs(cuda):
+    x, w, b, s, t, so = _k5_inputs(1, 6, 6, 1, 16, 0, cuda)
+    before = k5.LAUNCHES
+    with pytest.raises(ValueError, match="rounds operands"):
+        k5.input_conv(x, w, b, s, t, so, torch.float16)
+    with pytest.raises(ValueError, match="float32"):
+        k5.input_conv(x.double(), w, b, s, t, so, torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous"):
+        k5.input_conv(x.transpose(1, 2), w, b, s, t, so, torch.bfloat16)
+    with pytest.raises(ValueError, match="float32 on"):
+        k5.input_conv(x, w, b.cpu(), s, t, so, torch.bfloat16)
+    with pytest.raises(ValueError, match="HWIO"):
+        k5.input_conv(x, w[:, :, :, :8].reshape(3, 3, 2, 4), b, s, t, so, torch.bfloat16)
+    with pytest.raises(ValueError, match="even H and W"):
+        k5.input_conv(x[:, :5].contiguous(), w, b, s, t, so, torch.bfloat16, blocked=True)
+    assert k5.LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blocked", [False, True])
+def test_int8_walk_runs_input_conv_once_a_predict_call(cuda, blocked):
+    """A base-4 int8 predict call on the card runs enc1a through K5 once
+    and labels like the CPU walk on >= 0.999 (the fp head sums in another
+    order on the card)."""
+    from tpuseg_torch.infer import quant
+    from tpuseg_torch.models.unet import UNet, init_unet
+
+    model = init_unet(UNet(2, 1, 4, torch.float32), torch.Generator().manual_seed(0)).eval()
+    x = torch.from_numpy(np.random.default_rng(5).normal(0, 1, (2, 64, 48, 1))
+                         .astype(np.float32))
+    folded = quant.fold_variables(model)
+    fn = quant.make_quantized_predict_fn(
+        folded, quant.calibrate(folded, [x[0, ..., 0].numpy()], device="cpu"),
+        blocked_edges=blocked)
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        want = fn(x)
+        before = k5.LAUNCHES
+        got = fn(x.to(cuda)).cpu()
+        assert k5.LAUNCHES == before + 1
+        fn(x.to(cuda))
+    assert k5.LAUNCHES == before + 2
     assert (got == want).float().mean().item() >= 0.999
 
 

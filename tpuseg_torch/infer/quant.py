@@ -20,10 +20,16 @@ What PyTorch changes:
   epilogue as data: a hand-written implicit-GEMM kernel with the epilogue
   fused on the card, im2col + ``torch._int_mm`` with the same epilogue on
   the CPU.
-- **fp convs** (calibration, ``fp_blocks``) run in float32 on inputs and
-  weights rounded to the compute dtype — the JAX package's bf16 operands
-  with f32 accumulation — with cuDNN's TF32 turned off around them, since
-  calibration runs f32 on purpose.
+- **The fp input block** (``enc1a`` under the default ``fp_blocks``, the
+  one fp block whose input is the network input) is
+  :func:`tpuseg_torch.infer.input_conv.input_conv` (K5): the conv, its
+  ReLU, folded BN and requantize in one hand-written kernel on the card,
+  on the dense batch in both walks (the blocked walk takes its output
+  phase-major), plain PyTorch in the same order of operations on the CPU.
+- **Other fp convs** (calibration, the other ``fp_blocks``) run in float32
+  on inputs and weights rounded to the compute dtype — the JAX package's
+  bf16 operands with f32 accumulation — with cuDNN's TF32 turned off
+  around them, since calibration runs f32 on purpose.
 - **Percentile**: ``torch.quantile`` refuses inputs over 2^24 elements (a
   512^2 crop at base 64 is exactly 2^24), so :func:`_percentile` picks the
   order statistics with ``kthvalue`` and interpolates linearly in float32,
@@ -41,6 +47,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from tpuseg_torch.infer.input_conv import input_conv
 from tpuseg_torch.infer.int8_conv import Epilogue, Int8ConvWeights, int8_conv
 from tpuseg_torch.models.unet import BN_EPSILON, POOLING_STRIDE, as_dtype
 
@@ -495,15 +502,30 @@ def _quantized_raw_fn(folded: Folded, act_ranges: Dict[str, float],
         q = torch.clamp(torch.round(batch.float() / sit), -127, 127)
         return q.to(torch.int8), si
 
+    def input_block(name, batch, blocked: bool):
+        """An fp block whose input is the network input (``enc1a`` under
+        the default fp_blocks): K5, the conv and its epilogue in one pass,
+        on the dense batch and the dense kernel in both walks (``blocked``
+        returns the phase-major layout)."""
+        p = folded[name]
+        dev = batch.device
+        w = cache.get((name, "w5"), dev, lambda: _tensor(np.asarray(p["w"], np.float32), dev))
+        b_, s_, t_ = (vec(name, k, dev, lambda k=k: p[k]) for k in "bst")
+        return input_conv(batch.float().contiguous(), w, b_, s_, t_, so_vec(name, dev), dtype,
+                          blocked)
+
     def conv(name, key, x, sv, w_hwio, bias, s, t, last: bool):
-        """One conv block: the fp form when ``name`` is in fp_blocks, else
-        the int8 conv with its epilogue fused. ``w_hwio``/``bias``/``s``/
-        ``t`` are thunks producing numpy arrays (built once)."""
+        """One conv block: the fp form when ``name`` is in fp_blocks (K5
+        where its input is the network input), else the int8 conv with its
+        epilogue fused. ``w_hwio``/``bias``/``s``/``t`` are thunks
+        producing numpy arrays (built once)."""
+        if name in fp_blocks and sv is None and not last:
+            return input_block(name, x, blocked=False)
         dev = x.device
         b_, s_, t_ = (vec(name, key + k, dev, f) for k, f in
                       (("b", bias), ("s", s), ("t", t)))
         if name in fp_blocks:
-            xf = x if sv is None else dequant(x, sv, name, key)
+            xf = dequant(x, sv, name, key)
             w = cache.get((name, key + "w"), dev, lambda: _oihw(w_hwio(), dev))
             y = torch.clamp_min(_conv_fp(xf, w, dtype) + b_, 0.0) * s_ + t_
             return y if last else emit(y, name)
@@ -600,14 +622,15 @@ def _quantized_raw_fn(folded: Folded, act_ranges: Dict[str, float],
 
     def blocked_logits_fn(batch):
         nc = batch.shape[-1]
+        f = folded["enc1b"]["w"].shape[2]  # base feature width
         if "enc1a" in fp_blocks:
-            edge = (_s2d(batch).to(dtype), None)
+            enc1a = (input_block("enc1a", batch, blocked=True),
+                     np.full(4 * f, out_scale("enc1a"), np.float32))
         else:
             q, si = quantize_input(batch)
-            edge = (_s2d(q), np.full(4 * nc, si, np.float32))
-        f = folded["enc1b"]["w"].shape[2]  # base feature width
-        enc1 = blocked_conv_block(
-            "enc1b", blocked_conv_block("enc1a", edge, (nc,)), (f,))
+            enc1a = blocked_conv_block(
+                "enc1a", (_s2d(q), np.full(4 * nc, si, np.float32)), (nc,))
+        enc1 = blocked_conv_block("enc1b", enc1a, (f,))
         x = phase_max(enc1)
 
         def pair(name, x):

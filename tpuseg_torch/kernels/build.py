@@ -34,6 +34,11 @@ SOURCES = {
                                     _I, _I, _I, _I, _I, _I, _I, _P]),
         "tpuseg_cuda_error_string": (ctypes.c_char_p, [_I]),
     }),
+    "input_conv": ("input_conv.cu", {
+        "tpuseg_input_conv": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                   _I, _P]),
+        "tpuseg_cuda_error_string": (ctypes.c_char_p, [_I]),
+    }),
     "int8_conv": ("int8_conv.cu", {
         "tpuseg_int8_conv": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                                   _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),

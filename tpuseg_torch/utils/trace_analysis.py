@@ -31,6 +31,7 @@ KERNEL_GROUPS = (
     ("K1 shear_rows", ("shear_rows",)),
     ("K2 head_argmax", ("head_mma_kernel", "head_fp_kernel", "head_s8_kernel")),
     ("K3 int8_conv", ("int8_conv_kernel", "int8_conv_wgmma_kernel")),
+    ("K5 input_conv", ("input_conv_kernel",)),
     ("layout transposes", ("nchwToNhwc", "nhwcToNchw")),
     ("cuDNN / GEMM", ("cudnn", "xmma", "gemm", "cutlass", "sm90_", "sm80_", "wgrad", "dgrad")),
     ("reductions", ("reduce_kernel",)),
