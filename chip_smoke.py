@@ -19,9 +19,12 @@ package. Phases, each fatal on failure:
    blocked edge convs' codes blocked as the main path's are, through both
    of its routes, ``"wgmma"`` and ``"mma"``; K5, the fp input conv with
    its ReLU, folded BN and requantize: serving, batch 8 of 1024^2 tiles,
-   C 1 and 3, F 64, dense and phase-major; K1, the row shear:
-   training), hold the result against its plain PyTorch version
-   (bit-equal for K1, K3, K5 and the int8 K2), and time both in turns with
+   C 1 and 3, F 64, dense and phase-major, with its persistent grid, its
+   SASS instructions an output and the issue floor they set, and its
+   reciprocal requantize against the true division on every f32 value;
+   K1, the row shear: training), hold the result against its plain
+   PyTorch version (bit-equal for K1, K3, K5 and the int8 K2), and time
+   both in turns with
    the L2 flushed, by profiler device time (K2 also with CUDA events; K3
    by CUDA events around each call behind a spin kernel),
    beside the card's bound (K3's on the operations its weights need, and
@@ -45,7 +48,8 @@ package. Phases, each fatal on failure:
    call's convs at phase 2's 21 shapes) and with ``--quantize int8`` (no
    K2, 21 K3 launches per predict call, again against the plain version
    on every pixel) and compare the masks, then serve both modes with K5's
-   plain version swapped in (masks equal on every pixel), time the tiled
+   plain version swapped in (masks equal on every pixel; the output scales
+   K5 was given there checked on every f32 value as in phase 2), time the tiled
    engines on the 4096^2 image (K5 once per predict call in both int8
    modes) and profile one pass of int8_blocked, int8 and none each (device
    time by kernel and group, K3's and K5's shares, busy share);
@@ -351,6 +355,10 @@ def kernel_label(mangled: str) -> str:
     m = re.search(r"int8_conv_wgmma_kernelILi(\d)ELi(\d+)E", mangled)
     if m:
         return f"int8_conv_wgmma_kernel<mode={m.group(1)},bn={m.group(2)}>"
+    m = re.search(r"input_conv_kernelILb(\d)ELb(\d)ELb(\d)ELb(\d)E", mangled)
+    if m:
+        return (f"input_conv_kernel<bf16={m.group(1)},blocked={m.group(2)},c1={m.group(3)},"
+                f"staged={m.group(4)}>")
     return re.sub(r"^_ZN.*?_cu_[0-9a-f]{8}\d+", "", mangled)[:60]
 
 
@@ -775,20 +783,129 @@ def eager_input_block(args: list, dtype, blocked: bool):
     return run
 
 
+# K5's times at the served shape before its redesign (this script, as PERF.md
+# records them), NVIDIA H100 80GB HBM3 at 700.00 W
+K5_EARLIER_MS = {"blocked": 1.120, "dense": 1.097}
+K5_OUTPUTS_PER_ITEM = 32  # csrc/input_conv.cu: kItem pixels x kNG channels
+K5_RANDOM_SCALES, K5_RANDOM_VALUES = 256, 2 ** 24
+
+
+def clock_max_mhz() -> float:
+    res = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         timeout=60, check=True)
+    return float(res.stdout.split()[0])
+
+
+def k5_sass(blocked: bool) -> dict:
+    """Instructions per output of the served K5 variant (bf16, C 1, staged
+    codes), from the SASS of the built library (``cuobjdump --dump-sass``):
+    one item of the innermost loop that holds an item's 9 x 32 FFMAs,
+    traced from its head to its back edge along the path the served scales
+    take (at each forward branch, the side without the true division's FCHK
+    and MUFU; unconditional branches followed). An item is 32 outputs."""
+    from collections import Counter
+
+    from tpuseg_torch.kernels import build
+
+    tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "--dump-sass", str(build._lib_path("input_conv"))],
+                          capture_output=True, text=True, timeout=300, check=True).stdout
+    name = f"input_conv_kernelILb1ELb{int(blocked)}ELb1ELb1E"
+    func = next(part for part in text.split("Function : ")[1:]
+                if name in part.split("\n", 1)[0])
+    ins = [(int(a, 16), t.strip())
+           for a, t in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", func)]
+    index = {a: i for i, (a, _) in enumerate(ins)}
+
+    def op(t):
+        return re.sub(r"^@!?U?P\w+\s+", "", t).split()[0]
+
+    def target(t):
+        m = re.search(r"\bBRA\S*\s+0x([0-9a-f]+)", t)
+        return int(m.group(1), 16) if m else None
+
+    loops = []
+    for i, (a, t) in enumerate(ins):
+        tg = target(t)
+        if tg is not None and tg < a and tg in index:
+            body = ins[index[tg]:i + 1]
+            if sum(op(u).startswith("FFMA") for _, u in body) >= 9 * K5_OUTPUTS_PER_ITEM:
+                loops.append((len(body), tg, a))
+    if not loops:
+        raise AssertionError(f"no item loop in the SASS of {name}")
+    _, head, back = min(loops)
+    trace, i = [], index[head]
+    while len(trace) < 20000:
+        a, t = ins[i]
+        trace.append(op(t))
+        tg = target(t)
+        if a == back:
+            break
+        if tg is None or tg not in index:
+            i += 1
+        elif not t.startswith("@"):
+            i = index[tg]
+        else:
+            j = index[tg]
+            skipped = [op(u) for _, u in ins[i + 1:j]]
+            i = j if any(o.startswith(("FCHK", "MUFU", "CALL")) for o in skipped) else i + 1
+    if trace.count("FCHK") or len(trace) >= 20000:
+        raise AssertionError(f"the traced item of {name} is not the reciprocal route")
+    counts = Counter(o.split(".")[0] for o in trace)
+    return {"kernel": kernel_label(name), "per_item": len(trace),
+            "per_output": len(trace) / K5_OUTPUTS_PER_ITEM,
+            "by_opcode_per_output": {k: v / K5_OUTPUTS_PER_ITEM
+                                     for k, v in counts.most_common()},
+            "function_instructions": len(ins)}
+
+
+def k5_division_check(so, count: int, seed: int) -> dict:
+    """K5's reciprocal requantize against the true division
+    (``input_conv.requant_mismatches``) for each scale of the CUDA vector
+    ``so``: every f32 value with ``count`` 0, else ``count`` draws each.
+    Fails on any value whose code differs; reports the values whose
+    quotients differ (the codes may agree where they do)."""
+    from tpuseg_torch.infer import input_conv as k5
+
+    t0 = time.perf_counter()
+    codes, quotients, examples = k5.requant_mismatches(so, count, seed)
+    values = so.tolist()
+    r = {"scales": len(values), "scale_values": values[:8],
+         "values_each": 2 ** 32 if count == 0 else count,
+         "reciprocal_route": all(2.0 ** -64 <= v <= 2.0 ** 64 for v in values),
+         "code_mismatches": codes, "quotient_mismatches": quotients,
+         "first_mismatches": examples,
+         "s": time.perf_counter() - t0}
+    what = "every f32 value" if count == 0 else f"{count} values each"
+    if codes or not r["reciprocal_route"]:
+        raise AssertionError(f"K5's reciprocal requantize: {codes} codes differ from the true "
+                             f"division's over {what} of {len(values)} scales; {r}")
+    log(f"K5 division check, {len(values)} scale(s) ({values[:3]}...), {what}: codes equal "
+        f"to __fdiv_rn's everywhere, quotients differ on {quotients}, {r['s']:.1f} s")
+    return r
+
+
 def phase_input_conv(seed: int, dev) -> dict:
     """K5 at the main path's shapes (BATCH tiles of TILE^2, C 1, F BASE,
     bf16 operands), in both layouts, and at C 3: the kernel bit-equal
     (``torch.equal``) to its plain version on non-degenerate codes, and
     beside the eager path it replaced (cuDNN's conv and eager passes; its
-    sums run in another order, so its codes are reported, not gated); then,
-    in turns with the L2 flushed, by CUDA events around each call
-    (:func:`events_ms_cold`), the kernel, the plain version and the eager
-    path in both layouts, and cuDNN's ``F.conv2d`` alone (f32 out, TF32 off,
-    on the rounded operands, as ``_conv_fp`` runs it: the product, a
-    yardstick the port no longer calls for enc1a). The bound: the input,
-    weights and vectors read once and the codes written once at the
-    card's memory rate, or the multiply-adds at the f32 CUDA-core peak,
-    whichever is longer."""
+    sums run in another order, so its codes are reported, not gated); its
+    launch plan (persistent grid, resident blocks an SM); its reciprocal
+    requantize against the true division on every f32 value for the scale
+    of these inputs and on 2^24 values each for 256 random scales; its
+    SASS instructions per output and the issue floor they set at the
+    card's ``clocks.max.sm``; then, in turns with the L2 flushed, by CUDA
+    events around each call (:func:`events_ms_cold`), the kernel (also
+    with its codes stored from registers instead of by bulk copy), the
+    plain version and the eager path in both layouts, and cuDNN's
+    ``F.conv2d`` alone (f32 out, TF32 off, on the rounded operands, as
+    ``_conv_fp`` runs it: the product, a yardstick the port no longer calls
+    for enc1a). The bound: the input, weights and vectors read once and the
+    codes written once at the card's memory rate, or the multiply-adds at
+    the f32 CUDA-core peak, whichever is longer."""
+    import numpy as np
     import torch
     import torch.nn.functional as F
 
@@ -796,7 +913,7 @@ def phase_input_conv(seed: int, dev) -> dict:
     from tpuseg_torch.infer import quant
 
     dtype = torch.bfloat16
-    out = {"build": build_report("input_conv", "input_conv_kernel", spill_fails=False),
+    out = {"build": build_report("input_conv", "input_conv_kernel", spill_fails=True),
            "cases": []}
     for c in (1, 3):
         args = k5_inputs(c, seed + c, dev)
@@ -833,6 +950,29 @@ def phase_input_conv(seed: int, dev) -> dict:
 
     args = k5_inputs(1, seed + 1, dev)
     x, w = args[0], args[1]
+    rng = np.random.default_rng(seed)
+    scales = 2.0 ** rng.uniform(-64, 64, K5_RANDOM_SCALES)
+    out["division"] = {
+        "phase2_scale_every_value": k5_division_check(args[5].reshape(1), 0, seed),
+        "random_scales": k5_division_check(torch.tensor(scales, dtype=torch.float32, device=dev),
+                                           K5_RANDOM_VALUES, seed)}
+    layouts = {"dense": False, "blocked": True}
+    out["plan"] = {lay: k5.launch_plan(tuple(x.shape), BASE, dtype, blocked, dev)
+                   for lay, blocked in layouts.items()}
+    out["clock_max_mhz"] = clock_max_mhz()
+    outputs = x.shape[0] * x.shape[1] * x.shape[2] * BASE
+    out["sass"], out["issue_floor_ms"] = {}, {}
+    for lay, blocked in layouts.items():
+        out["sass"][lay] = r = k5_sass(blocked)
+        sms = out["plan"][lay]["sms"]
+        out["issue_floor_ms"][lay] = (outputs * r["per_output"] / 32 / (4 * sms)
+                                      / (out["clock_max_mhz"] * 1e6) * 1e3)
+        plan = out["plan"][lay]
+        log(f"K5 {lay}: grid {plan['grid']} blocks ({plan['resident_per_sm']} an SM x {sms} "
+            f"SMs, {plan['tiles']} tiles of {plan['tile_h']} x {plan['tile_w']}), "
+            f"{plan['smem_bytes']} B shared; SASS {r['per_output']:.2f} instructions "
+            f"an output ({r['by_opcode_per_output']}): issue floor "
+            f"{out['issue_floor_ms'][lay]:.4f} ms at {out['clock_max_mhz']:.0f} MHz")
     xf = x.to(dtype).float().permute(0, 3, 1, 2)
     wf = w.permute(3, 2, 0, 1).contiguous().to(dtype).float()
 
@@ -841,9 +981,10 @@ def phase_input_conv(seed: int, dev) -> dict:
             return F.conv2d(xf, wf, padding=1)
 
     fns = {"library": (library, 5)}
-    for blocked in (False, True):
-        lay = "blocked" if blocked else "dense"
+    for lay, blocked in layouts.items():
         fns[f"kernel_{lay}"] = (lambda blocked=blocked: k5.input_conv(*args, dtype, blocked), 10)
+        fns[f"direct_{lay}"] = (
+            lambda blocked=blocked: k5._launch(*args, dtype, blocked, staged=False), 10)
         fns[f"plain_{lay}"] = (
             lambda blocked=blocked: k5._input_conv_plain(*args, dtype, blocked), 2)
         fns[f"eager_{lay}"] = (eager_input_block(args, dtype, blocked), 3)
@@ -860,9 +1001,12 @@ def phase_input_conv(seed: int, dev) -> dict:
     out.update({"shape": list(x.shape), "f": BASE, "dtype": "bfloat16",
                 "ms": ms["kernel_blocked"], "ms_runs": runs["kernel_blocked"],
                 "dense_ms": ms["kernel_dense"], "dense_ms_runs": runs["kernel_dense"],
+                "direct_ms": ms["direct_blocked"], "direct_dense_ms": ms["direct_dense"],
+                "direct_ms_runs": {k: runs[f"direct_{k}"] for k in layouts},
+                "earlier_ms": K5_EARLIER_MS,
                 "plain_ms": ms["plain_blocked"], "plain_dense_ms": ms["plain_dense"],
                 "eager_ms": ms["eager_blocked"], "eager_dense_ms": ms["eager_dense"],
-                "eager_ms_runs": {k: runs[f"eager_{k}"] for k in ("dense", "blocked")},
+                "eager_ms_runs": {k: runs[f"eager_{k}"] for k in layouts},
                 "library_ms": ms["library"], "library_ms_runs": runs["library"],
                 "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -870,10 +1014,16 @@ def phase_input_conv(seed: int, dev) -> dict:
                 "max_abs_err": max(r["max_abs_err"] for r in out["cases"])})
     out["share_of_bound"] = out["bound_ms"] / out["ms"]
     out["dense_share_of_bound"] = out["bound_ms"] / out["dense_ms"]
+    out["share_of_issue_floor"] = out["issue_floor_ms"]["blocked"] / out["ms"]
+    out["dense_share_of_issue_floor"] = out["issue_floor_ms"]["dense"] / out["dense_ms"]
     log(f"K5 {tuple(x.shape)} -> {BASE} (bf16 operands): blocked {runs['kernel_blocked'][0]:.4f}"
         f" / {runs['kernel_blocked'][1]:.4f} ms ({out['share_of_bound']:.1%} of the "
-        f"{out['bound_ms']:.4f} ms bound, {out['bound_by']}; ops {t_ops:.4f} ms), dense "
-        f"{out['dense_ms']:.4f} ms ({out['dense_share_of_bound']:.1%}); plain "
+        f"{out['bound_ms']:.4f} ms bound, {out['bound_by']}; ops {t_ops:.4f} ms; "
+        f"{out['share_of_issue_floor']:.1%} of the issue floor), dense "
+        f"{runs['kernel_dense'][0]:.4f} / {runs['kernel_dense'][1]:.4f} ms "
+        f"({out['dense_share_of_bound']:.1%}, {out['dense_share_of_issue_floor']:.1%}); "
+        f"before the redesign {K5_EARLIER_MS['blocked']} / {K5_EARLIER_MS['dense']} ms; codes "
+        f"stored from registers {out['direct_ms']:.4f} / {out['direct_dense_ms']:.4f} ms; plain "
         f"{out['plain_ms']:.3f} / {out['plain_dense_ms']:.3f} ms; the eager path it replaced "
         f"{out['eager_ms']:.3f} / {out['eager_dense_ms']:.3f} ms; cuDNN F.conv2d alone "
         f"{out['library_ms']:.4f} ms")
@@ -1145,10 +1295,11 @@ def phase_main(seed: int, work: str, dev, card: str) -> dict:
     # both modes again with K5's plain version swapped in on the card: every
     # pixel must agree with the runs through K5
     res["k5_vs_plain_pixels_differing"] = {}
+    main_scales = []
     for mode, out_k5 in (("int8_blocked", out_blocked), ("int8", out_dense)):
         out_plain5 = os.path.join(work, f"masks_{mode}_plain_input_conv")
         input_conv.LAUNCHES = 0
-        with plain_input_conv() as calls5:
+        with plain_input_conv() as (calls5, scales5):
             cli(common + ["--output_folder", out_plain5, "--quantize", mode,
                           "--calibration_in", cal])
         want5 = [((BATCH, TILE, TILE, 1), mode == "int8_blocked")]
@@ -1167,6 +1318,8 @@ def phase_main(seed: int, work: str, dev, card: str) -> dict:
                                  f"differ: {differ}")
         log(f"{mode} through K5's plain version: {len(calls5)} plain calls, masks equal on "
             "every pixel")
+        main_scales += scales5
+    res["k5_division_main"] = k5_division_check(torch.unique(torch.cat(main_scales)), 0, seed)
     agree = {}
     for name in shapes:
         a = imread(os.path.join(out_blocked, name))
@@ -1633,18 +1786,20 @@ def plain_conv():
 def plain_input_conv():
     """K5's wrapper with the kernel's launch swapped for its plain version
     on the same card tensors: the predict function then runs K5-free and
-    counts no launch. Yields (x shape, blocked) of each call."""
+    counts no launch. Yields (x shape, blocked) of each call, and the
+    output scales ``so`` it was given."""
     from tpuseg_torch.infer import input_conv
 
-    launch, calls = input_conv._launch, []
+    launch, calls, scales = input_conv._launch, [], []
 
     def plain(x, w, b, s, t, so, dtype, blocked):
         calls.append((tuple(x.shape), blocked))
+        scales.append(so.reshape(1))
         return input_conv._input_conv_plain(x, w, b, s, t, so, dtype, blocked)
 
     input_conv._launch = plain
     try:
-        yield calls
+        yield calls, scales
     finally:
         input_conv._launch = launch
 
@@ -3257,13 +3412,27 @@ def main() -> int:
                         "TF32 off (the conv alone, as _conv_fp ran it)",
         "dense_ms": k5["dense_ms"], "eager_ms": k5["eager_ms"],
         "eager_dense_ms": k5["eager_dense_ms"],
+        "earlier_ms": k5["earlier_ms"],
+        "earlier_note": "K5 before its redesign (one 8 x 32 tile a block, __fdiv_rn, "
+                        "16-byte stores from registers), as PERF.md records it",
+        "direct_ms": {"blocked": k5["direct_ms"], "dense": k5["direct_dense_ms"]},
+        "issue_floor_ms": k5["issue_floor_ms"],
+        "sass_per_output": {lay: r["per_output"] for lay, r in k5["sass"].items()},
+        "clock_max_mhz": k5["clock_max_mhz"],
+        "grid": {lay: p["grid"] for lay, p in k5["plan"].items()},
+        "resident_per_sm": {lay: p["resident_per_sm"] for lay, p in k5["plan"].items()},
+        "division_check": {"main_path_scales": main_res["k5_division_main"],
+                           "phase2_scale": k5["division"]["phase2_scale_every_value"],
+                           "random_scales": k5["division"]["random_scales"]},
         "timing": "per call by CUDA events around it, L2 flushed and a 1 ms spin before "
                   "each; ms is the blocked layout (the int8_blocked main path), dense_ms the "
-                  "int8 walk's",
+                  "int8 walk's; direct_ms with the codes stored from registers",
         "shape": k5["shape"], "f": k5["f"], "share_of_bound": k5["share_of_bound"],
         "tolerance": "bit-equal (torch.equal) to the plain version in both layouts at the "
                      "main path's shape and at C 3; masks through K5 equal those through "
-                     "the plain version on every pixel (int8_blocked and int8)",
+                     "the plain version on every pixel (int8_blocked and int8); the "
+                     "reciprocal requantize's codes equal __fdiv_rn's on every f32 value for "
+                     "each scale of the main path",
     }]
     summary = {"card": card, "torch": torch.__version__, "build_s": build_s,
                "kernels": kern, "int8_conv": k3, "input_conv": k5, "shear": shear,

@@ -386,8 +386,8 @@ def _k5_check(dev, b, h, w, c, f, blocked, dtype=torch.bfloat16, seed=0):
 @pytest.mark.parametrize("f", [4, 16, 64, 256])
 @pytest.mark.parametrize("c", [1, 3])
 def test_input_conv_kernel_bit_equal_to_plain(cuda, c, f, blocked):
-    """34 x 70 images: 5 x 3 tiles of 8 x 32, the last row and column of
-    tiles cut short."""
+    """34 x 70 images: the last row and column of tiles cut short (9 x 1
+    tiles of 4 x 128 at C 1, 5 x 3 of 8 x 32 at C 3)."""
     want = _k5_check(cuda, 2, 34, 70, c, f, blocked, seed=c * 1000 + f)
     assert torch.unique(want).numel() >= 64 and (want.abs() == 127).float().mean() < 0.1
 
@@ -420,11 +420,95 @@ def test_input_conv_kernel_scalar_tail(cuda, f):
 
 @pytest.mark.cuda
 def test_input_conv_kernel_channel_chunks(cuda):
-    """40 input channels, 128 output: two chunks of 112 and 16 channels
-    (the weights of all 128 overflow a block's shared memory)."""
-    assert k5.chunk_width(40, 128) == 112
+    """40 input channels, 128 output: two chunks of 80 and 48 channels
+    (the weights of all 128 and two halo buffers overflow a block's shared
+    memory)."""
+    assert k5.chunk_width(40, 128) == 80
     for blocked in (False, True):
         _k5_check(cuda, 1, 12, 40, 40, 128, blocked, seed=40)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blocked", [False, True])
+@pytest.mark.parametrize("b,h,w", [(1, 4, 128), (2, 512, 512)])
+def test_input_conv_kernel_persistent_grid(cuda, b, h, w, blocked):
+    """One tile (one block), and many more tiles than the card holds
+    blocks (each block walks a run of them): the grid follows the rule."""
+    plan = k5.launch_plan((b, h, w, 1), 64, torch.bfloat16, blocked, cuda)
+    th, tw = k5.TILE_C1
+    tiles = b * -(-h // th) * -(-w // tw)
+    assert (plan["fc"], plan["stages"], plan["staged"]) == (64, 2, True)
+    assert plan["tiles"] == tiles and (plan["tile_h"], plan["tile_w"]) == (th, tw)
+    assert plan["smem_bytes"] == k5.smem_bytes(1, 64, 2, True)
+    assert plan["resident_per_sm"] >= 2  # 16 warps an SM at the served shape
+    assert plan["grid"] == k5.grid_blocks(tiles, 1, plan["sms"], plan["resident_per_sm"])
+    assert (plan["grid"] == 1) if tiles == 1 else (plan["grid"] < tiles)
+    _k5_check(cuda, b, h, w, 1, 64, blocked, seed=b * h)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("f", [4, 20, 64, 256])
+@pytest.mark.parametrize("c", [1, 3, 100])
+def test_input_conv_kernel_ragged_tiles(cuda, c, f, dtype):
+    """H and W off the tile (dense W 37: at C 1 an input row of 148 bytes,
+    not a multiple of 16), blocked widths of 3 tile columns (W 384 at C 1,
+    96 at other C), every plan: staged codes (F 64; 256 at C 3), tails (F 4,
+    20), chunks with one halo buffer (C 100)."""
+    _k5_check(cuda, 2, 19, 37, c, f, False, dtype, seed=c * 100 + f)
+    _k5_check(cuda, 2, 18, 3 * k5.tile(c)[1], c, f, True, dtype, seed=c * 100 + f + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blocked", [False, True])
+def test_input_conv_kernel_direct_stores(cuda, blocked):
+    """The codes stored straight from registers where the plan stages them
+    (the timing alternative) are the same codes."""
+    args = _k5_inputs(2, 34, 70, 1, 64, 3, cuda)
+    got = k5._launch(*args, torch.bfloat16, blocked, staged=False)
+    torch.cuda.synchronize()
+    assert torch.equal(got, k5._input_conv_plain(*args, torch.bfloat16, blocked))
+
+
+@pytest.mark.cuda
+def test_input_conv_requant_reciprocal_matches_true_division(cuda):
+    """The kernel's reciprocal requantize gives __fdiv_rn's codes for random
+    scales over its whole range (2^-64..2^64 and the bounds), on random
+    values (NaNs and infinities among them) and values within 8 ulps of the
+    rounding's ties."""
+    rng = np.random.default_rng(9)
+    so = np.concatenate([2.0 ** rng.uniform(-64, 64, 32), [2.5 / 127, 2.0 ** -64, 2.0 ** 64]])
+    codes, _, examples = k5.requant_mismatches(
+        torch.tensor(so, dtype=torch.float32, device=cuda), count=1 << 20, seed=3)
+    assert codes == 0, examples
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", [2.0 ** -70, 2.0 ** 70, -1.0])
+def test_input_conv_kernel_scales_outside_the_reciprocal_range(cuda, scale):
+    """Output scales past 2^-64..2^64, or negative, take the true division:
+    s, t and so scaled alike keep the codes spread, bit-equal in both
+    layouts."""
+    for blocked in (False, True):
+        x, w, b, s, t, so = _k5_inputs(2, 34, 70, 1, 64, 11, cuda)
+        args = [x, w, b, s * scale, t * scale, so * scale]
+        got = k5.input_conv(*args, torch.bfloat16, blocked)
+        want = k5._input_conv_plain(*args, torch.bfloat16, blocked)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and torch.unique(want).numel() >= 64
+
+
+@pytest.mark.cuda
+def test_input_conv_kernel_back_to_back_shapes(cuda):
+    """Two launches of different shapes and plans queued on one stream, no
+    synchronisation between them."""
+    a = _k5_inputs(2, 40, 64, 1, 64, 7, cuda)
+    b = _k5_inputs(1, 19, 37, 3, 20, 8, cuda)
+    got_a = k5.input_conv(*a, torch.bfloat16, True)
+    got_b = k5.input_conv(*b, torch.float32, False)
+    torch.cuda.synchronize()
+    assert torch.equal(got_a, k5._input_conv_plain(*a, torch.bfloat16, True))
+    assert torch.equal(got_b, k5._input_conv_plain(*b, torch.float32, False))
 
 
 @pytest.mark.cuda

@@ -22,6 +22,9 @@ kernel on the CPU, and labels like the JAX package on >= 0.999
 against the plain version on the card by tests/test_torch_cuda.py and by
 chip_smoke.py."""
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -162,14 +165,69 @@ def test_trace_groups_name_k5_first():
 
 def test_chunk_width_rule():
     """All of F in one block where it fits (every served width), chunks of a
-    multiple of 16 where the weights would overflow shared memory."""
+    multiple of 16 (at most 1024) where the weights would overflow shared
+    memory: with two halo buffers where they fit, else with one."""
     assert [k5.chunk_width(1, f) for f in (4, 16, 20, 64, 256)] == [16, 16, 32, 64, 256]
-    assert k5.chunk_width(3, 1024) == 1024
-    assert k5.chunk_width(40, 128) == 112
-    assert k5.smem_bytes(40, 112) <= k5.SMEM_BYTES < k5.smem_bytes(40, 128)
-    assert k5.chunk_width(119, 64) == 16
+    assert k5.chunk_width(3, 1024) == 1024 and k5.chunk_width(1, 2048) == 1024
+    assert k5.kernel_plan(40, 128) == (80, 2, False)
+    assert k5.smem_bytes(40, 80) <= k5.SMEM_BYTES < k5.smem_bytes(40, 96)
+    assert k5.kernel_plan(70, 64)[1] == 2 and k5.kernel_plan(71, 64)[1] == 1
+    assert k5.kernel_plan(100, 64) == (16, 1, False)
+    assert k5.kernel_plan(119, 64) == (16, 1, False)
+    assert k5.smem_bytes(119, 16, 1) <= k5.SMEM_BYTES < k5.smem_bytes(120, 16, 1)
     with pytest.raises(ValueError, match="shared memory"):
         k5.chunk_width(120, 64)
+
+
+def test_kernel_plan_stages_codes_where_rows_are_contiguous():
+    """Codes leave by bulk copy only where a tile row's codes are contiguous
+    in the output (one chunk of all F, F % 16 == 0), with both halo and both
+    code buffers in shared memory; the served shape (C 1, F 64) fits three
+    blocks an SM."""
+    assert k5.kernel_plan(1, 64) == (64, 2, True)
+    assert k5.kernel_plan(3, 64) == (64, 2, True)
+    assert k5.kernel_plan(3, 256) == (256, 2, True)
+    assert k5.kernel_plan(1, 256) == (256, 2, False)  # a 4 x 128 tile's codes would not fit
+    assert k5.kernel_plan(1, 20) == (32, 2, False)   # tail: F % 16 != 0
+    assert k5.kernel_plan(3, 1024) == (1024, 2, False)
+    assert k5.tile(1) == k5.TILE_C1 == (4, 128) and k5.tile(3) == k5.TILE == (8, 32)
+    assert k5.halo_floats(1) == (4 + 2) * (128 + 8)
+    assert k5.halo_floats(3) == (8 + 2) * (32 + 2) * 3
+    assert k5.halo_floats(5) % 4 == 0
+    served = k5.smem_bytes(1, 64, 2, True)
+    assert served == 4 * (2 * 816 + 9 * 64 + 3 * 64) + 2 * 4 * (128 * 64 + 32)
+    assert 3 * served <= k5.SMEM_BYTES
+
+
+def test_grid_rule():
+    """A persistent grid: the card's resident blocks, shared evenly by the
+    chunks, never more blocks than a chunk has tiles."""
+    th, tw = k5.TILE_C1
+    tiles = 8 * (1024 // th) * (1024 // tw)
+    assert k5.grid_blocks(tiles, 1, 132, 2) == 264
+    assert k5.grid_blocks(1, 1, 132, 2) == 1
+    assert k5.grid_blocks(5, 4, 132, 1) == 20
+    assert k5.grid_blocks(tiles, 4, 132, 1) == 132
+    assert k5.grid_blocks(tiles, 3, 132, 2) == 264
+    assert k5.grid_blocks(tiles, 300, 132, 2) == 300
+
+
+def test_constants_mirror_the_source():
+    """The wrapper's rules use the kernel's constants."""
+    src = (Path(k5.__file__).resolve().parent.parent / "csrc" / "input_conv.cu").read_text()
+
+    def const(name):
+        m = re.search(rf"constexpr int {name} = ([^;]+);", src)
+        return m.group(1).split("//")[0].strip()
+
+    assert re.search(rf"#define K5_TILE_H {k5.TILE_C1[0]}\n", src)
+    assert re.search(rf"#define K5_TILE_W {k5.TILE_C1[1]}\n", src)
+    assert const("h") == f"C1 ? K5_TILE_H : {k5.TILE[0]}"
+    assert const("w") == f"C1 ? K5_TILE_W : {k5.TILE[1]}"
+    assert const("pitch") == "w + 8"
+    assert const("kThreads") == str(k5.THREADS) and const("kGroup") == str(k5.GROUP)
+    assert const("kStagePad") == str(k5.STAGE_PAD) and const("kMaxSmem") == str(k5.SMEM_BYTES)
+    assert const("kNG") == "4" and const("kMaxFc") == "kNG * kThreads"
 
 
 def test_bad_inputs_refused():
