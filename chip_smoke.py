@@ -783,9 +783,6 @@ def eager_input_block(args: list, dtype, blocked: bool):
     return run
 
 
-# K5's times at the served shape before its redesign (this script, as PERF.md
-# records them), NVIDIA H100 80GB HBM3 at 700.00 W
-K5_EARLIER_MS = {"blocked": 1.120, "dense": 1.097}
 K5_OUTPUTS_PER_ITEM = 32  # csrc/input_conv.cu: kItem pixels x kNG channels
 K5_RANDOM_SCALES, K5_RANDOM_VALUES = 256, 2 ** 24
 
@@ -864,25 +861,36 @@ def k5_division_check(so, count: int, seed: int) -> dict:
     """K5's reciprocal requantize against the true division
     (``input_conv.requant_mismatches``) for each scale of the CUDA vector
     ``so``: every f32 value with ``count`` 0, else ``count`` draws each.
-    Fails on any value whose code differs; reports the values whose
-    quotients differ (the codes may agree where they do)."""
+    Fails on any value whose code differs, and on any value whose quotient
+    differs outside underflow (|v| >= 2^-100 and a normal quotient, where
+    the correction is correctly rounded, so a difference there would be a
+    fault that other scales could meet with other codes); reports the
+    values whose quotients differ, and the largest of their true quotients
+    and of their |v|."""
     from tpuseg_torch.infer import input_conv as k5
 
     t0 = time.perf_counter()
-    codes, quotients, examples = k5.requant_mismatches(so, count, seed)
+    m = k5.requant_mismatches(so, count, seed)
     values = so.tolist()
     r = {"scales": len(values), "scale_values": values[:8],
          "values_each": 2 ** 32 if count == 0 else count,
          "reciprocal_route": all(2.0 ** -64 <= v <= 2.0 ** 64 for v in values),
-         "code_mismatches": codes, "quotient_mismatches": quotients,
-         "first_mismatches": examples,
+         "code_mismatches": m["codes"], "quotient_mismatches": m["quotients"],
+         "quotient_mismatches_outside_underflow": m["normal"],
+         "largest_mismatched_quotient": m["largest_quotient"],
+         "largest_mismatched_value": m["largest_value"],
+         "first_mismatches": m["examples"],
          "s": time.perf_counter() - t0}
     what = "every f32 value" if count == 0 else f"{count} values each"
-    if codes or not r["reciprocal_route"]:
-        raise AssertionError(f"K5's reciprocal requantize: {codes} codes differ from the true "
+    if m["codes"] or m["normal"] or not r["reciprocal_route"]:
+        raise AssertionError(f"K5's reciprocal requantize: {m['codes']} codes and "
+                             f"{m['normal']} quotients outside underflow differ from the true "
                              f"division's over {what} of {len(values)} scales; {r}")
     log(f"K5 division check, {len(values)} scale(s) ({values[:3]}...), {what}: codes equal "
-        f"to __fdiv_rn's everywhere, quotients differ on {quotients}, {r['s']:.1f} s")
+        f"to __fdiv_rn's everywhere; quotients differ on {m['quotients']}, none outside "
+        f"underflow (|v| >= 2^-100, normal quotient); among them the largest |quotient| "
+        f"{m['largest_quotient']:.3e}, the largest |v| {m['largest_value']:.3e}; "
+        f"{r['s']:.3f} s")
     return r
 
 
@@ -897,8 +905,7 @@ def phase_input_conv(seed: int, dev) -> dict:
     of these inputs and on 2^24 values each for 256 random scales; its
     SASS instructions per output and the issue floor they set at the
     card's ``clocks.max.sm``; then, in turns with the L2 flushed, by CUDA
-    events around each call (:func:`events_ms_cold`), the kernel (also
-    with its codes stored from registers instead of by bulk copy), the
+    events around each call (:func:`events_ms_cold`), the kernel, the
     plain version and the eager path in both layouts, and cuDNN's
     ``F.conv2d`` alone (f32 out, TF32 off, on the rounded operands, as
     ``_conv_fp`` runs it: the product, a yardstick the port no longer calls
@@ -983,8 +990,6 @@ def phase_input_conv(seed: int, dev) -> dict:
     fns = {"library": (library, 5)}
     for lay, blocked in layouts.items():
         fns[f"kernel_{lay}"] = (lambda blocked=blocked: k5.input_conv(*args, dtype, blocked), 10)
-        fns[f"direct_{lay}"] = (
-            lambda blocked=blocked: k5._launch(*args, dtype, blocked, staged=False), 10)
         fns[f"plain_{lay}"] = (
             lambda blocked=blocked: k5._input_conv_plain(*args, dtype, blocked), 2)
         fns[f"eager_{lay}"] = (eager_input_block(args, dtype, blocked), 3)
@@ -1001,9 +1006,6 @@ def phase_input_conv(seed: int, dev) -> dict:
     out.update({"shape": list(x.shape), "f": BASE, "dtype": "bfloat16",
                 "ms": ms["kernel_blocked"], "ms_runs": runs["kernel_blocked"],
                 "dense_ms": ms["kernel_dense"], "dense_ms_runs": runs["kernel_dense"],
-                "direct_ms": ms["direct_blocked"], "direct_dense_ms": ms["direct_dense"],
-                "direct_ms_runs": {k: runs[f"direct_{k}"] for k in layouts},
-                "earlier_ms": K5_EARLIER_MS,
                 "plain_ms": ms["plain_blocked"], "plain_dense_ms": ms["plain_dense"],
                 "eager_ms": ms["eager_blocked"], "eager_dense_ms": ms["eager_dense"],
                 "eager_ms_runs": {k: runs[f"eager_{k}"] for k in layouts},
@@ -1021,9 +1023,7 @@ def phase_input_conv(seed: int, dev) -> dict:
         f"{out['bound_ms']:.4f} ms bound, {out['bound_by']}; ops {t_ops:.4f} ms; "
         f"{out['share_of_issue_floor']:.1%} of the issue floor), dense "
         f"{runs['kernel_dense'][0]:.4f} / {runs['kernel_dense'][1]:.4f} ms "
-        f"({out['dense_share_of_bound']:.1%}, {out['dense_share_of_issue_floor']:.1%}); "
-        f"before the redesign {K5_EARLIER_MS['blocked']} / {K5_EARLIER_MS['dense']} ms; codes "
-        f"stored from registers {out['direct_ms']:.4f} / {out['direct_dense_ms']:.4f} ms; plain "
+        f"({out['dense_share_of_bound']:.1%}, {out['dense_share_of_issue_floor']:.1%}); plain "
         f"{out['plain_ms']:.3f} / {out['plain_dense_ms']:.3f} ms; the eager path it replaced "
         f"{out['eager_ms']:.3f} / {out['eager_dense_ms']:.3f} ms; cuDNN F.conv2d alone "
         f"{out['library_ms']:.4f} ms")
@@ -3412,10 +3412,6 @@ def main() -> int:
                         "TF32 off (the conv alone, as _conv_fp ran it)",
         "dense_ms": k5["dense_ms"], "eager_ms": k5["eager_ms"],
         "eager_dense_ms": k5["eager_dense_ms"],
-        "earlier_ms": k5["earlier_ms"],
-        "earlier_note": "K5 before its redesign (one 8 x 32 tile a block, __fdiv_rn, "
-                        "16-byte stores from registers), as PERF.md records it",
-        "direct_ms": {"blocked": k5["direct_ms"], "dense": k5["direct_dense_ms"]},
         "issue_floor_ms": k5["issue_floor_ms"],
         "sass_per_output": {lay: r["per_output"] for lay, r in k5["sass"].items()},
         "clock_max_mhz": k5["clock_max_mhz"],
@@ -3426,13 +3422,14 @@ def main() -> int:
                            "random_scales": k5["division"]["random_scales"]},
         "timing": "per call by CUDA events around it, L2 flushed and a 1 ms spin before "
                   "each; ms is the blocked layout (the int8_blocked main path), dense_ms the "
-                  "int8 walk's; direct_ms with the codes stored from registers",
+                  "int8 walk's",
         "shape": k5["shape"], "f": k5["f"], "share_of_bound": k5["share_of_bound"],
         "tolerance": "bit-equal (torch.equal) to the plain version in both layouts at the "
                      "main path's shape and at C 3; masks through K5 equal those through "
                      "the plain version on every pixel (int8_blocked and int8); the "
                      "reciprocal requantize's codes equal __fdiv_rn's on every f32 value for "
-                     "each scale of the main path",
+                     "each scale of the main path, and its quotients wherever nothing "
+                     "underflows",
     }]
     summary = {"card": card, "torch": torch.__version__, "build_s": build_s,
                "kernels": kern, "int8_conv": k3, "input_conv": k5, "shear": shear,

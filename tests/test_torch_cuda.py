@@ -423,7 +423,7 @@ def test_input_conv_kernel_channel_chunks(cuda):
     """40 input channels, 128 output: two chunks of 80 and 48 channels
     (the weights of all 128 and two halo buffers overflow a block's shared
     memory)."""
-    assert k5.chunk_width(40, 128) == 80
+    assert k5.launch_plan((1, 12, 40, 40), 128, torch.bfloat16, False, cuda)["fc"] == 80
     for blocked in (False, True):
         _k5_check(cuda, 1, 12, 40, 40, 128, blocked, seed=40)
 
@@ -435,13 +435,11 @@ def test_input_conv_kernel_persistent_grid(cuda, b, h, w, blocked):
     """One tile (one block), and many more tiles than the card holds
     blocks (each block walks a run of them): the grid follows the rule."""
     plan = k5.launch_plan((b, h, w, 1), 64, torch.bfloat16, blocked, cuda)
-    th, tw = k5.TILE_C1
-    tiles = b * -(-h // th) * -(-w // tw)
+    tiles = b * -(-h // 4) * -(-w // 128)
     assert (plan["fc"], plan["stages"], plan["staged"]) == (64, 2, True)
-    assert plan["tiles"] == tiles and (plan["tile_h"], plan["tile_w"]) == (th, tw)
-    assert plan["smem_bytes"] == k5.smem_bytes(1, 64, 2, True)
+    assert plan["tiles"] == tiles and (plan["tile_h"], plan["tile_w"]) == (4, 128)
     assert plan["resident_per_sm"] >= 2  # 16 warps an SM at the served shape
-    assert plan["grid"] == k5.grid_blocks(tiles, 1, plan["sms"], plan["resident_per_sm"])
+    assert plan["grid"] == min(tiles, plan["sms"] * plan["resident_per_sm"])
     assert (plan["grid"] == 1) if tiles == 1 else (plan["grid"] < tiles)
     _k5_check(cuda, b, h, w, 1, 64, blocked, seed=b * h)
 
@@ -456,18 +454,44 @@ def test_input_conv_kernel_ragged_tiles(cuda, c, f, dtype):
     96 at other C), every plan: staged codes (F 64; 256 at C 3), tails (F 4,
     20), chunks with one halo buffer (C 100)."""
     _k5_check(cuda, 2, 19, 37, c, f, False, dtype, seed=c * 100 + f)
-    _k5_check(cuda, 2, 18, 3 * k5.tile(c)[1], c, f, True, dtype, seed=c * 100 + f + 1)
+    tw = k5.launch_plan((2, 18, 8, c), f, dtype, True, cuda)["tile_w"]
+    _k5_check(cuda, 2, 18, 3 * tw, c, f, True, dtype, seed=c * 100 + f + 1)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("blocked", [False, True])
-def test_input_conv_kernel_direct_stores(cuda, blocked):
-    """The codes stored straight from registers where the plan stages them
-    (the timing alternative) are the same codes."""
-    args = _k5_inputs(2, 34, 70, 1, 64, 3, cuda)
-    got = k5._launch(*args, torch.bfloat16, blocked, staged=False)
-    torch.cuda.synchronize()
-    assert torch.equal(got, k5._input_conv_plain(*args, torch.bfloat16, blocked))
+def test_input_conv_chunk_width_rule(cuda):
+    """The plan the library makes: all of F in one block, its codes staged
+    for the bulk copy, where F % 16 == 0 and that fits (every served
+    width); otherwise chunks of a multiple of 16 (at most 1024) where the
+    weights would overflow shared memory, with two halo buffers where they
+    fit, else with one; C 120 refused. Tiles of 4 x 128 at C 1, 8 x 32
+    otherwise; the served shape fits three blocks an SM."""
+    def plan(c, f):
+        p = k5.launch_plan((2, 64, 256, c), f, torch.bfloat16, True, cuda)
+        return p["fc"], p["stages"], p["staged"]
+
+    assert [plan(1, f)[0] for f in (4, 16, 20, 64, 256)] == [16, 16, 32, 64, 256]
+    assert plan(1, 64) == (64, 2, True) and plan(3, 64) == (64, 2, True)
+    assert plan(3, 256) == (256, 2, True)
+    assert plan(1, 256) == (256, 2, False)  # a 4 x 128 tile's codes would not fit
+    assert plan(1, 20) == (32, 2, False)  # tail: F % 16 != 0
+    assert plan(3, 1024) == (1024, 2, False) and plan(1, 2048)[0] == 1024
+    assert plan(40, 128) == (80, 2, False)
+    assert plan(70, 64)[1] == 2 and plan(71, 64)[1] == 1
+    assert plan(100, 64) == (16, 1, False) and plan(119, 64) == (16, 1, False)
+    with pytest.raises(RuntimeError, match="plan failed"):
+        plan(120, 64)
+    served = k5.launch_plan((8, 1024, 1024, 1), 64, torch.bfloat16, True, cuda)
+    assert (served["tile_h"], served["tile_w"]) == (4, 128)
+    assert served["smem_bytes"] == 4 * (2 * 6 * 136 + 9 * 64 + 3 * 64) + 2 * 4 * (128 * 64 + 32)
+    assert served["resident_per_sm"] >= 3
+    c3 = k5.launch_plan((8, 1024, 1024, 3), 64, torch.bfloat16, False, cuda)
+    assert (c3["tile_h"], c3["tile_w"]) == (8, 32)
+    x, w, b, s, t, so = _k5_inputs(1, 8, 8, 120, 16, 0, cuda)
+    before = k5.LAUNCHES
+    with pytest.raises(RuntimeError, match="launch failed"):
+        k5.input_conv(x, w, b, s, t, so, torch.bfloat16)
+    assert k5.LAUNCHES == before
 
 
 @pytest.mark.cuda
@@ -475,12 +499,14 @@ def test_input_conv_requant_reciprocal_matches_true_division(cuda):
     """The kernel's reciprocal requantize gives __fdiv_rn's codes for random
     scales over its whole range (2^-64..2^64 and the bounds), on random
     values (NaNs and infinities among them) and values within 8 ulps of the
-    rounding's ties."""
+    rounding's ties; its quotients differ from __fdiv_rn's only in underflow
+    (|v| < 2^-100 or a subnormal quotient), far below a code's 1/2."""
     rng = np.random.default_rng(9)
     so = np.concatenate([2.0 ** rng.uniform(-64, 64, 32), [2.5 / 127, 2.0 ** -64, 2.0 ** 64]])
-    codes, _, examples = k5.requant_mismatches(
-        torch.tensor(so, dtype=torch.float32, device=cuda), count=1 << 20, seed=3)
-    assert codes == 0, examples
+    m = k5.requant_mismatches(torch.tensor(so, dtype=torch.float32, device=cuda),
+                              count=1 << 20, seed=3)
+    assert m["codes"] == 0, m["examples"]
+    assert m["normal"] == 0 and m["largest_quotient"] < 2.0 ** -36, m
 
 
 @pytest.mark.cuda

@@ -11,7 +11,9 @@ requantize), on the same numpy inputs:
   whose products are exact, about 1e-7 apart at f32);
 - the int8 codes equal on >= 0.999 of elements and never more than one
   code apart (a value within an f32 rounding of a code boundary can take
-  the neighbour). Each case reports whether it was bit-equal.
+  the neighbour). Each case reports whether it was bit-equal;
+- at C 100 (900 products a sum) each sum within the error bound of
+  recursive summation in any order, on both sides.
 
 The blocked layout is ``quant._s2d`` of the dense output, bit for bit; the
 epilogue is numpy's float32 operations in the same order, bit for bit, half-
@@ -21,9 +23,6 @@ kernel on the CPU, and labels like the JAX package on >= 0.999
 (tests/test_torch_quant.py's tolerance). The CUDA kernel itself is held
 against the plain version on the card by tests/test_torch_cuda.py and by
 chip_smoke.py."""
-
-import re
-from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -79,7 +78,35 @@ def test_plain_matches_tpuseg_conv_fp_and_epilogue(c, dtype):
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("c,f", [(1, 4), (1, 64), (3, 20)])
+def test_plain_matches_tpuseg_at_100_channels(dtype):
+    """C 100, where the kernel takes chunks of 16 output channels with one
+    halo buffer: 900 products a sum, so the two summation orders may differ
+    by more than at C 1 or 3. Each sum is held within the error bound of
+    recursive summation in any order, ``(9C - 1) * 2^-24`` times the sum of
+    the |products|, twice (both sides); the codes as in the test above."""
+    tdt, jdt = DTYPES[dtype]
+    x, w, b, s, t, so = _case(100, 16, 7)
+    sj = np.asarray(jq._conv_fp(jnp.asarray(x), jnp.asarray(w), jdt))
+    yj = np.maximum(sj + b, np.float32(0.0)) * s + t
+    want_q = np.clip(np.rint(yj / so), -127, 127).astype(np.int8)
+    xt, wt, bt, st, tt, sot = _t(x, w, b, s, t, so)
+    got = k5.conv_sums(xt, wt, tdt).numpy()
+    absx = xt.to(tdt).double().abs().permute(0, 3, 1, 2)
+    absw = wt.to(tdt).double().abs().permute(3, 2, 0, 1)
+    mass = torch.nn.functional.conv2d(absx, absw, padding=1).permute(0, 2, 3, 1).numpy()
+    bound = 2 * (9 * 100 - 1) * 2.0 ** -24 * mass
+    got_q = k5.input_conv(xt, wt, bt, st, tt, sot, tdt).numpy()
+    over = np.abs(got.astype(np.float64) - sj) / bound
+    print(f"C=100 {dtype}: sums at most {over.max():.3f} of the bound apart; codes agree on "
+          f"{(got_q == want_q).mean():.6f}")
+    assert (over <= 1).all()
+    assert (got_q == want_q).mean() >= 0.999
+    assert np.abs(got_q.astype(np.int32) - want_q).max() <= 1
+    assert len(np.unique(want_q)) >= 64 and np.mean(np.abs(want_q) == 127) < 0.1
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("c,f", [(1, 4), (1, 64), (3, 20), (100, 16)])
 def test_blocked_layout_is_s2d_of_dense(c, f, dtype):
     tdt = DTYPES[dtype][0]
     args = _t(*_case(c, f, 20 + f, (3, 10, 14)))
@@ -161,73 +188,6 @@ def test_trace_groups_name_k5_first():
     assert trace_analysis.kernel_group(name) == "K5 input_conv"
     order = [g for g, _ in trace_analysis.KERNEL_GROUPS]
     assert order.index("K5 input_conv") < order.index("cuDNN / GEMM") < order.index("elementwise")
-
-
-def test_chunk_width_rule():
-    """All of F in one block where it fits (every served width), chunks of a
-    multiple of 16 (at most 1024) where the weights would overflow shared
-    memory: with two halo buffers where they fit, else with one."""
-    assert [k5.chunk_width(1, f) for f in (4, 16, 20, 64, 256)] == [16, 16, 32, 64, 256]
-    assert k5.chunk_width(3, 1024) == 1024 and k5.chunk_width(1, 2048) == 1024
-    assert k5.kernel_plan(40, 128) == (80, 2, False)
-    assert k5.smem_bytes(40, 80) <= k5.SMEM_BYTES < k5.smem_bytes(40, 96)
-    assert k5.kernel_plan(70, 64)[1] == 2 and k5.kernel_plan(71, 64)[1] == 1
-    assert k5.kernel_plan(100, 64) == (16, 1, False)
-    assert k5.kernel_plan(119, 64) == (16, 1, False)
-    assert k5.smem_bytes(119, 16, 1) <= k5.SMEM_BYTES < k5.smem_bytes(120, 16, 1)
-    with pytest.raises(ValueError, match="shared memory"):
-        k5.chunk_width(120, 64)
-
-
-def test_kernel_plan_stages_codes_where_rows_are_contiguous():
-    """Codes leave by bulk copy only where a tile row's codes are contiguous
-    in the output (one chunk of all F, F % 16 == 0), with both halo and both
-    code buffers in shared memory; the served shape (C 1, F 64) fits three
-    blocks an SM."""
-    assert k5.kernel_plan(1, 64) == (64, 2, True)
-    assert k5.kernel_plan(3, 64) == (64, 2, True)
-    assert k5.kernel_plan(3, 256) == (256, 2, True)
-    assert k5.kernel_plan(1, 256) == (256, 2, False)  # a 4 x 128 tile's codes would not fit
-    assert k5.kernel_plan(1, 20) == (32, 2, False)   # tail: F % 16 != 0
-    assert k5.kernel_plan(3, 1024) == (1024, 2, False)
-    assert k5.tile(1) == k5.TILE_C1 == (4, 128) and k5.tile(3) == k5.TILE == (8, 32)
-    assert k5.halo_floats(1) == (4 + 2) * (128 + 8)
-    assert k5.halo_floats(3) == (8 + 2) * (32 + 2) * 3
-    assert k5.halo_floats(5) % 4 == 0
-    served = k5.smem_bytes(1, 64, 2, True)
-    assert served == 4 * (2 * 816 + 9 * 64 + 3 * 64) + 2 * 4 * (128 * 64 + 32)
-    assert 3 * served <= k5.SMEM_BYTES
-
-
-def test_grid_rule():
-    """A persistent grid: the card's resident blocks, shared evenly by the
-    chunks, never more blocks than a chunk has tiles."""
-    th, tw = k5.TILE_C1
-    tiles = 8 * (1024 // th) * (1024 // tw)
-    assert k5.grid_blocks(tiles, 1, 132, 2) == 264
-    assert k5.grid_blocks(1, 1, 132, 2) == 1
-    assert k5.grid_blocks(5, 4, 132, 1) == 20
-    assert k5.grid_blocks(tiles, 4, 132, 1) == 132
-    assert k5.grid_blocks(tiles, 3, 132, 2) == 264
-    assert k5.grid_blocks(tiles, 300, 132, 2) == 300
-
-
-def test_constants_mirror_the_source():
-    """The wrapper's rules use the kernel's constants."""
-    src = (Path(k5.__file__).resolve().parent.parent / "csrc" / "input_conv.cu").read_text()
-
-    def const(name):
-        m = re.search(rf"constexpr int {name} = ([^;]+);", src)
-        return m.group(1).split("//")[0].strip()
-
-    assert re.search(rf"#define K5_TILE_H {k5.TILE_C1[0]}\n", src)
-    assert re.search(rf"#define K5_TILE_W {k5.TILE_C1[1]}\n", src)
-    assert const("h") == f"C1 ? K5_TILE_H : {k5.TILE[0]}"
-    assert const("w") == f"C1 ? K5_TILE_W : {k5.TILE[1]}"
-    assert const("pitch") == "w + 8"
-    assert const("kThreads") == str(k5.THREADS) and const("kGroup") == str(k5.GROUP)
-    assert const("kStagePad") == str(k5.STAGE_PAD) and const("kMaxSmem") == str(k5.SMEM_BYTES)
-    assert const("kNG") == "4" and const("kMaxFc") == "kNG * kThreads"
 
 
 def test_bad_inputs_refused():

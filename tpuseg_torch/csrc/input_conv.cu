@@ -44,18 +44,18 @@
 // well above the bound. The design keeps everything else off the issue slots
 // and out of the way of the arithmetic.
 //
-// Design: a persistent grid. The wrapper's plan gives each block one chunk of
-// `fc` output channels (all of F unless the weights would not fit in shared
-// memory) and the host launches min(tiles x chunks, SMs x resident blocks)
-// blocks (the SM count and the occupancy are queried once per device and
-// kernel and cached here). Each block stages its chunk's rounded weights and
-// b, s, t in shared memory once, then walks a contiguous run of output tiles
-// in row-major order (tx fastest), so its successive tiles lie in one image
-// row band. A tile is 4 x 128 pixels at C == 1 (of the shapes
-// scripts/k5_variants.py timed, the fastest in both layouts) and 8 x 32 at
-// other C, whose smaller halo lets C reach 119. The input tile with its 1-pixel halo comes in by
-// 4-byte cp.async, src-size 0 outside the image (so SAME padding is the zero
-// fill), into one of two halo buffers: while tile k computes, tile k + 1's
+// Design: a persistent grid. The launch plan (`plan` below, the one place it
+// is made) gives each block one chunk of `fc` output channels (all of F
+// unless the weights would not fit in shared memory) and launches min(tiles x
+// chunks, SMs x resident blocks) blocks (the SM count and the occupancy are
+// queried once per device and kernel and cached here). Each block stages its
+// chunk's rounded weights and b, s, t in shared memory once, then walks a
+// contiguous run of output tiles in row-major order (tx fastest), so its
+// successive tiles lie in one image row band. A tile is 4 x 128 pixels at C
+// == 1 (of the shapes timed, the fastest in both layouts) and 8 x 32 at other
+// C, whose smaller halo lets C reach 119. The input tile with its 1-pixel
+// halo comes in by 4-byte cp.async, src-size 0 outside the image (so SAME
+// padding is the zero fill), into one of two halo buffers: while tile k computes, tile k + 1's
 // halo arrives (where the two buffers do not fit, at C >= 71, the block
 // loads each halo after the previous tile's compute into one buffer). After
 // the wait each thread rounds the elements it copied to the operand dtype, in
@@ -97,20 +97,6 @@
 
 #include <mutex>
 
-// The C == 1 template's tile, and the blocks an SM the served variants'
-// registers are capped for (bf16, C == 1, staged codes: 3 measured fastest
-// and does not spill; the others keep 2), overridable at build time
-// (-DK5_TILE_H=8) to time others (scripts/k5_variants.py).
-#ifndef K5_TILE_H
-#define K5_TILE_H 4
-#endif
-#ifndef K5_TILE_W
-#define K5_TILE_W 128
-#endif
-#ifndef K5_MIN_BLOCKS
-#define K5_MIN_BLOCKS 3
-#endif
-
 namespace {
 
 constexpr int kThreads = 256;  // threads per block
@@ -122,16 +108,18 @@ constexpr int kGroup = 16;              // a chunk is a multiple of this many ch
 constexpr int kMaxFc = kNG * kThreads;  // every thread keeps one channel group
 constexpr int kStagePad = 32;           // bytes after a staged dense row (blocked: 64)
 constexpr int kMaxSmem = 232448;        // a block's shared memory on Hopper
+// The blocks an SM the served variants' registers are capped for (bf16,
+// C == 1, staged codes: 3 measured fastest and does not spill); the others
+// keep 2.
+constexpr int kServedMinBlocks = 3;
 
 // Output rows and columns of a tile. C == 1 takes a wide one; other C keep
 // 8 x 32, whose halo lets C reach 119 (with one halo buffer and 16 channels).
 template <bool C1>
 struct Tile {
-  static constexpr int h = C1 ? K5_TILE_H : 8;
-  static constexpr int w = C1 ? K5_TILE_W : 32;
+  static constexpr int h = C1 ? 4 : 8;
+  static constexpr int w = C1 ? 128 : 32;
   static constexpr int pitch = w + 8;  // floats per halo row at C == 1
-  static_assert(h >= 4 && (h & (h - 1)) == 0, "tile rows: a power of two >= 4");
-  static_assert(w % 16 == 0, "tile columns: a multiple of 16");
 };
 
 enum DtypeCode { kF32 = 0, kBf16 = 1 };
@@ -293,7 +281,7 @@ __device__ __forceinline__ void halo_pass(const Params& p, float* buf, int img, 
 }
 
 template <bool BF16, bool BLOCKED, bool C1, bool STAGED>
-__global__ void __launch_bounds__(kThreads, BF16 && C1 && STAGED ? K5_MIN_BLOCKS : 2)
+__global__ void __launch_bounds__(kThreads, BF16 && C1 && STAGED ? kServedMinBlocks : 2)
     input_conv_kernel(Params p) {
   constexpr int kTH = Tile<C1>::h, kTW = Tile<C1>::w;
   constexpr int kItemCols = kTW / kItemW;
@@ -516,19 +504,27 @@ __global__ void __launch_bounds__(kThreads, BF16 && C1 && STAGED ? K5_MIN_BLOCKS
   if (STAGED && threadIdx.x < kStageRows) bulk_wait_all();
 }
 
-// Counts, for each scale so_list[blockIdx.y], the values v whose
-// requant_rcp word differs from requant_div's (out[0]) and whose corrected
-// quotient differs from __fdiv_rn's on the clamped v (out[1]), and keeps the
-// bits of the first kExamples such (so, v) in out[2 + 2j], out[3 + 2j]. v runs over
-// every f32 bit pattern (exhaustive) or `count` draws of a hash of (seed, i):
-// half random bit patterns, half within 8 ulps of (k + 1/2) so, the ties of
-// the rounding, for k in -128..128.
+// Holds requant_rcp against requant_div for each scale so_list[blockIdx.y]
+// and adds to out[kWords] the values v whose words differ, to out[kQuotients]
+// those whose corrected quotient differs from __fdiv_rn's on the clamped v,
+// and to out[kNormal] those of the latter outside underflow: |v| >= 2^-100
+// (so the residual v - q so, a multiple of 2^-48 |v| at least, is exact in
+// f32) and a normal true quotient, where the correction is correctly
+// rounded (Markstein). Below that, for 2^-64 <= so, the true quotient and
+// the corrected one are under 2^-34, both code 0. It keeps in
+// out[kLargestQ] and out[kLargestV] the bits of the largest |__fdiv_rn
+// quotient| and |v| among the differing ones, and the bits of the first
+// kExamples differing words' (so, v) in out[kFirst + 2j], out[kFirst + 2j +
+// 1]. v runs over every f32 bit pattern (exhaustive) or `count` draws of a
+// hash of (seed, i): half random bit patterns, half within 8 ulps of (k +
+// 1/2) so, the ties of the rounding, for k in -128..128.
+enum CheckSlot { kWords = 0, kQuotients, kNormal, kLargestQ, kLargestV, kFirst };
 constexpr int kExamples = 8;
 
 __global__ void requant_check_kernel(const float* so_list, long long count, int exhaustive,
                                      unsigned long long seed, unsigned long long* out) {
   const Scale sc = make_scale(so_list[blockIdx.y]);
-  unsigned long long quotients = 0;
+  unsigned long long quotients = 0, normal = 0, largest_q = 0, largest_v = 0;
   const long long n = exhaustive ? (1LL << 32) : count;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += (long long)gridDim.x * blockDim.x) {
@@ -550,18 +546,29 @@ __global__ void requant_check_kernel(const float* so_list, long long count, int 
       }
     }
     if (requant_rcp(v, sc.so, sc.r, sc.m) != requant_div(v, sc.so)) {
-      const unsigned long long j = atomicAdd(out, 1ULL);
+      const unsigned long long j = atomicAdd(out + kWords, 1ULL);
       if (j < kExamples) {
-        out[2 + 2 * j] = __float_as_uint(sc.so);
-        out[3 + 2 * j] = __float_as_uint(v);
+        out[kFirst + 2 * j] = __float_as_uint(sc.so);
+        out[kFirst + 2 * j + 1] = __float_as_uint(v);
       }
     }
     const float vc = fminf(fmaxf(v, -sc.m), sc.m);
     const float q = __fmul_rn(vc, sc.r);
-    quotients += __float_as_uint(__fmaf_rn(__fmaf_rn(-q, sc.so, vc), sc.r, q)) !=
-                 __float_as_uint(__fdiv_rn(vc, sc.so));
+    const float q1 = __fmaf_rn(__fmaf_rn(-q, sc.so, vc), sc.r, q);
+    const float want = __fdiv_rn(vc, sc.so);
+    if (__float_as_uint(q1) != __float_as_uint(want)) {
+      ++quotients;
+      normal += fabsf(vc) >= 0x1p-100f && fabsf(want) >= 0x1p-126f;
+      largest_q = max(largest_q, (unsigned long long)__float_as_uint(fabsf(want)));
+      largest_v = max(largest_v, (unsigned long long)__float_as_uint(fabsf(vc)));
+    }
   }
-  if (quotients) atomicAdd(out + 1, quotients);
+  if (quotients) {
+    atomicAdd(out + kQuotients, quotients);
+    atomicAdd(out + kNormal, normal);
+    atomicMax(out + kLargestQ, largest_q);
+    atomicMax(out + kLargestV, largest_v);
+  }
 }
 
 using Kernel = void (*)(Params);
@@ -624,53 +631,72 @@ cudaError_t occupancy(Kernel kernel, int smem, int* sms, int* resident) {
 int tile_h(int c) { return c == 1 ? Tile<true>::h : Tile<false>::h; }
 int tile_w(int c) { return c == 1 ? Tile<true>::w : Tile<false>::w; }
 
-// One buffer of halo, in floats (input_conv.py::halo_floats).
+// One buffer of halo, in floats: the tile and its 1-pixel ring, rows tile
+// width + 8 apart at C == 1 (column -1 at index 3, so the inner values of an
+// item are 16-byte aligned), else (tile width + 2) * c apart, rounded up to 4.
 int halo_floats(int c) {
   return c == 1 ? (Tile<true>::h + 2) * Tile<true>::pitch
                 : ((Tile<false>::h + 2) * (Tile<false>::w + 2) * c + 3) / 4 * 4;
 }
 
-// Shared memory of a block, in bytes (input_conv.py::smem_bytes).
+// Shared memory of a block, in bytes: `stages` halo buffers, the chunk's
+// weights and b, s, t, and with `staged` two buffers of a tile's codes.
 long long smem_bytes(int c, int fc, int stages, bool staged) {
   const long long codes =
       staged ? 2LL * tile_h(c) * ((long long)tile_w(c) * fc + kStagePad) : 0;
   return 4LL * ((long long)stages * halo_floats(c) + 9LL * c * fc + 3LL * fc) + codes;
 }
 
+// The chunk of output channels a block takes (fc), its halo buffers and
+// whether its codes leave by bulk copy: all of f staged with two halo
+// buffers where f % 16 == 0 and that fits (a tile row's codes are then
+// contiguous in the output); otherwise the widest multiple of 16 up to
+// kMaxFc that fits with two halo buffers, else with one (C >= 71). False
+// where not even 16 channels fit (C >= 120).
+bool choose(int c, int f, int* fc, int* stages, bool* staged) {
+  if (f % kGroup == 0 && f <= kMaxFc && smem_bytes(c, f, 2, true) <= kMaxSmem) {
+    *fc = f;
+    *stages = 2;
+    *staged = true;
+    return true;
+  }
+  *staged = false;
+  for (*stages = 2; *stages >= 1; --*stages) {
+    *fc = f > kMaxFc ? kMaxFc : (f + kGroup - 1) / kGroup * kGroup;
+    while (*fc > kGroup && smem_bytes(c, *fc, *stages, false) > kMaxSmem) *fc -= kGroup;
+    if (smem_bytes(c, *fc, *stages, false) <= kMaxSmem) return true;
+  }
+  return false;
+}
+
 struct Launch {
   Params p;
   Kernel kernel;
+  bool staged;
   int smem, grid, resident, sms;
 };
 
-cudaError_t plan(int n, int h, int w_, int c, int f, int fc, int stages, int staged, int dtype,
-                 int blocked, Launch* l) {
-  if (n <= 0 || h <= 0 || w_ <= 0 || c <= 0 || f <= 0 || fc <= 0 || fc % kGroup || fc > kMaxFc)
-    return cudaErrorInvalidValue;
+cudaError_t plan(int n, int h, int w_, int c, int f, int dtype, int blocked, Launch* l) {
+  if (n <= 0 || h <= 0 || w_ <= 0 || c <= 0 || f <= 0) return cudaErrorInvalidValue;
   if ((dtype != kF32 && dtype != kBf16) || (blocked && (h % 2 || w_ % 2)))
     return cudaErrorInvalidValue;
-  if (stages != 1 && stages != 2) return cudaErrorInvalidValue;
-  if (staged && (fc != f || stages != 2)) return cudaErrorInvalidValue;  // f % 16 == 0 then
   if ((long long)n * h * w_ >= (1LL << 31) || (long long)w_ * c >= (1LL << 31))
     return cudaErrorInvalidValue;
-  const long long smem = smem_bytes(c, fc, stages, staged != 0);
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
   Params& p = l->p;
+  if (!choose(c, f, &p.fc, &p.stages, &l->staged)) return cudaErrorInvalidValue;
   p.h = h;
   p.w_ = w_;
   p.c = c;
   p.f = f;
-  p.fc = fc;
-  p.chunks = (f + fc - 1) / fc;
-  p.stages = stages;
+  p.chunks = (f + p.fc - 1) / p.fc;
   p.tiles_x = (w_ + tile_w(c) - 1) / tile_w(c);
   p.tiles_y = (h + tile_h(c) - 1) / tile_h(c);
   p.tiles = (long long)n * p.tiles_y * p.tiles_x;
   p.halo_floats = halo_floats(c);
   p.halo_pitch = c == 1 ? Tile<true>::pitch : (Tile<false>::w + 2) * c;
   p.stage_pitch = (blocked ? 2 : 1) * (tile_w(c) * f + kStagePad);
-  l->kernel = pick(dtype, blocked != 0, c == 1, staged != 0);
-  l->smem = (int)smem;
+  l->kernel = pick(dtype, blocked != 0, c == 1, l->staged);
+  l->smem = (int)smem_bytes(c, p.fc, p.stages, l->staged);
   const cudaError_t e = occupancy(l->kernel, l->smem, &l->sms, &l->resident);
   if (e != cudaSuccess) return e;
   long long slots = (long long)l->sms * l->resident / p.chunks;
@@ -688,19 +714,16 @@ extern "C" {
 // x: f32 [n, h, w, c]; w: f32 [3, 3, c, f] (HWIO); b, s, t: f32 [f]; so: f32
 // scalar on the device; out: int8 [n, h, w, f], or with `blocked` (h and w
 // even) [n, h/2, w/2, 4f], 16-byte aligned; all contiguous on one device.
-// The plan (input_conv.py::kernel_plan): fc output channels per chunk, a
-// multiple of 16 up to 1024; `stages` halo buffers (2 or 1); `staged` codes
-// written by bulk copy (needs fc == f, f % 16 == 0 and 2 stages); the block's
-// shared memory (smem_bytes) within Hopper's 227 KB. dtype: 0 (float32
-// operands) or 1 (bfloat16). Launches on `stream` and returns 0 or the
-// cudaError_t of the launch; the caller checked devices, dtypes and shapes.
+// dtype: 0 (float32 operands) or 1 (bfloat16). Plans the launch (`plan`) and
+// makes it on `stream`; returns 0 or the cudaError_t of the plan or the launch
+// (cudaErrorInvalidValue where the shapes are refused, or where c >= 120
+// leaves no room in shared memory); the caller checked devices and dtypes.
 int tpuseg_input_conv(const float* x, const float* w, const float* b, const float* s,
                       const float* t, const float* so, void* out, int n, int h, int w_,
-                      int c, int f, int fc, int stages, int staged, int dtype, int blocked,
-                      void* stream) {
+                      int c, int f, int dtype, int blocked, void* stream) {
   if (reinterpret_cast<uintptr_t>(out) & 15) return (int)cudaErrorInvalidValue;
   Launch l;
-  cudaError_t e = plan(n, h, w_, c, f, fc, stages, staged, dtype, blocked, &l);
+  cudaError_t e = plan(n, h, w_, c, f, dtype, blocked, &l);
   if (e != cudaSuccess) return (int)e;
   l.p.x = x;
   l.p.w = w;
@@ -716,11 +739,13 @@ int tpuseg_input_conv(const float* x, const float* w, const float* b, const floa
 // The launch tpuseg_input_conv would make on the current device, without
 // making it: out[0] blocks, out[1] resident blocks per SM, out[2] SMs,
 // out[3] tiles (clipped to 2^31 - 1), out[4] shared memory bytes per block,
-// out[5] and out[6] the tile's rows and columns. Returns 0 or a cudaError_t.
-int tpuseg_input_conv_plan(int n, int h, int w_, int c, int f, int fc, int stages, int staged,
-                           int dtype, int blocked, int* out) {
+// out[5] and out[6] the tile's rows and columns, out[7] the output channels
+// of a chunk, out[8] halo buffers, out[9] 1 where the codes leave by bulk
+// copy. Returns 0 or a cudaError_t.
+int tpuseg_input_conv_plan(int n, int h, int w_, int c, int f, int dtype, int blocked,
+                           int* out) {
   Launch l;
-  const cudaError_t e = plan(n, h, w_, c, f, fc, stages, staged, dtype, blocked, &l);
+  const cudaError_t e = plan(n, h, w_, c, f, dtype, blocked, &l);
   if (e != cudaSuccess) return (int)e;
   out[0] = l.grid;
   out[1] = l.resident;
@@ -729,14 +754,18 @@ int tpuseg_input_conv_plan(int n, int h, int w_, int c, int f, int fc, int stage
   out[4] = l.smem;
   out[5] = tile_h(c);
   out[6] = tile_w(c);
+  out[7] = l.p.fc;
+  out[8] = l.p.stages;
+  out[9] = l.staged;
   return 0;
 }
 
 // requant_check_kernel over `nso` scales on the device (so_list), every f32 v
 // if `exhaustive`, else `count` hashed draws each; adds its counts to out[0]
-// (words) and out[1] (quotients) and keeps the first 8 differing words'
-// (so, v) bits in out[2..17], all zeroed by the caller. Returns 0 or a
-// cudaError_t of the launch.
+// (words), out[1] (quotients) and out[2] (quotients outside underflow),
+// keeps the bits of the largest differing |quotient| and |v| in out[3] and
+// out[4] and the first 8 differing words' (so, v) bits in out[5..20], all
+// zeroed by the caller. Returns 0 or a cudaError_t of the launch.
 int tpuseg_input_conv_check_requant(const float* so_list, int nso, long long count,
                                     int exhaustive, unsigned long long seed,
                                     unsigned long long* out, void* stream) {

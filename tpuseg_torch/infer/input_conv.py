@@ -28,16 +28,13 @@ On a CUDA tensor it launches the hand-written kernel in
 :func:`_input_conv_plain`, the same operations in plain PyTorch (9*C
 broadcast products and sums). Nothing falls back from one to the other.
 Both round and sum alike, so the kernel is bit-equal to the plain version.
-``LAUNCHES`` counts kernel launches. The launch follows :func:`kernel_plan`
-(the output channels of a block, its halo buffers, whether its codes leave
-by bulk copy) and :func:`grid_blocks` (a persistent grid); these mirror the
-source's rules, and :func:`launch_plan` asks the built library for the
-launch it would make.
+``LAUNCHES`` counts kernel launches. The kernel's library plans each
+launch itself (the output channels of a block, its halo buffers, whether
+its codes leave by bulk copy, a persistent grid); :func:`launch_plan` asks
+it for the launch it would make.
 """
 
 from __future__ import annotations
-
-from typing import Tuple
 
 import torch
 import torch.nn.functional as F
@@ -47,77 +44,6 @@ LAUNCHES = 0
 
 # The operand dtypes the kernel rounds to, and their codes in the C interface.
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-
-# The kernel's output tiles (csrc/input_conv.cu Tile<C1>): a wide one for
-# C == 1, the served input, and 8 x 32 for other C. Its threads, the channel
-# multiple of a chunk (kGroup) and the widest chunk (kMaxFc: one group of 4
-# channels a thread), the padding after a staged dense row of codes (twice
-# that after a blocked row, which holds two), and a Hopper block's shared
-# memory.
-TILE_C1 = (4, 128)
-TILE = (8, 32)
-THREADS = 256
-GROUP = 16
-MAX_CHUNK = 4 * THREADS
-STAGE_PAD = 32
-SMEM_BYTES = 232448
-
-
-def tile(c: int) -> Tuple[int, int]:
-    """Rows and columns of the kernel's output tile for ``c`` input channels."""
-    return TILE_C1 if c == 1 else TILE
-
-
-def halo_floats(c: int) -> int:
-    """Floats of one halo buffer: the tile and its 1-pixel ring, rows ``tile
-    width + 8`` apart at ``c == 1``, else ``(tile width + 2) * c`` apart,
-    rounded up to a multiple of 4 (``halo_floats`` in the source)."""
-    th, tw = tile(c)
-    if c == 1:
-        return (th + 2) * (tw + 8)
-    return -(-(th + 2) * (tw + 2) * c // 4) * 4
-
-
-def smem_bytes(c: int, fc: int, stages: int = 2, staged: bool = False) -> int:
-    """Shared memory of a kernel block taking ``c`` input channels and a
-    chunk of ``fc`` output channels: ``stages`` halo buffers, the chunk's
-    weights and b, s, t, and with ``staged`` two buffers of a tile's codes
-    (``smem_bytes`` in the source)."""
-    th, tw = tile(c)
-    codes = 2 * th * (tw * fc + STAGE_PAD) if staged else 0
-    return 4 * (stages * halo_floats(c) + 9 * c * fc + 3 * fc) + codes
-
-
-def kernel_plan(c: int, f: int) -> Tuple[int, int, bool]:
-    """``(fc, stages, staged)`` of a launch: the output channels of a chunk,
-    the halo buffers, and whether the codes leave by bulk copy. All of
-    ``f`` staged with two halo buffers where ``f % 16 == 0`` and that fits;
-    otherwise the widest chunk (a multiple of 16, at most ``MAX_CHUNK``)
-    that fits with two halo buffers, else with one (C >= 71). Raises where
-    not even 16 channels fit (C >= 120)."""
-    if f % GROUP == 0 and f <= MAX_CHUNK and smem_bytes(c, f, 2, True) <= SMEM_BYTES:
-        return f, 2, True
-    for stages in (2, 1):
-        fc = min(-(-f // GROUP) * GROUP, MAX_CHUNK)
-        while fc > GROUP and smem_bytes(c, fc, stages) > SMEM_BYTES:
-            fc -= GROUP
-        if smem_bytes(c, fc, stages) <= SMEM_BYTES:
-            return fc, stages, False
-    raise ValueError(f"{c} input channels do not fit the input conv kernel's shared "
-                     f"memory ({smem_bytes(c, GROUP, 1)} bytes for 16 output channels, over "
-                     f"{SMEM_BYTES})")
-
-
-def chunk_width(c: int, f: int) -> int:
-    """Output channels per kernel block (:func:`kernel_plan`)."""
-    return kernel_plan(c, f)[0]
-
-
-def grid_blocks(tiles: int, chunks: int, sms: int, resident: int) -> int:
-    """The persistent grid (``plan`` in the source): as many blocks as the
-    card holds at once, ``sms * resident``, shared evenly by the chunks, no
-    more than ``tiles`` a chunk and at least one."""
-    return chunks * min(tiles, max(1, sms * resident // chunks))
 
 
 def conv_sums(x: torch.Tensor, w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -186,17 +112,14 @@ def _check(x, w, b, s, t, so, dtype) -> None:
         raise ValueError(f"{bsz * h * wd} output pixels exceed the kernel's 32-bit index range")
 
 
-def _launch(x, w, b, s, t, so, dtype, blocked, staged=None) -> torch.Tensor:
-    """One kernel launch. ``staged=False`` makes the kernel store its codes
-    straight from registers where the plan would stage them (timing only)."""
+def _launch(x, w, b, s, t, so, dtype, blocked) -> torch.Tensor:
+    """One kernel launch, planned by the library."""
     global LAUNCHES
     from tpuseg_torch.kernels.build import load
 
     _check(x, w, b, s, t, so, dtype)
     bsz, h, wd, c = x.shape
     f = w.shape[3]
-    fc, stages, plan_staged = kernel_plan(c, f)
-    staged = plan_staged if staged is None else staged and plan_staged
     lib = load("input_conv")
     shape = (bsz, h // 2, wd // 2, 4 * f) if blocked else (bsz, h, wd, f)
     out = torch.empty(shape, dtype=torch.int8, device=x.device)
@@ -204,43 +127,53 @@ def _launch(x, w, b, s, t, so, dtype, blocked, staged=None) -> torch.Tensor:
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.tpuseg_input_conv(
             x.data_ptr(), w.data_ptr(), b.data_ptr(), s.data_ptr(), t.data_ptr(), so.data_ptr(),
-            out.data_ptr(), bsz, h, wd, c, f, fc, stages, int(staged), DTYPE_CODES[dtype],
-            int(blocked), stream)
+            out.data_ptr(), bsz, h, wd, c, f, DTYPE_CODES[dtype], int(blocked), stream)
     if err:
-        msg = lib.tpuseg_cuda_error_string(err).decode()
-        raise RuntimeError(f"input_conv kernel launch failed: {msg} ({err})")
+        raise RuntimeError(f"input_conv kernel launch failed for x {tuple(x.shape)} and {f} "
+                           f"output channels: {lib.tpuseg_cuda_error_string(err).decode()} "
+                           f"({err}; the plan refuses C >= 120, whose weights leave no room in "
+                           f"shared memory)")
     LAUNCHES += 1
     return out
 
 
 def launch_plan(shape, f: int, dtype: torch.dtype, blocked: bool, device) -> dict:
     """The launch the kernel makes for an NHWC input of ``shape`` and ``f``
-    output channels on a CUDA ``device``, without making it: the plan, the
-    grid, resident blocks per SM, SMs, tiles and shared memory."""
+    output channels on a CUDA ``device``, without making it: the grid,
+    resident blocks per SM, SMs, tiles, shared memory, the tile, the output
+    channels of a chunk (``fc``), the halo buffers (``stages``) and whether
+    the codes leave by bulk copy (``staged``)."""
     import ctypes
 
     from tpuseg_torch.kernels.build import load
 
     bsz, h, wd, c = shape
-    fc, stages, staged = kernel_plan(c, f)
     lib = load("input_conv")
-    out = (ctypes.c_int * 7)()
+    out = (ctypes.c_int * 10)()
     with torch.cuda.device(device):
-        err = lib.tpuseg_input_conv_plan(bsz, h, wd, c, f, fc, stages, int(staged),
-                                         DTYPE_CODES[dtype], int(blocked), out)
+        err = lib.tpuseg_input_conv_plan(bsz, h, wd, c, f, DTYPE_CODES[dtype], int(blocked),
+                                         out)
     if err:
-        raise RuntimeError(f"input_conv plan failed: {lib.tpuseg_cuda_error_string(err).decode()}")
-    keys = ("grid", "resident_per_sm", "sms", "tiles", "smem_bytes", "tile_h", "tile_w")
-    return {"fc": fc, "stages": stages, "staged": staged, **dict(zip(keys, out))}
+        raise RuntimeError(f"input_conv plan failed for {tuple(shape)} and {f} output "
+                           f"channels: {lib.tpuseg_cuda_error_string(err).decode()}")
+    keys = ("grid", "resident_per_sm", "sms", "tiles", "smem_bytes", "tile_h", "tile_w", "fc",
+            "stages", "staged")
+    plan = dict(zip(keys, out))
+    plan["staged"] = bool(plan["staged"])
+    return plan
 
 
-def requant_mismatches(so: torch.Tensor, count: int = 0, seed: int = 0) -> tuple:
+def requant_mismatches(so: torch.Tensor, count: int = 0, seed: int = 0) -> dict:
     """Hold the kernel's reciprocal requantize against its true division
     for each scale of the CUDA vector ``so``: over every f32 value with
     ``count`` 0, else over ``count`` hashed draws each (half random bit
     patterns, half within 8 ulps of the rounding's ties). Returns the
-    numbers of values whose codes differ and whose quotients differ, and
-    up to 8 ``(so, v)`` whose codes differ."""
+    numbers of values whose codes differ (``codes``), whose quotients differ
+    (``quotients``) and whose quotients differ outside underflow (``normal``:
+    |v| >= 2^-100 and a normal true quotient), the largest |true quotient|
+    and |v| among the values whose quotients differ (``largest_quotient``,
+    ``largest_value``), and up to 8 ``(so, v)`` whose codes differ
+    (``examples``)."""
     from tpuseg_torch.kernels.build import load
 
     if so.dtype != torch.float32 or so.device.type != "cuda" or so.dim() != 1:
@@ -248,16 +181,22 @@ def requant_mismatches(so: torch.Tensor, count: int = 0, seed: int = 0) -> tuple
                          f"on {so.device}")
     lib = load("input_conv")
     so = so.contiguous()
-    out = torch.zeros(18, dtype=torch.int64, device=so.device)
+    out = torch.zeros(21, dtype=torch.int64, device=so.device)
     with torch.cuda.device(so.device):
         err = lib.tpuseg_input_conv_check_requant(
             so.data_ptr(), so.numel(), count, int(count == 0), seed, out.data_ptr(),
             torch.cuda.current_stream(so.device).cuda_stream)
     if err:
         raise RuntimeError(f"requant check failed: {lib.tpuseg_cuda_error_string(err).decode()}")
-    codes, quotients, *bits = out.tolist()
-    pairs = torch.tensor(bits[:2 * min(codes, 8)], dtype=torch.int64).to(torch.int32)
-    return codes, quotients, pairs.view(torch.float32).reshape(-1, 2).tolist()
+    codes, quotients, normal, *bits = out.tolist()
+
+    def floats(words):
+        return torch.tensor(words, dtype=torch.int64).to(torch.int32).view(torch.float32).tolist()
+
+    largest_q, largest_v = floats(bits[:2])
+    return {"codes": codes, "quotients": quotients, "normal": normal,
+            "largest_quotient": largest_q, "largest_value": largest_v,
+            "examples": [floats(bits[2 + 2 * j:4 + 2 * j]) for j in range(min(codes, 8))]}
 
 
 def input_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, s: torch.Tensor,

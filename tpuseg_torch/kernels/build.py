@@ -36,8 +36,8 @@ SOURCES = {
     }),
     "input_conv": ("input_conv.cu", {
         "tpuseg_input_conv": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                                   _I, _I, _I, _P]),
-        "tpuseg_input_conv_plan": (_I, [_I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+                                   _P]),
+        "tpuseg_input_conv_plan": (_I, [_I, _I, _I, _I, _I, _I, _I, _P]),
         "tpuseg_input_conv_check_requant": (_I, [_P, _I, ctypes.c_longlong, _I,
                                                  ctypes.c_ulonglong, _P, _P]),
         "tpuseg_cuda_error_string": (ctypes.c_char_p, [_I]),
