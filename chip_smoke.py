@@ -22,6 +22,12 @@ package. Phases, each fatal on failure:
    C 1 and 3, F 64, dense and phase-major, with its persistent grid, its
    SASS instructions an output and the issue floor they set, and its
    reciprocal requantize against the true division on every f32 value;
+   K4, the blocks' bias + ReLU + BatchNorm: training and ``none`` serving,
+   its four kernels (batch sums, apply, backward sums, backward apply) at
+   enc1's [8, 64, 512, 512] and the head's [8, 2, 512, 512], bf16 and f32,
+   the apply kernels bit-equal to their plain versions and the sums within
+   the f32 summation bound of float64 sums, timed beside PyTorch's own
+   sync-BN kernels, ``F.batch_norm`` and the eager chain K4 replaced;
    K1, the row shear: training), hold the result against its plain
    PyTorch version (bit-equal for K1, K3, K5 and the int8 K2), and time
    both in turns with
@@ -51,8 +57,10 @@ package. Phases, each fatal on failure:
    plain version swapped in (masks equal on every pixel; the output scales
    K5 was given there checked on every f32 value as in phase 2), time the tiled
    engines on the 4096^2 image (K5 once per predict call in both int8
-   modes) and profile one pass of int8_blocked, int8 and none each (device
-   time by kernel and group, K3's and K5's shares, busy share);
+   modes; K4's apply 23 times a predict call of ``none``, whose masks
+   through K4 equal those through K4's plain versions on every pixel) and
+   profile one pass of int8_blocked, int8 and none each (device time by
+   kernel and group, K3's, K5's and K4's shares, busy share);
 5. training reference: one f32 train step at base 4 on 64^2 inputs on the
    card (cuDNN TF32 off) against the same step on the CPU, from the same
    weights and batch, dropout off;
@@ -60,15 +68,19 @@ package. Phases, each fatal on failure:
    images, uint8 masks from a thresholded smooth random field) with the
    port's RecordWriter, train through ``tpuseg_torch.cli.train`` at base
    64, bf16, batch 8, 20 steps between test epochs, 2 epochs, device
-   augmentation on, with the shear kernel's launch count zeroed just before
-   and read just after (it must be 3 per train step); check the losses,
-   test_loss.csv and the checkpoint, serve a test image with the trained
+   augmentation on, with the shear kernel's and K4's launch counts zeroed
+   just before and read just after (3 shears a train step; each of K4's
+   kernels 23 times a train step, and 23 more applies a test forward);
+   check the losses, test_loss.csv and the checkpoint, serve a test image with the trained
    checkpoint through ``tpuseg_torch.cli.inference --quantize none``; then
-   time steady-state train steps (img/s, median of 3 windows), record peak
+   time steady-state train steps (img/s, median of 3 windows, and this
+   process's CPU time a step), record peak
    memory, profile a few steps (device time by kernel and group, busy
-   share, the augmentation's share), compare the trained batch's loss with
-   running and with batch BatchNorm statistics, and time a step with
-   BatchNorm skipped;
+   share, the augmentation's share), run 3 train steps through K4 and
+   through its plain versions from one fresh state (losses within
+   ``K4_PARITY_RTOL``, finite and falling), compare the trained batch's
+   loss with running and with batch BatchNorm statistics, and time a step
+   with K4 (bias, ReLU, BatchNorm) skipped;
 7. whole-slide streaming, end to end: write phase 4's 4096^2 image as a
    tiled BigTIFF (tile 512); run the int8_blocked predict function through
    ``inference_tiled_streaming`` and ``inference_tiled`` with equal
@@ -359,6 +371,12 @@ def kernel_label(mangled: str) -> str:
     if m:
         return (f"input_conv_kernel<bf16={m.group(1)},blocked={m.group(2)},c1={m.group(3)},"
                 f"staged={m.group(4)}>")
+    m = re.search(r"bn_(reduce|apply)_kernelI(f|13__nv_bfloat16)Li(\d+)E(?:Li(\d)E)?Lb(\d)E",
+                  mangled)
+    if m:
+        t = "bf16" if m.group(2) != "f" else "f32"
+        ns = f",ns={m.group(4)}" if m.group(4) else ""
+        return f"bn_{m.group(1)}_kernel<{t},vec={m.group(3)}{ns},bwd={m.group(5)}>"
     return re.sub(r"^_ZN.*?_cu_[0-9a-f]{8}\d+", "", mangled)[:60]
 
 
@@ -1032,6 +1050,215 @@ def phase_input_conv(seed: int, dev) -> dict:
     return out
 
 
+K4_LAYERS = 23  # BatchNorm layers of the U-Net: 18 conv blocks, 4 deconvs, the head
+K4_KINDS = ("stats", "apply", "backward_reduce", "backward_apply")
+# K4 at the training main path's shapes (NCHW, rows of channels): enc1's
+# conv blocks and the head, batch TRAIN_BATCH of TRAIN_SIZE^2
+K4_SHAPES = {"enc1": (TRAIN_BATCH, BASE, TRAIN_SIZE, TRAIN_SIZE),
+             "head": (TRAIN_BATCH, NCLS, TRAIN_SIZE, TRAIN_SIZE)}
+
+
+def k4_inputs(shape, dtype, seed: int, dev):
+    """A conv block's view of K4 at ``shape``: the conv output x (rows of
+    channels, in ``dtype``), the conv bias, BN's gamma and beta, and an
+    incoming gradient."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n, c, h, w = shape
+
+    def rows(scale, shift):
+        t = torch.randn((n, h, w, c), generator=g, device=dev) * scale + shift
+        return t.to(dtype).permute(0, 3, 1, 2)
+
+    x = rows(0.8, 0.1)
+    bias = torch.randn(c, generator=g, device=dev) * 0.3
+    gamma = torch.rand(c, generator=g, device=dev) + 0.5
+    beta = torch.randn(c, generator=g, device=dev) * 0.3
+    return x, bias, gamma, beta, rows(1e-3, 0.0)
+
+
+def k4_sum_check(got, terms) -> float:
+    """Each of the sums ``got[k]`` against the float64 sum of ``terms[k]``
+    ([C, N, H, W] each) and the bound of f32 recursive summation in any order
+    of n terms, gamma_n * sum |t| (u = 2^-24). Returns the largest |error|;
+    fails beyond the bound."""
+    import torch
+
+    worst = 0.0
+    for k, t in enumerate(terms):
+        t = t.double()
+        n = t[0].numel()
+        gamma = n * 2.0 ** -24 / (1 - n * 2.0 ** -24)
+        err = (got[k].double() - t.sum((1, 2, 3))).abs()
+        bound = gamma * t.abs().sum((1, 2, 3))
+        if not bool((err <= bound).all()):
+            raise AssertionError(f"K4 sum {k}: error {err.max().item()} beyond the f32 summation "
+                                 f"bound {bound[err.argmax()].item()}")
+        worst = max(worst, err.max().item())
+        del t
+    torch.cuda.empty_cache()
+    return worst
+
+
+def eager_batchnorm(x, bias, gamma, beta, running, train: bool):
+    """The chain K4 replaced (the model before K4; there cuDNN added the bias
+    inside the conv, here one add): ReLU, the f32 cast, the batch sums or
+    ``F.batch_norm`` on the running statistics, the affine map, the cast
+    back."""
+    import torch
+    import torch.nn.functional as F
+
+    a = F.relu(x + bias.to(x.dtype)[:, None, None])
+    if not train:
+        return F.batch_norm(a.float(), running[0], running[1], gamma, beta, False, 0.0,
+                            1e-3).to(x.dtype)
+    xf = a.float()
+    n = xf.shape[0] * xf.shape[2] * xf.shape[3]
+    mean = xf.sum((0, 2, 3)) / n
+    var = torch.clamp_min((xf * xf).sum((0, 2, 3)) / n - mean * mean, 0.0)
+    mul = torch.rsqrt(var + 1e-3) * gamma
+    return ((xf - mean[:, None, None]) * mul[:, None, None] + beta[:, None, None]).to(x.dtype)
+
+
+def phase_batchnorm(seed: int, dev) -> dict:
+    """K4 at the training main path's shapes, enc1's [8, 64, 512, 512] and
+    the head's [8, 2, 512, 512], bf16 (the main path's) and f32, as a conv
+    block feeds it (bias and ReLU on): (b) and (d) bit-equal (``torch.equal``)
+    to their plain versions given the same vectors, (a) and (c) within the
+    f32 recursive-summation bound of the float64 sums (stated in
+    :func:`k4_sum_check`, not tuned), the reductions deterministic from
+    launch to launch; then each kernel, its plain version, one PyTorch call
+    that computes its function on the same inputs (PyTorch's own sync-BN
+    kernels: ``torch.batch_norm_stats``, ``batch_norm_elemt``,
+    ``batch_norm_backward_reduce``, ``batch_norm_backward_elemt``; BN alone,
+    without the bias and ReLU, so less work), ``F.batch_norm`` in train
+    forward, eval forward and backward (BN alone too), and the eager chain
+    K4 replaced, timed in turns with the L2 flushed by CUDA events around
+    each call (:func:`events_ms_cold`). Each kernel's bound: the bytes it
+    must move (x read, g read, the output written; (a) and (c) read
+    only) at the card's memory rate."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpuseg_torch.ops import batchnorm as bn
+
+    out = {"build": build_report("batchnorm", "bn_", spill_fails=False), "cases": {}}
+    for (where, shape), dtype in [(k, d) for k in K4_SHAPES.items()
+                                  for d in (torch.bfloat16, torch.float32)]:
+        name = f"{where}_{str(dtype).split('.')[-1]}"
+        x, bias, gamma, beta, gy = k4_inputs(shape, dtype, seed + len(out["cases"]), dev)
+        before = dict(bn.LAUNCHES)
+        stats = bn.batch_stats(x, bias, True)
+        n = shape[0] * shape[2] * shape[3]
+        full = torch.cat([stats, stats.new_full((1, shape[1]), float(n))])
+        mean, var, unclipped, rstd, mul = bn.finalize(full, 1e-3, gamma)
+        y = bn.bn_apply(x, bias, True, mean, mul, beta)
+        sums = bn.backward_reduce(x, bias, True, gy, mean, rstd)
+        k1, k2 = sums[0] / n, torch.where(unclipped, sums[1] / n, 0.0)
+        dx = bn.backward_apply(x, bias, True, gy, mean, rstd, mul, k1, k2)
+        torch.cuda.synchronize()
+        if any(bn.LAUNCHES[k] != before[k] + 1 for k in K4_KINDS):
+            raise AssertionError(f"K4 {name}: launches {bn.LAUNCHES} after {before}")
+        if not (torch.equal(y, bn._apply_plain(x, bias, True, mean, mul, beta))
+                and torch.equal(dx, bn._backward_apply_plain(x, bias, True, gy, mean, rstd, mul,
+                                                             k1, k2))):
+            raise AssertionError(f"K4 {name}: (b) or (d) differs from its plain version")
+        if bn.row_stride(y) != shape[1] or bn.row_stride(dx) != shape[1]:
+            raise AssertionError(f"K4 {name}: outputs not channels-last")
+        for _ in range(2):
+            if not (torch.equal(bn.batch_stats(x, bias, True), stats) and torch.equal(
+                    bn.backward_reduce(x, bias, True, gy, mean, rstd), sums)):
+                raise AssertionError(f"K4 {name}: a reduction changed from launch to launch")
+        a = bn.activation(x, bias, True).float().permute(1, 0, 2, 3)
+        err_a = k4_sum_check(stats, [a, a * a])
+        gf = gy.float().permute(1, 0, 2, 3)
+        ah = (a - mean[:, None, None, None]) * rstd[:, None, None, None]
+        m = (a > 0).float()
+        err_c = k4_sum_check(sums, [gf, gf * ah, gf * m, m, ah * m])
+        plain_err = {"stats": (bn._stats_plain(x, bias, True) - stats).abs().max().item(),
+                     "backward_reduce": (bn._backward_reduce_plain(x, bias, True, gy, mean, rstd)
+                                         - sums).abs().max().item()}
+        del a, gf, ah, m
+        torch.cuda.empty_cache()
+        clipped = int((~unclipped).sum())
+
+        invstd = rstd
+        count = torch.tensor([n], dtype=torch.int32, device=dev)
+        running = (torch.zeros(shape[1], device=dev), torch.ones(shape[1], device=dev))
+        xr = x.detach().requires_grad_()
+        g_, b_ = gamma.detach().requires_grad_(), beta.detach().requires_grad_()
+        y_lib = F.batch_norm(xr, running[0].clone(), running[1].clone(), g_, b_, True, 0.01, 1e-3)
+        xe = x.detach().requires_grad_()
+        bias_e, gamma_e, beta_e = (t.detach().requires_grad_() for t in (bias, gamma, beta))
+        y_eager = eager_batchnorm(xe, bias_e, gamma_e, beta_e, running, True)
+        fns = {
+            "kernel_stats": (lambda: bn.batch_stats(x, bias, True), 10),
+            "kernel_apply": (lambda: bn.bn_apply(x, bias, True, mean, mul, beta), 10),
+            "kernel_backward_reduce": (
+                lambda: bn.backward_reduce(x, bias, True, gy, mean, rstd), 10),
+            "kernel_backward_apply": (
+                lambda: bn.backward_apply(x, bias, True, gy, mean, rstd, mul, k1, k2), 10),
+            "plain_stats": (lambda: bn._stats_plain(x, bias, True), 3),
+            "plain_apply": (lambda: bn._apply_plain(x, bias, True, mean, mul, beta), 3),
+            "plain_backward_reduce": (
+                lambda: bn._backward_reduce_plain(x, bias, True, gy, mean, rstd), 3),
+            "plain_backward_apply": (
+                lambda: bn._backward_apply_plain(x, bias, True, gy, mean, rstd, mul, k1, k2), 3),
+            "library_stats": (lambda: torch.batch_norm_stats(x, 1e-3), 10),
+            "library_apply": (lambda: torch.batch_norm_elemt(x, gamma, beta, mean, invstd, 1e-3),
+                              10),
+            "library_backward_reduce": (lambda: torch.batch_norm_backward_reduce(
+                gy, x, mean, invstd, gamma, True, True, True), 10),
+            "library_backward_apply": (lambda: torch.batch_norm_backward_elemt(
+                gy, x, mean, invstd, gamma, sums[0], sums[1], count), 10),
+            "F.batch_norm_train_forward": (lambda: F.batch_norm(
+                x, running[0].clone(), running[1].clone(), gamma, beta, True, 0.01, 1e-3), 10),
+            "F.batch_norm_eval_forward": (lambda: F.batch_norm(
+                x, running[0], running[1], gamma, beta, False, 0.0, 1e-3), 10),
+            "F.batch_norm_backward": (lambda: torch.autograd.grad(
+                y_lib, (xr, g_, b_), gy, retain_graph=True), 10),
+            "eager_train_forward": (
+                lambda: eager_batchnorm(x, bias, gamma, beta, running, True), 3),
+            "eager_eval_forward": (
+                lambda: eager_batchnorm(x, bias, gamma, beta, running, False), 3),
+            "eager_backward": (lambda: torch.autograd.grad(
+                y_eager, (xe, bias_e, gamma_e, beta_e), gy, retain_graph=True), 3),
+        }
+        runs = {k: [] for k in fns}
+        for order in (list(fns), list(fns)[::-1]):
+            for k in order:
+                fn, reps = fns[k]
+                runs[k].append(events_ms_cold(fn, reps))
+        ms = {k: sum(v) / 2 for k, v in runs.items()}
+        es = x.element_size()
+        act = n * shape[1] * es
+        moved = {"stats": act, "apply": 2 * act, "backward_reduce": 2 * act,
+                 "backward_apply": 3 * act}
+        r = {"shape": list(shape), "dtype": str(dtype), "ms": ms, "ms_runs": runs,
+             "bytes": moved, "bound_ms": {k: b / HBM_BYTES_PER_S * 1e3 for k, b in moved.items()},
+             "sum_err": {"stats": err_a, "backward_reduce": err_c}, "plain_sum_diff": plain_err,
+             "clipped_channels": clipped}
+        r["share_of_bound"] = {k: r["bound_ms"][k] / ms[f"kernel_{k}"] for k in K4_KINDS}
+        out["cases"][name] = r
+        log(f"K4 {name} {tuple(shape)}: (b), (d) bit-equal to plain; (a), (c) within the f32 "
+            f"summation bound (largest errors {err_a:.3g}, {err_c:.3g}); deterministic; "
+            f"{clipped} channels clipped")
+        log("  ms: " + ", ".join(
+            f"{k} {ms['kernel_' + k]:.4f} ({r['share_of_bound'][k]:.1%} of "
+            f"{r['bound_ms'][k]:.4f}; plain {ms['plain_' + k]:.3f}, library "
+            f"{ms['library_' + k]:.4f})" for k in K4_KINDS))
+        log("  F.batch_norm train fwd {:.4f}, eval fwd {:.4f}, backward {:.4f}; the eager chain "
+            "it replaced: train fwd {:.3f}, eval fwd {:.3f}, backward {:.3f}".format(
+                ms["F.batch_norm_train_forward"], ms["F.batch_norm_eval_forward"],
+                ms["F.batch_norm_backward"], ms["eager_train_forward"],
+                ms["eager_eval_forward"], ms["eager_backward"]))
+        del x, bias, gamma, beta, gy, y, dx, xr, y_lib, xe, y_eager, fns
+        torch.cuda.empty_cache()
+    out["max_abs_err"] = max(max(r["sum_err"].values()) for r in out["cases"].values())
+    return out
+
+
 def make_model(seed: int):
     """Full-width U-Net (base 64, 1 channel, 2 classes) with Keras-init
     random weights and jittered BN running statistics, from ``seed``."""
@@ -1175,6 +1402,7 @@ def phase_main(seed: int, work: str, dev, card: str) -> dict:
     from tpuseg_torch.infer.runner import InferenceConfig, _quantized_predict_fn
     from tpuseg_torch.infer.tiled import (inference_single_batch, inference_tiled,
                                           make_predict_fn)
+    from tpuseg_torch.ops import batchnorm as bn_mod
     from tpuseg_torch.utils.checkpoint import load_model, save_model
     from tpuseg_torch.utils.imagio import imread
 
@@ -1379,6 +1607,33 @@ def phase_main(seed: int, work: str, dev, card: str) -> dict:
         raise AssertionError(f"tiled K5 launches: int8_blocked {res['k5_launches_tiled_dispatch']}"
                              f" (K2 {res['launches_tiled_dispatch']}), int8 "
                              f"{res['k5_launches_tiled_dispatch_int8']} ({calls} predict calls)")
+    # K4 on the bf16 `none` walk: one apply per BatchNorm layer a predict
+    # call (eval reads the running statistics: no reduction), and the masks
+    # through K4 equal those through its plain versions on every pixel
+    bn_mod.reset_counts()
+    masks_k4 = inference_tiled(big, fns["none"], TILE, radius, BATCH, NCLS, stats, dev)
+    res["k4_launches_tiled_none"] = dict(bn_mod.LAUNCHES)
+    want = {"stats": 0, "apply": K4_LAYERS * calls, "backward_reduce": 0, "backward_apply": 0}
+    if res["k4_launches_tiled_none"] != want:
+        raise AssertionError(f"the tiled none pass launched K4 {res['k4_launches_tiled_none']}, "
+                             f"not {want} ({calls} predict calls)")
+    with plain_batchnorm() as k4_calls:
+        masks_plain = inference_tiled(big, fns["none"], TILE, radius, BATCH, NCLS, stats, dev)
+    if any(bn_mod.LAUNCHES[k] != want[k] for k in want) or k4_calls["apply"] != want["apply"]:
+        raise AssertionError(f"none with K4's plain versions: launches {bn_mod.LAUNCHES}, plain "
+                             f"calls {k4_calls}")
+    res["k4_vs_plain_pixels_differing_none"] = int((masks_k4 != masks_plain).sum()) \
+        if masks_k4.shape == masks_plain.shape else -1
+    res["class1_share_big_none"] = float((masks_k4 == 1).mean())
+    if res["k4_vs_plain_pixels_differing_none"]:
+        raise AssertionError(f"none masks through K4 and through its plain versions differ on "
+                             f"{res['k4_vs_plain_pixels_differing_none']} pixels")
+    if not 0.01 < res["class1_share_big_none"] < 0.99:
+        raise AssertionError(f"class 1 takes {res['class1_share_big_none']} of the none mask; "
+                             "the comparison could not fail")
+    log(f"none through K4: {K4_LAYERS} applies a predict call ({calls} calls), masks equal to "
+        f"the plain versions' on every pixel (class 1 {res['class1_share_big_none']:.4f})")
+    del masks_k4, masks_plain
     times = {m: [] for m in fns}
     for rnd in range(3):
         for mode in (fns if rnd % 2 == 0 else list(fns)[::-1]):
@@ -1393,9 +1648,9 @@ def phase_main(seed: int, work: str, dev, card: str) -> dict:
         "median of 3: " + ", ".join(f"{m} {v:.2f}" for m, v in res["tiled_mp_s"].items()))
     for mode in ("int8_blocked", "int8", "none"):
         res[f"profile_{mode}"] = prof = phase_profile(fns[mode], big, radius, stats, dev, mode)
-        if prof["busy_ms"] is None or mode == "none":
+        if prof["busy_ms"] is None:
             continue
-        for group in ("K3 int8_conv", "K5 input_conv"):
+        for group in (("K4 batchnorm",) if mode == "none" else ("K3 int8_conv", "K5 input_conv")):
             g = prof["by_group"].get(group)
             if g is None:
                 raise AssertionError(f"the profiled {mode} pass shows no {group} kernel")
@@ -1499,6 +1754,43 @@ def write_train_dbs(work: str, seed: int, size: int = TRAIN_SIZE, n_train: int =
     return paths
 
 
+K4_PARITY_STEPS = 3
+# losses of the K4 and plain-version steps: the bf16 activations round the
+# same, but the batch sums run in another order, so a few activations land
+# one bf16 rounding apart, and Keras Adam's normalized update carries that
+# into the next steps' weights
+K4_PARITY_RTOL = 2e-2
+
+
+def k4_parity(seed: int, dev, raw_img, raw_msk, params) -> dict:
+    """K4_PARITY_STEPS train steps through K4 and through its plain versions
+    (``plain_batchnorm``), each from the same fresh state: the losses within
+    K4_PARITY_RTOL of each other, finite, and falling in both."""
+    import math
+
+    from tpuseg_torch.models.unet import UNet
+    from tpuseg_torch.train.steps import create_train_state, make_raw_steps
+
+    tstep, _ = make_raw_steps(NCLS, params)
+    losses = {}
+    for name in ("k4", "plain"):
+        state = create_train_state(UNet(NCLS, 1, BASE, "bfloat16"), seed, TRAIN_LR, dev)
+        with (plain_batchnorm() if name == "plain" else contextlib.nullcontext()):
+            losses[name] = [tstep(state, raw_img, raw_msk)["loss"].item()
+                            for _ in range(K4_PARITY_STEPS)]
+        del state
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses["k4"], losses["plain"])]
+    res = {"losses": losses, "rel_diff": rel, "rtol": K4_PARITY_RTOL}
+    log(f"train steps through K4 and through its plain versions: losses {losses['k4']} and "
+        f"{losses['plain']}, relative differences {[f'{r:.2e}' for r in rel]}")
+    for name, ls in losses.items():
+        if not all(map(math.isfinite, ls)) or not ls[-1] < ls[0]:
+            raise AssertionError(f"{name} steps: losses {ls} not finite and falling")
+    if max(rel) > K4_PARITY_RTOL:
+        raise AssertionError(f"K4 steps' losses differ from the plain versions' by {rel}")
+    return res
+
+
 def phase_train(seed: int, work: str, dev, card: str) -> dict:
     import numpy as np
     import torch
@@ -1511,6 +1803,7 @@ def phase_train(seed: int, work: str, dev, card: str) -> dict:
     from tpuseg_torch.infer import head_kernel
     from tpuseg_torch.models import unet as unet_mod
     from tpuseg_torch.models.unet import DROPOUT_RATE, UNet
+    from tpuseg_torch.ops import batchnorm as bn_mod
     from tpuseg_torch.ops import warp
     from tpuseg_torch.ops.losses import cce_from_logits, reference_scalar_loss
     from tpuseg_torch.train.steps import create_train_state, eval_step, make_raw_steps
@@ -1528,6 +1821,7 @@ def phase_train(seed: int, work: str, dev, card: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     warp.LAUNCHES = 0
     head_kernel.LAUNCHES = 0
+    bn_mod.reset_counts()
     t0 = time.perf_counter()
     result = train_cli([
         "--train_database", train_db, "--test_database", test_db, "--output_dir", out,
@@ -1538,7 +1832,9 @@ def phase_train(seed: int, work: str, dev, card: str) -> dict:
         "--learning_rate", str(TRAIN_LR)])
     torch.cuda.synchronize()
     res["main_path_s"] = time.perf_counter() - t0
-    res["launches"] = {"shear_rows": warp.LAUNCHES, "blocked_head_argmax": head_kernel.LAUNCHES}
+    res["launches"] = {"shear_rows": warp.LAUNCHES, "blocked_head_argmax": head_kernel.LAUNCHES,
+                       "batchnorm": dict(bn_mod.LAUNCHES),
+                       "batchnorm_gradient_copies": bn_mod.GRAD_COPIES}
     res["peak_mem_gib_main"] = torch.cuda.max_memory_allocated() / 2 ** 30
     res["steps"] = result.steps
     res["train_losses"] = result.train_losses
@@ -1552,6 +1848,23 @@ def phase_train(seed: int, work: str, dev, card: str) -> dict:
     if warp.LAUNCHES != 3 * result.steps:
         raise AssertionError(f"{warp.LAUNCHES} shear launches for {result.steps} train "
                              "steps: expected 3 per step (x, y, x shears)")
+    # K4: each train step runs every BatchNorm layer's (a) and (b) forward
+    # and (c) and (d) backward; each eval forward of the test epochs one (b)
+    k4 = res["launches"]["batchnorm"]
+    evals = (k4["apply"] - k4["stats"]) // K4_LAYERS
+    res["launches"]["batchnorm_eval_forwards"] = evals
+    if any(k4[k] != K4_LAYERS * result.steps for k in ("stats", "backward_reduce",
+                                                         "backward_apply")) \
+            or evals <= 0 or k4["apply"] != K4_LAYERS * (result.steps + evals):
+        raise AssertionError(f"K4 launches {k4} for {result.steps} train steps: expected "
+                             f"{K4_LAYERS} of each kind a step, and {K4_LAYERS} applies a test "
+                             "forward")
+    if bn_mod.GRAD_COPIES:  # every gradient reaches K4 as rows of channels
+        raise AssertionError(f"K4's backward copied {bn_mod.GRAD_COPIES} incoming gradients "
+                             "to channels-last: a layer upstream writes another layout")
+    log(f"K4 launches: {k4} ({K4_LAYERS} of each a train step, {K4_LAYERS} applies in each of "
+        f"{evals} test forwards); {bn_mod.GRAD_COPIES} incoming gradients copied to "
+        "channels-last")
     if not (np.isfinite(result.train_losses).all() and np.isfinite(result.test_loss).all()):
         raise AssertionError(f"non-finite losses: {result.train_losses} {result.test_loss}")
     if not result.train_losses[-1] < result.train_losses[0]:
@@ -1595,16 +1908,21 @@ def phase_train(seed: int, work: str, dev, card: str) -> dict:
         tstep(state, raw_img, raw_msk)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    windows = []
+    windows, host_ms = [], []
     for _ in range(3):
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
+        t0, c0 = time.perf_counter(), time.process_time()
         for _ in range(10):
             m = tstep(state, raw_img, raw_msk)
         m["loss"].item()
         windows.append(TRAIN_BATCH * 10 / (time.perf_counter() - t0))
+        host_ms.append((time.process_time() - c0) / 10 * 1e3)
     res["img_per_s_windows"] = windows
     res["img_per_s"] = sorted(windows)[1]
+    # this process's CPU time a step (all its threads): near the step's
+    # wall time, the host sets the pace
+    res["host_cpu_ms_per_step_windows"] = host_ms
+    res["host_cpu_ms_per_step"] = sorted(host_ms)[1]
     res["peak_mem_gib_steady"] = torch.cuda.max_memory_allocated() / 2 ** 30
     step_ms = cuda_ms(lambda: tstep(state, raw_img, raw_msk), 10, 1)
     aug_ms = cuda_ms(lambda: augment_and_preprocess_batch(
@@ -1615,6 +1933,7 @@ def phase_train(seed: int, work: str, dev, card: str) -> dict:
     log(f"train steps (512^2, batch 8, base 64, bf16, device augmentation) on {card}: "
         f"{res['img_per_s']:.2f} img/s (median of {[round(v, 2) for v in windows]}), "
         f"step {step_ms:.2f} ms, augmentation {aug_ms:.2f} ms ({aug_ms / step_ms:.1%}), "
+        f"host CPU {res['host_cpu_ms_per_step']:.2f} ms a step, "
         f"peak {res['peak_mem_gib_steady']:.2f} GiB")
 
     def three_steps():
@@ -1627,6 +1946,13 @@ def phase_train(seed: int, work: str, dev, card: str) -> dict:
     prof["shear_kernel_share"] = shear_ms / prof["busy_ms"] if prof["busy_ms"] else None
     del prof["by_kernel"]
     res["profile_train"] = prof
+    if prof["busy_ms"] is not None and "K4 batchnorm" not in prof["by_group"]:
+        raise AssertionError("the profiled train steps show no K4 kernel")
+
+    # the train step through K4 against the same step through its plain
+    # versions: two states from one seed, K4_PARITY_STEPS steps each on the
+    # raw batch (augmentation and dropout from the same generators)
+    res["k4_vs_plain_steps"] = k4_parity(seed, dev, raw_img, raw_msk, params)
 
     # BatchNorm after a few dozen steps: the trained batch's loss in eval
     # mode (running statistics, momentum 0.99) against the same weights
@@ -1643,10 +1969,9 @@ def phase_train(seed: int, work: str, dev, card: str) -> dict:
     bn["loss_batch_stats"] = reference_scalar_loss(cce_from_logits(logits, labels),
                                                    TRAIN_BATCH).item()
     # timing only, last because it ruins the weights: the step with every
-    # BatchNorm (and its f32 casts) skipped bounds what a fused BatchNorm
-    # kernel could save
+    # block's bias, ReLU and BatchNorm (K4) skipped bounds what K4 costs
     real_bn = unet_mod._bn
-    unet_mod._bn = lambda x, bn_module, dtype, group=None: x
+    unet_mod._bn = lambda x, bias, relu, bn_module, group=None: x
     try:
         bn["step_ms_without_bn"] = cuda_ms(lambda: tstep(state, raw_img, raw_msk), 10, 1)
     finally:
@@ -1802,6 +2127,35 @@ def plain_input_conv():
         yield calls, scales
     finally:
         input_conv._launch = launch
+
+
+@contextlib.contextmanager
+def plain_batchnorm():
+    """K4's wrappers with each kernel's launch swapped for its plain version
+    on the same card tensors: the model then runs K4-free and counts no
+    launch. Yields the number of calls each took."""
+    from tpuseg_torch.ops import batchnorm as bn
+
+    swaps = {"stats": ("_launch_stats", bn._stats_plain),
+             "apply": ("_launch_apply", bn._apply_plain),
+             "backward_reduce": ("_launch_backward_reduce", bn._backward_reduce_plain),
+             "backward_apply": ("_launch_backward_apply", bn._backward_apply_plain)}
+    real = {k: getattr(bn, attr) for k, (attr, _) in swaps.items()}
+    calls = dict.fromkeys(swaps, 0)
+
+    def plain(kind, fn):
+        def run(*args):
+            calls[kind] += 1
+            return fn(*args)
+        return run
+
+    for kind, (attr, fn) in swaps.items():
+        setattr(bn, attr, plain(kind, fn))
+    try:
+        yield calls
+    finally:
+        for kind, (attr, _) in swaps.items():
+            setattr(bn, attr, real[kind])
 
 
 def in_ram_launches(height: int, width: int, radius: int) -> int:
@@ -3300,6 +3654,7 @@ def main() -> int:
     kern = phase_kernels(args.seed, dev)
     k3 = phase_int8_conv(args.seed, dev)
     k5 = phase_input_conv(args.seed, dev)
+    k4 = phase_batchnorm(args.seed, dev)
     shear = phase_shear(args.seed, dev)
     work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke")
     main_res = phase_main(args.seed, work, dev, card)
@@ -3431,8 +3786,47 @@ def main() -> int:
                      "each scale of the main path, and its quotients wherever nothing "
                      "underflows",
     }]
+    enc1 = k4["cases"]["enc1_bfloat16"]
+    library_calls = {"stats": "torch.batch_norm_stats(x, eps)",
+                     "apply": "torch.batch_norm_elemt(x, gamma, beta, mean, invstd, eps)",
+                     "backward_reduce": "torch.batch_norm_backward_reduce(g, x, mean, invstd, "
+                                        "gamma, True, True, True)",
+                     "backward_apply": "torch.batch_norm_backward_elemt(g, x, mean, invstd, "
+                                       "gamma, sum_dy, sum_dy_xmu, count)"}
+    for kind in K4_KINDS:
+        kernels.append({
+            "name": f"batchnorm_{kind}", "route": "cuda",
+            "source": "tpuseg_torch/csrc/batchnorm.cu",
+            "replaces": "tpuseg/models/unet.py:94",
+            "replaces_note": "XLA-fused on the TPU, not a Pallas kernel: ConvBlock's bias, "
+                             "nn.relu and nn.BatchNorm (:94-102) and DeconvBlock's nn.BatchNorm "
+                             "(:163-170)",
+            "launches": train_res["launches"]["batchnorm"][kind],
+            "launches_note": "the train CLI main path (phase 6): 23 a train step of each kind, "
+                             "and 23 applies a test forward",
+            "launches_tiled_none": main_res["k4_launches_tiled_none"][kind],
+            "max_abs_err": 0.0 if kind in ("apply", "backward_apply")
+            else max(r["sum_err"][kind] for r in k4["cases"].values()),
+            "ms": enc1["ms"][f"kernel_{kind}"], "plain_ms": enc1["ms"][f"plain_{kind}"],
+            "bound_ms": enc1["bound_ms"][kind], "bound_by": "bytes",
+            "library_ms": enc1["ms"][f"library_{kind}"], "library_call": library_calls[kind],
+            "library_note": "PyTorch's own sync-BN kernel, BatchNorm alone (no bias or ReLU)",
+            "share_of_bound": enc1["share_of_bound"][kind],
+            "shape": enc1["shape"], "dtype": "bfloat16",
+            "by_case": {name: {"ms": r["ms"][f"kernel_{kind}"], "plain_ms": r["ms"][f"plain_{kind}"],
+                               "library_ms": r["ms"][f"library_{kind}"],
+                               "bound_ms": r["bound_ms"][kind]}
+                        for name, r in k4["cases"].items()},
+            "timing": "per call by CUDA events around it, L2 flushed and a 1 ms spin before "
+                      "each; ms at enc1's [8, 64, 512, 512] in bf16 (the training main path)",
+            "tolerance": "bit-equal (torch.equal) to the plain version given the same vectors"
+                         if kind in ("apply", "backward_apply") else
+                         "within gamma_n * sum |t| of the float64 sums (f32 recursive "
+                         "summation, n terms, u = 2^-24); max_abs_err against float64",
+        })
     summary = {"card": card, "torch": torch.__version__, "build_s": build_s,
-               "kernels": kern, "int8_conv": k3, "input_conv": k5, "shear": shear,
+               "kernels": kern, "int8_conv": k3, "input_conv": k5, "batchnorm": k4,
+               "shear": shear,
                "main": main_res,
                "train": train_res,
                "stream": stream_res, "migration": migration_res, "multigpu": multigpu_res,

@@ -13,6 +13,7 @@ import torch
 from tpuseg_torch.infer import head_kernel
 from tpuseg_torch.infer import input_conv as k5
 from tpuseg_torch.infer import int8_conv as k3
+from tpuseg_torch.ops import batchnorm as k4
 
 
 @pytest.fixture
@@ -754,3 +755,130 @@ def test_confusion_matrix_on_card_matches_host(cuda):
     m = metrics.segmentation_metrics(torch.from_numpy(pred).to(cuda),
                                      torch.from_numpy(true).to(cuda), 4)
     assert torch.equal(m["confusion"], got)
+
+
+# ---------------------------------------------------------------------------
+# K4: bias + ReLU + BatchNorm (tpuseg_torch/csrc/batchnorm.cu)
+# ---------------------------------------------------------------------------
+
+def _k4_case(shape, dtype, seed, dev, bias, strided):
+    """x and g as the model hands them: rows of channels, g optionally a
+    concat's channel slice (rows of stride 2C), and the per-channel vectors."""
+    rng = np.random.default_rng(seed)
+    n, c, h, w = shape
+
+    def rows(wide):
+        t = torch.from_numpy(rng.normal(0.3, 1.0, (n, 2 * c if wide else c, h, w))
+                             .astype(np.float32)).to(dev, dtype)
+        t = t.contiguous(memory_format=torch.channels_last)
+        return t[:, c:] if wide else t
+
+    x, g = rows(False), rows(strided)
+    b = torch.from_numpy(rng.normal(0, 0.5, c).astype(np.float32)).to(dev) if bias else None
+    vec = {k: torch.from_numpy(rng.uniform(lo, hi, c).astype(np.float32)).to(dev)
+           for k, lo, hi in (("mean", -0.5, 0.5), ("rstd", 0.5, 2.0), ("mul", -2.0, 2.0),
+                             ("beta", -0.5, 0.5), ("k1", -0.3, 0.3), ("k2", -0.3, 0.3))}
+    return x, g, b, vec
+
+
+def _within_sum_bound(got, terms):
+    """|got - sum| <= gamma_n * sum |t| per row of sums, the bound of f32
+    recursive summation in any order, the exact sum taken in float64."""
+    t = terms.double().flatten(2) if terms.ndim > 2 else terms.double()
+    n = t.shape[-1]
+    u = 2.0 ** -24
+    exact, mag = t.sum(-1), t.abs().sum(-1)
+    return bool(((got.double() - exact).abs() <= n * u / (1 - n * u) * mag + 1e-30).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("relu, bias", [(True, True), (False, False)])
+@pytest.mark.parametrize("shape, strided", [
+    ((3, 2, 5, 7), False), ((3, 2, 5, 7), True), ((2, 64, 9, 11), False),
+    ((2, 64, 9, 11), True), ((1, 1024, 3, 5), False), ((2, 24, 4, 4), True),
+    ((1, 3, 7, 7), False), ((2, 200, 3, 3), False)])
+def test_batchnorm_kernels_match_plain(cuda, shape, strided, relu, bias, dtype):
+    """(b) and (d) bit-equal to their plain versions given the same vectors,
+    (a) and (c) within the f32 summation bound; odd M (105 rows), C 2 (the
+    head), 3, 24 (not a multiple of 8: bf16's narrow path), 64, 200 (4
+    channel tiles, the last partial), 1024; g a channel slice or not."""
+    x, g, b, v = _k4_case(shape, dtype, sum(shape) + strided, cuda, bias, strided)
+    before = dict(k4.LAUNCHES)
+    stats = k4.batch_stats(x, b, relu)
+    y = k4.bn_apply(x, b, relu, v["mean"], v["mul"], v["beta"])
+    sums = k4.backward_reduce(x, b, relu, g, v["mean"], v["rstd"])
+    dx = k4.backward_apply(x, b, relu, g, v["mean"], v["rstd"], v["mul"], v["k1"], v["k2"])
+    torch.cuda.synchronize()
+    assert all(k4.LAUNCHES[k] == before[k] + 1 for k in before)
+    assert torch.equal(y, k4._apply_plain(x, b, relu, v["mean"], v["mul"], v["beta"]))
+    assert torch.equal(dx, k4._backward_apply_plain(x, b, relu, g, v["mean"], v["rstd"],
+                                                    v["mul"], v["k1"], v["k2"]))
+    assert k4.row_stride(y) == k4.row_stride(dx) == shape[1]
+    a = k4.activation(x, b, relu).float().permute(1, 0, 2, 3).reshape(shape[1], -1)
+    assert stats.shape == (2, shape[1])
+    assert _within_sum_bound(stats, torch.stack([a, a * a]))
+    gf = g.float().permute(1, 0, 2, 3).reshape(shape[1], -1)
+    ah = (a - v["mean"][:, None]) * v["rstd"][:, None]
+    terms = [gf, gf * ah]
+    if bias:
+        m = (a > 0) if relu else torch.ones_like(a, dtype=torch.bool)
+        terms += [torch.where(m, gf, 0.0), m.float(), torch.where(m, ah, 0.0)]
+    assert sums.shape == (len(terms), shape[1])
+    assert _within_sum_bound(sums, torch.stack(terms))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_batchnorm_reductions_are_deterministic(cuda, dtype):
+    """Per-block partials and an ordered last-block sum: the same bits every
+    launch (the counters are left at zero), at enc1's width."""
+    x, g, b, v = _k4_case((4, 64, 64, 64), dtype, 3, cuda, True, False)
+    first = [k4.batch_stats(x, b, True), k4.backward_reduce(x, b, True, g, v["mean"], v["rstd"])]
+    for _ in range(3):
+        assert torch.equal(k4.batch_stats(x, b, True), first[0])
+        assert torch.equal(k4.backward_reduce(x, b, True, g, v["mean"], v["rstd"]), first[1])
+
+
+@pytest.mark.cuda
+def test_batchnorm_kernels_refuse_what_they_do_not_take(cuda):
+    x, g, b, v = _k4_case((2, 8, 4, 4), torch.float32, 1, cuda, True, False)
+    with pytest.raises(ValueError, match="not rows of channels"):
+        k4.bn_apply(x.contiguous(), b, True, v["mean"], v["mul"], v["beta"])
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        k4.batch_stats(x.half(), b, True)
+    with pytest.raises(ValueError, match="float32"):
+        k4.bn_apply(x, b, True, v["mean"].double(), v["mul"], v["beta"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("train", [True, False])
+def test_conv_block_on_card_matches_cpu(cuda, train):
+    """The conv block (f32, TF32 off) forward and backward through K4 on the
+    card against the same block on the CPU: within 1e-4 of each tensor's
+    largest |value| (f32 conv and batch sums in other orders)."""
+    from tpuseg_torch.models.unet import ConvBlock
+
+    torch.manual_seed(0)
+    cpu = ConvBlock(16, 32).train(train)
+    with torch.no_grad():
+        cpu.conv.bias.normal_(0, 0.3)
+        cpu.bn.weight.uniform_(0.5, 1.5)
+    card = ConvBlock(16, 32).to(cuda).train(train)
+    card.load_state_dict(cpu.state_dict())
+    x = torch.randn(2, 16, 20, 24).contiguous(memory_format=torch.channels_last)
+    r = torch.randn(2, 32, 20, 24)
+    k4.reset_counts()
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        outs = []
+        for block, dev in ((cpu, "cpu"), (card, cuda)):
+            xi = x.to(dev).detach().requires_grad_()
+            (block(xi, torch.float32) * r.to(dev)).sum().backward()
+            outs.append([xi.grad, block.conv.weight.grad, block.conv.bias.grad,
+                         block.bn.weight.grad, block.bn.bias.grad, block.bn.running_var])
+    want = {"stats": 1, "apply": 1, "backward_reduce": 1, "backward_apply": 1} if train else \
+        {"stats": 0, "apply": 1, "backward_reduce": 1, "backward_apply": 1}
+    assert k4.LAUNCHES == want
+    for got, ref in zip(outs[1], outs[0]):
+        got, ref = got.detach().cpu(), ref.detach()
+        assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()

@@ -27,8 +27,18 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # library name -> (source, {C function: (restype, argtypes)})
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SOURCES = {
+    "batchnorm": ("batchnorm.cu", {
+        "tpuseg_bn_scratch_floats": (_L, [_L, _I, _I]),
+        "tpuseg_bn_stats": (_I, [_P, _L, _I, _P, _I, _L, _I, _P, _P, _P, _P]),
+        "tpuseg_bn_apply": (_I, [_P, _L, _I, _P, _I, _P, _P, _P, _L, _I, _P, _L, _P]),
+        "tpuseg_bn_backward_reduce": (_I, [_P, _L, _P, _L, _I, _P, _I, _P, _P, _L, _I, _I,
+                                           _P, _P, _P, _P]),
+        "tpuseg_bn_backward_apply": (_I, [_P, _L, _P, _L, _I, _P, _I, _P, _P, _P, _P, _P,
+                                          _L, _I, _P, _L, _P]),
+        "tpuseg_cuda_error_string": (ctypes.c_char_p, [_I]),
+    }),
     "head_argmax": ("head_argmax.cu", {
         "tpuseg_head_argmax": (_I, [_P, _I, _P, _P, _I, _P, _P,
                                     _I, _I, _I, _I, _I, _I, _I, _P]),

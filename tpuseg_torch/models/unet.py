@@ -21,13 +21,19 @@ cuDNN runs fastest. ``dtype=torch.bfloat16`` computes each conv in bf16
 on bf16-cast fp32 parameters and each BatchNorm in fp32 before casting
 back to bf16 — where flax puts its casts.
 
-Train-mode BatchNorm is computed by hand to match flax, not through
-``nn.BatchNorm2d``: batch statistics over N,H,W in float32 with the biased
-variance ``E[x^2] - E[x]^2`` (flax's fast variance, clipped at 0), the
-output ``(x - mean) * (rsqrt(var + eps) * scale) + bias``, and the running
-update ``running = 0.99 * running + 0.01 * batch`` on that biased variance
+A block's conv bias, ReLU and BatchNorm run as K4
+(``tpuseg_torch/ops/batchnorm.py``: hand kernels on the card, their plain
+versions on the CPU), not through ``nn.BatchNorm2d``: the conv output is
+rounded to the dtype, ``+ bias`` rounded again (flax's ``y += bias``), then
+ReLU; batch statistics over N,H,W in float32 with the biased variance
+``E[x^2] - E[x]^2`` (flax's fast variance, clipped at 0), the output
+``(x - mean) * (rsqrt(var + eps) * scale) + bias``, and the running update
+``running = 0.99 * running + 0.01 * batch`` on that biased variance
 (``nn.BatchNorm2d`` would update ``running_var`` with the unbiased one).
-Eval mode normalizes with the running statistics through ``F.batch_norm``.
+Eval mode uses the same formula on the running statistics. K4 takes rows
+of channels: the model keeps every activation channels-last (the input is
+made so on entry, conv weights go to cuDNN channels-last, the
+depth-to-space writes NHWC, and dropout's mask takes its input's layout).
 
 Data parallelism (``tpuseg_torch/parallel/mesh.py``) sets
 ``UNet.process_group``; train mode then takes the batch statistics of the
@@ -47,13 +53,14 @@ that deconv's output for the concat with its skip.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+from typing import Optional, Union
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from tpuseg_torch import SIZE_FACTOR
+from tpuseg_torch.ops.batchnorm import conv_bn
 from tpuseg_torch.parallel.halo import split_level
 
 BASELINE_FEATURE_DEPTH = 64  # ref model.py:20
@@ -73,38 +80,13 @@ def as_dtype(dtype: Union[str, torch.dtype]) -> torch.dtype:
     return DTYPES[dtype] if isinstance(dtype, str) else dtype
 
 
-def _batch_moments(xf: torch.Tensor, group) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-channel mean and biased variance of NCHW ``xf`` over N, H, W,
-    from per-channel ``[sum x, sum x^2, n]`` in f32: of this batch, or with
-    a process ``group`` of the global batch (sync-BN), the sums all-reduced
-    through the differentiable all-reduce, so every rank's gradient also
-    carries the other ranks' dependence on its activations. Sums, not
-    means: a mean's backward divides a full-size gradient, a sum's only
-    broadcasts one."""
-    n = xf.shape[0] * xf.shape[2] * xf.shape[3]
-    stats = torch.stack([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3)),
-                         xf.new_full((xf.shape[1],), float(n))])
-    if group is not None:
-        from torch.distributed.nn.functional import all_reduce
-
-        stats = all_reduce(stats, group=group)
-    mean = stats[0] / stats[2]
-    return mean, torch.clamp_min(stats[1] / stats[2] - mean * mean, 0.0)
-
-
-def _bn(x: torch.Tensor, bn: nn.BatchNorm2d, dtype: torch.dtype, group=None) -> torch.Tensor:
-    # flax promotes to fp32 for the normalization and casts the result back
-    if not bn.training:
-        return bn(x.float()).to(dtype)
-    xf = x.float()
-    mean, var = _batch_moments(xf, group)
-    with torch.no_grad():  # flax's update, in its own convention
-        m = BN_MOMENTUM
-        bn.running_mean.copy_(m * bn.running_mean + (1 - m) * mean)
-        bn.running_var.copy_(m * bn.running_var + (1 - m) * var)
-    mul = torch.rsqrt(var + bn.eps) * bn.weight
-    y = (xf - mean[:, None, None]) * mul[:, None, None] + bn.bias[:, None, None]
-    return y.to(dtype)
+def _bn(x: torch.Tensor, bias: Optional[torch.Tensor], relu: bool, bn: nn.BatchNorm2d,
+        group=None) -> torch.Tensor:
+    """K4 on a conv's output ``x`` (in the dtype, without its bias): ``bias``
+    and ReLU where given, then BatchNorm, normalized in f32 and cast back
+    (flax's promotion). Train mode with a process ``group`` takes the
+    global batch's statistics (sync-BN)."""
+    return conv_bn(x, bias, relu, bn, BN_MOMENTUM, group)
 
 
 def _dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
@@ -131,7 +113,17 @@ def _dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
                  h if full_rows else h * s, x.shape[3])
         mask = torch.rand(shape, generator=generator, device=x.device)
         mask = mask[first:first + b, :, rows] < keep
+    # the mask copied into x's layout: torch.where and its backward write
+    # their condition's, and the model keeps activations channels-last
+    mask = torch.empty_like(x, dtype=torch.bool).copy_(mask)
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def _weight(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A conv weight in the compute dtype, channels-last: the conv then
+    writes a channels-last output also where its input's layout is
+    ambiguous (a 1 x 1 image, both layouts at once), as K4 needs."""
+    return w.to(dtype, memory_format=torch.channels_last)
 
 
 class ConvBlock(nn.Module):
@@ -151,18 +143,19 @@ class ConvBlock(nn.Module):
         if halo is not None and padding[0]:
             x = halo(x)
             padding = (0, padding[1])
-        x = F.conv2d(x, c.weight.to(dtype), c.bias.to(dtype), padding=padding)
-        return _bn(F.relu(x), self.bn, dtype, group)
+        x = F.conv2d(x, _weight(c.weight, dtype), padding=padding)
+        return _bn(x, c.bias, True, self.bn, group)
 
 
 def depth_to_space(y: torch.Tensor) -> torch.Tensor:
     """NCHW ``(B, 4F, h, w)`` with phase-major channels ``(dy*2+dx)*F + c``
     -> ``(B, F, 2h, 2w)``: the order of the JAX package's reshape, which is
-    not ``F.pixel_shuffle``'s (``c*4 + dy*2 + dx``)."""
+    not ``F.pixel_shuffle``'s (``c*4 + dy*2 + dx``). Written NHWC, as the
+    JAX package reshapes, so the result is channels-last."""
     b, c4, h, w = y.shape
     f = c4 // 4
-    y = y.reshape(b, 2, 2, f, h, w).permute(0, 3, 4, 1, 5, 2)
-    return y.reshape(b, f, 2 * h, 2 * w)
+    y = y.permute(0, 2, 3, 1).reshape(b, h, w, 2, 2, f).permute(0, 1, 3, 2, 4, 5)
+    return y.reshape(b, 2 * h, 2 * w, f).permute(0, 3, 1, 2)
 
 
 class DeconvBlock(nn.Module):
@@ -184,12 +177,12 @@ class DeconvBlock(nn.Module):
         self.bn = nn.BatchNorm2d(features, eps=BN_EPSILON, momentum=1 - BN_MOMENTUM)
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype, group=None) -> torch.Tensor:
-        w = self.deconv.weight.to(dtype)
+        w = _weight(self.deconv.weight, dtype)
         if self.impl == "pixel_shuffle":
             x = depth_to_space(F.conv2d(x, w))
         else:
             x = F.conv_transpose2d(x, w, stride=POOLING_STRIDE)
-        return _bn(x, self.bn, dtype, group)
+        return _bn(x, None, False, self.bn, group)
 
 
 def _pool(x: torch.Tensor) -> torch.Tensor:
@@ -270,7 +263,9 @@ class UNet(nn.Module):
         # train-mode collectives only: eval BatchNorm reads running statistics
         # (the halo exchange and the gather run in both modes)
         group = self.process_group if self.training else None
-        x = x.to(dt).permute(0, 3, 1, 2)  # NCHW view, channels-last strides
+        # NCHW view, channels-last strides (a copy only where the caller's
+        # batch is not NHWC-contiguous, as apply_nchw's is)
+        x = x.to(dt).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
         # below the gathered level the rows are full: no halo
         pad = [halo if gather_at is None or level <= gather_at else None
                for level in range(5)]

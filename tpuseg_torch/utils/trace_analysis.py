@@ -32,6 +32,7 @@ KERNEL_GROUPS = (
     ("K2 head_argmax", ("head_mma_kernel", "head_fp_kernel", "head_s8_kernel")),
     ("K3 int8_conv", ("int8_conv_kernel", "int8_conv_wgmma_kernel")),
     ("K5 input_conv", ("input_conv_kernel",)),
+    ("K4 batchnorm", ("bn_reduce_kernel", "bn_apply_kernel")),
     ("layout transposes", ("nchwToNhwc", "nhwcToNchw")),
     ("cuDNN / GEMM", ("cudnn", "xmma", "gemm", "cutlass", "sm90_", "sm80_", "wgrad", "dgrad")),
     ("reductions", ("reduce_kernel",)),
