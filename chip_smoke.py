@@ -1078,27 +1078,57 @@ def k4_inputs(shape, dtype, seed: int, dev):
     return x, bias, gamma, beta, rows(1e-3, 0.0)
 
 
-def k4_sum_check(got, terms) -> float:
-    """Each of the sums ``got[k]`` against the float64 sum of ``terms[k]``
-    ([C, N, H, W] each) and the bound of f32 recursive summation in any order
-    of n terms, gamma_n * sum |t| (u = 2^-24). Returns the largest |error|;
-    fails beyond the bound."""
+def k4_sum_check(name: str, got, plain, terms, plan) -> dict:
+    """The sums ``got[k]`` of a K4 reduction against the float64 sums of
+    ``terms`` (callables, each giving float64 ``[C, M]`` terms in the
+    kernel's row order, exact: products taken in float64) and the bound of
+    the summation the kernel does, ``gamma_d * sum |t|`` (u = 2^-24), with
+    ``d = min(plan["depth"], M - 1)``: the most f32 additions between a term
+    and its sum in the library's plan (a thread's rows, the block's row
+    lanes, the blocks). The plain f32 sums ``plain`` (PyTorch's order, not
+    stated) are held to the kernel's bound counted twice, once for each of
+    the two sums. Then faults planted in ``got`` must fail the same check:
+    the first block's rows dropped, and each sum set to zero in turn.
+    Returns the largest errors and their largest share of the bound."""
     import torch
 
-    worst = 0.0
-    for k, t in enumerate(terms):
-        t = t.double()
-        n = t[0].numel()
-        gamma = n * 2.0 ** -24 / (1 - n * 2.0 ** -24)
-        err = (got[k].double() - t.sum((1, 2, 3))).abs()
-        bound = gamma * t.abs().sum((1, 2, 3))
-        if not bool((err <= bound).all()):
-            raise AssertionError(f"K4 sum {k}: error {err.max().item()} beyond the f32 summation "
-                                 f"bound {bound[err.argmax()].item()}")
-        worst = max(worst, err.max().item())
+    exact, mag, first = [], [], []
+    for term in terms:
+        t = term()
+        rows = t.shape[1]
+        exact.append(t.sum(1))
+        mag.append(t.abs().sum(1))
+        first.append(t[:, :plan["rows_per_block"]].sum(1))
         del t
+    exact, mag, first = torch.stack(exact), torch.stack(mag), torch.stack(first)
     torch.cuda.empty_cache()
-    return worst
+    d = max(min(plan["depth"], rows - 1), 1)
+    bound = d * 2.0 ** -24 / (1 - d * 2.0 ** -24) * mag
+
+    def beyond(sums) -> bool:
+        return not bool(((sums.double() - exact).abs() <= bound).all())
+
+    err = (got.double() - exact).abs()
+    if beyond(got):
+        k, c = divmod(int((err - bound).argmax()), err.shape[1])
+        raise AssertionError(f"K4 {name} sum {k}: error {err[k, c].item()} beyond the bound "
+                             f"{bound[k, c].item()} of its summation (depth {d})")
+    plain_diff = (plain.double() - got.double()).abs()
+    if not bool((plain_diff <= 2 * bound).all()):
+        raise AssertionError(f"K4 {name}: the plain f32 sums differ by {plain_diff.max().item()}"
+                             f", beyond twice the kernel's summation bound")
+    faults = {"first block dropped": got.double() - first}
+    for k in range(got.shape[0]):
+        zeroed = got.double().clone()
+        zeroed[k] = 0
+        faults[f"sum {k} zeroed"] = zeroed
+    missed = [f for f, sums in faults.items() if not beyond(sums)]
+    if missed:
+        raise AssertionError(f"K4 {name}: the sum check passes planted faults: {missed}")
+    share = torch.where(bound > 0, err / bound, 0.0).max().item()
+    return {"max_abs_err": err.max().item(), "share_of_bound": share,
+            "plain_diff": plain_diff.max().item(), "depth": d,
+            "faults_caught": len(faults)}
 
 
 def eager_batchnorm(x, bias, gamma, beta, running, train: bool):
@@ -1126,8 +1156,9 @@ def phase_batchnorm(seed: int, dev) -> dict:
     the head's [8, 2, 512, 512], bf16 (the main path's) and f32, as a conv
     block feeds it (bias and ReLU on): (b) and (d) bit-equal (``torch.equal``)
     to their plain versions given the same vectors, (a) and (c) within the
-    f32 recursive-summation bound of the float64 sums (stated in
-    :func:`k4_sum_check`, not tuned), the reductions deterministic from
+    bound of the summation they do, from the library's plan, of the float64
+    sums (stated in :func:`k4_sum_check`, not tuned; planted faults must
+    fail it), the reductions deterministic from
     launch to launch; then each kernel, its plain version, one PyTorch call
     that computes its function on the same inputs (PyTorch's own sync-BN
     kernels: ``torch.batch_norm_stats``, ``batch_norm_elemt``,
@@ -1160,26 +1191,43 @@ def phase_batchnorm(seed: int, dev) -> dict:
         torch.cuda.synchronize()
         if any(bn.LAUNCHES[k] != before[k] + 1 for k in K4_KINDS):
             raise AssertionError(f"K4 {name}: launches {bn.LAUNCHES} after {before}")
-        if not (torch.equal(y, bn._apply_plain(x, bias, True, mean, mul, beta))
-                and torch.equal(dx, bn._backward_apply_plain(x, bias, True, gy, mean, rstd, mul,
-                                                             k1, k2))):
+        y_plain = bn._apply_plain(x, bias, True, mean, mul, beta)
+        dx_plain = bn._backward_apply_plain(x, bias, True, gy, mean, rstd, mul, k1, k2)
+        if not (torch.equal(y, y_plain) and torch.equal(dx, dx_plain)):
             raise AssertionError(f"K4 {name}: (b) or (d) differs from its plain version")
+        elt_err = {"apply": (y.float() - y_plain.float()).abs().max().item(),
+                   "backward_apply": (dx.float() - dx_plain.float()).abs().max().item()}
+        del y_plain, dx_plain
         if bn.row_stride(y) != shape[1] or bn.row_stride(dx) != shape[1]:
             raise AssertionError(f"K4 {name}: outputs not channels-last")
         for _ in range(2):
             if not (torch.equal(bn.batch_stats(x, bias, True), stats) and torch.equal(
                     bn.backward_reduce(x, bias, True, gy, mean, rstd), sums)):
                 raise AssertionError(f"K4 {name}: a reduction changed from launch to launch")
-        a = bn.activation(x, bias, True).float().permute(1, 0, 2, 3)
-        err_a = k4_sum_check(stats, [a, a * a])
-        gf = gy.float().permute(1, 0, 2, 3)
-        ah = (a - mean[:, None, None, None]) * rstd[:, None, None, None]
-        m = (a > 0).float()
-        err_c = k4_sum_check(sums, [gf, gf * ah, gf * m, m, ah * m])
-        plain_err = {"stats": (bn._stats_plain(x, bias, True) - stats).abs().max().item(),
-                     "backward_reduce": (bn._backward_reduce_plain(x, bias, True, gy, mean, rstd)
-                                         - sums).abs().max().item()}
-        del a, gf, ah, m
+        c = shape[1]
+
+        def act():  # a as f32 [C, M], in the kernel's row order
+            return bn.activation(x, bias, True).float().permute(1, 0, 2, 3).reshape(c, -1)
+
+        def ahat():  # rounded as the kernel rounds it
+            return (act() - mean[:, None]) * rstd[:, None]
+
+        def grad():
+            return gy.permute(1, 0, 2, 3).reshape(c, -1).double()
+
+        def pos():
+            return act() > 0
+
+        check_a = k4_sum_check(f"{name} stats", stats, bn._stats_plain(x, bias, True),
+                               [lambda: act().double(), lambda: act().double() ** 2],
+                               bn.reduce_plan(x, bn.row_stride(x)))
+        check_c = k4_sum_check(
+            f"{name} backward reduce", sums,
+            bn._backward_reduce_plain(x, bias, True, gy, mean, rstd),
+            [grad, lambda: grad() * ahat().double(),
+             lambda: torch.where(pos(), grad(), 0.0), lambda: pos().double(),
+             lambda: torch.where(pos(), ahat(), 0.0).double()],
+            bn.reduce_plan(x, bn.row_stride(x), gy, bn.row_stride(gy), 5))
         torch.cuda.empty_cache()
         clipped = int((~unclipped).sum())
 
@@ -1237,12 +1285,18 @@ def phase_batchnorm(seed: int, dev) -> dict:
                  "backward_apply": 3 * act}
         r = {"shape": list(shape), "dtype": str(dtype), "ms": ms, "ms_runs": runs,
              "bytes": moved, "bound_ms": {k: b / HBM_BYTES_PER_S * 1e3 for k, b in moved.items()},
-             "sum_err": {"stats": err_a, "backward_reduce": err_c}, "plain_sum_diff": plain_err,
+             "max_abs_err": {"stats": check_a["max_abs_err"], **elt_err,
+                             "backward_reduce": check_c["max_abs_err"]},
+             "sum_check": {"stats": check_a, "backward_reduce": check_c},
              "clipped_channels": clipped}
         r["share_of_bound"] = {k: r["bound_ms"][k] / ms[f"kernel_{k}"] for k in K4_KINDS}
         out["cases"][name] = r
-        log(f"K4 {name} {tuple(shape)}: (b), (d) bit-equal to plain; (a), (c) within the f32 "
-            f"summation bound (largest errors {err_a:.3g}, {err_c:.3g}); deterministic; "
+        log(f"K4 {name} {tuple(shape)}: (b), (d) bit-equal to plain; (a), (c) within the "
+            f"bound of their summation (depth {check_a['depth']}, {check_c['depth']}; largest "
+            f"errors {check_a['max_abs_err']:.3g}, {check_c['max_abs_err']:.3g}, at most "
+            f"{max(check_a['share_of_bound'], check_c['share_of_bound']):.3g} of the bound; "
+            f"plain f32 sums within twice it; {check_a['faults_caught']} + "
+            f"{check_c['faults_caught']} planted faults caught); deterministic; "
             f"{clipped} channels clipped")
         log("  ms: " + ", ".join(
             f"{k} {ms['kernel_' + k]:.4f} ({r['share_of_bound'][k]:.1%} of "
@@ -1255,7 +1309,8 @@ def phase_batchnorm(seed: int, dev) -> dict:
                 ms["eager_eval_forward"], ms["eager_backward"]))
         del x, bias, gamma, beta, gy, y, dx, xr, y_lib, xe, y_eager, fns
         torch.cuda.empty_cache()
-    out["max_abs_err"] = max(max(r["sum_err"].values()) for r in out["cases"].values())
+    out["max_abs_err"] = {k: max(r["max_abs_err"][k] for r in out["cases"].values())
+                          for k in K4_KINDS}
     return out
 
 
@@ -1970,12 +2025,12 @@ def phase_train(seed: int, work: str, dev, card: str) -> dict:
                                                    TRAIN_BATCH).item()
     # timing only, last because it ruins the weights: the step with every
     # block's bias, ReLU and BatchNorm (K4) skipped bounds what K4 costs
-    real_bn = unet_mod._bn
-    unet_mod._bn = lambda x, bias, relu, bn_module, group=None: x
+    real_bn = unet_mod.conv_bn
+    unet_mod.conv_bn = lambda x, bias, relu, bn_module, momentum, group=None: x
     try:
         bn["step_ms_without_bn"] = cuda_ms(lambda: tstep(state, raw_img, raw_msk), 10, 1)
     finally:
-        unet_mod._bn = real_bn
+        unet_mod.conv_bn = real_bn
     res["bn_check"] = bn
     log(f"after {bn['steps']} steps on one batch: loss {bn['loss_running_stats']:.4f} with "
         f"running statistics, {bn['loss_batch_stats']:.4f} with batch statistics; step "
@@ -2144,7 +2199,7 @@ def plain_batchnorm():
     calls = dict.fromkeys(swaps, 0)
 
     def plain(kind, fn):
-        def run(*args):
+        def run(*args, **row_strides):
             calls[kind] += 1
             return fn(*args)
         return run
@@ -3805,8 +3860,7 @@ def main() -> int:
             "launches_note": "the train CLI main path (phase 6): 23 a train step of each kind, "
                              "and 23 applies a test forward",
             "launches_tiled_none": main_res["k4_launches_tiled_none"][kind],
-            "max_abs_err": 0.0 if kind in ("apply", "backward_apply")
-            else max(r["sum_err"][kind] for r in k4["cases"].values()),
+            "max_abs_err": k4["max_abs_err"][kind],
             "ms": enc1["ms"][f"kernel_{kind}"], "plain_ms": enc1["ms"][f"plain_{kind}"],
             "bound_ms": enc1["bound_ms"][kind], "bound_by": "bytes",
             "library_ms": enc1["ms"][f"library_{kind}"], "library_call": library_calls[kind],
@@ -3821,8 +3875,11 @@ def main() -> int:
                       "each; ms at enc1's [8, 64, 512, 512] in bf16 (the training main path)",
             "tolerance": "bit-equal (torch.equal) to the plain version given the same vectors"
                          if kind in ("apply", "backward_apply") else
-                         "within gamma_n * sum |t| of the float64 sums (f32 recursive "
-                         "summation, n terms, u = 2^-24); max_abs_err against float64",
+                         "within gamma_d * sum |t| of the float64 sums, d the most f32 "
+                         "additions between a term and its sum in the library's plan (u = "
+                         "2^-24), and the plain f32 sums within twice that; planted faults "
+                         "(a dropped block, each sum zeroed) fail the check; max_abs_err "
+                         "against float64",
         })
     summary = {"card": card, "torch": torch.__version__, "build_s": build_s,
                "kernels": kern, "int8_conv": k3, "input_conv": k5, "batchnorm": k4,

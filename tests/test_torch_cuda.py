@@ -781,14 +781,23 @@ def _k4_case(shape, dtype, seed, dev, bias, strided):
     return x, g, b, vec
 
 
-def _within_sum_bound(got, terms):
-    """|got - sum| <= gamma_n * sum |t| per row of sums, the bound of f32
-    recursive summation in any order, the exact sum taken in float64."""
-    t = terms.double().flatten(2) if terms.ndim > 2 else terms.double()
-    n = t.shape[-1]
-    u = 2.0 ** -24
-    exact, mag = t.sum(-1), t.abs().sum(-1)
-    return bool(((got.double() - exact).abs() <= n * u / (1 - n * u) * mag + 1e-30).all())
+def _within_sum_bound(got, terms, plan):
+    """|got - sum| <= gamma_d * sum |t| per row of sums, d the most f32
+    additions between a term and its sum in the library's plan (at most
+    M - 1), the exact sum taken in float64 of exact float64 terms [K, C, M];
+    and a dropped first block or any one sum zeroed falls outside it."""
+    exact, mag = terms.sum(-1), terms.abs().sum(-1)
+    d = max(min(plan["depth"], terms.shape[-1] - 1), 1)
+    bound = d * 2.0 ** -24 / (1 - d * 2.0 ** -24) * mag
+
+    def within(sums):
+        return bool(((sums.double() - exact).abs() <= bound).all())
+
+    faults = [got.double() - terms[..., :plan["rows_per_block"]].sum(-1)]
+    for k in range(got.shape[0]):
+        faults.append(got.double().clone())
+        faults[-1][k] = 0
+    return within(got) and not any(within(f) for f in faults)
 
 
 @pytest.mark.cuda
@@ -800,7 +809,8 @@ def _within_sum_bound(got, terms):
     ((1, 3, 7, 7), False), ((2, 200, 3, 3), False)])
 def test_batchnorm_kernels_match_plain(cuda, shape, strided, relu, bias, dtype):
     """(b) and (d) bit-equal to their plain versions given the same vectors,
-    (a) and (c) within the f32 summation bound; odd M (105 rows), C 2 (the
+    (a) and (c) within the bound of their summation, which planted faults
+    fail; odd M (105 rows), C 2 (the
     head), 3, 24 (not a multiple of 8: bf16's narrow path), 64, 200 (4
     channel tiles, the last partial), 1024; g a channel slice or not."""
     x, g, b, v = _k4_case(shape, dtype, sum(shape) + strided, cuda, bias, strided)
@@ -817,15 +827,18 @@ def test_batchnorm_kernels_match_plain(cuda, shape, strided, relu, bias, dtype):
     assert k4.row_stride(y) == k4.row_stride(dx) == shape[1]
     a = k4.activation(x, b, relu).float().permute(1, 0, 2, 3).reshape(shape[1], -1)
     assert stats.shape == (2, shape[1])
-    assert _within_sum_bound(stats, torch.stack([a, a * a]))
-    gf = g.float().permute(1, 0, 2, 3).reshape(shape[1], -1)
-    ah = (a - v["mean"][:, None]) * v["rstd"][:, None]
+    ad = a.double()
+    assert _within_sum_bound(stats, torch.stack([ad, ad * ad]),
+                             k4.reduce_plan(x, k4.row_stride(x)))
+    gf = g.float().permute(1, 0, 2, 3).reshape(shape[1], -1).double()
+    ah = ((a - v["mean"][:, None]) * v["rstd"][:, None]).double()
     terms = [gf, gf * ah]
     if bias:
         m = (a > 0) if relu else torch.ones_like(a, dtype=torch.bool)
-        terms += [torch.where(m, gf, 0.0), m.float(), torch.where(m, ah, 0.0)]
+        terms += [torch.where(m, gf, 0.0), m.double(), torch.where(m, ah, 0.0)]
     assert sums.shape == (len(terms), shape[1])
-    assert _within_sum_bound(sums, torch.stack(terms))
+    assert _within_sum_bound(sums, torch.stack(terms),
+                             k4.reduce_plan(x, k4.row_stride(x), g, k4.row_stride(g), len(terms)))
 
 
 @pytest.mark.cuda

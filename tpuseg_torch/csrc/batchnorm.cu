@@ -388,15 +388,33 @@ int elt_size(int dtype) { return dtype == 1 ? 2 : 4; }
 
 extern "C" {
 
-// Floats of scratch a reduction with `nsums` sums needs for [m, c] (its
-// per-block partials), or -1 where c needs more than 64 channel tiles.
-long long tpuseg_bn_scratch_floats(long long m, int c, int nsums) {
+// The plan of a reduction, (a) with g null or (c), over [m, c] with these
+// pointers and row strides: plan[0] the floats of scratch it needs (its
+// per-block partials), plan[1] its blocks along the rows, plan[2] the rows a
+// block sums, plan[3] the most f32 additions between a term and its sum (a
+// thread's rows, then the block's row lanes, then the blocks: the depth d
+// of the bound |error| <= gamma_d * sum |t|, each term being exact, a
+// product inside an FMA). Returns 0, or -1 where c needs more than 64
+// channel tiles.
+int tpuseg_bn_reduce_plan(const void* x, long long ldx, const void* g, long long ldg, int dtype,
+                          long long m, int c, int nsums, long long* plan) {
   if (bad_args(m, c)) return -1;
-  return reduce_blocks(m, c) * nsums * c;
+  const void* ptrs[] = {x, g};
+  const long long lds[] = {ldx, ldg};
+  const int vec = vector_ok(elt_size(dtype), c, ptrs, lds, g ? 2 : 1) ? 16 / elt_size(dtype) : 1;
+  const int tile_c = c < kTileC ? c : kTileC;
+  const long long rpi = kThreads / ((tile_c + vec - 1) / vec);
+  const long long gx = reduce_blocks(m, c);
+  const long long rpb = (m + gx - 1) / gx;
+  plan[0] = gx * nsums * c;
+  plan[1] = gx;
+  plan[2] = rpb;
+  plan[3] = (rpb + rpi - 1) / rpi + rpi + gx;
+  return 0;
 }
 
 // (a). x: dtype (0 f32, 1 bf16) [m rows of stride ldx, c]; bias: f32 [c] or
-// null; out: f32 [2, c]; scratch: tpuseg_bn_scratch_floats(m, c, 2) floats;
+// null; out: f32 [2, c]; scratch: plan[0] floats of tpuseg_bn_reduce_plan;
 // counters: 64 ints, zero (and left zero). Returns the launch's cudaError_t.
 int tpuseg_bn_stats(const void* x, long long ldx, int dtype, const float* bias, int relu,
                     long long m, int c, float* out, float* scratch, int* counters, void* stream) {

@@ -30,7 +30,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SOURCES = {
     "batchnorm": ("batchnorm.cu", {
-        "tpuseg_bn_scratch_floats": (_L, [_L, _I, _I]),
+        "tpuseg_bn_reduce_plan": (_I, [_P, _L, _P, _L, _I, _L, _I, _I, _P]),
         "tpuseg_bn_stats": (_I, [_P, _L, _I, _P, _I, _L, _I, _P, _P, _P, _P]),
         "tpuseg_bn_apply": (_I, [_P, _L, _I, _P, _I, _P, _P, _P, _L, _I, _P, _L, _P]),
         "tpuseg_bn_backward_reduce": (_I, [_P, _L, _P, _L, _I, _P, _I, _P, _P, _L, _I, _I,

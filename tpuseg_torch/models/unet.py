@@ -80,15 +80,6 @@ def as_dtype(dtype: Union[str, torch.dtype]) -> torch.dtype:
     return DTYPES[dtype] if isinstance(dtype, str) else dtype
 
 
-def _bn(x: torch.Tensor, bias: Optional[torch.Tensor], relu: bool, bn: nn.BatchNorm2d,
-        group=None) -> torch.Tensor:
-    """K4 on a conv's output ``x`` (in the dtype, without its bias): ``bias``
-    and ReLU where given, then BatchNorm, normalized in f32 and cast back
-    (flax's promotion). Train mode with a process ``group`` takes the
-    global batch's statistics (sync-BN)."""
-    return conv_bn(x, bias, relu, bn, BN_MOMENTUM, group)
-
-
 def _dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
              group=None, halo=None, full_rows: bool = False) -> torch.Tensor:
     """flax ``nn.Dropout``: keep with probability ``1 - rate`` and scale the
@@ -144,7 +135,7 @@ class ConvBlock(nn.Module):
             x = halo(x)
             padding = (0, padding[1])
         x = F.conv2d(x, _weight(c.weight, dtype), padding=padding)
-        return _bn(x, c.bias, True, self.bn, group)
+        return conv_bn(x, c.bias, True, self.bn, BN_MOMENTUM, group)
 
 
 def depth_to_space(y: torch.Tensor) -> torch.Tensor:
@@ -182,7 +173,7 @@ class DeconvBlock(nn.Module):
             x = depth_to_space(F.conv2d(x, w))
         else:
             x = F.conv_transpose2d(x, w, stride=POOLING_STRIDE)
-        return _bn(x, None, False, self.bn, group)
+        return conv_bn(x, None, False, self.bn, BN_MOMENTUM, group)
 
 
 def _pool(x: torch.Tensor) -> torch.Tensor:

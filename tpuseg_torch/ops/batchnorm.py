@@ -45,6 +45,7 @@ no gradient flows through it (``clamp_min``'s rule).
 
 from __future__ import annotations
 
+import ctypes
 from typing import Dict, Optional
 
 import torch
@@ -175,15 +176,23 @@ def _backward_apply_plain(x, bias, relu, g, mean, rstd, mul, k1, k2) -> torch.Te
 # the kernels
 # ---------------------------------------------------------------------------
 
-_COUNTERS: Dict[torch.device, torch.Tensor] = {}
+_COUNTERS: Dict[tuple, torch.Tensor] = {}
 
 
-def _counters(device: torch.device) -> torch.Tensor:
-    """The reduction kernels' last-block counters on ``device``: zeroed once,
-    and left at zero by every launch (the kernels run on one stream)."""
-    t = _COUNTERS.get(device)
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _counters(device: torch.device, stream: int) -> torch.Tensor:
+    """The reduction kernels' last-block counters for ``stream`` on
+    ``device``: zeroed once, and left at zero by every launch, so two
+    reductions share them only in stream order. A kernel that faults
+    midway leaves them non-zero, but its error is sticky: the process's
+    CUDA context takes no further launches."""
+    t = _COUNTERS.get((device, stream))
     if t is None:
-        t = _COUNTERS[device] = torch.zeros(64, dtype=torch.int32, device=device)
+        with torch.cuda.device(device):
+            t = _COUNTERS[(device, stream)] = torch.zeros(64, dtype=torch.int32, device=device)
     return t
 
 
@@ -191,12 +200,11 @@ def _ptr(v: Optional[torch.Tensor]) -> Optional[int]:
     return None if v is None else v.data_ptr()
 
 
-def _run(kind: str, fn, device: torch.device, *args) -> None:
+def _run(kind: str, fn, device: torch.device, stream: int, *args) -> None:
     from tpuseg_torch.kernels.build import load
 
     lib = load("batchnorm")
     with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
         err = getattr(lib, fn)(*args, stream)
     if err:
         raise RuntimeError(f"batchnorm {kind} kernel launch failed: "
@@ -204,56 +212,67 @@ def _run(kind: str, fn, device: torch.device, *args) -> None:
     LAUNCHES[kind] += 1
 
 
-def _reduce_out(x: torch.Tensor, nsums: int):
+def _rows(x: torch.Tensor):
+    return x.shape[0] * x.shape[2] * x.shape[3], x.shape[1]
+
+
+def reduce_plan(x: torch.Tensor, ldx: int, g: Optional[torch.Tensor] = None, ldg: int = 0,
+                nsums: int = 2) -> Dict[str, int]:
+    """The library's plan of the reduction (a) (``g`` None) or (c) on these
+    CUDA tensors: ``scratch`` floats, ``blocks``, ``rows_per_block`` and
+    ``depth``, the most f32 additions between a term and its sum, so that
+    each sum is within ``gamma_depth * sum |t|`` of the exact one."""
     from tpuseg_torch.kernels.build import load
 
-    m, c = x.shape[0] * x.shape[2] * x.shape[3], x.shape[1]
-    scratch = load("batchnorm").tpuseg_bn_scratch_floats(m, c, nsums)
-    if scratch < 0:
+    m, c = _rows(x)
+    plan = (ctypes.c_longlong * 4)()
+    if load("batchnorm").tpuseg_bn_reduce_plan(x.data_ptr(), ldx, _ptr(g), ldg,
+                                               DTYPE_CODES[x.dtype], m, c, nsums, plan):
         raise ValueError(f"K4 refuses [{m}, {c}] (at most 64 channel tiles)")
-    out = torch.empty((nsums, c), dtype=torch.float32, device=x.device)
-    return m, c, out, torch.empty(max(scratch, 1), dtype=torch.float32, device=x.device)
+    return dict(zip(("scratch", "blocks", "rows_per_block", "depth"), plan))
 
 
-def _launch_stats(x, bias, relu) -> torch.Tensor:
-    ldx = _check_rows("x", x)
-    m, c, out, scratch = _reduce_out(x, 2)
-    _run("stats", "tpuseg_bn_stats", x.device, x.data_ptr(), ldx, DTYPE_CODES[x.dtype],
-         _ptr(bias), int(relu), m, c, out.data_ptr(), scratch.data_ptr(),
-         _counters(x.device).data_ptr())
+def _reduce_out(x, ldx, g, ldg, nsums: int):
+    scratch = reduce_plan(x, ldx, g, ldg, nsums)["scratch"]
+    out = torch.empty((nsums, x.shape[1]), dtype=torch.float32, device=x.device)
+    return out, torch.empty(max(scratch, 1), dtype=torch.float32, device=x.device)
+
+
+def _launch_stats(x, bias, relu, *, ldx) -> torch.Tensor:
+    out, scratch = _reduce_out(x, ldx, None, 0, 2)
+    stream = _stream(x.device)
+    _run("stats", "tpuseg_bn_stats", x.device, stream, x.data_ptr(), ldx, DTYPE_CODES[x.dtype],
+         _ptr(bias), int(relu), *_rows(x), out.data_ptr(), scratch.data_ptr(),
+         _counters(x.device, stream).data_ptr())
     return out
 
 
-def _launch_apply(x, bias, relu, mean, mul, beta) -> torch.Tensor:
-    ldx = _check_rows("x", x)
+def _launch_apply(x, bias, relu, mean, mul, beta, *, ldx) -> torch.Tensor:
     y = _channels_last(x.shape, x.dtype, x.device)
-    m, c = x.shape[0] * x.shape[2] * x.shape[3], x.shape[1]
-    _run("apply", "tpuseg_bn_apply", x.device, x.data_ptr(), ldx, DTYPE_CODES[x.dtype],
-         _ptr(bias), int(relu), mean.data_ptr(), mul.data_ptr(), beta.data_ptr(), m, c,
-         y.data_ptr(), c)
+    _run("apply", "tpuseg_bn_apply", x.device, _stream(x.device), x.data_ptr(), ldx,
+         DTYPE_CODES[x.dtype], _ptr(bias), int(relu), mean.data_ptr(), mul.data_ptr(),
+         beta.data_ptr(), *_rows(x), y.data_ptr(), x.shape[1])
     return y
 
 
-def _launch_backward_reduce(x, bias, relu, g, mean, rstd) -> torch.Tensor:
-    ldx = _check_rows("x", x)
-    ldg = _check_rows("g", g, x)
+def _launch_backward_reduce(x, bias, relu, g, mean, rstd, *, ldx, ldg) -> torch.Tensor:
     nsums = 2 if bias is None else 5
-    m, c, out, scratch = _reduce_out(x, nsums)
-    _run("backward_reduce", "tpuseg_bn_backward_reduce", x.device, x.data_ptr(), ldx,
+    out, scratch = _reduce_out(x, ldx, g, ldg, nsums)
+    stream = _stream(x.device)
+    _run("backward_reduce", "tpuseg_bn_backward_reduce", x.device, stream, x.data_ptr(), ldx,
          g.data_ptr(), ldg, DTYPE_CODES[x.dtype], _ptr(bias), int(relu), mean.data_ptr(),
-         rstd.data_ptr(), m, c, nsums, out.data_ptr(), scratch.data_ptr(),
-         _counters(x.device).data_ptr())
+         rstd.data_ptr(), *_rows(x), nsums, out.data_ptr(), scratch.data_ptr(),
+         _counters(x.device, stream).data_ptr())
     return out
 
 
-def _launch_backward_apply(x, bias, relu, g, mean, rstd, mul, k1, k2) -> torch.Tensor:
-    ldx = _check_rows("x", x)
-    ldg = _check_rows("g", g, x)
+def _launch_backward_apply(x, bias, relu, g, mean, rstd, mul, k1, k2, *, ldx,
+                           ldg) -> torch.Tensor:
     dx = _channels_last(x.shape, x.dtype, x.device)
-    m, c = x.shape[0] * x.shape[2] * x.shape[3], x.shape[1]
-    _run("backward_apply", "tpuseg_bn_backward_apply", x.device, x.data_ptr(), ldx,
-         g.data_ptr(), ldg, DTYPE_CODES[x.dtype], _ptr(bias), int(relu), mean.data_ptr(),
-         rstd.data_ptr(), mul.data_ptr(), k1.data_ptr(), k2.data_ptr(), m, c, dx.data_ptr(), c)
+    _run("backward_apply", "tpuseg_bn_backward_apply", x.device, _stream(x.device),
+         x.data_ptr(), ldx, g.data_ptr(), ldg, DTYPE_CODES[x.dtype], _ptr(bias), int(relu),
+         mean.data_ptr(), rstd.data_ptr(), mul.data_ptr(), k1.data_ptr(), k2.data_ptr(),
+         *_rows(x), dx.data_ptr(), x.shape[1])
     return dx
 
 
@@ -261,27 +280,29 @@ def _launch_backward_apply(x, bias, relu, g, mean, rstd, mul, k1, k2) -> torch.T
 # the wrappers: the kernel on a CUDA tensor, the plain version on a CPU one
 # ---------------------------------------------------------------------------
 
-def _dispatch(x: torch.Tensor, plain, launch, *args):
-    if x.device.type == "cpu":
-        return plain(x, *args)
-    if x.device.type != "cuda":
+def _device(x: torch.Tensor) -> str:
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"K4 runs on cuda or cpu tensors, not {x.device}")
-    return launch(x, *args)
+    return x.device.type
 
 
 def batch_stats(x: torch.Tensor, bias: Optional[torch.Tensor], relu: bool) -> torch.Tensor:
     """(a): f32 ``[2, C]``, per channel ``[sum a, sum a^2]`` over N, H, W."""
-    _check_rows("x", x)
+    ldx = _check_rows("x", x)
     _check_vectors(x, bias=bias)
-    return _dispatch(x, _stats_plain, _launch_stats, bias, relu)
+    if _device(x) == "cpu":
+        return _stats_plain(x, bias, relu)
+    return _launch_stats(x, bias, relu, ldx=ldx)
 
 
 def bn_apply(x: torch.Tensor, bias: Optional[torch.Tensor], relu: bool, mean: torch.Tensor,
              mul: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
     """(b): ``y = r(((a - mean) * mul) + beta)``, channels-last, x's dtype."""
-    _check_rows("x", x)
+    ldx = _check_rows("x", x)
     _check_vectors(x, bias=bias, mean=mean, mul=mul, beta=beta)
-    return _dispatch(x, _apply_plain, _launch_apply, bias, relu, mean, mul, beta)
+    if _device(x) == "cpu":
+        return _apply_plain(x, bias, relu, mean, mul, beta)
+    return _launch_apply(x, bias, relu, mean, mul, beta, ldx=ldx)
 
 
 def backward_reduce(x: torch.Tensor, bias: Optional[torch.Tensor], relu: bool, g: torch.Tensor,
@@ -289,11 +310,11 @@ def backward_reduce(x: torch.Tensor, bias: Optional[torch.Tensor], relu: bool, g
     """(c): f32 ``[2, C]`` (``[sum g, sum g*ahat]``), or ``[5, C]`` with a
     bias (also ``sum relu'*g, sum relu', sum relu'*ahat``; relu' is 1
     without a ReLU)."""
-    _check_rows("x", x)
-    _check_rows("g", g, x)
+    ldx, ldg = _check_rows("x", x), _check_rows("g", g, x)
     _check_vectors(x, bias=bias, mean=mean, rstd=rstd)
-    return _dispatch(x, _backward_reduce_plain, _launch_backward_reduce, bias, relu, g, mean,
-                     rstd)
+    if _device(x) == "cpu":
+        return _backward_reduce_plain(x, bias, relu, g, mean, rstd)
+    return _launch_backward_reduce(x, bias, relu, g, mean, rstd, ldx=ldx, ldg=ldg)
 
 
 def backward_apply(x: torch.Tensor, bias: Optional[torch.Tensor], relu: bool, g: torch.Tensor,
@@ -301,11 +322,12 @@ def backward_apply(x: torch.Tensor, bias: Optional[torch.Tensor], relu: bool, g:
                    k2: torch.Tensor) -> torch.Tensor:
     """(d): ``dx = relu' * r(((g - k1) - ahat * k2) * mul)``, channels-last,
     x's dtype."""
-    _check_rows("x", x)
-    _check_rows("g", g, x)
+    ldx, ldg = _check_rows("x", x), _check_rows("g", g, x)
     _check_vectors(x, bias=bias, mean=mean, rstd=rstd, mul=mul, k1=k1, k2=k2)
-    return _dispatch(x, _backward_apply_plain, _launch_backward_apply, bias, relu, g, mean,
-                     rstd, mul, k1, k2)
+    if _device(x) == "cpu":
+        return _backward_apply_plain(x, bias, relu, g, mean, rstd, mul, k1, k2)
+    return _launch_backward_apply(x, bias, relu, g, mean, rstd, mul, k1, k2, ldx=ldx,
+                                  ldg=ldg)
 
 
 # ---------------------------------------------------------------------------
