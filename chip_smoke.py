@@ -13,7 +13,9 @@ package. Phases, each fatal on failure:
    parallel), logging each kernel's registers and spills;
 2. kernels: call each kernel's wrapper on card tensors at the shape its
    main path gives it (K2, the blocked head+argmax: serving, both heads,
-   which must take its mma route; K3, the int8 conv with its epilogue
+   which must take its mma route; K6, the dense head+argmax: the dense
+   int8 walk's [8, 1024, 1024, 64] edge, both heads, mma route, timed
+   beside the eager chain it replaced; K3, the int8 conv with its epilogue
    fused: serving, at each of the 21 block shapes of a predict call, on
    codes and scales whose requantized outputs are not degenerate, the
    blocked edge convs' codes blocked as the main path's are, through both
@@ -29,7 +31,7 @@ package. Phases, each fatal on failure:
    the f32 summation bound of float64 sums, timed beside PyTorch's own
    sync-BN kernels, ``F.batch_norm`` and the eager chain K4 replaced;
    K1, the row shear: training), hold the result against its plain
-   PyTorch version (bit-equal for K1, K3, K5 and the int8 K2), and time
+   PyTorch version (bit-equal for K1, K3, K5 and the int8 K2 and K6), and time
    both in turns with
    the L2 flushed, by profiler device time (K2 also with CUDA events; K3
    by CUDA events around each call behind a spin kernel),
@@ -41,8 +43,9 @@ package. Phases, each fatal on failure:
    registers and spills come from the build log, and a spill fails;
 3. reference: on a small input, the full-width int8_blocked engine on the
    card against the same engine on the CPU (whose arithmetic the CPU tests
-   pin to the JAX package), and the folded f32 walk on the card against
-   the f32 model on the CPU;
+   pin to the JAX package), likewise the dense int8 engine (one K6
+   launch), and the folded f32 walk on the card against the f32 model on
+   the CPU;
 4. main path: move the random U-Net's (base 64, 1 channel, 2 classes)
    head shift for class 1 so that about half the pixels take each class;
    serve a folder (one 4096^2 and four 256^2 uint16 images) through
@@ -52,15 +55,22 @@ package. Phases, each fatal on failure:
    on its ``"wgmma"`` route), check every mask, serve it again with K3's plain
    version swapped in on the card (masks equal on every pixel, the first
    call's convs at phase 2's 21 shapes) and with ``--quantize int8`` (no
-   K2, 21 K3 launches per predict call, again against the plain version
-   on every pixel) and compare the masks, then serve both modes with K5's
+   K2, one K6 and 21 K3 launches per predict call, again against K3's
+   plain version on every pixel, and through K6's plain version on >=
+   0.9999 of pixels) and compare the masks; serve it with ``--quantize
+   int8_auto`` (K2 for the 4096^2 image, K6 for the batch of small ones,
+   masks equal to the two modes' on every pixel); then serve both modes with K5's
    plain version swapped in (masks equal on every pixel; the output scales
    K5 was given there checked on every f32 value as in phase 2), time the tiled
    engines on the 4096^2 image (K5 once per predict call in both int8
-   modes; K4's apply 23 times a predict call of ``none``, whose masks
-   through K4 equal those through K4's plain versions on every pixel) and
-   profile one pass of int8_blocked, int8 and none each (device time by
-   kernel and group, K3's, K5's and K4's shares, busy share);
+   modes, K6 once a predict call of ``int8`` and never of
+   ``int8_blocked``; a tiled ``int8`` pass with the head quantized
+   through K6's int8 route and through its plain version, masks equal on
+   every pixel; K4's apply 23 times a predict call of ``none``, whose
+   masks through K4 equal those through K4's plain versions on every
+   pixel) and profile one pass of int8_blocked, int8 and none each (device
+   time by kernel and group, K3's, K5's, K2's or K6's and K4's shares,
+   busy share);
 5. training reference: one f32 train step at base 4 on 64^2 inputs on the
    card (cuDNN TF32 off) against the same step on the CPU, from the same
    weights and batch, dropout off;
@@ -178,6 +188,7 @@ import time
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}  # H100 SXM dense tensor-core rates
 MAIN_SHAPE = (8, 512, 512, 256)  # dec1b edge of 8 tiles of 1024^2 at base 64
+DENSE_SHAPE = (8, 1024, 1024, 64)  # the dense walk's dec1b edge, K6's input
 F32_OPS = 67e12  # H100 SXM float32 outside the tensor cores
 # K1 at the training shape: batch 8 x (1 image + 1 mask channel) rows of
 # 512^2, mirror-padded by int(0.3536 * 512) + 3 = 184 on each side
@@ -356,11 +367,11 @@ def ptxas_report(text: str) -> dict:
 
 def kernel_label(mangled: str) -> str:
     """A readable label for a mangled kernel name from a ptxas log:
-    head_mma_kernel<fp, nt, breg> spelled out, others with the
+    (dense_)head_mma_kernel<fp, nt, breg> spelled out, others with the
     anonymous-namespace prefix cut."""
-    m = re.search(r"head_mma_kernelILb(\d)ELi(\d)ELb(\d)E", mangled)
+    m = re.search(r"\d((?:dense_)?head_mma_kernel)ILb(\d)ELi(\d)ELb(\d)E", mangled)
     if m:
-        return f"head_mma_kernel<fp={m.group(1)},nt={m.group(2)},breg={m.group(3)}>"
+        return f"{m.group(1)}<fp={m.group(2)},nt={m.group(3)},breg={m.group(4)}>"
     m = re.search(r"int8_conv_kernelILi(\d)ELb(\d)E", mangled)
     if m:
         return f"int8_conv_kernel<mode={m.group(1)},aligned={m.group(2)}>"
@@ -463,6 +474,124 @@ def phase_kernels(seed: int, dev) -> dict:
             f"bound {bound:.4f} ms ({r['bound_by']})")
         del x, sv, wt, epi
         torch.cuda.empty_cache()
+    out["dense"] = phase_dense_head(seed, dev)
+    return out
+
+
+def dense_head_inputs(fp: bool, seed: int, dev):
+    """K6's inputs at the dense walk's dec1b edge: int8 codes, scales, a
+    [ncls, C] weight (bf16 for the fp head, int8 codes for the int8 head)
+    and (b, s, t, wscale) rows, a positive BatchNorm scale s and small b
+    and t as a trained head's, so that both classes take many pixels."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    c = DENSE_SHAPE[-1]
+    x = torch.randint(-127, 128, DENSE_SHAPE, generator=g, device=dev, dtype=torch.int8)
+    sv = torch.rand(c, generator=g, device=dev) * 0.09 + 0.01
+    epi = torch.randn(4, NCLS, generator=g, device=dev) * 0.3
+    epi[1] = torch.rand(NCLS, generator=g, device=dev) + 0.5
+    if fp:
+        wt = (torch.randn(NCLS, c, generator=g, device=dev) * 0.3).to(torch.bfloat16)
+        epi[3] = 1.0
+    else:
+        wt = torch.randint(-127, 128, (NCLS, c), generator=g, device=dev, dtype=torch.int8)
+        epi[3] = torch.rand(NCLS, generator=g, device=dev) * 9e-4 + 1e-4
+    return x, sv, wt, epi
+
+
+def eager_dense_head(x, sv, wt, epi, fp: bool, op=None):
+    """The dense walk's head as the port ran it before K6: the fp head
+    dequantized to bf16, cuDNN's f32 conv between two permutes, four
+    elementwise epilogue passes; the int8 head through K3 (``op``, the
+    head's ``Int8ConvWeights``) with its ``"relu_f32"`` epilogue; then
+    ``torch.argmax`` over the f32 logits."""
+    import torch
+
+    from tpuseg_torch.infer import int8_conv, quant
+
+    b, s, t = epi[0], epi[1], epi[2]
+    if fp:
+        w = wt.float()[:, :, None, None]
+        y = quant._conv_fp((x.float() * sv).to(torch.bfloat16), w, torch.bfloat16)
+        y = torch.clamp_min(y + b, 0.0) * s + t
+    else:
+        y = int8_conv.int8_conv(x, op, int8_conv.Epilogue("relu_f32", epi[3], b, s, t, None))
+    return torch.argmax(y, dim=-1).to(torch.int32)
+
+
+def phase_dense_head(seed: int, dev) -> dict:
+    """K6 at the dense walk's shape ([8, 1024, 1024, 64], 2 classes), both
+    heads on the mma route: against its plain version (int8 head bit-equal,
+    fp head >= 0.9999 of labels), then timed in turns by profiler device
+    time with the L2 flushed before each call (plain, kernel, kernel,
+    plain), beside the eager chain it replaced (:func:`eager_dense_head`)
+    and its bound. No single PyTorch call computes head + argmax."""
+    import numpy as np
+    import torch
+
+    from tpuseg_torch.infer import head_kernel as hk
+    from tpuseg_torch.infer import int8_conv
+
+    k3_saved = int8_conv.LAUNCHES, dict(int8_conv.ROUTE_LAUNCHES)
+    out = {"build": build_report("head_argmax", "dense_head_mma_kernel", spill_fails=True)}
+    for fp in (True, False):
+        x, sv, wt, epi = dense_head_inputs(fp, seed, dev)
+        op = None if fp else int8_conv.Int8ConvWeights(
+            np.ascontiguousarray(wt.cpu().numpy().T[None, None]))
+        before = hk.DENSE_LAUNCHES
+        got = hk.dense_head_argmax(x, sv, wt, epi, NCLS, fp=fp)
+        want = hk._dense_head_argmax_plain(x, sv, wt, epi, NCLS, fp)
+        eager = eager_dense_head(x, sv, wt, epi, fp, op)
+        torch.cuda.synchronize()
+        if hk.DENSE_LAUNCHES != before + 1 or hk.LAST_ROUTE != "mma":
+            raise AssertionError(f"K6 fp={fp}: {hk.DENSE_LAUNCHES - before} launches on the "
+                                 f"{hk.LAST_ROUTE} route, not one on mma")
+        if got.shape != DENSE_SHAPE[:3] or got.dtype != torch.int32:
+            raise AssertionError(f"K6 returned {tuple(got.shape)} {got.dtype}")
+        agree = (got == want).double().mean().item()
+        eager_agree = (eager == want).double().mean().item()
+        max_err = (got - want).abs().max().item()
+        class1 = (want == 1).double().mean().item()
+        if fp and agree < 0.9999:
+            raise AssertionError(f"fp K6 agrees with plain on {agree} < 0.9999")
+        if not fp and not torch.equal(got, want):
+            raise AssertionError(f"int8 K6 differs from plain (agreement {agree})")
+        if eager_agree < 0.9999 or not 0.01 < class1 < 0.99:
+            raise AssertionError(f"K6 fp={fp}: the eager chain agrees with plain on "
+                                 f"{eager_agree}, class 1 takes {class1} of labels")
+        del got, want, eager
+        fns = {"plain": lambda: hk._dense_head_argmax_plain(x, sv, wt, epi, NCLS, fp),
+               "kernel": lambda: hk.dense_head_argmax(x, sv, wt, epi, NCLS, fp=fp),
+               "eager": lambda: eager_dense_head(x, sv, wt, epi, fp, op)}
+        runs = {name: [] for name in fns}
+        for name in ("plain", "eager", "kernel", "kernel", "eager", "plain"):
+            runs[name].append(device_ms_cold(fns[name], 20 if name == "kernel" else 3))
+        npix = x.numel() // x.shape[-1]
+        nbytes = (x.numel() + sv.numel() * 4 + wt.numel() * wt.element_size()
+                  + epi.numel() * 4 + npix * 4)
+        ops = 2 * x.numel() * NCLS
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / PEAK_OPS["bf16" if fp else "int8"] * 1e3
+        bound = max(t_bytes, t_ops)
+        ms = sum(runs["kernel"]) / 2
+        out["fp" if fp else "int8"] = r = {
+            "route": "mma", "agree": agree, "max_abs_err": max_err,
+            "eager_agree": eager_agree, "class1_share": class1,
+            "ms": ms, "ms_runs": runs["kernel"],
+            "plain_ms": sum(runs["plain"]) / 2, "plain_ms_runs": runs["plain"],
+            "eager_ms": sum(runs["eager"]) / 2, "eager_ms_runs": runs["eager"],
+            "bound_ms": bound, "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "share_of_bound": bound / ms, "bytes": nbytes, "ops": ops,
+            "shape": list(DENSE_SHAPE)}
+        log(f"K6 dense head fp={fp} (mma route): agree {agree} (eager chain {eager_agree}, "
+            f"class 1 {class1:.3f}); device time (L2 flushed) {runs['kernel'][0]:.4f} / "
+            f"{runs['kernel'][1]:.4f} ms ({r['share_of_bound']:.1%} of bound), plain "
+            f"{r['plain_ms']:.3f} ms, eager chain {r['eager_ms']:.3f} ms; bound {bound:.4f} ms "
+            f"({r['bound_by']})")
+        del x, sv, wt, epi, op
+        torch.cuda.empty_cache()
+    int8_conv.LAUNCHES, int8_conv.ROUTE_LAUNCHES = k3_saved
     return out
 
 
@@ -1384,39 +1513,58 @@ def phase_reference(model, seed: int, dev) -> dict:
     if got.shape != (2, 64, 64) or agree < 0.999:
         raise AssertionError(f"int8_blocked on the card vs the CPU: shape {tuple(got.shape)}, "
                              f"agreement {agree}")
-    log(f"reference: folded f32 rel err {logit_err:.2e}, int8_blocked card/CPU agreement {agree}")
-    return {"folded_f32_rel_err": logit_err, "int8_blocked_card_vs_cpu_agree": agree}
+    from tpuseg_torch.infer import head_kernel
+
+    dense = quant.make_quantized_predict_fn(folded, ranges)
+    before = head_kernel.DENSE_LAUNCHES
+    got = dense(x.to(dev)).cpu()
+    launched = head_kernel.DENSE_LAUNCHES - before
+    dense_agree = (got == dense(x)).double().mean().item()
+    if got.shape != (2, 64, 64) or dense_agree < 0.999 or launched != 1:
+        raise AssertionError(f"int8 on the card vs the CPU: shape {tuple(got.shape)}, agreement "
+                             f"{dense_agree}, {launched} K6 launches (want 1)")
+    log(f"reference: folded f32 rel err {logit_err:.2e}, int8_blocked card/CPU agreement {agree}, "
+        f"int8 (K6) card/CPU agreement {dense_agree}")
+    return {"folded_f32_rel_err": logit_err, "int8_blocked_card_vs_cpu_agree": agree,
+            "int8_card_vs_cpu_agree": dense_agree}
 
 
-def device_profile(run, what: str) -> dict:
+def device_profile(run, what: str, attempts: int = 3) -> dict:
     """Where the time goes: ``run()`` under ``torch.profiler``; device time
     by kernel and by group of kernels (``trace_analysis.KERNEL_GROUPS``, the
     grouping ``python -m tpuseg_torch.utils.trace_analysis`` uses), and the
     kernels' share of the wall time (one stream, so kernel times add; the
     wall time includes the profiler's own cost). The window starts with
     :func:`profiler_lead_in`, whose spins are left out; if it saw none of
-    them, the busy share is not measured."""
+    them, ``run()`` is profiled again behind 8 times the spins, up to
+    ``attempts`` windows, and after that the busy share is not measured."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from tpuseg_torch.utils.trace_analysis import kernel_group
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        profiler_lead_in(LEAD_IN)
-        t0 = time.perf_counter()
-        run()
+    lead = LEAD_IN
+    for attempt in range(attempts):
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    spins = sum(e.count for e in events if "spin_kernel" in e.key)
-    kernels = sorted(((e.key, e.device_time_total / 1e3, e.count) for e in events
-                      if "spin_kernel" not in e.key), key=lambda r: -r[1])
-    busy_ms = sum(ms for _, ms, _ in kernels)
-    if busy_ms == 0 or spins == 0:
-        log(f"profile {what}: the profiler saw {busy_ms:.3f} ms of device time and {spins} "
-            f"of {LEAD_IN} lead-in spins (busy share not measured)")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            profiler_lead_in(lead)
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        spins = sum(e.count for e in events if "spin_kernel" in e.key)
+        kernels = sorted(((e.key, e.device_time_total / 1e3, e.count) for e in events
+                          if "spin_kernel" not in e.key), key=lambda r: -r[1])
+        busy_ms = sum(ms for _, ms, _ in kernels)
+        if busy_ms and spins:
+            break
+        log(f"profile {what}, window {attempt + 1}/{attempts}: the profiler saw {busy_ms:.3f} "
+            f"ms of device time and {spins} of {lead} lead-in spins")
+        lead *= 8
+    else:
+        log(f"profile {what}: busy share not measured")
         return {"wall_ms": wall_ms, "busy_ms": None, "top": [], "by_group": {},
                 "by_kernel": {}, "lead_in_seen": spins}
     log(f"profile {what}: {wall_ms:.1f} ms wall, kernels {busy_ms:.1f} ms "
@@ -1434,6 +1582,46 @@ def device_profile(run, what: str) -> dict:
         log(f"  {r['ms']:9.2f} ms {r['share']:6.1%} x{r['count']:<5d} {r['kernel']}")
     return {"wall_ms": wall_ms, "busy_ms": busy_ms, "top": top, "by_group": by_group,
             "by_kernel": {k: [ms, n] for k, ms, n in kernels}, "lead_in_seen": spins}
+
+
+def phase_int8_head(model, cal: str, big, radius: int, stats, calls: int, dev) -> dict:
+    """The dense walk with its head quantized (``fp_blocks`` without
+    ``"head"``): K6's int8 route takes the place of K3's ``"relu_f32"``
+    launch (21 K3 launches a predict call, not 22). One tiled pass of the
+    BIG^2 image through K6 and one through its plain version: the masks
+    equal on every pixel (exact int32 sums)."""
+    import torch
+
+    from tpuseg_torch.infer import head_kernel, int8_conv, quant
+    from tpuseg_torch.infer.tiled import inference_tiled
+
+    fn = quant.make_quantized_predict_fn(quant.fold_variables(model), quant.load_act_ranges(cal),
+                                         fp_blocks=("enc1a",), deconv_impl=model.deconv_impl)
+    head_kernel.DENSE_LAUNCHES = 0
+    k3_reset()
+    masks = inference_tiled(big, fn, TILE, radius, BATCH, NCLS, stats, dev)
+    res = {"k6_launches": head_kernel.DENSE_LAUNCHES, "k3_launches": int8_conv.LAUNCHES,
+           "route": head_kernel.LAST_ROUTE}
+    if res != {"k6_launches": calls, "k3_launches": K3_PER_CALL * calls, "route": "mma"}:
+        raise AssertionError(f"the tiled int8 pass with an int8 head launched {res}; want K6 "
+                             f"on mma once and K3 {K3_PER_CALL} times a predict call ({calls})")
+    with plain_dense_head() as plain_calls:
+        masks_plain = inference_tiled(big, fn, TILE, radius, BATCH, NCLS, stats, dev)
+    torch.cuda.synchronize()
+    res["plain_calls"] = len(plain_calls)
+    res["pixels_differing"] = int((masks != masks_plain).sum()) \
+        if masks.shape == masks_plain.shape else -1
+    res["class1_share"] = float((masks == 1).mean())
+    if head_kernel.DENSE_LAUNCHES != calls or len(plain_calls) != calls \
+            or res["pixels_differing"]:
+        raise AssertionError(f"int8 head through K6 and through its plain version: {res}")
+    if not 0.01 < res["class1_share"] < 0.99:
+        raise AssertionError(f"class 1 takes {res['class1_share']} of the int8-head mask; the "
+                             "comparison could not fail")
+    log(f"int8 head (fp_blocks enc1a): K6 {calls} launches, K3 {K3_PER_CALL} a call; masks "
+        f"through K6 and its plain version equal on every pixel (class 1 "
+        f"{res['class1_share']:.4f})")
+    return res
 
 
 def phase_profile(fn, big, radius: int, stats, dev, mode: str) -> dict:
@@ -1482,6 +1670,7 @@ def phase_main(seed: int, work: str, dev, card: str) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     head_kernel.LAUNCHES = 0
+    head_kernel.DENSE_LAUNCHES = 0
     k3_reset()
     input_conv.LAUNCHES = 0
     t0 = time.perf_counter()
@@ -1492,10 +1681,14 @@ def phase_main(seed: int, work: str, dev, card: str) -> dict:
     k2 = head_kernel.LAUNCHES
     res["launches"] = {"blocked_head_argmax": k2, "int8_conv": int8_conv.LAUNCHES,
                        "int8_conv_routes": k3_routes("the int8_blocked main path"),
-                       "input_conv": input_conv.LAUNCHES}
+                       "input_conv": input_conv.LAUNCHES,
+                       "dense_head_argmax_int8_blocked": head_kernel.DENSE_LAUNCHES}
     res["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     if k2 == 0:
         raise AssertionError("the int8_blocked main path launched no head kernel")
+    if head_kernel.DENSE_LAUNCHES:
+        raise AssertionError(f"the int8_blocked main path launched K6 "
+                             f"{head_kernel.DENSE_LAUNCHES} times")
     if int8_conv.LAUNCHES != K3_PER_CALL * k2:
         raise AssertionError(f"the int8_blocked main path launched K3 {int8_conv.LAUNCHES} "
                              f"times, not {K3_PER_CALL} x K2's {k2}")
@@ -1544,10 +1737,17 @@ def phase_main(seed: int, work: str, dev, card: str) -> dict:
     out_dense = os.path.join(work, "masks_int8")
     k3_reset()
     input_conv.LAUNCHES = 0
+    head_kernel.LAUNCHES = 0
+    head_kernel.DENSE_LAUNCHES = 0
     cli(common + ["--output_folder", out_dense, "--quantize", "int8", "--calibration_in", cal])
     res["launches"]["int8_conv_dense_cli"] = int8_conv.LAUNCHES
     res["launches"]["int8_conv_dense_cli_routes"] = k3_routes("--quantize int8")
     res["launches"]["input_conv_dense_cli"] = input_conv.LAUNCHES
+    res["launches"]["dense_head_argmax"] = head_kernel.DENSE_LAUNCHES
+    if head_kernel.DENSE_LAUNCHES != k2 or head_kernel.LAUNCHES:
+        raise AssertionError(f"--quantize int8 launched K6 {head_kernel.DENSE_LAUNCHES} times "
+                             f"and K2 {head_kernel.LAUNCHES} times, not K6 once a predict call "
+                             f"({k2} calls) and K2 never")
     if int8_conv.LAUNCHES != K3_PER_CALL * k2:  # the same predict calls as the blocked run
         raise AssertionError(f"--quantize int8 launched K3 {int8_conv.LAUNCHES} times, not "
                              f"{K3_PER_CALL} x {k2} predict calls")
@@ -1573,6 +1773,53 @@ def phase_main(seed: int, work: str, dev, card: str) -> dict:
         raise AssertionError(f"--quantize int8 masks through K3 and through its plain version "
                              f"differ: {differ}")
     log(f"int8 through K3's plain version: {len(calls_dense)} plain calls, masks equal on "
+        "every pixel")
+
+    # and through K6's plain version: the served head is fp, whose sums run
+    # in another order on the tensor cores, so >= 0.9999 of pixels agree
+    out_dense_plain6 = os.path.join(work, "masks_int8_plain_head")
+    head_kernel.DENSE_LAUNCHES = 0
+    with plain_dense_head() as calls6:
+        cli(common + ["--output_folder", out_dense_plain6, "--quantize", "int8",
+                      "--calibration_in", cal])
+    if head_kernel.DENSE_LAUNCHES or len(calls6) != k2:
+        raise AssertionError(f"--quantize int8 with K6's plain version: "
+                             f"{head_kernel.DENSE_LAUNCHES} K6 launches, {len(calls6)} plain "
+                             f"calls (want {k2})")
+    res["k6_vs_plain_agree_int8"] = agree6 = mask_agreement(out_dense, out_dense_plain6, shapes)
+    if agree6["all"] < 0.9999:
+        raise AssertionError(f"--quantize int8 masks through K6 and through its plain version "
+                             f"agree on {agree6} < 0.9999")
+    log(f"int8 through K6's plain version: {len(calls6)} plain calls, masks agree on "
+        f"{agree6['all']} of pixels (fp head)")
+
+    # int8_auto: the halo-tiled image blocked (K2), the small images in one
+    # dense batch (K6); its masks are the two runs' above on every pixel
+    out_auto = os.path.join(work, "masks_int8_auto")
+    head_kernel.LAUNCHES = 0
+    head_kernel.DENSE_LAUNCHES = 0
+    k3_reset()
+    input_conv.LAUNCHES = 0
+    cli(common + ["--output_folder", out_auto, "--quantize", "int8_auto", "--calibration_in", cal])
+    small_calls = -(-N_SMALL // BATCH)
+    res["launches"]["int8_auto_cli"] = auto = {
+        "blocked_head_argmax": head_kernel.LAUNCHES,
+        "dense_head_argmax": head_kernel.DENSE_LAUNCHES,
+        "int8_conv": int8_conv.LAUNCHES, "input_conv": input_conv.LAUNCHES}
+    want_auto = {"blocked_head_argmax": k2 - small_calls, "dense_head_argmax": small_calls,
+                 "int8_conv": K3_PER_CALL * k2, "input_conv": K5_PER_CALL * k2}
+    if auto != want_auto:
+        raise AssertionError(f"--quantize int8_auto launched {auto}, not {want_auto}")
+    differ = {}
+    for name in shapes:
+        a = imread(os.path.join(out_auto, name))
+        b = imread(os.path.join(out_blocked if name == "big.tif" else out_dense, name))
+        differ[name] = int((a != b).sum()) if a.shape == b.shape else -1
+    res["int8_auto_vs_modes_pixels_differing"] = differ
+    if any(differ.values()):
+        raise AssertionError(f"int8_auto masks differ from int8_blocked's (big.tif) or int8's "
+                             f"(small images): {differ}")
+    log(f"int8_auto: {auto}; masks equal to int8_blocked's (big.tif) and int8's (small) on "
         "every pixel")
 
     # both modes again with K5's plain version swapped in on the card: every
@@ -1603,14 +1850,9 @@ def phase_main(seed: int, work: str, dev, card: str) -> dict:
             "every pixel")
         main_scales += scales5
     res["k5_division_main"] = k5_division_check(torch.unique(torch.cat(main_scales)), 0, seed)
-    agree = {}
-    for name in shapes:
-        a = imread(os.path.join(out_blocked, name))
-        b = imread(os.path.join(out_dense, name))
-        agree[name] = float((a == b).mean())
-    total = sum(agree[n] * np.prod(s) for n, s in shapes.items()) / sum(
-        np.prod(s) for s in shapes.values())
-    res["int8_blocked_vs_int8_agree"] = float(total)
+    agree = mask_agreement(out_blocked, out_dense, shapes)
+    total = agree.pop("all")
+    res["int8_blocked_vs_int8_agree"] = total
     res["int8_blocked_vs_int8_agree_per_image"] = agree
     res["class1_share_big"] = float((imread(os.path.join(out_blocked, "big.tif")) == 1).mean())
     if total < 0.999:
@@ -1636,10 +1878,12 @@ def phase_main(seed: int, work: str, dev, card: str) -> dict:
     inference_single_batch(small, fns["int8_blocked"], BATCH, device=dev)
     res["launches_small_dispatch"] = head_kernel.LAUNCHES
     head_kernel.LAUNCHES = 0
+    head_kernel.DENSE_LAUNCHES = 0
     k3_reset()
     input_conv.LAUNCHES = 0
     inference_tiled(big, fns["int8_blocked"], TILE, radius, BATCH, NCLS, stats, dev)
     res["launches_tiled_dispatch"] = head_kernel.LAUNCHES
+    res["k6_launches_tiled_dispatch"] = head_kernel.DENSE_LAUNCHES
     res["k3_launches_tiled_dispatch"] = int8_conv.LAUNCHES
     res["k3_routes_tiled_dispatch"] = k3_routes("the tiled int8_blocked pass")
     res["k5_launches_tiled_dispatch"] = input_conv.LAUNCHES
@@ -1647,11 +1891,20 @@ def phase_main(seed: int, work: str, dev, card: str) -> dict:
         raise AssertionError(f"a dispatch launched no head kernel: {res}")
     k3_reset()
     input_conv.LAUNCHES = 0
+    head_kernel.LAUNCHES = 0
+    head_kernel.DENSE_LAUNCHES = 0
     inference_tiled(big, fns["int8"], TILE, radius, BATCH, NCLS, stats, dev)
     res["k3_launches_tiled_dispatch_int8"] = int8_conv.LAUNCHES
     res["k3_routes_tiled_dispatch_int8"] = k3_routes("the tiled int8 pass")
     res["k5_launches_tiled_dispatch_int8"] = input_conv.LAUNCHES
+    res["k6_launches_tiled_dispatch_int8"] = head_kernel.DENSE_LAUNCHES
     calls = in_ram_launches(BIG, BIG, radius)
+    if res["k6_launches_tiled_dispatch"] or head_kernel.LAUNCHES \
+            or res["k6_launches_tiled_dispatch_int8"] != calls:
+        raise AssertionError(f"tiled K6 launches: int8_blocked {res['k6_launches_tiled_dispatch']}"
+                             f", int8 {res['k6_launches_tiled_dispatch_int8']} ({calls} predict "
+                             f"calls, K2 {head_kernel.LAUNCHES})")
+    res["int8_head"] = phase_int8_head(bf16, cal, big, radius, stats, calls, dev)
     if res["k3_launches_tiled_dispatch"] != K3_PER_CALL * res["launches_tiled_dispatch"] \
             or res["k3_launches_tiled_dispatch_int8"] != K3_PER_CALL * calls:
         raise AssertionError(f"tiled K3 launches: int8_blocked {res['k3_launches_tiled_dispatch']}"
@@ -1705,12 +1958,17 @@ def phase_main(seed: int, work: str, dev, card: str) -> dict:
         res[f"profile_{mode}"] = prof = phase_profile(fns[mode], big, radius, stats, dev, mode)
         if prof["busy_ms"] is None:
             continue
-        for group in (("K4 batchnorm",) if mode == "none" else ("K3 int8_conv", "K5 input_conv")):
+        head = {"int8_blocked": "K2 head_argmax", "int8": "K6 dense_head_argmax"}.get(mode)
+        for group in (("K4 batchnorm",) if mode == "none" else
+                      ("K3 int8_conv", "K5 input_conv", head)):
             g = prof["by_group"].get(group)
             if g is None:
                 raise AssertionError(f"the profiled {mode} pass shows no {group} kernel")
             log(f"{group} in the profiled {mode} pass: {g['ms']:.2f} ms, {g['share']:.1%} "
                 "of device time")
+        other = {"int8_blocked": "K6 dense_head_argmax", "int8": "K2 head_argmax"}.get(mode)
+        if other in prof["by_group"]:
+            raise AssertionError(f"the profiled {mode} pass ran {other}")
     return res
 
 
@@ -2140,6 +2398,40 @@ def plain_head():
         yield shapes
     finally:
         head_kernel._launch = launch
+
+
+@contextlib.contextmanager
+def plain_dense_head():
+    """K6's wrapper with the kernel's launch swapped for its plain version
+    on the same card tensors: the dense predict function then runs K6-free
+    and counts no launch. Yields the shapes of the activations it is given."""
+    from tpuseg_torch.infer import head_kernel
+
+    launch, shapes = head_kernel._launch_dense, []
+
+    def plain(x, sv, wt, epi, ncls, fp):
+        shapes.append(list(x.shape))
+        return head_kernel._dense_head_argmax_plain(x, sv, wt, epi, ncls, fp)
+
+    head_kernel._launch_dense = plain
+    try:
+        yield shapes
+    finally:
+        head_kernel._launch_dense = launch
+
+
+def mask_agreement(dir_a: str, dir_b: str, shapes: dict) -> dict:
+    """Share of equal pixels between the masks of two output folders, per
+    image and over all pixels (``"all"``)."""
+    import numpy as np
+
+    from tpuseg_torch.utils.imagio import imread
+
+    agree = {name: float((imread(os.path.join(dir_a, name))
+                          == imread(os.path.join(dir_b, name))).mean()) for name in shapes}
+    agree["all"] = float(sum(agree[n] * np.prod(s) for n, s in shapes.items())
+                         / sum(np.prod(s) for s in shapes.values()))
+    return agree
 
 
 @contextlib.contextmanager
@@ -3841,6 +4133,37 @@ def main() -> int:
                      "each scale of the main path, and its quotients wherever nothing "
                      "underflows",
     }]
+    d_fp, d_s8 = kern["dense"]["fp"], kern["dense"]["int8"]
+    kernels.append({
+        "name": "dense_head_argmax", "route": "cuda", "kernel_route": d_fp["route"],
+        "source": "tpuseg_torch/csrc/head_argmax.cu",
+        "replaces": "tpuseg/infer/quant.py:544",
+        "replaces_note": "XLA-fused on the TPU, not a Pallas kernel: conv_block's head "
+                         "(:544-560, dequant or _conv_s8 x wscale, + b, ReLU, * s + t) and "
+                         "predict's argmax (:785-786) in the dense walk",
+        "launches": main_res["launches"]["dense_head_argmax"],
+        "launches_note": "the --quantize int8 inference CLI on phase 4's folder, one a predict "
+                         "call; none under int8_blocked",
+        "launches_int8_blocked_cli": main_res["launches"]["dense_head_argmax_int8_blocked"],
+        "launches_int8_auto_cli": main_res["launches"]["int8_auto_cli"]["dense_head_argmax"],
+        "launches_tiled": {"int8": main_res["k6_launches_tiled_dispatch_int8"],
+                           "int8_blocked": main_res["k6_launches_tiled_dispatch"],
+                           "int8_head": main_res["int8_head"]["k6_launches"]},
+        "max_abs_err": d_fp["max_abs_err"], "ms": d_fp["ms"], "plain_ms": d_fp["plain_ms"],
+        "bound_ms": d_fp["bound_ms"], "bound_by": d_fp["bound_by"], "library_ms": None,
+        "library_note": "no single PyTorch call computes head + argmax; eager_ms is the eager "
+                        "chain K6 replaced (dequant, cuDNN's f32 conv between permutes, the "
+                        "epilogue, torch.argmax; the int8 head through K3)",
+        "eager_ms": d_fp["eager_ms"], "share_of_bound": d_fp["share_of_bound"],
+        "timing": "device time per call from the profiler, L2 flushed before each",
+        "shape": list(DENSE_SHAPE), "ncls": NCLS, "agree": d_fp["agree"],
+        "int8_variant": d_s8,
+        "masks_vs_plain_agree_int8_cli": main_res["k6_vs_plain_agree_int8"]["all"],
+        "int8_head_masks_pixels_differing": main_res["int8_head"]["pixels_differing"],
+        "tolerance": "fp head: labels agree on >= 0.9999 (f32 sum order), also the "
+                     "--quantize int8 masks; int8 head: labels bit-equal, and the int8-head "
+                     "tiled masks equal on every pixel",
+    })
     enc1 = k4["cases"]["enc1_bfloat16"]
     library_calls = {"stats": "torch.batch_norm_stats(x, eps)",
                      "apply": "torch.batch_norm_elemt(x, gamma, beta, mean, invstd, eps)",

@@ -17,6 +17,7 @@ import torch
 
 from tpuseg.aug import device as jd
 from tpuseg_torch.aug import device as td
+from torch_threads import one_cpu_thread  # noqa: F401 (autouse)
 
 
 def _raw(b, h, w, c, seed):

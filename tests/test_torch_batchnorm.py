@@ -44,6 +44,7 @@ from tpuseg.models.unet import DeconvBlock as JaxDeconvBlock
 from tpuseg_torch.models.unet import ConvBlock, DeconvBlock
 from tpuseg_torch.ops import batchnorm as k4
 from tpuseg_torch.utils.jax_bridge import flax_to_state_dict
+from torch_threads import one_cpu_thread  # noqa: F401 (autouse)
 
 DTYPES = {"float32": (torch.float32, jnp.float32), "bfloat16": (torch.bfloat16, jnp.bfloat16)}
 # (output, statistics, gradients): see the module docstring; bf16

@@ -15,6 +15,7 @@ from tpuseg_torch.cli.build_lmdb import main as build_main
 from tpuseg_torch.data import build_db as tb
 from tpuseg_torch.data.recordstore import RecordReader, RecordWriter
 from tpuseg_torch.utils import bigtiff
+from torch_threads import one_cpu_thread  # noqa: F401 (autouse)
 
 
 def _folders(tmp_path, kind, n=5, seed=0):

@@ -135,6 +135,97 @@ def test_head_kernel_rejects_bad_inputs(cuda):
         head_kernel.blocked_head_argmax(x, sv, wt, epi, 9, fp=False)
 
 
+# --- K6: the dense head + argmax (csrc/head_argmax.cu, dense layout) -------
+
+def _dense_inputs(ncls, fp, seed, b, h, w, c, dev, wt_dtype=torch.bfloat16):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.integers(-127, 128, (b, h, w, c)).astype(np.int8)).to(dev)
+    sv = torch.from_numpy(rng.uniform(0.01, 0.1, (c,)).astype(np.float32)).to(dev)
+    epi = rng.normal(0, 0.3, (4, ncls)).astype(np.float32)
+    epi[1] = rng.uniform(0.5, 1.5, ncls)
+    if fp:
+        wt = torch.from_numpy(rng.normal(0, 0.3, (ncls, c)).astype(np.float32)).to(wt_dtype)
+        epi[3] = 1.0
+    else:
+        wt = torch.from_numpy(rng.integers(-127, 128, (ncls, c)).astype(np.int8))
+        epi[3] = rng.uniform(1e-4, 1e-3, ncls)
+    return x, sv, wt.to(dev), torch.from_numpy(epi).to(dev)
+
+
+# (B, H, W, C): B*H*W of every residue mod 4 (the last row of four pixels
+# partly filled), C from one 16-channel piece to K6's register/shared
+# weight switch (4C > 256) and a ragged 64-channel group (48)
+_DENSE_SHAPES = [(3, 17, 23, 64), (1, 5, 7, 16), (2, 33, 31, 48), (1, 1, 1, 64),
+                 (1, 3, 1, 320), (4, 30, 30, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["fp_mma", "int8_mma", "fp_general"])
+@pytest.mark.parametrize("ncls", [1, 2, 3, 4, 5, 6, 7, 8])
+@pytest.mark.parametrize("shape", _DENSE_SHAPES)
+def test_dense_head_kernel_matches_plain(cuda, shape, ncls, variant):
+    """K6 against its plain version: the int8 head bit-equal; the fp head
+    (the same exact products summed in another order) on >= 0.999 of
+    labels. An f32 weight takes the general route."""
+    fp = variant != "int8_mma"
+    wt_dtype = torch.float32 if variant == "fp_general" else torch.bfloat16
+    x, sv, wt, epi = _dense_inputs(ncls, fp, 40 + ncls, *shape, cuda, wt_dtype)
+    before = head_kernel.DENSE_LAUNCHES, head_kernel.LAUNCHES
+    got = head_kernel.dense_head_argmax(x, sv, wt, epi, ncls, fp=fp)
+    torch.cuda.synchronize()
+    assert (head_kernel.DENSE_LAUNCHES, head_kernel.LAUNCHES) == (before[0] + 1, before[1])
+    assert head_kernel.LAST_ROUTE == variant.split("_")[1]
+    want = head_kernel._dense_head_argmax_plain(x, sv, wt, epi, ncls, fp)
+    assert got.shape == shape[:3] and got.dtype == torch.int32
+    if fp:
+        assert (got == want).float().mean().item() >= 0.999
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_dense_head_kernel_rejects_bad_inputs(cuda):
+    x, sv, wt, epi = _dense_inputs(2, False, 3, 1, 4, 4, 32, cuda)
+    before = head_kernel.DENSE_LAUNCHES
+    with pytest.raises(TypeError):
+        head_kernel.dense_head_argmax(x, sv, wt.float(), epi, 2, fp=False)
+    with pytest.raises(ValueError, match="C % 16"):
+        head_kernel.dense_head_argmax(x[..., :24].contiguous(), sv[:24],
+                                      wt[:, :24].contiguous(), epi, 2, fp=False)
+    with pytest.raises(ValueError, match="contiguous"):
+        head_kernel.dense_head_argmax(x.transpose(1, 2), sv, wt, epi, 2, fp=False)
+    misaligned = torch.zeros(4 * 32 + 1, dtype=torch.int8, device=cuda)[1:].view(1, 1, 4, 32)
+    with pytest.raises(ValueError, match="aligned"):
+        head_kernel.dense_head_argmax(misaligned, sv, wt, epi, 2, fp=False)
+    assert head_kernel.DENSE_LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fp_blocks", [("enc1a", "head"), ("enc1a",)])
+def test_dense_walk_runs_k6_once_a_predict_call(cuda, fp_blocks):
+    """A base-16 int8 predict call on the card (the dense head's C = 16)
+    runs its head through K6 once, fp or int8, never K2, and labels like
+    the CPU walk on >= 0.999 (the fp head sums in another order)."""
+    from tpuseg_torch.infer import quant
+    from tpuseg_torch.models.unet import UNet, init_unet
+
+    model = init_unet(UNet(2, 1, 16, torch.float32), torch.Generator().manual_seed(0)).eval()
+    x = torch.from_numpy(np.random.default_rng(6).normal(0, 1, (2, 64, 48, 1))
+                         .astype(np.float32))
+    folded = quant.fold_variables(model)
+    fn = quant.make_quantized_predict_fn(
+        folded, quant.calibrate(folded, [x[0, ..., 0].numpy()], device="cpu"),
+        fp_blocks=fp_blocks)
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        want = fn(x)
+        before = head_kernel.DENSE_LAUNCHES, head_kernel.LAUNCHES
+        got = fn(x.to(cuda)).cpu()
+    assert (head_kernel.DENSE_LAUNCHES, head_kernel.LAUNCHES) == (before[0] + 1, before[1])
+    assert head_kernel.LAST_ROUTE == "mma"
+    assert got.shape == (2, 64, 48) and got.dtype == torch.int32
+    assert (got == want).float().mean().item() >= 0.999
+
+
 # --- K3: the int8 conv with its epilogue fused (csrc/int8_conv.cu) ---------
 
 K3_MODES = ["relu_requant", "relu_f32", "affine_requant"]

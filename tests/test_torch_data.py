@@ -25,6 +25,7 @@ from tpuseg_torch.data import build_db as tbuild
 from tpuseg_torch.data import preprocess as tpre
 from tpuseg_torch.data.reader import ImageReader
 from tpuseg_torch.data.recordstore import RecordReader, RecordWriter
+from torch_threads import one_cpu_thread  # noqa: F401 (autouse)
 
 CASES = [
     (np.arange(16 * 16, dtype=np.uint16).reshape(16, 16), np.zeros((16, 16), np.uint8)),

@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from tpuseg_torch.parallel import distributed
+from torch_threads import one_cpu_thread  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 TORCHRUN_VARS = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE", "MASTER_ADDR",

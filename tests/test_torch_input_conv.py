@@ -34,6 +34,7 @@ from tpuseg_torch.infer import input_conv as k5
 from tpuseg_torch.infer import quant as tq
 
 from test_torch_quant import _pair, _x
+from torch_threads import one_cpu_thread  # noqa: F401 (autouse)
 
 DTYPES = {"bfloat16": (torch.bfloat16, jnp.bfloat16), "float32": (torch.float32, jnp.float32)}
 

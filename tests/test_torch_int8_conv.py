@@ -29,6 +29,7 @@ from tpuseg_torch.infer import int8_conv as k3
 from tpuseg_torch.infer import quant as tq
 
 from test_torch_quant import _pair, _x
+from torch_threads import one_cpu_thread  # noqa: F401 (autouse)
 
 MODES = ["relu_requant", "relu_f32", "affine_requant"]
 

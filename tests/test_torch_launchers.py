@@ -18,6 +18,7 @@ import time
 from pathlib import Path
 
 import pytest
+from torch_threads import one_cpu_thread  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 SCRIPTS = REPO / "scripts"

@@ -19,6 +19,7 @@ from tpuseg_torch.data.reader import ImageReader
 from tpuseg_torch.data.recordstore import LmdbRecordReader, RecordReader, RecordWriter
 
 from test_lmdb_compat import _handmade_lmdb
+from torch_threads import one_cpu_thread  # noqa: F401 (autouse)
 
 
 def _items(n=700, seed=1):

@@ -9,6 +9,7 @@ import torch
 
 from tpuseg.ops import losses as jl
 from tpuseg_torch.ops import losses as tl
+from torch_threads import one_cpu_thread  # noqa: F401 (autouse)
 
 
 def _inputs(seed=0, shape=(2, 16, 24, 3)):

@@ -18,6 +18,7 @@ from tpuseg.ops import metrics as jm
 from tpuseg_torch.cli.evaluate import main as evaluate_main
 from tpuseg_torch.ops import metrics as tm
 from tpuseg_torch.utils import bigtiff
+from torch_threads import one_cpu_thread  # noqa: F401 (autouse)
 
 
 def _labels(seed, shape, k, void=()):

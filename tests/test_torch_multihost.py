@@ -26,6 +26,7 @@ import torch
 
 from tpuseg_torch.data.build_db import serialize_image_mask_pair
 from tpuseg_torch.data.recordstore import RecordWriter
+from torch_threads import one_cpu_thread  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 

@@ -25,6 +25,7 @@ from tpuseg_torch.utils.checkpoint import load_model, save_model
 from tpuseg_torch.utils.jax_bridge import flax_to_state_dict, state_dict_to_flax, unet_from_flax
 
 from test_torch_unet import jax_model_and_vars
+from torch_threads import one_cpu_thread  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

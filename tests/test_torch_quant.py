@@ -18,11 +18,12 @@ import pytest
 import torch
 
 from tpuseg.infer import quant as jq
-from tpuseg_torch.infer import int8_conv
+from tpuseg_torch.infer import head_kernel, int8_conv
 from tpuseg_torch.infer import quant as tq
 from tpuseg_torch.utils.jax_bridge import unet_from_flax
 
 from test_torch_unet import jax_model_and_vars
+from torch_threads import one_cpu_thread  # noqa: F401 (autouse)
 
 
 def _pair(impl="conv_transpose"):
@@ -113,6 +114,35 @@ def test_quantized_labels_match_jax(blocked, fp_blocks):
     agree = (got == want).mean()
     print(f"blocked={blocked} fp_blocks={fp_blocks}: agreement {agree:.6f}, "
           f"bit-equal {bool(agree == 1.0)}")
+    assert agree >= 0.999
+
+
+@pytest.mark.parametrize("fp_blocks", [(), tq.DEFAULT_FP_BLOCKS])
+def test_dense_head_kernel_labels_match_jax(fp_blocks, monkeypatch):
+    """At base 16 the dense head's 16 input channels take K6 (base 4's 4 do
+    not): the dense predict on the CPU runs K6's plain version once a call,
+    launches no kernel, and labels like the JAX package (>= 0.999, as
+    test_quantized_labels_match_jax)."""
+    _, variables = jax_model_and_vars(feats=16)
+    port = unet_from_flax(variables, 2, 1, 16, torch.float32)
+    x = _x(11)
+    ranges = jq.calibrate(jq.fold_variables(variables), [x[0, ..., 0]])
+    want = np.asarray(jq.make_quantized_predict_fn(
+        jq.fold_variables(variables), ranges, fp_blocks=fp_blocks,
+        dtype=jnp.float32)(jnp.asarray(x)))
+    calls = []
+    plain = head_kernel._dense_head_argmax_plain
+    monkeypatch.setattr(head_kernel, "_dense_head_argmax_plain",
+                        lambda *a: calls.append(a[0].shape) or plain(*a))
+    before = head_kernel.DENSE_LAUNCHES, head_kernel.LAUNCHES, int8_conv.LAUNCHES
+    got = tq.make_quantized_predict_fn(
+        tq.fold_variables(port), ranges, fp_blocks=fp_blocks,
+        dtype=torch.float32)(torch.from_numpy(x)).numpy()
+    assert calls == [(2, 48, 32, 16)]
+    assert (head_kernel.DENSE_LAUNCHES, head_kernel.LAUNCHES, int8_conv.LAUNCHES) == before
+    assert got.shape == want.shape == (2, 48, 32) and got.dtype == np.int32
+    agree = (got == want).mean()
+    print(f"fp_blocks={fp_blocks}: agreement {agree:.6f}, bit-equal {bool(agree == 1.0)}")
     assert agree >= 0.999
 
 

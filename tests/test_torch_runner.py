@@ -30,6 +30,7 @@ from tpuseg_torch.utils.imagio import imread, imwrite
 from tpuseg_torch.utils.jax_bridge import unet_from_flax
 
 from test_torch_unet import jax_model_and_vars
+from torch_threads import one_cpu_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

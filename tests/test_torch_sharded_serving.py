@@ -22,17 +22,10 @@ from tpuseg_torch.infer import tiled as tt
 from tpuseg_torch.utils.jax_bridge import unet_from_flax
 
 from test_torch_unet import jax_model_and_vars
+from torch_threads import one_cpu_thread  # noqa: F401 (autouse)
 
 TILE, RADIUS, BATCH = 64, 16, 3
 CPU = torch.device("cpu")
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

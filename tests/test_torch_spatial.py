@@ -53,6 +53,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_cpu_thread  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 LR = 1e-3

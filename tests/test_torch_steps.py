@@ -39,18 +39,9 @@ from tpuseg.ops import losses as jlosses
 from tpuseg.train import steps as jsteps
 from tpuseg_torch.train.steps import KerasAdam, TrainState, eval_step, train_step
 from tpuseg_torch.utils.jax_bridge import flax_to_state_dict, unet_from_flax
+from torch_threads import one_cpu_thread  # noqa: F401 (autouse)
 
 LR = 1e-3
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """These tensors are tiny: one intra-op thread is fastest, and it keeps
-    parallel test workers from oversubscribing the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def test_keras_adam_matches_tpuseg():

@@ -34,6 +34,7 @@ from tpuseg_torch.utils.jax_bridge import unet_from_flax
 from test_torch_runner import _port_args, ckpts  # noqa: F401 (fixture)
 from test_torch_tiled import port_cli_args, write_checkpoints
 from test_torch_unet import jax_model_and_vars
+from torch_threads import one_cpu_thread  # noqa: F401 (autouse)
 
 TILE, RADIUS, BATCH = 288, 96, 2
 

@@ -28,6 +28,7 @@ from tpuseg_torch.utils import tf_bundle  # noqa: E402
 from tpuseg_torch.utils.jax_bridge import flax_to_state_dict  # noqa: E402
 from tpuseg_torch.utils.tf_export import keras2_checkpoint_tensors  # noqa: E402
 from tpuseg_torch.utils.tf_import import load_reference_checkpoint  # noqa: E402
+from torch_threads import one_cpu_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

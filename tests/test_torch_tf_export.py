@@ -34,6 +34,7 @@ from tpuseg_torch.utils.jax_bridge import state_dict_to_flax  # noqa: E402
 from tpuseg_torch.utils.tf_export import (build_reference_keras_unet,  # noqa: E402
                                           export_reference_checkpoint, keras_weights)
 from tpuseg_torch.utils.tf_import import load_reference_checkpoint  # noqa: E402
+from torch_threads import one_cpu_thread  # noqa: F401 (autouse)
 
 BASE = 8
 

@@ -42,6 +42,7 @@ from tpuseg_torch.utils.checkpoint import load_model, restore_train_state  # noq
 from tpuseg_torch.utils.jax_bridge import flax_to_state_dict  # noqa: E402
 from tpuseg_torch.utils.tf_import import (import_reference_checkpoint,  # noqa: E402
                                           load_reference_checkpoint)
+from torch_threads import one_cpu_thread  # noqa: F401 (autouse)
 
 GEOMETRY = {"number_channels": 2, "base_features": FEATURES[0], "number_classes": 3}
 

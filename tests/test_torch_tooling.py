@@ -26,17 +26,10 @@ from tpuseg_torch.cli.train import main as train_main
 from tpuseg_torch.utils import tb_events, trace_analysis
 
 from test_torch_trainer import write_db
+from torch_threads import one_cpu_thread  # noqa: F401 (autouse)
 
 ARGS = ["--batch_size", "2", "--test_every_n_steps", "3", "--max_epochs", "2",
         "--early_stopping", "10", "--log_every_n_steps", "2", "--seed", "3"]
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -17,16 +17,7 @@ from tpuseg_torch.data.build_db import serialize_image_mask_pair
 from tpuseg_torch.data.recordstore import RecordWriter
 from tpuseg_torch.utils.checkpoint import load_model
 from tpuseg_torch.utils.imagio import imread, imwrite
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """These tensors are tiny: one intra-op thread is fastest, and it keeps
-    parallel test workers from oversubscribing the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import one_cpu_thread  # noqa: F401 (autouse)
 
 
 def write_db(path, n, size, seed):

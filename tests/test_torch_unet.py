@@ -18,6 +18,7 @@ from tpuseg.models.unet import UNet as JaxUNet
 from tpuseg.models.unet import init_variables
 from tpuseg_torch.models.unet import UNet, init_unet
 from tpuseg_torch.utils.jax_bridge import flax_to_state_dict, unet_from_flax
+from torch_threads import one_cpu_thread  # noqa: F401 (autouse)
 
 
 def jax_model_and_vars(impl="conv_transpose", feats=4, ncls=2, channels=1):

@@ -19,6 +19,7 @@ import torch
 
 from tpuseg.ops import warp as jw
 from tpuseg_torch.ops import warp as tw
+from torch_threads import one_cpu_thread  # noqa: F401 (autouse)
 
 
 def _shear_case(seed, n=2, h=32, w=64):

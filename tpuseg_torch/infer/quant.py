@@ -26,6 +26,11 @@ What PyTorch changes:
   ReLU, folded BN and requantize in one hand-written kernel on the card,
   on the dense batch in both walks (the blocked walk takes its output
   phase-major), plain PyTorch in the same order of operations on the CPU.
+- **The head and its argmax** of the predict entry point are one kernel
+  for up to 8 classes: K2 in the blocked walk, K6 in the dense walk
+  (:mod:`tpuseg_torch.infer.head_kernel`), where XLA fused the head block
+  and ``predict``'s argmax into one program; the logits entry point keeps
+  the eager head.
 - **Other fp convs** (calibration, the other ``fp_blocks``) run in float32
   on inputs and weights rounded to the compute dtype — the JAX package's
   bf16 operands with f32 accumulation — with cuDNN's TF32 turned off
@@ -461,13 +466,14 @@ def load_act_ranges(path: str,
 def _quantized_raw_fn(folded: Folded, act_ranges: Dict[str, float],
                       fp_blocks: Sequence[str], deconv_impl: str,
                       dtype: torch.dtype, blocked_edges: bool,
-                      blocked_head_override: Optional[Callable] = None,
+                      head_override: Optional[Callable] = None,
                       ) -> Callable[[torch.Tensor], torch.Tensor]:
     """The int8-resident forward shared by the logits and predict entry
     points. Returns f32 logits ``(B, H, W, ncls)``, or — with
     ``blocked_edges`` — phase-major blocked logits ``(B, H/2, W/2,
-    4*ncls)``. ``blocked_head_override(x, sv)``, when set, replaces the
-    blocked head stage and its return value becomes the walk's."""
+    4*ncls)``. ``head_override(x, sv)``, when set, replaces the head stage
+    of either walk (it is given the dec1b edge, dense or blocked) and its
+    return value becomes the walk's."""
     unknown = set(fp_blocks) - set(CONV_BLOCKS) - set(DECONV_BLOCKS)
     if unknown:
         raise ValueError(
@@ -539,6 +545,8 @@ def _quantized_raw_fn(folded: Folded, act_ranges: Dict[str, float],
 
     def conv_block(name, edge):
         x, sv = edge
+        if name == "head" and head_override is not None:
+            return head_override(x, sv)
         p = folded[name]
         if sv is None and name not in fp_blocks:  # quantize the fp input
             x, si = quantize_input(x)
@@ -648,8 +656,8 @@ def _quantized_raw_fn(folded: Folded, act_ranges: Dict[str, float],
                np.concatenate([enc1[1], up1[1]]))
         d1 = blocked_conv_block(
             "dec1b", blocked_conv_block("dec1a", cat, (f, f)), (f,))
-        if blocked_head_override is not None:
-            return blocked_head_override(*d1)
+        if head_override is not None:
+            return head_override(*d1)
         return blocked_conv_block("head", d1, (f,))
 
     return blocked_logits_fn
@@ -681,51 +689,57 @@ def make_quantized_predict_fn(folded: Folded, act_ranges: Dict[str, float],
                               blocked_edges: bool = False,
                               ) -> Callable[[torch.Tensor], torch.Tensor]:
     """Serving entry point: NHWC batch -> int32 argmax labels, the contract
-    of ``tiled.make_predict_fn``. With ``blocked_edges`` the head, its
-    per-phase argmax and the depth-to-space run as one kernel
-    (:func:`tpuseg_torch.infer.head_kernel.blocked_head_argmax`, the CUDA
-    kernel on the card) for up to 8 classes; larger heads take the conv
-    head plus a per-phase argmax, as in the JAX package."""
-    from tpuseg_torch.infer.head_kernel import blocked_head_argmax, head_kernel_eligible
+    of ``tiled.make_predict_fn``. The head and its argmax run as one kernel
+    (the CUDA kernel on the card) for up to 8 classes: with
+    ``blocked_edges`` K2 (:func:`~tpuseg_torch.infer.head_kernel.blocked_head_argmax`,
+    with the per-phase argmax and the depth-to-space), else K6
+    (:func:`~tpuseg_torch.infer.head_kernel.dense_head_argmax`, for heads of
+    ``C % 16 == 0`` input channels). Other heads take the conv head plus an
+    argmax, as in the JAX package."""
+    from tpuseg_torch.infer.head_kernel import (blocked_head_argmax, dense_head_argmax,
+                                                dense_head_eligible, head_kernel_eligible)
 
     dtype = as_dtype(dtype)
     override = None
-    if blocked_edges:
-        w = folded["head"]["w"]  # [1, 1, feats, ncls]
-        feats, ncls = w.shape[2], w.shape[3]
-        if head_kernel_eligible(ncls):
-            wb = _block_weight(w, (feats,))  # [1, 1, 4f, 4ncls]
-            b4 = np.tile(folded["head"]["b"], 4).astype(np.float32)
-            s4 = np.tile(folded["head"]["s"], 4).astype(np.float32)
-            t4 = np.tile(folded["head"]["t"], 4).astype(np.float32)
-            fp = "head" in fp_blocks
-            consts = _DeviceCache()
+    w = folded["head"]["w"]  # [1, 1, feats, ncls]
+    feats, ncls = w.shape[2], w.shape[3]
+    eligible = head_kernel_eligible(ncls) if blocked_edges else dense_head_eligible(ncls, feats)
+    if eligible:
+        # the head as the kernel takes it: [O, K] weights and (b, s, t,
+        # wscale) rows, for the 4 phases of a blocked pixel or one pixel
+        reps = 4 if blocked_edges else 1
+        wk = _block_weight(w, (feats,)) if blocked_edges else w  # [1, 1, K, O]
+        b, s, t = (np.tile(folded["head"][k], reps).astype(np.float32) for k in "bst")
+        fp = "head" in fp_blocks
+        consts = _DeviceCache()
 
-            def head_consts(sv, dev):
-                if fp:
-                    wt = torch.from_numpy(np.ascontiguousarray(wb[0, 0].T)).to(dtype)
-                    epi = np.stack([b4, s4, t4, np.ones_like(b4)])
-                else:
-                    wq, wscale = quantize_weight(wb, sv)
-                    wt = torch.from_numpy(np.ascontiguousarray(wq[0, 0].T))
-                    epi = np.stack([b4, s4, t4, wscale.astype(np.float32)])
-                svt = None if sv is None else _tensor(np.asarray(sv, np.float32), dev)
-                return svt, wt.to(dev), _tensor(epi, dev)
+        def head_consts(sv, dev):
+            if fp:
+                wt = torch.from_numpy(np.ascontiguousarray(wk[0, 0].T)).to(dtype)
+                epi = np.stack([b, s, t, np.ones_like(b)])
+            else:
+                wq, wscale = quantize_weight(wk, sv)
+                wt = torch.from_numpy(np.ascontiguousarray(wq[0, 0].T))
+                epi = np.stack([b, s, t, wscale.astype(np.float32)])
+            svt = None if sv is None else _tensor(np.asarray(sv, np.float32), dev)
+            return svt, wt.to(dev), _tensor(epi, dev)
 
-            def override(x, sv):
-                svt, wt, epi = consts.get("head", x.device, lambda: head_consts(sv, x.device))
-                return blocked_head_argmax(x, svt, wt, epi, ncls, fp=fp)
+        head = blocked_head_argmax if blocked_edges else dense_head_argmax
+
+        def override(x, sv):
+            svt, wt, epi = consts.get("head", x.device, lambda: head_consts(sv, x.device))
+            return head(x, svt, wt, epi, ncls, fp=fp)
 
     raw = _quantized_raw_fn(folded, act_ranges, fp_blocks, deconv_impl,
-                            dtype, blocked_edges, blocked_head_override=override)
+                            dtype, blocked_edges, head_override=override)
 
     @torch.inference_mode()
     def predict(batch):
         out = raw(batch)
+        if override is not None:
+            return out  # the kernel already returned int32 labels
         if not blocked_edges:
             return torch.argmax(out, dim=-1).to(torch.int32)
-        if override is not None:
-            return out  # the kernel already returned dense int32 labels
         b, h, w_, c4 = out.shape
         lbl = torch.argmax(out.reshape(b, h, w_, 4, c4 // 4), dim=-1)
         # lbl is (b, h, w, 4) = blocked labels with C=1 per phase

@@ -42,6 +42,7 @@ SOURCES = {
     "head_argmax": ("head_argmax.cu", {
         "tpuseg_head_argmax": (_I, [_P, _I, _P, _P, _I, _P, _P,
                                     _I, _I, _I, _I, _I, _I, _I, _P]),
+        "tpuseg_dense_head_argmax": (_I, [_P, _P, _P, _I, _P, _P, _L, _I, _I, _I, _I, _P]),
         "tpuseg_cuda_error_string": (ctypes.c_char_p, [_I]),
     }),
     "input_conv": ("input_conv.cu", {

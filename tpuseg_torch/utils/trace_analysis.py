@@ -29,6 +29,7 @@ from typing import Dict, List, Optional, Tuple
 # kernel-name fragments -> group, first match wins (a name heuristic)
 KERNEL_GROUPS = (
     ("K1 shear_rows", ("shear_rows",)),
+    ("K6 dense_head_argmax", ("dense_head_mma_kernel", "dense_head_fp_kernel")),
     ("K2 head_argmax", ("head_mma_kernel", "head_fp_kernel", "head_s8_kernel")),
     ("K3 int8_conv", ("int8_conv_kernel", "int8_conv_wgmma_kernel")),
     ("K5 input_conv", ("input_conv_kernel",)),
