@@ -19,7 +19,12 @@ package. Phases, each fatal on failure:
    fused: serving, at each of the 21 block shapes of a predict call, on
    codes and scales whose requantized outputs are not degenerate, the
    blocked edge convs' codes blocked as the main path's are, through both
-   of its routes, ``"wgmma"`` and ``"mma"``; K5, the fp input conv with
+   of its routes, ``"wgmma"`` and ``"mma"``, and the 8 blocks the walks
+   call with store forms (the skips' producers into their concat buffers
+   with their 2x2 max or phase max, the deconvs into the other halves with
+   depth-to-space; the dense walk's enc1b and dec1up besides) in those
+   forms, timed against the old call plus the eager op it replaces, the
+   pooling blocks' old call at both patch widths; K5, the fp input conv with
    its ReLU, folded BN and requantize: serving, batch 8 of 1024^2 tiles,
    C 1 and 3, F 64, dense and phase-major, with its persistent grid, its
    SASS instructions an output and the issue floor they set, and its
@@ -70,7 +75,10 @@ package. Phases, each fatal on failure:
    masks through K4 equal those through K4's plain versions on every
    pixel) and profile one pass of int8_blocked, int8 and none each (device
    time by kernel and group, K3's, K5's, K2's or K6's and K4's shares,
-   busy share);
+   busy share; in the int8 passes no eager edge kernel on int8 codes, the
+   ``amax`` of a max-pool, a concat, a depth-to-space copy or a phase max,
+   beside the upload's copies); the plain-conv runs check the store forms
+   of each call's 8 form blocks;
 5. training reference: one f32 train step at base 4 on 64^2 inputs on the
    card (cuDNN TF32 off) against the same step on the CPU, from the same
    weights and batch, dropout off;
@@ -696,6 +704,113 @@ K3_PER_CALL = 21  # K3 launches of one predict call with the default fp_blocks
 K3_BLOCKED = {"enc1b": (BASE,), "dec1a": (BASE, BASE), "dec1b": (BASE,)}
 
 
+def k3_form(name: str, cout: int):
+    """The store forms K3 makes the block's call with in the walks at
+    ``BASE`` (quant.py's ``skip_and_pool``, ``blocked_enc1``,
+    ``up_concat``): ``{"ctot", "offset", "d2s", "pool"}``, the concat
+    buffer's width and the output's channel offset in it, or None. A skip's
+    producer stores into channels [0, C) of a 2C-wide buffer and pools; a
+    deconv stores into channels [C, 2C), with depth-to-space unless it is
+    the blocked walk's dec1up. ``dense_`` names the dense walk's blocks."""
+    blocked = not name.startswith("dense_")
+    name = name.replace("dense_", "")
+    if name in ("enc1b", "enc2b", "enc3b", "enc4b"):
+        pool = "phase" if blocked and name == "enc1b" else "spatial"
+        return {"ctot": 2 * cout, "offset": 0, "d2s": False, "pool": pool}
+    if name.endswith("up"):
+        d2s = not blocked or name != "dec1up"  # the blocked dec1up: 4F -> 4F blocked
+        c = cout // 4 if d2s else cout
+        return {"ctot": 2 * c, "offset": c, "d2s": d2s, "pool": None}
+    return None
+
+
+# the dense walk's (``--quantize int8``) blocks with store forms whose
+# shapes differ from the blocked walk's: enc1b at full resolution with a
+# 2x2 pool, dec1up with depth-to-space (C 64) into the 1024^2 buffer
+K3_DENSE_FORM_BLOCKS = [
+    ("dense_enc1b", (BATCH, TILE, TILE, BASE), 3, BASE, "relu_requant"),
+    ("dense_dec1up", (BATCH, TILE // 2, TILE // 2, 2 * BASE), 1, 4 * BASE, "affine_requant")]
+
+
+def k3_eager_edge(y, form: dict, skip):
+    """The walk's former eager op on K3's output ``y``, which the store
+    form replaces: the 2x2 max-pool or the phase max of a skip's producer
+    (its concat counted with the deconv), or a deconv's depth-to-space and
+    the concat (``skip``, up)."""
+    import torch
+
+    from tpuseg_torch.infer import quant
+
+    if form["pool"] == "spatial":
+        return quant._maxpool(y)
+    if form["pool"] == "phase":
+        c = y.shape[-1] // 4
+        return torch.maximum(torch.maximum(y[..., :c], y[..., c:2 * c]),
+                             torch.maximum(y[..., 2 * c:3 * c], y[..., 3 * c:]))
+    return torch.cat([skip, quant._d2s(y) if form["d2s"] else y], dim=-1)
+
+
+def k3_form_block(name: str, x, op, epi, form: dict, seed: int, dev) -> dict:
+    """K3's store form at one block: the fused call against the plain
+    version's forms on the same concat buffer (the other channels random
+    codes; the buffer and the pooled codes ``torch.equal``), then in turns
+    with the L2 flushed (CUDA events around each call): the fused call, the
+    old K3 call plus the eager op it replaces (:func:`k3_eager_edge`), the
+    eager op alone, the plain version's forms, and for a 2x2 pool the old
+    call at the pooled patch width (64) beside the cost model's (128)."""
+    import torch
+
+    from tpuseg_torch.infer import int8_conv as k3
+
+    b, h, w, _ = x.shape
+    d2s, pool, off = form["d2s"], form["pool"], form["offset"]
+    c = op.cout // 4 if d2s else op.cout
+    oh, ow = (2 * h, 2 * w) if d2s else (h, w)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    buf = torch.randint(-127, 128, (b, oh, ow, form["ctot"]), generator=g, device=dev,
+                        dtype=torch.int8)
+    buf_plain = buf.clone()
+    out, out_plain = buf[..., off:off + c], buf_plain[..., off:off + c]
+    skip = buf[..., :off].contiguous()
+    launches = k3.LAUNCHES
+    got = k3.int8_conv(x, op, epi, out=out, d2s=d2s, pool=pool)
+    if k3.LAUNCHES != launches + 1 or k3.LAST_ROUTE != "wgmma":
+        raise AssertionError(f"K3 {name} with its forms: {k3.LAUNCHES - launches} launches on "
+                             f"{k3.LAST_ROUTE}")
+    want = k3._int8_conv_plain(x, op, epi, out_plain, d2s, pool)
+    torch.cuda.synchronize()
+    got_pool = got[1] if pool else None
+    want_pool = want[1] if pool else None
+    err = (buf.float() - buf_plain.float()).abs().max().item()
+    if not torch.equal(buf, buf_plain) or (pool and (got_pool.shape != want_pool.shape or
+                                                     not torch.equal(got_pool, want_pool))):
+        raise AssertionError(f"K3 {name} {form}: the store form differs from the plain "
+                             f"version's (buffer max abs err {err})")
+    if pool:
+        err = max(err, (got_pool.float() - want_pool.float()).abs().max().item())
+    del got, want, got_pool, want_pool, buf_plain, out_plain
+    y = k3.int8_conv(x, op, epi)
+    fns = {"fused": (lambda: k3.int8_conv(x, op, epi, out=out, d2s=d2s, pool=pool), 5),
+           "unfused": (lambda: k3_eager_edge(k3.int8_conv(x, op, epi), form, skip), 5),
+           "edge": (lambda: k3_eager_edge(y, form, skip), 5),
+           "plain": (lambda: k3._int8_conv_plain(x, op, epi, out, d2s, pool), 1)}
+    if pool == "spatial":
+        fns["unfused_k3_bw64"] = (lambda: k3._launch(x, op, epi, bw=64), 5)
+    runs = {n: [] for n in fns}
+    for order in (list(fns), list(fns)[::-1]):
+        for n in order:
+            fn, reps = fns[n]
+            runs[n].append(events_ms_cold(fn, reps))
+    ms = {n: sum(r) / 2 for n, r in runs.items()}
+    route_bn = k3.n_tile_width("wgmma", op.cout, op.kernel(dev).host_counts, pool)
+    return {"form": form, "fused_bn": route_bn, "fused_bw": k3.patch_width(h, w, pool),
+            "form_max_abs_err": err, "fused_ms": ms["fused"], "fused_ms_runs": runs["fused"],
+            "unfused_ms": ms["unfused"], "unfused_ms_runs": runs["unfused"],
+            "edge_ms": ms["edge"], "plain_form_ms": ms["plain"],
+            "unfused_k3_bw64_ms": ms.get("unfused_k3_bw64"),
+            "pooled_bytes": b * h * w * op.cout // 4 if pool else 0}
+
+
 def k3_reset() -> None:
     """Zero K3's launch counts, in all and by route."""
     from tpuseg_torch.infer import int8_conv
@@ -779,17 +894,24 @@ def phase_int8_conv(seed: int, dev) -> dict:
     alone (``torch._int_mm`` on the prebuilt im2col matrix, zeros
     included: a yardstick the port never calls on the card), and the
     ``"wgmma"`` route at each N-tile width (the timings that fix
-    ``n_tile_width``'s weights). The bound counts the operations the
-    weights need (2*M times ``needed_macs``: the blocked convs' zero K-steps
-    left out) at the int8 peak, or the bytes (x, weights and epilogue
-    vectors read once, the output written once); ``bound_dense_ms`` counts
-    every tap."""
+    ``n_tile_width``'s weights). The 8 blocks whose call the walks make
+    with store forms (:func:`k3_form`: the skips' producers with their
+    pools, the deconvs into the concat buffers) are checked and timed in
+    those forms too (:func:`k3_form_block`), and so are the dense walk's two
+    form blocks of other shapes (``K3_DENSE_FORM_BLOCKS``, left out of the
+    sums over a call). The bound counts the operations the weights need
+    (2*M times ``needed_macs``: the blocked convs' zero K-steps left out)
+    at the int8 peak, or the bytes (x, weights and epilogue vectors read
+    once, the output written once, and the pooled output of a form);
+    ``bound_dense_ms`` counts every tap. ``walk_ms``, the K3 time of a
+    predict call, sums each block's call as the walk makes it (with its
+    forms); ``ms`` the calls without forms."""
     import torch
 
     from tpuseg_torch.infer import int8_conv as k3
 
-    out = {"build": k3_build_report(), "blocks": []}
-    for i, (name, shape, k, cout, mode) in enumerate(k3_blocks()):
+    out = {"build": k3_build_report(), "blocks": [], "dense_form_blocks": []}
+    for i, (name, shape, k, cout, mode) in enumerate(k3_blocks() + K3_DENSE_FORM_BLOCKS):
         x, op, epi = k3_inputs(name, shape, k, cout, mode, seed + i, dev)
         want = k3._int8_conv_plain(x, op, epi)
         got = {}
@@ -855,7 +977,23 @@ def phase_int8_conv(seed: int, dev) -> dict:
              "ops": ops, "ops_dense": ops_dense, "bytes": nbytes}
         r["share_of_bound"] = r["bound_ms"] / r["ms"]
         r["mma_share_of_bound"] = r["bound_ms"] / r["mma_ms"]
-        out["blocks"].append(r)
+        form = k3_form(name, cout)
+        r["walk_ms"], r["walk_bound_ms"] = r["ms"], r["bound_ms"]
+        r["ops_ms"], r["walk_bytes_ms"] = t_ops, t_bytes
+        if form is not None:
+            r.update(k3_form_block(name, x, op, epi, form, seed + 100 + i, dev))
+            t_fused = (nbytes + r["pooled_bytes"]) / HBM_BYTES_PER_S * 1e3
+            r["walk_ms"], r["walk_bound_ms"] = r["fused_ms"], max(t_ops, t_fused)
+            r["walk_bytes_ms"] = t_fused
+            r["fused_bound_by"] = "operations" if t_ops >= t_fused else "bytes"
+            log(f"K3 {name:<11} store form {form}: bit-equal to the plain version's, bn "
+                f"{r['fused_bn']} bw {r['fused_bw']}; fused {r['fused_ms_runs'][0]:.3f} / "
+                f"{r['fused_ms_runs'][1]:.3f} ms ({r['walk_bound_ms'] / r['fused_ms']:.1%} of "
+                f"{r['walk_bound_ms']:.3f}), old call + eager op {r['unfused_ms']:.3f} (the op "
+                f"alone {r['edge_ms']:.3f})"
+                + (f", old call at bw 64 {r['unfused_k3_bw64_ms']:.3f}"
+                   if r["unfused_k3_bw64_ms"] else "") + f"; plain {r['plain_form_ms']:.3f}")
+        out["dense_form_blocks" if name.startswith("dense_") else "blocks"].append(r)
         log(f"K3 {name:<11} {shape} {k}x{k} -> {cout:<4} {mode}: both routes bit-equal, "
             f"{codes} codes, {clipped:.2%} clipped; wgmma bn {bn} bw {r['bw']} "
             f"{r['ms_runs'][0]:.3f} / {r['ms_runs'][1]:.3f} ms ({r['share_of_bound']:.1%} of "
@@ -865,15 +1003,28 @@ def phase_int8_conv(seed: int, dev) -> dict:
             f"{r['library_ms']:.3f}")
         del x, op, epi, a, wm
         torch.cuda.empty_cache()
-    for key in ("ms", "mma_ms", "plain_ms", "library_ms", "bound_ms", "bound_dense_ms"):
+    for key in ("ms", "mma_ms", "plain_ms", "library_ms", "bound_ms", "bound_dense_ms",
+                "walk_ms", "walk_bound_ms"):
         out[key] = sum(r[key] for r in out["blocks"])
+    forms = [r for r in out["blocks"] if r.get("form")]
+    for key in ("fused_ms", "unfused_ms", "edge_ms", "plain_form_ms"):
+        out[f"forms_{key}"] = sum(r[key] for r in forms)
+    out["forms_k3_alone_ms"] = sum(r["ms"] for r in forms)
+    out["walk_plain_ms"] = sum(r["plain_form_ms"] if r.get("form") else r["plain_ms"]
+                               for r in out["blocks"])
+    out["walk_share_of_bound"] = out["walk_bound_ms"] / out["walk_ms"]
+    out["walk_bound_by"] = "operations" if sum(r["ops_ms"] for r in out["blocks"]) >= sum(
+        r["walk_bytes_ms"] for r in out["blocks"]) else "bytes"
+    if len(forms) != 8:
+        raise AssertionError(f"{len(forms)} blocks with store forms, not 8")
     out["wgmma_ms_by_bn"] = {width: sum(r["wgmma_ms_by_bn"][width] for r in out["blocks"])
                              for width in k3.N_TILES}
     out["wgmma_ms_best_bn"] = sum(min(r["wgmma_ms_by_bn"].values()) for r in out["blocks"])
     out["share_of_bound"] = out["bound_ms"] / out["ms"]
     out["ops"] = sum(r["ops"] for r in out["blocks"])
     out["ops_dense"] = sum(r["ops_dense"] for r in out["blocks"])
-    out["max_abs_err"] = max(r["max_abs_err"] for r in out["blocks"])
+    out["max_abs_err"] = max(max(r["max_abs_err"], r.get("form_max_abs_err", 0))
+                             for r in out["blocks"] + out["dense_form_blocks"])
     if out["ms"] >= out["mma_ms"]:
         log(f"K3: the wgmma route ({out['ms']:.2f} ms) is not faster than the mma route "
             f"({out['mma_ms']:.2f} ms) over a call")
@@ -884,6 +1035,11 @@ def phase_int8_conv(seed: int, dev) -> dict:
         f"{out['library_ms']:.2f} ms; wgmma at one width throughout: "
         + ", ".join(f"bn {w} {v:.2f}" for w, v in out["wgmma_ms_by_bn"].items())
         + f", best width per shape {out['wgmma_ms_best_bn']:.2f}")
+    log(f"K3 as the walk calls it (8 blocks with store forms): {out['walk_ms']:.2f} ms a call "
+        f"({out['walk_share_of_bound']:.1%} of {out['walk_bound_ms']:.2f} ms); the 8 form "
+        f"blocks fused {out['forms_fused_ms']:.2f} ms against the old calls + eager ops "
+        f"{out['forms_unfused_ms']:.2f} (K3 alone {out['forms_k3_alone_ms']:.2f}, the ops "
+        f"alone {out['forms_edge_ms']:.2f})")
     return out
 
 
@@ -1624,6 +1780,31 @@ def phase_int8_head(model, cal: str, big, radius: int, stats, calls: int, dev) -
     return res
 
 
+EDGE_KINDS = ("amax", "cat", "copy", "maximum", "other")
+
+
+def edge_kernels(prof: dict) -> dict:
+    """The int8 walk's eager edge ops in a profiled pass: kernels outside
+    the port's own groups whose names carry int8 codes (``signed char``, or
+    a 1-byte concat): the max-pool's ``amax``, the concat, the
+    depth-to-space copy and the phase max. K3's store forms leave none.
+    Beside them the upload's host-to-device copies."""
+    from tpuseg_torch.utils.trace_analysis import kernel_group
+
+    launches, ms = dict.fromkeys(EDGE_KINDS, 0), dict.fromkeys(EDGE_KINDS, 0.0)
+    for k, (t, n) in prof["by_kernel"].items():
+        if re.match(r"K\d ", kernel_group(k)) or not (
+                re.search(r"(?<!un)signed char", k) or "OpaqueType<1u>" in k):
+            continue
+        kind = ("amax" if "ReduceOp<signed char" in k else "cat" if "CatArray" in k else
+                "copy" if "direct_copy" in k else "maximum" if "maximum" in k else "other")
+        launches[kind] += n
+        ms[kind] += t
+    upload = [(t, n) for k, (t, n) in prof["by_kernel"].items() if k.startswith("Memcpy HtoD")]
+    return {"launches": launches, "ms": ms, "upload_ms": sum(t for t, _ in upload),
+            "upload_copies": sum(n for _, n in upload)}
+
+
 def phase_profile(fn, big, radius: int, stats, dev, mode: str) -> dict:
     """One tiled pass of ``mode``'s predict function over the BIG^2 image,
     profiled."""
@@ -1715,7 +1896,7 @@ def phase_main(seed: int, work: str, dev, card: str) -> dict:
         cli(common + ["--output_folder", out_plain, "--quantize", "int8_blocked",
                       "--calibration_in", cal])
     calls_k2 = [calls[i:i + K3_PER_CALL] for i in range(0, len(calls), K3_PER_CALL)]
-    want_call = [(b[1], b[2], b[3], b[4]) for b in k3_blocks()]
+    want_call = [(b[1], b[2], b[3], b[4], k3_form(b[0], b[3])) for b in k3_blocks()]
     if int8_conv.LAUNCHES or len(calls) != K3_PER_CALL * head_kernel.LAUNCHES \
             or head_kernel.LAUNCHES != k2 or want_call not in calls_k2:
         raise AssertionError(f"plain-conv run: {int8_conv.LAUNCHES} K3 launches, {len(calls)} "
@@ -1760,9 +1941,17 @@ def phase_main(seed: int, work: str, dev, card: str) -> dict:
     with plain_conv() as calls_dense:
         cli(common + ["--output_folder", out_dense_plain, "--quantize", "int8",
                       "--calibration_in", cal])
-    if int8_conv.LAUNCHES or len(calls_dense) != K3_PER_CALL * k2:
+    dense_forms = [c[4] for c in calls_dense[:K3_PER_CALL]]
+    want_forms = [k3_form(n, c) for n, c in
+                  (("dense_enc1b", BASE), ("dense_enc2b", 2 * BASE), ("dense_enc3b", 4 * BASE),
+                   ("dense_enc4b", 8 * BASE), ("dense_dec4up", 32 * BASE),
+                   ("dense_dec3up", 16 * BASE), ("dense_dec2up", 8 * BASE),
+                   ("dense_dec1up", 4 * BASE))]
+    if int8_conv.LAUNCHES or len(calls_dense) != K3_PER_CALL * k2 \
+            or [f for f in dense_forms if f] != want_forms:
         raise AssertionError(f"--quantize int8 with the plain conv: {int8_conv.LAUNCHES} K3 "
-                             f"launches, {len(calls_dense)} plain calls")
+                             f"launches, {len(calls_dense)} plain calls, the first call's "
+                             f"store forms {dense_forms}")
     differ = {}
     for name in shapes:
         a = imread(os.path.join(out_dense, name))
@@ -1969,6 +2158,14 @@ def phase_main(seed: int, work: str, dev, card: str) -> dict:
         other = {"int8_blocked": "K6 dense_head_argmax", "int8": "K2 head_argmax"}.get(mode)
         if other in prof["by_group"]:
             raise AssertionError(f"the profiled {mode} pass ran {other}")
+        if mode != "none":
+            prof["edge_kernels"] = edges = edge_kernels(prof)
+            log(f"the profiled {mode} pass's int8 edge kernels (amax, cat, depth-to-space copy, "
+                f"phase max): {edges['launches']}; the upload's copies {edges['upload_copies']}, "
+                f"{edges['upload_ms']:.2f} ms")
+            if any(edges["launches"].values()):
+                raise AssertionError(f"the profiled {mode} pass ran eager edge ops on int8 "
+                                     f"codes: {edges}")
     return res
 
 
@@ -2438,14 +2635,20 @@ def mask_agreement(dir_a: str, dir_b: str, shapes: dict) -> dict:
 def plain_conv():
     """K3's wrapper with the kernel's launch swapped for its plain version
     on the same card tensors: the predict function then runs K3-free and
-    counts no launch. Yields (x shape, kernel size, Cout, mode) of each call."""
+    counts no launch. Yields (x shape, kernel size, Cout, mode, store forms)
+    of each call, the forms as :func:`k3_form` gives them (None without)."""
     from tpuseg_torch.infer import int8_conv
 
     launch, calls = int8_conv._launch, []
 
-    def plain(x, weights, epilogue):
-        calls.append((tuple(x.shape), weights.kh, weights.cout, epilogue.mode))
-        return int8_conv._int8_conv_plain(x, weights, epilogue)
+    def plain(x, weights, epilogue, out=None, d2s=False, pool=None):
+        form = None
+        if out is not None or pool is not None:
+            form = {"ctot": None if out is None else out.stride(2),
+                    "offset": None if out is None else out.storage_offset() % out.stride(2),
+                    "d2s": d2s, "pool": pool}
+        calls.append((tuple(x.shape), weights.kh, weights.cout, epilogue.mode, form))
+        return int8_conv._int8_conv_plain(x, weights, epilogue, out, d2s, pool)
 
     int8_conv._launch = plain
     try:
@@ -4076,23 +4279,44 @@ def main() -> int:
         "launches_tiled": {"int8_blocked": main_res["k3_launches_tiled_dispatch"],
                            "int8": main_res["k3_launches_tiled_dispatch_int8"]},
         "launches_streaming": stream_res["engine"]["k3_launches"],
-        "max_abs_err": k3["max_abs_err"], "ms": k3["ms"], "plain_ms": k3["plain_ms"],
-        "bound_ms": k3["bound_ms"], "bound_by": "operations",
-        "bound_note": "operations the weights need (the blocked convs' all-zero K-steps left "
-                      "out); bound_dense_ms counts every tap",
+        "max_abs_err": k3["max_abs_err"], "ms": k3["walk_ms"], "plain_ms": k3["walk_plain_ms"],
+        "bound_ms": k3["walk_bound_ms"], "bound_by": k3["walk_bound_by"],
+        "bound_note": "per block the larger of the operations the weights need (the blocked "
+                      "convs' all-zero K-steps left out) and the bytes (the pooled output of a "
+                      "store form included), summed; bound_dense_ms counts every tap",
         "bound_dense_ms": k3["bound_dense_ms"], "library_ms": k3["library_ms"],
+        "forms": {r["block"]: r["form"] for r in k3["blocks"] if r.get("form")},
+        "forms_note": "the store forms the walks make K3's calls with: out= a channel slice "
+                      "of the skip's concat buffer (ctot wide, at offset), d2s the deconv's "
+                      "depth-to-space, pool the 2x2 max or the blocked enc1b's phase max; "
+                      "they replace the walks' eager max-pools, phase max, concats and "
+                      "depth-to-space copies",
+        "ms_without_forms": k3["ms"], "bound_ms_without_forms": k3["bound_ms"],
+        "forms_fused_ms": k3["forms_fused_ms"], "forms_unfused_ms": k3["forms_unfused_ms"],
+        "forms_k3_alone_ms": k3["forms_k3_alone_ms"], "forms_edge_ms": k3["forms_edge_ms"],
+        "dense_form_blocks": {r["block"]: {"form": r["form"], "fused_ms": r["fused_ms"],
+                                           "unfused_ms": r["unfused_ms"],
+                                           "bound_ms": r["walk_bound_ms"]}
+                              for r in k3["dense_form_blocks"]},
+        "edge_kernels_profiled": {m: main_res[f"profile_{m}"].get("edge_kernels")
+                                  for m in ("int8_blocked", "int8")},
         "mma_route_ms": k3["mma_ms"], "wgmma_ms_by_bn": k3["wgmma_ms_by_bn"],
         "library_call": "torch._int_mm on the prebuilt im2col matrix (the GEMM alone, "
                         "int32 out, no epilogue), summed over the 21 blocks",
         "timing": "sums over the 21 block shapes of one main-path predict call of the time "
-                  "per call by CUDA events around it, L2 flushed and a 1 ms spin before each",
+                  "per call by CUDA events around it, L2 flushed and a 1 ms spin before each; "
+                  "ms and plain_ms with the store forms the int8_blocked walk uses",
         "share_of_bound": k3["share_of_bound"],
         "tolerance": "both routes bit-equal (torch.equal) to the plain version at every "
-                     "block shape; masks through K3 equal those through the plain version "
-                     "on every pixel (int8_blocked and int8)",
-        "blocks": [{k: r[k] for k in ("block", "shape", "k", "cout", "mode", "route", "bn",
-                                      "bw", "ms", "mma_ms", "plain_ms", "library_ms",
-                                      "bound_ms", "bound_by", "bound_dense_ms", "codes")}
+                     "block shape, the store forms' buffers and pooled codes too; masks "
+                     "through K3 equal those through the plain version on every pixel "
+                     "(int8_blocked and int8)",
+        "blocks": [{k: r.get(k) for k in ("block", "shape", "k", "cout", "mode", "route", "bn",
+                                          "bw", "ms", "mma_ms", "plain_ms", "library_ms",
+                                          "bound_ms", "bound_by", "bound_dense_ms", "codes",
+                                          "form", "fused_bn", "fused_bw", "fused_ms",
+                                          "unfused_ms", "edge_ms", "unfused_k3_bw64_ms",
+                                          "walk_bound_ms")}
                    for r in k3["blocks"]],
     }, {
         "name": "input_conv", "route": "cuda",

@@ -449,6 +449,176 @@ def test_int8_walk_launches_k3_per_block(cuda, blocked):
     assert (got == want).float().mean().item() >= 0.999
 
 
+# --- K3's store forms: the int8 walks' concats, depth-to-space and pools ----
+
+def _k3_form_check(dev, x, op, epi, around, d2s, pool, seed, **launch):
+    """K3 with its store forms against the plain version's, from the same
+    concat buffer (its other channels random codes, ``around`` = channels
+    before and after the output's; None: no ``out``): the whole buffer and
+    the pooled codes equal."""
+    b, h, w, _ = x.shape
+    c = op.cout // 4 if d2s else op.cout
+    oh, ow = (2 * h, 2 * w) if d2s else (h, w)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    out = out_plain = buf = buf_plain = None
+    if around is not None:
+        buf = torch.randint(-127, 128, (b, oh, ow, c + sum(around)), generator=g, device=dev,
+                            dtype=torch.int8)
+        buf_plain = buf.clone()
+        out = buf[..., around[0]:around[0] + c]
+        out_plain = buf_plain[..., around[0]:around[0] + c]
+    before = k3.LAUNCHES
+    got = k3._launch(x, op, epi, out=out, d2s=d2s, pool=pool, **launch)
+    assert k3.LAUNCHES == before + 1 and k3.LAST_ROUTE == "wgmma"
+    want = k3._int8_conv_plain(x, op, epi, out_plain, d2s, pool)
+    torch.cuda.synchronize()
+    got, got_pool = got if pool else (got, None)
+    want, want_pool = want if pool else (want, None)
+    if buf is not None:
+        assert got.data_ptr() == out.data_ptr()
+        got, want = buf, buf_plain
+    assert got.shape == want.shape and torch.equal(got, want), \
+        (got.float() - want.float()).abs().max().item()
+    if pool:
+        assert got_pool.shape == want_pool.shape and torch.equal(got_pool, want_pool)
+        assert torch.unique(want_pool).numel() >= 64
+    return want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bn", [64, 128, 256])
+@pytest.mark.parametrize("bw", [16, 32, 64])
+@pytest.mark.parametrize("h, w", [(14, 22), (64, 64), (6, 130)])
+def test_int8_conv_spatial_pool_store(cuda, h, w, bw, bn):
+    """A skip's producer: codes into channels [0, 160) of a 192-wide
+    concat buffer and the 2x2 max beside them, at every N-tile width (Cout
+    160: a ragged last N tile) and pooled patch width, with patch rows and
+    columns past H and W masked."""
+    x, op, epi = _k3_inputs(64, 160, 3, 2, h, w, "relu_requant", h + w + bw + bn, cuda)
+    _k3_form_check(cuda, x, op, epi, (0, 32), False, "spatial", bw, bn=bn, bw=bw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bn", [64, 128, 256])
+@pytest.mark.parametrize("bw", [16, 32, 64, 128])
+@pytest.mark.parametrize("cin, c", [(128, 64), (64, 16), (512, 256)])
+def test_int8_conv_d2s_store(cuda, cin, c, bw, bn):
+    """A deconv: depth-to-space on store into the channels [C, 2C) of its
+    concat buffer (C 64 as the dense dec1up, 16, and 256), every N-tile and
+    patch width, H and W ragged against every patch."""
+    x, op, epi = _k3_inputs(cin, 4 * c, 1, 2, 13, 21, "affine_requant", cin + c + bw, cuda)
+    _k3_form_check(cuda, x, op, epi, (c, 0), True, None, bn, bn=bn, bw=bw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bw", [16, 32, 64, 128])
+@pytest.mark.parametrize("h, w", [(13, 100), (32, 48)])
+def test_int8_conv_phase_pool_store_blocked_enc1b(cuda, h, w, bw):
+    """The blocked enc1b: blocked weights (3/4 structural zeros), codes into
+    channels [0, 256) of dec1a's 512-wide buffer and the max over the four
+    phase groups beside them, in one N tile of 256 (the rule's width)."""
+    x, op, epi = _k3_blocked_inputs((64,), 2, h, w, "relu_requant", h + bw, cuda)
+    assert k3.n_tile_width("wgmma", 256, op.kernel(cuda).host_counts, "phase") == 256
+    _k3_form_check(cuda, x, op, epi, (0, 256), False, "phase", bw, bw=bw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bn", [64, 128, 256])
+def test_int8_conv_phase_pool_store_narrow(cuda, bn):
+    """A phase max of Cout 64 (F 16) at every N-tile width that covers it,
+    without ``out``."""
+    x, op, epi = _k3_inputs(32, 64, 3, 1, 9, 40, "relu_requant", bn, cuda)
+    _k3_form_check(cuda, x, op, epi, None, False, "phase", bn, bn=bn)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["relu_requant", "affine_requant"])
+@pytest.mark.parametrize("bn", [64, 128, 256])
+@pytest.mark.parametrize("around", [(0, 32), (48, 0), (16, 16)])
+def test_int8_conv_concat_store(cuda, around, bn, mode):
+    """``out=`` alone at offsets 0, 48 and 16 of a wider buffer (the
+    blocked dec1up's form), a ragged N tile (Cout 80), masked patch rows
+    (H 21 against the wrapper's patch)."""
+    x, op, epi = _k3_inputs(48, 80, 3, 2, 21, 37, mode, sum(around) + bn, cuda)
+    _k3_form_check(cuda, x, op, epi, around, False, None, bn, bn=bn)
+
+
+@pytest.mark.cuda
+def test_int8_conv_forms_refused_on_the_card(cuda):
+    """What the kernel does not store raises on a CUDA tensor and launches
+    nothing: the mma route (Cin % 16), 16-byte segments (Cout, the buffer,
+    a phase), a misaligned ``out``, a phase max wider than an N tile, a
+    spatial pool on 128 x 1 patches, the f32 mode."""
+    x, op, epi = _k3_inputs(64, 64, 3, 1, 8, 8, "relu_requant", 0, cuda)
+    x4, op4, epi4 = _k3_inputs(4, 64, 3, 1, 8, 8, "relu_requant", 1, cuda)
+    x24, op24, epi24 = _k3_inputs(64, 24, 3, 1, 8, 8, "relu_requant", 2, cuda)
+    x512, op512, epi512 = _k3_inputs(64, 512, 1, 1, 8, 8, "relu_requant", 3, cuda)
+    buf = torch.zeros((1, 8, 8, 128), dtype=torch.int8, device=cuda)
+    f32 = k3.Epilogue("relu_f32", epi.ws, epi.b, epi.s, epi.t, None)
+    before = k3.LAUNCHES
+    with pytest.raises(ValueError, match="wgmma"):
+        k3.int8_conv(x4, op4, epi4, pool="spatial")
+    with pytest.raises(ValueError, match="wgmma"):
+        k3._launch(x, op, epi, route="mma", out=buf[..., :64])
+    with pytest.raises(ValueError, match="16-byte"):
+        k3.int8_conv(x24, op24, epi24, pool="spatial")
+    with pytest.raises(ValueError, match="16-byte"):
+        k3.int8_conv(x, op, epi, out=torch.zeros((1, 8, 8, 72), dtype=torch.int8,
+                                                 device=cuda)[..., :64])
+    with pytest.raises(ValueError, match="aligned"):
+        k3.int8_conv(x, op, epi, out=buf[..., 8:72])
+    with pytest.raises(ValueError, match="N tile"):
+        k3.int8_conv(x512, op512, epi512, pool="phase")
+    with pytest.raises(ValueError, match="N tile"):
+        k3._launch(x, k3.Int8ConvWeights(np.zeros((3, 3, 64, 256), np.int8)),
+                   _k3_inputs(64, 256, 3, 1, 8, 8, "relu_requant", 4, cuda)[2], bn=128,
+                   pool="phase")
+    with pytest.raises(ValueError, match="even row count"):
+        k3._launch(x, op, epi, pool="spatial", bw=128)
+    with pytest.raises(ValueError, match="int8 modes"):
+        k3.int8_conv(x, op, f32, out=buf[..., :64])
+    assert k3.LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blocked", [False, True])
+def test_int8_walks_take_the_store_forms(cuda, blocked):
+    """A base-16 int8 predict call on the card (every channel count a
+    multiple of 16) makes 8 of its 21 K3 launches with store forms (4
+    skips into their concat buffers with their pools, 4 deconvs into the
+    other halves), and labels like the CPU walk (>= 0.999: the fp head
+    sums in another order on the card)."""
+    from tpuseg_torch.infer import quant
+    from tpuseg_torch.models.unet import UNet, init_unet
+
+    model = init_unet(UNet(2, 1, 16, torch.float32), torch.Generator().manual_seed(1)).eval()
+    x = torch.from_numpy(np.random.default_rng(4).normal(0, 1, (2, 64, 48, 1))
+                         .astype(np.float32))
+    folded = quant.fold_variables(model)
+    fn = quant.make_quantized_predict_fn(
+        folded, quant.calibrate(folded, [x[0, ..., 0].numpy()], device="cpu"),
+        blocked_edges=blocked)
+    forms, launch = [], k3._launch
+
+    def counted(x, weights, epilogue, out=None, d2s=False, pool=None, **kw):
+        forms.append((out is not None, d2s, pool))
+        return launch(x, weights, epilogue, out=out, d2s=d2s, pool=pool, **kw)
+
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        want = fn(x)
+        k3._launch = counted
+        try:
+            got = fn(x.to(cuda)).cpu()
+        finally:
+            k3._launch = launch
+    pools = ["phase"] + ["spatial"] * 3 if blocked else ["spatial"] * 4
+    assert len(forms) == 21
+    assert [f for f in forms if f[2]] == [(True, False, p) for p in pools]
+    assert [f for f in forms if f[0] and not f[2]] == \
+        [(True, True, None)] * 3 + [(True, not blocked, None)]
+    assert (got == want).float().mean().item() >= 0.999
+
+
 # --- K5: the fp input conv with its epilogue fused (csrc/input_conv.cu) -----
 
 def _k5_inputs(b, h, w, c, f, seed, dev):

@@ -17,7 +17,17 @@ chip_smoke.py.
 
 The whole quantized walk at base 4 goes through the wrapper 21 times a
 predict call with the default fp_blocks, and its labels agree with the JAX
-package's on >= 0.999 of pixels (tests/test_torch_quant.py's tolerance)."""
+package's on >= 0.999 of pixels (tests/test_torch_quant.py's tolerance).
+
+The store forms (``out=``, ``d2s=``, ``pool=``: the walk's concats,
+depth-to-space and pools) are held two ways: the plain version's forms
+bit-equal to the eager composition the walk ran before them
+(``quant._d2s``, ``quant._maxpool``, the phase max, ``torch.cat``), and a
+numpy model of the kernel's store stage (its 16-byte segments, their
+addresses and masks, the pooled reads of the shared tile) bit-equal to
+the same composition at every N-tile and patch width the rules allow.
+Both int8 walks run no eager edge op on an int8 edge, and label bit-equal
+to their unfused composition."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -374,12 +384,13 @@ def test_quantized_walk_through_the_wrapper_matches_jax(blocked, monkeypatch):
     want = np.asarray(jq.make_quantized_predict_fn(
         jq.fold_variables(variables), ranges, dtype=jnp.float32,
         blocked_edges=blocked)(jnp.asarray(x)))
-    calls = []
+    calls, forms = [], []
     plain = k3._int8_conv_plain
 
-    def counted(x, weights, epilogue):
+    def counted(x, weights, epilogue, out=None, d2s=False, pool=None):
         calls.append(epilogue.mode)
-        return plain(x, weights, epilogue)
+        forms.append((out is not None, d2s, pool))
+        return plain(x, weights, epilogue, out, d2s, pool)
 
     monkeypatch.setattr(k3, "_int8_conv_plain", counted)
     launches = k3.LAUNCHES
@@ -388,6 +399,13 @@ def test_quantized_walk_through_the_wrapper_matches_jax(blocked, monkeypatch):
     got = fn(torch.from_numpy(x)).numpy()
     assert len(calls) == 21 and calls.count("affine_requant") == 4
     assert set(calls) == {"relu_requant", "affine_requant"}
+    # the store forms: 4 skips into their concat buffers with their pools
+    # (enc1b's a phase max in the blocked walk), 4 deconvs into the other
+    # halves (the blocked dec1up without depth-to-space)
+    pools = ["phase"] + ["spatial"] * 3 if blocked else ["spatial"] * 4
+    assert [f for f in forms if f[2]] == [(True, False, p) for p in pools]
+    assert [f for f in forms if f[0] and not f[2]] == \
+        [(True, True, None)] * 3 + [(True, not blocked, None)]
     assert k3.LAUNCHES == launches
     agree = (got == want).mean()
     print(f"blocked={blocked}: agreement {agree:.6f}")
@@ -407,7 +425,8 @@ def test_int8_head_takes_the_f32_mode(monkeypatch):
     calls = []
     plain = k3._int8_conv_plain
     monkeypatch.setattr(k3, "_int8_conv_plain",
-                        lambda x, w, e: calls.append((e.mode, w.cin)) or plain(x, w, e))
+                        lambda x, w, e, *forms: calls.append((e.mode, w.cin)) or plain(x, w, e,
+                                                                                      *forms))
     tq.make_quantized_predict_fn(folded, ranges, fp_blocks=(), dtype=torch.float32)(x)
     assert len(calls) == 23 and calls[0] == ("relu_requant", 1)
     assert calls[-1][0] == "relu_f32"
@@ -421,3 +440,331 @@ def test_trace_groups_name_k3(name):
     from tpuseg_torch.utils import trace_analysis
 
     assert trace_analysis.kernel_group(name) == "K3 int8_conv"
+
+
+# --- the store forms: the walk's concats, depth-to-space and pools ---------
+
+def _phase_max(y):
+    """quant.py's blocked-walk phase max (a closure there), as it ran."""
+    c = y.shape[-1] // 4
+    return torch.maximum(torch.maximum(y[..., :c], y[..., c:2 * c]),
+                         torch.maximum(y[..., 2 * c:3 * c], y[..., 3 * c:]))
+
+
+def _form_inputs(seed, b, h, w, cin, cout, kind, impl="conv_transpose"):
+    """Codes, weights and an int8 epilogue of a conv block (``kind``
+    "conv", 3x3) or a deconv (``kind`` "deconv": a 2x2 deconv's codes laid
+    out by ``quant._block_weight_deconv`` as a 1x1 conv to phase-major
+    ``cout = 4C``, per ``impl``)."""
+    rng = np.random.default_rng(seed)
+    x = _codes(rng, (b, h, w, cin))
+    if kind == "deconv":
+        wd = _codes(rng, (2, 2, cin, cout // 4) if impl == "conv_transpose"
+                    else (1, 1, cin, cout))
+        wq = tq._block_weight_deconv(wd, impl)
+        mode, k = "affine_requant", 1
+    else:
+        wq, mode, k = _codes(rng, (3, 3, cin, cout)), "relu_requant", 9
+    arrs = _epilogue_arrays(rng, cout, k * cin)
+    return rng, torch.from_numpy(x), k3.Int8ConvWeights(np.asarray(wq)), _epilogue(mode, arrs)
+
+
+# (name, kind, impl, h, w, cin, cout, buffer channels before/after the
+# output's, d2s, pool): small shapes, H and W no multiple of most patches
+FORM_CASES = [
+    ("skip_pool", "conv", None, 14, 22, 16, 16, (0, 16), False, "spatial"),
+    ("skip_pool_base4", "conv", None, 16, 12, 4, 4, (0, 4), False, "spatial"),
+    ("skip_pool_64", "conv", None, 64, 64, 16, 32, (0, 32), False, "spatial"),
+    ("blocked_skip_phase", "conv", None, 10, 18, 16, 64, (0, 64), False, "phase"),
+    ("blocked_skip_phase_base4", "conv", None, 12, 8, 16, 16, (0, 16), False, "phase"),
+    ("pool_alone", "conv", None, 6, 34, 16, 32, None, False, "spatial"),
+    ("phase_alone", "conv", None, 7, 9, 16, 64, None, False, "phase"),
+    ("up_d2s", "deconv", "conv_transpose", 7, 11, 32, 64, (16, 0), True, None),
+    ("up_d2s_pixel_shuffle", "deconv", "pixel_shuffle", 5, 9, 32, 64, (16, 0), True, None),
+    ("up_d2s_base4", "deconv", "conv_transpose", 6, 4, 8, 16, (4, 0), True, None),
+    ("d2s_alone", "deconv", "pixel_shuffle", 3, 13, 16, 128, None, True, None),
+    ("blocked_up", "deconv", "conv_transpose", 9, 10, 32, 64, (64, 0), False, None),
+    ("concat_middle", "conv", None, 5, 7, 16, 16, (16, 32), False, None),
+]
+
+
+def _form_call(case, seed=0):
+    """The plain version's store form and the eager composition it
+    replaces, on the same inputs: ``(got, want)``, each ``(buffer or
+    output, pooled or None)``."""
+    _, kind, impl, h, w, cin, cout, around, d2s, pool = case
+    rng, x, op, epi = _form_inputs(seed, 2, h, w, cin, cout, kind, impl or "conv_transpose")
+    y = k3._int8_conv_plain(x, op, epi)
+    if d2s:
+        y = tq._d2s(y)
+    want_pool = None if pool is None else (tq._maxpool(y) if pool == "spatial" else
+                                           _phase_max(y))
+    out = None
+    if around is None:
+        want = y
+    else:  # the other branch of the concat, filled by another block
+        before = torch.from_numpy(_codes(rng, y.shape[:3] + (around[0],)))
+        after = torch.from_numpy(_codes(rng, y.shape[:3] + (around[1],)))
+        want = torch.cat([before, y, after], dim=-1)
+        buf = torch.cat([before, torch.full_like(y, 99), after], dim=-1)
+        out = buf[..., around[0]:around[0] + y.shape[-1]]
+    got = k3.int8_conv(x, op, epi, out=out, d2s=d2s, pool=pool)
+    got, got_pool = got if pool else (got, None)
+    if out is not None:
+        assert got.data_ptr() == out.data_ptr()
+        got = buf
+    return (got, got_pool), (want, want_pool)
+
+
+@pytest.mark.parametrize("case", FORM_CASES, ids=[c[0] for c in FORM_CASES])
+def test_plain_store_forms_equal_the_eager_composition(case):
+    """``out=`` (a channel slice of the concat buffer: the other channels
+    untouched), ``d2s=`` (both deconv layouts) and ``pool=`` (spatial and
+    phase) on the plain version: bit-equal to the walk's former eager ops,
+    ``torch.cat``, ``quant._d2s``, ``quant._maxpool`` and the phase max."""
+    (got, got_pool), (want, want_pool) = _form_call(case)
+    assert got.dtype == torch.int8 and got.shape == want.shape
+    assert torch.equal(got, want)
+    if want_pool is None:
+        assert got_pool is None
+    else:
+        assert got_pool.shape == want_pool.shape and torch.equal(got_pool, want_pool)
+        assert len(torch.unique(want_pool)) >= 8  # the codes are not degenerate
+
+
+def _store_model(y, bn, bw, ostride, d2s, pool, rng):
+    """The ``"wgmma"`` route's int8 store stage (csrc/int8_conv.cu) in
+    numpy, on the full-resolution codes ``y`` ``(B, H, W, cout)``: each
+    128-pixel ``bh x bw`` patch and N tile of ``bn`` channels as a shared
+    tile (rows and columns past the image or Cout filled with noise, as the
+    kernel's tile holds codes of zero-filled inputs there), then the
+    kernel's loops over 16-byte segments with its index arithmetic and
+    masks: the full-resolution store (row stride ``ostride``, depth-to-space
+    with ``d2s``) into a buffer of sentinels (int16 999), and the pooled
+    store from the same tile. Returns ``(out, pooled)``."""
+    b, h, w, cout = y.shape
+    bh = 128 // bw
+    lg = bw.bit_length() - 1
+    chunks = bn // 16
+    oh, ow = (2 * h, 2 * w) if d2s else (h, w)
+    out = np.full((b, oh, ow, ostride), 999, np.int16)
+    f = cout // 4
+    pooled = None if pool is None else np.full(
+        (b, h // 2, w // 2, cout) if pool == "spatial" else (b, h, w, f), 999, np.int16)
+    yn = y.numpy().astype(np.int16)
+    for img in range(b):
+        for y0 in range(0, -(-h // bh) * bh, bh):
+            for x0 in range(0, -(-w // bw) * bw, bw):
+                for n0 in range(0, cout, bn):
+                    tile = rng.integers(-127, 128, (128, bn)).astype(np.int16)
+                    r = np.arange(128)
+                    py, px = y0 + (r >> lg), x0 + (r & (bw - 1))
+                    ok = (py < h) & (px < w)
+                    nc = min(bn, cout - n0)
+                    tile[ok, :nc] = yn[img, py[ok], px[ok], n0:n0 + nc]
+                    c = np.arange(128 * chunks)
+                    rr, col = c // chunks, (c % chunks) * 16
+                    py, px, n = y0 + (rr >> lg), x0 + (rr & (bw - 1)), n0 + col
+                    m = (py < h) & (px < w) & (n < cout)
+                    rr, col, py, px, n = (a[m] for a in (rr, col, py, px, n))
+                    if d2s:
+                        ph = n // f
+                        oy, ox, ch = 2 * py + (ph >> 1), 2 * px + (ph & 1), n - ph * f
+                    else:
+                        oy, ox, ch = py, px, n
+                    for k in range(16):
+                        out[img, oy, ox, ch + k] = tile[rr, col + k]
+                    if pool == "spatial":
+                        c = np.arange(32 * chunks)
+                        q, col = c // chunks, (c % chunks) * 16
+                        pr, pc = q >> (lg - 1), q & ((bw >> 1) - 1)
+                        yy, xx, n = y0 // 2 + pr, x0 // 2 + pc, n0 + col
+                        m = (yy < h // 2) & (xx < w // 2) & (n < cout)
+                        pr, pc, col, yy, xx, n = (a[m] for a in (pr, pc, col, yy, xx, n))
+                        r00 = ((2 * pr) << lg) + 2 * pc
+                        for k in range(16):
+                            pooled[img, yy, xx, n + k] = np.maximum.reduce([
+                                tile[r00, col + k], tile[r00 + 1, col + k],
+                                tile[r00 + bw, col + k], tile[r00 + bw + 1, col + k]])
+                    elif pool == "phase":
+                        assert n0 == 0 and cout <= bn
+                        c = np.arange(128 * (f // 16))
+                        rr, col = c // (f // 16), (c % (f // 16)) * 16
+                        py, px = y0 + (rr >> lg), x0 + (rr & (bw - 1))
+                        m = (py < h) & (px < w)
+                        rr, col, py, px = (a[m] for a in (rr, col, py, px))
+                        for k in range(16):
+                            pooled[img, py, px, col + k] = np.maximum.reduce(
+                                [tile[rr, col + k + p * f] for p in range(4)])
+    return out, pooled
+
+
+@pytest.mark.parametrize("case", [c for c in FORM_CASES if "base4" not in c[0]],
+                         ids=[c[0] for c in FORM_CASES if "base4" not in c[0]])
+def test_kernel_store_model_equals_the_eager_composition(case):
+    """The kernel's store stage, modelled in numpy, at every N-tile width
+    and patch width the rules allow for the form (a spatial pool: bw <=
+    64; a phase max: an N tile covering Cout): the buffer's other channels
+    keep their sentinel, every written code and pooled code bit-equal to
+    the composition. The forms' channel counts are multiples of 16, as
+    :func:`form_problem` asks on a card (the base-4 cases' are not)."""
+    name, kind, impl, h, w, cin, cout, around, d2s, pool = case
+    assert k3.form_problem(torch.empty((2, h, w, cin), dtype=torch.int8, device="meta"),
+                           cout, "relu_requant", None if around is None else
+                           cout // (4 if d2s else 1) + sum(around), d2s, pool) is None
+    (_, _), (want, want_pool) = _form_call(case)
+    y = k3._int8_conv_plain(*_form_inputs(0, 2, h, w, cin, cout, kind,
+                                          impl or "conv_transpose")[1:])
+    before = 0 if around is None else around[0]
+    ostride = want.shape[-1]
+    rng = np.random.default_rng(1)
+    bws = k3._POOL_PATCH_WIDTHS if pool == "spatial" else k3.PATCH_WIDTHS
+    bns = [bn for bn in k3.N_TILES if pool != "phase" or bn >= cout]
+    assert bws and bns
+    for bw in bws:
+        for bn in bns:
+            out, pooled = _store_model(y, bn, bw, ostride, d2s, pool, rng)
+            c = y.shape[-1] // (4 if d2s else 1)
+            np.testing.assert_array_equal(out[..., :c], want[..., before:before + c].numpy(),
+                                          err_msg=f"bw {bw} bn {bn}")
+            assert (out[..., c:] == 999).all(), f"bw {bw} bn {bn}: stores past the output"
+            if pool:
+                np.testing.assert_array_equal(pooled, want_pool.numpy(),
+                                              err_msg=f"pooled, bw {bw} bn {bn}")
+
+
+def test_form_rules():
+    """What the wrapper takes: the contract's rules on any device, the
+    kernel's on a card (modelled by ``meta`` tensors, which take the
+    card's rules and hold no data); the N-tile and patch rules of the
+    pool-emitting blocks."""
+    def x(cin, h=8, w=8, dev="meta"):
+        return torch.empty((2, h, w, cin), dtype=torch.int8, device=dev)
+
+    fp = k3.form_problem
+    for dev in ("cpu", "meta"):
+        assert fp(x(16, dev=dev), 64, "relu_f32", ctot=128) is not None
+        assert "combine" in fp(x(16, dev=dev), 64, "affine_requant", d2s=True, pool="spatial")
+        assert "even" in fp(x(16, h=7, dev=dev), 64, "relu_requant", pool="spatial")
+        assert "4 phases" in fp(x(16, dev=dev), 66, "relu_requant", pool="phase")
+        assert "fewer" in fp(x(16, dev=dev), 64, "relu_requant", ctot=48)
+        assert "not in" in fp(x(16, dev=dev), 64, "relu_requant", pool="avg")
+        assert fp(x(16, dev=dev), 64, "relu_requant") is None  # no form
+        assert fp(x(16, dev=dev), 64, "relu_requant", ctot=128, pool="spatial") is None
+        assert fp(x(64, dev=dev), 256, "affine_requant", ctot=128, d2s=True) is None
+        assert fp(x(256, dev=dev), 256, "relu_requant", ctot=512, pool="phase") is None
+    # the plain version takes any width; the kernel 16-byte segments of its route
+    assert fp(x(4, dev="cpu"), 4, "relu_requant", ctot=8, pool="spatial") is None
+    assert fp(x(8, dev="cpu"), 16, "affine_requant", ctot=8, d2s=True) is None
+    assert "wgmma" in fp(x(4), 16, "relu_requant", ctot=32)
+    assert "Cout 24" in fp(x(16), 24, "relu_requant", pool="spatial")
+    assert "buffer width 40" in fp(x(16), 16, "relu_requant", ctot=40)
+    assert "phase's width 24" in fp(x(16), 96, "affine_requant", d2s=True)
+    assert "phase's width 8" in fp(x(16), 32, "relu_requant", pool="phase")
+    assert "N tile" in fp(x(16), 512, "relu_requant", pool="phase")
+    assert "N tile" in fp(x(16), 256, "relu_requant", pool="phase", bn=128)
+    assert fp(x(16), 256, "relu_requant", pool="phase", bn=256) is None
+    assert "even row count" in fp(x(16), 64, "relu_requant", pool="spatial", bw=128)
+    assert "wgmma" in fp(x(64), 64, "relu_requant", pool="spatial", route="mma")
+    # the served pool blocks: 512^2 .. 128^2 levels take 64-wide patches
+    # (bh 2), not the 128 x 1 rows a plain call takes there
+    for side in (1024, 512, 256, 128):
+        assert k3.patch_width(side, side) == 128
+        assert k3.patch_width(side, side, "spatial") == 64
+    assert k3.patch_width(14, 22, "spatial") == 32
+    assert k3.patch_width(13, 100, "phase") == 128
+    blocked = {64: np.full(4, 9), 128: np.full(2, 12), 256: np.full(1, 16)}
+    assert k3.n_tile_width("wgmma", 256, blocked) == 64
+    assert k3.n_tile_width("wgmma", 256, blocked, "phase") == 256
+    assert k3.n_tile_width("wgmma", 64, blocked, "phase") == 64
+    assert k3.n_tile_width("wgmma", 256, blocked, "spatial") == 64
+    assert k3.n_tile_width("mma", 256, blocked, "phase") == 128
+
+
+def test_wrapper_refuses_what_it_does_not_take():
+    """On CPU tensors the wrapper raises on the contract's refusals before
+    the plain version runs: a form in the f32 mode, an odd H with a 2x2
+    pool, an ``out`` of another shape or dtype, not a channel slice of a
+    contiguous buffer, or overlapping ``x``."""
+    _, x, op, epi = _form_inputs(3, 1, 6, 8, 16, 16, "conv")
+    buf = torch.zeros((1, 6, 8, 32), dtype=torch.int8)
+    f32 = k3.Epilogue("relu_f32", epi.ws, epi.b, epi.s, epi.t, None)
+    with pytest.raises(ValueError, match="int8 modes"):
+        k3.int8_conv(x, op, f32, pool="spatial")
+    with pytest.raises(ValueError, match="even H"):
+        k3.int8_conv(x[:, :5].contiguous(), op, epi, pool="spatial")
+    with pytest.raises(ValueError, match="shape"):
+        k3.int8_conv(x, op, epi, out=buf[:, :5, :, :16])
+    with pytest.raises(ValueError, match="int8"):
+        k3.int8_conv(x, op, epi, out=buf.float()[..., :16])
+    with pytest.raises(ValueError, match="channel slice"):
+        k3.int8_conv(x, op, epi, out=torch.zeros((1, 8, 6, 16), dtype=torch.int8).transpose(1, 2))
+    with pytest.raises(ValueError, match="overlaps"):
+        k3.int8_conv(x, op, epi, out=x)
+    assert torch.equal(buf, torch.zeros_like(buf))
+    y, pooled = k3.int8_conv(x, op, epi, out=buf[..., 16:], pool="spatial")
+    assert y.data_ptr() == buf[..., 16:].data_ptr() and (buf[..., :16] == 0).all()
+    assert pooled.shape == (1, 3, 4, 16)
+
+
+def _frame_guard(monkeypatch):
+    """Make ``quant._maxpool``, ``quant._d2s`` and ``torch.cat`` /
+    ``torch.maximum`` called from ``quant.py`` (the concat and the phase
+    max) raise on int8 tensors: the walk's eager edge ops on int8 edges."""
+    import sys
+
+    def guard(name, fn, from_quant_only):
+        def wrapped(*args, **kwargs):
+            ts = args[0] if isinstance(args[0], (list, tuple)) else args
+            caller = sys._getframe(1).f_globals.get("__name__")
+            if (not from_quant_only or caller == tq.__name__) and any(
+                    isinstance(t, torch.Tensor) and t.dtype == torch.int8 for t in ts):
+                raise AssertionError(f"the int8 walk ran {name} on an int8 edge")
+            return fn(*args, **kwargs)
+        return wrapped
+
+    monkeypatch.setattr(tq, "_maxpool", guard("_maxpool", tq._maxpool, False))
+    monkeypatch.setattr(tq, "_d2s", guard("_d2s", tq._d2s, False))
+    monkeypatch.setattr(torch, "cat", guard("torch.cat", torch.cat, True))
+    monkeypatch.setattr(torch, "maximum", guard("torch.maximum", torch.maximum, True))
+
+
+@pytest.mark.parametrize("impl", ["conv_transpose", "pixel_shuffle"])
+@pytest.mark.parametrize("blocked", [False, True])
+def test_int8_walks_fused_like_jax_and_the_unfused_walk(blocked, impl, monkeypatch):
+    """Both base-4 int8 walks (default fp_blocks, both deconv layouts) run
+    no ``_maxpool``, ``_d2s``, concat or phase max on an int8 edge; their
+    labels are bit-equal to the same walk with every edge op eager (the
+    store forms refused), and agree with the JAX package's on >= 0.999."""
+    variables, port = _pair(impl)
+    x = _x(12)
+    ranges = jq.calibrate(jq.fold_variables(variables), [x[0, ..., 0]], deconv_impl=impl)
+    want = np.asarray(jq.make_quantized_predict_fn(
+        jq.fold_variables(variables), ranges, deconv_impl=impl, dtype=jnp.float32,
+        blocked_edges=blocked)(jnp.asarray(x)))
+    folded = tq.fold_variables(port)
+    kw = dict(deconv_impl=impl, dtype=torch.float32, blocked_edges=blocked)
+    with monkeypatch.context() as m:
+        m.setattr(tq, "form_problem", lambda *a, **k: "the eager composition")
+        unfused = tq.make_quantized_predict_fn(folded, ranges, **kw)(torch.from_numpy(x))
+    with monkeypatch.context() as m:
+        _frame_guard(m)
+        got = tq.make_quantized_predict_fn(folded, ranges, **kw)(torch.from_numpy(x))
+    assert torch.equal(got, unfused)
+    agree = (got.numpy() == want).mean()
+    print(f"blocked={blocked} impl={impl}: agreement with JAX {agree:.6f}")
+    assert got.shape == want.shape and agree >= 0.999
+
+
+def test_the_eager_edge_guard_catches_the_unfused_walk(monkeypatch):
+    """The guard of the test above fails the walk with its edge ops eager."""
+    _, port = _pair()
+    x = torch.from_numpy(_x(13))
+    folded = tq.fold_variables(port)
+    ranges = tq.calibrate(folded, [x[0, ..., 0].numpy()], device="cpu")
+    monkeypatch.setattr(tq, "form_problem", lambda *a, **k: "the eager composition")
+    _frame_guard(monkeypatch)
+    for blocked in (False, True):
+        with pytest.raises(AssertionError, match="on an int8 edge"):
+            tq.make_quantized_predict_fn(folded, ranges, dtype=torch.float32,
+                                         blocked_edges=blocked)(x)

@@ -67,6 +67,28 @@
 // tile and stores it as 16-byte row segments (the f32 mode stores from the
 // registers); the patch's rows past H or W are masked there.
 //
+// The store forms (route "wgmma", int8 modes; they replace the walk's edge
+// passes that XLA fused into the jitted predict on the TPU:
+// tpuseg/infer/quant.py `_maxpool` :157, `phase_max` :651, the skip concats
+// :590-594 and :688, `_d2s` :212). Each is a change of where the shared tile's
+// 16-byte segments go, and all take Cout, the row stride and the phase width
+// in multiples of 16, so a segment stays one run of one pixel's channels:
+//   - a row stride `ostride` >= Cout: `out` points at a channel offset of a
+//     wider NHWC buffer [B, H, W, ostride] (the walk's concat buffer, whose
+//     other channels another launch fills);
+//   - depth-to-space (`d2s_c` = C = Cout / 4): channel n = (py*2 + px)*C + c
+//     of pixel (y, x) goes to pixel (2y + py, 2x + px), channel c, of a
+//     [B, 2H, 2W, ostride] output;
+//   - a second, pooled output from the same tile: "spatial", the 2x2/2 max of
+//     each window (even H and W, patches of even height, bw <= 64; a window of
+//     a 64-wide patch straddles the two warpgroups' rows, so both wait on one
+//     barrier first), into [B, H/2, W/2, Cout]; "phase", the max over the four
+//     phase groups n = phase*F + c of each pixel's channels (the whole Cout =
+//     4F in one N tile), into [B, H, W, F]. Max over int8 codes is exact and
+//     the phases share one scale, so both equal the max taken after the store.
+//   The pooled bytes are a quarter of the full-resolution ones; the separate
+//   passes read the full-resolution codes back and wrote them again.
+//
 // Route "mma" (any Cin; the packed-tap layout of a quantized input layer, and
 // the yardstick the new route is timed against): a block of 256 threads
 // computes a 128 x 128 tile with 8 warps (2 along M x 4 along N, 64 x 32 each)
@@ -416,10 +438,16 @@ struct WgCfg {
   static constexpr int kMinBlocks = BN == 256 ? 1 : 2;
 };
 
+enum Pool { kPoolNone = 0, kPoolSpatial = 1, kPoolPhase = 2 };
+
 struct WParams {
   const int* steps;   // [n_tiles, list_stride]: each N tile's skip list
   const int* counts;  // [n_tiles]
   Epi e;
+  int8_t* pooled;     // the pooled output (pool != kPoolNone)
+  int ostride;        // elements between pixels of e.out (Cout, or a buffer's width)
+  int d2s_c;          // depth-to-space's phase width C, 0 for none
+  int pool;           // a Pool
   int h, w_, kh, kw;
   int list_stride;    // kp / kBK
   int steps_per_tap;  // ceil(Cin / kBK)
@@ -589,6 +617,21 @@ __device__ __forceinline__ void wgmma_k32(int* d, uint64_t da, uint64_t db) {
   }
 }
 
+__device__ __forceinline__ uint4 ld_shared16(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+// the bytewise max of 16 int8 codes
+__device__ __forceinline__ uint4 vmax16(uint4 a, uint4 b) {
+  return make_uint4(__vmaxs4(a.x, b.x), __vmaxs4(a.y, b.y), __vmaxs4(a.z, b.z),
+                    __vmaxs4(a.w, b.w));
+}
+
 template <int MODE, int BN>
 __global__ void __launch_bounds__(kWgThreads, WgCfg<BN>::kMinBlocks)
     int8_conv_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
@@ -715,9 +758,13 @@ __global__ void __launch_bounds__(kWgThreads, WgCfg<BN>::kMinBlocks)
                      : "memory");
       }
     }
-    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");  // this warpgroup only
+    if (p.pool == kPoolNone) {
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");  // this warpgroup only
+    } else {
+      asm volatile("bar.sync 3, 256;\n" ::: "memory");  // the pooled reads cross warpgroups
+    }
     constexpr int kChunks = BN / 16;
-    const bool vec = (p.e.cout & 15) == 0;
+    const bool vec = (p.e.cout & 15) == 0 && (p.ostride & 15) == 0;
     int8_t* out = static_cast<int8_t*>(p.e.out);
     for (int c = t; c < 64 * kChunks; c += 128) {
       const int rr = c / kChunks;
@@ -727,18 +774,59 @@ __global__ void __launch_bounds__(kWgThreads, WgCfg<BN>::kMinBlocks)
       const int x = x0 + (r & ((1 << p.bw_log2) - 1));
       const int n = n0 + col;
       if (y >= p.h || x >= p.w_ || n >= p.e.cout) continue;
-      uint32_t w0, w1, w2, w3;
-      asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
-                   : "=r"(w0), "=r"(w1), "=r"(w2), "=r"(w3)
-                   : "r"(rows + rr * Cfg::kOutStride + col)
-                   : "memory");
-      int8_t* o = out + (((long long)img * p.h + y) * p.w_ + x) * p.e.cout + n;
-      if (vec && n + 16 <= p.e.cout) {
-        *reinterpret_cast<uint4*>(o) = make_uint4(w0, w1, w2, w3);
+      const uint4 v = ld_shared16(rows + rr * Cfg::kOutStride + col);
+      long long off;
+      if (p.d2s_c) {  // channel n = (py * 2 + px) * C + c -> pixel (2y + py, 2x + px), channel c
+        const int ph = n / p.d2s_c;
+        off = (((long long)img * 2 * p.h + 2 * y + (ph >> 1)) * (2 * p.w_) + 2 * x + (ph & 1)) *
+                  p.ostride + (n - ph * p.d2s_c);
       } else {
-        const uint32_t wv[4] = {w0, w1, w2, w3};
+        off = (((long long)img * p.h + y) * p.w_ + x) * p.ostride + n;
+      }
+      int8_t* o = out + off;
+      if (vec && n + 16 <= p.e.cout) {
+        *reinterpret_cast<uint4*>(o) = v;
+      } else {
+        const uint32_t wv[4] = {v.x, v.y, v.z, v.w};
         for (int k = 0; k < 16 && n + k < p.e.cout; ++k)
           o[k] = (int8_t)(wv[k >> 2] >> (8 * (k & 3)));
+      }
+    }
+    if (p.pool == kPoolSpatial) {
+      // the bh/2 x bw/2 windows of the patch (its origin and H, W even), all
+      // 256 consumer threads over the whole tile
+      const int pw_log2 = p.bw_log2 - 1;
+      const int hp = p.h >> 1, wp = p.w_ >> 1;
+      const uint32_t below = (uint32_t)(Cfg::kOutStride << p.bw_log2);  // one patch row down
+      for (int c = tid; c < (kBM / 4) * kChunks; c += 256) {
+        const int q = c / kChunks;
+        const int col = (c - q * kChunks) * 16;
+        const int pr = q >> pw_log2, pc = q & ((1 << pw_log2) - 1);
+        const int yy = (y0 >> 1) + pr, xx = (x0 >> 1) + pc;
+        const int n = n0 + col;
+        if (yy >= hp || xx >= wp || n >= p.e.cout) continue;
+        const uint32_t s0 = out_tile + ((2 * pr << p.bw_log2) + 2 * pc) * Cfg::kOutStride + col;
+        const uint4 m = vmax16(vmax16(ld_shared16(s0), ld_shared16(s0 + Cfg::kOutStride)),
+                               vmax16(ld_shared16(s0 + below),
+                                      ld_shared16(s0 + below + Cfg::kOutStride)));
+        *reinterpret_cast<uint4*>(p.pooled + (((long long)img * hp + yy) * wp + xx) * p.e.cout +
+                                  n) = m;
+      }
+    } else if (p.pool == kPoolPhase) {
+      // channel n = phase * F + c of each pixel of the patch (n0 = 0, Cout = 4F)
+      const int f = p.e.cout >> 2;
+      const int fchunks = f >> 4;
+      for (int c = tid; c < kBM * fchunks; c += 256) {
+        const int r = c / fchunks;
+        const int col = (c - r * fchunks) * 16;
+        const int y = y0 + (r >> p.bw_log2);
+        const int x = x0 + (r & ((1 << p.bw_log2) - 1));
+        if (y >= p.h || x >= p.w_) continue;
+        const uint32_t s0 = out_tile + r * Cfg::kOutStride + col;
+        const uint4 m = vmax16(vmax16(ld_shared16(s0), ld_shared16(s0 + f)),
+                               vmax16(ld_shared16(s0 + 2 * f), ld_shared16(s0 + 3 * f)));
+        *reinterpret_cast<uint4*>(p.pooled + (((long long)img * p.h + y) * p.w_ + x) * f + col) =
+            m;
       }
     }
   }
@@ -842,24 +930,46 @@ extern "C" {
 // tap's cin padded to 64, kp = kh*kw*ceil(cin/64)*64; otherwise the taps
 // packed, kp = ceil(kh*kw*cin/64)*64); ws, b, s, t: f32 [cout] (b unused, may
 // be null, in mode 2); so: f32 scalar on the device (unused in mode 1); out:
-// [n_img, h, w, cout], int8 for modes 0 and 2, f32 for mode 1; steps, counts:
-// int32 [ceil(cout/bn), list_stride] and [ceil(cout/bn)], each N tile's skip
-// list (int8_conv.py::_skip_lists), list_stride = kp / 64. route 0 ("mma")
-// takes bn 128; route 1 ("wgmma") takes cin % 16 == 0, bn 64, 128 or 256 and
-// the patch width bw 16, 32, 64 or 128. Launches on `stream` and returns 0,
-// the cudaError_t of the launch, or a negative code of the tensor-map encoder
+// [n_img, h, w, out_stride] (channels 0..cout-1 written), int8 for modes 0
+// and 2, f32 for mode 1; with d2s, [n_img, 2h, 2w, out_stride] and channel n
+// = (py*2 + px) * cout/4 + c written to pixel (2y + py, 2x + px), channel c
+// (channels 0..cout/4-1 written);
+// pooled (pool 1, "spatial"): int8 [n_img, h/2, w/2, cout], the 2x2/2 max;
+// (pool 2, "phase"): int8 [n_img, h, w, cout/4], the max over the 4 phase
+// groups of channels; steps, counts: int32 [ceil(cout/bn), list_stride] and
+// [ceil(cout/bn)], each N tile's skip list (int8_conv.py::_skip_lists),
+// list_stride = kp / 64. route 0 ("mma") takes bn 128 and no store form
+// (out_stride == cout, no d2s, pool 0); route 1 ("wgmma") takes cin % 16 ==
+// 0, bn 64, 128 or 256 and the patch width bw 16, 32, 64 or 128, and the
+// store forms in modes 0 and 2 where cout and out_stride are multiples of 16,
+// out and pooled 16-byte aligned, d2s's cout/4 a multiple of 16 (no pool),
+// "spatial" with h, w even and bw <= 64, "phase" with cout/4 a multiple of 16
+// and cout <= bn. Launches on `stream` and returns 0, the cudaError_t of the
+// launch, or a negative code of the tensor-map encoder
 // (tpuseg_cuda_error_string names each); the caller checked devices, dtypes
 // and contiguity.
 int tpuseg_int8_conv(const void* x, const void* wm, const float* ws, const float* b,
-                     const float* s, const float* t, const float* so, void* out,
-                     const int* steps, const int* counts, int list_stride, int n_img, int h,
-                     int w, int cin, int cout, int kh, int kw, int kp, int mode, int route,
-                     int bn, int bw, void* stream) {
+                     const float* s, const float* t, const float* so, void* out, int out_stride,
+                     int d2s, void* pooled, int pool, const int* steps, const int* counts,
+                     int list_stride, int n_img, int h, int w, int cin, int cout, int kh, int kw,
+                     int kp, int mode, int route, int bn, int bw, void* stream) {
   if (n_img <= 0 || h <= 0 || w <= 0 || cin <= 0 || cout <= 0) return (int)cudaErrorInvalidValue;
   if ((kh != 1 && kh != 3) || (kw != 1 && kw != 3)) return (int)cudaErrorInvalidValue;
   if (mode < 0 || mode > 2 || (mode != kAffineRequant && b == nullptr) ||
       (mode != kReluF32 && so == nullptr) || steps == nullptr || counts == nullptr)
     return (int)cudaErrorInvalidValue;
+  const bool forms = out_stride != cout || d2s != 0 || pool != kPoolNone;
+  if (forms) {
+    const bool aligned16 = (reinterpret_cast<uintptr_t>(out) & 15) == 0 &&
+                           (reinterpret_cast<uintptr_t>(pooled) & 15) == 0;
+    if (route != kRouteWgmma || mode == kReluF32 || out_stride < (d2s ? cout / 4 : cout) ||
+        out_stride % 16 ||
+        cout % 16 || !aligned16 || pool < kPoolNone || pool > kPoolPhase ||
+        (pool != kPoolNone) != (pooled != nullptr) || (d2s && (cout % 64 || pool)) ||
+        (pool == kPoolSpatial && (h % 2 || w % 2 || bw > 64)) ||
+        (pool == kPoolPhase && (cout % 64 || cout > bn)))
+      return (int)cudaErrorInvalidValue;
+  }
   const bool aligned = cin % 16 == 0;
   const long long taps = (long long)kh * kw;
   const long long want_kp = aligned ? taps * ((cin + kBK - 1) / kBK) * kBK
@@ -921,6 +1031,10 @@ int tpuseg_int8_conv(const void* x, const void* wm, const float* ws, const float
   p.tiles_x = (w + bw - 1) / bw;
   p.tiles_y = (h + bh - 1) / bh;
   p.n_tiles = (cout + bn - 1) / bn;
+  p.pooled = static_cast<int8_t*>(pooled);
+  p.ostride = out_stride;
+  p.d2s_c = d2s ? cout / 4 : 0;
+  p.pool = pool;
   const long long blocks = (long long)n_img * p.tiles_y * p.tiles_x * p.n_tiles;
   if (blocks >= (1LL << 31)) return (int)cudaErrorInvalidValue;
 

@@ -42,6 +42,16 @@ functions of shapes and skip counts.
 Both compute the same IEEE float operations in the same order, and the
 int32 sums are exact, so the kernel is bit-equal to the plain version.
 The weights are laid out once per device (:class:`Int8ConvWeights`).
+
+The int8 walk's edge ops, which XLA fused into the jitted predict on the
+TPU (``tpuseg/infer/quant.py``: ``_maxpool`` :157, ``phase_max`` :651, the
+skip concats :590-594 and :688, ``_d2s`` :212), are store forms of the
+same call, on the ``"wgmma"`` route: ``out=`` (a channel slice of a wider
+NHWC buffer: the concat), ``d2s=True`` (the deconv's depth-to-space) and
+``pool="spatial"`` or ``"phase"`` (a second, pooled output: the 2x2 max, or
+the max over a blocked pixel's four phase groups). :func:`form_problem`
+says which calls the kernel takes; the plain version composes the eager
+ops for the same contract.
 """
 
 from __future__ import annotations
@@ -85,6 +95,12 @@ _TILE_COST = {64: 10.3, 128: 23.7, 256: 65.7}
 
 MODES = {"relu_requant": 0, "relu_f32": 1, "affine_requant": 2}
 _ROUTE_CODES = {"mma": 0, "wgmma": 1}
+# The pooled output of a store: the 2x2/2 max of each window, or the max
+# over the four phase groups (channel n = phase * F + c) of each pixel.
+POOLS = {None: 0, "spatial": 1, "phase": 2}
+# Patch widths whose patches have an even row count (bh = 128 / bw >= 2):
+# a spatial pool's windows then lie inside one patch.
+_POOL_PATCH_WIDTHS = tuple(bw for bw in PATCH_WIDTHS if _TILE_M // bw >= 2)
 
 
 def _round_up(n: int, k: int) -> int:
@@ -190,31 +206,37 @@ def kernel_route(cin: int) -> str:
     return "wgmma" if cin % 16 == 0 else "mma"
 
 
-def n_tile_width(route: str, cout: int, counts: Dict[int, np.ndarray]) -> int:
+def n_tile_width(route: str, cout: int, counts: Dict[int, np.ndarray],
+                 pool: Optional[str] = None) -> int:
     """The N-tile width of a launch: 128 on ``"mma"``; on ``"wgmma"`` the
     width in :data:`N_TILES` whose tiles cost least, the K-steps they run
     (``counts[bn]`` from :func:`_skip_lists`) at ``_STEP_COST`` plus each
     tile at ``_TILE_COST``, the wider on a tie. A dense Cout = 64 conv
     takes 64; so do the blocked convs, whose 64-wide tiles each skip 3/4
-    of their K-steps."""
+    of their K-steps. A phase max needs every phase group of a pixel in
+    one tile: the narrowest width that covers ``cout``."""
     if route == "mma":
         return _MMA_BN
     if route != "wgmma":
         raise ValueError(f"route {route!r} not in {ROUTES}")
+    if pool == "phase":
+        return min([bn for bn in N_TILES if bn >= cout] or [max(N_TILES)])
     cost = {bn: int(np.asarray(counts[bn]).sum()) * _STEP_COST[bn]
             + len(counts[bn]) * _TILE_COST[bn] for bn in N_TILES}
     return min(N_TILES, key=lambda bn: (cost[bn], -bn))
 
 
-def patch_width(h: int, w: int) -> int:
+def patch_width(h: int, w: int, pool: Optional[str] = None) -> int:
     """The ``"wgmma"`` route's patch width ``bw`` (``bh = 128 / bw``): the
     one in :data:`PATCH_WIDTHS` whose patches cover ``h x w`` with the
-    fewest pixels, the wider on a tie."""
+    fewest pixels, the wider on a tie; for a spatial pool only those of an
+    even row count (``bw <= 64``)."""
     def area(bw):
         bh = _TILE_M // bw
         return -(-w // bw) * bw * (-(-h // bh) * bh)
 
-    return min(PATCH_WIDTHS, key=lambda bw: (area(bw), -bw))
+    widths = _POOL_PATCH_WIDTHS if pool == "spatial" else PATCH_WIDTHS
+    return min(widths, key=lambda bw: (area(bw), -bw))
 
 
 @dataclass(frozen=True)
@@ -284,12 +306,42 @@ def _pad_same(x: torch.Tensor, weights: Int8ConvWeights) -> torch.Tensor:
     return F.pad(x, (0, 0, pw, pw, ph, ph)) if ph or pw else x
 
 
+def _d2s(x: torch.Tensor) -> torch.Tensor:
+    """Depth-to-space: (B, h, w, 4C) -> (B, 2h, 2w, C), phase-major."""
+    b, h, w, c4 = x.shape
+    x = x.reshape(b, h, w, 2, 2, c4 // 4)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(b, 2 * h, 2 * w, c4 // 4)
+
+
+def _pooled(y: torch.Tensor, pool: str) -> torch.Tensor:
+    """The 2x2/2 max of NHWC ``y`` (``"spatial"``), or the max over the four
+    phase groups of its channels (``"phase"``)."""
+    b, h, w, c = y.shape
+    if pool == "spatial":
+        return y.reshape(b, h // 2, 2, w // 2, 2, c).amax(dim=(2, 4))
+    return y.reshape(b, h, w, 4, c // 4).amax(dim=3)
+
+
 def _int8_conv_plain(x: torch.Tensor, weights: Int8ConvWeights,
-                     epilogue: Optional[Epilogue]) -> torch.Tensor:
+                     epilogue: Optional[Epilogue], out: Optional[torch.Tensor] = None,
+                     d2s: bool = False, pool: Optional[str] = None):
     """The kernel's function in plain PyTorch (any device): im2col +
     ``torch._int_mm`` per chunk of output rows, ``epilogue`` applied per
     chunk and the chunks stitched into ``(B, H, W, cout)``. With ``epilogue``
-    None it returns the int32 sums."""
+    None it returns the int32 sums. The store forms compose the eager ops:
+    ``d2s`` depth-to-spaces the result, ``out`` receives it (a copy into
+    the view), and ``pool`` returns ``(y, pooled)``."""
+    y = _conv_plain(x, weights, epilogue)
+    if d2s:
+        y = _d2s(y)
+    if out is not None:
+        out.copy_(y)
+        y = out
+    return (y, _pooled(y, pool)) if pool else y
+
+
+def _conv_plain(x: torch.Tensor, weights: Int8ConvWeights,
+                epilogue: Optional[Epilogue]) -> torch.Tensor:
     wm = weights.plain(x.device)
     b, h, w, _ = x.shape
     xp = _pad_same(x, weights)
@@ -353,11 +405,94 @@ def _check(x: torch.Tensor, weights: Int8ConvWeights, epilogue: Epilogue, route:
                          "32-bit index range")
 
 
+def form_problem(x: torch.Tensor, cout: int, mode: str, ctot: Optional[int] = None,
+                 d2s: bool = False, pool: Optional[str] = None, *, route: Optional[str] = None, bn: Optional[int] = None,
+                 bw: Optional[int] = None) -> Optional[str]:
+    """Why :func:`int8_conv` does not take these store forms for ``x``, or
+    None, for a conv of ``cout`` output channels in epilogue ``mode``.
+    ``ctot`` is the width of the NHWC buffer that ``out`` is a channel
+    slice of (None: no ``out``). On any device: an int8 mode; not ``d2s``
+    and ``pool`` together; ``cout`` a multiple of 4 for ``d2s`` and a phase
+    max; even H and W for a spatial pool; ``ctot >= cout``. On any other
+    device (a card; the rules' tests use ``meta`` tensors) the kernel's
+    rules as well: the ``"wgmma"`` route (``route``, default
+    :func:`kernel_route`); ``cout``, ``ctot`` and a phase's width ``cout /
+    4`` multiples of 16, so every 16-byte segment of the store is one run of
+    one pixel's channels; a phase max's ``cout`` inside one N tile (``bn``,
+    default the widest); a spatial pool's patches of an even row count
+    (``bw``, default :func:`patch_width`'s choice)."""
+    if ctot is None and not d2s and pool is None:
+        return None
+    _, h, w, cin = x.shape
+    if mode not in ("relu_requant", "affine_requant"):
+        return f"the store forms take the int8 modes, not {mode!r}"
+    if pool not in POOLS:
+        return f"pool {pool!r} not in {sorted(p for p in POOLS if p)}"
+    if d2s and pool:
+        return "depth-to-space and a pooled output do not combine"
+    if (d2s or pool == "phase") and cout % 4:
+        return f"depth-to-space and a phase max split Cout into 4 phases, got Cout {cout}"
+    if pool == "spatial" and (h % 2 or w % 2):
+        return f"a 2x2/2 pool needs an even H and W, got {h} x {w}"
+    if ctot is not None and ctot < (cout // 4 if d2s else cout):
+        return f"out's buffer has {ctot} channels, fewer than the output's"
+    if x.device.type == "cpu":
+        return None
+    route = kernel_route(cin) if route is None else route
+    if route != "wgmma":
+        return (f"the store forms run on the wgmma route (Cin % 16 == 0), not the {route} "
+                f"route (Cin {cin})")
+    phase = cout // 4 if d2s or pool == "phase" else None
+    for name, c in (("Cout", cout), ("out's buffer width", ctot), ("a phase's width", phase)):
+        if c is not None and c % 16:
+            return f"the kernel stores 16-byte segments: {name} {c} is not a multiple of 16"
+    if pool == "phase" and cout > (bn or max(N_TILES)):
+        return f"a phase max needs Cout {cout} inside one N tile of at most {bn or max(N_TILES)}"
+    if pool == "spatial" and bw is not None and bw not in _POOL_PATCH_WIDTHS:
+        return f"a 2x2 pool needs patches of an even row count (bw <= 64), got bw {bw}"
+    return None
+
+
+def _out_width(out: torch.Tensor, x: torch.Tensor, cout: int, d2s: bool) -> int:
+    """The width of the NHWC buffer ``out`` is a channel slice of, after
+    checking that it is one, of the output's shape, on ``x``'s device, not
+    overlapping ``x`` (and 16-byte aligned on a card)."""
+    b, h, w, _ = x.shape
+    shape = (b, 2 * h, 2 * w, cout // 4) if d2s else (b, h, w, cout)
+    if out.dtype != torch.int8 or out.device != x.device:
+        raise ValueError(f"out must be int8 on {x.device}, got {out.dtype} on {out.device}")
+    if tuple(out.shape) != shape:
+        raise ValueError(f"out has shape {tuple(out.shape)}, want {shape}")
+    ctot = out.stride(2)
+    if out.stride() != (shape[1] * shape[2] * ctot, shape[2] * ctot, ctot, 1):
+        raise ValueError(f"out must be a channel slice of a contiguous NHWC buffer, got strides "
+                         f"{out.stride()}")
+    lo = out.data_ptr()
+    hi = lo + (out.numel() // shape[3] - 1) * ctot + shape[3]
+    if lo < x.data_ptr() + x.numel() and x.data_ptr() < hi:
+        raise ValueError("out overlaps x")
+    if x.device.type == "cuda" and lo % 16:
+        raise ValueError("out must be 16-byte aligned for 16-byte stores")
+    return ctot
+
+
+def _check_forms(x, weights, epilogue, out, d2s, pool, **kernel) -> Optional[int]:
+    """Raise where :func:`form_problem` finds one; ``out``'s buffer width."""
+    ctot = None if out is None else _out_width(out, x, weights.cout, d2s)
+    problem = form_problem(x, weights.cout, epilogue.mode, ctot, d2s, pool, **kernel)
+    if problem:
+        raise ValueError(problem)
+    return ctot
+
+
 def _launch(x: torch.Tensor, weights: Int8ConvWeights, epilogue: Epilogue,
-            route: Optional[str] = None, bn: Optional[int] = None) -> torch.Tensor:
+            route: Optional[str] = None, bn: Optional[int] = None,
+            out: Optional[torch.Tensor] = None, d2s: bool = False, pool: Optional[str] = None,
+            bw: Optional[int] = None):
     """One kernel launch on ``route`` (default :func:`kernel_route`) with
-    N tiles ``bn`` wide (default :func:`n_tile_width`); ``chip_smoke.py``
-    passes both to time the routes and widths side by side."""
+    N tiles ``bn`` wide (default :func:`n_tile_width`) and patches ``bw``
+    wide (default :func:`patch_width`); ``chip_smoke.py`` passes them to
+    time the routes, widths and patches side by side."""
     global LAUNCHES, LAST_ROUTE
     from tpuseg_torch.kernels.build import load
 
@@ -366,14 +501,25 @@ def _launch(x: torch.Tensor, weights: Int8ConvWeights, epilogue: Epilogue,
     if route not in ROUTES:
         raise ValueError(f"route {route!r} not in {ROUTES}")
     op = weights.kernel(x.device)
-    bn = n_tile_width(route, weights.cout, op.host_counts) if bn is None else bn
+    bn = n_tile_width(route, weights.cout, op.host_counts, pool) if bn is None else bn
     if bn not in (N_TILES if route == "wgmma" else (_MMA_BN,)):
         raise ValueError(f"N tile {bn} not taken by the {route} route")
-    bw = patch_width(h, w)
+    bw = patch_width(h, w, pool) if bw is None else bw
+    if bw not in PATCH_WIDTHS:
+        raise ValueError(f"patch width {bw} not in {PATCH_WIDTHS}")
     _check(x, weights, epilogue, route, bn, bw)
+    _check_forms(x, weights, epilogue, out, d2s, pool, route=route, bn=bn, bw=bw)
     lib = load("int8_conv")
-    dtype = torch.float32 if epilogue.mode == "relu_f32" else torch.int8
-    out = torch.empty((b, h, w, weights.cout), dtype=dtype, device=x.device)
+    cout = weights.cout
+    if out is None:
+        dtype = torch.float32 if epilogue.mode == "relu_f32" else torch.int8
+        shape = (b, 2 * h, 2 * w, cout // 4) if d2s else (b, h, w, cout)
+        out = torch.empty(shape, dtype=dtype, device=x.device)
+    pooled = None
+    if pool == "spatial":
+        pooled = torch.empty((b, h // 2, w // 2, cout), dtype=torch.int8, device=x.device)
+    elif pool == "phase":
+        pooled = torch.empty((b, h, w, cout // 4), dtype=torch.int8, device=x.device)
     e = epilogue
 
     def ptr(t):
@@ -384,25 +530,37 @@ def _launch(x: torch.Tensor, weights: Int8ConvWeights, epilogue: Epilogue,
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.tpuseg_int8_conv(
             x.data_ptr(), op.wm.data_ptr(), e.ws.data_ptr(), ptr(e.b), e.s.data_ptr(),
-            e.t.data_ptr(), ptr(e.so), out.data_ptr(), steps.data_ptr(),
-            op.counts[bn].data_ptr(), steps.shape[1], b, h, w, cin, weights.cout,
-            weights.kh, weights.kw, op.wm.shape[1], MODES[e.mode], _ROUTE_CODES[route], bn,
-            bw, stream)
+            e.t.data_ptr(), ptr(e.so), out.data_ptr(), out.stride(2), int(d2s), ptr(pooled),
+            POOLS[pool], steps.data_ptr(), op.counts[bn].data_ptr(), steps.shape[1], b, h, w,
+            cin, cout, weights.kh, weights.kw, op.wm.shape[1], MODES[e.mode],
+            _ROUTE_CODES[route], bn, bw, stream)
     if err:
         msg = lib.tpuseg_cuda_error_string(err).decode()
         raise RuntimeError(f"int8_conv kernel launch failed ({route} route): {msg} ({err})")
     LAUNCHES += 1
     ROUTE_LAUNCHES[route] += 1
     LAST_ROUTE = route
-    return out
+    return (out, pooled) if pool else out
 
 
-def int8_conv(x: torch.Tensor, weights: Int8ConvWeights, epilogue: Epilogue) -> torch.Tensor:
+def int8_conv(x: torch.Tensor, weights: Int8ConvWeights, epilogue: Epilogue,
+              out: Optional[torch.Tensor] = None, d2s: bool = False,
+              pool: Optional[str] = None):
     """SAME stride-1 conv of NHWC int8 ``x`` with ``weights``, int32 sums,
-    then ``epilogue``: ``(B, H, W, cout)`` int8, or f32 in ``"relu_f32"``."""
+    then ``epilogue``: ``(B, H, W, cout)`` int8, or f32 in ``"relu_f32"``.
+
+    The store forms (int8 modes, where :func:`form_problem` finds none):
+    ``d2s`` returns ``(B, 2H, 2W, cout / 4)``, channel ``(py*2 + px)*C + c``
+    of pixel ``(y, x)`` at pixel ``(2y + py, 2x + px)``; ``out``, a channel
+    slice ``buf[..., a:a + cout]`` of a contiguous NHWC int8 buffer of the
+    output's height and width, receives the result and is returned; ``pool``
+    returns ``(y, pooled)``, ``pooled`` the 2x2/2 max of ``y`` (``"spatial"``,
+    ``(B, H/2, W/2, cout)``) or the max over its four phase groups
+    (``"phase"``, ``(B, H, W, cout / 4)``)."""
     dev = x.device
     if dev.type == "cpu":
-        return _int8_conv_plain(x, weights, epilogue)
+        _check_forms(x, weights, epilogue, out, d2s, pool)
+        return _int8_conv_plain(x, weights, epilogue, out, d2s, pool)
     if dev.type != "cuda":
         raise ValueError(f"int8_conv runs on cuda or cpu tensors, not {dev}")
-    return _launch(x, weights, epilogue)
+    return _launch(x, weights, epilogue, out=out, d2s=d2s, pool=pool)

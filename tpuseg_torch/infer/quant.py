@@ -26,6 +26,15 @@ What PyTorch changes:
   ReLU, folded BN and requantize in one hand-written kernel on the card,
   on the dense batch in both walks (the blocked walk takes its output
   phase-major), plain PyTorch in the same order of operations on the CPU.
+- **The edge ops of the int8 walks** — the 2x2 max-pools, the blocked
+  walk's phase max, the skip concats and each deconv's depth-to-space,
+  which XLA fused into the jitted predict — are K3's store forms: the last
+  block of each encoder level stores its codes into its half of the
+  concat buffer and their max beside them, and the deconv stores
+  depth-to-space into the other half (:func:`_quantized_raw_fn`). An fp
+  block, and a block whose shapes K3's forms do not take on a card
+  (:func:`~tpuseg_torch.infer.int8_conv.form_problem`: narrow test
+  models), keeps the eager ops.
 - **The head and its argmax** of the predict entry point are one kernel
   for up to 8 classes: K2 in the blocked walk, K6 in the dense walk
   (:mod:`tpuseg_torch.infer.head_kernel`), where XLA fused the head block
@@ -53,7 +62,8 @@ import torch
 import torch.nn.functional as F
 
 from tpuseg_torch.infer.input_conv import input_conv
-from tpuseg_torch.infer.int8_conv import Epilogue, Int8ConvWeights, int8_conv
+from tpuseg_torch.infer.int8_conv import (Epilogue, Int8ConvWeights, _d2s, form_problem,
+                                          int8_conv)
 from tpuseg_torch.models.unet import BN_EPSILON, POOLING_STRIDE, as_dtype
 
 # Ordered block names of the reference graph (model.py:85-146)
@@ -223,13 +233,6 @@ def _s2d(x: torch.Tensor) -> torch.Tensor:
     b, h, w, c = x.shape
     x = x.reshape(b, h // 2, 2, w // 2, 2, c)
     return x.permute(0, 1, 3, 2, 4, 5).reshape(b, h // 2, w // 2, 4 * c)
-
-
-def _d2s(x: torch.Tensor) -> torch.Tensor:
-    """Depth-to-space: (B, h, w, 4C) -> (B, 2h, 2w, C), phase-major."""
-    b, h, w, c4 = x.shape
-    x = x.reshape(b, h, w, 2, 2, c4 // 4)
-    return x.permute(0, 1, 3, 2, 4, 5).reshape(b, 2 * h, 2 * w, c4 // 4)
 
 
 def _percentile(a: torch.Tensor, q: float) -> torch.Tensor:
@@ -520,11 +523,11 @@ def _quantized_raw_fn(folded: Folded, act_ranges: Dict[str, float],
         return input_conv(batch.float().contiguous(), w, b_, s_, t_, so_vec(name, dev), dtype,
                           blocked)
 
-    def conv(name, key, x, sv, w_hwio, bias, s, t, last: bool):
+    def conv(name, key, x, sv, w_hwio, bias, s, t, last: bool, **forms):
         """One conv block: the fp form when ``name`` is in fp_blocks (K5
         where its input is the network input), else the int8 conv with its
-        epilogue fused. ``w_hwio``/``bias``/``s``/``t`` are thunks
-        producing numpy arrays (built once)."""
+        epilogue fused, with K3's store ``forms``. ``w_hwio``/``bias``/``s``/
+        ``t`` are thunks producing numpy arrays (built once)."""
         if name in fp_blocks and sv is None and not last:
             return input_block(name, x, blocked=False)
         dev = x.device
@@ -541,10 +544,19 @@ def _quantized_raw_fn(folded: Folded, act_ranges: Dict[str, float],
         epi = cache.get((name, key + "epi"), dev, lambda: Epilogue(
             "relu_f32" if last else "relu_requant", vec(name, key + "ws", dev, lambda: wscale),
             b_, s_, t_, None if last else so_vec(name, dev)))
-        return int8_conv(x, op, epi)
+        return int8_conv(x, op, epi, **forms)
 
-    def conv_block(name, edge):
-        x, sv = edge
+    def edge(name, y):
+        """An int8 output of block ``name`` and its per-channel scales."""
+        return y, np.full(y.shape[-1], out_scale(name), np.float32)
+
+    def fuses(name, x, cout, mode, **forms):
+        """Whether block ``name`` runs its edge op as K3's store ``forms``:
+        an int8 block whose shapes the wrapper takes on ``x``'s device."""
+        return name not in fp_blocks and form_problem(x, cout, mode, **forms) is None
+
+    def conv_block(name, edge_in, **forms):
+        x, sv = edge_in
         if name == "head" and head_override is not None:
             return head_override(x, sv)
         p = folded[name]
@@ -553,14 +565,18 @@ def _quantized_raw_fn(folded: Folded, act_ranges: Dict[str, float],
             sv = np.full(p["w"].shape[-2], si, np.float32)
         last = name == "head"
         y = conv(name, "", x, sv, lambda: p["w"], lambda: p["b"],
-                 lambda: p["s"], lambda: p["t"], last)
-        return y if last else (y, np.full(p["w"].shape[-1], out_scale(name), np.float32))
+                 lambda: p["s"], lambda: p["t"], last, **forms)
+        if last:
+            return y
+        return (edge(name, y[0]), edge(name, y[1])) if forms.get("pool") else edge(name, y)
 
-    def deconv_block(name, edge, blocked_out=False):
+    def deconv_block(name, edge_in, blocked_out=False, out=None):
         """A 2x2/stride-2 deconv is a 1x1 conv to phase-major 4*cout
         channels plus depth-to-space (exact for int8 codes too); with
-        ``blocked_out`` the phase-major output is returned as it is."""
-        x, sv = edge
+        ``blocked_out`` the phase-major output is returned as it is. An int8
+        deconv stores the depth-to-space itself (K3's ``d2s`` form), into
+        ``out`` where given."""
+        x, sv = edge_in
         p = folded[name]
         w = p["w"]
         dev = x.device
@@ -571,27 +587,27 @@ def _quantized_raw_fn(folded: Folded, act_ranges: Dict[str, float],
             wt = cache.get((name, "wb"), dev, lambda: _oihw(
                 _block_weight_deconv(np.asarray(w, np.float32), deconv_impl), dev))
             y = emit(_conv_fp(xf, wt, dtype) * s4 + t4, name)
-        else:
-            # quantize the DENSE kernel first, then reorder its int8 codes
-            # (per-output-channel amax over all 2x2 taps, as the JAX engine)
-            def qb():
-                wq, wscale = quantize_weight(w, sv)
-                if deconv_impl != "pixel_shuffle":
-                    wscale = np.tile(wscale, 4)
-                return _block_weight_deconv(wq, deconv_impl), wscale
+            return edge(name, y if blocked_out else _d2s(y))
+        # quantize the DENSE kernel first, then reorder its int8 codes
+        # (per-output-channel amax over all 2x2 taps, as the JAX engine)
+        def qb():
+            wq, wscale = quantize_weight(w, sv)
+            if deconv_impl != "pixel_shuffle":
+                wscale = np.tile(wscale, 4)
+            return _block_weight_deconv(wq, deconv_impl), wscale
 
-            wqb, wscale = cache.get((name, "qb"), dev, qb)
-            op = cache.get((name, "op"), dev, lambda: Int8ConvWeights(wqb))
-            epi = cache.get((name, "epi"), dev, lambda: Epilogue(
-                "affine_requant", vec(name, "ws", dev, lambda: wscale), None, s4, t4,
-                so_vec(name, dev)))
-            y = int8_conv(x, op, epi)
-        if not blocked_out:
-            y = _d2s(y)  # the requantize is elementwise, so it commutes
-        return y, np.full(y.shape[-1], out_scale(name), np.float32)
+        wqb, wscale = cache.get((name, "qb"), dev, qb)
+        op = cache.get((name, "op"), dev, lambda: Int8ConvWeights(wqb))
+        epi = cache.get((name, "epi"), dev, lambda: Epilogue(
+            "affine_requant", vec(name, "ws", dev, lambda: wscale), None, s4, t4,
+            so_vec(name, dev)))
+        d2s = not blocked_out
+        if d2s and out is None and not fuses(name, x, op.cout, epi.mode, d2s=True):
+            return edge(name, _d2s(int8_conv(x, op, epi)))  # the requantize commutes
+        return edge(name, int8_conv(x, op, epi, out=out, d2s=d2s))
 
-    def pool(edge):
-        x, sv = edge
+    def pool(edge_in):
+        x, sv = edge_in
         return _maxpool(x), sv  # quantization is monotone: pool commutes
 
     def concat(a, b):
@@ -600,33 +616,93 @@ def _quantized_raw_fn(folded: Folded, act_ranges: Dict[str, float],
         # absorb the concatenated per-channel scale vector
         return torch.cat([xa, xb], dim=-1), np.concatenate([sa, sb])
 
+    def skip_and_pool(name, edge_in, up):
+        """The last block of an encoder level: returns the skip of the
+        concat (skip, ``up``'s output) as ``(y, scales, buffer)`` and the
+        2x2 max of ``y``, the next level's input. An int8 block stores its
+        codes into channels [0, Ca) of the concat buffer [B, H, W, Ca + Cb]
+        and their max beside them in one K3 launch; the deconv ``up`` fills
+        channels [Ca, Ca + Cb) later (:func:`up_concat`)."""
+        x = edge_in[0]
+        ca, cb = folded[name]["w"].shape[-1], folded[up]["s"].shape[0]
+        if not fuses(name, x, ca, "relu_requant", ctot=ca + cb, pool="spatial"):
+            y = conv_block(name, edge_in)
+            return (*y, None), pool(y)
+        buf = x.new_empty((*x.shape[:3], ca + cb))
+        y, pooled = conv_block(name, edge_in, out=buf[..., :ca], pool="spatial")
+        return (*y, buf), pooled
+
+    def up_concat(name, edge_in, skip, blocked_out=False):
+        """The deconv ``name`` and the concat (skip, its output): an int8
+        deconv stores into the skip's concat buffer, where its producer made
+        one; an fp deconv's output is copied there; without a buffer the
+        two are concatenated."""
+        y, sa, buf = skip
+        if buf is None:
+            return concat((y, sa), deconv_block(name, edge_in, blocked_out))
+        ca = y.shape[-1]
+        if fuses(name, edge_in[0], 4 * folded[name]["s"].shape[0], "affine_requant",
+                 ctot=buf.shape[-1], d2s=not blocked_out):
+            _, sb = deconv_block(name, edge_in, blocked_out, out=buf[..., ca:])
+        else:
+            up_y, sb = deconv_block(name, edge_in, blocked_out)
+            buf[..., ca:].copy_(up_y)
+        return buf, np.concatenate([sa, sb])
+
+    def pair(name, x):
+        return conv_block(f"{name}b", conv_block(f"{name}a", x))
+
     if not blocked_edges:
         def logits_fn(batch):
-            return _unet_walk((batch, None), conv_block, deconv_block, pool, concat)
+            """The reference graph (``_unet_walk``'s topology) with each
+            skip's concat buffer made by its producer."""
+            x, skips = (batch, None), []
+            for k in range(1, 5):
+                skip, x = skip_and_pool(f"enc{k}b", conv_block(f"enc{k}a", x), f"dec{k}up")
+                skips.append(skip)
+            x = pair("bottleneck", x)
+            for k in range(4, 0, -1):
+                x = pair(f"dec{k}", up_concat(f"dec{k}up", x, skips[k - 1]))
+            return conv_block("head", x)
         return logits_fn
 
     # ---- blocked-edge walk: the C=64 stages run on dense (H/2, W/2, 4C)
     # tensors, the pyramid middle (enc2 .. dec2) runs the plain closures ----
 
-    def blocked_conv_block(name, edge, cin_groups):
-        x, sv = edge
+    def blocked_conv_block(name, edge_in, cin_groups, **forms):
+        x, sv = edge_in
         p = folded[name]
         last = name == "head"
         y = conv(name, "blk", x, sv, lambda: _block_weight(p["w"], cin_groups),
                  lambda: np.tile(p["b"], 4), lambda: np.tile(p["s"], 4),
-                 lambda: np.tile(p["t"], 4), last)
+                 lambda: np.tile(p["t"], 4), last, **forms)
         if last:
             return y  # blocked logits
-        return y, np.full(4 * p["w"].shape[-1], out_scale(name), np.float32)
+        return (edge(name, y[0]), edge(name, y[1])) if forms.get("pool") else edge(name, y)
 
-    def phase_max(edge):
+    def phase_max(edge_in):
         """pool1 on the blocked layout: max over the 4 phases per blocked
         pixel — exactly maxpool 2x2/2 (every phase shares the scale)."""
-        x, sv = edge
+        x, sv = edge_in
         c = x.shape[-1] // 4
         y = torch.maximum(torch.maximum(x[..., :c], x[..., c:2 * c]),
                           torch.maximum(x[..., 2 * c:3 * c], x[..., 3 * c:]))
         return y, sv[:c]
+
+    def blocked_enc1(enc1a, f):
+        """enc1b on the blocked layout, the skip of dec1a's concat, and its
+        phase max: an int8 enc1b stores into channels [0, 4F) of the
+        [B, H/2, W/2, 8F] buffer whose channels [4F, 8F) the blocked dec1up
+        fills, and stores the phase max beside them (its N tile covers
+        the 4F channels)."""
+        x = enc1a[0]
+        if not fuses("enc1b", x, 4 * f, "relu_requant", ctot=8 * f, pool="phase"):
+            enc1 = blocked_conv_block("enc1b", enc1a, (f,))
+            return (*enc1, None), phase_max(enc1)
+        buf = x.new_empty((*x.shape[:3], 8 * f))
+        enc1, pooled = blocked_conv_block("enc1b", enc1a, (f,), out=buf[..., :4 * f],
+                                          pool="phase")
+        return (*enc1, buf), pooled
 
     def blocked_logits_fn(batch):
         nc = batch.shape[-1]
@@ -638,22 +714,16 @@ def _quantized_raw_fn(folded: Folded, act_ranges: Dict[str, float],
             q, si = quantize_input(batch)
             enc1a = blocked_conv_block(
                 "enc1a", (_s2d(q), np.full(4 * nc, si, np.float32)), (nc,))
-        enc1 = blocked_conv_block("enc1b", enc1a, (f,))
-        x = phase_max(enc1)
-
-        def pair(name, x):
-            return conv_block(f"{name}b", conv_block(f"{name}a", x))
-
-        enc2 = pair("enc2", x)
-        enc3 = pair("enc3", pool(enc2))
-        enc4 = pair("enc4", pool(enc3))
-        bott = pair("bottleneck", pool(enc4))
-        dec4 = pair("dec4", concat(enc4, deconv_block("dec4up", bott)))
-        dec3 = pair("dec3", concat(enc3, deconv_block("dec3up", dec4)))
-        dec2 = pair("dec2", concat(enc2, deconv_block("dec2up", dec3)))
-        up1 = deconv_block("dec1up", dec2, blocked_out=True)  # dense H/2 -> blocked
-        cat = (torch.cat([enc1[0], up1[0]], dim=-1),
-               np.concatenate([enc1[1], up1[1]]))
+        skip1, x = blocked_enc1(enc1a, f)
+        skips = [skip1]
+        for k in range(2, 5):
+            skip, x = skip_and_pool(f"enc{k}b", conv_block(f"enc{k}a", x), f"dec{k}up")
+            skips.append(skip)
+        x = pair("bottleneck", x)
+        for k in range(4, 1, -1):
+            x = pair(f"dec{k}", up_concat(f"dec{k}up", x, skips[k - 1]))
+        # dense H/2 -> blocked, into dec1a's concat buffer
+        cat = up_concat("dec1up", x, skip1, blocked_out=True)
         d1 = blocked_conv_block(
             "dec1b", blocked_conv_block("dec1a", cat, (f, f)), (f,))
         if head_override is not None:

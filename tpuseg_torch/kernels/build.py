@@ -54,8 +54,8 @@ SOURCES = {
         "tpuseg_cuda_error_string": (ctypes.c_char_p, [_I]),
     }),
     "int8_conv": ("int8_conv.cu", {
-        "tpuseg_int8_conv": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                                  _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+        "tpuseg_int8_conv": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _P, _P,
+                                  _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
         "tpuseg_int8_conv_smem_bytes": (_I, [_I, _I]),
         "tpuseg_cuda_error_string": (ctypes.c_char_p, [_I]),
     }),
