@@ -383,9 +383,10 @@ def kernel_label(mangled: str) -> str:
     m = re.search(r"int8_conv_kernelILi(\d)ELb(\d)E", mangled)
     if m:
         return f"int8_conv_kernel<mode={m.group(1)},aligned={m.group(2)}>"
-    m = re.search(r"int8_conv_wgmma_kernelILi(\d)ELi(\d+)E", mangled)
+    m = re.search(r"int8_conv_wgmma_kernelILi(\d)ELi(\d+)ELb(\d)E", mangled)
     if m:
-        return f"int8_conv_wgmma_kernel<mode={m.group(1)},bn={m.group(2)}>"
+        return (f"int8_conv_wgmma_kernel<mode={m.group(1)},bn={m.group(2)},"
+                f"looped={m.group(3)}>")
     m = re.search(r"input_conv_kernelILb(\d)ELb(\d)ELb(\d)ELb(\d)E", mangled)
     if m:
         return (f"input_conv_kernel<bf16={m.group(1)},blocked={m.group(2)},c1={m.group(3)},"
@@ -756,8 +757,10 @@ def k3_form_block(name: str, x, op, epi, form: dict, seed: int, dev) -> dict:
     codes; the buffer and the pooled codes ``torch.equal``), then in turns
     with the L2 flushed (CUDA events around each call): the fused call, the
     old K3 call plus the eager op it replaces (:func:`k3_eager_edge`), the
-    eager op alone, the plain version's forms, and for a 2x2 pool the old
-    call at the pooled patch width (64) beside the cost model's (128)."""
+    eager op alone, the plain version's forms, for a 2x2 pool the old call
+    at the pooled patch width (64) beside the cost model's (128), and for a
+    phase max the call at N tile 256 (one tile for the four phases, checked
+    equal) beside the rule's width."""
     import torch
 
     from tpuseg_torch.infer import int8_conv as k3
@@ -788,6 +791,11 @@ def k3_form_block(name: str, x, op, epi, form: dict, seed: int, dev) -> dict:
                              f"version's (buffer max abs err {err})")
     if pool:
         err = max(err, (got_pool.float() - want_pool.float()).abs().max().item())
+    if pool == "phase":
+        buf_wide = torch.zeros_like(buf)
+        buf_wide[..., :off] = buf[..., :off]
+        buf_wide[..., off + c:] = buf[..., off + c:]
+        buf_check, pooled_check = buf.clone(), got_pool.clone()
     del got, want, got_pool, want_pool, buf_plain, out_plain
     y = k3.int8_conv(x, op, epi)
     fns = {"fused": (lambda: k3.int8_conv(x, op, epi, out=out, d2s=d2s, pool=pool), 5),
@@ -796,6 +804,15 @@ def k3_form_block(name: str, x, op, epi, form: dict, seed: int, dev) -> dict:
            "plain": (lambda: k3._int8_conv_plain(x, op, epi, out, d2s, pool), 1)}
     if pool == "spatial":
         fns["unfused_k3_bw64"] = (lambda: k3._launch(x, op, epi, bw=64), 5)
+    if pool == "phase":  # the other width that takes it: all four phases in one tile
+        wide = k3._launch(x, op, epi, out=buf_wide[..., off:off + c], pool=pool, bn=256)[1]
+        torch.cuda.synchronize()
+        if not torch.equal(buf_wide, buf_check) or not torch.equal(wide, pooled_check):
+            raise AssertionError(f"K3 {name}: the phase max at N tile 256 differs from the "
+                                 "rule's width")
+        del wide, buf_check, pooled_check
+        fns["fused_bn256"] = (lambda: k3._launch(x, op, epi, out=buf_wide[..., off:off + c],
+                                                 pool=pool, bn=256), 5)
     runs = {n: [] for n in fns}
     for order in (list(fns), list(fns)[::-1]):
         for n in order:
@@ -808,6 +825,7 @@ def k3_form_block(name: str, x, op, epi, form: dict, seed: int, dev) -> dict:
             "unfused_ms": ms["unfused"], "unfused_ms_runs": runs["unfused"],
             "edge_ms": ms["edge"], "plain_form_ms": ms["plain"],
             "unfused_k3_bw64_ms": ms.get("unfused_k3_bw64"),
+            "fused_bn256_ms": ms.get("fused_bn256"),
             "pooled_bytes": b * h * w * op.cout // 4 if pool else 0}
 
 
@@ -871,11 +889,12 @@ def k3_inputs(name: str, shape, k: int, cout: int, mode: str, seed: int, dev):
 
 def k3_build_report() -> dict:
     """Registers and spills (ptxas) and dynamic shared memory of every K3
-    kernel variant."""
+    kernel variant; a spill fails (spilled sums or epilogue state slow
+    every block that takes the variant)."""
     from tpuseg_torch.kernels.build import load
 
     lib = load("int8_conv")
-    report = build_report("int8_conv", "int8_conv_", spill_fails=False)
+    report = build_report("int8_conv", "int8_conv_", spill_fails=True)
     for label, r in report.items():
         m = re.search(r"bn=(\d+)", label)
         r["smem_bytes"] = lib.tpuseg_int8_conv_smem_bytes(1, int(m.group(1))) if m \
@@ -992,7 +1011,9 @@ def phase_int8_conv(seed: int, dev) -> dict:
                 f"{r['walk_bound_ms']:.3f}), old call + eager op {r['unfused_ms']:.3f} (the op "
                 f"alone {r['edge_ms']:.3f})"
                 + (f", old call at bw 64 {r['unfused_k3_bw64_ms']:.3f}"
-                   if r["unfused_k3_bw64_ms"] else "") + f"; plain {r['plain_form_ms']:.3f}")
+                   if r["unfused_k3_bw64_ms"] else "")
+                + (f", fused at bn 256 {r['fused_bn256_ms']:.3f}" if r["fused_bn256_ms"] else "")
+                + f"; plain {r['plain_form_ms']:.3f}")
         out["dense_form_blocks" if name.startswith("dense_") else "blocks"].append(r)
         log(f"K3 {name:<11} {shape} {k}x{k} -> {cout:<4} {mode}: both routes bit-equal, "
             f"{codes} codes, {clipped:.2%} clipped; wgmma bn {bn} bw {r['bw']} "
@@ -4316,7 +4337,7 @@ def main() -> int:
                                           "bound_ms", "bound_by", "bound_dense_ms", "codes",
                                           "form", "fused_bn", "fused_bw", "fused_ms",
                                           "unfused_ms", "edge_ms", "unfused_k3_bw64_ms",
-                                          "walk_bound_ms")}
+                                          "fused_bn256_ms", "walk_bound_ms")}
                    for r in k3["blocks"]],
     }, {
         "name": "input_conv", "route": "cuda",

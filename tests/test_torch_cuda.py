@@ -511,15 +511,28 @@ def test_int8_conv_d2s_store(cuda, cin, c, bw, bn):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("bn", [64, 256])
 @pytest.mark.parametrize("bw", [16, 32, 64, 128])
 @pytest.mark.parametrize("h, w", [(13, 100), (32, 48)])
-def test_int8_conv_phase_pool_store_blocked_enc1b(cuda, h, w, bw):
+def test_int8_conv_phase_pool_store_blocked_enc1b(cuda, h, w, bw, bn):
     """The blocked enc1b: blocked weights (3/4 structural zeros), codes into
     channels [0, 256) of dec1a's 512-wide buffer and the max over the four
-    phase groups beside them, in one N tile of 256 (the rule's width)."""
+    phase groups beside them: 4 N tiles of 64, one phase each, in one block
+    (the rule's width), and one N tile of 256."""
     x, op, epi = _k3_blocked_inputs((64,), 2, h, w, "relu_requant", h + bw, cuda)
-    assert k3.n_tile_width("wgmma", 256, op.kernel(cuda).host_counts, "phase") == 256
-    _k3_form_check(cuda, x, op, epi, (0, 256), False, "phase", bw, bw=bw)
+    assert k3.n_tile_width("wgmma", 256, op.kernel(cuda).host_counts, "phase") == 64
+    _k3_form_check(cuda, x, op, epi, (0, 256), False, "phase", bw, bw=bw, bn=bn)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["relu_requant", "affine_requant"])
+@pytest.mark.parametrize("h, w", [(11, 37), (16, 130)])
+def test_int8_conv_phase_pool_store_one_phase_a_tile(cuda, h, w, mode):
+    """Dense codes (every K-step in every tile) with a phase max over 4 N
+    tiles of 64, one phase each, without ``out``; H and W ragged against
+    the patch."""
+    x, op, epi = _k3_inputs(48, 256, 3, 2, h, w, mode, h + w, cuda)
+    _k3_form_check(cuda, x, op, epi, None, False, "phase", h, bn=64)
 
 
 @pytest.mark.cuda
@@ -547,12 +560,12 @@ def test_int8_conv_concat_store(cuda, around, bn, mode):
 def test_int8_conv_forms_refused_on_the_card(cuda):
     """What the kernel does not store raises on a CUDA tensor and launches
     nothing: the mma route (Cin % 16), 16-byte segments (Cout, the buffer,
-    a phase), a misaligned ``out``, a phase max wider than an N tile, a
+    a phase), a misaligned ``out``, a phase max that no N tile takes, a
     spatial pool on 128 x 1 patches, the f32 mode."""
     x, op, epi = _k3_inputs(64, 64, 3, 1, 8, 8, "relu_requant", 0, cuda)
     x4, op4, epi4 = _k3_inputs(4, 64, 3, 1, 8, 8, "relu_requant", 1, cuda)
     x24, op24, epi24 = _k3_inputs(64, 24, 3, 1, 8, 8, "relu_requant", 2, cuda)
-    x512, op512, epi512 = _k3_inputs(64, 512, 1, 1, 8, 8, "relu_requant", 3, cuda)
+    x1024, op1024, epi1024 = _k3_inputs(64, 1024, 1, 1, 8, 8, "relu_requant", 3, cuda)
     buf = torch.zeros((1, 8, 8, 128), dtype=torch.int8, device=cuda)
     f32 = k3.Epilogue("relu_f32", epi.ws, epi.b, epi.s, epi.t, None)
     before = k3.LAUNCHES
@@ -568,7 +581,7 @@ def test_int8_conv_forms_refused_on_the_card(cuda):
     with pytest.raises(ValueError, match="aligned"):
         k3.int8_conv(x, op, epi, out=buf[..., 8:72])
     with pytest.raises(ValueError, match="N tile"):
-        k3.int8_conv(x512, op512, epi512, pool="phase")
+        k3.int8_conv(x1024, op1024, epi1024, pool="phase")
     with pytest.raises(ValueError, match="N tile"):
         k3._launch(x, k3.Int8ConvWeights(np.zeros((3, 3, 64, 256), np.int8)),
                    _k3_inputs(64, 256, 3, 1, 8, 8, "relu_requant", 4, cuda)[2], bn=128,

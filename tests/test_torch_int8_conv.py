@@ -477,6 +477,8 @@ FORM_CASES = [
     ("skip_pool_64", "conv", None, 64, 64, 16, 32, (0, 32), False, "spatial"),
     ("blocked_skip_phase", "conv", None, 10, 18, 16, 64, (0, 64), False, "phase"),
     ("blocked_skip_phase_base4", "conv", None, 12, 8, 16, 16, (0, 16), False, "phase"),
+    ("blocked_skip_phase_f64", "conv", None, 6, 10, 16, 256, (0, 256), False, "phase"),
+    ("phase_f64_alone", "conv", None, 3, 5, 16, 256, None, False, "phase"),
     ("pool_alone", "conv", None, 6, 34, 16, 32, None, False, "spatial"),
     ("phase_alone", "conv", None, 7, 9, 16, 64, None, False, "phase"),
     ("up_d2s", "deconv", "conv_transpose", 7, 11, 32, 64, (16, 0), True, None),
@@ -541,7 +543,9 @@ def _store_model(y, bn, bw, ostride, d2s, pool, rng):
     kernel's loops over 16-byte segments with its index arithmetic and
     masks: the full-resolution store (row stride ``ostride``, depth-to-space
     with ``d2s``) into a buffer of sentinels (int16 999), and the pooled
-    store from the same tile. Returns ``(out, pooled)``."""
+    store from the same tile; a phase max over 4 N tiles of one phase each
+    (``cout == 4 * bn``) as the running max of the block's 4 tiles.
+    Returns ``(out, pooled)``."""
     b, h, w, cout = y.shape
     bh = 128 // bw
     lg = bw.bit_length() - 1
@@ -552,9 +556,11 @@ def _store_model(y, bn, bw, ostride, d2s, pool, rng):
     pooled = None if pool is None else np.full(
         (b, h // 2, w // 2, cout) if pool == "spatial" else (b, h, w, f), 999, np.int16)
     yn = y.numpy().astype(np.int16)
+    looped = pool == "phase" and cout == 4 * bn
     for img in range(b):
         for y0 in range(0, -(-h // bh) * bh, bh):
             for x0 in range(0, -(-w // bw) * bw, bw):
+                running = np.full((128, bn), -128, np.int16)
                 for n0 in range(0, cout, bn):
                     tile = rng.integers(-127, 128, (128, bn)).astype(np.int16)
                     r = np.arange(128)
@@ -586,6 +592,16 @@ def _store_model(y, bn, bw, ostride, d2s, pool, rng):
                             pooled[img, yy, xx, n + k] = np.maximum.reduce([
                                 tile[r00, col + k], tile[r00 + 1, col + k],
                                 tile[r00 + bw, col + k], tile[r00 + bw + 1, col + k]])
+                    elif looped:
+                        running = np.maximum(running, tile)
+                        if n0 + bn == cout:
+                            c = np.arange(128 * chunks)
+                            rr, col = c // chunks, (c % chunks) * 16
+                            py, px = y0 + (rr >> lg), x0 + (rr & (bw - 1))
+                            m = (py < h) & (px < w)
+                            rr, col, py, px = (a[m] for a in (rr, col, py, px))
+                            for k in range(16):
+                                pooled[img, py, px, col + k] = running[rr, col + k]
                     elif pool == "phase":
                         assert n0 == 0 and cout <= bn
                         c = np.arange(128 * (f // 16))
@@ -604,7 +620,8 @@ def _store_model(y, bn, bw, ostride, d2s, pool, rng):
 def test_kernel_store_model_equals_the_eager_composition(case):
     """The kernel's store stage, modelled in numpy, at every N-tile width
     and patch width the rules allow for the form (a spatial pool: bw <=
-    64; a phase max: an N tile covering Cout): the buffer's other channels
+    64; a phase max: an N tile covering Cout, or 4 N tiles of one phase
+    each): the buffer's other channels
     keep their sentinel, every written code and pooled code bit-equal to
     the composition. The forms' channel counts are multiples of 16, as
     :func:`form_problem` asks on a card (the base-4 cases' are not)."""
@@ -619,7 +636,7 @@ def test_kernel_store_model_equals_the_eager_composition(case):
     ostride = want.shape[-1]
     rng = np.random.default_rng(1)
     bws = k3._POOL_PATCH_WIDTHS if pool == "spatial" else k3.PATCH_WIDTHS
-    bns = [bn for bn in k3.N_TILES if pool != "phase" or bn >= cout]
+    bns = [bn for bn in k3.N_TILES if pool != "phase" or k3._phase_width(bn, cout)]
     assert bws and bns
     for bw in bws:
         for bn in bns:
@@ -661,9 +678,11 @@ def test_form_rules():
     assert "buffer width 40" in fp(x(16), 16, "relu_requant", ctot=40)
     assert "phase's width 24" in fp(x(16), 96, "affine_requant", d2s=True)
     assert "phase's width 8" in fp(x(16), 32, "relu_requant", pool="phase")
-    assert "N tile" in fp(x(16), 512, "relu_requant", pool="phase")
+    assert "N tile" in fp(x(16), 1024, "relu_requant", pool="phase")
     assert "N tile" in fp(x(16), 256, "relu_requant", pool="phase", bn=128)
     assert fp(x(16), 256, "relu_requant", pool="phase", bn=256) is None
+    assert fp(x(16), 256, "relu_requant", pool="phase", bn=64) is None  # a phase a tile
+    assert "N tile" in fp(x(16), 512, "relu_requant", pool="phase")  # F 128
     assert "even row count" in fp(x(16), 64, "relu_requant", pool="spatial", bw=128)
     assert "wgmma" in fp(x(64), 64, "relu_requant", pool="spatial", route="mma")
     # the served pool blocks: 512^2 .. 128^2 levels take 64-wide patches
@@ -675,7 +694,11 @@ def test_form_rules():
     assert k3.patch_width(13, 100, "phase") == 128
     blocked = {64: np.full(4, 9), 128: np.full(2, 12), 256: np.full(1, 16)}
     assert k3.n_tile_width("wgmma", 256, blocked) == 64
-    assert k3.n_tile_width("wgmma", 256, blocked, "phase") == 256
+    # the blocked enc1b: 4 tiles of one phase each, which skip 3/4 of their
+    # K-steps, cost less than one 256-wide tile
+    assert k3.n_tile_width("wgmma", 256, blocked, "phase") == 64
+    assert [bn for bn in k3.N_TILES if k3._phase_width(bn, 256)] == [64, 256]
+    assert [bn for bn in k3.N_TILES if k3._phase_width(bn, 64)] == [64, 128, 256]
     assert k3.n_tile_width("wgmma", 64, blocked, "phase") == 64
     assert k3.n_tile_width("wgmma", 256, blocked, "spatial") == 64
     assert k3.n_tile_width("mma", 256, blocked, "phase") == 128

@@ -83,9 +83,14 @@
 //     each window (even H and W, patches of even height, bw <= 64; a window of
 //     a 64-wide patch straddles the two warpgroups' rows, so both wait on one
 //     barrier first), into [B, H/2, W/2, Cout]; "phase", the max over the four
-//     phase groups n = phase*F + c of each pixel's channels (the whole Cout =
-//     4F in one N tile), into [B, H, W, F]. Max over int8 codes is exact and
-//     the phases share one scale, so both equal the max taken after the store.
+//     phase groups n = phase*F + c of each pixel's channels, into [B, H, W,
+//     F]: from the shared tile where one N tile holds Cout = 4F, or, where
+//     each of the 4 N tiles is one phase (F = BN = 64: the blocked enc1b,
+//     whose tiles then skip 3/4 of their K-steps, as the 256-wide tile
+//     cannot), one block computes the 4 tiles in turn on one TMA ring and
+//     keeps a running max of its codes in registers. Max over int8 codes is
+//     exact and the phases share one scale, so both equal the max taken
+//     after the store.
 //   The pooled bytes are a quarter of the full-resolution ones; the separate
 //   passes read the full-resolution codes back and wrote them again.
 //
@@ -632,7 +637,10 @@ __device__ __forceinline__ uint4 vmax16(uint4 a, uint4 b) {
                     __vmaxs4(a.w, b.w));
 }
 
-template <int MODE, int BN>
+// LOOPED: the block computes every N tile of its patch in turn (a phase max
+// whose 4 phases are one N tile each); its own instances, so the others keep
+// their registers
+template <int MODE, int BN, bool LOOPED>
 __global__ void __launch_bounds__(kWgThreads, WgCfg<BN>::kMinBlocks)
     int8_conv_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
                            const __grid_constant__ CUtensorMap wmap, const WParams p) {
@@ -643,16 +651,19 @@ __global__ void __launch_bounds__(kWgThreads, WgCfg<BN>::kMinBlocks)
   const uint32_t full0 = out_tile + Cfg::kOutBytes;  // full[s] at full0 + 8s
   const uint32_t empty0 = full0 + 8 * Cfg::kStages;
   const int tid = threadIdx.x;
-  const int nt = (int)(blockIdx.x % (unsigned)p.n_tiles);
-  int mt = (int)(blockIdx.x / (unsigned)p.n_tiles);
+  // A block computes kTiles consecutive N tiles of one patch (the looped
+  // phase max: its 4 phases; a constant, so that the other instances are
+  // the straight-line kernel)
+  constexpr int kTiles = LOOPED ? 4 : 1;
+  const int groups = p.n_tiles / kTiles;
+  const int nt0 = (int)(blockIdx.x % (unsigned)groups) * kTiles;
+  int mt = (int)(blockIdx.x / (unsigned)groups);
   const int tx = mt % p.tiles_x;
   mt /= p.tiles_x;
   const int ty = mt % p.tiles_y;
   const int img = mt / p.tiles_y;
   const int x0 = tx << p.bw_log2;
   const int y0 = ty * (kBM >> p.bw_log2);
-  const int n0 = nt * BN;
-  const int count = __ldg(p.counts + nt);
 
   if (tid == 0) {
     for (int s = 0; s < Cfg::kStages; ++s) {
@@ -665,168 +676,233 @@ __global__ void __launch_bounds__(kWgThreads, WgCfg<BN>::kMinBlocks)
 
   if (tid >= 256) {  // the producer warp: one thread issues every load
     if (tid == 256) {
-      const int* list = p.steps + (long long)nt * p.list_stride;
-      for (int i = 0; i < count; ++i) {
-        const int slot = i % Cfg::kStages;
-        // a fresh barrier's phase "before 0" counts as complete: the first
-        // round finds every stage free
-        mbar_wait(empty0 + 8 * slot, ((i / Cfg::kStages) & 1) ^ 1);
-        const int step = __ldg(list + i);
-        const int tap = step / p.steps_per_tap;
-        const int c0 = (step - tap * p.steps_per_tap) * kBK;
-        const int ky = tap / p.kw;
-        const int dy = ky - p.kh / 2;
-        const int dx = tap - ky * p.kw - p.kw / 2;
-        const uint32_t a = base + slot * Cfg::kStageBytes;
-        const uint32_t bar = full0 + 8 * slot;
-        mbar_expect_tx(bar, Cfg::kStageBytes);  // zero-filled bytes count too
-        tma_load_4d(a, &xmap, bar, c0, x0 + dx, y0 + dy, img);
-        tma_load_2d(a + Cfg::kABytes, &wmap, bar, step * kBK, n0);
+      int g = 0;  // K-steps issued by this block, over its N tiles
+      for (int k = 0; k < kTiles; ++k) {
+        const int nt = nt0 + k;
+        const int* list = p.steps + (long long)nt * p.list_stride;
+        const int count = __ldg(p.counts + nt);
+        for (int i = 0; i < count; ++i, ++g) {
+          const int slot = g % Cfg::kStages;
+          // a fresh barrier's phase "before 0" counts as complete: the first
+          // round finds every stage free
+          mbar_wait(empty0 + 8 * slot, ((g / Cfg::kStages) & 1) ^ 1);
+          const int step = __ldg(list + i);
+          const int tap = step / p.steps_per_tap;
+          const int c0 = (step - tap * p.steps_per_tap) * kBK;
+          const int ky = tap / p.kw;
+          const int dy = ky - p.kh / 2;
+          const int dx = tap - ky * p.kw - p.kw / 2;
+          const uint32_t a = base + slot * Cfg::kStageBytes;
+          const uint32_t bar = full0 + 8 * slot;
+          mbar_expect_tx(bar, Cfg::kStageBytes);  // zero-filled bytes count too
+          tma_load_4d(a, &xmap, bar, c0, x0 + dx, y0 + dy, img);
+          tma_load_2d(a + Cfg::kABytes, &wmap, bar, step * kBK, nt * BN);
+        }
       }
     }
     return;
   }
 
-  // consumer warpgroup wg: patch rows 64 * wg .. 64 * wg + 63
+  // consumer warpgroup wg: patch rows 64 * wg .. 64 * wg + 63 (the
+  // epilogue's indices are computed after the products, whose sums hold the
+  // registers)
   const int wg = tid >> 7;
-  int acc[BN / 2];
+  // the looped phase max: each thread's running max of its codes over the
+  // block's N tiles (one phase each), four codes a word: columns 2q, 2q + 1
+  // of rows g and g + 8 of each 8-column group
+  uint32_t pmax[LOOPED ? BN / 8 : 1];
 #pragma unroll
-  for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
-  for (int i = 0; i < count; ++i) {
-    const int slot = i % Cfg::kStages;
-    mbar_wait(full0 + 8 * slot, (i / Cfg::kStages) & 1);
-    const uint32_t a = base + slot * Cfg::kStageBytes + wg * (64 * kBK);
-    const uint32_t b = base + slot * Cfg::kStageBytes + Cfg::kABytes;
-    wgmma_fence();
-    wgmma_k32<BN>(acc, smem_desc(a), smem_desc(b));
-    wgmma_k32<BN>(acc, smem_desc(a + 32), smem_desc(b + 32));
-    wgmma_commit();
-    wgmma_wait<1>();  // step i - 1's products are done: its stage has been read
-    if (i > 0 && (tid & 127) == 0) mbar_arrive(empty0 + 8 * ((i - 1) % Cfg::kStages));
-  }
-  wgmma_wait<0>();
-  fence_regs<BN / 2>(acc);
-
-  const int t = tid & 127;
-  const int lane = t & 31;
-  if constexpr (MODE == kReluF32) {
-    // the f32 head (off the served path): straight from the registers
-    long long off[2];
-    bool ok[2];
+  for (int j = 0; j < (LOOPED ? BN / 8 : 1); ++j) pmax[j] = 0x80808080u;
+  int g0 = 0;  // K-steps this block consumed for its earlier N tiles
+  for (int k = 0; k < kTiles; ++k) {
+    const int nt = nt0 + k;
+    const int n0 = nt * BN;
+    const int count = __ldg(p.counts + nt);
+    int acc[BN / 2];
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = wg * 64 + (t >> 5) * 16 + (lane >> 2) + 8 * i;  // row of the patch
-      const int y = y0 + (r >> p.bw_log2);
-      const int x = x0 + (r & ((1 << p.bw_log2) - 1));
-      ok[i] = y < p.h && x < p.w_;
-      off[i] = (((long long)img * p.h + y) * p.w_ + x) * p.e.cout;
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
+    for (int i = 0; i < count; ++i) {
+      const int g = g0 + i;
+      const int slot = g % Cfg::kStages;
+      mbar_wait(full0 + 8 * slot, (g / Cfg::kStages) & 1);
+      const uint32_t a = base + slot * Cfg::kStageBytes + wg * (64 * kBK);
+      const uint32_t b = base + slot * Cfg::kStageBytes + Cfg::kABytes;
+      wgmma_fence();
+      wgmma_k32<BN>(acc, smem_desc(a), smem_desc(b));
+      wgmma_k32<BN>(acc, smem_desc(a + 32), smem_desc(b + 32));
+      wgmma_commit();
+      wgmma_wait<1>();  // step g - 1's products are done: its stage has been read
+      if (i > 0 && (tid & 127) == 0) mbar_arrive(empty0 + 8 * ((g - 1) % Cfg::kStages));
     }
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-      const int n = n0 + j * 8 + (lane & 3) * 2;
-      if (n >= p.e.cout) continue;
-      const bool two = n + 1 < p.e.cout;
-      const ChanPair c = chan_pair<MODE>(p.e, n, two ? n + 1 : n);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        if (ok[i])
-          store_pair<MODE>(p.e, c, off[i] + n, two, acc[4 * j + 2 * i],
-                           acc[4 * j + 2 * i + 1], 1.0f);
+    wgmma_wait<0>();
+    fence_regs<BN / 2>(acc);
+    g0 += count;
+    if constexpr (LOOPED) {  // the tile's last stage goes back: the next N tile reuses the ring
+      if (count > 0 && (tid & 127) == 0) mbar_arrive(empty0 + 8 * ((g0 - 1) % Cfg::kStages));
     }
-  } else {
-    // int8 codes: into the warpgroup's 64 rows of the shared output tile,
-    // then out as 16-byte row segments, consecutive threads on consecutive
-    // bytes of a pixel's channels
-    const float so = __ldg(p.e.so);
+    const int t = tid & 127;
+    const int lane = t & 31;
     const uint32_t rows = out_tile + wg * 64 * Cfg::kOutStride;
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-      const int col = j * 8 + (lane & 3) * 2;
-      const int n = n0 + col;
-      if (n >= p.e.cout) continue;
-      const bool two = n + 1 < p.e.cout;
-      const ChanPair c = chan_pair<MODE>(p.e, n, two ? n + 1 : n);
+
+    if constexpr (MODE == kReluF32) {
+      // the f32 head (off the served path): straight from the registers
+      long long off[2];
+      bool ok[2];
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
-        const int q0 = requant(affine<MODE>(acc[4 * j + 2 * i], c.ws0, c.b0, c.s0, c.t0), so);
-        const int q1 =
-            requant(affine<MODE>(acc[4 * j + 2 * i + 1], c.ws1, c.b1, c.s1, c.t1), so);
-        const int rr = (t >> 5) * 16 + (lane >> 2) + 8 * i;
-        const uint16_t v = (uint16_t)((uint8_t)(int8_t)q0 | ((uint16_t)(uint8_t)(int8_t)q1 << 8));
-        asm volatile("st.shared.u16 [%0], %1;\n" ::"r"(rows + rr * Cfg::kOutStride + col),
-                     "h"(v)
-                     : "memory");
+        const int r = wg * 64 + (t >> 5) * 16 + (lane >> 2) + 8 * i;  // row of the patch
+        const int y = y0 + (r >> p.bw_log2);
+        const int x = x0 + (r & ((1 << p.bw_log2) - 1));
+        ok[i] = y < p.h && x < p.w_;
+        off[i] = (((long long)img * p.h + y) * p.w_ + x) * p.e.cout;
       }
-    }
-    if (p.pool == kPoolNone) {
-      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");  // this warpgroup only
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int n = n0 + j * 8 + (lane & 3) * 2;
+        if (n >= p.e.cout) continue;
+        const bool two = n + 1 < p.e.cout;
+        const ChanPair c = chan_pair<MODE>(p.e, n, two ? n + 1 : n);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          if (ok[i])
+            store_pair<MODE>(p.e, c, off[i] + n, two, acc[4 * j + 2 * i],
+                             acc[4 * j + 2 * i + 1], 1.0f);
+      }
     } else {
-      asm volatile("bar.sync 3, 256;\n" ::: "memory");  // the pooled reads cross warpgroups
-    }
-    constexpr int kChunks = BN / 16;
-    const bool vec = (p.e.cout & 15) == 0 && (p.ostride & 15) == 0;
-    int8_t* out = static_cast<int8_t*>(p.e.out);
-    for (int c = t; c < 64 * kChunks; c += 128) {
-      const int rr = c / kChunks;
-      const int col = (c - rr * kChunks) * 16;
-      const int r = wg * 64 + rr;
-      const int y = y0 + (r >> p.bw_log2);
-      const int x = x0 + (r & ((1 << p.bw_log2) - 1));
-      const int n = n0 + col;
-      if (y >= p.h || x >= p.w_ || n >= p.e.cout) continue;
-      const uint4 v = ld_shared16(rows + rr * Cfg::kOutStride + col);
-      long long off;
-      if (p.d2s_c) {  // channel n = (py * 2 + px) * C + c -> pixel (2y + py, 2x + px), channel c
-        const int ph = n / p.d2s_c;
-        off = (((long long)img * 2 * p.h + 2 * y + (ph >> 1)) * (2 * p.w_) + 2 * x + (ph & 1)) *
-                  p.ostride + (n - ph * p.d2s_c);
-      } else {
-        off = (((long long)img * p.h + y) * p.w_ + x) * p.ostride + n;
+      // int8 codes: into the warpgroup's 64 rows of the shared output tile,
+      // then out as 16-byte row segments, consecutive threads on consecutive
+      // bytes of a pixel's channels
+      if (k > 0) {  // the warpgroup has stored the previous tile's rows
+        asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
       }
-      int8_t* o = out + off;
-      if (vec && n + 16 <= p.e.cout) {
-        *reinterpret_cast<uint4*>(o) = v;
-      } else {
-        const uint32_t wv[4] = {v.x, v.y, v.z, v.w};
-        for (int k = 0; k < 16 && n + k < p.e.cout; ++k)
-          o[k] = (int8_t)(wv[k >> 2] >> (8 * (k & 3)));
-      }
-    }
-    if (p.pool == kPoolSpatial) {
-      // the bh/2 x bw/2 windows of the patch (its origin and H, W even), all
-      // 256 consumer threads over the whole tile
-      const int pw_log2 = p.bw_log2 - 1;
-      const int hp = p.h >> 1, wp = p.w_ >> 1;
-      const uint32_t below = (uint32_t)(Cfg::kOutStride << p.bw_log2);  // one patch row down
-      for (int c = tid; c < (kBM / 4) * kChunks; c += 256) {
-        const int q = c / kChunks;
-        const int col = (c - q * kChunks) * 16;
-        const int pr = q >> pw_log2, pc = q & ((1 << pw_log2) - 1);
-        const int yy = (y0 >> 1) + pr, xx = (x0 >> 1) + pc;
+      const float so = __ldg(p.e.so);
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int col = j * 8 + (lane & 3) * 2;
         const int n = n0 + col;
-        if (yy >= hp || xx >= wp || n >= p.e.cout) continue;
-        const uint32_t s0 = out_tile + ((2 * pr << p.bw_log2) + 2 * pc) * Cfg::kOutStride + col;
-        const uint4 m = vmax16(vmax16(ld_shared16(s0), ld_shared16(s0 + Cfg::kOutStride)),
-                               vmax16(ld_shared16(s0 + below),
-                                      ld_shared16(s0 + below + Cfg::kOutStride)));
-        *reinterpret_cast<uint4*>(p.pooled + (((long long)img * hp + yy) * wp + xx) * p.e.cout +
-                                  n) = m;
+        if (n >= p.e.cout) continue;
+        const bool two = n + 1 < p.e.cout;
+        const ChanPair c = chan_pair<MODE>(p.e, n, two ? n + 1 : n);
+        uint32_t both = 0;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int q0 = requant(affine<MODE>(acc[4 * j + 2 * i], c.ws0, c.b0, c.s0, c.t0), so);
+          const int q1 =
+              requant(affine<MODE>(acc[4 * j + 2 * i + 1], c.ws1, c.b1, c.s1, c.t1), so);
+          const int rr = (t >> 5) * 16 + (lane >> 2) + 8 * i;
+          const uint16_t v =
+              (uint16_t)((uint8_t)(int8_t)q0 | ((uint16_t)(uint8_t)(int8_t)q1 << 8));
+          both |= (uint32_t)v << (16 * i);
+          asm volatile("st.shared.u16 [%0], %1;\n" ::"r"(rows + rr * Cfg::kOutStride + col),
+                       "h"(v)
+                       : "memory");
+        }
+        if constexpr (LOOPED) pmax[j] = __vmaxs4(pmax[j], both);
       }
-    } else if (p.pool == kPoolPhase) {
-      // channel n = phase * F + c of each pixel of the patch (n0 = 0, Cout = 4F)
-      const int f = p.e.cout >> 2;
-      const int fchunks = f >> 4;
-      for (int c = tid; c < kBM * fchunks; c += 256) {
-        const int r = c / fchunks;
-        const int col = (c - r * fchunks) * 16;
+      if (p.pool == kPoolNone || LOOPED) {
+        asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");  // this warpgroup only
+      } else {
+        asm volatile("bar.sync 3, 256;\n" ::: "memory");  // the pooled reads cross warpgroups
+      }
+      constexpr int kChunks = BN / 16;
+      const bool vec = (p.e.cout & 15) == 0 && (p.ostride & 15) == 0;
+      int8_t* out = static_cast<int8_t*>(p.e.out);
+      for (int c = t; c < 64 * kChunks; c += 128) {
+        const int rr = c / kChunks;
+        const int col = (c - rr * kChunks) * 16;
+        const int r = wg * 64 + rr;
+        const int y = y0 + (r >> p.bw_log2);
+        const int x = x0 + (r & ((1 << p.bw_log2) - 1));
+        const int n = n0 + col;
+        if (y >= p.h || x >= p.w_ || n >= p.e.cout) continue;
+        const uint4 v = ld_shared16(rows + rr * Cfg::kOutStride + col);
+        long long off;
+        if (p.d2s_c) {  // channel n = (py * 2 + px) * C + c -> pixel (2y + py, 2x + px), channel c
+          const int ph = n / p.d2s_c;
+          off = (((long long)img * 2 * p.h + 2 * y + (ph >> 1)) * (2 * p.w_) + 2 * x +
+                 (ph & 1)) * p.ostride + (n - ph * p.d2s_c);
+        } else {
+          off = (((long long)img * p.h + y) * p.w_ + x) * p.ostride + n;
+        }
+        int8_t* o = out + off;
+        if (vec && n + 16 <= p.e.cout) {
+          *reinterpret_cast<uint4*>(o) = v;
+        } else {
+          const uint32_t wv[4] = {v.x, v.y, v.z, v.w};
+          for (int k = 0; k < 16 && n + k < p.e.cout; ++k)
+            o[k] = (int8_t)(wv[k >> 2] >> (8 * (k & 3)));
+        }
+      }
+      if (p.pool == kPoolSpatial) {
+        // the bh/2 x bw/2 windows of the patch (its origin and H, W even), all
+        // 256 consumer threads over the whole tile
+        const int pw_log2 = p.bw_log2 - 1;
+        const int hp = p.h >> 1, wp = p.w_ >> 1;
+        const uint32_t below = (uint32_t)(Cfg::kOutStride << p.bw_log2);  // one patch row down
+        for (int c = tid; c < (kBM / 4) * kChunks; c += 256) {
+          const int q = c / kChunks;
+          const int col = (c - q * kChunks) * 16;
+          const int pr = q >> pw_log2, pc = q & ((1 << pw_log2) - 1);
+          const int yy = (y0 >> 1) + pr, xx = (x0 >> 1) + pc;
+          const int n = n0 + col;
+          if (yy >= hp || xx >= wp || n >= p.e.cout) continue;
+          const uint32_t s0 =
+              out_tile + ((2 * pr << p.bw_log2) + 2 * pc) * Cfg::kOutStride + col;
+          const uint4 m = vmax16(vmax16(ld_shared16(s0), ld_shared16(s0 + Cfg::kOutStride)),
+                                 vmax16(ld_shared16(s0 + below),
+                                        ld_shared16(s0 + below + Cfg::kOutStride)));
+          *reinterpret_cast<uint4*>(p.pooled + (((long long)img * hp + yy) * wp + xx) *
+                                                   p.e.cout + n) = m;
+        }
+      } else if (p.pool == kPoolPhase && !LOOPED) {
+        // channel n = phase * F + c of each pixel of the patch (n0 = 0, Cout = 4F)
+        const int f = p.e.cout >> 2;
+        const int fchunks = f >> 4;
+        for (int c = tid; c < kBM * fchunks; c += 256) {
+          const int r = c / fchunks;
+          const int col = (c - r * fchunks) * 16;
+          const int y = y0 + (r >> p.bw_log2);
+          const int x = x0 + (r & ((1 << p.bw_log2) - 1));
+          if (y >= p.h || x >= p.w_) continue;
+          const uint32_t s0 = out_tile + r * Cfg::kOutStride + col;
+          const uint4 m = vmax16(vmax16(ld_shared16(s0), ld_shared16(s0 + f)),
+                                 vmax16(ld_shared16(s0 + 2 * f), ld_shared16(s0 + 3 * f)));
+          *reinterpret_cast<uint4*>(p.pooled + (((long long)img * p.h + y) * p.w_ + x) * f +
+                                    col) = m;
+        }
+      }
+    }
+  }
+  if constexpr (MODE != kReluF32 && LOOPED) {
+    const int t = tid & 127;
+    const int lane = t & 31;
+    const uint32_t rows = out_tile + wg * 64 * Cfg::kOutStride;
+    {
+      // the phase max of the block's 4 N tiles (F = BN): the running max into
+      // the warpgroup's rows of the shared tile, then out as 16-byte segments
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");  // the last tile is stored
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int col = j * 8 + (lane & 3) * 2;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int rr = (t >> 5) * 16 + (lane >> 2) + 8 * i;
+          asm volatile("st.shared.u16 [%0], %1;\n" ::"r"(rows + rr * Cfg::kOutStride + col),
+                       "h"((uint16_t)(pmax[j] >> (16 * i)))
+                       : "memory");
+        }
+      }
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+      constexpr int kChunks = BN / 16;
+      for (int c = t; c < 64 * kChunks; c += 128) {
+        const int rr = c / kChunks;
+        const int col = (c - rr * kChunks) * 16;
+        const int r = wg * 64 + rr;
         const int y = y0 + (r >> p.bw_log2);
         const int x = x0 + (r & ((1 << p.bw_log2) - 1));
         if (y >= p.h || x >= p.w_) continue;
-        const uint32_t s0 = out_tile + r * Cfg::kOutStride + col;
-        const uint4 m = vmax16(vmax16(ld_shared16(s0), ld_shared16(s0 + f)),
-                               vmax16(ld_shared16(s0 + 2 * f), ld_shared16(s0 + 3 * f)));
-        *reinterpret_cast<uint4*>(p.pooled + (((long long)img * p.h + y) * p.w_ + x) * f + col) =
-            m;
+        *reinterpret_cast<uint4*>(p.pooled + (((long long)img * p.h + y) * p.w_ + x) * BN +
+                                  col) = ld_shared16(rows + rr * Cfg::kOutStride + col);
       }
     }
   }
@@ -857,10 +933,10 @@ cudaError_t dispatch_mma(const Params& p, int mode, unsigned blocks, cudaStream_
   return cudaErrorInvalidValue;
 }
 
-template <int MODE, int BN>
+template <int MODE, int BN, bool LOOPED = false>
 cudaError_t launch_wgmma(const CUtensorMap& xmap, const CUtensorMap& wmap, const WParams& p,
                          unsigned blocks, cudaStream_t stream) {
-  auto kernel = int8_conv_wgmma_kernel<MODE, BN>;
+  auto kernel = int8_conv_wgmma_kernel<MODE, BN, LOOPED>;
   const cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WgCfg<BN>::kSmemBytes);
   if (e != cudaSuccess) return e;
@@ -870,7 +946,16 @@ cudaError_t launch_wgmma(const CUtensorMap& xmap, const CUtensorMap& wmap, const
 
 template <int BN>
 cudaError_t dispatch_wgmma(const CUtensorMap& xmap, const CUtensorMap& wmap, const WParams& p,
-                           int mode, unsigned blocks, cudaStream_t stream) {
+                           int mode, bool looped, unsigned blocks, cudaStream_t stream) {
+  if constexpr (BN == 64) {
+    if (looped) {  // the phase max of 4 N tiles, a phase each (an int8 mode)
+      if (mode == kReluRequant)
+        return launch_wgmma<kReluRequant, 64, true>(xmap, wmap, p, blocks, stream);
+      if (mode == kAffineRequant)
+        return launch_wgmma<kAffineRequant, 64, true>(xmap, wmap, p, blocks, stream);
+      return cudaErrorInvalidValue;
+    }
+  }
   switch (mode) {
     case kReluRequant:
       return launch_wgmma<kReluRequant, BN>(xmap, wmap, p, blocks, stream);
@@ -936,7 +1021,8 @@ extern "C" {
 // (channels 0..cout/4-1 written);
 // pooled (pool 1, "spatial"): int8 [n_img, h/2, w/2, cout], the 2x2/2 max;
 // (pool 2, "phase"): int8 [n_img, h, w, cout/4], the max over the 4 phase
-// groups of channels; steps, counts: int32 [ceil(cout/bn), list_stride] and
+// groups of channels (cout <= bn, or cout == 4 * bn with bn 64: one block
+// computes the 4 N tiles); steps, counts: int32 [ceil(cout/bn), list_stride] and
 // [ceil(cout/bn)], each N tile's skip list (int8_conv.py::_skip_lists),
 // list_stride = kp / 64. route 0 ("mma") takes bn 128 and no store form
 // (out_stride == cout, no d2s, pool 0); route 1 ("wgmma") takes cin % 16 ==
@@ -944,7 +1030,7 @@ extern "C" {
 // store forms in modes 0 and 2 where cout and out_stride are multiples of 16,
 // out and pooled 16-byte aligned, d2s's cout/4 a multiple of 16 (no pool),
 // "spatial" with h, w even and bw <= 64, "phase" with cout/4 a multiple of 16
-// and cout <= bn. Launches on `stream` and returns 0, the cudaError_t of the
+// and cout <= bn or cout == 4 * bn == 256. Launches on `stream` and returns 0, the cudaError_t of the
 // launch, or a negative code of the tensor-map encoder
 // (tpuseg_cuda_error_string names each); the caller checked devices, dtypes
 // and contiguity.
@@ -967,7 +1053,7 @@ int tpuseg_int8_conv(const void* x, const void* wm, const float* ws, const float
         cout % 16 || !aligned16 || pool < kPoolNone || pool > kPoolPhase ||
         (pool != kPoolNone) != (pooled != nullptr) || (d2s && (cout % 64 || pool)) ||
         (pool == kPoolSpatial && (h % 2 || w % 2 || bw > 64)) ||
-        (pool == kPoolPhase && (cout % 64 || cout > bn)))
+        (pool == kPoolPhase && (cout % 64 || (cout > bn && (cout != 4 * bn || bn != 64)))))
       return (int)cudaErrorInvalidValue;
   }
   const bool aligned = cin % 16 == 0;
@@ -1035,7 +1121,8 @@ int tpuseg_int8_conv(const void* x, const void* wm, const float* ws, const float
   p.ostride = out_stride;
   p.d2s_c = d2s ? cout / 4 : 0;
   p.pool = pool;
-  const long long blocks = (long long)n_img * p.tiles_y * p.tiles_x * p.n_tiles;
+  const bool looped = pool == kPoolPhase && cout > bn;  // 4 N tiles of 64, a phase each
+  const long long blocks = (long long)n_img * p.tiles_y * p.tiles_x * (looped ? 1 : p.n_tiles);
   if (blocks >= (1LL << 31)) return (int)cudaErrorInvalidValue;
 
   CUtensorMap xmap, wmap;
@@ -1053,11 +1140,11 @@ int tpuseg_int8_conv(const void* x, const void* wm, const float* ws, const float
   if (err != 0) return err;
   switch (bn) {
     case 64:
-      return (int)dispatch_wgmma<64>(xmap, wmap, p, mode, (unsigned)blocks, st);
+      return (int)dispatch_wgmma<64>(xmap, wmap, p, mode, looped, (unsigned)blocks, st);
     case 128:
-      return (int)dispatch_wgmma<128>(xmap, wmap, p, mode, (unsigned)blocks, st);
+      return (int)dispatch_wgmma<128>(xmap, wmap, p, mode, false, (unsigned)blocks, st);
     default:
-      return (int)dispatch_wgmma<256>(xmap, wmap, p, mode, (unsigned)blocks, st);
+      return (int)dispatch_wgmma<256>(xmap, wmap, p, mode, false, (unsigned)blocks, st);
   }
 }
 

@@ -213,17 +213,27 @@ def n_tile_width(route: str, cout: int, counts: Dict[int, np.ndarray],
     (``counts[bn]`` from :func:`_skip_lists`) at ``_STEP_COST`` plus each
     tile at ``_TILE_COST``, the wider on a tie. A dense Cout = 64 conv
     takes 64; so do the blocked convs, whose 64-wide tiles each skip 3/4
-    of their K-steps. A phase max needs every phase group of a pixel in
-    one tile: the narrowest width that covers ``cout``."""
+    of their K-steps. A phase max takes the widths that hold a pixel's
+    four phase groups in one tile or one group a tile
+    (:func:`_phase_width`): the blocked enc1b at base 64 takes 64."""
     if route == "mma":
         return _MMA_BN
     if route != "wgmma":
         raise ValueError(f"route {route!r} not in {ROUTES}")
-    if pool == "phase":
-        return min([bn for bn in N_TILES if bn >= cout] or [max(N_TILES)])
+    widths = [bn for bn in N_TILES if pool != "phase" or _phase_width(bn, cout)]
+    if not widths:
+        return max(N_TILES)
     cost = {bn: int(np.asarray(counts[bn]).sum()) * _STEP_COST[bn]
-            + len(counts[bn]) * _TILE_COST[bn] for bn in N_TILES}
-    return min(N_TILES, key=lambda bn: (cost[bn], -bn))
+            + len(counts[bn]) * _TILE_COST[bn] for bn in widths}
+    return min(widths, key=lambda bn: (cost[bn], -bn))
+
+
+def _phase_width(bn: int, cout: int) -> bool:
+    """Whether N tiles ``bn`` wide take a phase max over ``cout = 4F``
+    channels: one tile holds all four phase groups, or each of the four
+    tiles is one group (F = bn = 64; one block computes them in turn and
+    keeps the running max in registers)."""
+    return bn >= cout or (4 * bn == cout and bn == 64)
 
 
 def patch_width(h: int, w: int, pool: Optional[str] = None) -> int:
@@ -406,7 +416,8 @@ def _check(x: torch.Tensor, weights: Int8ConvWeights, epilogue: Epilogue, route:
 
 
 def form_problem(x: torch.Tensor, cout: int, mode: str, ctot: Optional[int] = None,
-                 d2s: bool = False, pool: Optional[str] = None, *, route: Optional[str] = None, bn: Optional[int] = None,
+                 d2s: bool = False, pool: Optional[str] = None, *,
+                 route: Optional[str] = None, bn: Optional[int] = None,
                  bw: Optional[int] = None) -> Optional[str]:
     """Why :func:`int8_conv` does not take these store forms for ``x``, or
     None, for a conv of ``cout`` output channels in epilogue ``mode``.
@@ -418,8 +429,8 @@ def form_problem(x: torch.Tensor, cout: int, mode: str, ctot: Optional[int] = No
     rules as well: the ``"wgmma"`` route (``route``, default
     :func:`kernel_route`); ``cout``, ``ctot`` and a phase's width ``cout /
     4`` multiples of 16, so every 16-byte segment of the store is one run of
-    one pixel's channels; a phase max's ``cout`` inside one N tile (``bn``,
-    default the widest); a spatial pool's patches of an even row count
+    one pixel's channels; an N tile that takes a phase max (``bn``, default
+    any, :func:`_phase_width`); a spatial pool's patches of an even row count
     (``bw``, default :func:`patch_width`'s choice)."""
     if ctot is None and not d2s and pool is None:
         return None
@@ -446,8 +457,9 @@ def form_problem(x: torch.Tensor, cout: int, mode: str, ctot: Optional[int] = No
     for name, c in (("Cout", cout), ("out's buffer width", ctot), ("a phase's width", phase)):
         if c is not None and c % 16:
             return f"the kernel stores 16-byte segments: {name} {c} is not a multiple of 16"
-    if pool == "phase" and cout > (bn or max(N_TILES)):
-        return f"a phase max needs Cout {cout} inside one N tile of at most {bn or max(N_TILES)}"
+    if pool == "phase" and not any(_phase_width(w, cout) for w in ([bn] if bn else N_TILES)):
+        return (f"a phase max needs Cout {cout} inside one N tile, or one phase an N tile of "
+                f"at most 128" + (f", not {bn}" if bn else ""))
     if pool == "spatial" and bw is not None and bw not in _POOL_PATCH_WIDTHS:
         return f"a 2x2 pool needs patches of an even row count (bw <= 64), got bw {bw}"
     return None

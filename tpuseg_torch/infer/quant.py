@@ -610,27 +610,47 @@ def _quantized_raw_fn(folded: Folded, act_ranges: Dict[str, float],
         x, sv = edge_in
         return _maxpool(x), sv  # quantization is monotone: pool commutes
 
+    def phase_max(edge_in):
+        """pool1 on the blocked layout: max over the 4 phases per blocked
+        pixel — exactly maxpool 2x2/2 (every phase shares the scale)."""
+        x, sv = edge_in
+        c = x.shape[-1] // 4
+        y = torch.maximum(torch.maximum(x[..., :c], x[..., c:2 * c]),
+                          torch.maximum(x[..., 2 * c:3 * c], x[..., 3 * c:]))
+        return y, sv[:c]
+
     def concat(a, b):
         (xa, sa), (xb, sb) = a, b
         # branches keep their own scales; the consumer's folded weights
         # absorb the concatenated per-channel scale vector
         return torch.cat([xa, xb], dim=-1), np.concatenate([sa, sb])
 
-    def skip_and_pool(name, edge_in, up):
-        """The last block of an encoder level: returns the skip of the
-        concat (skip, ``up``'s output) as ``(y, scales, buffer)`` and the
-        2x2 max of ``y``, the next level's input. An int8 block stores its
-        codes into channels [0, Ca) of the concat buffer [B, H, W, Ca + Cb]
-        and their max beside them in one K3 launch; the deconv ``up`` fills
-        channels [Ca, Ca + Cb) later (:func:`up_concat`)."""
+    def skip_and_pool(name, edge_in, ca, ctot, kind="spatial", block=conv_block):
+        """The last block of an encoder level (``Ca`` output channels):
+        returns the skip of the concat (skip, the deconv's output) as ``(y,
+        scales, buffer)`` and the pooled ``y`` (``kind``: the 2x2 max, or
+        the blocked walk's phase max), the next level's input. An int8 block
+        stores its codes into channels [0, Ca) of the concat buffer [B, H,
+        W, ctot] and the pooled codes beside them in one K3 launch; the
+        deconv fills channels [Ca, ctot) later (:func:`up_concat`)."""
         x = edge_in[0]
-        ca, cb = folded[name]["w"].shape[-1], folded[up]["s"].shape[0]
-        if not fuses(name, x, ca, "relu_requant", ctot=ca + cb, pool="spatial"):
-            y = conv_block(name, edge_in)
-            return (*y, None), pool(y)
-        buf = x.new_empty((*x.shape[:3], ca + cb))
-        y, pooled = conv_block(name, edge_in, out=buf[..., :ca], pool="spatial")
+        if not fuses(name, x, ca, "relu_requant", ctot=ctot, pool=kind):
+            y = block(name, edge_in)
+            return (*y, None), (pool if kind == "spatial" else phase_max)(y)
+        buf = x.new_empty((*x.shape[:3], ctot))
+        y, pooled = block(name, edge_in, out=buf[..., :ca], pool=kind)
         return (*y, buf), pooled
+
+    def encoder(x, levels):
+        """Encoder ``levels``: the last one's pooled output and each one's
+        skip."""
+        skips = []
+        for k in levels:
+            ca = folded[f"enc{k}b"]["w"].shape[-1]
+            skip, x = skip_and_pool(f"enc{k}b", conv_block(f"enc{k}a", x), ca,
+                                    ca + folded[f"dec{k}up"]["s"].shape[0])
+            skips.append(skip)
+        return x, skips
 
     def up_concat(name, edge_in, skip, blocked_out=False):
         """The deconv ``name`` and the concat (skip, its output): an int8
@@ -656,10 +676,7 @@ def _quantized_raw_fn(folded: Folded, act_ranges: Dict[str, float],
         def logits_fn(batch):
             """The reference graph (``_unet_walk``'s topology) with each
             skip's concat buffer made by its producer."""
-            x, skips = (batch, None), []
-            for k in range(1, 5):
-                skip, x = skip_and_pool(f"enc{k}b", conv_block(f"enc{k}a", x), f"dec{k}up")
-                skips.append(skip)
+            x, skips = encoder((batch, None), range(1, 5))
             x = pair("bottleneck", x)
             for k in range(4, 0, -1):
                 x = pair(f"dec{k}", up_concat(f"dec{k}up", x, skips[k - 1]))
@@ -680,30 +697,6 @@ def _quantized_raw_fn(folded: Folded, act_ranges: Dict[str, float],
             return y  # blocked logits
         return (edge(name, y[0]), edge(name, y[1])) if forms.get("pool") else edge(name, y)
 
-    def phase_max(edge_in):
-        """pool1 on the blocked layout: max over the 4 phases per blocked
-        pixel — exactly maxpool 2x2/2 (every phase shares the scale)."""
-        x, sv = edge_in
-        c = x.shape[-1] // 4
-        y = torch.maximum(torch.maximum(x[..., :c], x[..., c:2 * c]),
-                          torch.maximum(x[..., 2 * c:3 * c], x[..., 3 * c:]))
-        return y, sv[:c]
-
-    def blocked_enc1(enc1a, f):
-        """enc1b on the blocked layout, the skip of dec1a's concat, and its
-        phase max: an int8 enc1b stores into channels [0, 4F) of the
-        [B, H/2, W/2, 8F] buffer whose channels [4F, 8F) the blocked dec1up
-        fills, and stores the phase max beside them (its N tile covers
-        the 4F channels)."""
-        x = enc1a[0]
-        if not fuses("enc1b", x, 4 * f, "relu_requant", ctot=8 * f, pool="phase"):
-            enc1 = blocked_conv_block("enc1b", enc1a, (f,))
-            return (*enc1, None), phase_max(enc1)
-        buf = x.new_empty((*x.shape[:3], 8 * f))
-        enc1, pooled = blocked_conv_block("enc1b", enc1a, (f,), out=buf[..., :4 * f],
-                                          pool="phase")
-        return (*enc1, buf), pooled
-
     def blocked_logits_fn(batch):
         nc = batch.shape[-1]
         f = folded["enc1b"]["w"].shape[2]  # base feature width
@@ -714,11 +707,12 @@ def _quantized_raw_fn(folded: Folded, act_ranges: Dict[str, float],
             q, si = quantize_input(batch)
             enc1a = blocked_conv_block(
                 "enc1a", (_s2d(q), np.full(4 * nc, si, np.float32)), (nc,))
-        skip1, x = blocked_enc1(enc1a, f)
-        skips = [skip1]
-        for k in range(2, 5):
-            skip, x = skip_and_pool(f"enc{k}b", conv_block(f"enc{k}a", x), f"dec{k}up")
-            skips.append(skip)
+        # enc1b on the blocked layout: the skip of dec1a's [B, H/2, W/2, 8F]
+        # concat buffer, which the blocked dec1up fills, and its phase max
+        skip1, x = skip_and_pool("enc1b", enc1a, 4 * f, 8 * f, "phase",
+                                 lambda *a, **forms: blocked_conv_block(*a, (f,), **forms))
+        x, skips = encoder(x, range(2, 5))
+        skips = [skip1] + skips
         x = pair("bottleneck", x)
         for k in range(4, 1, -1):
             x = pair(f"dec{k}", up_concat(f"dec{k}up", x, skips[k - 1]))
