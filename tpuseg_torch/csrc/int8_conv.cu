@@ -639,9 +639,10 @@ __device__ __forceinline__ uint4 vmax16(uint4 a, uint4 b) {
 
 // LOOPED: the block computes every N tile of its patch in turn (a phase max
 // whose 4 phases are one N tile each); its own instances, so the others keep
-// their registers
+// their registers, held to 72 a thread so that 3 blocks share an SM as the
+// 64-wide instances do
 template <int MODE, int BN, bool LOOPED>
-__global__ void __launch_bounds__(kWgThreads, WgCfg<BN>::kMinBlocks)
+__global__ void __launch_bounds__(kWgThreads, LOOPED ? 3 : WgCfg<BN>::kMinBlocks)
     int8_conv_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
                            const __grid_constant__ CUtensorMap wmap, const WParams p) {
   using Cfg = WgCfg<BN>;
@@ -714,7 +715,8 @@ __global__ void __launch_bounds__(kWgThreads, WgCfg<BN>::kMinBlocks)
 #pragma unroll
   for (int j = 0; j < (LOOPED ? BN / 8 : 1); ++j) pmax[j] = 0x80808080u;
   int g0 = 0;  // K-steps this block consumed for its earlier N tiles
-  for (int k = 0; k < kTiles; ++k) {
+  // the block's k-th N tile: products, epilogue and stores
+  auto tile = [&](const int k) {
     const int nt = nt0 + k;
     const int n0 = nt * BN;
     const int count = __ldg(p.counts + nt);
@@ -872,6 +874,12 @@ __global__ void __launch_bounds__(kWgThreads, WgCfg<BN>::kMinBlocks)
         }
       }
     }
+  };
+  if constexpr (LOOPED) {  // one copy of the tile's code, not four
+#pragma unroll 1
+    for (int k = 0; k < kTiles; ++k) tile(k);
+  } else {
+    tile(0);
   }
   if constexpr (MODE != kReluF32 && LOOPED) {
     const int t = tid & 127;
