@@ -1437,6 +1437,72 @@ def k4_sum_check(name: str, got, plain, terms, plan) -> dict:
             "faults_caught": len(faults)}
 
 
+K4_RSQRT_ULPS = 2  # CUDA's stated bound for rsqrtf; torch.rsqrt compiles to it on the card
+
+
+def k4_vector_check(name: str, x, bias, gy, gamma, beta, stats, vec, sums, dx, dbias, running,
+                    run) -> dict:
+    """What (b) and (d) derive inside the kernels, against the eager
+    arithmetic they replaced on the same sums: for (a)'s sums as they are
+    (no group) and doubled (what an all-reduce over two ranks holding the
+    same batch gives: sums and n doubled), (b)'s mean, variance and mask
+    bit-equal to ``finalize``'s, its rstd and mul within ``K4_RSQRT_ULPS``
+    ulps of torch.rsqrt's (counted; 0 where the kernel's rsqrtf is what
+    torch.rsqrt runs), y bit-equal to (b)'s plain version on the kernel's
+    own vectors, the running statistics it updated bit-equal to the
+    two-line update ``conv_bn`` made before (``running`` before, ``run``
+    after); (d)'s dx and bias gradient bit-equal to the plain (d) and the
+    eager formula with k1 and k2 taken eagerly from the same totals; and
+    eval-mode (b) against its plain version (bit-equal where the train
+    rstd was)."""
+    import torch
+
+    from tpuseg_torch.ops import batchnorm as bn
+
+    def ulps(a, b) -> int:
+        return int((a.view(torch.int32).long() - b.view(torch.int32).long()).abs().max())
+
+    res = {"rstd_ulps": 0, "mul_ulps": 0, "cases": []}
+    variants = {"none": (stats, vec, sums, dx, dbias)}
+    st2 = stats * 2
+    y2, vec2 = bn.bn_apply_train(x, bias, True, st2, gamma, beta, 1e-3)
+    totals2 = (sums[:2] * 2).contiguous()
+    dx2, dbias2 = bn.backward_apply_train(x, bias, True, gy, st2, vec2, sums, totals2)
+    variants["group"] = (st2, vec2, totals2, dx2, dbias2)
+    if not torch.equal(y2, bn._apply_plain(x, bias, True, vec2[0], vec2[3], beta)):
+        raise AssertionError(f"K4 {name}: (b) on all-reduced sums differs from its plain version")
+    for group, (st, v, totals, dxv, dbv) in variants.items():
+        mean, var, unclipped, rstd, mul = bn.finalize(st, 1e-3, gamma)
+        if not (torch.equal(v[0], mean) and torch.equal(v[1], var)
+                and torch.equal(v[4] != 0, unclipped)):
+            raise AssertionError(f"K4 {name} ({group}): the kernel's mean, var or mask differs "
+                                 "from finalize's on the same sums")
+        ur, um = ulps(v[2], rstd), ulps(v[3], mul)
+        res["rstd_ulps"], res["mul_ulps"] = max(res["rstd_ulps"], ur), max(res["mul_ulps"], um)
+        if max(ur, um) > K4_RSQRT_ULPS:
+            raise AssertionError(f"K4 {name} ({group}): rstd {ur} and mul {um} ulps off "
+                                 f"finalize's, beyond {K4_RSQRT_ULPS}")
+        k1 = totals[0] / st[2]
+        k2 = torch.where(v[4] != 0, totals[1] / st[2], 0.0)
+        if not torch.equal(dxv, bn._backward_apply_plain(x, bias, True, gy, v[0], v[2], v[3],
+                                                         k1, k2)):
+            raise AssertionError(f"K4 {name} ({group}): (d) differs from its plain version on "
+                                 "k1 and k2 taken eagerly")
+        if not torch.equal(dbv, v[3] * ((sums[2] - k1 * sums[3]) - k2 * sums[4])):
+            raise AssertionError(f"K4 {name} ({group}): the kernel's bias gradient differs from "
+                                 "the eager formula")
+        res["cases"].append(group)
+    if not (torch.equal(run[0], 0.99 * running[0] + (1 - 0.99) * vec[0])
+            and torch.equal(run[1], 0.99 * running[1] + (1 - 0.99) * vec[1])):
+        raise AssertionError(f"K4 {name}: the running statistics differ from the two-line update")
+    ye = bn.bn_apply_eval(x, bias, True, running[0], running[1], gamma, beta, 1e-3)
+    ye_plain = bn._apply_eval_plain(x, bias, True, running[0], running[1], gamma, beta, 1e-3)
+    res["eval_max_abs_diff"] = (ye.float() - ye_plain.float()).abs().max().item()
+    if res["rstd_ulps"] == 0 and not torch.equal(ye, ye_plain):
+        raise AssertionError(f"K4 {name}: eval-mode (b) differs from its plain version")
+    return res
+
+
 def eager_batchnorm(x, bias, gamma, beta, running, train: bool):
     """The chain K4 replaced (the model before K4; there cuDNN added the bias
     inside the conv, here one add): ReLU, the f32 cast, the batch sums or
@@ -1481,22 +1547,32 @@ def phase_batchnorm(seed: int, dev) -> dict:
     from tpuseg_torch.ops import batchnorm as bn
 
     out = {"build": build_report("batchnorm", "bn_", spill_fails=False), "cases": {}}
+    empty = events_ms_cold(lambda: torch.cuda._sleep(0), 20)
+    out["empty_launch_ms"] = empty
+    log(f"K4: an empty launch (torch.cuda._sleep(0)) {empty * 1e3:.2f} us (CUDA events, as "
+        f"the kernels)")
     for (where, shape), dtype in [(k, d) for k in K4_SHAPES.items()
                                   for d in (torch.bfloat16, torch.float32)]:
         name = f"{where}_{str(dtype).split('.')[-1]}"
         x, bias, gamma, beta, gy = k4_inputs(shape, dtype, seed + len(out["cases"]), dev)
         before = dict(bn.LAUNCHES)
-        stats = bn.batch_stats(x, bias, True)
         n = shape[0] * shape[2] * shape[3]
-        full = torch.cat([stats, stats.new_full((1, shape[1]), float(n))])
-        mean, var, unclipped, rstd, mul = bn.finalize(full, 1e-3, gamma)
-        y = bn.bn_apply(x, bias, True, mean, mul, beta)
-        sums = bn.backward_reduce(x, bias, True, gy, mean, rstd)
-        k1, k2 = sums[0] / n, torch.where(unclipped, sums[1] / n, 0.0)
-        dx = bn.backward_apply(x, bias, True, gy, mean, rstd, mul, k1, k2)
+        running = (torch.randn(shape[1], device=dev) * 0.3, torch.rand(shape[1], device=dev) + 0.5)
+        run = tuple(t.clone() for t in running)
+        stats = bn.batch_stats(x, bias, True)
+        y, vec = bn.bn_apply_train(x, bias, True, stats, gamma, beta, 1e-3, *run, 0.99)
+        sums = bn.backward_reduce(x, bias, True, gy, vec[0], vec[2])
+        dx, dbias = bn.backward_apply_train(x, bias, True, gy, stats, vec, sums, sums)
         torch.cuda.synchronize()
         if any(bn.LAUNCHES[k] != before[k] + 1 for k in K4_KINDS):
             raise AssertionError(f"K4 {name}: launches {bn.LAUNCHES} after {before}")
+        if not bool((stats[2] == n).all()):
+            raise AssertionError(f"K4 {name}: (a)'s count row {stats[2].unique()} is not {n}")
+        vectors = k4_vector_check(name, x, bias, gy, gamma, beta, stats, vec, sums, dx, dbias,
+                                  running, run)
+        mean, rstd, mul = vec[0], vec[2], vec[3]
+        k1 = sums[0] / stats[2]
+        k2 = torch.where(vec[4] != 0, sums[1] / stats[2], 0.0)
         y_plain = bn._apply_plain(x, bias, True, mean, mul, beta)
         dx_plain = bn._backward_apply_plain(x, bias, True, gy, mean, rstd, mul, k1, k2)
         if not (torch.equal(y, y_plain) and torch.equal(dx, dx_plain)):
@@ -1511,6 +1587,7 @@ def phase_batchnorm(seed: int, dev) -> dict:
                     bn.backward_reduce(x, bias, True, gy, mean, rstd), sums)):
                 raise AssertionError(f"K4 {name}: a reduction changed from launch to launch")
         c = shape[1]
+        unclipped = vec[4] != 0
 
         def act():  # a as f32 [C, M], in the kernel's row order
             return bn.activation(x, bias, True).float().permute(1, 0, 2, 3).reshape(c, -1)
@@ -1524,7 +1601,7 @@ def phase_batchnorm(seed: int, dev) -> dict:
         def pos():
             return act() > 0
 
-        check_a = k4_sum_check(f"{name} stats", stats, bn._stats_plain(x, bias, True),
+        check_a = k4_sum_check(f"{name} stats", stats[:2], bn._stats_plain(x, bias, True),
                                [lambda: act().double(), lambda: act().double() ** 2],
                                bn.reduce_plan(x, bn.row_stride(x)))
         check_c = k4_sum_check(
@@ -1546,19 +1623,23 @@ def phase_batchnorm(seed: int, dev) -> dict:
         xe = x.detach().requires_grad_()
         bias_e, gamma_e, beta_e = (t.detach().requires_grad_() for t in (bias, gamma, beta))
         y_eager = eager_batchnorm(xe, bias_e, gamma_e, beta_e, running, True)
+        # (b) and (d) timed in their train forms (the main path's): the
+        # vectors derived in the prologue, the running statistics updated
         fns = {
             "kernel_stats": (lambda: bn.batch_stats(x, bias, True), 10),
-            "kernel_apply": (lambda: bn.bn_apply(x, bias, True, mean, mul, beta), 10),
+            "kernel_apply": (lambda: bn.bn_apply_train(x, bias, True, stats, gamma, beta, 1e-3,
+                                                       *run, 0.99), 10),
             "kernel_backward_reduce": (
                 lambda: bn.backward_reduce(x, bias, True, gy, mean, rstd), 10),
-            "kernel_backward_apply": (
-                lambda: bn.backward_apply(x, bias, True, gy, mean, rstd, mul, k1, k2), 10),
-            "plain_stats": (lambda: bn._stats_plain(x, bias, True), 3),
-            "plain_apply": (lambda: bn._apply_plain(x, bias, True, mean, mul, beta), 3),
+            "kernel_backward_apply": (lambda: bn.backward_apply_train(
+                x, bias, True, gy, stats, vec, sums, sums), 10),
+            "plain_stats": (lambda: bn._stats_count_plain(x, bias, True), 3),
+            "plain_apply": (lambda: bn._apply_train_plain(x, bias, True, stats, gamma, beta,
+                                                          1e-3, *run, 0.99), 3),
             "plain_backward_reduce": (
                 lambda: bn._backward_reduce_plain(x, bias, True, gy, mean, rstd), 3),
-            "plain_backward_apply": (
-                lambda: bn._backward_apply_plain(x, bias, True, gy, mean, rstd, mul, k1, k2), 3),
+            "plain_backward_apply": (lambda: bn._backward_apply_train_plain(
+                x, bias, True, gy, stats, vec, sums, sums), 3),
             "library_stats": (lambda: torch.batch_norm_stats(x, 1e-3), 10),
             "library_apply": (lambda: torch.batch_norm_elemt(x, gamma, beta, mean, invstd, 1e-3),
                               10),
@@ -1590,12 +1671,17 @@ def phase_batchnorm(seed: int, dev) -> dict:
         moved = {"stats": act, "apply": 2 * act, "backward_reduce": 2 * act,
                  "backward_apply": 3 * act}
         r = {"shape": list(shape), "dtype": str(dtype), "ms": ms, "ms_runs": runs,
+             "vectors": vectors,
              "bytes": moved, "bound_ms": {k: b / HBM_BYTES_PER_S * 1e3 for k, b in moved.items()},
              "max_abs_err": {"stats": check_a["max_abs_err"], **elt_err,
                              "backward_reduce": check_c["max_abs_err"]},
              "sum_check": {"stats": check_a, "backward_reduce": check_c},
              "clipped_channels": clipped}
         r["share_of_bound"] = {k: r["bound_ms"][k] / ms[f"kernel_{k}"] for k in K4_KINDS}
+        # a kernel too small for half its bound is held to its bound plus
+        # an empty kernel's launch plus 2 us (reported, not gated: a time)
+        r["within_target"] = {k: r["share_of_bound"][k] >= 0.5 or ms[f"kernel_{k}"] <= (
+            r["bound_ms"][k] + out["empty_launch_ms"] + 0.002) for k in K4_KINDS}
         out["cases"][name] = r
         log(f"K4 {name} {tuple(shape)}: (b), (d) bit-equal to plain; (a), (c) within the "
             f"bound of their summation (depth {check_a['depth']}, {check_c['depth']}; largest "
@@ -1604,6 +1690,9 @@ def phase_batchnorm(seed: int, dev) -> dict:
             f"plain f32 sums within twice it; {check_a['faults_caught']} + "
             f"{check_c['faults_caught']} planted faults caught); deterministic; "
             f"{clipped} channels clipped")
+        log(f"  vectors: mean, var and mask bit-equal to finalize, group and none; rstd and "
+            f"mul {vectors['rstd_ulps']} and {vectors['mul_ulps']} ulps off torch.rsqrt's "
+            f"(gate {K4_RSQRT_ULPS}); running statistics, k1, k2 and dbias bit-equal")
         log("  ms: " + ", ".join(
             f"{k} {ms['kernel_' + k]:.4f} ({r['share_of_bound'][k]:.1%} of "
             f"{r['bound_ms'][k]:.4f}; plain {ms['plain_' + k]:.3f}, library "
@@ -1743,12 +1832,15 @@ def device_profile(run, what: str, attempts: int = 3) -> dict:
     else:
         log(f"profile {what}: busy share not measured")
         return {"wall_ms": wall_ms, "busy_ms": None, "top": [], "by_group": {},
-                "by_kernel": {}, "lead_in_seen": spins}
+                "by_kernel": {}, "lead_in_seen": spins, "launches": None,
+                "launches_by_group": {}}
     log(f"profile {what}: {wall_ms:.1f} ms wall, kernels {busy_ms:.1f} ms "
         f"({busy_ms / wall_ms:.1%} busy), {sum(n for _, _, n in kernels)} launches")
     groups: dict = {}
-    for k, ms, _ in kernels:
+    launches: dict = {}
+    for k, ms, count in kernels:
         groups[kernel_group(k)] = groups.get(kernel_group(k), 0.0) + ms
+        launches[kernel_group(k)] = launches.get(kernel_group(k), 0) + count
     by_group = {g: {"ms": ms, "share": ms / busy_ms}
                 for g, ms in sorted(groups.items(), key=lambda r: -r[1])}
     log("  by group: " + ", ".join(f"{g} {v['ms']:.2f} ms ({v['share']:.1%})"
@@ -1758,7 +1850,8 @@ def device_profile(run, what: str, attempts: int = 3) -> dict:
     for r in top:
         log(f"  {r['ms']:9.2f} ms {r['share']:6.1%} x{r['count']:<5d} {r['kernel']}")
     return {"wall_ms": wall_ms, "busy_ms": busy_ms, "top": top, "by_group": by_group,
-            "by_kernel": {k: [ms, n] for k, ms, n in kernels}, "lead_in_seen": spins}
+            "by_kernel": {k: [ms, n] for k, ms, n in kernels}, "lead_in_seen": spins,
+            "launches": sum(launches.values()), "launches_by_group": launches}
 
 
 def phase_int8_head(model, cal: str, big, radius: int, stats, calls: int, dev) -> dict:
@@ -2293,6 +2386,51 @@ K4_PARITY_STEPS = 3
 K4_PARITY_RTOL = 2e-2
 
 
+# aten ops that compute nothing: allocations and views
+NO_WORK_OPS = {"empty", "empty_like", "empty_strided", "select", "slice", "alias", "view",
+               "as_strided", "detach"}
+
+
+def k4_eager_ops(dev) -> dict:
+    """The aten ops a train-mode ``conv_bn`` without a group issues on the
+    card, forward and backward (a dispatch mode records every op): besides
+    K4's four launches only allocations and views, no per-channel op
+    between them. At enc2's width, [8, 128, 256, 256] bf16."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from tpuseg_torch.ops import batchnorm as bn
+
+    ops: list = []
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            ops.append(func.__name__.split(".")[0])
+            return func(*args, **(kwargs or {}))
+
+    x, bias, gamma, beta, gy = k4_inputs((TRAIN_BATCH, 2 * BASE, TRAIN_SIZE // 2,
+                                          TRAIN_SIZE // 2), torch.bfloat16, 7, dev)
+    x = x.detach().requires_grad_()
+    bias = bias.detach().requires_grad_()
+    norm = torch.nn.BatchNorm2d(2 * BASE, eps=1e-3).to(dev).train()
+    torch.cuda.synchronize()
+    before = dict(bn.LAUNCHES)
+    with Record():
+        y = bn.conv_bn(x, bias, True, norm, 0.99)
+        y.backward(gy)
+    torch.cuda.synchronize()
+    launched = {k: bn.LAUNCHES[k] - before[k] for k in K4_KINDS}
+    counts = {op: ops.count(op) for op in sorted(set(ops))}
+    log(f"train-mode conv_bn on the card, forward and backward: K4 launches {launched}, aten "
+        f"ops {counts}")
+    if set(ops) - NO_WORK_OPS:
+        raise AssertionError(f"a train-mode conv_bn ran eager ops besides K4: "
+                             f"{sorted(set(ops) - NO_WORK_OPS)}")
+    if any(n != 1 for n in launched.values()):
+        raise AssertionError(f"a train-mode conv_bn launched K4 {launched}, not once each")
+    return {"ops": counts, "k4_launches": launched}
+
+
 def k4_parity(seed: int, dev, raw_img, raw_msk, params) -> dict:
     """K4_PARITY_STEPS train steps through K4 and through its plain versions
     (``plain_batchnorm``), each from the same fresh state: the losses within
@@ -2472,6 +2610,14 @@ def phase_train(seed: int, work: str, dev, card: str) -> dict:
             tstep(state, raw_img, raw_msk)
 
     prof = device_profile(three_steps, "3 train steps")
+    if prof["launches"] is not None:
+        res["launches_per_step"] = prof["launches"] / 3
+        res["launches_per_step_by_group"] = {g: n / 3 for g, n in
+                                             prof["launches_by_group"].items()}
+        log(f"kernel launches a train step: {res['launches_per_step']:.1f} ("
+            + ", ".join(f"{g} {n:.1f}" for g, n in res["launches_per_step_by_group"].items())
+            + ")")
+    res["k4_conv_bn_ops"] = k4_eager_ops(dev)
     shear_ms = sum(ms for k, (ms, _) in prof["by_kernel"].items() if "shear_rows" in k)
     prof["shear_kernel_ms"] = shear_ms
     prof["shear_kernel_share"] = shear_ms / prof["busy_ms"] if prof["busy_ms"] else None
@@ -2707,12 +2853,14 @@ def plain_batchnorm():
     launch. Yields the number of calls each took."""
     from tpuseg_torch.ops import batchnorm as bn
 
-    swaps = {"stats": ("_launch_stats", bn._stats_plain),
-             "apply": ("_launch_apply", bn._apply_plain),
-             "backward_reduce": ("_launch_backward_reduce", bn._backward_reduce_plain),
-             "backward_apply": ("_launch_backward_apply", bn._backward_apply_plain)}
-    real = {k: getattr(bn, attr) for k, (attr, _) in swaps.items()}
-    calls = dict.fromkeys(swaps, 0)
+    swaps = [("stats", "_launch_stats", bn._stats_count_plain),
+             ("apply", "_launch_apply_train", bn._apply_train_plain),
+             ("apply", "_launch_apply_eval", bn._apply_eval_plain),
+             ("backward_reduce", "_launch_backward_reduce", bn._backward_reduce_plain),
+             ("backward_apply", "_launch_backward_apply", bn._backward_apply_plain),
+             ("backward_apply", "_launch_backward_apply_train", bn._backward_apply_train_plain)]
+    real = {attr: getattr(bn, attr) for _, attr, _ in swaps}
+    calls = dict.fromkeys(K4_KINDS, 0)
 
     def plain(kind, fn):
         def run(*args, **row_strides):
@@ -2720,13 +2868,13 @@ def plain_batchnorm():
             return fn(*args)
         return run
 
-    for kind, (attr, fn) in swaps.items():
+    for kind, attr, fn in swaps:
         setattr(bn, attr, plain(kind, fn))
     try:
         yield calls
     finally:
-        for kind, (attr, _) in swaps.items():
-            setattr(bn, attr, real[kind])
+        for attr, fn in real.items():
+            setattr(bn, attr, fn)
 
 
 def in_ram_launches(height: int, width: int, radius: int) -> int:
@@ -4435,6 +4583,14 @@ def main() -> int:
             "library_note": "PyTorch's own sync-BN kernel, BatchNorm alone (no bias or ReLU)",
             "share_of_bound": enc1["share_of_bound"][kind],
             "shape": enc1["shape"], "dtype": "bfloat16",
+            "head_bfloat16": {k: k4["cases"]["head_bfloat16"][k][kind] if k != "ms" else
+                              k4["cases"]["head_bfloat16"]["ms"][f"kernel_{kind}"]
+                              for k in ("ms", "bound_ms", "share_of_bound", "within_target")},
+            "empty_launch_ms": k4["empty_launch_ms"],
+            "vectors": "(b) and (d) derive mean, var, mask, rstd, mul, k1, k2 and dbias from "
+                       "the sums in the kernel: bit-equal to finalize and the eager formulas "
+                       "(rstd, mul within K4_RSQRT_ULPS, measured 0), running statistics "
+                       "bit-equal to the two-line update",
             "by_case": {name: {"ms": r["ms"][f"kernel_{kind}"], "plain_ms": r["ms"][f"plain_{kind}"],
                                "library_ms": r["ms"][f"library_{kind}"],
                                "bound_ms": r["bound_ms"][kind]}

@@ -218,14 +218,17 @@ def test_plain_versions_match_float64(c, relu, bias, dtype):
     ulp = 2.0 ** -8 if dtype == "bfloat16" else 2.0 ** -23
 
     # (a) within the recursive-summation bound of its terms
-    got = k4.batch_stats(x, b, relu).double().numpy()
+    stats = k4.batch_stats(x, b, relu)
+    got = stats.double().numpy()
     for k, terms in enumerate((a, a * a)):
         assert np.all(np.abs(got[k] - terms.sum(0)) <= _sum_bound(terms)), k
 
-    # (b) within one rounding of the dtype (plus the f32 steps before it)
-    y = _rows(k4.bn_apply(x, b, relu, v["mean"], v["mul"], v["beta"]))
-    want = (a - v["mean"].double().numpy()) * v["mul"].double().numpy() + v["beta"].double().numpy()
-    assert np.all(np.abs(y - want) <= ulp * np.abs(want) + 1e-6)
+    # (b) within one rounding of the dtype (plus the f32 steps before it), on
+    # the mean and mul it derives from (a)'s sums (gamma: v's mul)
+    y, vec = k4.bn_apply_train(x, b, relu, stats, v["mul"], v["beta"], 1e-3)
+    mean, mul = vec[0].double().numpy(), vec[3].double().numpy()
+    want = (a - mean) * mul + v["beta"].double().numpy()
+    assert np.all(np.abs(_rows(y) - want) <= ulp * np.abs(want) + 1e-6)
 
     # (c) within the summation bound
     mean, rstd = v["mean"].double().numpy(), v["rstd"].double().numpy()
@@ -325,14 +328,14 @@ def test_layouts_rows_strided_and_refused():
     assert k4.row_stride(part) == 24
     assert k4.row_stride(torch.randn(2, 8, 3, 5)) is None  # NCHW
     assert k4.row_stride(torch.randn(2, 1, 3, 5)) == 1  # one channel: both layouts
-    mean, mul, beta = torch.zeros(8), torch.ones(8), torch.zeros(8)
-    want = k4.bn_apply(part.contiguous(memory_format=torch.channels_last), None, False, mean,
-                       mul, beta)
-    assert torch.equal(k4.bn_apply(part, None, False, mean, mul, beta), want)
+    mean, var, gamma, beta = torch.zeros(8), torch.ones(8), torch.ones(8), torch.zeros(8)
+    want = k4.bn_apply_eval(part.contiguous(memory_format=torch.channels_last), None, False,
+                            mean, var, gamma, beta, 1e-3)
+    assert torch.equal(k4.bn_apply_eval(part, None, False, mean, var, gamma, beta, 1e-3), want)
     with pytest.raises(ValueError, match="not rows of channels"):
-        k4.bn_apply(torch.randn(2, 8, 3, 5), None, False, mean, mul, beta)
+        k4.bn_apply_eval(torch.randn(2, 8, 3, 5), None, False, mean, var, gamma, beta, 1e-3)
     with pytest.raises(ValueError, match="float32"):
-        k4.bn_apply(x, None, False, mean[:4], mul, beta)
+        k4.bn_apply_eval(x, None, False, mean[:4], var, gamma, beta, 1e-3)
 
 
 def test_gradient_copies_counted_and_launches_zero_on_cpu():
@@ -357,3 +360,238 @@ def test_profile_groups_split_k4_from_reductions_and_elementwise():
     assert kernel_group("void at::native::reduce_kernel<512, 1, at::native::ReduceOp<float>>"
                         ) == "reductions"
     assert kernel_group("void at::native::vectorized_elementwise_kernel<4>") == "elementwise"
+
+
+# ---------------------------------------------------------------------------
+# the train contract: raw sums in, vectors and running statistics out
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("c", [2, 16])
+def test_train_apply_derives_finalize_and_the_running_update(c, dtype):
+    """(b) in train mode on (a)'s ``[sum a, sum a^2, n]``: its vectors are
+    :func:`finalize`'s, bit for bit, its output (b)'s on them, and the
+    running statistics it updates in place are bit-equal to the two-line
+    update ``conv_bn`` made before (``momentum * running + (1 - momentum) *
+    batch``); a constant channel clips, and its mask says so."""
+    x, b, _, _, _, _ = _inputs(c, dtype, seed=40 + c)
+    x[:, 1] = 0.25  # after the bias, a constant channel: its fast variance clips or is 0
+    rng = np.random.default_rng(c)
+    gamma, beta = (torch.from_numpy(rng.uniform(0.5, 1.5, c).astype(np.float32)),
+                   torch.from_numpy(rng.normal(0, 0.3, c).astype(np.float32)))
+    rm0, rv0 = (torch.from_numpy(rng.normal(0, 0.3, c).astype(np.float32)),
+                torch.from_numpy(rng.uniform(0.5, 2, c).astype(np.float32)))
+    stats = k4.batch_stats(x, b, True)
+    n = x.shape[0] * x.shape[2] * x.shape[3]
+    assert stats.shape == (3, c) and (stats[2] == n).all()
+    assert torch.equal(stats[:2], k4._stats_plain(x, b, True))
+    rm, rv = rm0.clone(), rv0.clone()
+    y, vec = k4.bn_apply_train(x, b, True, stats, gamma, beta, 1e-3, rm, rv, 0.99)
+    mean, var, unclipped, rstd, mul = k4.finalize(stats, 1e-3, gamma)
+    for row, want in zip(vec, (mean, var, rstd, mul, unclipped.float())):
+        assert torch.equal(row, want)
+    assert torch.equal(y, k4._apply_plain(x, b, True, mean, mul, beta))
+    assert torch.equal(rm, 0.99 * rm0 + (1 - 0.99) * mean)
+    assert torch.equal(rv, 0.99 * rv0 + (1 - 0.99) * var)
+    assert var[1] == 0
+    # without running statistics nothing else changes
+    y2, vec2 = k4.bn_apply_train(x, b, True, stats, gamma, beta, 1e-3)
+    assert torch.equal(y2, y) and torch.equal(vec2, vec)
+    # eval mode: mul from the running variance
+    ye = k4.bn_apply_eval(x, b, True, rm0, rv0, gamma, beta, 1e-3)
+    assert torch.equal(ye, k4._apply_plain(x, b, True, rm0, torch.rsqrt(rv0 + 1e-3) * gamma,
+                                           beta))
+
+
+def test_train_backward_derives_k1_k2_and_the_bias_gradient():
+    """(d) in train mode: ``k1``, ``k2`` (0 where the variance clipped) and
+    the bias gradient from (c)'s sums, as ``TrainBatchNorm``'s backward
+    computed them eagerly before; ``totals`` stand in for the sums' first
+    two rows (their all-reduce across a group)."""
+    x, b, g, _, _, _ = _inputs(8, "float32", seed=50)
+    x[:, 3] = -2.0  # a dead channel after the ReLU: variance 0
+    rng = np.random.default_rng(5)
+    gamma, beta = (torch.from_numpy(rng.uniform(0.5, 1.5, 8).astype(np.float32)),
+                   torch.from_numpy(rng.normal(0, 0.3, 8).astype(np.float32)))
+    stats = k4.batch_stats(x, b, True)
+    _, vec = k4.bn_apply_train(x, b, True, stats, gamma, beta, 1e-3)
+    sums = k4.backward_reduce(x, b, True, g, vec[0], vec[2])
+    for totals in (sums, 3 * sums[:2]):
+        dx, dbias = k4.backward_apply_train(x, b, True, g, stats, vec, sums, totals)
+        n = stats[2]
+        k1 = totals[0] / n
+        k2 = torch.where(vec[4] != 0, totals[1] / n, 0.0)
+        assert torch.equal(dx, k4.backward_apply(x, b, True, g, vec[0], vec[2], vec[3], k1, k2))
+        assert torch.equal(dbias, vec[3] * ((sums[2] - k1 * sums[3]) - k2 * sums[4]))
+    _, none = k4.backward_apply_train(x, None, True, g, stats, vec, sums[:2], sums[:2])
+    assert none is None
+    with pytest.raises(ValueError, match=r"\[5, 8\]"):
+        k4.backward_apply_train(x, b, True, g, stats, vec, sums[:2], sums[:2])
+
+
+# ---------------------------------------------------------------------------
+# the packed narrow path's index arithmetic, modelled in numpy
+# ---------------------------------------------------------------------------
+
+THREADS, TILE_C, UNROLL, REDUCE_BLOCKS, MIN_ROWS, APPLY_BLOCKS = 256, 64, 4, 264, 64, 528
+
+
+def _path(esize, c, lds, aligned=True):
+    """batchnorm.cu's ``path_of``: 0 one element a thread, 1 a 16-byte
+    vector of one row, P > 1 a 16-byte load of P whole contiguous rows."""
+    vec = 16 // esize
+    if not aligned:
+        return 0
+    if c % vec == 0:
+        return 1 if all(ld % vec == 0 for ld in lds) else 0
+    if c > vec or vec % c:
+        return 0
+    return vec // c if all(ld == c for ld in lds) else 0
+
+
+def _loads(m, c, ld, esize, path, kind):
+    """Every (block, thread, load, slot) of a pass over one channel tile
+    (c <= 64), in each thread's order, as the kernels walk them: the
+    element each slot reads (row, channel; None where the last packed load
+    is masked) and the channel the kernel sums or normalizes it as."""
+    vec = 16 // esize if path else 1
+    pack = path if path > 1 else 1
+    rows = -(-m // pack)
+    tpr = -(-(vec if pack > 1 else c) // vec)
+    rpi = THREADS // tpr
+    if kind == "reduce":
+        gx = min(max(-(-rows // MIN_ROWS), 1), REDUCE_BLOCKS)
+        rpb = -(-rows // gx)
+        spans = [(bx, range(bx * rpb, min(rows, (bx + 1) * rpb))) for bx in range(gx)]
+    else:
+        gx = max(min(-(-rows // (rpi * UNROLL)), APPLY_BLOCKS), 1)
+        step = gx * UNROLL * rpi
+        spans = [(bx, [r for r0 in range(bx * UNROLL * rpi, rows, step)
+                       for r in range(r0, min(r0 + UNROLL * rpi, rows))]) for bx in range(gx)]
+    out = []
+    for bx, span in spans:
+        for t in range(THREADS):
+            lr, c0 = t // tpr, (0 if pack > 1 else (t % tpr) * vec)
+            if lr >= rpi or c0 >= c:
+                continue
+            for r in span:
+                if (r - span[0]) % rpi != lr:
+                    continue
+                valid = min(vec, (m - r * pack) * c) if pack > 1 else vec
+                for j in range(vec):
+                    if pack > 1:
+                        e = r * vec + j  # contiguous rows: element e is row e // c
+                        elt = (e // c, e % c) if j < valid else None
+                        out.append((bx, t, r, j, elt, j % (vec // pack)))
+                    else:
+                        out.append((bx, t, r, j, (r, c0 + j), c0 + j))
+    return out, pack
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("c", [1, 2, 3, 5])
+@pytest.mark.parametrize("m", [1, 7, 1001, 33331])
+def test_packed_narrow_path_model(m, c, dtype):
+    """At C 1, 2, 3, 5 and odd M: contiguous rows narrower than 16 bytes
+    take the packed path where they divide 16 bytes (bf16 C 1, 2; f32 C 1,
+    2), 16 / (c * esize) rows a load; C 3 and 5, and any strided row, one
+    element a thread. Every element is read once by the reductions and
+    once by the elementwise passes, as its own channel, the last packed
+    load masked past the tensor's end; with integer data (sums exact in any
+    order) the model's per-channel sums equal (a)'s plain version, and its
+    elementwise output (b)'s, bit for bit."""
+    tdt = DTYPES[dtype][0]
+    esize = torch.empty((), dtype=tdt).element_size()
+    path = _path(esize, c, [c])
+    assert (path > 1) == (c in (1, 2) or (dtype == "bfloat16" and c == 4))
+    assert _path(esize, c, [c + 8]) in (0, 1) and _path(esize, c, [c], aligned=False) == 0
+    rng = np.random.default_rng(m + c)
+    xi = rng.integers(-6, 7, (m, c)).astype(np.float32)  # exact in bf16, sums exact in f32
+    x = torch.from_numpy(xi).to(tdt).reshape(1, 1, m, c).permute(0, 3, 1, 2)
+    assert k4.row_stride(x) == c
+    bias = torch.from_numpy(rng.integers(-2, 3, c).astype(np.float32))
+    a = np.maximum(xi + bias.numpy(), 0)
+    for kind in ("reduce", "apply"):
+        loads, pack = _loads(m, c, c, esize, path, kind)
+        seen = np.zeros((m, c), np.int64)
+        sums = np.zeros((2, c))
+        for _, _, _, _, elt, ch in loads:
+            if elt is None:
+                continue
+            assert elt[1] == ch  # the slot's channel is the element's
+            seen[elt] += 1
+            sums[:, ch] += (a[elt], a[elt] ** 2)
+        assert (seen == 1).all(), kind
+        if kind == "reduce":
+            np.testing.assert_array_equal(sums, k4.batch_stats(x, bias, True)[:2].numpy())
+        else:
+            mean, gamma, beta = (torch.from_numpy(rng.normal(0, 1, c).astype(np.float32))
+                                 for _ in range(3))
+            var = torch.from_numpy(rng.uniform(0.5, 2, c).astype(np.float32))
+            mul = torch.rsqrt(var + 1e-3) * gamma  # as (b) in eval mode derives it
+            y = np.zeros((m, c), np.float32)
+            af = a.astype(np.float32)
+            for _, _, _, _, elt, ch in loads:
+                if elt is not None:
+                    v = (af[elt] - mean.numpy()[ch]) * mul.numpy()[ch] + beta.numpy()[ch]
+                    y[elt] = _round(np.float32(v), dtype)
+            want = k4.bn_apply_eval(x, bias, True, mean, var, gamma, beta, 1e-3).float()
+            np.testing.assert_array_equal(y, want.permute(0, 2, 3, 1).reshape(m, c).numpy())
+    masked = sum(elt is None for *_, elt, _ in _loads(m, c, c, esize, path, "apply")[0])
+    vec = 16 // esize
+    assert masked == ((-m * c) % vec if path > 1 else 0)
+
+
+# ---------------------------------------------------------------------------
+# what a train-mode conv_bn runs besides K4
+# ---------------------------------------------------------------------------
+
+PLAIN_BODIES = ("_stats_count_plain", "_apply_train_plain", "_backward_reduce_plain",
+                "_backward_apply_train_plain")
+# no computation: allocations and views
+NO_WORK = {"empty", "empty_like", "empty_strided", "select", "slice", "alias", "view",
+           "as_strided", "detach"}
+
+
+def test_train_conv_bn_issues_no_op_outside_the_kernels(monkeypatch):
+    """A train-mode ``conv_bn`` without a group, forward and backward, with
+    every aten op recorded by a dispatch mode except those inside the plain
+    versions of the four kernels (what the kernels do on the card): only
+    allocations and views, no per-channel arithmetic and no copy of the
+    running statistics between the launches; the running statistics move
+    all the same."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    depth = [0]
+    for name in PLAIN_BODIES:
+        fn = getattr(k4, name)
+
+        def inside(*args, _fn=fn, **kwargs):
+            depth[0] += 1
+            try:
+                return _fn(*args, **kwargs)
+            finally:
+                depth[0] -= 1
+        monkeypatch.setattr(k4, name, inside)
+
+    ops = []
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if not depth[0]:
+                ops.append(func.__name__.split(".")[0])
+            return func(*args, **(kwargs or {}))
+
+    block = ConvBlock(3, 8).train()
+    x = torch.randn(2, 3, 8, 8).contiguous(memory_format=torch.channels_last)
+    h = block.conv(x).detach().requires_grad_()  # the conv output, as conv_bn takes it
+    gy = torch.randn(2, 8, 8, 8).contiguous(memory_format=torch.channels_last)
+    before = block.bn.running_mean.clone()
+    with Record():
+        y = k4.conv_bn(h, block.conv.bias, True, block.bn, 0.99)
+        y.backward(gy)
+    assert set(ops) <= NO_WORK, sorted(set(ops) - NO_WORK)
+    assert not torch.equal(block.bn.running_mean, before)
+    assert h.grad is not None and block.conv.bias.grad is not None
+    assert block.bn.weight.grad is not None and block.bn.bias.grad is not None
+    print("ops outside the kernels:", {op: ops.count(op) for op in sorted(set(ops))})

@@ -1080,29 +1080,33 @@ def _within_sum_bound(got, terms, plan):
 @pytest.mark.parametrize("shape, strided", [
     ((3, 2, 5, 7), False), ((3, 2, 5, 7), True), ((2, 64, 9, 11), False),
     ((2, 64, 9, 11), True), ((1, 1024, 3, 5), False), ((2, 24, 4, 4), True),
-    ((1, 3, 7, 7), False), ((2, 200, 3, 3), False)])
+    ((1, 3, 7, 7), False), ((2, 200, 3, 3), False), ((3, 1, 5, 7), False),
+    ((1, 4, 9, 9), False), ((2, 2, 33, 35), False)])
 def test_batchnorm_kernels_match_plain(cuda, shape, strided, relu, bias, dtype):
     """(b) and (d) bit-equal to their plain versions given the same vectors,
     (a) and (c) within the bound of their summation, which planted faults
-    fail; odd M (105 rows), C 2 (the
-    head), 3, 24 (not a multiple of 8: bf16's narrow path), 64, 200 (4
+    fail, and (a)'s count row n; odd M (105, 81 and 2310 rows), C 1, 2 (the
+    head) and 4 (the packed narrow path where the rows divide 16 bytes,
+    its last load masked; one element a thread where g is a channel
+    slice), 3, 24 (not a multiple of 8: bf16's narrow path), 64, 200 (4
     channel tiles, the last partial), 1024; g a channel slice or not."""
     x, g, b, v = _k4_case(shape, dtype, sum(shape) + strided, cuda, bias, strided)
     before = dict(k4.LAUNCHES)
     stats = k4.batch_stats(x, b, relu)
-    y = k4.bn_apply(x, b, relu, v["mean"], v["mul"], v["beta"])
+    y, vec = k4.bn_apply_train(x, b, relu, stats, v["mul"], v["beta"], 1e-3)  # gamma: v's mul
     sums = k4.backward_reduce(x, b, relu, g, v["mean"], v["rstd"])
     dx = k4.backward_apply(x, b, relu, g, v["mean"], v["rstd"], v["mul"], v["k1"], v["k2"])
     torch.cuda.synchronize()
     assert all(k4.LAUNCHES[k] == before[k] + 1 for k in before)
-    assert torch.equal(y, k4._apply_plain(x, b, relu, v["mean"], v["mul"], v["beta"]))
+    assert torch.equal(y, k4._apply_plain(x, b, relu, vec[0], vec[3], v["beta"]))
     assert torch.equal(dx, k4._backward_apply_plain(x, b, relu, g, v["mean"], v["rstd"],
                                                     v["mul"], v["k1"], v["k2"]))
     assert k4.row_stride(y) == k4.row_stride(dx) == shape[1]
     a = k4.activation(x, b, relu).float().permute(1, 0, 2, 3).reshape(shape[1], -1)
-    assert stats.shape == (2, shape[1])
+    assert stats.shape == (3, shape[1])
+    assert (stats[2] == shape[0] * shape[2] * shape[3]).all()
     ad = a.double()
-    assert _within_sum_bound(stats, torch.stack([ad, ad * ad]),
+    assert _within_sum_bound(stats[:2], torch.stack([ad, ad * ad]),
                              k4.reduce_plan(x, k4.row_stride(x)))
     gf = g.float().permute(1, 0, 2, 3).reshape(shape[1], -1).double()
     ah = ((a - v["mean"][:, None]) * v["rstd"][:, None]).double()
@@ -1113,6 +1117,88 @@ def test_batchnorm_kernels_match_plain(cuda, shape, strided, relu, bias, dtype):
     assert sums.shape == (len(terms), shape[1])
     assert _within_sum_bound(sums, torch.stack(terms),
                              k4.reduce_plan(x, k4.row_stride(x), g, k4.row_stride(g), len(terms)))
+
+
+def _ulps(a, b) -> int:
+    return int((a.view(torch.int32).long() - b.view(torch.int32).long()).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("group", [False, True], ids=["no_group", "group"])
+@pytest.mark.parametrize("c", [2, 3, 16, 64, 1024])
+def test_batchnorm_train_vectors_match_finalize(cuda, c, group, dtype):
+    """(b) in train mode derives in the kernel what ``finalize`` gives on
+    the same sums (with a group: sums and n as an all-reduce over two
+    ranks with the same batch leaves them, doubled): mean, variance and
+    mask bit-equal, rstd and mul within 2 ulps (rsqrtf's bound; counted,
+    equal where the kernel's rsqrtf is what torch.rsqrt runs), y bit-equal
+    to (b) on the kernel's own vectors, the running statistics bit-equal
+    to the two-line update; (d) in train mode bit-equal to (d) and the
+    bias gradient to the eager formula, k1 and k2 taken eagerly from the
+    same totals; eval-mode (b) against its plain version. A constant
+    channel's variance clips or comes out near 0."""
+    shape = (2, c, 9, 11)
+    x, g, b, _ = _k4_case(shape, dtype, c + 7 * group, cuda, True, False)
+    x[:, 0] = 0.5
+    rng = np.random.default_rng(c)
+    gamma, beta, rm0 = (torch.from_numpy(rng.normal(m, 0.3, c).astype(np.float32)).to(cuda)
+                        for m in (1.0, 0.0, 0.0))
+    rv0 = torch.from_numpy(rng.uniform(0.5, 2, c).astype(np.float32)).to(cuda)
+    stats = k4.batch_stats(x, b, True)
+    if group:
+        stats = stats * 2
+    rm, rv = rm0.clone(), rv0.clone()
+    y, vec = k4.bn_apply_train(x, b, True, stats, gamma, beta, 1e-3, rm, rv, 0.99)
+    mean, var, unclipped, rstd, mul = k4.finalize(stats, 1e-3, gamma)
+    assert torch.equal(vec[0], mean) and torch.equal(vec[1], var)
+    # the constant channel's fast variance: 0, clipped, or rounding's few ulps of a^2
+    assert torch.equal(vec[4] != 0, unclipped) and vec[1][0] <= 1e-5
+    assert _ulps(vec[2], rstd) <= 2 and _ulps(vec[3], mul) <= 2
+    assert torch.equal(y, k4._apply_plain(x, b, True, vec[0], vec[3], beta))
+    assert torch.equal(rm, 0.99 * rm0 + (1 - 0.99) * vec[0])
+    assert torch.equal(rv, 0.99 * rv0 + (1 - 0.99) * vec[1])
+    sums = k4.backward_reduce(x, b, True, g, vec[0], vec[2])
+    totals = (2 * sums[:2]).contiguous() if group else sums
+    dx, dbias = k4.backward_apply_train(x, b, True, g, stats, vec, sums, totals)
+    k1 = totals[0] / stats[2]
+    k2 = torch.where(vec[4] != 0, totals[1] / stats[2], 0.0)
+    assert torch.equal(dx, k4._backward_apply_plain(x, b, True, g, vec[0], vec[2], vec[3], k1,
+                                                    k2))
+    assert torch.equal(dbias, vec[3] * ((sums[2] - k1 * sums[3]) - k2 * sums[4]))
+    ye = k4.bn_apply_eval(x, b, True, rm0, rv0, gamma, beta, 1e-3)
+    want = k4._apply_eval_plain(x, b, True, rm0, rv0, gamma, beta, 1e-3)
+    if _ulps(vec[2], rstd) == 0:
+        assert torch.equal(ye, want)
+    else:
+        assert (ye.float() - want.float()).abs().max() <= 2 ** -6 * want.float().abs().max()
+
+
+@pytest.mark.cuda
+def test_train_conv_bn_on_card_issues_only_k4(cuda):
+    """A train-mode conv_bn without a group, forward and backward, on the
+    card: K4's four launches and, by a dispatch mode, no other op than
+    allocations and views."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    ops = []
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            ops.append(func.__name__.split(".")[0])
+            return func(*args, **(kwargs or {}))
+
+    x, g, b, _ = _k4_case((2, 16, 8, 8), torch.bfloat16, 3, cuda, True, False)
+    x, b = x.requires_grad_(), b.requires_grad_()
+    norm = torch.nn.BatchNorm2d(16, eps=1e-3).to(cuda).train()
+    k4.reset_counts()
+    with Record():
+        k4.conv_bn(x, b, True, norm, 0.99).backward(g)
+    torch.cuda.synchronize()
+    assert set(ops) <= {"empty", "empty_like", "empty_strided", "select", "slice", "alias",
+                        "view", "as_strided", "detach"}, sorted(set(ops))
+    assert k4.LAUNCHES == {"stats": 1, "apply": 1, "backward_reduce": 1, "backward_apply": 1}
+    assert x.grad is not None and b.grad is not None and norm.weight.grad is not None
 
 
 @pytest.mark.cuda
@@ -1131,11 +1217,12 @@ def test_batchnorm_reductions_are_deterministic(cuda, dtype):
 def test_batchnorm_kernels_refuse_what_they_do_not_take(cuda):
     x, g, b, v = _k4_case((2, 8, 4, 4), torch.float32, 1, cuda, True, False)
     with pytest.raises(ValueError, match="not rows of channels"):
-        k4.bn_apply(x.contiguous(), b, True, v["mean"], v["mul"], v["beta"])
+        k4.bn_apply_eval(x.contiguous(), b, True, v["mean"], v["rstd"], v["mul"], v["beta"],
+                         1e-3)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         k4.batch_stats(x.half(), b, True)
     with pytest.raises(ValueError, match="float32"):
-        k4.bn_apply(x, b, True, v["mean"].double(), v["mul"], v["beta"])
+        k4.bn_apply_eval(x, b, True, v["mean"].double(), v["rstd"], v["mul"], v["beta"], 1e-3)
 
 
 @pytest.mark.cuda

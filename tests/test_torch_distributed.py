@@ -31,6 +31,13 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+def _port_taken(err: str) -> bool:
+    """The TCP store's failure when another process bound the port between
+    ``_free_port`` and the store (EADDRINUSE). These tests drive the TCP
+    rendezvous itself, so they bind again on another port."""
+    return "EADDRINUSE" in err or "address already in use" in err.lower()
+
+
 @pytest.fixture
 def no_torchrun(monkeypatch):
     for var in TORCHRUN_VARS:
@@ -94,18 +101,27 @@ def test_initialize_needs_torchrun_env_or_explicit_args(no_torchrun):
     assert not distributed.is_initialized()
 
 
-@pytest.mark.parametrize("how", ["explicit", "torchrun_env"])
-def test_initialize_world_size_one(no_torchrun, monkeypatch, how):
-    port = _free_port()
-    if how == "explicit":
-        args = (f"127.0.0.1:{port}", 1, 0)
-    else:
-        args = ()
-        for k, v in dict(RANK="0", WORLD_SIZE="1", MASTER_ADDR="127.0.0.1",
-                         MASTER_PORT=str(port)).items():
-            monkeypatch.setenv(k, v)
+@pytest.mark.parametrize("how", ["explicit", "torchrun_env", "file"])
+def test_initialize_world_size_one(no_torchrun, monkeypatch, tmp_path, how):
+    for attempt in range(3):
+        port = _free_port()
+        if how == "file":  # a rendezvous no other process can take
+            args = (f"file://{tmp_path}/rdzv", 1, 0)
+        elif how == "explicit":
+            args = (f"127.0.0.1:{port}", 1, 0)
+        else:
+            args = ()
+            for k, v in dict(RANK="0", WORLD_SIZE="1", MASTER_ADDR="127.0.0.1",
+                             MASTER_PORT=str(port)).items():
+                monkeypatch.setenv(k, v)
+        try:
+            backend = distributed.initialize_distributed(*args, backend="gloo", timeout_s=30)
+            break
+        except Exception as e:  # noqa: BLE001 (the store's error type varies by release)
+            if attempt == 2 or not _port_taken(str(e)):
+                raise
     try:
-        assert distributed.initialize_distributed(*args, backend="gloo", timeout_s=30) == "gloo"
+        assert backend == "gloo"
         assert distributed.is_initialized()
         assert (distributed.process_index(), distributed.process_count()) == (0, 1)
         assert distributed.host_barrier("t1") == "single-process"
@@ -140,10 +156,18 @@ CHILD = textwrap.dedent("""
 
 
 def _torchrun_pair(tmp_path, mode):
-    """Two processes given torchrun's environment on one node."""
+    """Two processes given torchrun's environment on one node; again on
+    another port if rank 0 could not bind the first."""
+    for _ in range(3):
+        outs = _torchrun_pair_on(tmp_path, mode, str(_free_port()))
+        if not _port_taken(outs[0][2]):
+            return outs
+    return outs
+
+
+def _torchrun_pair_on(tmp_path, mode, port):
     script = tmp_path / "child.py"
     script.write_text(CHILD)
-    port = str(_free_port())
     procs = []
     for rank in range(2):
         env = dict(os.environ, RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK=str(rank),

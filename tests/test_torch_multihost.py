@@ -36,15 +36,14 @@ TRAIN_CHILD = textwrap.dedent("""
     # the __main__ guard is load-bearing: the readers' forkserver workers
     # would otherwise join the process group again
     if __name__ == "__main__":
-        rank, port = int(sys.argv[1]), sys.argv[2]
+        rank, rdzv = int(sys.argv[1]), sys.argv[2]
         train_db, test_db, out = sys.argv[3:6]
         zero, spatial = sys.argv[6] == "1", int(sys.argv[7])
         import numpy as np
         import torch
         torch.set_num_threads(1)
         from tpuseg_torch.parallel import distributed
-        distributed.initialize_distributed(f"127.0.0.1:{port}", 2, rank, backend="gloo",
-                                           timeout_s=120)
+        distributed.initialize_distributed(rdzv, 2, rank, backend="gloo", timeout_s=120)
         from tpuseg_torch.train.trainer import TrainConfig, train_model
         kw = dict(batch_size=1, test_every_n_steps=2, early_stopping_count=5,
                   dtype="float32", base_features=2, seed=0, device="cpu",
@@ -71,6 +70,10 @@ TRAIN_CHILD = textwrap.dedent("""
             assert np.isfinite(total) and total > 0
             print("RESTORED", rank, template.step, template.optimizer.param_groups[0]["step"],
                   total)
+        # every rank's last collective done before any tears down its
+        # pairs (else a rank now and then aborts at exit)
+        if torch.distributed.is_initialized():
+            torch.distributed.barrier()
         distributed.shutdown_distributed()
 """)
 
@@ -81,12 +84,16 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+def _port_taken(err: str) -> bool:
+    return "EADDRINUSE" in err or "address already in use" in err.lower()
+
+
 def _env(**extra):
     return dict(os.environ, PYTHONPATH=str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", ""),
                 **extra)
 
 
-def _communicate(procs, timeout=300):
+def _wait(procs, timeout=300):
     outs = []
     try:
         for p in procs:
@@ -96,6 +103,26 @@ def _communicate(procs, timeout=300):
         for p in procs:
             if p.poll() is None:
                 p.kill()
+    return outs
+
+
+def _communicate(procs, timeout=300):
+    return _check(_wait(procs, timeout))
+
+
+def _on_a_free_port(start, attempts=3):
+    """``start(port)`` -> the children; run them again on another port while
+    one failed because another process bound the port between
+    ``_free_port`` and the children (EADDRINUSE): the TCP rendezvous of
+    torchrun's environment is what the test drives."""
+    for _ in range(attempts):
+        outs = _wait(start(str(_free_port())))
+        if not any(rc != 0 and _port_taken(err) for rc, _, err in outs):
+            break
+    return _check(outs)
+
+
+def _check(outs):
     for rc, out, err in outs:
         assert rc == 0, f"child failed:\n{out[-2000:]}\n{err[-4000:]}"
     return outs
@@ -135,11 +162,11 @@ def test_two_process_train_model(dbs, tmp_path, zero, spatial, height):
     script = tmp_path / "child.py"
     script.write_text(TRAIN_CHILD)
     out = str(tmp_path / "out")
-    port = str(_free_port())
+    rdzv = f"file://{tmp_path}/rdzv"
     # explicit initialization is one process per host unless told otherwise
     env = _env(LOCAL_WORLD_SIZE="2") if spatial > 1 else _env()
     outs = _communicate([
-        subprocess.Popen([sys.executable, str(script), str(rank), port, *dbs[height], out,
+        subprocess.Popen([sys.executable, str(script), str(rank), rdzv, *dbs[height], out,
                           "1" if zero else "0", str(spatial)], env=env, cwd=str(REPO),
                          stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         for rank in range(2)])
@@ -219,10 +246,9 @@ def test_two_process_inference_stripes_the_folder(served, tmp_path):
 
     one_out, multi_out = str(tmp_path / "one"), str(tmp_path / "multi")
     main(_serve_args(served, one_out, str(tmp_path / "cal_one.json")))
-    port = str(_free_port())
     code = ("import sys, torch; torch.set_num_threads(1); "
             "from tpuseg_torch.cli.inference import main; main(sys.argv[1:])")
-    outs = _communicate([
+    outs = _on_a_free_port(lambda port: [
         subprocess.Popen([sys.executable, "-c", code, "--multihost", "1",
                           *_serve_args(served, multi_out, str(tmp_path / f"cal{rank}.json"))],
                          env=_env(RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK=str(rank),

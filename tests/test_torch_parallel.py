@@ -26,10 +26,10 @@ batch of 4 over 2 steps, two samples per rank. Tolerances:
 """
 
 import os
-import socket
 import subprocess
 import sys
 import textwrap
+import uuid
 from pathlib import Path
 
 import numpy as np
@@ -44,15 +44,15 @@ CHILD = textwrap.dedent("""
     import sys
 
     if __name__ == "__main__":
-        rank, world, port, work, mode = (int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
+        rank, world, rdzv, work, mode = (int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
                                          sys.argv[4], sys.argv[5])
         import numpy as np
         import torch
         torch.set_num_threads(1)
         from tpuseg_torch.parallel import distributed, mesh as mesh_lib
         if world > 1:
-            distributed.initialize_distributed(f"127.0.0.1:{port}", world, rank,
-                                               backend="gloo", timeout_s=120)
+            distributed.initialize_distributed(rdzv, world, rank, backend="gloo",
+                                               timeout_s=120)
         from tpuseg_torch.models.unet import UNet
         from tpuseg_torch.train.steps import create_train_state
         from tpuseg_torch.utils.checkpoint import optimizer_state
@@ -107,14 +107,20 @@ CHILD = textwrap.dedent("""
             out["local_moments"] = sorted(index[p] for p in state.optimizer.optim.state)
         out["optimizer"] = optimizer_state(state.optimizer)
         torch.save(out, f"{work}/out_{mode}_{world}_{rank}.pt")
+        # every rank's last collective done before any tears down its
+        # pairs (else a rank now and then aborts at exit)
+        if torch.distributed.is_initialized():
+            torch.distributed.barrier()
         distributed.shutdown_distributed()
 """)
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+def _rendezvous(work) -> str:
+    """A file rendezvous for one group of children: a new file in the
+    test's own directory, which no other process can take (a port found
+    free and closed again can be bound by another process before the
+    children bind it)."""
+    return f"file://{work}/rdzv-{uuid.uuid4().hex}"
 
 
 def _run(work, mode, world):
@@ -124,8 +130,8 @@ def _run(work, mode, world):
     with open(script, "w") as f:
         f.write(CHILD)
     env = dict(os.environ, PYTHONPATH=str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", ""))
-    port = str(_free_port())
-    procs = [subprocess.Popen([sys.executable, script, str(r), str(world), port, work, mode],
+    rdzv = _rendezvous(work)
+    procs = [subprocess.Popen([sys.executable, script, str(r), str(world), rdzv, work, mode],
                               cwd=str(REPO), env=env, stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True) for r in range(world)]
     try:

@@ -12,13 +12,28 @@
 // cannot contract them into FMAs that PyTorch's separate eager kernels do
 // not form):
 //   a    = relu(r(x + r(bias)))            (r: round to the dtype; bias and relu optional)
-//   (a)  stats:            out = [sum a, sum a^2]                         per channel
+//   (a)  stats:            out = [sum a, sum a^2, n]                      per channel
 //   (b)  apply:            y   = r(((a - mean) * mul) + beta)
 //   (c)  backward reduce:  out = [sum g, sum g*ah (, sum relu'*g, sum relu', sum relu'*ah)]
 //                          with ah = (a - mean) * rstd; the last three with a bias
 //   (d)  backward apply:   dx  = relu' ? r(((g - k1) - ah * k2) * mul) : 0
 // (b) and (d) are bit-equal to the plain versions given the same vectors;
 // (a) and (c) sum in another order.
+//
+// The per-channel vectors come from the sums inside the kernels, with no
+// launch between them: (b) in train mode derives, in its prologue, from
+// (a)'s sums (or their all-reduce across a process group) exactly what the
+// plain finalize() does, op for op: mean = s0 / n, raw = s1 / n - mean^2,
+// var = raw < 0 ? 0 : raw, rstd = rsqrtf(var + eps) (what torch.rsqrt is
+// on the card), mul = rstd * gamma; in eval mode rstd and mul from the
+// running variance. Every block derives its tile's vectors from the same
+// sums by the same f32 operations, so all get the same bits; the blocks of
+// column 0 also write them out ([mean, var, rstd, mul, unclipped]) and
+// update the running statistics in place (momentum * running + (1 -
+// momentum) * batch, each product and the sum rounded, as the eager update
+// did). (d) in train mode derives k1 = sum g / n and k2 = unclipped ? sum
+// g*ah / n : 0 from (c)'s sums (or their all-reduce) in its prologue, and its
+// column-0 blocks write the bias gradient mul * ((s2 - k1 * s3) - k2 * s4).
 //
 // Bound: memory. Per element (a) reads x, (b) reads x and writes y, (c)
 // reads x and g, (d) reads x and g and writes dx: 1, 2, 2 and 3 times the
@@ -28,16 +43,29 @@
 //
 // Design (simple first). Every kernel maps a block of 256 threads onto a
 // tile of up to 64 channels (grid.y walks the tiles) and as many rows as
-// its threads cover at once: each thread owns 16 bytes of one row (8 bf16 or 4 f32 channels, one
-// 16-byte load) where c, ld and the pointers allow, else one element (the
-// narrow path, e.g. the head's c = 2), and keeps its channels' vectors in
-// registers. Rows advance in batches of kUnroll, loads first, to keep bytes
-// in flight. The reductions are deterministic without float atomics: each
-// block sums a fixed chunk of rows (each thread its rows in order, then the
-// block's threads in order through shared memory) into its partials, and
-// the last block of a channel tile to finish, found with an integer counter
-// (left at zero for the next launch), adds the partials in block order. The
-// block count of a reduction depends on m and c alone, not on the card.
+// its threads cover at once: each thread owns 16 bytes of one row (8 bf16
+// or 4 f32 channels, one 16-byte load) where c, ld and the pointers allow.
+// Where a row is narrower than 16 bytes and divides them (bf16 c = 1, 2,
+// 4; f32 c = 1, 2; the head's c = 2) and the rows are contiguous, a thread
+// loads 16 bytes that span PACK = 16 / (c * esize) whole rows (the packed
+// narrow path): slot j of a load is channel j % c, the last load of the
+// tensor is masked element by element. Otherwise (a concat's channel slice
+// of a narrow layer, c = 3 ...) each thread loads one element (the narrow
+// path). Threads keep their channels' vectors in registers. Rows advance
+// in batches of kUnroll loads, loads first, to keep bytes in flight; (b)
+// issues its first batch before it derives its vectors. The
+// reductions are deterministic without float atomics: each block sums a
+// fixed chunk of rows (each thread its rows in order, a packed thread then
+// its slots of a channel in slot order, then the block's row lanes through
+// shared memory) into its partials, and the last block of a channel tile
+// to finish, found with an integer counter (left at zero for the next
+// launch), adds the partials. Both sums over a column (the row lanes, the
+// blocks) take L lanes a column, as many as 256 threads give the columns
+// (a power of two: 1 at enc1's 64 channels and 5 sums, 64 at the head's 2
+// channels and 2 sums), lane l the values l, l + L, ... in order with 8
+// loads in flight, then a pairwise tree over the lanes, all in a fixed
+// order. The block count of a reduction depends on m and c alone, not on
+// the card.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -49,7 +77,7 @@ constexpr int kThreads = 256;
 constexpr int kTileC = 64;               // channels of a tile (grid.y)
 constexpr int kUnroll = 4;               // rows a thread loads before it computes
 constexpr int kReduceBlocks = 264;       // blocks of a reduction, over all tiles
-constexpr int kMinRowsPerBlock = 64;     // rows a reduction block takes at least
+constexpr int kMinRowsPerBlock = 64;     // rows (loads) a reduction block takes at least
 constexpr int kApplyBlocks = 528;        // blocks of an elementwise pass, over all tiles
 constexpr int kMaxTiles = 64;            // counters the caller provides
 
@@ -95,18 +123,36 @@ __device__ __forceinline__ typename Raw<T, VEC>::type load_raw(const T* p) {
   return *reinterpret_cast<const typename Raw<T, VEC>::type*>(p);
 }
 
+// The packed path's last load of the tensor: its first `valid` elements,
+// one by one (the rest zero, and masked where they are used).
+template <typename T, int VEC>
+__device__ __forceinline__ typename Raw<T, VEC>::type load_part(const T* p, int valid) {
+  typename Raw<T, VEC>::type raw;
+  T* e = reinterpret_cast<T*>(&raw);
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) e[j] = j < valid ? p[j] : T(0.f);
+  return raw;
+}
+
 template <typename T, int VEC>
 __device__ __forceinline__ float element(const typename Raw<T, VEC>::type& r, int j) {
   return Elt<T>::load(reinterpret_cast<const T*>(&r) + j);
 }
 
+// VEC values to p: one 16-byte store, or the first `valid` one by one.
 template <typename T, int VEC>
-__device__ __forceinline__ void store_vec(T* p, const float (&v)[VEC]) {
-  typename Raw<T, VEC>::type raw;
-  T* e = reinterpret_cast<T*>(&raw);
+__device__ __forceinline__ void store_vec(T* p, const float (&v)[VEC], int valid) {
+  if (valid >= VEC) {
+    typename Raw<T, VEC>::type raw;
+    T* e = reinterpret_cast<T*>(&raw);
 #pragma unroll
-  for (int j = 0; j < VEC; ++j) Elt<T>::store(e + j, v[j]);
-  *reinterpret_cast<typename Raw<T, VEC>::type*>(p) = raw;
+    for (int j = 0; j < VEC; ++j) Elt<T>::store(e + j, v[j]);
+    *reinterpret_cast<typename Raw<T, VEC>::type*>(p) = raw;
+  } else {
+#pragma unroll
+    for (int j = 0; j < VEC; ++j)
+      if (j < valid) Elt<T>::store(p + j, v[j]);
+  }
 }
 
 // a = relu(r(x + r(bias))): PyTorch's bf16 add rounds the f32 sum, and its
@@ -118,73 +164,187 @@ __device__ __forceinline__ float activation(float x, float b, bool has_bias, boo
 }
 
 // The tile geometry of a block: threads per row, rows per iteration, this
-// thread's row lane and first channel, and whether it has channels.
-template <int VEC>
+// thread's row lane and first channel, and whether it has channels. On the
+// packed path (PACK > 1) a "row" is one 16-byte load of PACK rows: one
+// thread per load, its slot j channel j % (VEC / PACK).
+template <int VEC, int PACK>
 struct Tile {
   int tpr, rpi, lr, c0;
   bool active;
   __device__ __forceinline__ Tile(int c) {
-    const int tile_c = min(c, kTileC);
+    const int tile_c = PACK > 1 ? VEC : min(c, kTileC);
     tpr = (tile_c + VEC - 1) / VEC;
     rpi = kThreads / tpr;
     lr = threadIdx.x / tpr;
-    c0 = blockIdx.y * kTileC + (threadIdx.x % tpr) * VEC;
+    c0 = PACK > 1 ? 0 : blockIdx.y * kTileC + (threadIdx.x % tpr) * VEC;
     active = lr < rpi && c0 < c;
   }
+  // channel of slot j
+  __device__ __forceinline__ int channel(int j) const {
+    return PACK > 1 ? j % (VEC / PACK) : c0 + j;
+  }
+  // whether slot j is its channel's first in this thread (it writes the
+  // channel's outputs)
+  __device__ __forceinline__ bool first(int j) const { return PACK == 1 || j < VEC / PACK; }
 };
+
+// Load `r` of a pass over m rows: its address and, on the packed path, the
+// valid elements of the tensor's last load.
+template <int VEC, int PACK>
+__device__ __forceinline__ long long row_offset(long long r, long long ld, int c0) {
+  return PACK > 1 ? r * VEC : r * ld + c0;
+}
+
+template <int VEC, int PACK>
+__device__ __forceinline__ int valid_of(long long r, long long m, int c) {
+  if (PACK == 1) return VEC;
+  const long long left = (m - r * PACK) * c;
+  return left < VEC ? (int)left : VEC;
+}
+
+// U loads of a thread, rows r0, r0 + rpi, ..., those below `end`: x's,
+// and g's with BWD; the packed path's last load of the tensor masked.
+template <typename T, int VEC, int PACK, int U, bool BWD>
+__device__ __forceinline__ void load_batch(const T* x, long long ldx, const T* g, long long ldg,
+                                           long long r0, int rpi, int c0, long long end,
+                                           long long m, int c,
+                                           typename Raw<T, VEC>::type (&xv)[U],
+                                           typename Raw<T, VEC>::type (&gv)[U]) {
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const long long r = r0 + (long long)u * rpi;
+    if (r < end) {
+      const int valid = valid_of<VEC, PACK>(r, m, c);
+      if (valid == VEC) {
+        xv[u] = load_raw<T, VEC>(x + row_offset<VEC, PACK>(r, ldx, c0));
+        if constexpr (BWD) gv[u] = load_raw<T, VEC>(g + row_offset<VEC, PACK>(r, ldg, c0));
+      } else {
+        xv[u] = load_part<T, VEC>(x + row_offset<VEC, PACK>(r, ldx, c0), valid);
+        if constexpr (BWD) gv[u] = load_part<T, VEC>(g + row_offset<VEC, PACK>(r, ldg, c0), valid);
+      }
+    }
+  }
+}
 
 struct Vectors {
   const float *bias, *mean, *rstd, *mul, *beta, *k1, *k2;
 };
 
+// Where (b) and (d) take their per-channel vectors from. (b): in train
+// mode the sums `stats` [3, c] = [sum a, sum a^2, n], writing `vec` [5, c]
+// and updating run_mean / run_var (if given); in eval mode run_mean and
+// run_var. (d): in train mode `totals` (rows sum g, sum g*ah, row stride c)
+// and n = stats[2], with `unclipped` (vec's row 4) and, where dbias is
+// given, the local sums `sums` [5, c] for the bias gradient; in eval mode
+// the given k1 and k2.
+struct Derive {
+  bool train;
+  const float* stats;
+  const float* gamma;
+  float eps;
+  float* vec;
+  float* run_mean;
+  float* run_var;
+  float momentum, one_minus_momentum;
+  const float* totals;
+  const float* unclipped;
+  const float* sums;
+  float* dbias;
+};
+
 template <int VEC>
-__device__ __forceinline__ void load_params(const float* p, int c0, float (&v)[VEC]) {
+__device__ __forceinline__ void load_params(const float* p, const int (&ch)[VEC],
+                                            float (&v)[VEC]) {
 #pragma unroll
-  for (int j = 0; j < VEC; ++j) v[j] = p ? __ldg(p + c0 + j) : 0.f;
+  for (int j = 0; j < VEC; ++j) v[j] = p ? __ldg(p + ch[j]) : 0.f;
+}
+
+// log2 of the lanes column_sums gives each of `cols` columns: as many as
+// the block's threads allow, a power of two.
+__host__ __device__ __forceinline__ int lanes_log2(int cols) {
+  int lg = 0;
+  while ((2 << lg) * cols <= kThreads) ++lg;
+  return lg;
+}
+
+// The sum of n values of each of `cols` columns into lanes[col << lg],
+// deterministic: L = 1 << lg lanes a column, lane l adds the values l, l + L,
+// l + 2L, ... in order (8 loads in flight), then a pairwise tree over the
+// lanes (lane q takes lane q + h for h = 1, 2, 4, ...). base(col) is the
+// column's first value, load(base, q) its value q. Returns lg; the block's
+// threads are synchronised after.
+template <typename Base, typename Load>
+__device__ __forceinline__ int column_sums(int cols, int n, float* lanes, Base base, Load load) {
+  const int lg = lanes_log2(cols);
+  const int nl = 1 << lg;
+  for (int i = threadIdx.x; i < (cols << lg); i += kThreads) {
+    const auto b = base(i >> lg);
+    float s = 0.f;
+    int q = i & (nl - 1);
+    for (; q + 7 * nl < n; q += 8 * nl) {
+      float v[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) v[u] = load(b, q + u * nl);
+#pragma unroll
+      for (int u = 0; u < 8; ++u) s = __fadd_rn(s, v[u]);
+    }
+    for (; q < n; q += nl) s = __fadd_rn(s, load(b, q));
+    lanes[i] = s;
+  }
+  __syncthreads();
+  for (int h = 1; h < nl; h <<= 1) {
+    for (int i = threadIdx.x; i < (cols << lg); i += kThreads)
+      if ((i & (2 * h - 1)) == 0) lanes[i] = __fadd_rn(lanes[i], lanes[i + h]);
+    __syncthreads();
+  }
+  return lg;
 }
 
 // (a) with BWD false, (c) with BWD true: NS sums a channel. Block bx sums
-// rows [bx * rpb, (bx + 1) * rpb) into partials[bx][k][c]; the tile's last
-// block adds them in block order into out[k][c].
-template <typename T, int VEC, int NS, bool BWD>
+// rows (loads on the packed path) [bx * rpb, (bx + 1) * rpb) into
+// partials[bx][k][c]; the tile's last block adds them into out[k][c], and
+// (a)'s also writes n = m into out[2][c].
+template <typename T, int VEC, int PACK, int NS, bool BWD>
 __global__ void __launch_bounds__(kThreads)
 bn_reduce_kernel(const T* __restrict__ x, long long ldx, const T* __restrict__ g, long long ldg,
-              Vectors vec, int relu, long long m, int c, long long rpb, float* __restrict__ out,
-              float* __restrict__ partials, int* __restrict__ counters) {
-  extern __shared__ float smem[];  // [NS][rpi][tpr * VEC]
+                 Vectors vec, int relu, long long m, int c, long long rpb,
+                 float* __restrict__ out, float* __restrict__ partials,
+                 int* __restrict__ counters) {
+  extern __shared__ float smem[];  // [NS][rpi][sw], then the lane buffer of column_sums
   __shared__ bool last;
-  const Tile<VEC> t(c);
+  const Tile<VEC, PACK> t(c);
   const bool has_bias = vec.bias != nullptr;
+  const long long rows = PACK > 1 ? (m + PACK - 1) / PACK : m;
   float acc[NS][VEC];
 #pragma unroll
   for (int k = 0; k < NS; ++k)
 #pragma unroll
     for (int j = 0; j < VEC; ++j) acc[k][j] = 0.f;
   if (t.active) {
+    int ch[VEC];
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) ch[j] = t.channel(j);
     float bb[VEC], mu[VEC], rs[VEC];
-    load_params<VEC>(vec.bias, t.c0, bb);
+    load_params<VEC>(vec.bias, ch, bb);
 #pragma unroll
     for (int j = 0; j < VEC; ++j) bb[j] = has_bias ? Elt<T>::round(bb[j]) : 0.f;
     if constexpr (BWD) {
-      load_params<VEC>(vec.mean, t.c0, mu);
-      load_params<VEC>(vec.rstd, t.c0, rs);
+      load_params<VEC>(vec.mean, ch, mu);
+      load_params<VEC>(vec.rstd, ch, rs);
     }
-    const long long r_end = min(m, (blockIdx.x + 1) * rpb);
+    const long long r_end = min(rows, (blockIdx.x + 1) * rpb);
     for (long long r0 = blockIdx.x * rpb + t.lr; r0 < r_end; r0 += (long long)kUnroll * t.rpi) {
       typename Raw<T, VEC>::type xv[kUnroll], gv[kUnroll];
+      load_batch<T, VEC, PACK, kUnroll, BWD>(x, ldx, g, ldg, r0, t.rpi, t.c0, r_end, m, c, xv,
+                                             gv);
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         const long long r = r0 + (long long)u * t.rpi;
-        if (r < r_end) {
-          xv[u] = load_raw<T, VEC>(x + r * ldx + t.c0);
-          if constexpr (BWD) gv[u] = load_raw<T, VEC>(g + r * ldg + t.c0);
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        if (r0 + (long long)u * t.rpi >= r_end) break;
+        if (r >= r_end) break;
+        const int valid = valid_of<VEC, PACK>(r, m, c);
 #pragma unroll
         for (int j = 0; j < VEC; ++j) {
+          if (j >= valid) break;
           const float a = activation<T>(element<T, VEC>(xv[u], j), bb[j], has_bias, relu);
           if constexpr (!BWD) {
             acc[0][j] = __fadd_rn(acc[0][j], a);
@@ -205,81 +365,148 @@ bn_reduce_kernel(const T* __restrict__ x, long long ldx, const T* __restrict__ g
         }
       }
     }
+    if constexpr (PACK > 1) {  // a channel's slots, in slot order, into its first
+      constexpr int C = VEC / PACK;
+#pragma unroll
+      for (int k = 0; k < NS; ++k)
+#pragma unroll
+        for (int j = C; j < VEC; ++j) {
+          acc[k][j % C] = __fadd_rn(acc[k][j % C], acc[k][j]);
+          acc[k][j] = 0.f;
+        }
+    }
   }
-  // the block's threads in row-lane order, through shared memory
-  const int width = t.tpr * VEC;
-  const int lc = (threadIdx.x % t.tpr) * VEC;
+  // the block's row lanes, through shared memory [NS][rpi][sw], summed by
+  // column_sums into the lane buffer behind them
+  constexpr int kSlots = PACK > 1 ? VEC / PACK : VEC;  // a thread's columns
+  const int sw = PACK > 1 ? kSlots : t.tpr * VEC;
+  const int lc = PACK > 1 ? 0 : (threadIdx.x % t.tpr) * VEC;
   if (t.lr < t.rpi) {
 #pragma unroll
     for (int k = 0; k < NS; ++k)
 #pragma unroll
-      for (int j = 0; j < VEC; ++j) smem[(k * t.rpi + t.lr) * width + lc + j] = acc[k][j];
+      for (int j = 0; j < kSlots; ++j) smem[(k * t.rpi + t.lr) * sw + lc + j] = acc[k][j];
   }
   __syncthreads();
   const int tile0 = blockIdx.y * kTileC;
-  for (int i = threadIdx.x; i < NS * width; i += kThreads) {
-    const int k = i / width, cc = i % width;
-    if (tile0 + cc >= c) continue;
-    float s = 0.f;
-    for (int q = 0; q < t.rpi; ++q) s = __fadd_rn(s, smem[(k * t.rpi + q) * width + cc]);
-    partials[((long long)blockIdx.x * NS + k) * c + tile0 + cc] = s;
-  }
+  const int tw = min(c - tile0, PACK > 1 ? c : kTileC);  // channels of this tile
+  const int cols = NS * tw;
+  float* lanes = smem + NS * t.rpi * sw;
+  const int lg = column_sums(
+      cols, t.rpi, lanes, [&](int col) { return (col / tw) * t.rpi * sw + col % tw; },
+      [&](long long base, int q) { return smem[base + q * sw]; });
+  for (int i = threadIdx.x; i < cols; i += kThreads)
+    partials[((long long)blockIdx.x * NS + i / tw) * c + tile0 + i % tw] = lanes[i << lg];
   __threadfence();
   __syncthreads();
   if (threadIdx.x == 0) last = atomicAdd(counters + blockIdx.y, 1) == (int)gridDim.x - 1;
   __syncthreads();
   if (!last) return;
   __threadfence();
-  for (int i = threadIdx.x; i < NS * width; i += kThreads) {
-    const int k = i / width, cc = i % width;
-    if (tile0 + cc >= c) continue;
-    const float* p = partials + (long long)k * c + tile0 + cc;
-    const long long stride = (long long)NS * c;
-    float s = 0.f;
-#pragma unroll 8
-    for (int b = 0; b < (int)gridDim.x; ++b) s = __fadd_rn(s, __ldcg(p + b * stride));
-    out[k * c + tile0 + cc] = s;
+  // the last block: the blocks' partials of each column, in block order
+  const long long stride = (long long)NS * c;
+  column_sums(
+      cols, (int)gridDim.x, lanes,
+      [&](int col) { return (long long)(col / tw) * c + tile0 + col % tw; },
+      [&](long long base, int b) { return __ldcg(partials + base + b * stride); });
+  for (int col = threadIdx.x; col < cols; col += kThreads) {
+    out[(col / tw) * c + tile0 + col % tw] = lanes[col << lg];
+    if (!BWD && col < tw) out[2 * c + tile0 + col] = (float)m;
   }
   if (threadIdx.x == 0) counters[blockIdx.y] = 0;
 }
 
 // (b) with BWD false: y = r(((a - mean) * mul) + beta); (d) with BWD true:
 // dx = relu' ? r(((g - k1) - ah * k2) * mul) : 0. Blocks stride over rows.
-template <typename T, int VEC, bool BWD>
+template <typename T, int VEC, int PACK, bool BWD>
 __global__ void __launch_bounds__(kThreads)
 bn_apply_kernel(const T* __restrict__ x, long long ldx, const T* __restrict__ g, long long ldg,
-             Vectors vec, int relu, long long m, int c, T* __restrict__ out, long long ldo) {
-  const Tile<VEC> t(c);
+                Vectors vec, Derive d, int relu, long long m, int c, T* __restrict__ out,
+                long long ldo) {
+  const Tile<VEC, PACK> t(c);
   if (!t.active) return;
   const bool has_bias = vec.bias != nullptr;
+  const long long rows = PACK > 1 ? (m + PACK - 1) / PACK : m;
+  // (b)'s first batch of loads goes out before the prologue's (in (d) it
+  // measured slower)
+  const long long step = (long long)gridDim.x * kUnroll * t.rpi;
+  const long long first = (long long)blockIdx.x * kUnroll * t.rpi + t.lr;
+  typename Raw<T, VEC>::type xv[kUnroll], gv[kUnroll];
+  if constexpr (!BWD)
+    load_batch<T, VEC, PACK, kUnroll, BWD>(x, ldx, g, ldg, first, t.rpi, t.c0, rows, m, c, xv,
+                                           gv);
+  // the block of column 0 writes each channel's outputs once: its row lane 0
+  const bool writer = blockIdx.x == 0 && t.lr == 0;
+  int ch[VEC];
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) ch[j] = t.channel(j);
   float bb[VEC], mu[VEC], ml[VEC], p0[VEC], p1[VEC], p2[VEC];
-  load_params<VEC>(vec.bias, t.c0, bb);
+  load_params<VEC>(vec.bias, ch, bb);
 #pragma unroll
   for (int j = 0; j < VEC; ++j) bb[j] = has_bias ? Elt<T>::round(bb[j]) : 0.f;
-  load_params<VEC>(vec.mean, t.c0, mu);
-  load_params<VEC>(vec.mul, t.c0, ml);
-  if constexpr (BWD) {
-    load_params<VEC>(vec.rstd, t.c0, p0);
-    load_params<VEC>(vec.k1, t.c0, p1);
-    load_params<VEC>(vec.k2, t.c0, p2);
-  } else {
-    load_params<VEC>(vec.beta, t.c0, p0);
-  }
-  const long long step = (long long)gridDim.x * kUnroll * t.rpi;
-  for (long long r0 = (long long)blockIdx.x * kUnroll * t.rpi + t.lr; r0 < m; r0 += step) {
-    typename Raw<T, VEC>::type xv[kUnroll], gv[kUnroll];
+  if constexpr (!BWD) {
+    load_params<VEC>(vec.beta, ch, p0);
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const long long r = r0 + (long long)u * t.rpi;
-      if (r < m) {
-        xv[u] = load_raw<T, VEC>(x + r * ldx + t.c0);
-        if constexpr (BWD) gv[u] = load_raw<T, VEC>(g + r * ldg + t.c0);
+    for (int j = 0; j < VEC; ++j) {
+      const int k = ch[j];
+      float mean, var, raw = 0.f;
+      if (d.train) {  // finalize(): mean, the clipped fast variance
+        const float n = __ldg(d.stats + 2 * c + k);
+        mean = __fdiv_rn(__ldg(d.stats + k), n);
+        raw = __fsub_rn(__fdiv_rn(__ldg(d.stats + c + k), n), __fmul_rn(mean, mean));
+        var = raw < 0.f ? 0.f : raw;  // clamp_min: NaN passes
+      } else {
+        mean = __ldg(d.run_mean + k);
+        var = __ldg(d.run_var + k);
+      }
+      const float rstd = rsqrtf(__fadd_rn(var, d.eps));
+      mu[j] = mean;
+      ml[j] = __fmul_rn(rstd, __ldg(d.gamma + k));
+      if (d.train && writer && t.first(j)) {
+        d.vec[k] = mean;
+        d.vec[c + k] = var;
+        d.vec[2 * c + k] = rstd;
+        d.vec[3 * c + k] = ml[j];
+        d.vec[4 * c + k] = raw >= 0.f ? 1.f : 0.f;
+        if (d.run_mean) {
+          d.run_mean[k] = __fadd_rn(__fmul_rn(d.momentum, d.run_mean[k]),
+                                    __fmul_rn(d.one_minus_momentum, mean));
+          d.run_var[k] = __fadd_rn(__fmul_rn(d.momentum, d.run_var[k]),
+                                   __fmul_rn(d.one_minus_momentum, var));
+        }
       }
     }
+  } else {
+    load_params<VEC>(vec.mean, ch, mu);
+    load_params<VEC>(vec.mul, ch, ml);
+    load_params<VEC>(vec.rstd, ch, p0);
+    if (!d.train) {
+      load_params<VEC>(vec.k1, ch, p1);
+      load_params<VEC>(vec.k2, ch, p2);
+    } else {
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        const int k = ch[j];
+        const float n = __ldg(d.stats + 2 * c + k);
+        p1[j] = __fdiv_rn(__ldg(d.totals + k), n);
+        p2[j] = __ldg(d.unclipped + k) != 0.f ? __fdiv_rn(__ldg(d.totals + c + k), n) : 0.f;
+        if (d.dbias && writer && t.first(j)) {
+          const float s2 = __ldg(d.sums + 2 * c + k), s3 = __ldg(d.sums + 3 * c + k),
+                      s4 = __ldg(d.sums + 4 * c + k);
+          d.dbias[k] = __fmul_rn(ml[j], __fsub_rn(__fsub_rn(s2, __fmul_rn(p1[j], s3)),
+                                                  __fmul_rn(p2[j], s4)));
+        }
+      }
+    }
+  }
+  for (long long r0 = first; r0 < rows; r0 += step) {
+    if (BWD || r0 != first)
+      load_batch<T, VEC, PACK, kUnroll, BWD>(x, ldx, g, ldg, r0, t.rpi, t.c0, rows, m, c, xv,
+                                             gv);
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const long long r = r0 + (long long)u * t.rpi;
-      if (r >= m) break;
+      if (r >= rows) break;
       float o[VEC];
 #pragma unroll
       for (int j = 0; j < VEC; ++j) {
@@ -289,100 +516,147 @@ bn_apply_kernel(const T* __restrict__ x, long long ldx, const T* __restrict__ g,
         } else {
           const float ah = __fmul_rn(__fsub_rn(a, mu[j]), p0[j]);
           const float gg = element<T, VEC>(gv[u], j);
-          const float d = __fmul_rn(__fsub_rn(__fsub_rn(gg, p1[j]), __fmul_rn(ah, p2[j])), ml[j]);
-          o[j] = (relu && !(a > 0.f)) ? 0.f : d;
+          const float dd = __fmul_rn(__fsub_rn(__fsub_rn(gg, p1[j]), __fmul_rn(ah, p2[j])),
+                                     ml[j]);
+          o[j] = (relu && !(a > 0.f)) ? 0.f : dd;
         }
       }
-      store_vec<T, VEC>(out + r * ldo + t.c0, o);
+      store_vec<T, VEC>(out + row_offset<VEC, PACK>(r, ldo, t.c0), o,
+                        valid_of<VEC, PACK>(r, m, c));
     }
   }
 }
 
 int tiles_of(int c) { return (c + kTileC - 1) / kTileC; }
 
-long long reduce_blocks(long long m, int c) {
-  const long long by_rows = (m + kMinRowsPerBlock - 1) / kMinRowsPerBlock;
+// Loads along the rows (rows, or on the packed path loads of PACK rows).
+long long rows_of(long long m, int pack) { return pack > 1 ? (m + pack - 1) / pack : m; }
+
+long long reduce_blocks(long long rows, int c) {
+  const long long by_rows = (rows + kMinRowsPerBlock - 1) / kMinRowsPerBlock;
   const long long cap = kReduceBlocks / tiles_of(c) > 0 ? kReduceBlocks / tiles_of(c) : 1;
   return by_rows < cap ? (by_rows > 0 ? by_rows : 1) : cap;
 }
 
-// 16-byte vectors where every pointer, row stride and c allow them.
-bool vector_ok(int elt, int c, const void* const* ptrs, const long long* lds, int n) {
-  const int vec = 16 / elt;
-  if (c % vec) return false;
-  for (int i = 0; i < n; ++i) {
-    if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16 || lds[i] % vec) return false;
-  }
+bool aligned(const void* const* ptrs, int n) {
+  for (int i = 0; i < n; ++i)
+    if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16) return false;
   return true;
+}
+
+// The path of a pass: 0 one element a thread, 1 a 16-byte vector of one
+// row, PACK > 1 a 16-byte load of PACK whole contiguous rows.
+int path_of(int elt, int c, const void* const* ptrs, const long long* lds, int n) {
+  const int vec = 16 / elt;
+  if (!aligned(ptrs, n)) return 0;
+  if (c % vec == 0) {
+    for (int i = 0; i < n; ++i)
+      if (lds[i] % vec) return 0;
+    return 1;
+  }
+  if (c > vec || vec % c) return 0;
+  for (int i = 0; i < n; ++i)
+    if (lds[i] != c) return 0;
+  return vec / c;
 }
 
 bool bad_args(long long m, int c) {
   return m < 0 || c <= 0 || tiles_of(c) > kMaxTiles || m >= (1LL << 40);
 }
 
-template <typename T, int VEC, int NS, bool BWD>
+// Threads a load row of the tile takes, and rows an iteration covers.
+int rows_per_iteration(int c, int vec, int pack) {
+  const int tile_c = pack > 1 ? vec : (c < kTileC ? c : kTileC);
+  return kThreads / ((tile_c + vec - 1) / vec);
+}
+
+template <typename T, int VEC, int PACK, int NS, bool BWD>
 int launch_reduce(const void* x, long long ldx, const void* g, long long ldg, Vectors vec,
                   int relu, long long m, int c, float* out, float* partials, int* counters,
                   cudaStream_t stream) {
-  const long long gx = reduce_blocks(m, c);
-  const long long rpb = (m + gx - 1) / gx;
-  const int tile_c = c < kTileC ? c : kTileC;
-  const int tpr = (tile_c + VEC - 1) / VEC;
-  const size_t smem = sizeof(float) * NS * (kThreads / tpr) * tpr * VEC;
+  const long long rows = rows_of(m, PACK);
+  const long long gx = reduce_blocks(rows, c);
+  const long long rpb = (rows + gx - 1) / gx;
+  const int rpi = rows_per_iteration(c, VEC, PACK);
+  const int sw = PACK > 1 ? VEC / PACK : (kThreads / rpi) * VEC;
+  // the row lanes' values, then the lane buffer (cols << lg <= max(cols, 256))
+  const int lane_floats = NS * kTileC > kThreads ? NS * kTileC : kThreads;
+  const size_t smem = sizeof(float) * (NS * rpi * sw + lane_floats);
   const dim3 grid((unsigned)gx, (unsigned)tiles_of(c));
-  bn_reduce_kernel<T, VEC, NS, BWD><<<grid, kThreads, smem, stream>>>(
+  bn_reduce_kernel<T, VEC, PACK, NS, BWD><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(x), ldx, static_cast<const T*>(g), ldg, vec, relu, m, c, rpb, out,
       partials, counters);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int VEC, bool BWD>
+template <typename T, int VEC, int PACK, bool BWD>
 int launch_apply(const void* x, long long ldx, const void* g, long long ldg, Vectors vec,
-                 int relu, long long m, int c, void* out, long long ldo, cudaStream_t stream) {
-  const int tile_c = c < kTileC ? c : kTileC;
-  const int rpi = kThreads / ((tile_c + VEC - 1) / VEC);
-  const long long per_block = (long long)rpi * kUnroll;
-  long long gx = (m + per_block - 1) / per_block;
+                 const Derive& d, int relu, long long m, int c, void* out, long long ldo,
+                 cudaStream_t stream) {
+  const long long per_block = (long long)rows_per_iteration(c, VEC, PACK) * kUnroll;
+  long long gx = (rows_of(m, PACK) + per_block - 1) / per_block;
   const long long cap = kApplyBlocks / tiles_of(c) > 0 ? kApplyBlocks / tiles_of(c) : 1;
   gx = gx < cap ? gx : cap;
+  gx = gx > 0 ? gx : 1;  // m == 0 still derives and writes the vectors
   const dim3 grid((unsigned)gx, (unsigned)tiles_of(c));
-  bn_apply_kernel<T, VEC, BWD><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), ldx, static_cast<const T*>(g), ldg, vec, relu, m, c,
+  bn_apply_kernel<T, VEC, PACK, BWD><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(x), ldx, static_cast<const T*>(g), ldg, vec, d, relu, m, c,
       static_cast<T*>(out), ldo);
   return (int)cudaGetLastError();
 }
 
 template <int NS, bool BWD>
-int reduce_dispatch(int dtype, bool vector, const void* x, long long ldx, const void* g,
+int reduce_dispatch(int dtype, int path, const void* x, long long ldx, const void* g,
                     long long ldg, Vectors vec, int relu, long long m, int c, float* out,
                     float* partials, int* counters, cudaStream_t stream) {
+#define TPUSEG_BN_REDUCE(T, V, P)                                                           \
+  return launch_reduce<T, V, P, NS, BWD>(x, ldx, g, ldg, vec, relu, m, c, out, partials, \
+                                         counters, stream)
   if (dtype == 1) {
-    return vector ? launch_reduce<__nv_bfloat16, 8, NS, BWD>(x, ldx, g, ldg, vec, relu, m, c, out,
-                                                             partials, counters, stream)
-                  : launch_reduce<__nv_bfloat16, 1, NS, BWD>(x, ldx, g, ldg, vec, relu, m, c, out,
-                                                             partials, counters, stream);
+    switch (path) {
+      case 1: TPUSEG_BN_REDUCE(__nv_bfloat16, 8, 1);
+      case 2: TPUSEG_BN_REDUCE(__nv_bfloat16, 8, 2);
+      case 4: TPUSEG_BN_REDUCE(__nv_bfloat16, 8, 4);
+      case 8: TPUSEG_BN_REDUCE(__nv_bfloat16, 8, 8);
+      default: TPUSEG_BN_REDUCE(__nv_bfloat16, 1, 1);
+    }
   }
-  return vector ? launch_reduce<float, 4, NS, BWD>(x, ldx, g, ldg, vec, relu, m, c, out, partials,
-                                                   counters, stream)
-                : launch_reduce<float, 1, NS, BWD>(x, ldx, g, ldg, vec, relu, m, c, out, partials,
-                                                   counters, stream);
+  switch (path) {
+    case 1: TPUSEG_BN_REDUCE(float, 4, 1);
+    case 2: TPUSEG_BN_REDUCE(float, 4, 2);
+    case 4: TPUSEG_BN_REDUCE(float, 4, 4);
+    default: TPUSEG_BN_REDUCE(float, 1, 1);
+  }
+#undef TPUSEG_BN_REDUCE
 }
 
 template <bool BWD>
-int apply_dispatch(int dtype, bool vector, const void* x, long long ldx, const void* g,
-                   long long ldg, Vectors vec, int relu, long long m, int c, void* out,
-                   long long ldo, cudaStream_t stream) {
+int apply_dispatch(int dtype, int path, const void* x, long long ldx, const void* g,
+                   long long ldg, Vectors vec, const Derive& d, int relu, long long m, int c,
+                   void* out, long long ldo, cudaStream_t stream) {
+#define TPUSEG_BN_APPLY(T, V, P) \
+  return launch_apply<T, V, P, BWD>(x, ldx, g, ldg, vec, d, relu, m, c, out, ldo, stream)
   if (dtype == 1) {
-    return vector ? launch_apply<__nv_bfloat16, 8, BWD>(x, ldx, g, ldg, vec, relu, m, c, out, ldo,
-                                                        stream)
-                  : launch_apply<__nv_bfloat16, 1, BWD>(x, ldx, g, ldg, vec, relu, m, c, out, ldo,
-                                                        stream);
+    switch (path) {
+      case 1: TPUSEG_BN_APPLY(__nv_bfloat16, 8, 1);
+      case 2: TPUSEG_BN_APPLY(__nv_bfloat16, 8, 2);
+      case 4: TPUSEG_BN_APPLY(__nv_bfloat16, 8, 4);
+      case 8: TPUSEG_BN_APPLY(__nv_bfloat16, 8, 8);
+      default: TPUSEG_BN_APPLY(__nv_bfloat16, 1, 1);
+    }
   }
-  return vector ? launch_apply<float, 4, BWD>(x, ldx, g, ldg, vec, relu, m, c, out, ldo, stream)
-                : launch_apply<float, 1, BWD>(x, ldx, g, ldg, vec, relu, m, c, out, ldo, stream);
+  switch (path) {
+    case 1: TPUSEG_BN_APPLY(float, 4, 1);
+    case 2: TPUSEG_BN_APPLY(float, 4, 2);
+    case 4: TPUSEG_BN_APPLY(float, 4, 4);
+    default: TPUSEG_BN_APPLY(float, 1, 1);
+  }
+#undef TPUSEG_BN_APPLY
 }
 
 int elt_size(int dtype) { return dtype == 1 ? 2 : 4; }
+
+bool bad_dtype(int dtype) { return dtype != 0 && dtype != 1; }
 
 }  // namespace
 
@@ -392,54 +666,79 @@ extern "C" {
 // pointers and row strides: plan[0] the floats of scratch it needs (its
 // per-block partials), plan[1] its blocks along the rows, plan[2] the rows a
 // block sums, plan[3] the most f32 additions between a term and its sum (a
-// thread's rows, then the block's row lanes, then the blocks: the depth d
-// of the bound |error| <= gamma_d * sum |t|, each term being exact, a
-// product inside an FMA). Returns 0, or -1 where c needs more than 64
-// channel tiles.
+// thread's loads, a packed thread's slots of a channel, the block's row
+// lanes, the last block's lanes over the blocks and its sum of the lanes:
+// the depth d of the bound |error| <= gamma_d * sum |t|, each term being
+// exact, a product inside an FMA), plan[4] the path (0 one element a
+// thread, 1 a 16-byte vector of one row, PACK > 1 a load of PACK rows).
+// Returns 0, or -1 where c needs more than 64 channel tiles.
 int tpuseg_bn_reduce_plan(const void* x, long long ldx, const void* g, long long ldg, int dtype,
                           long long m, int c, int nsums, long long* plan) {
-  if (bad_args(m, c)) return -1;
+  if (bad_args(m, c) || bad_dtype(dtype)) return -1;
   const void* ptrs[] = {x, g};
   const long long lds[] = {ldx, ldg};
-  const int vec = vector_ok(elt_size(dtype), c, ptrs, lds, g ? 2 : 1) ? 16 / elt_size(dtype) : 1;
-  const int tile_c = c < kTileC ? c : kTileC;
-  const long long rpi = kThreads / ((tile_c + vec - 1) / vec);
-  const long long gx = reduce_blocks(m, c);
-  const long long rpb = (m + gx - 1) / gx;
+  const int path = path_of(elt_size(dtype), c, ptrs, lds, g ? 2 : 1);
+  const int vec = path ? 16 / elt_size(dtype) : 1;
+  const int pack = path > 1 ? path : 1;
+  const long long rows = rows_of(m, pack);
+  const long long rpi = rows_per_iteration(c, vec, pack);
+  const long long gx = reduce_blocks(rows, c);
+  const long long rpb = (rows + gx - 1) / gx;
+  // the block's row lanes and the last block's sum over the blocks, by
+  // column_sums: the deepest of the (at most two) tile widths
+  long long sums = 0;
+  for (int tile = 0; tile < tiles_of(c); tile += tiles_of(c) - 1) {
+    const int tw = pack > 1 ? c : (c - tile * kTileC < kTileC ? c - tile * kTileC : kTileC);
+    const int lg = lanes_log2(nsums * tw);
+    const long long depth = (rpi + (1 << lg) - 1) / (1 << lg) + (gx + (1 << lg) - 1) / (1 << lg)
+                            + 2 * lg;
+    sums = depth > sums ? depth : sums;
+    if (tiles_of(c) == 1) break;
+  }
   plan[0] = gx * nsums * c;
   plan[1] = gx;
-  plan[2] = rpb;
-  plan[3] = (rpb + rpi - 1) / rpi + rpi + gx;
+  plan[2] = rpb * pack;
+  plan[3] = (rpb + rpi - 1) / rpi + (pack - 1) + sums;
+  plan[4] = path;
   return 0;
 }
 
 // (a). x: dtype (0 f32, 1 bf16) [m rows of stride ldx, c]; bias: f32 [c] or
-// null; out: f32 [2, c]; scratch: plan[0] floats of tpuseg_bn_reduce_plan;
-// counters: 64 ints, zero (and left zero). Returns the launch's cudaError_t.
+// null; out: f32 [3, c] (sum a, sum a^2, n = m); scratch: plan[0] floats of
+// tpuseg_bn_reduce_plan; counters: 64 ints, zero (and left zero). Returns
+// the launch's cudaError_t.
 int tpuseg_bn_stats(const void* x, long long ldx, int dtype, const float* bias, int relu,
                     long long m, int c, float* out, float* scratch, int* counters, void* stream) {
-  if (bad_args(m, c) || ldx < c || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
+  if (bad_args(m, c) || ldx < c || bad_dtype(dtype)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (m == 0) return (int)cudaMemsetAsync(out, 0, sizeof(float) * 2 * c, s);
+  if (m == 0) return (int)cudaMemsetAsync(out, 0, sizeof(float) * 3 * c, s);
   const void* ptrs[] = {x};
   const long long lds[] = {ldx};
   Vectors vec{bias, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr};
-  return reduce_dispatch<2, false>(dtype, vector_ok(elt_size(dtype), c, ptrs, lds, 1), x, ldx,
+  return reduce_dispatch<2, false>(dtype, path_of(elt_size(dtype), c, ptrs, lds, 1), x, ldx,
                                    nullptr, 0, vec, relu, m, c, out, scratch, counters, s);
 }
 
-// (b). mean, mul, beta: f32 [c]; y: dtype [m rows of stride ldy, c].
+// (b). y: dtype [m rows of stride ldy, c]; gamma, beta: f32 [c]. train 1:
+// stats f32 [3, c] = [sum a, sum a^2, n]; writes vec f32 [5, c] = [mean,
+// var, rstd, mul, unclipped (1 or 0)] and, where run_mean and run_var (f32
+// [c]) are given, sets each to momentum * it + one_minus_momentum * the
+// batch's. train 0 (eval): run_mean and run_var as the statistics.
 int tpuseg_bn_apply(const void* x, long long ldx, int dtype, const float* bias, int relu,
-                    const float* mean, const float* mul, const float* beta, long long m, int c,
-                    void* y, long long ldy, void* stream) {
-  if (bad_args(m, c) || ldx < c || ldy < c || (dtype != 0 && dtype != 1))
+                    int train, const float* stats, const float* gamma, float eps,
+                    float* vec_out, float* run_mean, float* run_var, float momentum,
+                    float one_minus_momentum, const float* beta, long long m, int c, void* y,
+                    long long ldy, void* stream) {
+  if (bad_args(m, c) || ldx < c || ldy < c || bad_dtype(dtype) || !gamma ||
+      (train && (!stats || !vec_out)) || (!train && !run_mean) || (!run_mean != !run_var))
     return (int)cudaErrorInvalidValue;
-  if (m == 0) return 0;
   const void* ptrs[] = {x, y};
   const long long lds[] = {ldx, ldy};
-  Vectors vec{bias, mean, nullptr, mul, beta, nullptr, nullptr};
-  return apply_dispatch<false>(dtype, vector_ok(elt_size(dtype), c, ptrs, lds, 2), x, ldx,
-                               nullptr, 0, vec, relu, m, c, y, ldy,
+  Vectors vec{bias, nullptr, nullptr, nullptr, beta, nullptr, nullptr};
+  Derive d{train != 0, stats, gamma, eps, vec_out, run_mean, run_var, momentum,
+           one_minus_momentum, nullptr, nullptr, nullptr, nullptr};
+  return apply_dispatch<false>(dtype, path_of(elt_size(dtype), c, ptrs, lds, 2), x, ldx,
+                               nullptr, 0, vec, d, relu, m, c, y, ldy,
                                static_cast<cudaStream_t>(stream));
 }
 
@@ -449,36 +748,43 @@ int tpuseg_bn_backward_reduce(const void* x, long long ldx, const void* g, long 
                               int dtype, const float* bias, int relu, const float* mean,
                               const float* rstd, long long m, int c, int nsums, float* out,
                               float* scratch, int* counters, void* stream) {
-  if (bad_args(m, c) || ldx < c || ldg < c || (dtype != 0 && dtype != 1) ||
-      nsums != (bias ? 5 : 2))
+  if (bad_args(m, c) || ldx < c || ldg < c || bad_dtype(dtype) || nsums != (bias ? 5 : 2))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (m == 0) return (int)cudaMemsetAsync(out, 0, sizeof(float) * nsums * c, s);
   const void* ptrs[] = {x, g};
   const long long lds[] = {ldx, ldg};
-  const bool v = vector_ok(elt_size(dtype), c, ptrs, lds, 2);
+  const int path = path_of(elt_size(dtype), c, ptrs, lds, 2);
   Vectors vec{bias, mean, rstd, nullptr, nullptr, nullptr, nullptr};
   if (nsums == 5)
-    return reduce_dispatch<5, true>(dtype, v, x, ldx, g, ldg, vec, relu, m, c, out, scratch,
+    return reduce_dispatch<5, true>(dtype, path, x, ldx, g, ldg, vec, relu, m, c, out, scratch,
                                     counters, s);
-  return reduce_dispatch<2, true>(dtype, v, x, ldx, g, ldg, vec, relu, m, c, out, scratch,
+  return reduce_dispatch<2, true>(dtype, path, x, ldx, g, ldg, vec, relu, m, c, out, scratch,
                                   counters, s);
 }
 
-// (d). mean, rstd, mul, k1, k2: f32 [c]; dx: dtype [m rows of stride lddx, c].
+// (d). mean, rstd, mul: f32 [c]; dx: dtype [m rows of stride lddx, c].
+// train 0: k1, k2 f32 [c] given. train 1: k1 and k2 from totals (f32, rows
+// sum g and sum g*ah of stride c), stats' n (f32 [3, c]) and unclipped (f32
+// [c], 1 or 0); where dbias (f32 [c]) is given, also writes the bias
+// gradient from sums (f32 [5, c], this rank's (c)).
 int tpuseg_bn_backward_apply(const void* x, long long ldx, const void* g, long long ldg,
                              int dtype, const float* bias, int relu, const float* mean,
-                             const float* rstd, const float* mul, const float* k1,
-                             const float* k2, long long m, int c, void* dx, long long lddx,
-                             void* stream) {
-  if (bad_args(m, c) || ldx < c || ldg < c || lddx < c || (dtype != 0 && dtype != 1))
+                             const float* rstd, const float* mul, int train, const float* k1,
+                             const float* k2, const float* stats, const float* totals,
+                             const float* unclipped, const float* sums, float* dbias,
+                             long long m, int c, void* dx, long long lddx, void* stream) {
+  if (bad_args(m, c) || ldx < c || ldg < c || lddx < c || bad_dtype(dtype) ||
+      (!train && (!k1 || !k2)) || (train && (!stats || !totals || !unclipped)) ||
+      (dbias && (!train || !sums)))
     return (int)cudaErrorInvalidValue;
-  if (m == 0) return 0;
   const void* ptrs[] = {x, g, dx};
   const long long lds[] = {ldx, ldg, lddx};
   Vectors vec{bias, mean, rstd, mul, nullptr, k1, k2};
-  return apply_dispatch<true>(dtype, vector_ok(elt_size(dtype), c, ptrs, lds, 3), x, ldx, g, ldg,
-                              vec, relu, m, c, dx, lddx, static_cast<cudaStream_t>(stream));
+  Derive d{train != 0, stats, nullptr, 0.f, nullptr, nullptr, nullptr, 0.f, 0.f,
+           totals, unclipped, sums, dbias};
+  return apply_dispatch<true>(dtype, path_of(elt_size(dtype), c, ptrs, lds, 3), x, ldx, g, ldg,
+                              vec, d, relu, m, c, dx, lddx, static_cast<cudaStream_t>(stream));
 }
 
 const char* tpuseg_cuda_error_string(int err) {

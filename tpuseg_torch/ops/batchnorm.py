@@ -18,26 +18,41 @@ _normalize``'s order). Train mode takes ``mean`` and the fast variance
 mode the running statistics. Four kernels, in
 ``tpuseg_torch/csrc/batchnorm.cu``:
 
-- (a) :func:`batch_stats`: per channel ``[sum a, sum a^2]`` in f32, per-block
+- (a) :func:`batch_stats`: per channel ``[sum a, sum a^2, n]`` in f32, per-block
   partials reduced by the last block in a fixed order (deterministic);
-- (b) :func:`bn_apply`: ``y`` from given per-channel ``mean, mul, beta``;
+- (b) ``y = r(((a - mean) * mul) + beta)``: :func:`bn_apply_train` derives
+  ``mean`` and ``mul`` in the kernel from (a)'s sums as :func:`finalize`
+  does (and writes them, ``[mean, var, rstd, mul, unclipped]``, and updates
+  the running statistics), :func:`bn_apply_eval` from the running
+  statistics;
 - (c) :func:`backward_reduce`: per channel ``[sum g, sum g*ahat]`` with
   ``ahat = (a - mean) * rstd``, and with a bias also ``[sum relu'*g, sum
   relu', sum relu'*ahat]``, from which the bias gradient follows without a
   third pass;
 - (d) :func:`backward_apply`: ``dx = relu' * ((g - k1) - ahat * k2) * mul``
-  with per-channel ``k1 = sum g / n``, ``k2 = sum g*ahat / n`` (zero in
-  eval mode, whose input gradient the ERF probe takes).
+  with per-channel ``k1 = sum g / n``, ``k2 = sum g*ahat / n`` given (zero in
+  eval mode, whose input gradient the ERF probe takes);
+  :func:`backward_apply_train` derives them in the kernel from (c)'s sums
+  and writes the bias gradient too.
+
+A layer in train mode without a process group is these four launches and
+no other op: no per-channel op runs between them (the vectors, the running
+statistics and the bias gradient come out of (b) and (d)), and the
+reductions' plans are cached by shape and their scratch and counters
+reused, so a launch costs one call into the library.
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
-tensor it runs the plain PyTorch version (``_*_plain``), which rounds like
-the kernel: (b) and (d) are bit-equal to it, (a) and (c) sum in another
-order. ``LAUNCHES`` counts kernel launches by kernel. :class:`TrainBatchNorm`
-and :class:`EvalBatchNorm` are the autograd Functions the model calls.
+tensor it runs the plain PyTorch version (``_*_plain``, the derivations
+:func:`finalize` and the running update of ``conv_bn`` as they were), which
+rounds like the kernel: (b) and (d) are bit-equal to it given the same
+vectors, (a) and (c) sum in another order. ``LAUNCHES`` counts kernel
+launches by kernel. :class:`TrainBatchNorm` and :class:`EvalBatchNorm`
+are the autograd Functions the model calls.
 
-Train mode with a process ``group`` (sync-BN) all-reduces ``[sum a, sum
-a^2, n]`` forward and ``[sum g, sum g*ahat]`` backward, which gives the
-gradient a differentiable all-reduce of the sums would; the parameter
+Train mode with a process ``group`` (sync-BN) all-reduces (a)'s ``[sum a,
+sum a^2, n]`` forward, between (a) and (b), and ``[sum g, sum g*ahat]``
+backward, between (c) and (d), which gives the gradient a differentiable
+all-reduce of the sums would; the parameter
 gradients stay this rank's own sums (``dgamma = sum g*ahat``, ``dbeta =
 sum g``, ``dbias``), which DDP then averages. Where the variance clips,
 no gradient flows through it (``clamp_min``'s rule).
@@ -172,11 +187,72 @@ def _backward_apply_plain(x, bias, relu, g, mean, rstd, mul, k1, k2) -> torch.Te
     return dx.to(x.dtype)
 
 
+def finalize(stats: torch.Tensor, eps: float, gamma: torch.Tensor):
+    """From ``[sum a, sum a^2, n]``: mean, the clipped fast variance, whether
+    it was not clipped (the gradient flows through it there), rsqrt(var +
+    eps) and mul."""
+    mean = stats[0] / stats[2]
+    raw = stats[1] / stats[2] - mean * mean
+    var = torch.clamp_min(raw, 0.0)
+    rstd = torch.rsqrt(var + eps)
+    return mean, var, raw >= 0, rstd, rstd * gamma
+
+
+def _stats_count_plain(x, bias, relu) -> torch.Tensor:
+    """(a)'s sums and the count n of rows, ``[3, C]``."""
+    stats = _stats_plain(x, bias, relu)
+    n = x.shape[0] * x.shape[2] * x.shape[3]
+    return torch.cat([stats, stats.new_full((1, stats.shape[1]), float(n))])
+
+
+def _apply_train_plain(x, bias, relu, stats, gamma, beta, eps, running_mean, running_var,
+                       momentum):
+    """(b) in train mode: :func:`finalize` of the sums, the running
+    statistics' update (flax's ``momentum * running + (1 - momentum) *
+    batch``), and ``(y, [mean, var, rstd, mul, unclipped])``."""
+    mean, var, unclipped, rstd, mul = finalize(stats, eps, gamma)
+    if running_mean is not None:
+        running_mean.copy_(momentum * running_mean + (1 - momentum) * mean)
+        running_var.copy_(momentum * running_var + (1 - momentum) * var)
+    vec = torch.stack([mean, var, rstd, mul, unclipped.to(mean.dtype)])
+    return _apply_plain(x, bias, relu, mean, mul, beta), vec
+
+
+def _apply_eval_plain(x, bias, relu, running_mean, running_var, gamma, beta, eps):
+    """(b) in eval mode: rsqrt and mul from the running variance."""
+    rstd = torch.rsqrt(running_var + eps)
+    return _apply_plain(x, bias, relu, running_mean, rstd * gamma, beta)
+
+
+def _backward_apply_train_plain(x, bias, relu, g, stats, vec, sums, totals):
+    """(d) in train mode: ``k1 = sum g / n`` and ``k2 = sum g*ahat / n`` (0
+    where the variance clipped) from ``totals``, then ``(dx, dbias)``, the
+    bias gradient from this rank's ``sums`` (None without a bias)."""
+    n = stats[2]
+    k1 = totals[0] / n
+    k2 = torch.where(vec[4] != 0, totals[1] / n, 0.0)
+    dx = _backward_apply_plain(x, bias, relu, g, vec[0], vec[2], vec[3], k1, k2)
+    dbias = None if bias is None else vec[3] * ((sums[2] - k1 * sums[3]) - k2 * sums[4])
+    return dx, dbias
+
+
 # ---------------------------------------------------------------------------
 # the kernels
 # ---------------------------------------------------------------------------
 
 _COUNTERS: Dict[tuple, torch.Tensor] = {}
+_SCRATCH: Dict[tuple, torch.Tensor] = {}
+_PLANS: Dict[tuple, Dict[str, int]] = {}
+_LIB = None
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        from tpuseg_torch.kernels.build import load
+
+        _LIB = load("batchnorm")
+    return _LIB
 
 
 def _stream(device: torch.device) -> int:
@@ -196,16 +272,29 @@ def _counters(device: torch.device, stream: int) -> torch.Tensor:
     return t
 
 
+def _scratch(device: torch.device, stream: int, floats: int) -> torch.Tensor:
+    """The reductions' per-block partials for ``stream`` on ``device``, grown
+    to the largest plan seen: a reduction writes and reads them within its
+    launch, so launches in stream order share them."""
+    t = _SCRATCH.get((device, stream))
+    if t is None or t.numel() < floats:
+        with torch.cuda.device(device):
+            t = _SCRATCH[(device, stream)] = torch.empty(max(floats, 1 << 16),
+                                                         dtype=torch.float32, device=device)
+    return t
+
+
 def _ptr(v: Optional[torch.Tensor]) -> Optional[int]:
     return None if v is None else v.data_ptr()
 
 
 def _run(kind: str, fn, device: torch.device, stream: int, *args) -> None:
-    from tpuseg_torch.kernels.build import load
-
-    lib = load("batchnorm")
-    with torch.cuda.device(device):
+    lib = _lib()
+    if device.index is None or device.index == torch.cuda.current_device():
         err = getattr(lib, fn)(*args, stream)
+    else:
+        with torch.cuda.device(device):
+            err = getattr(lib, fn)(*args, stream)
     if err:
         raise RuntimeError(f"batchnorm {kind} kernel launch failed: "
                            f"{lib.tpuseg_cuda_error_string(err).decode()} ({err})")
@@ -216,49 +305,73 @@ def _rows(x: torch.Tensor):
     return x.shape[0] * x.shape[2] * x.shape[3], x.shape[1]
 
 
+PLAN_KEYS = ("scratch", "blocks", "rows_per_block", "depth", "path")
+
+
 def reduce_plan(x: torch.Tensor, ldx: int, g: Optional[torch.Tensor] = None, ldg: int = 0,
                 nsums: int = 2) -> Dict[str, int]:
     """The library's plan of the reduction (a) (``g`` None) or (c) on these
-    CUDA tensors: ``scratch`` floats, ``blocks``, ``rows_per_block`` and
+    CUDA tensors: ``scratch`` floats, ``blocks``, ``rows_per_block``,
     ``depth``, the most f32 additions between a term and its sum, so that
-    each sum is within ``gamma_depth * sum |t|`` of the exact one."""
-    from tpuseg_torch.kernels.build import load
-
+    each sum is within ``gamma_depth * sum |t|`` of the exact one, and
+    ``path`` (0 one element a thread, 1 a 16-byte vector of one row, P > 1
+    the packed narrow path, a 16-byte load of P whole rows). Asked of the
+    library once for each shape, row strides and alignment, then cached."""
     m, c = _rows(x)
-    plan = (ctypes.c_longlong * 4)()
-    if load("batchnorm").tpuseg_bn_reduce_plan(x.data_ptr(), ldx, _ptr(g), ldg,
-                                               DTYPE_CODES[x.dtype], m, c, nsums, plan):
-        raise ValueError(f"K4 refuses [{m}, {c}] (at most 64 channel tiles)")
-    return dict(zip(("scratch", "blocks", "rows_per_block", "depth"), plan))
+    key = (x.dtype, m, c, ldx, g is None, ldg, nsums, x.data_ptr() % 16,
+           0 if g is None else g.data_ptr() % 16)
+    plan = _PLANS.get(key)
+    if plan is None:
+        out = (ctypes.c_longlong * len(PLAN_KEYS))()
+        if _lib().tpuseg_bn_reduce_plan(x.data_ptr(), ldx, _ptr(g), ldg, DTYPE_CODES[x.dtype],
+                                        m, c, nsums, out):
+            raise ValueError(f"K4 refuses [{m}, {c}] (at most 64 channel tiles)")
+        plan = _PLANS[key] = dict(zip(PLAN_KEYS, out))
+    return plan
 
 
-def _reduce_out(x, ldx, g, ldg, nsums: int):
-    scratch = reduce_plan(x, ldx, g, ldg, nsums)["scratch"]
-    out = torch.empty((nsums, x.shape[1]), dtype=torch.float32, device=x.device)
-    return out, torch.empty(max(scratch, 1), dtype=torch.float32, device=x.device)
+def _reduce_out(x, ldx, g, ldg, nsums: int, rows: int):
+    """The reduction's output ``[rows, C]`` and its partials."""
+    plan = reduce_plan(x, ldx, g, ldg, nsums)
+    stream = _stream(x.device)
+    out = torch.empty((rows, x.shape[1]), dtype=torch.float32, device=x.device)
+    return out, _scratch(x.device, stream, plan["scratch"]), stream
 
 
 def _launch_stats(x, bias, relu, *, ldx) -> torch.Tensor:
-    out, scratch = _reduce_out(x, ldx, None, 0, 2)
-    stream = _stream(x.device)
+    out, scratch, stream = _reduce_out(x, ldx, None, 0, 2, 3)
     _run("stats", "tpuseg_bn_stats", x.device, stream, x.data_ptr(), ldx, DTYPE_CODES[x.dtype],
          _ptr(bias), int(relu), *_rows(x), out.data_ptr(), scratch.data_ptr(),
          _counters(x.device, stream).data_ptr())
     return out
 
 
-def _launch_apply(x, bias, relu, mean, mul, beta, *, ldx) -> torch.Tensor:
+def _apply(x, bias, relu, train, stats, gamma, eps, vec, running_mean, running_var, momentum,
+           beta, *, ldx) -> torch.Tensor:
     y = _channels_last(x.shape, x.dtype, x.device)
     _run("apply", "tpuseg_bn_apply", x.device, _stream(x.device), x.data_ptr(), ldx,
-         DTYPE_CODES[x.dtype], _ptr(bias), int(relu), mean.data_ptr(), mul.data_ptr(),
+         DTYPE_CODES[x.dtype], _ptr(bias), int(relu), int(train), _ptr(stats), gamma.data_ptr(),
+         eps, _ptr(vec), _ptr(running_mean), _ptr(running_var), momentum, 1 - momentum,
          beta.data_ptr(), *_rows(x), y.data_ptr(), x.shape[1])
     return y
 
 
+def _launch_apply_train(x, bias, relu, stats, gamma, beta, eps, running_mean, running_var,
+                        momentum, *, ldx):
+    vec = torch.empty((5, x.shape[1]), dtype=torch.float32, device=x.device)
+    y = _apply(x, bias, relu, True, stats, gamma, eps, vec, running_mean, running_var, momentum,
+               beta, ldx=ldx)
+    return y, vec
+
+
+def _launch_apply_eval(x, bias, relu, running_mean, running_var, gamma, beta, eps, *, ldx):
+    return _apply(x, bias, relu, False, None, gamma, eps, None, running_mean, running_var, 0.0,
+                  beta, ldx=ldx)
+
+
 def _launch_backward_reduce(x, bias, relu, g, mean, rstd, *, ldx, ldg) -> torch.Tensor:
     nsums = 2 if bias is None else 5
-    out, scratch = _reduce_out(x, ldx, g, ldg, nsums)
-    stream = _stream(x.device)
+    out, scratch, stream = _reduce_out(x, ldx, g, ldg, nsums, nsums)
     _run("backward_reduce", "tpuseg_bn_backward_reduce", x.device, stream, x.data_ptr(), ldx,
          g.data_ptr(), ldg, DTYPE_CODES[x.dtype], _ptr(bias), int(relu), mean.data_ptr(),
          rstd.data_ptr(), *_rows(x), nsums, out.data_ptr(), scratch.data_ptr(),
@@ -266,14 +379,28 @@ def _launch_backward_reduce(x, bias, relu, g, mean, rstd, *, ldx, ldg) -> torch.
     return out
 
 
-def _launch_backward_apply(x, bias, relu, g, mean, rstd, mul, k1, k2, *, ldx,
-                           ldg) -> torch.Tensor:
+def _backward(x, bias, relu, g, mean, rstd, mul, train, k1, k2, stats, totals, unclipped, sums,
+              dbias, *, ldx, ldg) -> torch.Tensor:
     dx = _channels_last(x.shape, x.dtype, x.device)
     _run("backward_apply", "tpuseg_bn_backward_apply", x.device, _stream(x.device),
          x.data_ptr(), ldx, g.data_ptr(), ldg, DTYPE_CODES[x.dtype], _ptr(bias), int(relu),
-         mean.data_ptr(), rstd.data_ptr(), mul.data_ptr(), k1.data_ptr(), k2.data_ptr(),
-         *_rows(x), dx.data_ptr(), x.shape[1])
+         mean.data_ptr(), rstd.data_ptr(), mul.data_ptr(), int(train), _ptr(k1), _ptr(k2),
+         _ptr(stats), _ptr(totals), _ptr(unclipped), _ptr(sums), _ptr(dbias), *_rows(x),
+         dx.data_ptr(), x.shape[1])
     return dx
+
+
+def _launch_backward_apply(x, bias, relu, g, mean, rstd, mul, k1, k2, *, ldx,
+                           ldg) -> torch.Tensor:
+    return _backward(x, bias, relu, g, mean, rstd, mul, False, k1, k2, None, None, None, None,
+                     None, ldx=ldx, ldg=ldg)
+
+
+def _launch_backward_apply_train(x, bias, relu, g, stats, vec, sums, totals, *, ldx, ldg):
+    dbias = None if bias is None else torch.empty_like(bias)
+    dx = _backward(x, bias, relu, g, vec[0], vec[2], vec[3], True, None, None, stats, totals,
+                   vec[4], sums, dbias, ldx=ldx, ldg=ldg)
+    return dx, dbias
 
 
 # ---------------------------------------------------------------------------
@@ -286,23 +413,63 @@ def _device(x: torch.Tensor) -> str:
     return x.device.type
 
 
+def _check_sums(x: torch.Tensor, **matrices) -> None:
+    """Per-channel rows: a contiguous ``[rows, C]`` on x's device with at
+    least the rows given (float32 for the kernel)."""
+    c = x.shape[1]
+    for name, (v, rows) in matrices.items():
+        if (x.device.type == "cuda" and v.dtype != torch.float32) \
+                or not v.dtype.is_floating_point or v.ndim != 2 or v.shape[0] < rows \
+                or v.shape[1] != c or v.device != x.device or not v.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous float32 [{rows}, {c}] on {x.device},"
+                             f" got {v.dtype} {tuple(v.shape)} on {v.device}")
+
+
 def batch_stats(x: torch.Tensor, bias: Optional[torch.Tensor], relu: bool) -> torch.Tensor:
-    """(a): f32 ``[2, C]``, per channel ``[sum a, sum a^2]`` over N, H, W."""
+    """(a): f32 ``[3, C]``, per channel ``[sum a, sum a^2, n]`` over the ``n =
+    N*H*W`` rows."""
     ldx = _check_rows("x", x)
     _check_vectors(x, bias=bias)
     if _device(x) == "cpu":
-        return _stats_plain(x, bias, relu)
+        return _stats_count_plain(x, bias, relu)
     return _launch_stats(x, bias, relu, ldx=ldx)
 
 
-def bn_apply(x: torch.Tensor, bias: Optional[torch.Tensor], relu: bool, mean: torch.Tensor,
-             mul: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
-    """(b): ``y = r(((a - mean) * mul) + beta)``, channels-last, x's dtype."""
+def bn_apply_train(x: torch.Tensor, bias: Optional[torch.Tensor], relu: bool,
+                   stats: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float,
+                   running_mean: Optional[torch.Tensor] = None,
+                   running_var: Optional[torch.Tensor] = None, momentum: float = 0.0):
+    """(b) in train mode on (a)'s ``stats`` ``[3, C]`` (or their all-reduce):
+    ``(y, vec)``, ``y`` channels-last in x's dtype, ``vec`` ``[5, C]`` =
+    ``[mean, var, rstd, mul,
+    unclipped (1. or 0.)]`` as :func:`finalize` gives them; with the running
+    statistics, also sets each to ``momentum * it + (1 - momentum) *
+    batch``, in place."""
     ldx = _check_rows("x", x)
-    _check_vectors(x, bias=bias, mean=mean, mul=mul, beta=beta)
+    _check_vectors(x, bias=bias, gamma=gamma, beta=beta, running_mean=running_mean,
+                   running_var=running_var)
+    _check_sums(x, stats=(stats, 3))
+    if (running_mean is None) != (running_var is None):
+        raise ValueError("running_mean and running_var go together")
     if _device(x) == "cpu":
-        return _apply_plain(x, bias, relu, mean, mul, beta)
-    return _launch_apply(x, bias, relu, mean, mul, beta, ldx=ldx)
+        return _apply_train_plain(x, bias, relu, stats, gamma, beta, eps, running_mean,
+                                  running_var, momentum)
+    return _launch_apply_train(x, bias, relu, stats, gamma, beta, eps, running_mean,
+                               running_var, momentum, ldx=ldx)
+
+
+def bn_apply_eval(x: torch.Tensor, bias: Optional[torch.Tensor], relu: bool,
+                  running_mean: torch.Tensor, running_var: torch.Tensor, gamma: torch.Tensor,
+                  beta: torch.Tensor, eps: float) -> torch.Tensor:
+    """(b) in eval mode: ``y`` with ``mean`` the running mean and ``mul =
+    rsqrt(running_var + eps) * gamma`` derived in the kernel."""
+    ldx = _check_rows("x", x)
+    _check_vectors(x, bias=bias, running_mean=running_mean, running_var=running_var,
+                   gamma=gamma, beta=beta)
+    if _device(x) == "cpu":
+        return _apply_eval_plain(x, bias, relu, running_mean, running_var, gamma, beta, eps)
+    return _launch_apply_eval(x, bias, relu, running_mean, running_var, gamma, beta, eps,
+                              ldx=ldx)
 
 
 def backward_reduce(x: torch.Tensor, bias: Optional[torch.Tensor], relu: bool, g: torch.Tensor,
@@ -330,6 +497,25 @@ def backward_apply(x: torch.Tensor, bias: Optional[torch.Tensor], relu: bool, g:
                                   ldg=ldg)
 
 
+def backward_apply_train(x: torch.Tensor, bias: Optional[torch.Tensor], relu: bool,
+                         g: torch.Tensor, stats: torch.Tensor, vec: torch.Tensor,
+                         sums: torch.Tensor, totals: torch.Tensor):
+    """(d) in train mode: ``k1 = totals[0] / n`` and ``k2 = totals[1] / n``
+    (0 where ``vec``'s variance clipped) derived in the kernel, with ``n =
+    stats[2]``; ``(dx, dbias)``, the bias gradient ``mul * ((sums[2] - k1 *
+    sums[3]) - k2 * sums[4])`` from this rank's (c) ``sums`` (None without a
+    bias). ``totals`` is ``sums`` itself, or the all-reduce of its first two
+    rows across a process group."""
+    ldx, ldg = _check_rows("x", x), _check_rows("g", g, x)
+    _check_vectors(x, bias=bias)
+    _check_sums(x, stats=(stats, 3), vec=(vec, 5), sums=(sums, 2 if bias is None else 5),
+                totals=(totals, 2))
+    if _device(x) == "cpu":
+        return _backward_apply_train_plain(x, bias, relu, g, stats, vec, sums, totals)
+    return _launch_backward_apply_train(x, bias, relu, g, stats, vec, sums, totals, ldx=ldx,
+                                        ldg=ldg)
+
+
 # ---------------------------------------------------------------------------
 # the autograd Functions
 # ---------------------------------------------------------------------------
@@ -346,27 +532,14 @@ def _gradient_rows(g: torch.Tensor) -> torch.Tensor:
     return g.contiguous(memory_format=torch.channels_last)
 
 
-def finalize(stats: torch.Tensor, eps: float, gamma: torch.Tensor):
-    """From ``[sum a, sum a^2, n]``: mean, the clipped fast variance, whether
-    it was not clipped (the gradient flows through it there), rsqrt(var +
-    eps) and mul."""
-    mean = stats[0] / stats[2]
-    raw = stats[1] / stats[2] - mean * mean
-    var = torch.clamp_min(raw, 0.0)
-    rstd = torch.rsqrt(var + eps)
-    return mean, var, raw >= 0, rstd, rstd * gamma
-
-
 class TrainBatchNorm(torch.autograd.Function):
     """Train mode: ``(y, mean, var)`` of the batch (of the global batch with
-    a ``group``); mean and var take no gradient (the caller updates the
-    running statistics with them)."""
+    a ``group``); mean and var take no gradient. ``running`` is empty, or
+    ``(running_mean, running_var, momentum)``, which (b) updates in place."""
 
     @staticmethod
-    def forward(ctx, x, bias, gamma, beta, relu: bool, eps: float, group):
+    def forward(ctx, x, bias, gamma, beta, relu: bool, eps: float, group, *running):
         stats = batch_stats(x, bias, relu)
-        n = x.shape[0] * x.shape[2] * x.shape[3]
-        stats = torch.cat([stats, stats.new_full((1, stats.shape[1]), float(n))])
         if group is not None:
             # torch.distributed.nn.functional's all-reduce (the call the
             # parallel tests count); inside a Function's forward it records
@@ -374,50 +547,49 @@ class TrainBatchNorm(torch.autograd.Function):
             from torch.distributed.nn.functional import all_reduce
 
             stats = all_reduce(stats, group=group)
-        mean, var, unclipped, rstd, mul = finalize(stats, eps, gamma)
-        y = bn_apply(x, bias, relu, mean, mul, beta)
-        ctx.relu, ctx.group = relu, group
-        ctx.save_for_backward(x, bias, mean, rstd, mul, unclipped, stats[2])
+        y, vec = bn_apply_train(x, bias, relu, stats, gamma, beta, eps, *running)
+        ctx.relu, ctx.group, ctx.n_running = relu, group, len(running)
+        ctx.save_for_backward(x, bias, stats, vec)
+        mean, var = vec[0], vec[1]
         ctx.mark_non_differentiable(mean, var)
+        # no zero gradients filled in for mean and var (a launch each)
+        ctx.set_materialize_grads(False)
         return y, mean, var
 
     @staticmethod
     def backward(ctx, gy, _gmean, _gvar):
-        x, bias, mean, rstd, mul, unclipped, n = ctx.saved_tensors
+        x, bias, stats, vec = ctx.saved_tensors
         g = _gradient_rows(gy)
-        sums = backward_reduce(x, bias, ctx.relu, g, mean, rstd)
-        total = sums[:2].clone()
+        sums = backward_reduce(x, bias, ctx.relu, g, vec[0], vec[2])
+        totals = sums
         if ctx.group is not None:
             import torch.distributed as dist
 
-            dist.all_reduce(total, group=ctx.group)
-        k1 = total[0] / n
-        k2 = torch.where(unclipped, total[1] / n, 0.0)
-        dx = backward_apply(x, bias, ctx.relu, g, mean, rstd, mul, k1, k2) \
-            if ctx.needs_input_grad[0] else None
-        dbias = None
-        if bias is not None and ctx.needs_input_grad[1]:
-            dbias = mul * ((sums[2] - k1 * sums[3]) - k2 * sums[4])
-        return dx, dbias, sums[1], sums[0], None, None, None
+            totals = sums[:2].clone()
+            dist.all_reduce(totals, group=ctx.group)
+        dx, dbias = backward_apply_train(x, bias, ctx.relu, g, stats, vec, sums, totals)
+        need = ctx.needs_input_grad
+        return (dx if need[0] else None, dbias if need[1] else None, sums[1], sums[0], None,
+                None, None) + (None,) * ctx.n_running
 
 
 class EvalBatchNorm(torch.autograd.Function):
-    """Eval mode, on the running statistics: ``y``; its input gradient is
-    (d) with zero sums, and parameter gradients, where asked for, come from
-    (c) without the mean terms."""
+    """Eval mode, on the running statistics: ``y``, with ``mul`` derived in
+    (b); its input gradient is (d) with zero sums, and parameter gradients,
+    where asked for, come from (c) without the mean terms."""
 
     @staticmethod
     def forward(ctx, x, bias, gamma, beta, running_mean, running_var, relu: bool, eps: float):
-        rstd = torch.rsqrt(running_var + eps)
-        mul = rstd * gamma
-        y = bn_apply(x, bias, relu, running_mean, mul, beta)
-        ctx.relu = relu
-        ctx.save_for_backward(x, bias, running_mean, rstd, mul)
+        y = bn_apply_eval(x, bias, relu, running_mean, running_var, gamma, beta, eps)
+        ctx.relu, ctx.eps = relu, eps
+        ctx.save_for_backward(x, bias, gamma, running_mean, running_var)
         return y
 
     @staticmethod
     def backward(ctx, gy):
-        x, bias, mean, rstd, mul = ctx.saved_tensors
+        x, bias, gamma, mean, var = ctx.saved_tensors
+        rstd = torch.rsqrt(var + ctx.eps)
+        mul = rstd * gamma
         g = _gradient_rows(gy)
         need = ctx.needs_input_grad
         dx = dbias = dgamma = dbeta = None
@@ -437,13 +609,11 @@ def conv_bn(x: torch.Tensor, bias: Optional[torch.Tensor], relu: bool,
     """A block's ``bias -> ReLU -> BatchNorm`` on the conv output ``x``
     (without its bias): train mode normalizes with the batch statistics and
     updates ``bn``'s running ones (flax's ``running = momentum * running +
-    (1 - momentum) * batch``, the biased variance), eval mode with the
-    running statistics."""
+    (1 - momentum) * batch``, the biased variance) inside (b), eval mode
+    with the running statistics."""
     if not bn.training:
         return EvalBatchNorm.apply(x, bias, bn.weight, bn.bias, bn.running_mean,
                                    bn.running_var, relu, bn.eps)
-    y, mean, var = TrainBatchNorm.apply(x, bias, bn.weight, bn.bias, relu, bn.eps, group)
-    with torch.no_grad():
-        bn.running_mean.copy_(momentum * bn.running_mean + (1 - momentum) * mean)
-        bn.running_var.copy_(momentum * bn.running_var + (1 - momentum) * var)
+    y, _, _ = TrainBatchNorm.apply(x, bias, bn.weight, bn.bias, relu, bn.eps, group,
+                                   bn.running_mean, bn.running_var, momentum)
     return y

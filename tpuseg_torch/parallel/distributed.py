@@ -88,9 +88,11 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
                            timeout_s: float = DEFAULT_TIMEOUT_S) -> str:
     """Join the process group and return its backend.
 
-    With ``coordinator_address`` (``host:port``; process 0 listens there),
-    ``num_processes`` and ``process_id`` all given, the group forms over
-    ``tcp://``; with none given, from torchrun's environment, and without
+    With ``coordinator_address`` (``host:port``, where process 0 listens; or
+    a ``file://`` path that every process shares and that does not exist
+    yet, a rendezvous no other program can take), ``num_processes`` and
+    ``process_id`` all given, the group forms over ``tcp://`` or that file;
+    with none given, from torchrun's environment, and without
     that environment it raises. ``backend`` defaults to ``nccl`` when a card
     is visible and ``gloo`` otherwise; under NCCL this process binds its
     GPU, ``cuda:LOCAL_RANK``, first. A failed initialization raises."""
@@ -99,7 +101,8 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
         if any(v is None for v in explicit):
             raise ValueError("explicit initialization takes coordinator_address, "
                              "num_processes and process_id together")
-        init_method = f"tcp://{coordinator_address}"
+        init_method = (coordinator_address if coordinator_address.startswith("file://")
+                       else f"tcp://{coordinator_address}")
         world, rank = int(num_processes), int(process_id)
     else:
         missing = [k for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")

@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import os
 import queue
-import socket
+import tempfile
 import traceback
 
 import numpy as np
@@ -37,10 +37,6 @@ BATCH = 2  # per rank
 STRADDLE = 48  # rows of the spatial mesh's straddling step
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 def _finite(x: float, what: str) -> float:
@@ -103,7 +99,7 @@ def _straddle(mesh, device, x, shard) -> dict:
             "gathers": mesh.halo.gathers - before}
 
 
-def _rank_main(rank: int, world: int, port: int, cuda: bool, results) -> None:
+def _rank_main(rank: int, world: int, rdzv: str, cuda: bool, results) -> None:
     """One rank of the dry run; puts ``(rank, result or None, error or
     None)`` on ``results``."""
     try:
@@ -117,8 +113,7 @@ def _rank_main(rank: int, world: int, port: int, cuda: bool, results) -> None:
         from tpuseg_torch.train.steps import create_train_state
 
         backend = distributed.initialize_distributed(
-            f"127.0.0.1:{port}", world, rank, backend="nccl" if cuda else "gloo",
-            timeout_s=120)
+            rdzv, world, rank, backend="nccl" if cuda else "gloo", timeout_s=120)
         device = torch.device("cuda", rank) if cuda else torch.device("cpu")
         mesh = mesh_lib.make_mesh(device, spatial=2 if world % 2 == 0 else 1)
         mesh_lib.warm_collectives(mesh)
@@ -167,8 +162,11 @@ def dryrun_multigpu(n: int = 2, timeout_s: float = 300.0) -> dict:
     cuda = torch.cuda.is_available() and torch.cuda.device_count() >= n
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
-    port = _free_port()
-    procs = [ctx.Process(target=_rank_main, args=(r, n, port, cuda, results), daemon=True)
+    # a file rendezvous: a port found free could be bound by another
+    # process before rank 0 binds it
+    work = tempfile.TemporaryDirectory(prefix="tpuseg-dryrun-")
+    rdzv = f"file://{work.name}/rdzv"
+    procs = [ctx.Process(target=_rank_main, args=(r, n, rdzv, cuda, results), daemon=True)
              for r in range(n)]
     for p in procs:
         p.start()
@@ -190,6 +188,7 @@ def dryrun_multigpu(n: int = 2, timeout_s: float = 300.0) -> dict:
             if p.is_alive():
                 p.kill()
                 p.join(timeout=10)
+        work.cleanup()
     keys = ("data_parallel", "zero1", "raw_zero1")
     for rank in range(1, n):
         if any(got[rank].get(k) != got[0].get(k) for k in keys + ("straddle",)):
