@@ -3981,6 +3981,7 @@ def spatial_train_worker(rank: int, port: int, seed: int, work: str, out_path: s
     from tpuseg_torch.parallel import mesh as mesh_lib
     from tpuseg_torch.train.steps import create_train_state
     from tpuseg_torch.train.trainer import TrainConfig, train_model
+    from tpuseg_torch.utils.profiling import spans
 
     dev = torch.device(device)
     cuda = dev.type == "cuda"
@@ -4037,7 +4038,7 @@ def spatial_train_worker(rank: int, port: int, seed: int, work: str, out_path: s
                    gather_bytes_per_step=(halo.gather_bytes - sent[3]) / n)
         activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
         sync()
-        with profile(activities=activities) as prof:
+        with spans(), profile(activities=activities) as prof:
             if cuda:
                 profiler_lead_in(LEAD_IN)
             t0 = time.perf_counter()

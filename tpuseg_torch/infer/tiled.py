@@ -28,12 +28,14 @@ its masks equal :func:`inference_tiled`'s given the same statistics.
 
 from __future__ import annotations
 
+import itertools
 from typing import Any, Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from tpuseg_torch import RADIUS, SIZE_FACTOR
+from tpuseg_torch.utils.profiling import span
 
 TILE_SIZE = 1024  # inference.py:24
 # auto-tile search ceiling, kept from the JAX package (sized for a TPU
@@ -41,6 +43,8 @@ TILE_SIZE = 1024  # inference.py:24
 MAX_AUTO_TILE = 1536
 
 PredictFn = Callable[[torch.Tensor], torch.Tensor]
+
+_IMAGES = itertools.count()  # numbers each inference_tiled call's span
 
 
 def max_auto_tile(per_device_batch: int) -> int:
@@ -249,11 +253,12 @@ def inference_single_batch(imgs: List[np.ndarray], predict_fn: PredictFn,
 
 
 def _forward_tiles(shards, padded: torch.Tensor, windows, tile_size: int,
-                   chunk: int) -> torch.Tensor:
+                   chunk: int) -> List[torch.Tensor]:
     """Cut the windows at ``(window_y, window_x)`` out of the device image
     and run them ``chunk`` at a time on each of ``shards`` (from
-    :func:`_shards`) in turn; returns at least ``(n_tiles, tile, tile)``
-    labels, on ``padded``'s device (pad tiles last)."""
+    :func:`_shards`) in turn; returns the chunks' labels, on ``padded``'s
+    device, at least ``n_tiles`` tiles of ``(tile, tile)`` in all (pad
+    tiles last)."""
     devs, fns, pad = shards
     group = chunk * len(devs)
     if pad:  # repeat the first windows up to whole groups
@@ -268,10 +273,13 @@ def _forward_tiles(shards, padded: torch.Tensor, windows, tile_size: int,
             img = images.get(d)
             if img is None:
                 img = images[d] = padded.to(d)
-            outs.append(fn(torch.stack([img[y_st:y_st + tile_size, x_st:x_st + tile_size]
-                                        for (y_st, x_st) in part])))
+            with span("tiled.windows"):
+                x = torch.stack([img[y_st:y_st + tile_size, x_st:x_st + tile_size]
+                                 for (y_st, x_st) in part])
+            with span("tiled.predict"):
+                outs.append(fn(x))
         preds.extend(o.to(padded.device) for o in outs)
-    return torch.cat(preds)
+    return preds
 
 
 def inference_tiled(
@@ -300,40 +308,47 @@ def inference_tiled(
     ``device_output`` as the cropped tensor on the device, for callers that
     keep post-processing (metrics, encoding) there.
     """
-    if img.ndim not in (2, 3):
-        raise IOError("Invalid number of dimensions for input image. "
-                      "Expecting HW or HWC dimension ordering.")
-    img, pad_y, pad_x = _pad_to_multiple(img)
-    height, width = img.shape[0], img.shape[1]
+    with span("tiled.image", next(_IMAGES)):
+        if img.ndim not in (2, 3):
+            raise IOError("Invalid number of dimensions for input image. "
+                          "Expecting HW or HWC dimension ordering.")
+        with span("tiled.prepare"):
+            img, pad_y, pad_x = _pad_to_multiple(img)
+            height, width = img.shape[0], img.shape[1]
 
-    zor = tile_size - 2 * radius  # zone of responsibility, inference.py:58
-    _check_tile_geometry(tile_size, radius, zor)
+            zor = tile_size - 2 * radius  # zone of responsibility, inference.py:58
+            _check_tile_geometry(tile_size, radius, zor)
 
-    # guarantee full-size windows exist: reflect-pad skinny dims up to tile
-    extra_y = max(0, tile_size - height)
-    extra_x = max(0, tile_size - width)
-    if extra_y or extra_x:
-        img = np.pad(img, ((0, extra_y), (0, extra_x), (0, 0)), mode="reflect")
-    full_h, full_w = img.shape[0], img.shape[1]
-    placements = _zor_placements(height, width, zor, tile_size, radius,
-                                 full_h, full_w)
+            # guarantee full-size windows exist: reflect-pad skinny dims up to tile
+            extra_y = max(0, tile_size - height)
+            extra_x = max(0, tile_size - width)
+            if extra_y or extra_x:
+                img = np.pad(img, ((0, extra_y), (0, extra_x), (0, 0)), mode="reflect")
+            full_h, full_w = img.shape[0], img.shape[1]
+            placements = _zor_placements(height, width, zor, tile_size, radius,
+                                         full_h, full_w)
 
-    padded = _to_device(img, device)
-    if norm_stats is not None:
-        mean, std = (torch.from_numpy(np.asarray(s, np.float32).reshape(-1)).to(device)
-                     for s in norm_stats)
-        padded = _zscore(padded, mean, std)
-    preds = _forward_tiles(_shards(predict_fn, device, devices), padded,
-                           [p[4:] for p in placements], tile_size, batch_size)
+        with span("tiled.upload"):
+            padded = _to_device(img, device)
+        if norm_stats is not None:
+            with span("tiled.zscore"):
+                mean, std = (torch.from_numpy(np.asarray(s, np.float32).reshape(-1)).to(device)
+                             for s in norm_stats)
+                padded = _zscore(padded, mean, std)
+        preds = _forward_tiles(_shards(predict_fn, device, devices), padded,
+                               [p[4:] for p in placements], tile_size, batch_size)
 
-    shrink_u8 = num_classes is not None and num_classes <= 256
-    mask = torch.zeros((height, width), dtype=torch.uint8 if shrink_u8 else torch.int32,
-                       device=padded.device)
-    for k, (i, j, y_end_z, x_end_z, y_st, x_st) in enumerate(placements):
-        mask[i:y_end_z, j:x_end_z] = preds[k, i - y_st:y_end_z - y_st,
-                                           j - x_st:x_end_z - x_st]
-    mask = mask[:height - pad_y, :width - pad_x]
-    return mask if device_output else mask.cpu().numpy()
+        with span("tiled.stitch"):
+            preds = torch.cat(preds)
+            shrink_u8 = num_classes is not None and num_classes <= 256
+            mask = torch.zeros((height, width), dtype=torch.uint8 if shrink_u8 else torch.int32,
+                               device=padded.device)
+            for k, (i, j, y_end_z, x_end_z, y_st, x_st) in enumerate(placements):
+                mask[i:y_end_z, j:x_end_z] = preds[k, i - y_st:y_end_z - y_st,
+                                                   j - x_st:x_end_z - x_st]
+        with span("tiled.download"):
+            mask = mask[:height - pad_y, :width - pad_x]
+            return mask if device_output else mask.cpu().numpy()
 
 
 def _strip_row(shards, strip: torch.Tensor, xs, tile_size: int,
@@ -344,8 +359,8 @@ def _strip_row(shards, strip: torch.Tensor, xs, tile_size: int,
     device strip, run them ``batch_size`` at a time on ``shards`` (from
     :func:`_shards`), and stitch the trimmed zones into a ``(band_h,
     width)`` band. ``y_off = zone_y - window_y``."""
-    preds = _forward_tiles(shards, strip, [(0, x_st) for (_, _, x_st) in xs],
-                           tile_size, batch_size)
+    preds = torch.cat(_forward_tiles(shards, strip, [(0, x_st) for (_, _, x_st) in xs],
+                                     tile_size, batch_size))
     band = torch.empty((band_h, width), dtype=torch.uint8 if shrink_u8 else torch.int32,
                        device=strip.device)
     for k, (j, x_end_z, x_st) in enumerate(xs):

@@ -40,6 +40,10 @@ all-reduces the full-height gradient over the group and keeps this rank's
 rows (a reduce-scatter; gloo has none). It takes the route of the halo
 rows: ``nccl`` card to card, ``gloo`` for CPU tensors, and host-staged
 over gloo for CUDA tensors.
+
+The exchange, the gather and the gather's backward are profiler spans
+(``utils/profiling.span``), ``halo_exchange:<route>``, ``row_gather:<route>``
+and ``row_gather_backward:<route>``, inside ``profiling.spans()``.
 """
 
 from __future__ import annotations
@@ -50,6 +54,7 @@ import torch
 import torch.distributed as dist
 
 from tpuseg_torch import SIZE_FACTOR
+from tpuseg_torch.utils.profiling import span
 
 
 def check_height(height: int, spatial: int) -> None:
@@ -174,7 +179,7 @@ class Halo:
 
     def all_gather_rows(self, x: torch.Tensor) -> torch.Tensor:
         staged = self._staged()
-        with torch.profiler.record_function(f"row_gather:{self.route}"):
+        with span(f"row_gather:{self.route}"):
             block = x.permute(0, 2, 3, 1).contiguous()  # NHWC
             if staged:
                 block = self._host(block)
@@ -190,7 +195,7 @@ class Halo:
     def reduce_rows(self, g: torch.Tensor) -> torch.Tensor:
         """Full-height NCHW ``g`` summed over the group; this rank's rows."""
         staged = self._staged()
-        with torch.profiler.record_function(f"row_gather_backward:{self.route}"):
+        with span(f"row_gather_backward:{self.route}"):
             t = g.permute(0, 2, 3, 1)  # NHWC
             # a copy: the all-reduce works in place
             t = self._host(t) if staged else t.clone(memory_format=torch.contiguous_format)
@@ -207,7 +212,7 @@ class Halo:
         the rank below; return (the row from above, the row from below) as
         NHWC rows, None at the group's edges."""
         staged = self._staged()
-        with torch.profiler.record_function(f"halo_exchange:{self.route}"):
+        with span(f"halo_exchange:{self.route}"):
             ops, recv = [], []
             for peer, i in ((self.up, 0), (self.down, t.shape[2] - 1)):
                 if peer is None:

@@ -23,6 +23,7 @@ import torch
 from tpuseg_torch.models.unet import UNet, init_unet
 from tpuseg_torch.ops.losses import categorical_accuracy, cce_from_logits, reference_scalar_loss
 from tpuseg_torch.parallel.halo import local_rows
+from tpuseg_torch.utils.profiling import span
 
 
 class KerasAdam(torch.optim.Optimizer):
@@ -136,14 +137,20 @@ def train_step(state: TrainState, images: torch.Tensor, labels: torch.Tensor,
     does)."""
     model = state.model
     model.train()
-    logits = (forward or model)(images, generator=state.dropout_generator)
-    per_pixel = cce_from_logits(logits, labels, label_smoothing)
-    loss = reference_scalar_loss(per_pixel, images.shape[0])
-    state.optimizer.zero_grad(set_to_none=True)
-    loss.backward()
-    state.optimizer.step()
+    with span("train.forward"):
+        logits = (forward or model)(images, generator=state.dropout_generator)
+    with span("train.loss"):
+        per_pixel = cce_from_logits(logits, labels, label_smoothing)
+        loss = reference_scalar_loss(per_pixel, images.shape[0])
+    with span("train.backward"):
+        # the last step's gradients are cleared here, not after its Adam
+        # step, so that they stay readable until the next step
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+    with span("train.optimizer"):
+        state.optimizer.step()
     state.step += 1
-    with torch.no_grad():
+    with span("train.metrics"), torch.no_grad():
         acc = categorical_accuracy(logits, labels)
     return {"loss": loss.detach(), "accuracy": acc}
 
@@ -172,8 +179,9 @@ def make_steps(label_smoothing: float = 0.0,
     share of the batch's rows (spatial partitioning,
     ``parallel.halo.local_rows``)."""
     def tstep(state, images, labels):
-        return train_step(state, local_rows(images, rows), local_rows(labels, rows).float(),
-                          label_smoothing, forward)
+        with span("train.step", state.step):
+            return train_step(state, local_rows(images, rows), local_rows(labels, rows).float(),
+                              label_smoothing, forward)
 
     def estep(state, images, labels):
         return eval_step(state, local_rows(images, rows), local_rows(labels, rows).float(),
@@ -202,10 +210,13 @@ def make_raw_steps(num_classes: int, aug_params=None, augment: bool = True,
         aug_params = DeviceAugmentParams()
 
     def tstep(state: TrainState, raw_images, raw_masks):
-        images, labels = augment_and_preprocess_batch(
-            state.aug_generator, raw_images, raw_masks, aug_params, num_classes, augment, shard)
-        return train_step(state, local_rows(images, rows), local_rows(labels, rows),
-                          label_smoothing, forward)
+        with span("train.step", state.step):
+            with span("train.augment"):
+                images, labels = augment_and_preprocess_batch(
+                    state.aug_generator, raw_images, raw_masks, aug_params, num_classes,
+                    augment, shard)
+                images, labels = local_rows(images, rows), local_rows(labels, rows)
+            return train_step(state, images, labels, label_smoothing, forward)
 
     def estep(state: TrainState, raw_images, raw_masks):
         images, labels = augment_and_preprocess_batch(
