@@ -1362,6 +1362,8 @@ K4_KINDS = ("stats", "apply", "backward_reduce", "backward_apply")
 # conv blocks and the head, batch TRAIN_BATCH of TRAIN_SIZE^2
 K4_SHAPES = {"enc1": (TRAIN_BATCH, BASE, TRAIN_SIZE, TRAIN_SIZE),
              "head": (TRAIN_BATCH, NCLS, TRAIN_SIZE, TRAIN_SIZE)}
+# K4's eval store forms at enc1b of a serving call: BATCH tiles of TILE^2
+K4_FORM_SHAPE = (BATCH, BASE, TILE, TILE)
 
 
 def k4_inputs(shape, dtype, seed: int, dev):
@@ -1706,6 +1708,78 @@ def phase_batchnorm(seed: int, dev) -> dict:
         torch.cuda.empty_cache()
     out["max_abs_err"] = {k: max(r["max_abs_err"][k] for r in out["cases"].values())
                           for k in K4_KINDS}
+    out["forms"] = k4_forms(seed, dev)
+    return out
+
+
+def k4_forms(seed: int, dev) -> dict:
+    """K4's eval store forms at enc1b of a serving call (``K4_FORM_SHAPE``,
+    bf16, bias and ReLU on): the slice form (y into the first half of the
+    level's concat buffer) and the pooled form (also the 2x2/2 max), held bit
+    for bit to the eager ops they replace, (b) alone followed by
+    ``torch.cat`` with the deconv half and ``F.max_pool2d``; then each form,
+    (b) alone, the max pool and the concat timed in turns with the L2
+    flushed (:func:`events_ms_cold`), each beside its bytes at the card's
+    memory rate (slice: x and y; pooled: x, y and y/4; the pool: y and y/4;
+    the concat: both halves read and written). The old path's share of a
+    skip is (b) + the pool + half the concat."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpuseg_torch.ops import batchnorm as bn
+
+    n, c, h, w = K4_FORM_SHAPE
+    x, bias, gamma, beta, _ = k4_inputs(K4_FORM_SHAPE, torch.bfloat16, seed, dev)
+    up = k4_inputs(K4_FORM_SHAPE, torch.bfloat16, seed + 1, dev)[0]
+    g = torch.Generator(device=dev).manual_seed(seed + 2)
+    rm = torch.randn(c, generator=g, device=dev) * 0.3
+    rv = torch.rand(c, generator=g, device=dev) * 1.5 + 0.5
+    args = (x, bias, True, rm, rv, gamma, beta, 1e-3)
+    buf = torch.empty((n, 2 * c, h, w), dtype=x.dtype, device=dev,
+                      memory_format=torch.channels_last)
+    y_old = bn.bn_apply_eval(*args)
+    want_pool = F.max_pool2d(y_old, 2)
+    want_cat = torch.cat([y_old, up], 1)
+    buf[:, c:].copy_(up)
+
+    def bits(t):
+        return t.contiguous().view(torch.int16)
+
+    bn.bn_apply_eval(*args, out=buf[:, :c])
+    slice_equal = torch.equal(bits(buf), bits(want_cat))
+    buf[:, :c].zero_()
+    _, pooled = bn.bn_apply_eval(*args, out=buf[:, :c], pool=True)
+    pool_equal = torch.equal(bits(buf), bits(want_cat)) and torch.equal(bits(pooled),
+                                                                        bits(want_pool))
+    if not (slice_equal and pool_equal):
+        raise AssertionError(f"K4's store forms differ from (b) + torch.cat + F.max_pool2d: "
+                             f"slice {slice_equal}, pooled {pool_equal}")
+    del want_pool, want_cat, pooled
+    torch.cuda.empty_cache()
+    fns = {"form_pool": lambda: bn.bn_apply_eval(*args, out=buf[:, :c], pool=True),
+           "form_slice": lambda: bn.bn_apply_eval(*args, out=buf[:, :c]),
+           "apply": lambda: bn.bn_apply_eval(*args),
+           "max_pool": lambda: F.max_pool2d(y_old, 2),
+           "cat": lambda: torch.cat([y_old, up], 1)}
+    runs = {k: [] for k in fns}
+    for order in (list(fns), list(fns)[::-1]):
+        for k in order:
+            runs[k].append(events_ms_cold(fns[k], 10))
+    ms = {k: sum(v) / 2 for k, v in runs.items()}
+    act = n * c * h * w * x.element_size()
+    moved = {"form_pool": 2.25 * act, "form_slice": 2 * act, "apply": 2 * act,
+             "max_pool": 1.25 * act, "cat": 4 * act}
+    bound = {k: b / HBM_BYTES_PER_S * 1e3 for k, b in moved.items()}
+    old = ms["apply"] + ms["max_pool"] + ms["cat"] / 2
+    out = {"shape": list(K4_FORM_SHAPE), "dtype": "torch.bfloat16", "ms": ms, "ms_runs": runs,
+           "bound_ms": bound, "share_of_bound": {k: bound[k] / ms[k] for k in ms},
+           "old_skip_ms": old, "bit_equal": True}
+    log(f"K4 store forms {K4_FORM_SHAPE} bf16, bit-equal to (b) + torch.cat + F.max_pool2d; "
+        "ms: " + ", ".join(f"{k} {ms[k]:.4f} ({out['share_of_bound'][k]:.1%} of "
+                           f"{bound[k]:.4f})" for k in fns)
+        + f"; the old skip: (b) + pool + half the concat {old:.4f}")
+    del x, up, buf, y_old, fns
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2224,10 +2298,16 @@ def phase_main(seed: int, work: str, dev, card: str) -> dict:
     bn_mod.reset_counts()
     masks_k4 = inference_tiled(big, fns["none"], TILE, radius, BATCH, NCLS, stats, dev)
     res["k4_launches_tiled_none"] = dict(bn_mod.LAUNCHES)
+    res["k4_forms_tiled_none"] = dict(bn_mod.FORMS)
     want = {"stats": 0, "apply": K4_LAYERS * calls, "backward_reduce": 0, "backward_apply": 0}
     if res["k4_launches_tiled_none"] != want:
         raise AssertionError(f"the tiled none pass launched K4 {res['k4_launches_tiled_none']}, "
                              f"not {want} ({calls} predict calls)")
+    # the store forms: every skip into its concat buffer, pooled in the same pass
+    want_forms = {"slice": 8 * calls, "pool": 4 * calls}
+    if res["k4_forms_tiled_none"] != want_forms:
+        raise AssertionError(f"the tiled none pass took K4's forms {res['k4_forms_tiled_none']}, "
+                             f"not {want_forms}")
     with plain_batchnorm() as k4_calls:
         masks_plain = inference_tiled(big, fns["none"], TILE, radius, BATCH, NCLS, stats, dev)
     if any(bn_mod.LAUNCHES[k] != want[k] for k in want) or k4_calls["apply"] != want["apply"]:
@@ -2648,7 +2728,7 @@ def phase_train(seed: int, work: str, dev, card: str) -> dict:
     # timing only, last because it ruins the weights: the step with every
     # block's bias, ReLU and BatchNorm (K4) skipped bounds what K4 costs
     real_bn = unet_mod.conv_bn
-    unet_mod.conv_bn = lambda x, bias, relu, bn_module, momentum, group=None: x
+    unet_mod.conv_bn = lambda x, bias, relu, bn_module, momentum, group=None, **forms: x
     try:
         bn["step_ms_without_bn"] = cuda_ms(lambda: tstep(state, raw_img, raw_msk), 10, 1)
     finally:
@@ -2863,9 +2943,9 @@ def plain_batchnorm():
     calls = dict.fromkeys(K4_KINDS, 0)
 
     def plain(kind, fn):
-        def run(*args, **row_strides):
+        def run(*args, ldx=None, ldg=None, **forms):
             calls[kind] += 1
-            return fn(*args)
+            return fn(*args, **forms)
         return run
 
     for kind, attr, fn in swaps:

@@ -595,3 +595,131 @@ def test_train_conv_bn_issues_no_op_outside_the_kernels(monkeypatch):
     assert h.grad is not None and block.conv.bias.grad is not None
     assert block.bn.weight.grad is not None and block.bn.bias.grad is not None
     print("ops outside the kernels:", {op: ops.count(op) for op in sorted(set(ops))})
+
+
+# ---------------------------------------------------------------------------
+# (b)'s store forms for the eval walk: y into a concat buffer's channel
+# slice, and the 2x2/2 max of y from the same pass
+# ---------------------------------------------------------------------------
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """t's bit patterns, every NaN as one pattern (its payload aside)."""
+    t = torch.where(torch.isnan(t), torch.full_like(t, float("nan")), t)
+    return t.contiguous().view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def _eval_case(shape, dtype, seed, nan):
+    g = torch.Generator().manual_seed(seed)
+    n, c, h, w = shape
+
+    def rows():
+        return torch.randn(n, h, w, c, generator=g).to(dtype).permute(0, 3, 1, 2)
+
+    x, up = rows(), rows()
+    if nan:
+        x[0, 0, 0, 1] = float("nan")
+        x[-1, -1, -1, -1] = float("nan")
+    stats = (torch.randn(c, generator=g) * 0.3, torch.rand(c, generator=g) + 0.5,
+             torch.rand(c, generator=g) + 0.5, torch.randn(c, generator=g) * 0.3)
+    return x, up, torch.randn(c, generator=g) * 0.3, stats
+
+
+@pytest.mark.parametrize("nan", [False, True], ids=["finite", "nan"])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_eval_store_forms_equal_cat_and_max_pool(dtype, nan):
+    """The plain versions of both forms against today's eager chain, (b),
+    then ``torch.cat`` of (skip, up) and ``F.max_pool2d`` of the skip: the
+    concat buffer and the pooled output bit-equal (a NaN in a window
+    included), nothing written outside each slice, both outputs
+    channels-last; ``FORMS`` counts them and ``LAUNCHES`` nothing (CPU)."""
+    import torch.nn.functional as F
+
+    dt = DTYPES[dtype][0]
+    x, up, b, stats = _eval_case((2, 8, 6, 10), dt, 3, nan)
+    y_old = k4.bn_apply_eval(x, b, True, *stats, 1e-3)
+    up_old = k4.bn_apply_eval(up, None, False, *stats, 1e-3)
+    want_cat, want_pool = torch.cat([y_old, up_old], 1), F.max_pool2d(y_old, 2)
+    buf = torch.full((2, 16, 6, 10), 7.0, dtype=dt).contiguous(memory_format=torch.channels_last)
+    k4.reset_counts()
+    y, pooled = k4.bn_apply_eval(x, b, True, *stats, 1e-3, out=buf[:, :8], pool=True)
+    assert (buf[:, 8:] == 7.0).all()
+    got_up = k4.bn_apply_eval(up, None, False, *stats, 1e-3, out=buf[:, 8:])
+    assert y.data_ptr() == buf.data_ptr() and got_up.data_ptr() == buf[:, 8:].data_ptr()
+    assert k4.FORMS == {"slice": 2, "pool": 1}
+    assert all(n == 0 for n in k4.LAUNCHES.values())
+    assert torch.equal(_bits(buf), _bits(want_cat))
+    assert torch.equal(_bits(pooled), _bits(want_pool)) and k4.row_stride(pooled) == 8
+    assert bool(torch.isnan(pooled).any()) == nan
+    k4.reset_counts()
+    assert all(v == 0 for v in k4.FORMS.values())
+
+
+def test_eval_store_forms_refused():
+    x, _, b, stats = _eval_case((2, 8, 6, 10), torch.float32, 1, False)
+    odd = _eval_case((2, 8, 5, 10), torch.float32, 1, False)[0]
+    with pytest.raises(ValueError, match="even H and W"):
+        k4.bn_apply_eval(odd, b, True, *stats, 1e-3, pool=True)
+    buf = torch.empty(2, 16, 6, 10)  # NCHW: its channel slices are not rows
+    with pytest.raises(ValueError, match="not rows of channels"):
+        k4.bn_apply_eval(x, b, True, *stats, 1e-3, out=buf[:, :8])
+    wide = buf.contiguous(memory_format=torch.channels_last)
+    with pytest.raises(ValueError, match="does not match"):
+        k4.bn_apply_eval(x, b, True, *stats, 1e-3, out=wide[:, :4])
+    with pytest.raises(ValueError, match="does not match"):
+        k4.bn_apply_eval(x, b, True, *stats, 1e-3, out=wide[:, :8].to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("train, grad", [(False, True), (True, False)], ids=["grad", "train"])
+def test_conv_bn_store_forms_only_in_eval_without_grad(train, grad):
+    """The forms record no graph: ``conv_bn`` refuses them in train mode and
+    with grad enabled, where the walk keeps the concat and the pool."""
+    block = ConvBlock(3, 8).train(train)
+    x = torch.randn(2, 3, 8, 8).contiguous(memory_format=torch.channels_last)
+    buf = torch.empty(2, 16, 8, 8).contiguous(memory_format=torch.channels_last)
+    with torch.set_grad_enabled(grad), pytest.raises(ValueError, match="eval applies"):
+        block(x, torch.float32, out=buf[:, :8], pool=True)
+    block.eval()
+    with torch.no_grad():
+        y, pooled = block(x, torch.float32, out=buf[:, :8], pool=True)
+        want = block(x, torch.float32)
+    assert torch.equal(buf[:, :8], want) and torch.equal(pooled, torch.max_pool2d(want, 2))
+
+
+def _pooled_walk(y: torch.Tensor, w: int) -> torch.Tensor:
+    """The kernel's pooled walk over y's rows ``[M = N*H*W, C]``: pooled pixel
+    p takes rows ``top = 2 * ((p // (w/2)) * w + p % (w/2))``, ``top + 1``,
+    ``top + w``, ``top + w + 1`` in that order, and keeps ``v`` where ``v >
+    max`` or ``v`` is NaN, from ``-inf`` (csrc/batchnorm.cu, ``window_row``)."""
+    p = torch.arange(y.shape[0] // 4)
+    top = 2 * ((p // (w // 2)) * w + p % (w // 2))
+    mx = torch.full((p.numel(), y.shape[1]), float("-inf"), dtype=y.dtype)
+    for r in (top, top + 1, top + w, top + w + 1):
+        v = y[r]
+        mx = torch.where((v > mx) | torch.isnan(v), v, mx)
+    return mx
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape", [(1, 3, 2, 2), (2, 5, 6, 10), (3, 2, 16, 4), (1, 1, 8, 32)])
+def test_pooled_walk_model_equals_max_pool(shape, dtype):
+    """A model of the pooled form's window walk and max rule equals
+    ``F.max_pool2d`` bit for bit, with NaN, infinities and ties in the
+    windows, and each row is read by exactly one window."""
+    import torch.nn.functional as F
+
+    n, c, h, w = shape
+    dt = DTYPES[dtype][0]
+    g = torch.Generator().manual_seed(sum(shape))
+    y = torch.randn(n, h, w, c, generator=g).round().to(dt)  # ties
+    flat = y.view(-1)
+    picks = torch.randperm(flat.numel(), generator=g)[:4]
+    flat[picks[0]], flat[picks[1]] = float("nan"), float("inf")
+    flat[picks[2]], flat[picks[3]] = float("-inf"), float("nan")
+    rows = y.reshape(-1, c)
+    got = _pooled_walk(rows, w)
+    want = F.max_pool2d(y.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1).reshape(-1, c)
+    assert torch.equal(_bits(got), _bits(want))
+    p = torch.arange(rows.shape[0] // 4)
+    top = 2 * ((p // (w // 2)) * w + p % (w // 2))
+    read = torch.cat([top, top + 1, top + w, top + w + 1]).sort().values
+    assert torch.equal(read, torch.arange(rows.shape[0]))

@@ -1256,3 +1256,139 @@ def test_conv_block_on_card_matches_cpu(cuda, train):
     for got, ref in zip(outs[1], outs[0]):
         got, ref = got.detach().cpu(), ref.detach()
         assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
+
+
+# K4's store forms: (b) in eval mode into a concat buffer's channel slice,
+# and with the 2x2/2 max of y from the same pass (the bf16 walk's skips)
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """t's bit patterns, every NaN as one pattern (its payload aside)."""
+    t = torch.where(torch.isnan(t), torch.full_like(t, float("nan")), t)
+    return t.contiguous().view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def _k4_eval_case(shape, dtype, seed, dev, nan):
+    """A conv block's x (with a NaN in a pool window if ``nan``), a deconv
+    block's x, and eval BatchNorm's running statistics, gamma and beta."""
+    x, up, b, v = _k4_case(shape, dtype, seed, dev, True, False)
+    if nan:
+        x[0, 0, 0, 1] = float("nan")
+        x[-1, -1, -1, -1] = float("nan")
+    rng = np.random.default_rng(seed)
+    rv = torch.from_numpy(rng.uniform(0.5, 2.0, shape[1]).astype(np.float32)).to(dev)
+    return x, up, b, (v["mean"], rv, v["mul"], v["beta"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nan", [False, True], ids=["finite", "nan"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [
+    (2, 64, 1024, 1024), (2, 128, 512, 512), (2, 256, 256, 256), (2, 512, 128, 128),
+    (3, 24, 6, 10), (1, 3, 4, 6), (2, 4, 2, 2), (1, 200, 10, 4)])
+def test_batchnorm_store_forms_bit_equal_to_plain(cuda, shape, dtype, nan):
+    """The slice and pooled forms of (b) at the enc1b-enc4b and dec-up
+    shapes of a batch-2, 1024^2 call and at ragged even shapes (C 24 and 3:
+    one element a thread; C 4: the packed path's width, which the forms
+    take one element a thread; C 200: a partial channel tile): the concat
+    buffer bit-equal to ``torch.cat`` of (b)'s two outputs, nothing written
+    outside each slice, the pooled output bit-equal to ``F.max_pool2d`` of
+    (b)'s y (channels-last), a NaN in a window included; one "apply" launch
+    each, counted in ``FORMS``."""
+    import torch.nn.functional as F
+
+    n, c, h, w = shape
+    x, up, b, stats = _k4_eval_case(shape, dtype, sum(shape), cuda, nan)
+    y_old = k4.bn_apply_eval(x, b, True, *stats, 1e-3)
+    up_old = k4.bn_apply_eval(up, None, False, *stats, 1e-3)
+    want_cat, want_pool = torch.cat([y_old, up_old], 1), F.max_pool2d(y_old, 2)
+    buf = torch.full((n, 2 * c, h, w), 7.0, dtype=dtype, device=cuda).contiguous(
+        memory_format=torch.channels_last)
+    k4.reset_counts()
+    y, pooled = k4.bn_apply_eval(x, b, True, *stats, 1e-3, out=buf[:, :c], pool=True)
+    assert torch.equal(_bits(buf[:, c:]), _bits(torch.full_like(up_old, 7.0)))
+    got_up = k4.bn_apply_eval(up, None, False, *stats, 1e-3, out=buf[:, c:])
+    torch.cuda.synchronize()
+    assert y.data_ptr() == buf.data_ptr() and got_up.data_ptr() == buf[:, c:].data_ptr()
+    assert k4.LAUNCHES["apply"] == 2 and k4.FORMS == {"slice": 2, "pool": 1}
+    assert torch.equal(_bits(buf), _bits(want_cat))
+    assert pooled.shape == (n, c, h // 2, w // 2) and k4.row_stride(pooled) == c
+    assert torch.equal(_bits(pooled), _bits(want_pool))
+    assert bool(torch.isnan(pooled).any()) == nan
+    # the pooled form alone, into a fresh y
+    y2, pooled2 = k4.bn_apply_eval(x, b, True, *stats, 1e-3, pool=True)
+    assert torch.equal(_bits(y2), _bits(y_old)) and torch.equal(_bits(pooled2), _bits(want_pool))
+
+
+@pytest.mark.cuda
+def test_batchnorm_store_forms_refused(cuda):
+    x, _, b, stats = _k4_eval_case((2, 8, 6, 10), torch.bfloat16, 1, cuda, False)
+    odd = _k4_eval_case((2, 8, 5, 10), torch.bfloat16, 1, cuda, False)[0]
+    with pytest.raises(ValueError, match="even H and W"):
+        k4.bn_apply_eval(odd, b, True, *stats, 1e-3, pool=True)
+    buf = torch.empty((2, 16, 6, 10), dtype=torch.bfloat16, device=cuda)  # NCHW
+    with pytest.raises(ValueError, match="not rows of channels"):
+        k4.bn_apply_eval(x, b, True, *stats, 1e-3, out=buf[:, :8])
+    wide = buf.contiguous(memory_format=torch.channels_last)
+    with pytest.raises(ValueError, match="does not match"):
+        k4.bn_apply_eval(x, b, True, *stats, 1e-3, out=wide[:, :4])
+
+
+def _eval_unet(base, dtype, seed, dev):
+    from tpuseg_torch.models.unet import UNet, init_unet
+
+    g = torch.Generator().manual_seed(seed)
+    model = init_unet(UNet(2, 1, base, dtype=dtype), g)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_mean.normal_(0, 0.3, generator=g)
+                m.running_var.uniform_(0.5, 2.0, generator=g)
+                m.bias.normal_(0, 0.3, generator=g)
+    return model.to(dev).eval()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_unet_eval_forms_on_card_bit_equal(cuda, dtype):
+    """The eval walk on the card: under ``inference_mode`` (the store forms:
+    8 slices, 4 pooled, no concat or pool) and with grad enabled (the
+    concat and pool), 23 applies each, the same logits bit for bit."""
+    model = _eval_unet(16, dtype, 0, cuda)
+    x = torch.randn(2, 256, 320, 1, device=cuda)
+    k4.reset_counts()
+    with torch.inference_mode():
+        forms = model(x)
+    assert k4.FORMS == {"slice": 8, "pool": 4} and k4.LAUNCHES["apply"] == 23
+    k4.reset_counts()
+    plain = model(x)
+    assert k4.FORMS == {"slice": 0, "pool": 0} and k4.LAUNCHES["apply"] == 23
+    assert torch.equal(_bits(forms), _bits(plain.detach()))
+
+
+@pytest.mark.cuda
+def test_tiled_none_forms_masks_equal_grad_path(cuda):
+    """``inference_tiled`` on ``none`` (bf16): the masks through the store
+    forms equal, on every pixel, those of a predict function that runs the
+    model with grad enabled (today's concat and pool); 8 slices and 4 pools
+    a predict call."""
+    from tpuseg_torch.data.preprocess import zscore_stats
+    from tpuseg_torch.infer.tiled import inference_tiled, make_predict_fn
+
+    model = _eval_unet(16, torch.bfloat16, 1, cuda)
+    img = np.random.default_rng(2).normal(2000, 300, (1100, 1500)).clip(0, 65535)
+    img = img.astype(np.uint16)
+    stats = zscore_stats(img)
+
+    def grad_predict(batch):
+        with torch.enable_grad():
+            return torch.argmax(model(batch), dim=-1).to(torch.int32)
+
+    k4.reset_counts()
+    got = inference_tiled(img, make_predict_fn(model), 512, 96, 8, 2, stats, cuda)
+    calls = k4.LAUNCHES["apply"] // 23
+    assert calls >= 2 and k4.FORMS == {"slice": 8 * calls, "pool": 4 * calls}
+    k4.reset_counts()
+    want = inference_tiled(img, grad_predict, 512, 96, 8, 2, stats, cuda)
+    assert k4.FORMS == {"slice": 0, "pool": 0} and k4.LAUNCHES["apply"] == 23 * calls
+    assert got.shape == want.shape == img.shape
+    assert (got == want).all()

@@ -102,3 +102,82 @@ def test_probabilities_and_apply_nchw_match_flax():
     np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
     np.testing.assert_allclose(got_nchw, want_nchw, rtol=2e-4, atol=2e-4)
     np.testing.assert_allclose(got.sum(-1), 1.0, rtol=1e-6)
+
+
+def _eval_model(dtype, impl="conv_transpose"):
+    """A base-4 U-Net in eval mode with jittered running statistics."""
+    g = torch.Generator().manual_seed(5)
+    model = init_unet(UNet(2, 1, 4, dtype, impl), g).eval()
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_mean.normal_(0, 0.3, generator=g)
+                m.running_var.uniform_(0.5, 2.0, generator=g)
+                m.bias.normal_(0, 0.3, generator=g)
+    return model
+
+
+@pytest.mark.parametrize("impl", ["conv_transpose", "pixel_shuffle"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_eval_store_forms_logits_bit_equal(dtype, impl):
+    """An eval forward without grad takes K4's store forms (8 slices: each
+    skip and each deconv half into its concat buffer; 4 pooled: the
+    encoder's skips) and gives the same logits, bit for bit, as the
+    forward with grad enabled, which keeps ``torch.cat`` and the pool."""
+    from tpuseg_torch.ops import batchnorm as k4
+
+    model = _eval_model(dtype, impl)
+    x = torch.randn(2, 48, 32, 1, generator=torch.Generator().manual_seed(6))
+    k4.reset_counts()
+    with torch.inference_mode():
+        inference = model(x)
+    assert k4.FORMS == {"slice": 8, "pool": 4}
+    k4.reset_counts()
+    with torch.no_grad():
+        no_grad = model(x)
+    assert k4.FORMS == {"slice": 8, "pool": 4}
+    k4.reset_counts()
+    grad = model(x)
+    assert k4.FORMS == {"slice": 0, "pool": 0} and grad.requires_grad
+    assert torch.equal(inference, grad.detach()) and torch.equal(no_grad, grad.detach())
+
+
+class _OneRankHalo:
+    """A spatial group of one rank: zero rows above and below, no gather."""
+    size, rank = 1, 0
+
+    def __call__(self, x):
+        return torch.nn.functional.pad(x, (0, 0, 1, 1))
+
+    def gather(self, x):
+        return x
+
+
+@pytest.mark.parametrize("path", ["train", "halo", "avg_pool"])
+def test_store_forms_off_in_train_mode_and_the_spatial_walk(path, monkeypatch):
+    """Train mode, the spatial walk and a model whose pool was swapped for
+    another keep today's concat and pool, also without grad: ``FORMS``
+    stays at 0; the one-rank spatial walk gives the plain walk's logits."""
+    from tpuseg_torch.models import unet
+    from tpuseg_torch.ops import batchnorm as k4
+
+    model = _eval_model(torch.float32)
+    x = torch.randn(2, 32, 32, 1, generator=torch.Generator().manual_seed(7))
+    with torch.no_grad():
+        want = model(x)
+        if path == "train":
+            model.train()
+            model.dropout_rate = 0.0
+        elif path == "halo":
+            model.halo = _OneRankHalo()
+        else:
+            monkeypatch.setattr(unet, "_pool", lambda t: torch.nn.functional.avg_pool2d(t, 2))
+        k4.reset_counts()
+        got = model(x)
+    if path == "train":  # and a train step's forward and backward
+        model(x).sum().backward()
+    assert k4.FORMS == {"slice": 0, "pool": 0}
+    if path == "halo":
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
+    else:
+        assert got.shape == want.shape and torch.isfinite(got).all()

@@ -20,6 +20,18 @@
 // (b) and (d) are bit-equal to the plain versions given the same vectors;
 // (a) and (c) sum in another order.
 //
+// (b) has two store forms, which take the bf16/f32 eval walk's concats and
+// max pools off the card's other queues: y goes to rows of any stride ldy
+// >= c (a channel slice of the decoder's concat buffer [n, 2c, h, w],
+// channels-last), and with a pooled output (h and w even) the same pass
+// also writes the 2x2/2 max of y, [n, h/2, w/2, c] contiguous. Its threads
+// walk pooled pixels: each loads its channels of the window's four rows
+// (both horizontal neighbours back to back, so a warp's loads still cover
+// whole 128-byte lines), stores the four rows of y and their max. The max
+// runs over the rounded y in F.max_pool2d's window order and rule (take v
+// where v > max or v is NaN, from -inf), so it equals F.max_pool2d(y) bit
+// for bit, NaN included.
+//
 // The per-channel vectors come from the sums inside the kernels, with no
 // launch between them: (b) in train mode derives, in its prologue, from
 // (a)'s sums (or their all-reduce across a process group) exactly what the
@@ -76,6 +88,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kTileC = 64;               // channels of a tile (grid.y)
 constexpr int kUnroll = 4;               // rows a thread loads before it computes
+constexpr int kPoolUnroll = 2;           // the pooled form's windows (4 rows each) likewise
 constexpr int kReduceBlocks = 264;       // blocks of a reduction, over all tiles
 constexpr int kMinRowsPerBlock = 64;     // rows (loads) a reduction block takes at least
 constexpr int kApplyBlocks = 528;        // blocks of an elementwise pass, over all tiles
@@ -222,6 +235,34 @@ __device__ __forceinline__ void load_batch(const T* x, long long ldx, const T* g
         xv[u] = load_part<T, VEC>(x + row_offset<VEC, PACK>(r, ldx, c0), valid);
         if constexpr (BWD) gv[u] = load_part<T, VEC>(g + row_offset<VEC, PACK>(r, ldg, c0), valid);
       }
+    }
+  }
+}
+
+// The first row of pooled pixel p's window, for [n, h/2, w/2] pooled
+// pixels over [n, h, w] rows: p = (b * h/2 + i) * w/2 + j takes rows
+// (b * h + 2i) * w + 2j (returned), + 1, + w and + w + 1.
+__device__ __forceinline__ long long window_row(long long p, long long w) {
+  const long long half = w >> 1;
+  return 2 * ((p / half) * w + p % half);
+}
+
+// U windows of a thread, pooled pixels p0, p0 + rpi, ..., those below
+// `end`: the four rows of window u into xv[4u .. 4u + 3], in
+// F.max_pool2d's order (top left, top right, bottom left, bottom right).
+template <typename T, int VEC, int U>
+__device__ __forceinline__ void load_windows(const T* x, long long ldx, long long p0, int rpi,
+                                             int c0, long long end, long long w,
+                                             typename Raw<T, VEC>::type (&xv)[4 * U]) {
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const long long p = p0 + (long long)u * rpi;
+    if (p < end) {
+      const T* top = x + window_row(p, w) * ldx + c0;
+      xv[4 * u] = load_raw<T, VEC>(top);
+      xv[4 * u + 1] = load_raw<T, VEC>(top + ldx);
+      xv[4 * u + 2] = load_raw<T, VEC>(top + w * ldx);
+      xv[4 * u + 3] = load_raw<T, VEC>(top + (w + 1) * ldx);
     }
   }
 }
@@ -417,22 +458,28 @@ bn_reduce_kernel(const T* __restrict__ x, long long ldx, const T* __restrict__ g
 }
 
 // (b) with BWD false: y = r(((a - mean) * mul) + beta); (d) with BWD true:
-// dx = relu' ? r(((g - k1) - ah * k2) * mul) : 0. Blocks stride over rows.
-template <typename T, int VEC, int PACK, bool BWD>
+// dx = relu' ? r(((g - k1) - ah * k2) * mul) : 0. Blocks stride over rows;
+// with POOL ((b)'s pooled form, one row a load) over pooled pixels of rows
+// `w` wide, writing each window's max of y to `pooled` (row stride c).
+template <typename T, int VEC, int PACK, bool BWD, bool POOL>
 __global__ void __launch_bounds__(kThreads)
 bn_apply_kernel(const T* __restrict__ x, long long ldx, const T* __restrict__ g, long long ldg,
                 Vectors vec, Derive d, int relu, long long m, int c, T* __restrict__ out,
-                long long ldo) {
+                long long ldo, T* __restrict__ pooled, long long w) {
+  static_assert(!POOL || (PACK == 1 && !BWD), "the pooled form is (b)'s, one row a load");
   const Tile<VEC, PACK> t(c);
   if (!t.active) return;
   const bool has_bias = vec.bias != nullptr;
-  const long long rows = PACK > 1 ? (m + PACK - 1) / PACK : m;
+  const long long rows = POOL ? m / 4 : PACK > 1 ? (m + PACK - 1) / PACK : m;
+  constexpr int U = POOL ? kPoolUnroll : kUnroll;
   // (b)'s first batch of loads goes out before the prologue's (in (d) it
   // measured slower)
-  const long long step = (long long)gridDim.x * kUnroll * t.rpi;
-  const long long first = (long long)blockIdx.x * kUnroll * t.rpi + t.lr;
-  typename Raw<T, VEC>::type xv[kUnroll], gv[kUnroll];
-  if constexpr (!BWD)
+  const long long step = (long long)gridDim.x * U * t.rpi;
+  const long long first = (long long)blockIdx.x * U * t.rpi + t.lr;
+  typename Raw<T, VEC>::type xv[POOL ? 4 * U : U], gv[U];
+  if constexpr (POOL)
+    load_windows<T, VEC, U>(x, ldx, first, t.rpi, t.c0, rows, w, xv);
+  else if constexpr (!BWD)
     load_batch<T, VEC, PACK, kUnroll, BWD>(x, ldx, g, ldg, first, t.rpi, t.c0, rows, m, c, xv,
                                            gv);
   // the block of column 0 writes each channel's outputs once: its row lane 0
@@ -500,29 +547,55 @@ bn_apply_kernel(const T* __restrict__ x, long long ldx, const T* __restrict__ g,
     }
   }
   for (long long r0 = first; r0 < rows; r0 += step) {
-    if (BWD || r0 != first)
-      load_batch<T, VEC, PACK, kUnroll, BWD>(x, ldx, g, ldg, r0, t.rpi, t.c0, rows, m, c, xv,
-                                             gv);
+    if constexpr (POOL) {
+      if (r0 != first) load_windows<T, VEC, U>(x, ldx, r0, t.rpi, t.c0, rows, w, xv);
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const long long r = r0 + (long long)u * t.rpi;
-      if (r >= rows) break;
-      float o[VEC];
+      for (int u = 0; u < U; ++u) {
+        const long long p = r0 + (long long)u * t.rpi;
+        if (p >= rows) break;
+        const long long top = window_row(p, w);
+        float mx[VEC];
 #pragma unroll
-      for (int j = 0; j < VEC; ++j) {
-        const float a = activation<T>(element<T, VEC>(xv[u], j), bb[j], has_bias, relu);
-        if constexpr (!BWD) {
-          o[j] = __fadd_rn(__fmul_rn(__fsub_rn(a, mu[j]), ml[j]), p0[j]);
-        } else {
-          const float ah = __fmul_rn(__fsub_rn(a, mu[j]), p0[j]);
-          const float gg = element<T, VEC>(gv[u], j);
-          const float dd = __fmul_rn(__fsub_rn(__fsub_rn(gg, p1[j]), __fmul_rn(ah, p2[j])),
-                                     ml[j]);
-          o[j] = (relu && !(a > 0.f)) ? 0.f : dd;
+        for (int j = 0; j < VEC; ++j) mx[j] = -__int_as_float(0x7f800000);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          float o[VEC];
+#pragma unroll
+          for (int j = 0; j < VEC; ++j) {
+            const float a =
+                activation<T>(element<T, VEC>(xv[4 * u + q], j), bb[j], has_bias, relu);
+            o[j] = Elt<T>::round(__fadd_rn(__fmul_rn(__fsub_rn(a, mu[j]), ml[j]), p0[j]));
+            if (o[j] > mx[j] || isnan(o[j])) mx[j] = o[j];
+          }
+          store_vec<T, VEC>(out + (top + (q & 1) + (q >> 1) * w) * ldo + t.c0, o, VEC);
         }
+        store_vec<T, VEC>(pooled + p * c + t.c0, mx, VEC);
       }
-      store_vec<T, VEC>(out + row_offset<VEC, PACK>(r, ldo, t.c0), o,
-                        valid_of<VEC, PACK>(r, m, c));
+    } else {
+      if (BWD || r0 != first)
+        load_batch<T, VEC, PACK, kUnroll, BWD>(x, ldx, g, ldg, r0, t.rpi, t.c0, rows, m, c, xv,
+                                               gv);
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const long long r = r0 + (long long)u * t.rpi;
+        if (r >= rows) break;
+        float o[VEC];
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) {
+          const float a = activation<T>(element<T, VEC>(xv[u], j), bb[j], has_bias, relu);
+          if constexpr (!BWD) {
+            o[j] = __fadd_rn(__fmul_rn(__fsub_rn(a, mu[j]), ml[j]), p0[j]);
+          } else {
+            const float ah = __fmul_rn(__fsub_rn(a, mu[j]), p0[j]);
+            const float gg = element<T, VEC>(gv[u], j);
+            const float dd = __fmul_rn(__fsub_rn(__fsub_rn(gg, p1[j]), __fmul_rn(ah, p2[j])),
+                                       ml[j]);
+            o[j] = (relu && !(a > 0.f)) ? 0.f : dd;
+          }
+        }
+        store_vec<T, VEC>(out + row_offset<VEC, PACK>(r, ldo, t.c0), o,
+                          valid_of<VEC, PACK>(r, m, c));
+      }
     }
   }
 }
@@ -589,19 +662,20 @@ int launch_reduce(const void* x, long long ldx, const void* g, long long ldg, Ve
   return (int)cudaGetLastError();
 }
 
-template <typename T, int VEC, int PACK, bool BWD>
+template <typename T, int VEC, int PACK, bool BWD, bool POOL>
 int launch_apply(const void* x, long long ldx, const void* g, long long ldg, Vectors vec,
                  const Derive& d, int relu, long long m, int c, void* out, long long ldo,
-                 cudaStream_t stream) {
-  const long long per_block = (long long)rows_per_iteration(c, VEC, PACK) * kUnroll;
-  long long gx = (rows_of(m, PACK) + per_block - 1) / per_block;
+                 void* pooled, long long w, cudaStream_t stream) {
+  const long long per_block =
+      (long long)rows_per_iteration(c, VEC, PACK) * (POOL ? kPoolUnroll : kUnroll);
+  long long gx = ((POOL ? m / 4 : rows_of(m, PACK)) + per_block - 1) / per_block;
   const long long cap = kApplyBlocks / tiles_of(c) > 0 ? kApplyBlocks / tiles_of(c) : 1;
   gx = gx < cap ? gx : cap;
   gx = gx > 0 ? gx : 1;  // m == 0 still derives and writes the vectors
   const dim3 grid((unsigned)gx, (unsigned)tiles_of(c));
-  bn_apply_kernel<T, VEC, PACK, BWD><<<grid, kThreads, 0, stream>>>(
+  bn_apply_kernel<T, VEC, PACK, BWD, POOL><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(x), ldx, static_cast<const T*>(g), ldg, vec, d, relu, m, c,
-      static_cast<T*>(out), ldo);
+      static_cast<T*>(out), ldo, static_cast<T*>(pooled), w);
   return (int)cudaGetLastError();
 }
 
@@ -633,9 +707,24 @@ int reduce_dispatch(int dtype, int path, const void* x, long long ldx, const voi
 template <bool BWD>
 int apply_dispatch(int dtype, int path, const void* x, long long ldx, const void* g,
                    long long ldg, Vectors vec, const Derive& d, int relu, long long m, int c,
-                   void* out, long long ldo, cudaStream_t stream) {
-#define TPUSEG_BN_APPLY(T, V, P) \
-  return launch_apply<T, V, P, BWD>(x, ldx, g, ldg, vec, d, relu, m, c, out, ldo, stream)
+                   void* out, long long ldo, void* pooled, long long w, cudaStream_t stream) {
+  if constexpr (!BWD) {
+    if (pooled) {  // one row a load: a 16-byte vector of it, or one element
+#define TPUSEG_BN_POOL(T, V)                                                               \
+  return launch_apply<T, V, 1, false, true>(x, ldx, g, ldg, vec, d, relu, m, c, out, ldo, \
+                                            pooled, w, stream)
+      if (dtype == 1) {
+        if (path == 1) TPUSEG_BN_POOL(__nv_bfloat16, 8);
+        TPUSEG_BN_POOL(__nv_bfloat16, 1);
+      }
+      if (path == 1) TPUSEG_BN_POOL(float, 4);
+      TPUSEG_BN_POOL(float, 1);
+#undef TPUSEG_BN_POOL
+    }
+  }
+#define TPUSEG_BN_APPLY(T, V, P)                                                          \
+  return launch_apply<T, V, P, BWD, false>(x, ldx, g, ldg, vec, d, relu, m, c, out, ldo, \
+                                           nullptr, 0, stream)
   if (dtype == 1) {
     switch (path) {
       case 1: TPUSEG_BN_APPLY(__nv_bfloat16, 8, 1);
@@ -723,22 +812,25 @@ int tpuseg_bn_stats(const void* x, long long ldx, int dtype, const float* bias, 
 // stats f32 [3, c] = [sum a, sum a^2, n]; writes vec f32 [5, c] = [mean,
 // var, rstd, mul, unclipped (1 or 0)] and, where run_mean and run_var (f32
 // [c]) are given, sets each to momentum * it + one_minus_momentum * the
-// batch's. train 0 (eval): run_mean and run_var as the statistics.
+// batch's. train 0 (eval): run_mean and run_var as the statistics. pooled:
+// null, or dtype [m / 4 rows of stride c, c], the 2x2/2 max of y where the
+// m rows are [n, h, w] with h and w (`width`) even.
 int tpuseg_bn_apply(const void* x, long long ldx, int dtype, const float* bias, int relu,
                     int train, const float* stats, const float* gamma, float eps,
                     float* vec_out, float* run_mean, float* run_var, float momentum,
                     float one_minus_momentum, const float* beta, long long m, int c, void* y,
-                    long long ldy, void* stream) {
+                    long long ldy, void* pooled, long long width, void* stream) {
   if (bad_args(m, c) || ldx < c || ldy < c || bad_dtype(dtype) || !gamma ||
-      (train && (!stats || !vec_out)) || (!train && !run_mean) || (!run_mean != !run_var))
+      (train && (!stats || !vec_out)) || (!train && !run_mean) || (!run_mean != !run_var) ||
+      (pooled && (width <= 0 || width % 2 || m % (2 * width))))
     return (int)cudaErrorInvalidValue;
-  const void* ptrs[] = {x, y};
-  const long long lds[] = {ldx, ldy};
+  const void* ptrs[] = {x, y, pooled};
+  const long long lds[] = {ldx, ldy, c};
   Vectors vec{bias, nullptr, nullptr, nullptr, beta, nullptr, nullptr};
   Derive d{train != 0, stats, gamma, eps, vec_out, run_mean, run_var, momentum,
            one_minus_momentum, nullptr, nullptr, nullptr, nullptr};
-  return apply_dispatch<false>(dtype, path_of(elt_size(dtype), c, ptrs, lds, 2), x, ldx,
-                               nullptr, 0, vec, d, relu, m, c, y, ldy,
+  return apply_dispatch<false>(dtype, path_of(elt_size(dtype), c, ptrs, lds, pooled ? 3 : 2),
+                               x, ldx, nullptr, 0, vec, d, relu, m, c, y, ldy, pooled, width,
                                static_cast<cudaStream_t>(stream));
 }
 
@@ -784,7 +876,8 @@ int tpuseg_bn_backward_apply(const void* x, long long ldx, const void* g, long l
   Derive d{train != 0, stats, nullptr, 0.f, nullptr, nullptr, nullptr, 0.f, 0.f,
            totals, unclipped, sums, dbias};
   return apply_dispatch<true>(dtype, path_of(elt_size(dtype), c, ptrs, lds, 3), x, ldx, g, ldg,
-                              vec, d, relu, m, c, dx, lddx, static_cast<cudaStream_t>(stream));
+                              vec, d, relu, m, c, dx, lddx, nullptr, 0,
+                              static_cast<cudaStream_t>(stream));
 }
 
 const char* tpuseg_cuda_error_string(int err) {

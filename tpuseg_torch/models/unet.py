@@ -35,6 +35,15 @@ of channels: the model keeps every activation channels-last (the input is
 made so on entry, conv weights go to cuDNN channels-last, the
 depth-to-space writes NHWC, and dropout's mask takes its input's layout).
 
+An eval forward without grad, without a ``halo`` and with the max pool in
+place (serving, the trainer's test steps) runs K4's store forms: each level allocates its
+concat buffer ``[B, 2F, H, W]``; the encoder pair's second block stores its
+output (the skip) into the first half and returns its 2x2 max pool from
+the same pass, and the deconv block stores into the second half, so no
+``torch.cat`` or max pool runs, and each buffer goes once the decoder has
+read it. Train mode, a forward with grad (the ERF probe's) and the spatial
+walk keep the concat and the pool; the logits are the same bits either way.
+
 Data parallelism (``tpuseg_torch/parallel/mesh.py``) sets
 ``UNet.process_group``; train mode then takes the batch statistics of the
 global batch (sync-BN, the JAX package's sharded semantics) and draws each
@@ -120,22 +129,22 @@ def _weight(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 class ConvBlock(nn.Module):
     """Conv(kxk, same, stride 1) -> ReLU -> BatchNorm (ref model.py:28-37).
     With a ``halo`` a 3x3 conv takes its row padding from the neighbouring
-    ranks."""
+    ranks; ``out`` and ``pool`` are K4's store forms (``conv_bn``)."""
 
     def __init__(self, cin: int, features: int, kernel: int = KERNEL_SIZE):
         super().__init__()
         self.conv = nn.Conv2d(cin, features, kernel, padding=kernel // 2)
         self.bn = nn.BatchNorm2d(features, eps=BN_EPSILON, momentum=1 - BN_MOMENTUM)
 
-    def forward(self, x: torch.Tensor, dtype: torch.dtype, group=None,
-                halo=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dtype: torch.dtype, group=None, halo=None,
+                out: Optional[torch.Tensor] = None, pool: bool = False):
         c = self.conv
         padding = c.padding
         if halo is not None and padding[0]:
             x = halo(x)
             padding = (0, padding[1])
         x = F.conv2d(x, _weight(c.weight, dtype), padding=padding)
-        return conv_bn(x, c.bias, True, self.bn, BN_MOMENTUM, group)
+        return conv_bn(x, c.bias, True, self.bn, BN_MOMENTUM, group, out=out, pool=pool)
 
 
 def depth_to_space(y: torch.Tensor) -> torch.Tensor:
@@ -167,18 +176,25 @@ class DeconvBlock(nn.Module):
                                              stride=POOLING_STRIDE, bias=False)
         self.bn = nn.BatchNorm2d(features, eps=BN_EPSILON, momentum=1 - BN_MOMENTUM)
 
-    def forward(self, x: torch.Tensor, dtype: torch.dtype, group=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dtype: torch.dtype, group=None,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
         w = _weight(self.deconv.weight, dtype)
         if self.impl == "pixel_shuffle":
             x = depth_to_space(F.conv2d(x, w))
         else:
             x = F.conv_transpose2d(x, w, stride=POOLING_STRIDE)
-        return conv_bn(x, None, False, self.bn, BN_MOMENTUM, group)
+        return conv_bn(x, None, False, self.bn, BN_MOMENTUM, group, out=out)
 
 
-def _pool(x: torch.Tensor) -> torch.Tensor:
+def _max_pool(x: torch.Tensor) -> torch.Tensor:
     """MaxPool 2x2 stride 2 (ref model.py:50-53)."""
     return F.max_pool2d(x, POOLING_STRIDE)
+
+
+# The walk's pool. K4's pooled form computes this max pool, so the store
+# forms run only while it is in place (the spatial tests swap in average
+# pooling to compare with the JAX package's mesh).
+_pool = _max_pool
 
 
 class UNet(nn.Module):
@@ -271,8 +287,19 @@ class UNet(nn.Module):
             return _dropout(x, self.dropout_rate, generator, group, halo,
                             full_rows=pad[level] is None)
 
+        # K4's store forms in place of the concats and pools (module docstring)
+        forms = (not self.training and halo is None and not torch.is_grad_enabled()
+                 and _pool is _max_pool)
         skips = []
         for level, name in enumerate(("enc1", "enc2", "enc3", "enc4")):
+            if forms:
+                x = getattr(self, f"{name}a")(x, dt)
+                n, f, h, w = x.shape
+                cat = torch.empty((n, 2 * f, h, w), dtype=x.dtype, device=x.device,
+                                  memory_format=torch.channels_last)
+                _, x = getattr(self, f"{name}b")(x, dt, out=cat[:, :f], pool=True)
+                skips.append(cat)
+                continue
             x = pair(name, x, level)
             if name == "enc4":
                 x = drop(x, level)
@@ -282,6 +309,13 @@ class UNet(nn.Module):
             x = _pool(x)
         x = drop(pair("bottleneck", x, 4), 4)
         for level, name in reversed(list(enumerate(("dec1", "dec2", "dec3", "dec4")))):
+            if forms:
+                cat, skips[level] = skips[level], None
+                getattr(self, f"{name}up")(x, dt, out=cat[:, cat.shape[1] // 2:])
+                x = getattr(self, f"{name}a")(cat, dt)
+                del cat  # read by dec{level}a: freed before dec{level}b allocates
+                x = getattr(self, f"{name}b")(x, dt)
+                continue
             x = getattr(self, f"{name}up")(x, dt, group)
             if level == gather_at:
                 h = x.shape[2] // spatial

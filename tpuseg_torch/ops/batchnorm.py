@@ -24,7 +24,9 @@ mode the running statistics. Four kernels, in
   ``mean`` and ``mul`` in the kernel from (a)'s sums as :func:`finalize`
   does (and writes them, ``[mean, var, rstd, mul, unclipped]``, and updates
   the running statistics), :func:`bn_apply_eval` from the running
-  statistics;
+  statistics, with two store forms: ``y`` into a channel slice of a wider
+  channels-last buffer (the decoder's concat), and the 2x2/2 max of ``y``
+  as a second output of the same pass (``F.max_pool2d(y, 2)`` bit for bit);
 - (c) :func:`backward_reduce`: per channel ``[sum g, sum g*ahat]`` with
   ``ahat = (a - mean) * rstd``, and with a bias also ``[sum relu'*g, sum
   relu', sum relu'*ahat]``, from which the bias gradient follows without a
@@ -46,8 +48,9 @@ tensor it runs the plain PyTorch version (``_*_plain``, the derivations
 :func:`finalize` and the running update of ``conv_bn`` as they were), which
 rounds like the kernel: (b) and (d) are bit-equal to it given the same
 vectors, (a) and (c) sum in another order. ``LAUNCHES`` counts kernel
-launches by kernel. :class:`TrainBatchNorm` and :class:`EvalBatchNorm`
-are the autograd Functions the model calls.
+launches by kernel, ``FORMS`` the eval applies that took a store form.
+:class:`TrainBatchNorm` and :class:`EvalBatchNorm` are the autograd
+Functions the model calls; :func:`conv_bn` calls (b)'s store forms itself.
 
 Train mode with a process ``group`` (sync-BN) all-reduces (a)'s ``[sum a,
 sum a^2, n]`` forward, between (a) and (b), and ``[sum g, sum g*ahat]``
@@ -64,11 +67,16 @@ import ctypes
 from typing import Dict, Optional
 
 import torch
+import torch.nn.functional as F
 
 # Kernel launches since the counts were last reset, by kernel (CPU calls
 # don't count).
 LAUNCHES: Dict[str, int] = {"stats": 0, "apply": 0, "backward_reduce": 0,
                             "backward_apply": 0}
+# Eval applies since the counts were last reset that stored y into a
+# channel slice (``out``) and that also pooled it (``pool``), on either
+# device; a pooled apply is still one "apply" launch.
+FORMS: Dict[str, int] = {"slice": 0, "pool": 0}
 # Incoming gradients a backward had to copy into rows of channels first
 # (see :func:`_gradient_rows`).
 GRAD_COPIES = 0
@@ -80,6 +88,8 @@ def reset_counts() -> None:
     global GRAD_COPIES
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    for k in FORMS:
+        FORMS[k] = 0
     GRAD_COPIES = 0
 
 
@@ -218,10 +228,17 @@ def _apply_train_plain(x, bias, relu, stats, gamma, beta, eps, running_mean, run
     return _apply_plain(x, bias, relu, mean, mul, beta), vec
 
 
-def _apply_eval_plain(x, bias, relu, running_mean, running_var, gamma, beta, eps):
-    """(b) in eval mode: rsqrt and mul from the running variance."""
+def _apply_eval_plain(x, bias, relu, running_mean, running_var, gamma, beta, eps, out=None,
+                      pool=False):
+    """(b) in eval mode: rsqrt and mul from the running variance; its store
+    forms as the eager ops they replace, ``y`` copied into ``out`` and
+    ``F.max_pool2d(y, 2)``."""
     rstd = torch.rsqrt(running_var + eps)
-    return _apply_plain(x, bias, relu, running_mean, rstd * gamma, beta)
+    y = _apply_plain(x, bias, relu, running_mean, rstd * gamma, beta)
+    pooled = F.max_pool2d(y, 2) if pool else None
+    if out is not None:
+        y = out.copy_(y)
+    return y if pooled is None else (y, pooled)
 
 
 def _backward_apply_train_plain(x, bias, relu, g, stats, vec, sums, totals):
@@ -347,13 +364,17 @@ def _launch_stats(x, bias, relu, *, ldx) -> torch.Tensor:
 
 
 def _apply(x, bias, relu, train, stats, gamma, eps, vec, running_mean, running_var, momentum,
-           beta, *, ldx) -> torch.Tensor:
-    y = _channels_last(x.shape, x.dtype, x.device)
+           beta, *, ldx, out=None, pool=False):
+    """(b) into ``out`` (rows of channels, checked) or a new channels-last
+    ``y``; with ``pool`` ``(y, pooled)``."""
+    n, c, h, w = x.shape
+    y = _channels_last(x.shape, x.dtype, x.device) if out is None else out
+    pooled = _channels_last((n, c, h // 2, w // 2), x.dtype, x.device) if pool else None
     _run("apply", "tpuseg_bn_apply", x.device, _stream(x.device), x.data_ptr(), ldx,
          DTYPE_CODES[x.dtype], _ptr(bias), int(relu), int(train), _ptr(stats), gamma.data_ptr(),
          eps, _ptr(vec), _ptr(running_mean), _ptr(running_var), momentum, 1 - momentum,
-         beta.data_ptr(), *_rows(x), y.data_ptr(), x.shape[1])
-    return y
+         beta.data_ptr(), *_rows(x), y.data_ptr(), row_stride(y), _ptr(pooled), w)
+    return y if pooled is None else (y, pooled)
 
 
 def _launch_apply_train(x, bias, relu, stats, gamma, beta, eps, running_mean, running_var,
@@ -364,9 +385,10 @@ def _launch_apply_train(x, bias, relu, stats, gamma, beta, eps, running_mean, ru
     return y, vec
 
 
-def _launch_apply_eval(x, bias, relu, running_mean, running_var, gamma, beta, eps, *, ldx):
+def _launch_apply_eval(x, bias, relu, running_mean, running_var, gamma, beta, eps, *, ldx,
+                       out=None, pool=False):
     return _apply(x, bias, relu, False, None, gamma, eps, None, running_mean, running_var, 0.0,
-                  beta, ldx=ldx)
+                  beta, ldx=ldx, out=out, pool=pool)
 
 
 def _launch_backward_reduce(x, bias, relu, g, mean, rstd, *, ldx, ldg) -> torch.Tensor:
@@ -460,16 +482,32 @@ def bn_apply_train(x: torch.Tensor, bias: Optional[torch.Tensor], relu: bool,
 
 def bn_apply_eval(x: torch.Tensor, bias: Optional[torch.Tensor], relu: bool,
                   running_mean: torch.Tensor, running_var: torch.Tensor, gamma: torch.Tensor,
-                  beta: torch.Tensor, eps: float) -> torch.Tensor:
+                  beta: torch.Tensor, eps: float, out: Optional[torch.Tensor] = None,
+                  pool: bool = False):
     """(b) in eval mode: ``y`` with ``mean`` the running mean and ``mul =
-    rsqrt(running_var + eps) * gamma`` derived in the kernel."""
+    rsqrt(running_var + eps) * gamma`` derived in the kernel. Store forms:
+    with ``out`` (x's shape, dtype and device, rows of channels: a channel
+    slice of a concat buffer) ``y`` is stored there and ``out`` returned;
+    with ``pool`` (even H and W) the same pass also gives the 2x2/2 max of
+    ``y``, channels-last, and ``(y, pooled)`` is returned."""
     ldx = _check_rows("x", x)
     _check_vectors(x, bias=bias, running_mean=running_mean, running_var=running_var,
                    gamma=gamma, beta=beta)
+    if out is not None:
+        _check_rows("out", out, x)
+    if pool and (x.shape[2] % 2 or x.shape[3] % 2):
+        raise ValueError(f"the pooled form takes an even H and W, got {tuple(x.shape[2:])}")
     if _device(x) == "cpu":
-        return _apply_eval_plain(x, bias, relu, running_mean, running_var, gamma, beta, eps)
-    return _launch_apply_eval(x, bias, relu, running_mean, running_var, gamma, beta, eps,
-                              ldx=ldx)
+        y = _apply_eval_plain(x, bias, relu, running_mean, running_var, gamma, beta, eps, out,
+                              pool)
+    else:
+        y = _launch_apply_eval(x, bias, relu, running_mean, running_var, gamma, beta, eps,
+                               ldx=ldx, out=out, pool=pool)
+    if out is not None:
+        FORMS["slice"] += 1
+    if pool:
+        FORMS["pool"] += 1
+    return y
 
 
 def backward_reduce(x: torch.Tensor, bias: Optional[torch.Tensor], relu: bool, g: torch.Tensor,
@@ -605,12 +643,20 @@ class EvalBatchNorm(torch.autograd.Function):
 
 
 def conv_bn(x: torch.Tensor, bias: Optional[torch.Tensor], relu: bool,
-            bn: torch.nn.BatchNorm2d, momentum: float, group=None) -> torch.Tensor:
+            bn: torch.nn.BatchNorm2d, momentum: float, group=None,
+            out: Optional[torch.Tensor] = None, pool: bool = False):
     """A block's ``bias -> ReLU -> BatchNorm`` on the conv output ``x``
     (without its bias): train mode normalizes with the batch statistics and
     updates ``bn``'s running ones (flax's ``running = momentum * running +
     (1 - momentum) * batch``, the biased variance) inside (b), eval mode
-    with the running statistics."""
+    with the running statistics. ``out`` and ``pool`` ask for
+    :func:`bn_apply_eval`'s store forms, which only an eval forward without
+    grad takes (no graph is recorded through them)."""
+    if out is not None or pool:
+        if bn.training or torch.is_grad_enabled():
+            raise ValueError("K4's store forms are eval applies without grad")
+        return bn_apply_eval(x, bias, relu, bn.running_mean, bn.running_var, bn.weight,
+                             bn.bias, bn.eps, out, pool)
     if not bn.training:
         return EvalBatchNorm.apply(x, bias, bn.weight, bn.bias, bn.running_mean,
                                    bn.running_var, relu, bn.eps)
