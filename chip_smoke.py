@@ -1525,6 +1525,127 @@ def eager_batchnorm(x, bias, gamma, beta, running, train: bool):
     return ((xf - mean[:, None, None]) * mul[:, None, None] + beta[:, None, None]).to(x.dtype)
 
 
+# TransUNet's decoder at 512^2, batch 16: conv_more and the four blocks'
+# widths (K4's order after); then the packed narrow path (C 2) and the
+# element path (C 3) at small shapes
+K4_AFTER_SHAPES = {"conv_more": (16, 512, 32, 32), "block0": (16, 256, 64, 64),
+                   "block1": (16, 128, 128, 128), "block2": (16, 64, 256, 256),
+                   "block3": (16, 16, 512, 512), "packed": (4, 2, 40, 24),
+                   "element": (4, 3, 40, 24)}
+
+
+def k4_after(seed: int, dev) -> dict:
+    """K4's order after (TransUNet's conv -> BatchNorm -> ReLU, no bias) at
+    the decoder's shapes, bf16 (and block3 in f32 too): (b) and (d), train
+    and eval, bit-equal (``torch.equal``) to their plain versions given the
+    same vectors; (a) and (c) within the bound of their summation
+    (:func:`k4_sum_check`, with its planted faults); each layer's four
+    kernels timed against their plain versions (:func:`events_ms_cold`),
+    with the bytes they must move at the card's rate as the bound. Run it
+    alone with ``python -c "import torch, chip_smoke;
+    chip_smoke.k4_after(0, torch.device('cuda'))"``."""
+    import torch
+
+    from tpuseg_torch.ops import batchnorm as bn
+
+    after = bn.RELU_AFTER
+    cases = [(k, torch.bfloat16) for k in K4_AFTER_SHAPES] + [("block3", torch.float32)]
+    out = {"cases": {}}
+    for i, (where, dtype) in enumerate(cases):
+        shape = K4_AFTER_SHAPES[where]
+        name = f"{where}_{str(dtype).split('.')[-1]}"
+        x, _, gamma, beta, gy = k4_inputs(shape, dtype, seed + 100 + i, dev)
+        c = shape[1]
+        running = (torch.randn(c, device=dev) * 0.3, torch.rand(c, device=dev) + 0.5)
+        run = tuple(t.clone() for t in running)
+        before = dict(bn.AFTER)
+        stats = bn.batch_stats(x, None, after)
+        y, vec = bn.bn_apply_train(x, None, after, stats, gamma, beta, 1e-5, *run, 0.9)
+        sums = bn.backward_reduce(x, None, after, gy, vec[0], vec[2], vec[3], beta)
+        dx, _ = bn.backward_apply_train(x, None, after, gy, stats, vec, sums, sums, beta)
+        ye = bn.bn_apply_eval(x, None, after, *running, gamma, beta, 1e-5)
+        rstd_e = torch.rsqrt(running[1] + 1e-5)
+        mul_e = rstd_e * gamma
+        zero = torch.zeros_like(gamma)
+        dxe = bn.backward_apply(x, None, after, gy, running[0], rstd_e, mul_e, zero, zero, beta)
+        torch.cuda.synchronize()
+        if bn.AFTER["launches"] != before["launches"] + 6:
+            raise AssertionError(f"K4 after {name}: launches {bn.AFTER} after {before}")
+        mean, rstd, mul = vec[0], vec[2], vec[3]
+        k1 = sums[0] / stats[2]
+        k2 = torch.where(vec[4] != 0, sums[1] / stats[2], 0.0)
+        plain = {"apply": bn._apply_plain(x, None, after, mean, mul, beta),
+                 "backward_apply": bn._backward_apply_plain(x, None, after, gy, mean, rstd, mul,
+                                                            k1, k2, beta),
+                 "eval_apply": bn._apply_eval_plain(x, None, after, *running, gamma, beta,
+                                                    1e-5),
+                 "eval_backward_apply": bn._backward_apply_plain(
+                     x, None, after, gy, running[0], rstd_e, mul_e, zero, zero, beta)}
+        got = {"apply": y, "backward_apply": dx, "eval_apply": ye, "eval_backward_apply": dxe}
+        differ = [k for k in got if not torch.equal(got[k], plain[k])]
+        if differ:
+            raise AssertionError(f"K4 after {name}: {differ} differ from the plain versions")
+        if not (torch.equal(run[0], 0.9 * running[0] + (1 - 0.9) * mean)
+                and torch.equal(run[1], 0.9 * running[1] + (1 - 0.9) * vec[1])):
+            raise AssertionError(f"K4 after {name}: the running statistics differ from the "
+                                 "two-line update")
+        if bool((y < 0).any()):
+            raise AssertionError(f"K4 after {name}: (b) wrote a negative y")
+
+        def rows(t):  # f32 [C, M], in the kernel's row order
+            return t.float().permute(1, 0, 2, 3).reshape(c, -1)
+
+        def gprime():  # g' as the kernel takes it: g where relu(y) > 0
+            ypre = bn._apply_plain(x, None, bn.RELU_NONE, mean, mul, beta)
+            return rows(torch.where(ypre <= 0, torch.zeros((), dtype=gy.dtype, device=dev),
+                                    gy)).double()
+
+        def ahat():
+            return (rows(x) - mean[:, None]) * rstd[:, None]
+
+        check_a = k4_sum_check(f"after {name} stats", stats[:2],
+                               bn._stats_plain(x, None, after),
+                               [lambda: rows(x).double(), lambda: rows(x).double() ** 2],
+                               bn.reduce_plan(x, bn.row_stride(x)))
+        check_c = k4_sum_check(f"after {name} backward reduce", sums,
+                               bn._backward_reduce_plain(x, None, after, gy, mean, rstd, mul,
+                                                         beta),
+                               [gprime, lambda: gprime() * ahat().double()],
+                               bn.reduce_plan(x, bn.row_stride(x), gy, bn.row_stride(gy), 2))
+        kept = float((plain["apply"] > 0).float().mean())
+        fns = {
+            "kernel_stats": (lambda: bn.batch_stats(x, None, after), 10),
+            "kernel_apply": (lambda: bn.bn_apply_train(x, None, after, stats, gamma, beta, 1e-5,
+                                                       *run, 0.9), 10),
+            "kernel_backward_reduce": (lambda: bn.backward_reduce(
+                x, None, after, gy, mean, rstd, mul, beta), 10),
+            "kernel_backward_apply": (lambda: bn.backward_apply_train(
+                x, None, after, gy, stats, vec, sums, sums, beta), 10),
+            "plain_stats": (lambda: bn._stats_count_plain(x, None, after), 3),
+            "plain_apply": (lambda: bn._apply_train_plain(x, None, after, stats, gamma, beta,
+                                                          1e-5, *run, 0.9), 3),
+            "plain_backward_reduce": (lambda: bn._backward_reduce_plain(
+                x, None, after, gy, mean, rstd, mul, beta), 3),
+            "plain_backward_apply": (lambda: bn._backward_apply_train_plain(
+                x, None, after, gy, stats, vec, sums, sums, beta), 3),
+        }
+        ms = {k: events_ms_cold(fn, reps) for k, (fn, reps) in fns.items()}
+        act = x.numel() * x.element_size()
+        moved = {"stats": act, "apply": 2 * act, "backward_reduce": 2 * act,
+                 "backward_apply": 3 * act}
+        share = {k: moved[k] / HBM_BYTES_PER_S * 1e3 / ms[f"kernel_{k}"] for k in K4_KINDS}
+        out["cases"][name] = {"shape": list(shape), "dtype": str(dtype), "ms": ms,
+                              "share_of_bound": share, "kept_share": kept,
+                              "sum_check": {"stats": check_a, "backward_reduce": check_c}}
+        log(f"K4 after {name} {tuple(shape)}: (b), (d) train and eval bit-equal to plain; "
+            f"(a), (c) within their summation bound; {kept:.1%} of y above 0; ms " + ", ".join(
+                f"{k} {ms['kernel_' + k]:.4f} ({share[k]:.1%} of its bound; plain "
+                f"{ms['plain_' + k]:.3f})" for k in K4_KINDS))
+        del x, gamma, beta, gy, y, dx, ye, dxe, plain, got, fns
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_batchnorm(seed: int, dev) -> dict:
     """K4 at the training main path's shapes, enc1's [8, 64, 512, 512] and
     the head's [8, 2, 512, 512], bf16 (the main path's) and f32, as a conv
@@ -1709,6 +1830,7 @@ def phase_batchnorm(seed: int, dev) -> dict:
     out["max_abs_err"] = {k: max(r["max_abs_err"][k] for r in out["cases"].values())
                           for k in K4_KINDS}
     out["forms"] = k4_forms(seed, dev)
+    out["after"] = k4_after(seed, dev)
     return out
 
 

@@ -1,7 +1,12 @@
-"""CLI: train a U-Net model, on the card.
+"""CLI: train a U-Net model (or TransUNet), on the card.
 
     python -m tpuseg_torch.cli.train --train_database D --test_database T \
-        --output_dir O [--device cuda|cpu]
+        --output_dir O [--device cuda|cpu] [--model unet|transunet_r50_b16]
+
+``--model transunet_r50_b16`` trains TransUNet R50-ViT-B/16 at its
+published widths (``models/transunet.py``) on the database's tiles, which
+must be square; ``--base_features`` is the U-Net's width only, and
+TransUNet refuses ``--spatial`` above 1.
 
 Flags mirror ``tpuseg.cli.train`` (reference ``UNet/train.py:211-234``:
 names, defaults, help) plus ``--device`` and ``--base_features`` (the
@@ -33,7 +38,8 @@ straddle two ranks, that level's rows are gathered):
 
 import argparse
 
-from tpuseg_torch.train.trainer import TrainConfig, train_model
+from tpuseg_torch.models import MODEL_KINDS
+from tpuseg_torch.train.trainer import TrainConfig, check_model_options, train_model
 
 
 def main(argv=None):
@@ -72,6 +78,11 @@ def main(argv=None):
                         help="first-level feature depth of the U-Net (the reference "
                              "width, model.py:20, by default); the inference CLI "
                              "takes the same flag")
+    parser.add_argument("--model", dest="model", type=str, default="unet",
+                        choices=list(MODEL_KINDS),
+                        help="the architecture: the reference U-Net (default) or "
+                             "TransUNet R50-ViT-B/16 at its published widths, whose tile "
+                             "is the database's (square) image side")
     # --- tpuseg extensions ---
     parser.add_argument("--seed", dest="seed", type=int, default=None,
                         help="seed for init/sampling/augmentation (tpuseg extension)")
@@ -174,7 +185,12 @@ def main(argv=None):
         batch_echo=args.batch_echo,
         augment_params=augment_params,
         device=args.device,
+        model=args.model,
     )
+    try:
+        check_model_options(cfg)
+    except ValueError as e:
+        parser.error(str(e))
     if not args.multihost:
         return train_model(cfg)
     from tpuseg_torch.parallel import distributed

@@ -20,6 +20,15 @@
 // (b) and (d) are bit-equal to the plain versions given the same vectors;
 // (a) and (c) sum in another order.
 //
+// The order after (relu 2, TransUNet's conv -> BatchNorm -> ReLU; no bias):
+// a = x, and the ReLU comes after the normalization, a compile-time form
+// (POST) of (b), (c) and (d), so that the forms above compile as they did:
+//   (a)  stats of x, as without a ReLU
+//   (b)  y   = relu(r(((a - mean) * mul) + beta))
+//   (c)  and (d) take g' = (o <= 0) ? 0 : g in g's place, with o = r(((a -
+//        mean) * mul) + beta) recomputed from x (autograd's relu' of y:
+//        threshold_backward, where NaN passes), mul and beta given.
+//
 // (b) has two store forms, which take the bf16/f32 eval walk's concats and
 // max pools off the card's other queues: y goes to rows of any stride ldy
 // >= c (a channel slice of the decoder's concat buffer [n, 2c, h, w],
@@ -174,6 +183,21 @@ template <typename T>
 __device__ __forceinline__ float activation(float x, float b, bool has_bias, bool relu) {
   const float a = has_bias ? Elt<T>::round(__fadd_rn(x, b)) : x;
   return (relu && a < 0.f) ? 0.f : a;
+}
+
+// The order after's normalized o = r(((a - mean) * mul) + beta), (b)'s y
+// before its ReLU.
+template <typename T>
+__device__ __forceinline__ float normalized(float a, float mean, float mul, float beta) {
+  return Elt<T>::round(__fadd_rn(__fmul_rn(__fsub_rn(a, mean), mul), beta));
+}
+
+// The order after's g': g where relu(o) > 0, else 0 (threshold_backward's
+// rule on y = relu(o): zero where y <= 0, so NaN passes).
+template <typename T>
+__device__ __forceinline__ float after_gradient(float a, float mean, float mul, float beta,
+                                                float g) {
+  return normalized<T>(a, mean, mul, beta) <= 0.f ? 0.f : g;
 }
 
 // The tile geometry of a block: threads per row, rows per iteration, this
@@ -344,13 +368,14 @@ __device__ __forceinline__ int column_sums(int cols, int n, float* lanes, Base b
 // (a) with BWD false, (c) with BWD true: NS sums a channel. Block bx sums
 // rows (loads on the packed path) [bx * rpb, (bx + 1) * rpb) into
 // partials[bx][k][c]; the tile's last block adds them into out[k][c], and
-// (a)'s also writes n = m into out[2][c].
-template <typename T, int VEC, int PACK, int NS, bool BWD>
+// (a)'s also writes n = m into out[2][c]. POST: (c) of the order after.
+template <typename T, int VEC, int PACK, int NS, bool BWD, bool POST>
 __global__ void __launch_bounds__(kThreads)
 bn_reduce_kernel(const T* __restrict__ x, long long ldx, const T* __restrict__ g, long long ldg,
                  Vectors vec, int relu, long long m, int c, long long rpb,
                  float* __restrict__ out, float* __restrict__ partials,
                  int* __restrict__ counters) {
+  static_assert(!POST || (BWD && NS == 2), "the order after's reduce is (c) without a bias");
   extern __shared__ float smem[];  // [NS][rpi][sw], then the lane buffer of column_sums
   __shared__ bool last;
   const Tile<VEC, PACK> t(c);
@@ -366,12 +391,17 @@ bn_reduce_kernel(const T* __restrict__ x, long long ldx, const T* __restrict__ g
 #pragma unroll
     for (int j = 0; j < VEC; ++j) ch[j] = t.channel(j);
     float bb[VEC], mu[VEC], rs[VEC];
+    [[maybe_unused]] float ml[VEC], bt[VEC];
     load_params<VEC>(vec.bias, ch, bb);
 #pragma unroll
     for (int j = 0; j < VEC; ++j) bb[j] = has_bias ? Elt<T>::round(bb[j]) : 0.f;
     if constexpr (BWD) {
       load_params<VEC>(vec.mean, ch, mu);
       load_params<VEC>(vec.rstd, ch, rs);
+    }
+    if constexpr (POST) {
+      load_params<VEC>(vec.mul, ch, ml);
+      load_params<VEC>(vec.beta, ch, bt);
     }
     const long long r_end = min(rows, (blockIdx.x + 1) * rpb);
     for (long long r0 = blockIdx.x * rpb + t.lr; r0 < r_end; r0 += (long long)kUnroll * t.rpi) {
@@ -392,7 +422,8 @@ bn_reduce_kernel(const T* __restrict__ x, long long ldx, const T* __restrict__ g
             acc[1][j] = __fmaf_rn(a, a, acc[1][j]);
           } else {
             const float ah = __fmul_rn(__fsub_rn(a, mu[j]), rs[j]);
-            const float gg = element<T, VEC>(gv[u], j);
+            float gg = element<T, VEC>(gv[u], j);
+            if constexpr (POST) gg = after_gradient<T>(a, mu[j], ml[j], bt[j], gg);
             acc[0][j] = __fadd_rn(acc[0][j], gg);
             acc[1][j] = __fmaf_rn(gg, ah, acc[1][j]);
             if constexpr (NS == 5) {
@@ -461,12 +492,14 @@ bn_reduce_kernel(const T* __restrict__ x, long long ldx, const T* __restrict__ g
 // dx = relu' ? r(((g - k1) - ah * k2) * mul) : 0. Blocks stride over rows;
 // with POOL ((b)'s pooled form, one row a load) over pooled pixels of rows
 // `w` wide, writing each window's max of y to `pooled` (row stride c).
-template <typename T, int VEC, int PACK, bool BWD, bool POOL>
+// POST: (b) and (d) of the order after.
+template <typename T, int VEC, int PACK, bool BWD, bool POOL, bool POST>
 __global__ void __launch_bounds__(kThreads)
 bn_apply_kernel(const T* __restrict__ x, long long ldx, const T* __restrict__ g, long long ldg,
                 Vectors vec, Derive d, int relu, long long m, int c, T* __restrict__ out,
                 long long ldo, T* __restrict__ pooled, long long w) {
   static_assert(!POOL || (PACK == 1 && !BWD), "the pooled form is (b)'s, one row a load");
+  static_assert(!POOL || !POST, "the order after has no pooled form");
   const Tile<VEC, PACK> t(c);
   if (!t.active) return;
   const bool has_bias = vec.bias != nullptr;
@@ -488,6 +521,7 @@ bn_apply_kernel(const T* __restrict__ x, long long ldx, const T* __restrict__ g,
 #pragma unroll
   for (int j = 0; j < VEC; ++j) ch[j] = t.channel(j);
   float bb[VEC], mu[VEC], ml[VEC], p0[VEC], p1[VEC], p2[VEC];
+  [[maybe_unused]] float bt[VEC];
   load_params<VEC>(vec.bias, ch, bb);
 #pragma unroll
   for (int j = 0; j < VEC; ++j) bb[j] = has_bias ? Elt<T>::round(bb[j]) : 0.f;
@@ -527,6 +561,7 @@ bn_apply_kernel(const T* __restrict__ x, long long ldx, const T* __restrict__ g,
     load_params<VEC>(vec.mean, ch, mu);
     load_params<VEC>(vec.mul, ch, ml);
     load_params<VEC>(vec.rstd, ch, p0);
+    if constexpr (POST) load_params<VEC>(vec.beta, ch, bt);
     if (!d.train) {
       load_params<VEC>(vec.k1, ch, p1);
       load_params<VEC>(vec.k2, ch, p2);
@@ -583,11 +618,15 @@ bn_apply_kernel(const T* __restrict__ x, long long ldx, const T* __restrict__ g,
 #pragma unroll
         for (int j = 0; j < VEC; ++j) {
           const float a = activation<T>(element<T, VEC>(xv[u], j), bb[j], has_bias, relu);
-          if constexpr (!BWD) {
+          if constexpr (!BWD && POST) {
+            const float v = normalized<T>(a, mu[j], ml[j], p0[j]);
+            o[j] = v < 0.f ? 0.f : v;
+          } else if constexpr (!BWD) {
             o[j] = __fadd_rn(__fmul_rn(__fsub_rn(a, mu[j]), ml[j]), p0[j]);
           } else {
             const float ah = __fmul_rn(__fsub_rn(a, mu[j]), p0[j]);
-            const float gg = element<T, VEC>(gv[u], j);
+            float gg = element<T, VEC>(gv[u], j);
+            if constexpr (POST) gg = after_gradient<T>(a, mu[j], ml[j], bt[j], gg);
             const float dd = __fmul_rn(__fsub_rn(__fsub_rn(gg, p1[j]), __fmul_rn(ah, p2[j])),
                                        ml[j]);
             o[j] = (relu && !(a > 0.f)) ? 0.f : dd;
@@ -643,7 +682,7 @@ int rows_per_iteration(int c, int vec, int pack) {
   return kThreads / ((tile_c + vec - 1) / vec);
 }
 
-template <typename T, int VEC, int PACK, int NS, bool BWD>
+template <typename T, int VEC, int PACK, int NS, bool BWD, bool POST>
 int launch_reduce(const void* x, long long ldx, const void* g, long long ldg, Vectors vec,
                   int relu, long long m, int c, float* out, float* partials, int* counters,
                   cudaStream_t stream) {
@@ -656,13 +695,13 @@ int launch_reduce(const void* x, long long ldx, const void* g, long long ldg, Ve
   const int lane_floats = NS * kTileC > kThreads ? NS * kTileC : kThreads;
   const size_t smem = sizeof(float) * (NS * rpi * sw + lane_floats);
   const dim3 grid((unsigned)gx, (unsigned)tiles_of(c));
-  bn_reduce_kernel<T, VEC, PACK, NS, BWD><<<grid, kThreads, smem, stream>>>(
+  bn_reduce_kernel<T, VEC, PACK, NS, BWD, POST><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(x), ldx, static_cast<const T*>(g), ldg, vec, relu, m, c, rpb, out,
       partials, counters);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int VEC, int PACK, bool BWD, bool POOL>
+template <typename T, int VEC, int PACK, bool BWD, bool POOL, bool POST>
 int launch_apply(const void* x, long long ldx, const void* g, long long ldg, Vectors vec,
                  const Derive& d, int relu, long long m, int c, void* out, long long ldo,
                  void* pooled, long long w, cudaStream_t stream) {
@@ -673,19 +712,19 @@ int launch_apply(const void* x, long long ldx, const void* g, long long ldg, Vec
   gx = gx < cap ? gx : cap;
   gx = gx > 0 ? gx : 1;  // m == 0 still derives and writes the vectors
   const dim3 grid((unsigned)gx, (unsigned)tiles_of(c));
-  bn_apply_kernel<T, VEC, PACK, BWD, POOL><<<grid, kThreads, 0, stream>>>(
+  bn_apply_kernel<T, VEC, PACK, BWD, POOL, POST><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(x), ldx, static_cast<const T*>(g), ldg, vec, d, relu, m, c,
       static_cast<T*>(out), ldo, static_cast<T*>(pooled), w);
   return (int)cudaGetLastError();
 }
 
-template <int NS, bool BWD>
+template <int NS, bool BWD, bool POST = false>
 int reduce_dispatch(int dtype, int path, const void* x, long long ldx, const void* g,
                     long long ldg, Vectors vec, int relu, long long m, int c, float* out,
                     float* partials, int* counters, cudaStream_t stream) {
 #define TPUSEG_BN_REDUCE(T, V, P)                                                           \
-  return launch_reduce<T, V, P, NS, BWD>(x, ldx, g, ldg, vec, relu, m, c, out, partials, \
-                                         counters, stream)
+  return launch_reduce<T, V, P, NS, BWD, POST>(x, ldx, g, ldg, vec, relu, m, c, out, \
+                                               partials, counters, stream)
   if (dtype == 1) {
     switch (path) {
       case 1: TPUSEG_BN_REDUCE(__nv_bfloat16, 8, 1);
@@ -704,15 +743,15 @@ int reduce_dispatch(int dtype, int path, const void* x, long long ldx, const voi
 #undef TPUSEG_BN_REDUCE
 }
 
-template <bool BWD>
+template <bool BWD, bool POST = false>
 int apply_dispatch(int dtype, int path, const void* x, long long ldx, const void* g,
                    long long ldg, Vectors vec, const Derive& d, int relu, long long m, int c,
                    void* out, long long ldo, void* pooled, long long w, cudaStream_t stream) {
-  if constexpr (!BWD) {
+  if constexpr (!BWD && !POST) {
     if (pooled) {  // one row a load: a 16-byte vector of it, or one element
 #define TPUSEG_BN_POOL(T, V)                                                               \
-  return launch_apply<T, V, 1, false, true>(x, ldx, g, ldg, vec, d, relu, m, c, out, ldo, \
-                                            pooled, w, stream)
+  return launch_apply<T, V, 1, false, true, false>(x, ldx, g, ldg, vec, d, relu, m, c, out, \
+                                                   ldo, pooled, w, stream)
       if (dtype == 1) {
         if (path == 1) TPUSEG_BN_POOL(__nv_bfloat16, 8);
         TPUSEG_BN_POOL(__nv_bfloat16, 1);
@@ -723,8 +762,8 @@ int apply_dispatch(int dtype, int path, const void* x, long long ldx, const void
     }
   }
 #define TPUSEG_BN_APPLY(T, V, P)                                                          \
-  return launch_apply<T, V, P, BWD, false>(x, ldx, g, ldg, vec, d, relu, m, c, out, ldo, \
-                                           nullptr, 0, stream)
+  return launch_apply<T, V, P, BWD, false, POST>(x, ldx, g, ldg, vec, d, relu, m, c, out, \
+                                                 ldo, nullptr, 0, stream)
   if (dtype == 1) {
     switch (path) {
       case 1: TPUSEG_BN_APPLY(__nv_bfloat16, 8, 1);
@@ -746,6 +785,10 @@ int apply_dispatch(int dtype, int path, const void* x, long long ldx, const void
 int elt_size(int dtype) { return dtype == 1 ? 2 : 4; }
 
 bool bad_dtype(int dtype) { return dtype != 0 && dtype != 1; }
+
+// relu: 0 none, 1 before the normalization (the kernels' `relu`), 2 after
+// it (the POST forms).
+bool bad_relu(int relu) { return relu < 0 || relu > 2; }
 
 }  // namespace
 
@@ -793,19 +836,21 @@ int tpuseg_bn_reduce_plan(const void* x, long long ldx, const void* g, long long
 }
 
 // (a). x: dtype (0 f32, 1 bf16) [m rows of stride ldx, c]; bias: f32 [c] or
-// null; out: f32 [3, c] (sum a, sum a^2, n = m); scratch: plan[0] floats of
-// tpuseg_bn_reduce_plan; counters: 64 ints, zero (and left zero). Returns
-// the launch's cudaError_t.
+// null; relu: 0 none, 1 before the normalization, 2 after it (then no bias:
+// the stats of x); out: f32 [3, c] (sum a, sum a^2, n = m); scratch:
+// plan[0] floats of tpuseg_bn_reduce_plan; counters: 64 ints, zero (and
+// left zero). Returns the launch's cudaError_t.
 int tpuseg_bn_stats(const void* x, long long ldx, int dtype, const float* bias, int relu,
                     long long m, int c, float* out, float* scratch, int* counters, void* stream) {
-  if (bad_args(m, c) || ldx < c || bad_dtype(dtype)) return (int)cudaErrorInvalidValue;
+  if (bad_args(m, c) || ldx < c || bad_dtype(dtype) || bad_relu(relu) || (relu == 2 && bias))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (m == 0) return (int)cudaMemsetAsync(out, 0, sizeof(float) * 3 * c, s);
   const void* ptrs[] = {x};
   const long long lds[] = {ldx};
   Vectors vec{bias, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr};
   return reduce_dispatch<2, false>(dtype, path_of(elt_size(dtype), c, ptrs, lds, 1), x, ldx,
-                                   nullptr, 0, vec, relu, m, c, out, scratch, counters, s);
+                                   nullptr, 0, vec, relu == 1, m, c, out, scratch, counters, s);
 }
 
 // (b). y: dtype [m rows of stride ldy, c]; gamma, beta: f32 [c]. train 1:
@@ -814,40 +859,50 @@ int tpuseg_bn_stats(const void* x, long long ldx, int dtype, const float* bias, 
 // [c]) are given, sets each to momentum * it + one_minus_momentum * the
 // batch's. train 0 (eval): run_mean and run_var as the statistics. pooled:
 // null, or dtype [m / 4 rows of stride c, c], the 2x2/2 max of y where the
-// m rows are [n, h, w] with h and w (`width`) even.
+// m rows are [n, h, w] with h and w (`width`) even (not with relu 2).
 int tpuseg_bn_apply(const void* x, long long ldx, int dtype, const float* bias, int relu,
                     int train, const float* stats, const float* gamma, float eps,
                     float* vec_out, float* run_mean, float* run_var, float momentum,
                     float one_minus_momentum, const float* beta, long long m, int c, void* y,
                     long long ldy, void* pooled, long long width, void* stream) {
-  if (bad_args(m, c) || ldx < c || ldy < c || bad_dtype(dtype) || !gamma ||
+  if (bad_args(m, c) || ldx < c || ldy < c || bad_dtype(dtype) || bad_relu(relu) || !gamma ||
       (train && (!stats || !vec_out)) || (!train && !run_mean) || (!run_mean != !run_var) ||
-      (pooled && (width <= 0 || width % 2 || m % (2 * width))))
+      (pooled && (width <= 0 || width % 2 || m % (2 * width))) ||
+      (relu == 2 && (bias || pooled)))
     return (int)cudaErrorInvalidValue;
   const void* ptrs[] = {x, y, pooled};
   const long long lds[] = {ldx, ldy, c};
   Vectors vec{bias, nullptr, nullptr, nullptr, beta, nullptr, nullptr};
   Derive d{train != 0, stats, gamma, eps, vec_out, run_mean, run_var, momentum,
            one_minus_momentum, nullptr, nullptr, nullptr, nullptr};
-  return apply_dispatch<false>(dtype, path_of(elt_size(dtype), c, ptrs, lds, pooled ? 3 : 2),
-                               x, ldx, nullptr, 0, vec, d, relu, m, c, y, ldy, pooled, width,
-                               static_cast<cudaStream_t>(stream));
+  const int path = path_of(elt_size(dtype), c, ptrs, lds, pooled ? 3 : 2);
+  if (relu == 2)
+    return apply_dispatch<false, true>(dtype, path, x, ldx, nullptr, 0, vec, d, 0, m, c, y,
+                                       ldy, nullptr, 0, static_cast<cudaStream_t>(stream));
+  return apply_dispatch<false>(dtype, path, x, ldx, nullptr, 0, vec, d, relu, m, c, y, ldy,
+                               pooled, width, static_cast<cudaStream_t>(stream));
 }
 
-// (c). g: dtype [m rows of stride ldg, c]; mean, rstd: f32 [c]; nsums 2, or
-// 5 with a bias; out: f32 [nsums, c]; scratch, counters as for (a).
+// (c). g: dtype [m rows of stride ldg, c]; mean, rstd: f32 [c]; mul, beta:
+// f32 [c] with relu 2 (else unread); nsums 2, or 5 with a bias; out: f32
+// [nsums, c]; scratch, counters as for (a).
 int tpuseg_bn_backward_reduce(const void* x, long long ldx, const void* g, long long ldg,
                               int dtype, const float* bias, int relu, const float* mean,
-                              const float* rstd, long long m, int c, int nsums, float* out,
-                              float* scratch, int* counters, void* stream) {
-  if (bad_args(m, c) || ldx < c || ldg < c || bad_dtype(dtype) || nsums != (bias ? 5 : 2))
+                              const float* rstd, const float* mul, const float* beta,
+                              long long m, int c, int nsums, float* out, float* scratch,
+                              int* counters, void* stream) {
+  if (bad_args(m, c) || ldx < c || ldg < c || bad_dtype(dtype) || bad_relu(relu) ||
+      nsums != (bias ? 5 : 2) || (relu == 2 && (bias || !mul || !beta)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (m == 0) return (int)cudaMemsetAsync(out, 0, sizeof(float) * nsums * c, s);
   const void* ptrs[] = {x, g};
   const long long lds[] = {ldx, ldg};
   const int path = path_of(elt_size(dtype), c, ptrs, lds, 2);
-  Vectors vec{bias, mean, rstd, nullptr, nullptr, nullptr, nullptr};
+  Vectors vec{bias, mean, rstd, mul, beta, nullptr, nullptr};
+  if (relu == 2)
+    return reduce_dispatch<2, true, true>(dtype, path, x, ldx, g, ldg, vec, 0, m, c, out,
+                                          scratch, counters, s);
   if (nsums == 5)
     return reduce_dispatch<5, true>(dtype, path, x, ldx, g, ldg, vec, relu, m, c, out, scratch,
                                     counters, s);
@@ -855,29 +910,34 @@ int tpuseg_bn_backward_reduce(const void* x, long long ldx, const void* g, long 
                                   counters, s);
 }
 
-// (d). mean, rstd, mul: f32 [c]; dx: dtype [m rows of stride lddx, c].
-// train 0: k1, k2 f32 [c] given. train 1: k1 and k2 from totals (f32, rows
-// sum g and sum g*ah of stride c), stats' n (f32 [3, c]) and unclipped (f32
-// [c], 1 or 0); where dbias (f32 [c]) is given, also writes the bias
-// gradient from sums (f32 [5, c], this rank's (c)).
+// (d). mean, rstd, mul: f32 [c]; beta: f32 [c] with relu 2 (else unread);
+// dx: dtype [m rows of stride lddx, c]. train 0: k1, k2 f32 [c] given.
+// train 1: k1 and k2 from totals (f32, rows sum g and sum g*ah of stride
+// c), stats' n (f32 [3, c]) and unclipped (f32 [c], 1 or 0); where dbias
+// (f32 [c]) is given, also writes the bias gradient from sums (f32 [5, c],
+// this rank's (c)).
 int tpuseg_bn_backward_apply(const void* x, long long ldx, const void* g, long long ldg,
                              int dtype, const float* bias, int relu, const float* mean,
-                             const float* rstd, const float* mul, int train, const float* k1,
-                             const float* k2, const float* stats, const float* totals,
-                             const float* unclipped, const float* sums, float* dbias,
-                             long long m, int c, void* dx, long long lddx, void* stream) {
-  if (bad_args(m, c) || ldx < c || ldg < c || lddx < c || bad_dtype(dtype) ||
+                             const float* rstd, const float* mul, const float* beta, int train,
+                             const float* k1, const float* k2, const float* stats,
+                             const float* totals, const float* unclipped, const float* sums,
+                             float* dbias, long long m, int c, void* dx, long long lddx,
+                             void* stream) {
+  if (bad_args(m, c) || ldx < c || ldg < c || lddx < c || bad_dtype(dtype) || bad_relu(relu) ||
       (!train && (!k1 || !k2)) || (train && (!stats || !totals || !unclipped)) ||
-      (dbias && (!train || !sums)))
+      (dbias && (!train || !sums)) || (relu == 2 && (bias || !beta)))
     return (int)cudaErrorInvalidValue;
   const void* ptrs[] = {x, g, dx};
   const long long lds[] = {ldx, ldg, lddx};
-  Vectors vec{bias, mean, rstd, mul, nullptr, k1, k2};
+  Vectors vec{bias, mean, rstd, mul, beta, k1, k2};
   Derive d{train != 0, stats, nullptr, 0.f, nullptr, nullptr, nullptr, 0.f, 0.f,
            totals, unclipped, sums, dbias};
-  return apply_dispatch<true>(dtype, path_of(elt_size(dtype), c, ptrs, lds, 3), x, ldx, g, ldg,
-                              vec, d, relu, m, c, dx, lddx, nullptr, 0,
-                              static_cast<cudaStream_t>(stream));
+  const int path = path_of(elt_size(dtype), c, ptrs, lds, 3);
+  if (relu == 2)
+    return apply_dispatch<true, true>(dtype, path, x, ldx, g, ldg, vec, d, 0, m, c, dx, lddx,
+                                      nullptr, 0, static_cast<cudaStream_t>(stream));
+  return apply_dispatch<true>(dtype, path, x, ldx, g, ldg, vec, d, relu, m, c, dx, lddx,
+                              nullptr, 0, static_cast<cudaStream_t>(stream));
 }
 
 const char* tpuseg_cuda_error_string(int err) {

@@ -131,6 +131,9 @@ def load_model(cfg: InferenceConfig, device: torch.device):
     check it against the configured classes/channels/width
     (model.py:81-83)."""
     model = checkpoint.load_model(cfg.checkpoint_filepath, dtype=cfg.dtype, device=device)
+    if model.kind != "unet":
+        raise ValueError(f"{cfg.checkpoint_filepath} holds a {model.kind}: serving "
+                         "takes U-Net checkpoints only")
     got = (model.num_classes, model.num_channels, model.base_features)
     want = (cfg.number_classes, cfg.number_channels, cfg.base_features)
     if got != want:

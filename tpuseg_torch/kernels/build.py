@@ -34,10 +34,10 @@ SOURCES = {
         "tpuseg_bn_stats": (_I, [_P, _L, _I, _P, _I, _L, _I, _P, _P, _P, _P]),
         "tpuseg_bn_apply": (_I, [_P, _L, _I, _P, _I, _I, _P, _P, _F, _P, _P, _P, _F, _F, _P,
                                  _L, _I, _P, _L, _P, _L, _P]),
-        "tpuseg_bn_backward_reduce": (_I, [_P, _L, _P, _L, _I, _P, _I, _P, _P, _L, _I, _I,
-                                           _P, _P, _P, _P]),
-        "tpuseg_bn_backward_apply": (_I, [_P, _L, _P, _L, _I, _P, _I, _P, _P, _P, _I, _P, _P,
-                                          _P, _P, _P, _P, _P, _L, _I, _P, _L, _P]),
+        "tpuseg_bn_backward_reduce": (_I, [_P, _L, _P, _L, _I, _P, _I, _P, _P, _P, _P, _L,
+                                           _I, _I, _P, _P, _P, _P]),
+        "tpuseg_bn_backward_apply": (_I, [_P, _L, _P, _L, _I, _P, _I, _P, _P, _P, _P, _I, _P,
+                                          _P, _P, _P, _P, _P, _P, _L, _I, _P, _L, _P]),
         "tpuseg_cuda_error_string": (ctypes.c_char_p, [_I]),
     }),
     "head_argmax": ("head_argmax.cu", {

@@ -205,6 +205,8 @@ class UNet(nn.Module):
     carry the flax block names (``enc1a`` ... ``dec1up`` ... ``head``).
     """
 
+    kind = "unet"
+
     def __init__(self, num_classes: int, num_channels: int = 1,
                  base_features: int = BASELINE_FEATURE_DEPTH,
                  dtype: Union[str, torch.dtype] = torch.bfloat16,
@@ -247,6 +249,10 @@ class UNet(nn.Module):
                 "num_channels": self.num_channels,
                 "base_features": self.base_features,
                 "deconv_impl": self.deconv_impl}
+
+    def initialize(self, generator: Optional[torch.Generator] = None) -> "UNet":
+        """:func:`init_unet`."""
+        return init_unet(self, generator)
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:

@@ -1,5 +1,6 @@
 """K4: the conv block's bias + ReLU + BatchNorm, and the deconv block's
-BatchNorm, as hand kernels with a hand backward.
+BatchNorm, as hand kernels with a hand backward, in two orders: the
+U-Net's ReLU before the normalization, and TransUNet's after it.
 
 Counterpart of the BatchNorm of ``tpuseg/models/unet.py`` (``ConvBlock``,
 ``:94-102``: conv, ``+ bias``, ``nn.relu``, ``nn.BatchNorm``; ``DeconvBlock``,
@@ -36,6 +37,18 @@ mode the running statistics. Four kernels, in
   eval mode, whose input gradient the ERF probe takes);
   :func:`backward_apply_train` derives them in the kernel from (c)'s sums
   and writes the bias gradient too.
+
+``relu`` names the order: :data:`RELU_NONE` (0, the deconv block's),
+:data:`RELU_BEFORE` (1, or ``True``: the U-Net's conv block, above) or
+:data:`RELU_AFTER` (2: TransUNet's ``Conv2dReLU``, conv -> BatchNorm ->
+ReLU, which takes no bias). In the order after ``a = x``, (a) takes the
+statistics of x, (b) writes ``y = relu(r(((a - mean) * mul) + beta))``, and
+(c) and (d) take ``g' = g * (y > 0)`` (zero where ``y <= 0``, autograd's
+rule for ReLU, so NaN passes) in ``g``'s place, with ``y`` recomputed from
+``x`` (so they also take ``mul`` and ``beta``). It is a compile-time form of
+(b), (c) and (d), so the U-Net's forms compile as they did; it has no store
+forms. ``AFTER`` counts its kernel launches and its applies (on either
+device).
 
 A layer in train mode without a process group is these four launches and
 no other op: no per-channel op runs between them (the vectors, the running
@@ -77,11 +90,16 @@ LAUNCHES: Dict[str, int] = {"stats": 0, "apply": 0, "backward_reduce": 0,
 # channel slice (``out``) and that also pooled it (``pool``), on either
 # device; a pooled apply is still one "apply" launch.
 FORMS: Dict[str, int] = {"slice": 0, "pool": 0}
+# The order after since the counts were last reset: kernel launches (also
+# counted in LAUNCHES) and (b)'s applies, train and eval, on either device.
+AFTER: Dict[str, int] = {"launches": 0, "applies": 0}
 # Incoming gradients a backward had to copy into rows of channels first
 # (see :func:`_gradient_rows`).
 GRAD_COPIES = 0
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# where the ReLU goes (``relu``): none, before the normalization, after it
+RELU_NONE, RELU_BEFORE, RELU_AFTER = 0, 1, 2
 
 
 def reset_counts() -> None:
@@ -90,6 +108,8 @@ def reset_counts() -> None:
         LAUNCHES[k] = 0
     for k in FORMS:
         FORMS[k] = 0
+    for k in AFTER:
+        AFTER[k] = 0
     GRAD_COPIES = 0
 
 
@@ -150,11 +170,11 @@ def _c(v: torch.Tensor) -> torch.Tensor:
     return v[:, None, None]
 
 
-def activation(x: torch.Tensor, bias: Optional[torch.Tensor], relu: bool) -> torch.Tensor:
+def activation(x: torch.Tensor, bias: Optional[torch.Tensor], relu: int) -> torch.Tensor:
     """``relu(r(x + r(bias)))`` in x's dtype: flax's ``y += bias`` in the
-    conv's dtype, then ``nn.relu``."""
+    conv's dtype, then ``nn.relu`` (only in the order before)."""
     a = x if bias is None else x + _c(bias.to(x.dtype))
-    return torch.relu(a) if relu else a
+    return torch.relu(a) if relu == RELU_BEFORE else a
 
 
 def _relu_mask(a: torch.Tensor) -> torch.Tensor:
@@ -169,30 +189,43 @@ def _stats_plain(x, bias, relu) -> torch.Tensor:
 
 def _apply_plain(x, bias, relu, mean, mul, beta) -> torch.Tensor:
     a = activation(x, bias, relu).float()
-    return ((a - _c(mean)) * _c(mul) + _c(beta)).to(x.dtype)
+    y = ((a - _c(mean)) * _c(mul) + _c(beta)).to(x.dtype)
+    return torch.relu(y) if relu == RELU_AFTER else y
+
+
+def _after_gradient(x, g, mean, mul, beta) -> torch.Tensor:
+    """The order after's ``g'``: ``g`` where ``y = relu(r(((x - mean) * mul)
+    + beta))`` is above 0, else 0 (autograd's ReLU rule: zero where ``y <=
+    0``)."""
+    y = _apply_plain(x, None, RELU_NONE, mean, mul, beta)
+    return torch.where(y <= 0, torch.zeros((), dtype=g.dtype, device=g.device), g)
 
 
 def _ahat(a, mean, rstd):
     return (a - _c(mean)) * _c(rstd)
 
 
-def _backward_reduce_plain(x, bias, relu, g, mean, rstd) -> torch.Tensor:
+def _backward_reduce_plain(x, bias, relu, g, mean, rstd, mul=None, beta=None) -> torch.Tensor:
+    if relu == RELU_AFTER:
+        g = _after_gradient(x, g, mean, mul, beta)
     a = activation(x, bias, relu).float()
     gf = g.float()
     ahat = _ahat(a, mean, rstd)
     sums = [gf.sum((0, 2, 3)), (gf * ahat).sum((0, 2, 3))]
     if bias is not None:
-        m = _relu_mask(a) if relu else torch.ones_like(a, dtype=torch.bool)
+        m = _relu_mask(a) if relu == RELU_BEFORE else torch.ones_like(a, dtype=torch.bool)
         sums += [torch.where(m, gf, 0.0).sum((0, 2, 3)), m.float().sum((0, 2, 3)),
                  torch.where(m, ahat, 0.0).sum((0, 2, 3))]
     return torch.stack(sums)
 
 
-def _backward_apply_plain(x, bias, relu, g, mean, rstd, mul, k1, k2) -> torch.Tensor:
+def _backward_apply_plain(x, bias, relu, g, mean, rstd, mul, k1, k2, beta=None) -> torch.Tensor:
+    if relu == RELU_AFTER:
+        g = _after_gradient(x, g, mean, mul, beta)
     a = activation(x, bias, relu).float()
     t = (g.float() - _c(k1)) - _ahat(a, mean, rstd) * _c(k2)
     dx = t * _c(mul)
-    if relu:
+    if relu == RELU_BEFORE:
         dx = torch.where(_relu_mask(a), dx, 0.0)
     return dx.to(x.dtype)
 
@@ -241,14 +274,14 @@ def _apply_eval_plain(x, bias, relu, running_mean, running_var, gamma, beta, eps
     return y if pooled is None else (y, pooled)
 
 
-def _backward_apply_train_plain(x, bias, relu, g, stats, vec, sums, totals):
+def _backward_apply_train_plain(x, bias, relu, g, stats, vec, sums, totals, beta=None):
     """(d) in train mode: ``k1 = sum g / n`` and ``k2 = sum g*ahat / n`` (0
     where the variance clipped) from ``totals``, then ``(dx, dbias)``, the
     bias gradient from this rank's ``sums`` (None without a bias)."""
     n = stats[2]
     k1 = totals[0] / n
     k2 = torch.where(vec[4] != 0, totals[1] / n, 0.0)
-    dx = _backward_apply_plain(x, bias, relu, g, vec[0], vec[2], vec[3], k1, k2)
+    dx = _backward_apply_plain(x, bias, relu, g, vec[0], vec[2], vec[3], k1, k2, beta)
     dbias = None if bias is None else vec[3] * ((sums[2] - k1 * sums[3]) - k2 * sums[4])
     return dx, dbias
 
@@ -391,37 +424,39 @@ def _launch_apply_eval(x, bias, relu, running_mean, running_var, gamma, beta, ep
                   beta, ldx=ldx, out=out, pool=pool)
 
 
-def _launch_backward_reduce(x, bias, relu, g, mean, rstd, *, ldx, ldg) -> torch.Tensor:
+def _launch_backward_reduce(x, bias, relu, g, mean, rstd, mul=None, beta=None, *, ldx,
+                            ldg) -> torch.Tensor:
     nsums = 2 if bias is None else 5
     out, scratch, stream = _reduce_out(x, ldx, g, ldg, nsums, nsums)
     _run("backward_reduce", "tpuseg_bn_backward_reduce", x.device, stream, x.data_ptr(), ldx,
          g.data_ptr(), ldg, DTYPE_CODES[x.dtype], _ptr(bias), int(relu), mean.data_ptr(),
-         rstd.data_ptr(), *_rows(x), nsums, out.data_ptr(), scratch.data_ptr(),
-         _counters(x.device, stream).data_ptr())
+         rstd.data_ptr(), _ptr(mul), _ptr(beta), *_rows(x), nsums, out.data_ptr(),
+         scratch.data_ptr(), _counters(x.device, stream).data_ptr())
     return out
 
 
-def _backward(x, bias, relu, g, mean, rstd, mul, train, k1, k2, stats, totals, unclipped, sums,
-              dbias, *, ldx, ldg) -> torch.Tensor:
+def _backward(x, bias, relu, g, mean, rstd, mul, beta, train, k1, k2, stats, totals, unclipped,
+              sums, dbias, *, ldx, ldg) -> torch.Tensor:
     dx = _channels_last(x.shape, x.dtype, x.device)
     _run("backward_apply", "tpuseg_bn_backward_apply", x.device, _stream(x.device),
          x.data_ptr(), ldx, g.data_ptr(), ldg, DTYPE_CODES[x.dtype], _ptr(bias), int(relu),
-         mean.data_ptr(), rstd.data_ptr(), mul.data_ptr(), int(train), _ptr(k1), _ptr(k2),
-         _ptr(stats), _ptr(totals), _ptr(unclipped), _ptr(sums), _ptr(dbias), *_rows(x),
-         dx.data_ptr(), x.shape[1])
+         mean.data_ptr(), rstd.data_ptr(), mul.data_ptr(), _ptr(beta), int(train), _ptr(k1),
+         _ptr(k2), _ptr(stats), _ptr(totals), _ptr(unclipped), _ptr(sums), _ptr(dbias),
+         *_rows(x), dx.data_ptr(), x.shape[1])
     return dx
 
 
-def _launch_backward_apply(x, bias, relu, g, mean, rstd, mul, k1, k2, *, ldx,
+def _launch_backward_apply(x, bias, relu, g, mean, rstd, mul, k1, k2, beta=None, *, ldx,
                            ldg) -> torch.Tensor:
-    return _backward(x, bias, relu, g, mean, rstd, mul, False, k1, k2, None, None, None, None,
-                     None, ldx=ldx, ldg=ldg)
+    return _backward(x, bias, relu, g, mean, rstd, mul, beta, False, k1, k2, None, None, None,
+                     None, None, ldx=ldx, ldg=ldg)
 
 
-def _launch_backward_apply_train(x, bias, relu, g, stats, vec, sums, totals, *, ldx, ldg):
+def _launch_backward_apply_train(x, bias, relu, g, stats, vec, sums, totals, beta=None, *, ldx,
+                                 ldg):
     dbias = None if bias is None else torch.empty_like(bias)
-    dx = _backward(x, bias, relu, g, vec[0], vec[2], vec[3], True, None, None, stats, totals,
-                   vec[4], sums, dbias, ldx=ldx, ldg=ldg)
+    dx = _backward(x, bias, relu, g, vec[0], vec[2], vec[3], beta, True, None, None, stats,
+                   totals, vec[4], sums, dbias, ldx=ldx, ldg=ldg)
     return dx, dbias
 
 
@@ -433,6 +468,25 @@ def _device(x: torch.Tensor) -> str:
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"K4 runs on cuda or cpu tensors, not {x.device}")
     return x.device.type
+
+
+def _check_order(relu: int, bias: Optional[torch.Tensor], **after) -> None:
+    """``relu`` is one of the three orders; the order after takes no bias
+    and needs the vectors ``after`` (those that recompute y)."""
+    if relu not in (RELU_NONE, RELU_BEFORE, RELU_AFTER):
+        raise ValueError(f"relu must be RELU_NONE, RELU_BEFORE or RELU_AFTER, got {relu!r}")
+    if relu == RELU_AFTER:
+        if bias is not None:
+            raise ValueError("the order after takes no bias (a conv before a BatchNorm has "
+                             "none)")
+        missing = [k for k, v in after.items() if v is None]
+        if missing:
+            raise ValueError(f"the order after's backward needs {missing} to recompute y")
+
+
+def _launched_after(relu: int) -> None:
+    if relu == RELU_AFTER:
+        AFTER["launches"] += 1
 
 
 def _check_sums(x: torch.Tensor, **matrices) -> None:
@@ -447,17 +501,19 @@ def _check_sums(x: torch.Tensor, **matrices) -> None:
                              f" got {v.dtype} {tuple(v.shape)} on {v.device}")
 
 
-def batch_stats(x: torch.Tensor, bias: Optional[torch.Tensor], relu: bool) -> torch.Tensor:
+def batch_stats(x: torch.Tensor, bias: Optional[torch.Tensor], relu: int) -> torch.Tensor:
     """(a): f32 ``[3, C]``, per channel ``[sum a, sum a^2, n]`` over the ``n =
     N*H*W`` rows."""
     ldx = _check_rows("x", x)
+    _check_order(relu, bias)
     _check_vectors(x, bias=bias)
     if _device(x) == "cpu":
         return _stats_count_plain(x, bias, relu)
+    _launched_after(relu)
     return _launch_stats(x, bias, relu, ldx=ldx)
 
 
-def bn_apply_train(x: torch.Tensor, bias: Optional[torch.Tensor], relu: bool,
+def bn_apply_train(x: torch.Tensor, bias: Optional[torch.Tensor], relu: int,
                    stats: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float,
                    running_mean: Optional[torch.Tensor] = None,
                    running_var: Optional[torch.Tensor] = None, momentum: float = 0.0):
@@ -468,19 +524,23 @@ def bn_apply_train(x: torch.Tensor, bias: Optional[torch.Tensor], relu: bool,
     statistics, also sets each to ``momentum * it + (1 - momentum) *
     batch``, in place."""
     ldx = _check_rows("x", x)
+    _check_order(relu, bias)
     _check_vectors(x, bias=bias, gamma=gamma, beta=beta, running_mean=running_mean,
                    running_var=running_var)
     _check_sums(x, stats=(stats, 3))
     if (running_mean is None) != (running_var is None):
         raise ValueError("running_mean and running_var go together")
+    if relu == RELU_AFTER:
+        AFTER["applies"] += 1
     if _device(x) == "cpu":
         return _apply_train_plain(x, bias, relu, stats, gamma, beta, eps, running_mean,
                                   running_var, momentum)
+    _launched_after(relu)
     return _launch_apply_train(x, bias, relu, stats, gamma, beta, eps, running_mean,
                                running_var, momentum, ldx=ldx)
 
 
-def bn_apply_eval(x: torch.Tensor, bias: Optional[torch.Tensor], relu: bool,
+def bn_apply_eval(x: torch.Tensor, bias: Optional[torch.Tensor], relu: int,
                   running_mean: torch.Tensor, running_var: torch.Tensor, gamma: torch.Tensor,
                   beta: torch.Tensor, eps: float, out: Optional[torch.Tensor] = None,
                   pool: bool = False):
@@ -491,16 +551,22 @@ def bn_apply_eval(x: torch.Tensor, bias: Optional[torch.Tensor], relu: bool,
     with ``pool`` (even H and W) the same pass also gives the 2x2/2 max of
     ``y``, channels-last, and ``(y, pooled)`` is returned."""
     ldx = _check_rows("x", x)
+    _check_order(relu, bias)
     _check_vectors(x, bias=bias, running_mean=running_mean, running_var=running_var,
                    gamma=gamma, beta=beta)
+    if relu == RELU_AFTER and (out is not None or pool):
+        raise ValueError("the order after has no store forms")
     if out is not None:
         _check_rows("out", out, x)
     if pool and (x.shape[2] % 2 or x.shape[3] % 2):
         raise ValueError(f"the pooled form takes an even H and W, got {tuple(x.shape[2:])}")
+    if relu == RELU_AFTER:
+        AFTER["applies"] += 1
     if _device(x) == "cpu":
         y = _apply_eval_plain(x, bias, relu, running_mean, running_var, gamma, beta, eps, out,
                               pool)
     else:
+        _launched_after(relu)
         y = _launch_apply_eval(x, bias, relu, running_mean, running_var, gamma, beta, eps,
                                ldx=ldx, out=out, pool=pool)
     if out is not None:
@@ -510,48 +576,58 @@ def bn_apply_eval(x: torch.Tensor, bias: Optional[torch.Tensor], relu: bool,
     return y
 
 
-def backward_reduce(x: torch.Tensor, bias: Optional[torch.Tensor], relu: bool, g: torch.Tensor,
-                    mean: torch.Tensor, rstd: torch.Tensor) -> torch.Tensor:
+def backward_reduce(x: torch.Tensor, bias: Optional[torch.Tensor], relu: int, g: torch.Tensor,
+                    mean: torch.Tensor, rstd: torch.Tensor, mul: Optional[torch.Tensor] = None,
+                    beta: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(c): f32 ``[2, C]`` (``[sum g, sum g*ahat]``), or ``[5, C]`` with a
     bias (also ``sum relu'*g, sum relu', sum relu'*ahat``; relu' is 1
-    without a ReLU)."""
+    without a ReLU before). The order after takes ``g'`` for ``g``, from
+    ``mul`` and ``beta``."""
     ldx, ldg = _check_rows("x", x), _check_rows("g", g, x)
-    _check_vectors(x, bias=bias, mean=mean, rstd=rstd)
+    _check_order(relu, bias, mul=mul, beta=beta)
+    _check_vectors(x, bias=bias, mean=mean, rstd=rstd, mul=mul, beta=beta)
     if _device(x) == "cpu":
-        return _backward_reduce_plain(x, bias, relu, g, mean, rstd)
-    return _launch_backward_reduce(x, bias, relu, g, mean, rstd, ldx=ldx, ldg=ldg)
+        return _backward_reduce_plain(x, bias, relu, g, mean, rstd, mul, beta)
+    _launched_after(relu)
+    return _launch_backward_reduce(x, bias, relu, g, mean, rstd, mul, beta, ldx=ldx, ldg=ldg)
 
 
-def backward_apply(x: torch.Tensor, bias: Optional[torch.Tensor], relu: bool, g: torch.Tensor,
+def backward_apply(x: torch.Tensor, bias: Optional[torch.Tensor], relu: int, g: torch.Tensor,
                    mean: torch.Tensor, rstd: torch.Tensor, mul: torch.Tensor, k1: torch.Tensor,
-                   k2: torch.Tensor) -> torch.Tensor:
+                   k2: torch.Tensor, beta: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(d): ``dx = relu' * r(((g - k1) - ahat * k2) * mul)``, channels-last,
-    x's dtype."""
+    x's dtype; the order after takes ``g'`` for ``g`` (from ``beta``) and no
+    relu'."""
     ldx, ldg = _check_rows("x", x), _check_rows("g", g, x)
-    _check_vectors(x, bias=bias, mean=mean, rstd=rstd, mul=mul, k1=k1, k2=k2)
+    _check_order(relu, bias, beta=beta)
+    _check_vectors(x, bias=bias, mean=mean, rstd=rstd, mul=mul, k1=k1, k2=k2, beta=beta)
     if _device(x) == "cpu":
-        return _backward_apply_plain(x, bias, relu, g, mean, rstd, mul, k1, k2)
-    return _launch_backward_apply(x, bias, relu, g, mean, rstd, mul, k1, k2, ldx=ldx,
+        return _backward_apply_plain(x, bias, relu, g, mean, rstd, mul, k1, k2, beta)
+    _launched_after(relu)
+    return _launch_backward_apply(x, bias, relu, g, mean, rstd, mul, k1, k2, beta, ldx=ldx,
                                   ldg=ldg)
 
 
-def backward_apply_train(x: torch.Tensor, bias: Optional[torch.Tensor], relu: bool,
+def backward_apply_train(x: torch.Tensor, bias: Optional[torch.Tensor], relu: int,
                          g: torch.Tensor, stats: torch.Tensor, vec: torch.Tensor,
-                         sums: torch.Tensor, totals: torch.Tensor):
+                         sums: torch.Tensor, totals: torch.Tensor,
+                         beta: Optional[torch.Tensor] = None):
     """(d) in train mode: ``k1 = totals[0] / n`` and ``k2 = totals[1] / n``
     (0 where ``vec``'s variance clipped) derived in the kernel, with ``n =
     stats[2]``; ``(dx, dbias)``, the bias gradient ``mul * ((sums[2] - k1 *
     sums[3]) - k2 * sums[4])`` from this rank's (c) ``sums`` (None without a
     bias). ``totals`` is ``sums`` itself, or the all-reduce of its first two
-    rows across a process group."""
+    rows across a process group. The order after needs ``beta``."""
     ldx, ldg = _check_rows("x", x), _check_rows("g", g, x)
-    _check_vectors(x, bias=bias)
+    _check_order(relu, bias, beta=beta)
+    _check_vectors(x, bias=bias, beta=beta)
     _check_sums(x, stats=(stats, 3), vec=(vec, 5), sums=(sums, 2 if bias is None else 5),
                 totals=(totals, 2))
     if _device(x) == "cpu":
-        return _backward_apply_train_plain(x, bias, relu, g, stats, vec, sums, totals)
-    return _launch_backward_apply_train(x, bias, relu, g, stats, vec, sums, totals, ldx=ldx,
-                                        ldg=ldg)
+        return _backward_apply_train_plain(x, bias, relu, g, stats, vec, sums, totals, beta)
+    _launched_after(relu)
+    return _launch_backward_apply_train(x, bias, relu, g, stats, vec, sums, totals, beta,
+                                        ldx=ldx, ldg=ldg)
 
 
 # ---------------------------------------------------------------------------
@@ -576,7 +652,7 @@ class TrainBatchNorm(torch.autograd.Function):
     ``(running_mean, running_var, momentum)``, which (b) updates in place."""
 
     @staticmethod
-    def forward(ctx, x, bias, gamma, beta, relu: bool, eps: float, group, *running):
+    def forward(ctx, x, bias, gamma, beta, relu: int, eps: float, group, *running):
         stats = batch_stats(x, bias, relu)
         if group is not None:
             # torch.distributed.nn.functional's all-reduce (the call the
@@ -587,7 +663,7 @@ class TrainBatchNorm(torch.autograd.Function):
             stats = all_reduce(stats, group=group)
         y, vec = bn_apply_train(x, bias, relu, stats, gamma, beta, eps, *running)
         ctx.relu, ctx.group, ctx.n_running = relu, group, len(running)
-        ctx.save_for_backward(x, bias, stats, vec)
+        ctx.save_for_backward(x, bias, stats, vec, beta if relu == RELU_AFTER else None)
         mean, var = vec[0], vec[1]
         ctx.mark_non_differentiable(mean, var)
         # no zero gradients filled in for mean and var (a launch each)
@@ -596,16 +672,18 @@ class TrainBatchNorm(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gy, _gmean, _gvar):
-        x, bias, stats, vec = ctx.saved_tensors
+        x, bias, stats, vec, beta = ctx.saved_tensors
         g = _gradient_rows(gy)
-        sums = backward_reduce(x, bias, ctx.relu, g, vec[0], vec[2])
+        # the order after recomputes y from mul and beta
+        mul = vec[3] if beta is not None else None
+        sums = backward_reduce(x, bias, ctx.relu, g, vec[0], vec[2], mul, beta)
         totals = sums
         if ctx.group is not None:
             import torch.distributed as dist
 
             totals = sums[:2].clone()
             dist.all_reduce(totals, group=ctx.group)
-        dx, dbias = backward_apply_train(x, bias, ctx.relu, g, stats, vec, sums, totals)
+        dx, dbias = backward_apply_train(x, bias, ctx.relu, g, stats, vec, sums, totals, beta)
         need = ctx.needs_input_grad
         return (dx if need[0] else None, dbias if need[1] else None, sums[1], sums[0], None,
                 None, None) + (None,) * ctx.n_running
@@ -617,15 +695,16 @@ class EvalBatchNorm(torch.autograd.Function):
     where asked for, come from (c) without the mean terms."""
 
     @staticmethod
-    def forward(ctx, x, bias, gamma, beta, running_mean, running_var, relu: bool, eps: float):
+    def forward(ctx, x, bias, gamma, beta, running_mean, running_var, relu: int, eps: float):
         y = bn_apply_eval(x, bias, relu, running_mean, running_var, gamma, beta, eps)
         ctx.relu, ctx.eps = relu, eps
-        ctx.save_for_backward(x, bias, gamma, running_mean, running_var)
+        ctx.save_for_backward(x, bias, gamma, running_mean, running_var,
+                              beta if relu == RELU_AFTER else None)
         return y
 
     @staticmethod
     def backward(ctx, gy):
-        x, bias, gamma, mean, var = ctx.saved_tensors
+        x, bias, gamma, mean, var, beta = ctx.saved_tensors
         rstd = torch.rsqrt(var + ctx.eps)
         mul = rstd * gamma
         g = _gradient_rows(gy)
@@ -633,20 +712,22 @@ class EvalBatchNorm(torch.autograd.Function):
         dx = dbias = dgamma = dbeta = None
         if need[0]:
             zero = torch.zeros_like(mean)
-            dx = backward_apply(x, bias, ctx.relu, g, mean, rstd, mul, zero, zero)
+            dx = backward_apply(x, bias, ctx.relu, g, mean, rstd, mul, zero, zero, beta)
         if need[1] or need[2] or need[3]:
-            sums = backward_reduce(x, bias, ctx.relu, g, mean, rstd)
+            sums = backward_reduce(x, bias, ctx.relu, g, mean, rstd,
+                                   mul if beta is not None else None, beta)
             dbeta, dgamma = sums[0], sums[1]
             if bias is not None:
                 dbias = mul * sums[2]
         return dx, dbias, dgamma, dbeta, None, None, None, None
 
 
-def conv_bn(x: torch.Tensor, bias: Optional[torch.Tensor], relu: bool,
+def conv_bn(x: torch.Tensor, bias: Optional[torch.Tensor], relu: int,
             bn: torch.nn.BatchNorm2d, momentum: float, group=None,
             out: Optional[torch.Tensor] = None, pool: bool = False):
     """A block's ``bias -> ReLU -> BatchNorm`` on the conv output ``x``
-    (without its bias): train mode normalizes with the batch statistics and
+    (without its bias), or with ``relu`` :data:`RELU_AFTER` its
+    ``BatchNorm -> ReLU``: train mode normalizes with the batch statistics and
     updates ``bn``'s running ones (flax's ``running = momentum * running +
     (1 - momentum) * batch``, the biased variance) inside (b), eval mode
     with the running statistics. ``out`` and ``pool`` ask for

@@ -20,7 +20,6 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from tpuseg_torch.models.unet import UNet, init_unet
 from tpuseg_torch.ops.losses import categorical_accuracy, cce_from_logits, reference_scalar_loss
 from tpuseg_torch.parallel.halo import local_rows
 from tpuseg_torch.utils.profiling import span
@@ -80,12 +79,12 @@ class KerasAdam(torch.optim.Optimizer):
 
 @dataclass
 class TrainState:
-    """What one training run carries from step to step: the model (its
-    parameters and BatchNorm statistics), the optimizer (moments, step
-    count, learning rate), and the two device generators (augmentation
-    draws and dropout masks)."""
+    """What one training run carries from step to step: the model (a
+    ``UNet`` or a ``TransUNet``: its parameters and BatchNorm statistics),
+    the optimizer (moments, step count, learning rate), and the two device
+    generators (augmentation draws and dropout masks)."""
 
-    model: UNet
+    model: torch.nn.Module
     optimizer: KerasAdam
     aug_generator: torch.Generator
     dropout_generator: torch.Generator
@@ -105,14 +104,15 @@ def _child_seeds(seed: int, n: int):
     return [int(s.generate_state(1)[0]) for s in np.random.SeedSequence(seed).spawn(n)]
 
 
-def create_train_state(model: UNet, seed: int, learning_rate: float,
+def create_train_state(model: torch.nn.Module, seed: int, learning_rate: float,
                        device) -> TrainState:
-    """Keras-initialize ``model`` (weights from ``seed``), move it to
-    ``device`` and pair it with a fresh optimizer and the two generators,
-    all seeded from ``seed`` through independent child seeds."""
+    """Initialize ``model`` as its kind does (the U-Net's Keras init,
+    TransUNet's own; weights from ``seed``), move it to ``device`` and pair
+    it with a fresh optimizer and the two generators, all seeded from
+    ``seed`` through independent child seeds."""
     device = torch.device(device)
     init_seed, aug_seed, drop_seed = _child_seeds(seed, 3)
-    init_unet(model, torch.Generator().manual_seed(init_seed))
+    model.initialize(torch.Generator().manual_seed(init_seed))
     model.to(device)
     return TrainState(
         model=model,

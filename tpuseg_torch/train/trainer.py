@@ -34,6 +34,12 @@ Counterpart of ``tpuseg/train/trainer.py`` (the reference
 Runs on ``config.device`` — the card by default; asking for it without one
 raises.
 
+``model`` picks the architecture (``models.MODEL_KINDS``): ``unet``, the
+default, at ``base_features``; or ``transunet_r50_b16``, TransUNet at its
+published widths, whose tile is the database's image side (square images
+only; its position embeddings fix it) and which refuses spatial
+partitioning, since its attention is global over the tile.
+
 Data parallelism (``parallel/``): in a process group (``cli.train
 --multihost 1`` under torchrun, one process per GPU) each rank trains on
 ``cuda:LOCAL_RANK`` with ``batch_size`` samples, its readers striped by rank,
@@ -68,7 +74,7 @@ import torch
 
 from tpuseg_torch.data.reader import AugmentParams, ImageReader
 from tpuseg_torch.infer.runner import resolve_device
-from tpuseg_torch.models.unet import UNet
+from tpuseg_torch.models import MODEL_KINDS, build_model
 from tpuseg_torch.parallel import distributed
 from tpuseg_torch.parallel import mesh as mesh_lib
 from tpuseg_torch.parallel.halo import split_level
@@ -126,6 +132,8 @@ class TrainConfig:
     log_every_n_steps: int = 1
     # "cuda" (default) or "cpu"; "cuda" without a card raises
     device: str = "cuda"
+    # the architecture, one of models.MODEL_KINDS
+    model: str = "unet"
 
 
 @dataclass
@@ -253,8 +261,35 @@ def _barrier_after_first(it, name: str):
         it.close()
 
 
+def _build_model(cfg: TrainConfig, image_size) -> torch.nn.Module:
+    """The run's model: the U-Net at ``base_features``, or TransUNet at the
+    database's tile."""
+    channels = image_size[2]
+    if cfg.model == "unet":
+        return build_model("unet", num_classes=cfg.number_classes, num_channels=channels,
+                           base_features=cfg.base_features, dtype=cfg.dtype)
+    height, width = image_size[:2]
+    if height != width:
+        raise ValueError(f"{cfg.model} trains on square tiles (its position embeddings fix "
+                         f"the tile), but the database's images are {height} x {width}")
+    return build_model(cfg.model, num_classes=cfg.number_classes, num_channels=channels,
+                       img_size=height, dtype=cfg.dtype)
+
+
+def check_model_options(cfg: TrainConfig) -> None:
+    """Refuse what the configured model cannot do, before any work."""
+    if cfg.model not in MODEL_KINDS:
+        raise ValueError(f"unknown model {cfg.model!r}; the port has {list(MODEL_KINDS)}")
+    if cfg.model != "unet" and cfg.spatial_partitions > 1:
+        raise ValueError(f"{cfg.model} cannot be spatially partitioned (--spatial "
+                         f"{cfg.spatial_partitions}): its attention is global over the tile, "
+                         "which a halo exchange cannot split; train it data-parallel")
+
+
 def train_model(config: TrainConfig) -> TrainResult:
     cfg = config
+    check_model_options(cfg)
+    print(f"model = {cfg.model}")
     print(f"batch_size = {cfg.batch_size}")
     print(f"number_classes = {cfg.number_classes}")
     print(f"learning_rate = {cfg.learning_rate}")
@@ -304,13 +339,12 @@ def train_model(config: TrainConfig) -> TrainResult:
         **host_kw)
     print(f"Train Reader has {train_reader.get_image_count()} images")
 
-    number_channels = train_reader.get_image_size()[2]
     if mesh.spatial > 1:
         level = split_level(train_reader.get_image_size()[0], mesh.spatial)
         print("spatial partitioning: every pool on one rank" if level is None else
               f"spatial partitioning: rows gathered at level {level}, before pool "
               f"{level + 1} (its window would straddle two ranks)")
-    model = UNet(cfg.number_classes, number_channels, cfg.base_features, cfg.dtype)
+    model = _build_model(cfg, train_reader.get_image_size())
     state = create_train_state(model, _device_seed(cfg.seed), cfg.learning_rate, device)
     resumed = False
     resumed_history: List[float] = []

@@ -1,7 +1,10 @@
 """The port's checkpoints: ``torch.save``d dicts, written atomically.
 
-- :func:`save_model` writes ``{"config", "state_dict"}``: the U-Net's
-  constructor arguments (:meth:`UNet.config`) and its weights.
+- :func:`save_model` writes ``{"model", "config", "state_dict"}``: the
+  model's kind (``models.MODEL_KINDS``: ``unet`` or ``transunet_r50_b16``),
+  its constructor arguments (its ``config()``) and its weights. A file
+  without ``"model"`` holds a U-Net, as every checkpoint did before the
+  port had a second model.
 - A training checkpoint (:class:`AsyncCheckpointWriter`, which the
   trainer calls, at ``<output>/checkpoint/ckpt``) holds the same two keys
   plus the optimizer state (moments, step count, lr), the step, the lr and
@@ -28,7 +31,7 @@ from typing import Optional, Union
 
 import torch
 
-from tpuseg_torch.models.unet import UNet
+from tpuseg_torch.models import build_model
 from tpuseg_torch.parallel.distributed import process_index
 
 
@@ -53,19 +56,20 @@ def write_checkpoint(path: str, doc: dict) -> None:
     os.replace(tmp, path)
 
 
-def save_model(path: str, model: UNet) -> None:
-    """Write ``model``'s config and weights (CPU tensors) to ``path``,
+def save_model(path: str, model: torch.nn.Module) -> None:
+    """Write ``model``'s kind, config and weights (CPU tensors) to ``path``,
     atomically (temp file + ``os.replace``)."""
-    write_checkpoint(path, {"config": model.config(), "state_dict": _to_cpu(model.state_dict())})
+    write_checkpoint(path, {"model": model.kind, "config": model.config(),
+                            "state_dict": _to_cpu(model.state_dict())})
 
 
 def load_model(path: str, dtype: Union[str, torch.dtype] = torch.bfloat16,
-               device: Union[str, torch.device] = "cpu") -> UNet:
-    """Rebuild the U-Net a :func:`save_model` file or a training checkpoint
-    describes, restore its weights (model.py:81-83), and return it in eval
-    mode on ``device``."""
+               device: Union[str, torch.device] = "cpu") -> torch.nn.Module:
+    """Rebuild the model a :func:`save_model` file or a training checkpoint
+    describes (a U-Net where it names no kind), restore its weights
+    (model.py:81-83), and return it in eval mode on ``device``."""
     doc = torch.load(path, map_location="cpu", weights_only=True)
-    model = UNet(dtype=dtype, **doc["config"])
+    model = build_model(doc.get("model", "unet"), dtype=dtype, **doc["config"])
     model.load_state_dict(doc["state_dict"])
     return model.to(device).eval()
 
@@ -108,6 +112,7 @@ def train_checkpoint(state) -> Optional[dict]:
     if process_index() != 0:
         return None
     return {
+        "model": state.model.kind,
         "config": state.model.config(),
         "state_dict": _to_cpu(state.model.state_dict()),
         "optimizer": _to_cpu(opt),
@@ -128,9 +133,11 @@ def restore_train_state(path: str, state):
     if "optimizer" not in doc:
         raise ValueError(f"{path} is a model checkpoint, not a training checkpoint: "
                          "it holds no optimizer state to resume from")
-    if doc["config"] != state.model.config():
-        raise ValueError(f"{path} holds a U-Net {doc['config']}, but the run builds "
-                         f"{state.model.config()}")
+    held = (doc.get("model", "unet"), doc["config"])
+    built = (state.model.kind, state.model.config())
+    if held != built:
+        raise ValueError(f"{path} holds a {held[0]} {held[1]}, but the run builds a "
+                         f"{built[0]} {built[1]}")
     state.model.load_state_dict(doc["state_dict"])
     state.optimizer.load_state_dict(doc["optimizer"])
     if "rng" in doc:  # an imported checkpoint has none: the run's seed draws
