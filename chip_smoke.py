@@ -1830,6 +1830,7 @@ def phase_batchnorm(seed: int, dev) -> dict:
     out["max_abs_err"] = {k: max(r["max_abs_err"][k] for r in out["cases"].values())
                           for k in K4_KINDS}
     out["forms"] = k4_forms(seed, dev)
+    out["train_forms"] = k4_train_forms(seed, dev)
     out["after"] = k4_after(seed, dev)
     return out
 
@@ -1901,6 +1902,149 @@ def k4_forms(seed: int, dev) -> dict:
                            f"{bound[k]:.4f})" for k in fns)
         + f"; the old skip: (b) + pool + half the concat {old:.4f}")
     del x, up, buf, y_old, fns
+    torch.cuda.empty_cache()
+    return out
+
+
+K4_TRAIN_FORM_SHAPE = (16, BASE, 512, 512)  # enc1b of a batch-16, 512^2 train step
+
+
+def k4_train_forms(seed: int, dev) -> dict:
+    """K4's train forms at enc1b of a batch-16, 512^2 train step
+    (``K4_TRAIN_FORM_SHAPE``, bf16, bias and ReLU on) against the eager path
+    they replace: forward, (b) then ``F.max_pool2d`` with its indices and
+    half a ``torch.cat``, against (b)'s pooled form into the concat buffer;
+    backward, the pool's backward, autograd's add of the skip's two
+    gradients, (c) and (d), against the pooled (c) and (d). Checked: y and
+    the pooled output bit for bit, the pooled gradient (the pool's backward
+    plus the add) bit-equal to ``_pooled_gradient``'s, the pooled (d)
+    bit-equal to its plain version on its sums, the pooled (c)'s sums
+    against the float64 sums of that gradient's terms within the bound of
+    its own plan (:func:`k4_sum_check`, the plain pooled (c) against it too),
+    and the two paths' sums within 1e-4 of their largest, where (c) on the
+    slice's gradient alone (gp dropped) must fall outside. Then each call timed in turns with the L2 flushed
+    (:func:`events_ms_cold`), beside its bytes at the card's memory rate
+    (in activations: (b) 2 and pooled 2.25; the pool 1.25 + int64 indices
+    1; its backward 0.25 + 1 + 1; the add 3; (c) 2 and pooled 2.25; (d) 3
+    and pooled 3.25)."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpuseg_torch.ops import batchnorm as bn
+
+    n, c, h, w = K4_TRAIN_FORM_SHAPE
+    bf16 = torch.bfloat16
+    x, bias, gamma, beta, _ = k4_inputs(K4_TRAIN_FORM_SHAPE, bf16, seed, dev)
+    up = k4_inputs(K4_TRAIN_FORM_SHAPE, bf16, seed + 1, dev)[0]
+    g = torch.Generator(device=dev).manual_seed(seed + 2)
+
+    def rows(ch, hh, ww):
+        return (torch.randn((n, hh, ww, ch), generator=g, device=dev) * 1e-3).to(bf16).permute(
+            0, 3, 1, 2)
+
+    gcat, gp = rows(2 * c, h, w), rows(c, h // 2, w // 2)
+    gs = gcat[:, :c]
+    buf = torch.empty((n, 2 * c, h, w), dtype=bf16, device=dev, memory_format=torch.channels_last)
+    stats = bn.batch_stats(x, bias, True)
+    y, vec = bn.bn_apply_train(x, bias, True, stats, gamma, beta, 1e-3)
+    pooled, idx = F.max_pool2d(y, 2, return_indices=True)
+
+    def bits(t):
+        return t.contiguous().view(torch.int16)
+
+    (_, form_pooled), _ = bn.bn_apply_train(x, bias, True, stats, gamma, beta, 1e-3,
+                                            out=buf[:, :c], pool=True)
+
+    def pool_backward():
+        return torch.ops.aten.max_pool2d_with_indices_backward(gp, y, [2, 2], [2, 2], [0, 0],
+                                                               [1, 1], False, idx)
+
+    geff = gs + pool_backward()
+    old_sums = bn.backward_reduce(x, bias, True, geff, vec[0], vec[2])
+    sums = bn.backward_reduce(x, bias, True, gs, vec[0], vec[2], vec[3], beta, gp=gp)
+    dx, _ = bn.backward_apply_train(x, bias, True, gs, stats, vec, sums, sums, beta, gp=gp)
+    want_dx, _ = bn._backward_apply_train_plain(x, bias, True, gs, stats, vec, sums, sums, beta,
+                                                gp=gp)
+    checks = {"y": torch.equal(bits(buf[:, :c]), bits(y)),
+              "pooled": torch.equal(bits(form_pooled), bits(pooled)),
+              "pooled_gradient": torch.equal(
+                  bits(geff), bits(bn._pooled_gradient(x, bias, True, gs, gp, vec[0], vec[3],
+                                                       beta))),
+              "dx": torch.equal(bits(dx), bits(want_dx))}
+    def gap(a):
+        return float(((a - old_sums).abs() / old_sums.abs().amax(1, keepdim=True)).max())
+
+    sums_gap = gap(sums)
+    # what a pooled (c) that dropped gp would give: the same check must fail it
+    dropped_gap = gap(bn.backward_reduce(x, bias, True, gs, vec[0], vec[2]))
+    if not all(checks.values()) or sums_gap > 1e-4 or dropped_gap <= 1e-4:
+        raise AssertionError(f"K4's train forms differ from the eager path: {checks}, sums "
+                             f"{sums_gap:.3g} of their largest (gp dropped: {dropped_gap:.3g})")
+    del want_dx, dx, form_pooled
+    torch.cuda.empty_cache()
+    mean, rstd = vec[0], vec[2]
+
+    def act():  # a as f32 [C, M], in the kernel's row order
+        return bn.activation(x, bias, True).float().permute(1, 0, 2, 3).reshape(c, -1)
+
+    def ahat():  # rounded as the kernel rounds it
+        return (act() - mean[:, None]) * rstd[:, None]
+
+    def grad():  # the pooled gradient, checked above to be the one the kernel forms
+        return geff.permute(1, 0, 2, 3).reshape(c, -1).double()
+
+    def pos():
+        return act() > 0
+
+    sum_check = k4_sum_check(
+        "train forms pooled backward reduce", sums,
+        bn._backward_reduce_plain(x, bias, True, gs, mean, rstd, vec[3], beta, gp=gp),
+        [grad, lambda: grad() * ahat().double(), lambda: torch.where(pos(), grad(), 0.0),
+         lambda: pos().double(), lambda: torch.where(pos(), ahat(), 0.0).double()],
+        bn.reduce_plan(x, bn.row_stride(x), gs, bn.row_stride(gs), 5, gp=gp))
+    del geff
+    torch.cuda.empty_cache()
+    fns = {"apply": lambda: bn.bn_apply_train(x, bias, True, stats, gamma, beta, 1e-3),
+           "form_pool": lambda: bn.bn_apply_train(x, bias, True, stats, gamma, beta, 1e-3,
+                                                  out=buf[:, :c], pool=True),
+           "max_pool": lambda: F.max_pool2d(y, 2, return_indices=True),
+           "cat": lambda: torch.cat([y, up], 1),
+           "pool_backward": pool_backward,
+           "add": lambda: gs + pooled_grad,
+           "reduce": lambda: bn.backward_reduce(x, bias, True, gs, vec[0], vec[2]),
+           "apply_backward": lambda: bn.backward_apply_train(x, bias, True, gs, stats, vec, sums,
+                                                             sums),
+           "reduce_pooled": lambda: bn.backward_reduce(x, bias, True, gs, vec[0], vec[2], vec[3],
+                                                       beta, gp=gp),
+           "apply_backward_pooled": lambda: bn.backward_apply_train(x, bias, True, gs, stats, vec,
+                                                                    sums, sums, beta, gp=gp)}
+    pooled_grad = pool_backward()
+    runs = {k: [] for k in fns}
+    for order in (list(fns), list(fns)[::-1]):
+        for k in order:
+            runs[k].append(events_ms_cold(fns[k], 10))
+    ms = {k: sum(v) / 2 for k, v in runs.items()}
+    act = n * c * h * w * x.element_size()
+    moved = {"apply": 2, "form_pool": 2.25, "max_pool": 2.25, "cat": 4, "pool_backward": 2.25,
+             "add": 3, "reduce": 2, "apply_backward": 3, "reduce_pooled": 2.25,
+             "apply_backward_pooled": 3.25}
+    bound = {k: moved[k] * act / HBM_BYTES_PER_S * 1e3 for k in moved}
+    old = {"forward": ms["apply"] + ms["max_pool"] + ms["cat"] / 2,
+           "backward": ms["pool_backward"] + ms["add"] + ms["reduce"] + ms["apply_backward"]}
+    new = {"forward": ms["form_pool"], "backward": ms["reduce_pooled"]
+           + ms["apply_backward_pooled"]}
+    out = {"shape": list(K4_TRAIN_FORM_SHAPE), "dtype": "torch.bfloat16", "ms": ms,
+           "ms_runs": runs, "bound_ms": bound, "share_of_bound": {k: bound[k] / ms[k] for k in ms},
+           "old_ms": old, "new_ms": new, "checks": checks, "sums_gap": sums_gap,
+           "dropped_gap": dropped_gap, "sum_check": sum_check}
+    log(f"K4 train forms {K4_TRAIN_FORM_SHAPE} bf16, checked; ms: "
+        + ", ".join(f"{k} {ms[k]:.4f} ({out['share_of_bound'][k]:.1%} of {bound[k]:.4f})"
+                    for k in fns)
+        + f"; a skip's forward {old['forward']:.4f} -> {new['forward']:.4f}, backward "
+          f"{old['backward']:.4f} -> {new['backward']:.4f}; pooled (c) at "
+          f"{sum_check['share_of_bound']:.3g} of its bound (depth {sum_check['depth']}), sums "
+          f"{sums_gap:.3g} off the eager path's (gp dropped: {dropped_gap:.3g})")
+    del x, up, buf, y, idx, gcat, gp, fns, pooled_grad
     torch.cuda.empty_cache()
     return out
 

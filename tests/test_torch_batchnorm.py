@@ -33,6 +33,8 @@ run the hand backward on them, so these tests hold that algebra:
 The CUDA kernels are held against these plain versions on the card by
 tests/test_torch_cuda.py and chip_smoke.py."""
 
+import copy
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -671,18 +673,29 @@ def test_eval_store_forms_refused():
 
 @pytest.mark.parametrize("train, grad", [(False, True), (True, False)], ids=["grad", "train"])
 def test_conv_bn_store_forms_only_in_eval_without_grad(train, grad):
-    """The forms record no graph: ``conv_bn`` refuses them in train mode and
-    with grad enabled, where the walk keeps the concat and the pool."""
+    """The eval forms record no graph: ``conv_bn_into`` refuses them in eval
+    mode with grad enabled. Train mode takes its own forms, with or without
+    grad. Either way the skip and its pool equal the block's output without
+    forms, and train mode updates the running statistics alike."""
     block = ConvBlock(3, 8).train(train)
+    twin = copy.deepcopy(block)
     x = torch.randn(2, 3, 8, 8).contiguous(memory_format=torch.channels_last)
     buf = torch.empty(2, 16, 8, 8).contiguous(memory_format=torch.channels_last)
-    with torch.set_grad_enabled(grad), pytest.raises(ValueError, match="eval applies"):
-        block(x, torch.float32, out=buf[:, :8], pool=True)
-    block.eval()
+
+    def forms():
+        h = torch.nn.functional.conv2d(x, block.conv.weight, padding=1)
+        return k4.conv_bn_into(h, block.conv.bias, True, block.bn, 0.99, None, buf, skip=True)
+
+    if grad:
+        with pytest.raises(ValueError, match="eval applies"):
+            forms()
     with torch.no_grad():
-        y, pooled = block(x, torch.float32, out=buf[:, :8], pool=True)
-        want = block(x, torch.float32)
+        cat, pooled = forms()
+        want = twin(x, torch.float32)
+    assert cat is buf
     assert torch.equal(buf[:, :8], want) and torch.equal(pooled, torch.max_pool2d(want, 2))
+    assert torch.equal(block.bn.running_mean, twin.bn.running_mean)
+    assert torch.equal(block.bn.running_var, twin.bn.running_var)
 
 
 def _pooled_walk(y: torch.Tensor, w: int) -> torch.Tensor:
@@ -723,3 +736,134 @@ def test_pooled_walk_model_equals_max_pool(shape, dtype):
     top = 2 * ((p // (w // 2)) * w + p % (w // 2))
     read = torch.cat([top, top + 1, top + w, top + w + 1]).sort().values
     assert torch.equal(read, torch.arange(rows.shape[0]))
+
+
+# ---------------------------------------------------------------------------
+# the train forms: (b)'s store forms in train mode, and the pooled (c) and
+# (d), which take the pool's gradient inside K4's backward
+# ---------------------------------------------------------------------------
+
+def _train_case(shape, dtype, seed, nan):
+    """x (with NaNs in a few windows if ``nan``, after the statistics), a
+    deconv half, (a)'s sums and (b)'s train vectors, gamma and beta, the
+    concat buffer's gradient (rows of stride 2C, some -0) and the pooled
+    output's gradient."""
+    g = torch.Generator().manual_seed(seed)
+    n, c, h, w = shape
+
+    def rows(ch=c, hh=h, ww=w):
+        return torch.randn(n, hh, ww, ch, generator=g).to(dtype).permute(0, 3, 1, 2)
+
+    x, up, b = rows(), rows(), torch.randn(c, generator=g) * 0.3
+    gamma, beta = torch.rand(c, generator=g) + 0.5, torch.randn(c, generator=g) * 0.3
+    stats = k4.batch_stats(x, b, True)
+    y, vec = k4.bn_apply_train(x, b, True, stats, gamma, beta, 1e-3)
+    if nan:
+        x[0, 0, 0, 1] = float("nan")
+        x[-1, -1, -1, -1] = float("nan")
+        x[0, 1, 2, 2] = x[0, 1, 3, 3] = float("nan")  # two NaNs in one window
+    gcat, gp = rows(2 * c), rows(c, h // 2, w // 2)
+    gcat[gcat.abs() < 0.05] = -0.0
+    return x, up, b, gamma, beta, stats, vec, gcat, gp
+
+
+@pytest.mark.parametrize("nan", [False, True], ids=["finite", "nan"])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_pooled_backward_equals_max_pool_and_cat_autograd(dtype, nan):
+    """The plain pooled (c) and (d), on the concat gradient's first half and
+    the pooled gradient, against autograd through ``torch.cat`` of (skip,
+    up) and ``F.max_pool2d`` of the skip, whose two gradients autograd adds:
+    the sums and ``(dx, dbias)`` bit-equal, with ties in the windows (the
+    ReLU clamps to 0), -0 in the gradient and NaN windows (one NaN among
+    finite values, and two); ``TRAIN_FORMS`` counts the pooled backward."""
+    import torch.nn.functional as F
+
+    dt = DTYPES[dtype][0]
+    x, up, b, gamma, beta, stats, vec, gcat, gp = _train_case((2, 8, 6, 10), dt, 4, nan)
+    c = x.shape[1]
+    y = k4._apply_plain(x, b, True, vec[0], vec[3], beta).requires_grad_()
+    torch.autograd.backward([torch.cat([y, up], 1), F.max_pool2d(y, 2)], [gcat, gp])
+    want_sums = k4.backward_reduce(x, b, True, y.grad, vec[0], vec[2])
+    want = k4.backward_apply_train(x, b, True, y.grad, stats, vec, want_sums, want_sums)
+    k4.reset_counts()
+    sums = k4.backward_reduce(x, b, True, gcat[:, :c], vec[0], vec[2], vec[3], beta, gp=gp)
+    got = k4.backward_apply_train(x, b, True, gcat[:, :c], stats, vec, sums, sums, beta, gp=gp)
+    assert k4.TRAIN_FORMS == {"slice": 0, "pool": 0, "pooled_backward": 1}
+    for a, b in ((sums, want_sums), *zip(got, want)):
+        assert torch.equal(_bits(a), _bits(b))
+    windows = y.detach().unfold(2, 2, 2).unfold(3, 2, 2).flatten(-2)
+    assert ((windows == windows.amax(-1, keepdim=True)).sum(-1) > 1).any()
+    assert torch.isnan(windows).any(-1).sum() == (3 if nan else 0)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_train_level_forms_equal_cat_and_pool(dtype):
+    """One U-Net level in train mode through ``conv_bn_into`` (the skip's
+    block into the first half of the concat buffer with its pool, the
+    deconv's into the second half) against ``conv_bn`` + ``torch.cat`` +
+    ``F.max_pool2d``: both outputs, every input and parameter gradient and
+    the running statistics bit-equal; 2 slices, 1 pool and 1 pooled
+    backward; the buffer comes back as it went in."""
+    import torch.nn.functional as F
+
+    dt = DTYPES[dtype][0]
+    g = torch.Generator().manual_seed(6)
+    skip_bn, up_bn = torch.nn.BatchNorm2d(8), torch.nn.BatchNorm2d(8)
+
+    def run(forms):
+        torch.manual_seed(0)
+        s_bn, u_bn = copy.deepcopy(skip_bn), copy.deepcopy(up_bn)
+        h = torch.randn(2, 6, 10, 8, generator=torch.Generator().manual_seed(1)).to(dt)
+        h = h.permute(0, 3, 1, 2).requires_grad_()
+        u = (torch.randn(2, 6, 10, 8, generator=torch.Generator().manual_seed(2)).to(dt)
+             .permute(0, 3, 1, 2).requires_grad_())
+        bias = torch.zeros(8, requires_grad=True)
+        if forms:
+            buf = torch.empty(2, 16, 6, 10, dtype=dt).contiguous(memory_format=torch.channels_last)
+            cat, pooled = k4.conv_bn_into(h, bias, True, s_bn, 0.99, None, buf, skip=True)
+            out = k4.conv_bn_into(u, None, False, u_bn, 0.99, None, cat, skip=False)
+            assert cat is buf and out is buf
+        else:
+            y = k4.conv_bn(h, bias, True, s_bn, 0.99)
+            out = torch.cat([y, k4.conv_bn(u, None, False, u_bn, 0.99)], 1)
+            pooled = F.max_pool2d(y, 2)
+        r = torch.Generator().manual_seed(3)
+        torch.autograd.backward([out, pooled], [torch.randn(out.shape, generator=r).to(dt),
+                                                torch.randn(pooled.shape, generator=r).to(dt)])
+        return [out.detach(), pooled.detach(), h.grad, u.grad, bias.grad,
+                *(p.grad for m in (s_bn, u_bn) for p in m.parameters()),
+                *(t for m in (s_bn, u_bn) for t in (m.running_mean, m.running_var))]
+
+    for t in (skip_bn, up_bn):
+        t.weight.data.uniform_(0.5, 1.5, generator=g)
+        t.bias.data.normal_(0, 0.3, generator=g)
+    k4.reset_counts()
+    got = run(True)
+    assert k4.TRAIN_FORMS == {"slice": 2, "pool": 1, "pooled_backward": 1}
+    want = run(False)
+    for a, b in zip(got, want):
+        assert torch.equal(_bits(a), _bits(b))
+
+
+def test_train_forms_refused():
+    x, _, b, gamma, beta, stats, vec, gcat, gp = _train_case((2, 8, 6, 10), torch.float32, 1,
+                                                            False)
+    g, sums = gcat[:, :8], k4.backward_reduce(x, b, True, gcat[:, :8], vec[0], vec[2])
+    with pytest.raises(ValueError, match="needs \\['mul', 'beta'\\]"):
+        k4.backward_reduce(x, b, True, g, vec[0], vec[2], gp=gp)
+    with pytest.raises(ValueError, match="needs \\['beta'\\]"):
+        k4.backward_apply_train(x, b, True, g, stats, vec, sums, sums, gp=gp)
+    with pytest.raises(ValueError, match="not the pooled output's gradient"):
+        k4.backward_apply_train(x, b, True, g, stats, vec, sums, sums, beta, gp=gp[:, :4])
+    with pytest.raises(ValueError, match="not rows of channels"):
+        k4.backward_apply_train(x, b, True, g, stats, vec, sums, sums, beta,
+                                gp=gp.contiguous())
+    odd = x[:, :, :5].contiguous(memory_format=torch.channels_last)
+    with pytest.raises(ValueError, match="even H and W"):
+        k4.bn_apply_train(odd, b, True, stats, gamma, beta, 1e-3, pool=True)
+    with pytest.raises(ValueError, match="no store forms"):
+        k4.bn_apply_train(x, None, k4.RELU_AFTER, stats, gamma, beta, 1e-3, pool=True)
+    with pytest.raises(ValueError, match="no store forms"):
+        k4.backward_reduce(x, None, k4.RELU_AFTER, g, vec[0], vec[2], vec[3], beta, gp=gp)
+    with pytest.raises(ValueError, match="takes a bias"):
+        k4.backward_reduce(x, None, k4.RELU_BEFORE, g, vec[0], vec[2], vec[3], beta, gp=gp)

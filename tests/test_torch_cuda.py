@@ -1178,7 +1178,8 @@ def test_batchnorm_train_vectors_match_finalize(cuda, c, group, dtype):
 def test_train_conv_bn_on_card_issues_only_k4(cuda):
     """A train-mode conv_bn without a group, forward and backward, on the
     card: K4's four launches and, by a dispatch mode, no other op than
-    allocations and views."""
+    allocations and views. A first step runs unrecorded: it makes the
+    reductions' counters, zeroed once a stream, whichever test runs first."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
     ops = []
@@ -1191,6 +1192,9 @@ def test_train_conv_bn_on_card_issues_only_k4(cuda):
     x, g, b, _ = _k4_case((2, 16, 8, 8), torch.bfloat16, 3, cuda, True, False)
     x, b = x.requires_grad_(), b.requires_grad_()
     norm = torch.nn.BatchNorm2d(16, eps=1e-3).to(cuda).train()
+    k4.conv_bn(x, b, True, norm, 0.99).backward(g)
+    for t in (x, b, norm.weight, norm.bias):
+        t.grad = None
     k4.reset_counts()
     with Record():
         k4.conv_bn(x, b, True, norm, 0.99).backward(g)
@@ -1392,3 +1396,135 @@ def test_tiled_none_forms_masks_equal_grad_path(cuda):
     assert k4.FORMS == {"slice": 0, "pool": 0} and k4.LAUNCHES["apply"] == 23 * calls
     assert got.shape == want.shape == img.shape
     assert (got == want).all()
+
+
+# K4's train forms: (b)'s store forms in train mode, and the pooled (c) and
+# (d), which take the pool's gradient at each window's argmax
+
+def _k4_train_case(shape, dtype, seed, dev):
+    """A conv block's x, its bias, gamma and beta, a deconv block's x, the
+    concat buffer's gradient (rows of stride 2C) and the pooled output's."""
+    x, up, b, v = _k4_case(shape, dtype, seed, dev, True, False)
+    n, c, h, w = shape
+    gcat = _k4_case((n, 2 * c, h, w), dtype, seed + 1, dev, False, False)[0]
+    gp = _k4_case((n, c, h // 2, w // 2), dtype, seed + 2, dev, False, False)[0]
+    gamma = v["rstd"] * torch.sign(v["mul"])  # a sign flip: maxima from both tails
+    return x, up, b, gamma, v["beta"], gcat, gp
+
+
+TRAIN_FORM_SHAPES = [(16, 64, 512, 512), (16, 128, 256, 256), (16, 256, 128, 128),
+                     (3, 24, 6, 10), (1, 3, 4, 6), (2, 4, 2, 2), (1, 200, 10, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", TRAIN_FORM_SHAPES)
+def test_batchnorm_train_forms_bit_equal_to_plain(cuda, shape, dtype):
+    """At enc1b-enc3b's and dec1up-dec3up's shapes of a batch-16, 512^2
+    train step and at ragged even shapes (C 24 and 3: one element a thread;
+    C 4: the packed width, which the forms take one element a thread; C
+    200: a partial channel tile): (b)'s train forms write the concat buffer
+    and the pooled output bit-equal to ``torch.cat`` and ``F.max_pool2d`` of
+    (b)'s output without forms, with the same vectors and running
+    statistics, and to (b)'s plain version on those vectors; the pooled (d)
+    bit-equal to its plain version given the same sums; the pooled (c)
+    within its summation bound of the exact sums of ``_pooled_gradient``'s
+    terms (planted faults outside it) and the same bits twice. One launch
+    of each kernel."""
+    import torch.nn.functional as F
+
+    n, c, h, w = shape
+    x, up, b, gamma, beta, gcat, gp = _k4_train_case(shape, dtype, sum(shape), cuda)
+    stats, up_stats = k4.batch_stats(x, b, True), k4.batch_stats(up, None, False)
+    run = [torch.rand(c, device=cuda) + 0.5 for _ in range(4)]
+    want_run = [r.clone() for r in run]
+    y_old, want_vec = k4.bn_apply_train(x, b, True, stats, gamma, beta, 1e-3, *want_run[:2], 0.99)
+    up_old, _ = k4.bn_apply_train(up, None, False, up_stats, gamma, beta, 1e-3, *want_run[2:],
+                                  0.99)
+    assert torch.equal(_bits(y_old), _bits(k4._apply_plain(x, b, True, want_vec[0], want_vec[3],
+                                                           beta)))
+    buf = torch.full((n, 2 * c, h, w), 7.0, dtype=dtype, device=cuda).contiguous(
+        memory_format=torch.channels_last)
+    k4.reset_counts()
+    (y, pooled), vec = k4.bn_apply_train(x, b, True, stats, gamma, beta, 1e-3, *run[:2], 0.99,
+                                         out=buf[:, :c], pool=True)
+    assert torch.equal(_bits(buf[:, c:]), _bits(torch.full_like(up_old, 7.0)))
+    k4.bn_apply_train(up, None, False, up_stats, gamma, beta, 1e-3, *run[2:], 0.99,
+                      out=buf[:, c:])
+    torch.cuda.synchronize()
+    assert k4.LAUNCHES["apply"] == 2 and y.data_ptr() == buf.data_ptr()
+    assert k4.TRAIN_FORMS == {"slice": 2, "pool": 1, "pooled_backward": 0}
+    assert torch.equal(_bits(buf), _bits(torch.cat([y_old, up_old], 1)))
+    assert k4.row_stride(pooled) == c
+    assert torch.equal(_bits(pooled), _bits(F.max_pool2d(y_old, 2)))
+    assert torch.equal(vec, want_vec) and all(torch.equal(a, r) for a, r in zip(run, want_run))
+
+    g = gcat[:, :c]
+    sums = k4.backward_reduce(x, b, True, g, vec[0], vec[2], vec[3], beta, gp=gp)
+    again = k4.backward_reduce(x, b, True, g, vec[0], vec[2], vec[3], beta, gp=gp)
+    dx, dbias = k4.backward_apply_train(x, b, True, g, stats, vec, sums, sums, beta, gp=gp)
+    torch.cuda.synchronize()
+    assert k4.LAUNCHES["backward_reduce"] == 2 and k4.LAUNCHES["backward_apply"] == 1
+    assert k4.TRAIN_FORMS["pooled_backward"] == 1 and torch.equal(sums, again)
+    want_dx, want_dbias = k4._backward_apply_train_plain(x, b, True, g, stats, vec, sums, sums,
+                                                         beta, gp=gp)
+    assert torch.equal(_bits(dx), _bits(want_dx)) and torch.equal(dbias, want_dbias)
+    geff = k4._pooled_gradient(x, b, True, g, gp, vec[0], vec[3], beta)
+    a = k4.activation(x, b, True).float().permute(1, 0, 2, 3).reshape(c, -1)
+    gf = geff.float().permute(1, 0, 2, 3).reshape(c, -1).double()
+    ah = ((a - vec[0][:, None]) * vec[2][:, None]).double()
+    m = a > 0
+    terms = torch.stack([gf, gf * ah, torch.where(m, gf, 0.0), m.double(),
+                         torch.where(m, ah, 0.0)])
+    del a, gf, ah, m, geff
+    assert _within_sum_bound(sums, terms, k4.reduce_plan(x, c, g, 2 * c, 5, gp))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_unet_train_forms_on_card(cuda, dtype, monkeypatch):
+    """A train step with dropout on through the train forms (6 slices, 3
+    pools, 3 pooled backwards; 23 launches of each kernel) against the same
+    step with the pool swapped for a wrapper of ``F.max_pool2d`` (the
+    concat, the pool and autograd's add): logits and running statistics bit
+    for bit; each parameter's gradient within 1e-3 (f32) or 1e-2 (bf16) of
+    its norm, the pooled (c) summing in another order than the plain (c).
+    Measured on an H100: at most 1.3e-4 (f32, enc1a's BN bias: its (c)'s
+    per-channel offsets add up coherently downstream) and 4.6e-4 (bf16); on
+    the CPU a pool gradient dropped or sent to one fixed tap reads 1.1-1.9
+    (a tie broken the other way, 7e-7 in f32, is the bit-equal tests')."""
+    import copy
+
+    import torch.nn.functional as F
+
+    from tpuseg_torch.models import unet
+    from tpuseg_torch.ops.losses import cce_from_logits, reference_scalar_loss
+
+    forms = _eval_unet(16, dtype, 3, cuda).train()
+    swapped = copy.deepcopy(forms)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn(4, 256, 320, 1, device=cuda, generator=g)
+    labels = F.one_hot((torch.rand(4, 256, 320, device=cuda, generator=g) > 0.5).long(),
+                       2).float()
+
+    def step(model):
+        k4.reset_counts()
+        logits = model(x, generator=torch.Generator(device=cuda).manual_seed(5))
+        reference_scalar_loss(cce_from_logits(logits, labels), x.shape[0]).backward()
+        torch.cuda.synchronize()
+        return logits.detach()
+
+    got = step(forms)
+    assert k4.TRAIN_FORMS == {"slice": 6, "pool": 3, "pooled_backward": 3}
+    assert k4.LAUNCHES == {k: 23 for k in k4.LAUNCHES}
+    monkeypatch.setattr(unet, "_pool", lambda t: F.max_pool2d(t, 2))
+    want = step(swapped)
+    assert all(v == 0 for v in k4.TRAIN_FORMS.values())
+    assert torch.equal(_bits(got), _bits(want))
+    for (name, b), c in zip(forms.named_buffers(), swapped.buffers()):
+        assert torch.equal(b, c), name
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-3
+    gaps = {name: float((p.grad - q.grad).norm() / q.grad.norm())
+            for (name, p), q in zip(forms.named_parameters(), swapped.parameters())}
+    print("largest gradient gaps:", sorted(gaps.items(), key=lambda kv: -kv[1])[:4])
+    assert max(gaps.values()) <= tol

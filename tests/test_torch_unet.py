@@ -6,6 +6,7 @@ and ``tpuseg_torch.models.unet.UNet`` in float32 on the CPU; eval-mode
 logits must agree to 2e-4 (the f32 conv sum order differs between XLA and
 PyTorch's CPU kernels)."""
 
+import copy
 import zlib
 
 import jax
@@ -155,9 +156,12 @@ class _OneRankHalo:
 
 @pytest.mark.parametrize("path", ["train", "halo", "avg_pool"])
 def test_store_forms_off_in_train_mode_and_the_spatial_walk(path, monkeypatch):
-    """Train mode, the spatial walk and a model whose pool was swapped for
-    another keep today's concat and pool, also without grad: ``FORMS``
-    stays at 0; the one-rank spatial walk gives the plain walk's logits."""
+    """Train mode takes the train forms at levels 1-3 (``TRAIN_FORMS``: 6
+    slices and 3 pools a forward, 3 pooled backwards a backward), never the
+    eval ones (``FORMS`` stays at 0); the spatial walk and a model whose pool
+    was swapped for another keep today's concat and pool, also without
+    grad, and take no form; the one-rank spatial walk gives the plain walk's
+    logits."""
     from tpuseg_torch.models import unet
     from tpuseg_torch.ops import batchnorm as k4
 
@@ -176,8 +180,66 @@ def test_store_forms_off_in_train_mode_and_the_spatial_walk(path, monkeypatch):
         got = model(x)
     if path == "train":  # and a train step's forward and backward
         model(x).sum().backward()
+        assert k4.TRAIN_FORMS == {"slice": 12, "pool": 6, "pooled_backward": 3}
+    else:
+        assert all(v == 0 for v in k4.TRAIN_FORMS.values())
     assert k4.FORMS == {"slice": 0, "pool": 0}
     if path == "halo":
         np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
     else:
         assert got.shape == want.shape and torch.isfinite(got).all()
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """t's bit patterns, every NaN as one pattern (its payload aside)."""
+    t = torch.where(torch.isnan(t), torch.full_like(t, float("nan")), t).reshape(-1)
+    return t.contiguous().view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+@pytest.mark.parametrize("impl", ["conv_transpose", "pixel_shuffle"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_train_store_forms_step_bit_equal(dtype, impl, monkeypatch):
+    """A train step with dropout on through K4's train store forms (levels
+    1-3: 6 slices and 3 pooled applies forward, 3 pooled backwards) equals,
+    bit for bit, the same step of a copy of the model whose pool is swapped
+    for a wrapper of ``F.max_pool2d``, which turns the forms off (the
+    concat, the pool and autograd's add of each skip's two gradients):
+    logits, loss, every parameter's gradient and the running statistics.
+    Many of enc1b's pool windows hold ties (the ReLU clamps to 0, so their
+    y are equal), which the argmax must break as the pool does."""
+    import torch.nn.functional as F
+
+    from tpuseg_torch.models import unet
+    from tpuseg_torch.ops import batchnorm as k4
+    from tpuseg_torch.ops.losses import cce_from_logits, reference_scalar_loss
+
+    forms = _eval_model(dtype, impl).train()
+    swapped = copy.deepcopy(forms)
+    g = torch.Generator().manual_seed(8)
+    x = torch.randn(2, 32, 48, 1, generator=g)
+    labels = F.one_hot((torch.rand(2, 32, 48, generator=g) > 0.5).long(), 2).float()
+
+    def step(model):
+        k4.reset_counts()
+        logits = model(x, generator=torch.Generator().manual_seed(9))
+        loss = reference_scalar_loss(cce_from_logits(logits, labels), x.shape[0])
+        loss.backward()
+        return logits.detach(), loss.detach()
+
+    got = step(forms)
+    assert k4.TRAIN_FORMS == {"slice": 6, "pool": 3, "pooled_backward": 3}
+    assert k4.FORMS == {"slice": 0, "pool": 0}
+    skip = []
+    swapped.enc1b.register_forward_hook(lambda mod, args, out: skip.append(out.detach()))
+    monkeypatch.setattr(unet, "_pool", lambda t: F.max_pool2d(t, 2))
+    want = step(swapped)
+    assert all(v == 0 for v in k4.TRAIN_FORMS.values())
+    windows = skip[0].unfold(2, 2, 2).unfold(3, 2, 2).flatten(-2)
+    ties = (windows == windows.amax(-1, keepdim=True)).sum(-1) > 1
+    assert ties.float().mean() > 0.05
+    for a, b in zip(got, want):
+        assert torch.equal(_bits(a), _bits(b))
+    for (name, p), q in zip(forms.named_parameters(), swapped.parameters()):
+        assert torch.equal(_bits(p.grad), _bits(q.grad)), name
+    for (name, b), c in zip(forms.named_buffers(), swapped.buffers()):
+        assert torch.equal(b, c), name

@@ -39,7 +39,15 @@
 // whole 128-byte lines), stores the four rows of y and their max. The max
 // runs over the rounded y in F.max_pool2d's window order and rule (take v
 // where v > max or v is NaN, from -inf), so it equals F.max_pool2d(y) bit
-// for bit, NaN included.
+// for bit, NaN included. Train mode takes both forms too (the U-Net's
+// levels 1-3), and then (c) and (d) have a pooled form of their own: given
+// gp, the gradient of the pooled output (rows of stride ldgp), their
+// threads walk the same windows of x and g, recompute the four y from x,
+// mean, mul and beta (bit-equal to what (b) wrote), pick the window's
+// argmax tap by (b)'s rule (the first maximum, the last NaN: max_pool2d's
+// index), and take r(g + (tap is the argmax ? gp : 0)) in g's place, as
+// autograd adds the concat's and the pool's gradients (so -0 + 0 is +0).
+// No index is stored, no pool backward runs, no gradient is added apart.
 //
 // The per-channel vectors come from the sums inside the kernels, with no
 // launch between them: (b) in train mode derives, in its prologue, from
@@ -58,7 +66,9 @@
 //
 // Bound: memory. Per element (a) reads x, (b) reads x and writes y, (c)
 // reads x and g, (d) reads x and g and writes dx: 1, 2, 2 and 3 times the
-// activation's bytes, against a dozen flops. A train step at 512^2, batch 8,
+// activation's bytes, against a dozen flops; the pooled forms add a
+// quarter (y/4 written, gp read) and, in (c) and (d), the recomputed y and
+// argmax, some thirty flops an element. A train step at 512^2, batch 8,
 // base 64 sums N*H*W*C over its 23 BatchNorm layers to 1.28e9 elements,
 // 2.56 GB in bf16: 8 x 2.56 GB at 3.35 TB/s, ~6.1 ms a step.
 //
@@ -97,11 +107,24 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kTileC = 64;               // channels of a tile (grid.y)
 constexpr int kUnroll = 4;               // rows a thread loads before it computes
-constexpr int kPoolUnroll = 2;           // the pooled form's windows (4 rows each) likewise
+constexpr int kPoolUnroll = 2;           // (b)'s pooled form's windows (4 rows each) likewise
+constexpr int kPoolBackwardUnroll = 1;   // (c)'s and (d)'s pooled forms' (9 loads a window)
 constexpr int kReduceBlocks = 264;       // blocks of a reduction, over all tiles
 constexpr int kMinRowsPerBlock = 64;     // rows (loads) a reduction block takes at least
 constexpr int kApplyBlocks = 528;        // blocks of an elementwise pass, over all tiles
 constexpr int kMaxTiles = 64;            // counters the caller provides
+// Blocks an SM holds of the pooled (c) and (d), so at most 128 registers a
+// thread: at ~190 an SM held one block of 8 warps, too few to hide the
+// loads' latency behind their arithmetic (with one window a thread: at
+// enc1b's train shape (c) 0.69 -> 0.53 ms and (d) 0.70 -> 0.63 ms, a few
+// bytes spilled, on an H100)
+constexpr int kPoolBackwardBlocks = 2;
+
+// Loads (windows, in the pooled forms) a thread issues before it computes.
+template <bool BWD, bool POOL>
+__host__ __device__ constexpr int unroll_of() {
+  return POOL ? (BWD ? kPoolBackwardUnroll : kPoolUnroll) : kUnroll;
+}
 
 template <typename T>
 struct Elt;
@@ -200,6 +223,54 @@ __device__ __forceinline__ float after_gradient(float a, float mean, float mul, 
   return normalized<T>(a, mean, mul, beta) <= 0.f ? 0.f : g;
 }
 
+// The tap (0-3, F.max_pool2d's order) of a window's max of y = o(a), by
+// the pooled form's rule: take v where v > max or v is NaN, from -inf.
+template <typename T>
+__device__ __forceinline__ int window_argmax(const float (&a)[4], float mean, float mul,
+                                             float beta) {
+  float mx = -__int_as_float(0x7f800000);
+  int arg = 0;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const float v = normalized<T>(a[q], mean, mul, beta);
+    if (v > mx || isnan(v)) {
+      mx = v;
+      arg = q;
+    }
+  }
+  return arg;
+}
+
+// Tap q's gradient in a pooled backward: r(g + (q is the argmax ? gp : 0)),
+// autograd's add of the concat's and the pool's gradients.
+template <typename T>
+__device__ __forceinline__ float pooled_gradient(float g, float gp, int q, int arg) {
+  return Elt<T>::round(__fadd_rn(g, q == arg ? gp : 0.f));
+}
+
+// (c)'s terms of one element into a thread's sums.
+template <int NS, int VEC>
+__device__ __forceinline__ void add_terms(float (&acc)[NS][VEC], int j, float a, float ah,
+                                          float gg, int relu) {
+  acc[0][j] = __fadd_rn(acc[0][j], gg);
+  acc[1][j] = __fmaf_rn(gg, ah, acc[1][j]);
+  if constexpr (NS == 5) {
+    if (!relu || a > 0.f) {  // relu' (1 without a ReLU)
+      acc[2][j] = __fadd_rn(acc[2][j], gg);
+      acc[3][j] = __fadd_rn(acc[3][j], 1.f);
+      acc[4][j] = __fadd_rn(acc[4][j], ah);
+    }
+  }
+}
+
+// (d)'s dx of one element: relu' ? r(((g - k1) - ah * k2) * mul) : 0.
+__device__ __forceinline__ float input_gradient(float a, float gg, float mean, float rstd,
+                                                float k1, float k2, float mul, int relu) {
+  const float ah = __fmul_rn(__fsub_rn(a, mean), rstd);
+  const float dd = __fmul_rn(__fsub_rn(__fsub_rn(gg, k1), __fmul_rn(ah, k2)), mul);
+  return (relu && !(a > 0.f)) ? 0.f : dd;
+}
+
 // The tile geometry of a block: threads per row, rows per iteration, this
 // thread's row lane and first channel, and whether it has channels. On the
 // packed path (PACK > 1) a "row" is one 16-byte load of PACK rows: one
@@ -291,6 +362,19 @@ __device__ __forceinline__ void load_windows(const T* x, long long ldx, long lon
   }
 }
 
+// U rows of the pooled gradient gp (one a window), pooled pixels p0, p0 +
+// rpi, ..., those below `end`.
+template <typename T, int VEC, int U>
+__device__ __forceinline__ void load_pooled(const T* gp, long long ldgp, long long p0, int rpi,
+                                            int c0, long long end,
+                                            typename Raw<T, VEC>::type (&pv)[U]) {
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const long long p = p0 + (long long)u * rpi;
+    if (p < end) pv[u] = load_raw<T, VEC>(gp + p * ldgp + c0);
+  }
+}
+
 struct Vectors {
   const float *bias, *mean, *rstd, *mul, *beta, *k1, *k2;
 };
@@ -369,18 +453,21 @@ __device__ __forceinline__ int column_sums(int cols, int n, float* lanes, Base b
 // rows (loads on the packed path) [bx * rpb, (bx + 1) * rpb) into
 // partials[bx][k][c]; the tile's last block adds them into out[k][c], and
 // (a)'s also writes n = m into out[2][c]. POST: (c) of the order after.
-template <typename T, int VEC, int PACK, int NS, bool BWD, bool POST>
-__global__ void __launch_bounds__(kThreads)
+// POOL: (c)'s pooled form, whose blocks take pooled pixels of rows `w`
+// wide (each its window's four rows) and the pooled gradient gp.
+template <typename T, int VEC, int PACK, int NS, bool BWD, bool POST, bool POOL>
+__global__ void __launch_bounds__(kThreads, POOL ? kPoolBackwardBlocks : 1)
 bn_reduce_kernel(const T* __restrict__ x, long long ldx, const T* __restrict__ g, long long ldg,
-                 Vectors vec, int relu, long long m, int c, long long rpb,
-                 float* __restrict__ out, float* __restrict__ partials,
-                 int* __restrict__ counters) {
+                 const T* __restrict__ gp, long long ldgp, long long w, Vectors vec, int relu,
+                 long long m, int c, long long rpb, float* __restrict__ out,
+                 float* __restrict__ partials, int* __restrict__ counters) {
   static_assert(!POST || (BWD && NS == 2), "the order after's reduce is (c) without a bias");
+  static_assert(!POOL || (BWD && !POST && PACK == 1), "the pooled (c): one row a load");
   extern __shared__ float smem[];  // [NS][rpi][sw], then the lane buffer of column_sums
   __shared__ bool last;
   const Tile<VEC, PACK> t(c);
   const bool has_bias = vec.bias != nullptr;
-  const long long rows = PACK > 1 ? (m + PACK - 1) / PACK : m;
+  const long long rows = POOL ? m / 4 : PACK > 1 ? (m + PACK - 1) / PACK : m;
   float acc[NS][VEC];
 #pragma unroll
   for (int k = 0; k < NS; ++k)
@@ -399,39 +486,59 @@ bn_reduce_kernel(const T* __restrict__ x, long long ldx, const T* __restrict__ g
       load_params<VEC>(vec.mean, ch, mu);
       load_params<VEC>(vec.rstd, ch, rs);
     }
-    if constexpr (POST) {
+    if constexpr (POST || POOL) {
       load_params<VEC>(vec.mul, ch, ml);
       load_params<VEC>(vec.beta, ch, bt);
     }
     const long long r_end = min(rows, (blockIdx.x + 1) * rpb);
-    for (long long r0 = blockIdx.x * rpb + t.lr; r0 < r_end; r0 += (long long)kUnroll * t.rpi) {
-      typename Raw<T, VEC>::type xv[kUnroll], gv[kUnroll];
-      load_batch<T, VEC, PACK, kUnroll, BWD>(x, ldx, g, ldg, r0, t.rpi, t.c0, r_end, m, c, xv,
-                                             gv);
+    if constexpr (POOL) {  // pooled pixels, each its window's taps in order
+      constexpr int U = kPoolBackwardUnroll;
+      for (long long p0 = blockIdx.x * rpb + t.lr; p0 < r_end; p0 += (long long)U * t.rpi) {
+        typename Raw<T, VEC>::type xv[4 * U], gv[4 * U], pv[U];
+        load_windows<T, VEC, U>(x, ldx, p0, t.rpi, t.c0, r_end, w, xv);
+        load_windows<T, VEC, U>(g, ldg, p0, t.rpi, t.c0, r_end, w, gv);
+        load_pooled<T, VEC, U>(gp, ldgp, p0, t.rpi, t.c0, r_end, pv);
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const long long r = r0 + (long long)u * t.rpi;
-        if (r >= r_end) break;
-        const int valid = valid_of<VEC, PACK>(r, m, c);
+        for (int u = 0; u < U; ++u) {
+          if (p0 + (long long)u * t.rpi >= r_end) break;
 #pragma unroll
-        for (int j = 0; j < VEC; ++j) {
-          if (j >= valid) break;
-          const float a = activation<T>(element<T, VEC>(xv[u], j), bb[j], has_bias, relu);
-          if constexpr (!BWD) {
-            acc[0][j] = __fadd_rn(acc[0][j], a);
-            acc[1][j] = __fmaf_rn(a, a, acc[1][j]);
-          } else {
-            const float ah = __fmul_rn(__fsub_rn(a, mu[j]), rs[j]);
-            float gg = element<T, VEC>(gv[u], j);
-            if constexpr (POST) gg = after_gradient<T>(a, mu[j], ml[j], bt[j], gg);
-            acc[0][j] = __fadd_rn(acc[0][j], gg);
-            acc[1][j] = __fmaf_rn(gg, ah, acc[1][j]);
-            if constexpr (NS == 5) {
-              if (!relu || a > 0.f) {  // relu' (1 without a ReLU)
-                acc[2][j] = __fadd_rn(acc[2][j], gg);
-                acc[3][j] = __fadd_rn(acc[3][j], 1.f);
-                acc[4][j] = __fadd_rn(acc[4][j], ah);
-              }
+          for (int j = 0; j < VEC; ++j) {
+            float a[4];
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+              a[q] = activation<T>(element<T, VEC>(xv[4 * u + q], j), bb[j], has_bias, relu);
+            const int arg = window_argmax<T>(a, mu[j], ml[j], bt[j]);
+            const float gpj = element<T, VEC>(pv[u], j);
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              const float gg = pooled_gradient<T>(element<T, VEC>(gv[4 * u + q], j), gpj, q, arg);
+              add_terms<NS, VEC>(acc, j, a[q], __fmul_rn(__fsub_rn(a[q], mu[j]), rs[j]), gg,
+                                 relu);
+            }
+          }
+        }
+      }
+    } else {
+      for (long long r0 = blockIdx.x * rpb + t.lr; r0 < r_end; r0 += (long long)kUnroll * t.rpi) {
+        typename Raw<T, VEC>::type xv[kUnroll], gv[kUnroll];
+        load_batch<T, VEC, PACK, kUnroll, BWD>(x, ldx, g, ldg, r0, t.rpi, t.c0, r_end, m, c, xv,
+                                               gv);
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const long long r = r0 + (long long)u * t.rpi;
+          if (r >= r_end) break;
+          const int valid = valid_of<VEC, PACK>(r, m, c);
+#pragma unroll
+          for (int j = 0; j < VEC; ++j) {
+            if (j >= valid) break;
+            const float a = activation<T>(element<T, VEC>(xv[u], j), bb[j], has_bias, relu);
+            if constexpr (!BWD) {
+              acc[0][j] = __fadd_rn(acc[0][j], a);
+              acc[1][j] = __fmaf_rn(a, a, acc[1][j]);
+            } else {
+              float gg = element<T, VEC>(gv[u], j);
+              if constexpr (POST) gg = after_gradient<T>(a, mu[j], ml[j], bt[j], gg);
+              add_terms<NS, VEC>(acc, j, a, __fmul_rn(__fsub_rn(a, mu[j]), rs[j]), gg, relu);
             }
           }
         }
@@ -490,27 +597,30 @@ bn_reduce_kernel(const T* __restrict__ x, long long ldx, const T* __restrict__ g
 
 // (b) with BWD false: y = r(((a - mean) * mul) + beta); (d) with BWD true:
 // dx = relu' ? r(((g - k1) - ah * k2) * mul) : 0. Blocks stride over rows;
-// with POOL ((b)'s pooled form, one row a load) over pooled pixels of rows
-// `w` wide, writing each window's max of y to `pooled` (row stride c).
-// POST: (b) and (d) of the order after.
+// with POOL (one row a load) over pooled pixels of rows `w` wide: (b)'s
+// pooled form writes each window's max of y to `pooled` (row stride c),
+// (d)'s takes the pooled gradient gp (row stride ldgp) at each window's
+// argmax. POST: (b) and (d) of the order after.
 template <typename T, int VEC, int PACK, bool BWD, bool POOL, bool POST>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, BWD && POOL ? kPoolBackwardBlocks : 1)
 bn_apply_kernel(const T* __restrict__ x, long long ldx, const T* __restrict__ g, long long ldg,
-                Vectors vec, Derive d, int relu, long long m, int c, T* __restrict__ out,
-                long long ldo, T* __restrict__ pooled, long long w) {
-  static_assert(!POOL || (PACK == 1 && !BWD), "the pooled form is (b)'s, one row a load");
+                const T* __restrict__ gp, long long ldgp, Vectors vec, Derive d, int relu,
+                long long m, int c, T* __restrict__ out, long long ldo, T* __restrict__ pooled,
+                long long w) {
+  static_assert(!POOL || PACK == 1, "the pooled forms take one row a load");
   static_assert(!POOL || !POST, "the order after has no pooled form");
   const Tile<VEC, PACK> t(c);
   if (!t.active) return;
   const bool has_bias = vec.bias != nullptr;
   const long long rows = POOL ? m / 4 : PACK > 1 ? (m + PACK - 1) / PACK : m;
-  constexpr int U = POOL ? kPoolUnroll : kUnroll;
+  constexpr int U = unroll_of<BWD, POOL>();
   // (b)'s first batch of loads goes out before the prologue's (in (d) it
   // measured slower)
   const long long step = (long long)gridDim.x * U * t.rpi;
   const long long first = (long long)blockIdx.x * U * t.rpi + t.lr;
-  typename Raw<T, VEC>::type xv[POOL ? 4 * U : U], gv[U];
-  if constexpr (POOL)
+  typename Raw<T, VEC>::type xv[POOL ? 4 * U : U], gv[POOL ? 4 * U : U];
+  [[maybe_unused]] typename Raw<T, VEC>::type pv[U];
+  if constexpr (POOL && !BWD)
     load_windows<T, VEC, U>(x, ldx, first, t.rpi, t.c0, rows, w, xv);
   else if constexpr (!BWD)
     load_batch<T, VEC, PACK, kUnroll, BWD>(x, ldx, g, ldg, first, t.rpi, t.c0, rows, m, c, xv,
@@ -561,7 +671,7 @@ bn_apply_kernel(const T* __restrict__ x, long long ldx, const T* __restrict__ g,
     load_params<VEC>(vec.mean, ch, mu);
     load_params<VEC>(vec.mul, ch, ml);
     load_params<VEC>(vec.rstd, ch, p0);
-    if constexpr (POST) load_params<VEC>(vec.beta, ch, bt);
+    if constexpr (POST || POOL) load_params<VEC>(vec.beta, ch, bt);
     if (!d.train) {
       load_params<VEC>(vec.k1, ch, p1);
       load_params<VEC>(vec.k2, ch, p2);
@@ -582,7 +692,39 @@ bn_apply_kernel(const T* __restrict__ x, long long ldx, const T* __restrict__ g,
     }
   }
   for (long long r0 = first; r0 < rows; r0 += step) {
-    if constexpr (POOL) {
+    if constexpr (POOL && BWD) {
+      load_windows<T, VEC, U>(x, ldx, r0, t.rpi, t.c0, rows, w, xv);
+      load_windows<T, VEC, U>(g, ldg, r0, t.rpi, t.c0, rows, w, gv);
+      load_pooled<T, VEC, U>(gp, ldgp, r0, t.rpi, t.c0, rows, pv);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const long long p = r0 + (long long)u * t.rpi;
+        if (p >= rows) break;
+        const long long top = window_row(p, w);
+        int arg[VEC];
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) {
+          float a[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            a[q] = activation<T>(element<T, VEC>(xv[4 * u + q], j), bb[j], has_bias, relu);
+          arg[j] = window_argmax<T>(a, mu[j], ml[j], bt[j]);
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          float o[VEC];
+#pragma unroll
+          for (int j = 0; j < VEC; ++j) {
+            const float a =
+                activation<T>(element<T, VEC>(xv[4 * u + q], j), bb[j], has_bias, relu);
+            const float gg = pooled_gradient<T>(element<T, VEC>(gv[4 * u + q], j),
+                                                element<T, VEC>(pv[u], j), q, arg[j]);
+            o[j] = input_gradient(a, gg, mu[j], p0[j], p1[j], p2[j], ml[j], relu);
+          }
+          store_vec<T, VEC>(out + (top + (q & 1) + (q >> 1) * w) * ldo + t.c0, o, VEC);
+        }
+      }
+    } else if constexpr (POOL) {
       if (r0 != first) load_windows<T, VEC, U>(x, ldx, r0, t.rpi, t.c0, rows, w, xv);
 #pragma unroll
       for (int u = 0; u < U; ++u) {
@@ -599,7 +741,7 @@ bn_apply_kernel(const T* __restrict__ x, long long ldx, const T* __restrict__ g,
           for (int j = 0; j < VEC; ++j) {
             const float a =
                 activation<T>(element<T, VEC>(xv[4 * u + q], j), bb[j], has_bias, relu);
-            o[j] = Elt<T>::round(__fadd_rn(__fmul_rn(__fsub_rn(a, mu[j]), ml[j]), p0[j]));
+            o[j] = normalized<T>(a, mu[j], ml[j], p0[j]);
             if (o[j] > mx[j] || isnan(o[j])) mx[j] = o[j];
           }
           store_vec<T, VEC>(out + (top + (q & 1) + (q >> 1) * w) * ldo + t.c0, o, VEC);
@@ -624,12 +766,9 @@ bn_apply_kernel(const T* __restrict__ x, long long ldx, const T* __restrict__ g,
           } else if constexpr (!BWD) {
             o[j] = __fadd_rn(__fmul_rn(__fsub_rn(a, mu[j]), ml[j]), p0[j]);
           } else {
-            const float ah = __fmul_rn(__fsub_rn(a, mu[j]), p0[j]);
             float gg = element<T, VEC>(gv[u], j);
             if constexpr (POST) gg = after_gradient<T>(a, mu[j], ml[j], bt[j], gg);
-            const float dd = __fmul_rn(__fsub_rn(__fsub_rn(gg, p1[j]), __fmul_rn(ah, p2[j])),
-                                       ml[j]);
-            o[j] = (relu && !(a > 0.f)) ? 0.f : dd;
+            o[j] = input_gradient(a, gg, mu[j], p0[j], p1[j], p2[j], ml[j], relu);
           }
         }
         store_vec<T, VEC>(out + row_offset<VEC, PACK>(r, ldo, t.c0), o,
@@ -682,11 +821,11 @@ int rows_per_iteration(int c, int vec, int pack) {
   return kThreads / ((tile_c + vec - 1) / vec);
 }
 
-template <typename T, int VEC, int PACK, int NS, bool BWD, bool POST>
-int launch_reduce(const void* x, long long ldx, const void* g, long long ldg, Vectors vec,
-                  int relu, long long m, int c, float* out, float* partials, int* counters,
-                  cudaStream_t stream) {
-  const long long rows = rows_of(m, PACK);
+template <typename T, int VEC, int PACK, int NS, bool BWD, bool POST, bool POOL>
+int launch_reduce(const void* x, long long ldx, const void* g, long long ldg, const void* gp,
+                  long long ldgp, long long w, Vectors vec, int relu, long long m, int c,
+                  float* out, float* partials, int* counters, cudaStream_t stream) {
+  const long long rows = POOL ? m / 4 : rows_of(m, PACK);
   const long long gx = reduce_blocks(rows, c);
   const long long rpb = (rows + gx - 1) / gx;
   const int rpi = rows_per_iteration(c, VEC, PACK);
@@ -695,89 +834,99 @@ int launch_reduce(const void* x, long long ldx, const void* g, long long ldg, Ve
   const int lane_floats = NS * kTileC > kThreads ? NS * kTileC : kThreads;
   const size_t smem = sizeof(float) * (NS * rpi * sw + lane_floats);
   const dim3 grid((unsigned)gx, (unsigned)tiles_of(c));
-  bn_reduce_kernel<T, VEC, PACK, NS, BWD, POST><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), ldx, static_cast<const T*>(g), ldg, vec, relu, m, c, rpb, out,
-      partials, counters);
+  bn_reduce_kernel<T, VEC, PACK, NS, BWD, POST, POOL><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(x), ldx, static_cast<const T*>(g), ldg, static_cast<const T*>(gp),
+      ldgp, w, vec, relu, m, c, rpb, out, partials, counters);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int VEC, int PACK, bool BWD, bool POOL, bool POST>
-int launch_apply(const void* x, long long ldx, const void* g, long long ldg, Vectors vec,
-                 const Derive& d, int relu, long long m, int c, void* out, long long ldo,
-                 void* pooled, long long w, cudaStream_t stream) {
+int launch_apply(const void* x, long long ldx, const void* g, long long ldg, const void* gp,
+                 long long ldgp, Vectors vec, const Derive& d, int relu, long long m, int c,
+                 void* out, long long ldo, void* pooled, long long w, cudaStream_t stream) {
   const long long per_block =
-      (long long)rows_per_iteration(c, VEC, PACK) * (POOL ? kPoolUnroll : kUnroll);
+      (long long)rows_per_iteration(c, VEC, PACK) * unroll_of<BWD, POOL>();
   long long gx = ((POOL ? m / 4 : rows_of(m, PACK)) + per_block - 1) / per_block;
   const long long cap = kApplyBlocks / tiles_of(c) > 0 ? kApplyBlocks / tiles_of(c) : 1;
   gx = gx < cap ? gx : cap;
   gx = gx > 0 ? gx : 1;  // m == 0 still derives and writes the vectors
   const dim3 grid((unsigned)gx, (unsigned)tiles_of(c));
   bn_apply_kernel<T, VEC, PACK, BWD, POOL, POST><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), ldx, static_cast<const T*>(g), ldg, vec, d, relu, m, c,
-      static_cast<T*>(out), ldo, static_cast<T*>(pooled), w);
+      static_cast<const T*>(x), ldx, static_cast<const T*>(g), ldg, static_cast<const T*>(gp),
+      ldgp, vec, d, relu, m, c, static_cast<T*>(out), ldo, static_cast<T*>(pooled), w);
   return (int)cudaGetLastError();
 }
 
+// The pooled forms ((b) with `pooled`, (c) and (d) with `gp`) take one row a
+// load: a 16-byte vector of it (path 1), or one element.
 template <int NS, bool BWD, bool POST = false>
 int reduce_dispatch(int dtype, int path, const void* x, long long ldx, const void* g,
-                    long long ldg, Vectors vec, int relu, long long m, int c, float* out,
-                    float* partials, int* counters, cudaStream_t stream) {
-#define TPUSEG_BN_REDUCE(T, V, P)                                                           \
-  return launch_reduce<T, V, P, NS, BWD, POST>(x, ldx, g, ldg, vec, relu, m, c, out, \
-                                               partials, counters, stream)
+                    long long ldg, const void* gp, long long ldgp, long long w, Vectors vec,
+                    int relu, long long m, int c, float* out, float* partials, int* counters,
+                    cudaStream_t stream) {
+#define TPUSEG_BN_REDUCE(T, V, P, POOL)                                                      \
+  return launch_reduce<T, V, P, NS, BWD, POST, POOL>(x, ldx, g, ldg, gp, ldgp, w, vec, relu, m, \
+                                                     c, out, partials, counters, stream)
+  if constexpr (BWD && !POST && NS == 5) {
+    if (gp) {
+      if (dtype == 1) {
+        if (path == 1) TPUSEG_BN_REDUCE(__nv_bfloat16, 8, 1, true);
+        TPUSEG_BN_REDUCE(__nv_bfloat16, 1, 1, true);
+      }
+      if (path == 1) TPUSEG_BN_REDUCE(float, 4, 1, true);
+      TPUSEG_BN_REDUCE(float, 1, 1, true);
+    }
+  }
   if (dtype == 1) {
     switch (path) {
-      case 1: TPUSEG_BN_REDUCE(__nv_bfloat16, 8, 1);
-      case 2: TPUSEG_BN_REDUCE(__nv_bfloat16, 8, 2);
-      case 4: TPUSEG_BN_REDUCE(__nv_bfloat16, 8, 4);
-      case 8: TPUSEG_BN_REDUCE(__nv_bfloat16, 8, 8);
-      default: TPUSEG_BN_REDUCE(__nv_bfloat16, 1, 1);
+      case 1: TPUSEG_BN_REDUCE(__nv_bfloat16, 8, 1, false);
+      case 2: TPUSEG_BN_REDUCE(__nv_bfloat16, 8, 2, false);
+      case 4: TPUSEG_BN_REDUCE(__nv_bfloat16, 8, 4, false);
+      case 8: TPUSEG_BN_REDUCE(__nv_bfloat16, 8, 8, false);
+      default: TPUSEG_BN_REDUCE(__nv_bfloat16, 1, 1, false);
     }
   }
   switch (path) {
-    case 1: TPUSEG_BN_REDUCE(float, 4, 1);
-    case 2: TPUSEG_BN_REDUCE(float, 4, 2);
-    case 4: TPUSEG_BN_REDUCE(float, 4, 4);
-    default: TPUSEG_BN_REDUCE(float, 1, 1);
+    case 1: TPUSEG_BN_REDUCE(float, 4, 1, false);
+    case 2: TPUSEG_BN_REDUCE(float, 4, 2, false);
+    case 4: TPUSEG_BN_REDUCE(float, 4, 4, false);
+    default: TPUSEG_BN_REDUCE(float, 1, 1, false);
   }
 #undef TPUSEG_BN_REDUCE
 }
 
 template <bool BWD, bool POST = false>
 int apply_dispatch(int dtype, int path, const void* x, long long ldx, const void* g,
-                   long long ldg, Vectors vec, const Derive& d, int relu, long long m, int c,
-                   void* out, long long ldo, void* pooled, long long w, cudaStream_t stream) {
-  if constexpr (!BWD && !POST) {
-    if (pooled) {  // one row a load: a 16-byte vector of it, or one element
-#define TPUSEG_BN_POOL(T, V)                                                               \
-  return launch_apply<T, V, 1, false, true, false>(x, ldx, g, ldg, vec, d, relu, m, c, out, \
-                                                   ldo, pooled, w, stream)
+                   long long ldg, const void* gp, long long ldgp, Vectors vec, const Derive& d,
+                   int relu, long long m, int c, void* out, long long ldo, void* pooled,
+                   long long w, cudaStream_t stream) {
+#define TPUSEG_BN_APPLY(T, V, P, POOL)                                                        \
+  return launch_apply<T, V, P, BWD, POOL, POST>(x, ldx, g, ldg, gp, ldgp, vec, d, relu, m, c,  \
+                                                out, ldo, pooled, w, stream)
+  if constexpr (!POST) {
+    if (BWD ? gp != nullptr : pooled != nullptr) {
       if (dtype == 1) {
-        if (path == 1) TPUSEG_BN_POOL(__nv_bfloat16, 8);
-        TPUSEG_BN_POOL(__nv_bfloat16, 1);
+        if (path == 1) TPUSEG_BN_APPLY(__nv_bfloat16, 8, 1, true);
+        TPUSEG_BN_APPLY(__nv_bfloat16, 1, 1, true);
       }
-      if (path == 1) TPUSEG_BN_POOL(float, 4);
-      TPUSEG_BN_POOL(float, 1);
-#undef TPUSEG_BN_POOL
+      if (path == 1) TPUSEG_BN_APPLY(float, 4, 1, true);
+      TPUSEG_BN_APPLY(float, 1, 1, true);
     }
   }
-#define TPUSEG_BN_APPLY(T, V, P)                                                          \
-  return launch_apply<T, V, P, BWD, false, POST>(x, ldx, g, ldg, vec, d, relu, m, c, out, \
-                                                 ldo, nullptr, 0, stream)
   if (dtype == 1) {
     switch (path) {
-      case 1: TPUSEG_BN_APPLY(__nv_bfloat16, 8, 1);
-      case 2: TPUSEG_BN_APPLY(__nv_bfloat16, 8, 2);
-      case 4: TPUSEG_BN_APPLY(__nv_bfloat16, 8, 4);
-      case 8: TPUSEG_BN_APPLY(__nv_bfloat16, 8, 8);
-      default: TPUSEG_BN_APPLY(__nv_bfloat16, 1, 1);
+      case 1: TPUSEG_BN_APPLY(__nv_bfloat16, 8, 1, false);
+      case 2: TPUSEG_BN_APPLY(__nv_bfloat16, 8, 2, false);
+      case 4: TPUSEG_BN_APPLY(__nv_bfloat16, 8, 4, false);
+      case 8: TPUSEG_BN_APPLY(__nv_bfloat16, 8, 8, false);
+      default: TPUSEG_BN_APPLY(__nv_bfloat16, 1, 1, false);
     }
   }
   switch (path) {
-    case 1: TPUSEG_BN_APPLY(float, 4, 1);
-    case 2: TPUSEG_BN_APPLY(float, 4, 2);
-    case 4: TPUSEG_BN_APPLY(float, 4, 4);
-    default: TPUSEG_BN_APPLY(float, 1, 1);
+    case 1: TPUSEG_BN_APPLY(float, 4, 1, false);
+    case 2: TPUSEG_BN_APPLY(float, 4, 2, false);
+    case 4: TPUSEG_BN_APPLY(float, 4, 4, false);
+    default: TPUSEG_BN_APPLY(float, 1, 1, false);
   }
 #undef TPUSEG_BN_APPLY
 }
@@ -790,29 +939,44 @@ bool bad_dtype(int dtype) { return dtype != 0 && dtype != 1; }
 // it (the POST forms).
 bool bad_relu(int relu) { return relu < 0 || relu > 2; }
 
+// What the pooled forms of (c) and (d) refuse: gp, the gradient of (b)'s
+// pooled output, is dtype [m / 4 rows of stride ldgp >= c, c] over rows [n,
+// h, w] with h and w (`width`) even; they recompute y from mul and beta;
+// they are a conv block's (a bias; the order after has no pooled form).
+bool bad_pooled(const void* gp, long long ldgp, long long width, long long m, int c,
+                const float* bias, int relu, const float* mul, const float* beta) {
+  return gp && (width <= 0 || width % 2 || m % (2 * width) || ldgp < c || !bias || relu == 2 ||
+                !mul || !beta);
+}
+
 }  // namespace
 
 extern "C" {
 
 // The plan of a reduction, (a) with g null or (c), over [m, c] with these
-// pointers and row strides: plan[0] the floats of scratch it needs (its
-// per-block partials), plan[1] its blocks along the rows, plan[2] the rows a
-// block sums, plan[3] the most f32 additions between a term and its sum (a
-// thread's loads, a packed thread's slots of a channel, the block's row
-// lanes, the last block's lanes over the blocks and its sum of the lanes:
-// the depth d of the bound |error| <= gamma_d * sum |t|, each term being
-// exact, a product inside an FMA), plan[4] the path (0 one element a
-// thread, 1 a 16-byte vector of one row, PACK > 1 a load of PACK rows).
-// Returns 0, or -1 where c needs more than 64 channel tiles.
-int tpuseg_bn_reduce_plan(const void* x, long long ldx, const void* g, long long ldg, int dtype,
+// pointers and row strides (and gp, ldgp and width: the pooled (c), gp
+// non-null), as the launch makes it: plan[0] the floats of scratch it needs
+// (its per-block partials), plan[1] its blocks along the rows, plan[2] the
+// rows a block sums, plan[3] the most f32 additions between a term and its
+// sum (a thread's loads, four a window in the pooled form, a packed
+// thread's slots of a channel, the block's row lanes, the last block's
+// lanes over the blocks and its sum of the lanes: the depth d of the bound
+// |error| <= gamma_d * sum |t|, each term being exact, a product inside an
+// FMA), plan[4] the path (0 one element a thread, 1 a 16-byte vector of one
+// row, PACK > 1 a load of PACK rows). Returns 0, or -1 where c needs more
+// than 64 channel tiles.
+int tpuseg_bn_reduce_plan(const void* x, long long ldx, const void* g, long long ldg,
+                          const void* gp, long long ldgp, long long width, int dtype,
                           long long m, int c, int nsums, long long* plan) {
-  if (bad_args(m, c) || bad_dtype(dtype)) return -1;
-  const void* ptrs[] = {x, g};
-  const long long lds[] = {ldx, ldg};
-  const int path = path_of(elt_size(dtype), c, ptrs, lds, g ? 2 : 1);
+  if (bad_args(m, c) || bad_dtype(dtype) || (gp && width <= 0)) return -1;
+  const void* ptrs[] = {x, g, gp};
+  const long long lds[] = {ldx, ldg, ldgp};
+  int path = path_of(elt_size(dtype), c, ptrs, lds, gp ? 3 : g ? 2 : 1);
+  if (gp && path > 1) path = 0;
   const int vec = path ? 16 / elt_size(dtype) : 1;
   const int pack = path > 1 ? path : 1;
-  const long long rows = rows_of(m, pack);
+  const int per_load = gp ? 4 : 1;  // terms of a thread's load (a window's four rows)
+  const long long rows = gp ? m / 4 : rows_of(m, pack);
   const long long rpi = rows_per_iteration(c, vec, pack);
   const long long gx = reduce_blocks(rows, c);
   const long long rpb = (rows + gx - 1) / gx;
@@ -829,8 +993,8 @@ int tpuseg_bn_reduce_plan(const void* x, long long ldx, const void* g, long long
   }
   plan[0] = gx * nsums * c;
   plan[1] = gx;
-  plan[2] = rpb * pack;
-  plan[3] = (rpb + rpi - 1) / rpi + (pack - 1) + sums;
+  plan[2] = rpb * pack * per_load;
+  plan[3] = per_load * ((rpb + rpi - 1) / rpi) + (pack - 1) + sums;
   plan[4] = path;
   return 0;
 }
@@ -850,7 +1014,8 @@ int tpuseg_bn_stats(const void* x, long long ldx, int dtype, const float* bias, 
   const long long lds[] = {ldx};
   Vectors vec{bias, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr};
   return reduce_dispatch<2, false>(dtype, path_of(elt_size(dtype), c, ptrs, lds, 1), x, ldx,
-                                   nullptr, 0, vec, relu == 1, m, c, out, scratch, counters, s);
+                                   nullptr, 0, nullptr, 0, 0, vec, relu == 1, m, c, out, scratch,
+                                   counters, s);
 }
 
 // (b). y: dtype [m rows of stride ldy, c]; gamma, beta: f32 [c]. train 1:
@@ -876,68 +1041,73 @@ int tpuseg_bn_apply(const void* x, long long ldx, int dtype, const float* bias, 
   Derive d{train != 0, stats, gamma, eps, vec_out, run_mean, run_var, momentum,
            one_minus_momentum, nullptr, nullptr, nullptr, nullptr};
   const int path = path_of(elt_size(dtype), c, ptrs, lds, pooled ? 3 : 2);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (relu == 2)
-    return apply_dispatch<false, true>(dtype, path, x, ldx, nullptr, 0, vec, d, 0, m, c, y,
-                                       ldy, nullptr, 0, static_cast<cudaStream_t>(stream));
-  return apply_dispatch<false>(dtype, path, x, ldx, nullptr, 0, vec, d, relu, m, c, y, ldy,
-                               pooled, width, static_cast<cudaStream_t>(stream));
+    return apply_dispatch<false, true>(dtype, path, x, ldx, nullptr, 0, nullptr, 0, vec, d, 0,
+                                       m, c, y, ldy, nullptr, 0, s);
+  return apply_dispatch<false>(dtype, path, x, ldx, nullptr, 0, nullptr, 0, vec, d, relu, m, c,
+                               y, ldy, pooled, width, s);
 }
 
 // (c). g: dtype [m rows of stride ldg, c]; mean, rstd: f32 [c]; mul, beta:
-// f32 [c] with relu 2 (else unread); nsums 2, or 5 with a bias; out: f32
-// [nsums, c]; scratch, counters as for (a).
+// f32 [c] with relu 2 or gp (else unread); gp: null, or the pooled form's
+// (bad_pooled); nsums 2, or 5 with a bias; out: f32 [nsums, c]; scratch,
+// counters as for (a).
 int tpuseg_bn_backward_reduce(const void* x, long long ldx, const void* g, long long ldg,
-                              int dtype, const float* bias, int relu, const float* mean,
-                              const float* rstd, const float* mul, const float* beta,
-                              long long m, int c, int nsums, float* out, float* scratch,
-                              int* counters, void* stream) {
+                              const void* gp, long long ldgp, long long width, int dtype,
+                              const float* bias, int relu, const float* mean, const float* rstd,
+                              const float* mul, const float* beta, long long m, int c, int nsums,
+                              float* out, float* scratch, int* counters, void* stream) {
   if (bad_args(m, c) || ldx < c || ldg < c || bad_dtype(dtype) || bad_relu(relu) ||
-      nsums != (bias ? 5 : 2) || (relu == 2 && (bias || !mul || !beta)))
+      nsums != (bias ? 5 : 2) || (relu == 2 && (bias || !mul || !beta)) ||
+      bad_pooled(gp, ldgp, width, m, c, bias, relu, mul, beta))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (m == 0) return (int)cudaMemsetAsync(out, 0, sizeof(float) * nsums * c, s);
-  const void* ptrs[] = {x, g};
-  const long long lds[] = {ldx, ldg};
-  const int path = path_of(elt_size(dtype), c, ptrs, lds, 2);
+  const void* ptrs[] = {x, g, gp};
+  const long long lds[] = {ldx, ldg, ldgp};
+  const int path = path_of(elt_size(dtype), c, ptrs, lds, gp ? 3 : 2);
   Vectors vec{bias, mean, rstd, mul, beta, nullptr, nullptr};
   if (relu == 2)
-    return reduce_dispatch<2, true, true>(dtype, path, x, ldx, g, ldg, vec, 0, m, c, out,
-                                          scratch, counters, s);
+    return reduce_dispatch<2, true, true>(dtype, path, x, ldx, g, ldg, nullptr, 0, 0, vec, 0, m,
+                                          c, out, scratch, counters, s);
   if (nsums == 5)
-    return reduce_dispatch<5, true>(dtype, path, x, ldx, g, ldg, vec, relu, m, c, out, scratch,
-                                    counters, s);
-  return reduce_dispatch<2, true>(dtype, path, x, ldx, g, ldg, vec, relu, m, c, out, scratch,
-                                  counters, s);
+    return reduce_dispatch<5, true>(dtype, path, x, ldx, g, ldg, gp, ldgp, width, vec, relu, m,
+                                    c, out, scratch, counters, s);
+  return reduce_dispatch<2, true>(dtype, path, x, ldx, g, ldg, gp, ldgp, width, vec, relu, m, c,
+                                  out, scratch, counters, s);
 }
 
-// (d). mean, rstd, mul: f32 [c]; beta: f32 [c] with relu 2 (else unread);
-// dx: dtype [m rows of stride lddx, c]. train 0: k1, k2 f32 [c] given.
-// train 1: k1 and k2 from totals (f32, rows sum g and sum g*ah of stride
-// c), stats' n (f32 [3, c]) and unclipped (f32 [c], 1 or 0); where dbias
-// (f32 [c]) is given, also writes the bias gradient from sums (f32 [5, c],
-// this rank's (c)).
+// (d). mean, rstd, mul: f32 [c]; beta: f32 [c] with relu 2 or gp (else
+// unread); gp: null, or the pooled form's (bad_pooled); dx: dtype [m rows
+// of stride lddx, c]. train 0: k1, k2 f32 [c] given. train 1: k1 and k2
+// from totals (f32, rows sum g and sum g*ah of stride c), stats' n (f32 [3,
+// c]) and unclipped (f32 [c], 1 or 0); where dbias (f32 [c]) is given, also
+// writes the bias gradient from sums (f32 [5, c], this rank's (c)).
 int tpuseg_bn_backward_apply(const void* x, long long ldx, const void* g, long long ldg,
-                             int dtype, const float* bias, int relu, const float* mean,
-                             const float* rstd, const float* mul, const float* beta, int train,
-                             const float* k1, const float* k2, const float* stats,
-                             const float* totals, const float* unclipped, const float* sums,
-                             float* dbias, long long m, int c, void* dx, long long lddx,
-                             void* stream) {
+                             const void* gp, long long ldgp, long long width, int dtype,
+                             const float* bias, int relu, const float* mean, const float* rstd,
+                             const float* mul, const float* beta, int train, const float* k1,
+                             const float* k2, const float* stats, const float* totals,
+                             const float* unclipped, const float* sums, float* dbias,
+                             long long m, int c, void* dx, long long lddx, void* stream) {
   if (bad_args(m, c) || ldx < c || ldg < c || lddx < c || bad_dtype(dtype) || bad_relu(relu) ||
       (!train && (!k1 || !k2)) || (train && (!stats || !totals || !unclipped)) ||
-      (dbias && (!train || !sums)) || (relu == 2 && (bias || !beta)))
+      (dbias && (!train || !sums)) || (relu == 2 && (bias || !beta)) ||
+      bad_pooled(gp, ldgp, width, m, c, bias, relu, mul, beta))
     return (int)cudaErrorInvalidValue;
-  const void* ptrs[] = {x, g, dx};
-  const long long lds[] = {ldx, ldg, lddx};
+  const void* ptrs[] = {x, g, dx, gp};
+  const long long lds[] = {ldx, ldg, lddx, ldgp};
   Vectors vec{bias, mean, rstd, mul, beta, k1, k2};
   Derive d{train != 0, stats, nullptr, 0.f, nullptr, nullptr, nullptr, 0.f, 0.f,
            totals, unclipped, sums, dbias};
-  const int path = path_of(elt_size(dtype), c, ptrs, lds, 3);
+  const int path = path_of(elt_size(dtype), c, ptrs, lds, gp ? 4 : 3);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (relu == 2)
-    return apply_dispatch<true, true>(dtype, path, x, ldx, g, ldg, vec, d, 0, m, c, dx, lddx,
-                                      nullptr, 0, static_cast<cudaStream_t>(stream));
-  return apply_dispatch<true>(dtype, path, x, ldx, g, ldg, vec, d, relu, m, c, dx, lddx,
-                              nullptr, 0, static_cast<cudaStream_t>(stream));
+    return apply_dispatch<true, true>(dtype, path, x, ldx, g, ldg, nullptr, 0, vec, d, 0, m, c,
+                                      dx, lddx, nullptr, 0, s);
+  return apply_dispatch<true>(dtype, path, x, ldx, g, ldg, gp, ldgp, vec, d, relu, m, c, dx,
+                              lddx, nullptr, width, s);
 }
 
 const char* tpuseg_cuda_error_string(int err) {

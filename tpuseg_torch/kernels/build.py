@@ -30,14 +30,15 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 SOURCES = {
     "batchnorm": ("batchnorm.cu", {
-        "tpuseg_bn_reduce_plan": (_I, [_P, _L, _P, _L, _I, _L, _I, _I, _P]),
+        "tpuseg_bn_reduce_plan": (_I, [_P, _L, _P, _L, _P, _L, _L, _I, _L, _I, _I, _P]),
         "tpuseg_bn_stats": (_I, [_P, _L, _I, _P, _I, _L, _I, _P, _P, _P, _P]),
         "tpuseg_bn_apply": (_I, [_P, _L, _I, _P, _I, _I, _P, _P, _F, _P, _P, _P, _F, _F, _P,
                                  _L, _I, _P, _L, _P, _L, _P]),
-        "tpuseg_bn_backward_reduce": (_I, [_P, _L, _P, _L, _I, _P, _I, _P, _P, _P, _P, _L,
-                                           _I, _I, _P, _P, _P, _P]),
-        "tpuseg_bn_backward_apply": (_I, [_P, _L, _P, _L, _I, _P, _I, _P, _P, _P, _P, _I, _P,
-                                          _P, _P, _P, _P, _P, _P, _L, _I, _P, _L, _P]),
+        "tpuseg_bn_backward_reduce": (_I, [_P, _L, _P, _L, _P, _L, _L, _I, _P, _I, _P, _P, _P,
+                                           _P, _L, _I, _I, _P, _P, _P, _P]),
+        "tpuseg_bn_backward_apply": (_I, [_P, _L, _P, _L, _P, _L, _L, _I, _P, _I, _P, _P, _P,
+                                          _P, _I, _P, _P, _P, _P, _P, _P, _P, _L, _I, _P, _L,
+                                          _P]),
         "tpuseg_cuda_error_string": (ctypes.c_char_p, [_I]),
     }),
     "head_argmax": ("head_argmax.cu", {

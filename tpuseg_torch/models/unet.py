@@ -35,14 +35,20 @@ of channels: the model keeps every activation channels-last (the input is
 made so on entry, conv weights go to cuDNN channels-last, the
 depth-to-space writes NHWC, and dropout's mask takes its input's layout).
 
-An eval forward without grad, without a ``halo`` and with the max pool in
-place (serving, the trainer's test steps) runs K4's store forms: each level allocates its
-concat buffer ``[B, 2F, H, W]``; the encoder pair's second block stores its
-output (the skip) into the first half and returns its 2x2 max pool from
-the same pass, and the deconv block stores into the second half, so no
-``torch.cat`` or max pool runs, and each buffer goes once the decoder has
-read it. Train mode, a forward with grad (the ERF probe's) and the spatial
-walk keep the concat and the pool; the logits are the same bits either way.
+A forward without a ``halo`` and with the max pool in place runs K4's
+store forms: at every level in an eval forward without grad (serving, the
+trainer's test steps), at levels 1-3 in train mode (dropout sits between
+``enc4b`` and its skip). Such a level allocates its concat buffer ``[B,
+2F, H, W]``; the encoder pair's second block stores its output (the skip)
+into the first half and returns its 2x2 max pool from the same pass, and
+the deconv block stores into the second half, so no ``torch.cat`` or max
+pool runs, and in eval mode each buffer goes once the decoder has read it.
+In train mode the backward of the skip's block takes the pool's gradient
+inside K4 (``ops/batchnorm.py``'s pooled (c) and (d)): no index tensor,
+pool backward or gradient add. A forward with grad in eval mode (the ERF
+probe's) and the spatial walk keep the concat and the pool; the logits
+are the same bits either way, and on the CPU so is a train step's every
+gradient.
 
 Data parallelism (``tpuseg_torch/parallel/mesh.py``) sets
 ``UNet.process_group``; train mode then takes the batch statistics of the
@@ -69,7 +75,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from tpuseg_torch import SIZE_FACTOR
-from tpuseg_torch.ops.batchnorm import conv_bn
+from tpuseg_torch.ops.batchnorm import conv_bn, conv_bn_into
 from tpuseg_torch.parallel.halo import split_level
 
 BASELINE_FEATURE_DEPTH = 64  # ref model.py:20
@@ -129,7 +135,9 @@ def _weight(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 class ConvBlock(nn.Module):
     """Conv(kxk, same, stride 1) -> ReLU -> BatchNorm (ref model.py:28-37).
     With a ``halo`` a 3x3 conv takes its row padding from the neighbouring
-    ranks; ``out`` and ``pool`` are K4's store forms (``conv_bn``)."""
+    ranks; with ``cat`` (a level's concat buffer) the output goes into its
+    first half and ``(cat, pooled)`` comes back, K4's store forms
+    (``conv_bn_into``)."""
 
     def __init__(self, cin: int, features: int, kernel: int = KERNEL_SIZE):
         super().__init__()
@@ -137,14 +145,16 @@ class ConvBlock(nn.Module):
         self.bn = nn.BatchNorm2d(features, eps=BN_EPSILON, momentum=1 - BN_MOMENTUM)
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype, group=None, halo=None,
-                out: Optional[torch.Tensor] = None, pool: bool = False):
+                cat: Optional[torch.Tensor] = None):
         c = self.conv
         padding = c.padding
         if halo is not None and padding[0]:
             x = halo(x)
             padding = (0, padding[1])
         x = F.conv2d(x, _weight(c.weight, dtype), padding=padding)
-        return conv_bn(x, c.bias, True, self.bn, BN_MOMENTUM, group, out=out, pool=pool)
+        if cat is not None:
+            return conv_bn_into(x, c.bias, True, self.bn, BN_MOMENTUM, group, cat, skip=True)
+        return conv_bn(x, c.bias, True, self.bn, BN_MOMENTUM, group)
 
 
 def depth_to_space(y: torch.Tensor) -> torch.Tensor:
@@ -177,13 +187,17 @@ class DeconvBlock(nn.Module):
         self.bn = nn.BatchNorm2d(features, eps=BN_EPSILON, momentum=1 - BN_MOMENTUM)
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype, group=None,
-                out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                cat: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """With ``cat`` (a level's concat buffer) the output goes into its
+        second half and ``cat`` comes back (``conv_bn_into``)."""
         w = _weight(self.deconv.weight, dtype)
         if self.impl == "pixel_shuffle":
             x = depth_to_space(F.conv2d(x, w))
         else:
             x = F.conv_transpose2d(x, w, stride=POOLING_STRIDE)
-        return conv_bn(x, None, False, self.bn, BN_MOMENTUM, group, out=out)
+        if cat is not None:
+            return conv_bn_into(x, None, False, self.bn, BN_MOMENTUM, group, cat, skip=False)
+        return conv_bn(x, None, False, self.bn, BN_MOMENTUM, group)
 
 
 def _max_pool(x: torch.Tensor) -> torch.Tensor:
@@ -293,17 +307,21 @@ class UNet(nn.Module):
             return _dropout(x, self.dropout_rate, generator, group, halo,
                             full_rows=pad[level] is None)
 
-        # K4's store forms in place of the concats and pools (module docstring)
-        forms = (not self.training and halo is None and not torch.is_grad_enabled()
-                 and _pool is _max_pool)
+        # the levels whose concat and pool are K4's store forms (module docstring)
+        form_levels = ()
+        if halo is None and _pool is _max_pool:
+            if self.training:
+                form_levels = range(3)
+            elif not torch.is_grad_enabled():
+                form_levels = range(4)
         skips = []
         for level, name in enumerate(("enc1", "enc2", "enc3", "enc4")):
-            if forms:
-                x = getattr(self, f"{name}a")(x, dt)
+            if level in form_levels:
+                x = getattr(self, f"{name}a")(x, dt, group)
                 n, f, h, w = x.shape
                 cat = torch.empty((n, 2 * f, h, w), dtype=x.dtype, device=x.device,
                                   memory_format=torch.channels_last)
-                _, x = getattr(self, f"{name}b")(x, dt, out=cat[:, :f], pool=True)
+                cat, x = getattr(self, f"{name}b")(x, dt, group, cat=cat)
                 skips.append(cat)
                 continue
             x = pair(name, x, level)
@@ -315,12 +333,12 @@ class UNet(nn.Module):
             x = _pool(x)
         x = drop(pair("bottleneck", x, 4), 4)
         for level, name in reversed(list(enumerate(("dec1", "dec2", "dec3", "dec4")))):
-            if forms:
+            if level in form_levels:
                 cat, skips[level] = skips[level], None
-                getattr(self, f"{name}up")(x, dt, out=cat[:, cat.shape[1] // 2:])
-                x = getattr(self, f"{name}a")(cat, dt)
-                del cat  # read by dec{level}a: freed before dec{level}b allocates
-                x = getattr(self, f"{name}b")(x, dt)
+                cat = getattr(self, f"{name}up")(x, dt, group, cat=cat)
+                x = getattr(self, f"{name}a")(cat, dt, group)
+                del cat  # eval: read by dec{level}a, freed before dec{level}b allocates
+                x = getattr(self, f"{name}b")(x, dt, group)
                 continue
             x = getattr(self, f"{name}up")(x, dt, group)
             if level == gather_at:
