@@ -6,53 +6,43 @@ multi-GPU and spatial paths once on one NVIDIA card.
 
 Run from the root of a checkout, on a machine with a card, the CUDA toolkit
 (``nvcc``) and PyTorch built for CUDA. Imports nothing of JAX or of the JAX
-package. Phases, each fatal on failure:
+package. The card's peaks, the work counts, the seeded weights and the
+blob pairs are the benchmark's (``benchmark/``, imported where a phase
+uses them). Phases, each fatal on failure:
 
 1. setup: print the card (``nvidia-smi``) and build every CUDA kernel of
    the path from ``tpuseg_torch/csrc`` (one ``nvcc`` per source, in
    parallel), logging each kernel's registers and spills;
-2. kernels: call each kernel's wrapper on card tensors at the shape its
-   main path gives it (K2, the blocked head+argmax: serving, both heads,
-   which must take its mma route; K6, the dense head+argmax: the dense
-   int8 walk's [8, 1024, 1024, 64] edge, both heads, mma route, timed
-   beside the eager chain it replaced; K3, the int8 conv with its epilogue
-   fused: serving, at each of the 21 block shapes of a predict call, on
-   codes and scales whose requantized outputs are not degenerate, the
-   blocked edge convs' codes blocked as the main path's are, through both
-   of its routes, ``"wgmma"`` and ``"mma"``, and the 8 blocks the walks
-   call with store forms (the skips' producers into their concat buffers
-   with their 2x2 max or phase max, the deconvs into the other halves with
-   depth-to-space; the dense walk's enc1b and dec1up besides) in those
-   forms, timed against the old call plus the eager op it replaces, the
-   pooling blocks' old call at both patch widths; K5, the fp input conv with
-   its ReLU, folded BN and requantize: serving, batch 8 of 1024^2 tiles,
-   C 1 and 3, F 64, dense and phase-major, with its persistent grid, its
-   SASS instructions an output and the issue floor they set, and its
-   reciprocal requantize against the true division on every f32 value;
-   K4, the blocks' bias + ReLU + BatchNorm: training and ``none`` serving,
-   its four kernels (batch sums, apply, backward sums, backward apply) at
-   enc1's [8, 64, 512, 512] and the head's [8, 2, 512, 512], bf16 and f32,
-   the apply kernels bit-equal to their plain versions and the sums within
-   the f32 summation bound of float64 sums, timed beside PyTorch's own
-   sync-BN kernels, ``F.batch_norm`` and the eager chain K4 replaced;
-   K1, the row shear: training), hold the result against its plain
-   PyTorch version (bit-equal for K1, K3, K5 and the int8 K2 and K6), and time
-   both in turns with
-   the L2 flushed, by profiler device time (K2 also with CUDA events; K3
-   by CUDA events around each call behind a spin kernel),
-   beside the card's bound (K3's on the operations its weights need, and
-   its dense bound) and a PyTorch library call that computes the same
-   function where one exists (for K3 the GEMM alone, ``_int_mm`` on the
-   prebuilt im2col; for K5 cuDNN's conv alone, beside the eager path K5
-   replaced); K3 also at each N-tile width; K2's mma kernels'
-   registers and spills come from the build log, and a spill fails;
+2. kernels: each kernel on card tensors at the shape its main path gives
+   it (K2, the blocked head+argmax, and K6, the dense head+argmax: both
+   heads, on the mma route, K6 beside the eager chain it replaced; K3, the
+   int8 conv with its epilogue fused: the 21 block shapes of a predict
+   call through both routes, on codes that are not degenerate, and the
+   walks' 8 store-form blocks in those forms, the dense walk's enc1b and
+   dec1up besides; K5, the fp input conv: C 1 and 3, dense and
+   phase-major, its reciprocal requantize on every f32 value, its
+   persistent grid and its SASS issue floor; K4, the blocks' bias + ReLU +
+   BatchNorm: its four kernels at enc1's and the head's train shapes, bf16
+   and f32, its eval and train store forms, and TransUNet's order after;
+   K1, the row shear), first checked against its plain PyTorch version
+   (``k1_check`` ... ``k6_check`` and K4's ``k4_*_check``, which the
+   ``cuda`` tests call too: bit-equal for K1, K3, K5 and the int8 K2 and
+   K6, K4's sums within their summation bound), then both timed in turns
+   with the L2 flushed (profiler device time, K2 also by CUDA events; K3,
+   K4 and K5 by CUDA events around each call behind a spin kernel) beside
+   the card's bound and a PyTorch library call that computes the same
+   function where one exists (K3: ``_int_mm`` on the prebuilt im2col; K4:
+   PyTorch's sync-BN kernels and ``F.batch_norm``; K5: cuDNN's conv), K3
+   also at each N-tile width; registers and spills come from the build
+   log, and a spill of K2, K3, K5 or K6 fails;
 3. reference: on a small input, the full-width int8_blocked engine on the
    card against the same engine on the CPU (whose arithmetic the CPU tests
    pin to the JAX package), likewise the dense int8 engine (one K6
    launch), and the folded f32 walk on the card against the f32 model on
    the CPU;
-4. main path: move the random U-Net's (base 64, 1 channel, 2 classes)
-   head shift for class 1 so that about half the pixels take each class;
+4. main path: shape the head of the benchmark's random U-Net (base 64,
+   1 channel, 2 classes; ``drivers/serve_tiled.py::shape_head``) so that
+   about half the pixels take each class;
    serve a folder (one 4096^2 and four 256^2 uint16 images) through
    ``python -m tpuseg_torch.cli.inference --quantize int8_blocked`` with the
    launch counters zeroed just before and read just after (K3 launched 21
@@ -185,6 +175,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import importlib
 import io
 import json
 import os
@@ -193,11 +184,9 @@ import subprocess
 import sys
 import time
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
-PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}  # H100 SXM dense tensor-core rates
+BENCH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "benchmark")
 MAIN_SHAPE = (8, 512, 512, 256)  # dec1b edge of 8 tiles of 1024^2 at base 64
 DENSE_SHAPE = (8, 1024, 1024, 64)  # the dense walk's dec1b edge, K6's input
-F32_OPS = 67e12  # H100 SXM float32 outside the tensor cores
 # K1 at the training shape: batch 8 x (1 image + 1 mask channel) rows of
 # 512^2, mirror-padded by int(0.3536 * 512) + 3 = 184 on each side
 SHEAR_N, SHEAR_H, SHEAR_W = 16, 512, 512
@@ -221,6 +210,25 @@ MIGRATE_TEST_EVERY, MIGRATE_LOG_EVERY, PROFILE_STEPS = 6, 3, 5
 
 def log(msg: str) -> None:
     print(f"[chip_smoke] {msg}", flush=True)
+
+
+def bench(name: str):
+    """The benchmark's module ``name`` (``benchmark/`` put on the path on
+    first use), so that only the phases that use it depend on it."""
+    if BENCH not in sys.path:
+        sys.path.insert(0, BENCH)
+    return importlib.import_module(name)
+
+
+def bytes_ms(nbytes: float) -> float:
+    """Milliseconds to move ``nbytes`` at the card's memory rate."""
+    return nbytes / bench("harness.peaks").HBM_BYTES_PER_S * 1e3
+
+
+def ops_ms(ops: float, kind: str) -> float:
+    """Milliseconds for ``ops`` at the card's ``kind`` peak (bf16, int8,
+    float32)."""
+    return ops / bench("harness.peaks").OPS_PER_S[kind] * 1e3
 
 
 def card_line() -> str:
@@ -420,12 +428,37 @@ def build_report(lib: str, kernel: str, spill_fails: bool) -> dict:
     return report
 
 
+def k2_check(fp: bool, x, sv, wt, epi) -> dict:
+    """K2 on ``head_inputs`` against its plain version: the mma route, the
+    int8 head bit-equal, the fp head on >= 0.9999 of labels (f32 sum
+    order)."""
+    import torch
+
+    from tpuseg_torch.infer import head_kernel as hk
+
+    route = hk.kernel_route(x.dtype, wt.dtype, fp)
+    got = hk.blocked_head_argmax(x, sv, wt, epi, NCLS, fp=fp)
+    want = hk._blocked_head_argmax_plain(x, sv, wt, epi, NCLS, fp)
+    torch.cuda.synchronize()
+    if route != "mma" or hk.LAST_ROUTE != route:
+        raise AssertionError(f"head kernel fp={fp} took the {hk.LAST_ROUTE} route, not mma")
+    b, h, w, _ = x.shape
+    if got.shape != (b, 2 * h, 2 * w) or got.dtype != torch.int32:
+        raise AssertionError(f"head kernel returned {tuple(got.shape)} {got.dtype}")
+    agree = (got == want).double().mean().item()
+    max_err = (got - want).abs().max().item()
+    if fp and agree < 0.9999:
+        raise AssertionError(f"fp head kernel agrees with plain on {agree} < 0.9999")
+    if not fp and not torch.equal(got, want):
+        raise AssertionError(f"int8 head kernel differs from plain (agreement {agree})")
+    return {"route": route, "agree": agree, "max_abs_err": max_err}
+
+
 def phase_kernels(seed: int, dev) -> dict:
-    """K2 at the serving shape: the kernel against its plain version in
-    both variants (the fp head is the served default), both on the mma
-    route, timed in turns (plain, kernel, kernel, plain) two ways: CUDA
-    events around back-to-back calls, and profiler device time with the L2
-    flushed before each call."""
+    """K2 at the serving shape in both variants (the fp head is the served
+    default), checked (:func:`k2_check`), timed in turns (plain, kernel,
+    kernel, plain) two ways: CUDA events around back-to-back calls, and
+    profiler device time with the L2 flushed before each call."""
     import torch
 
     from tpuseg_torch.infer import head_kernel as hk
@@ -433,22 +466,7 @@ def phase_kernels(seed: int, dev) -> dict:
     out = {"build": build_report("head_argmax", "head_mma_kernel", spill_fails=True)}
     for fp in (True, False):
         x, sv, wt, epi = head_inputs(fp, seed, dev)
-        route = hk.kernel_route(x.dtype, wt.dtype, fp)
-        got = hk.blocked_head_argmax(x, sv, wt, epi, NCLS, fp=fp)
-        want = hk._blocked_head_argmax_plain(x, sv, wt, epi, NCLS, fp)
-        torch.cuda.synchronize()
-        if route != "mma" or hk.LAST_ROUTE != route:
-            raise AssertionError(f"head kernel fp={fp} took the {hk.LAST_ROUTE} route, not mma")
-        if got.shape != (MAIN_SHAPE[0], 2 * MAIN_SHAPE[1], 2 * MAIN_SHAPE[2]) \
-                or got.dtype != torch.int32:
-            raise AssertionError(f"head kernel returned {tuple(got.shape)} {got.dtype}")
-        agree = (got == want).double().mean().item()
-        max_err = (got - want).abs().max().item()
-        if fp and agree < 0.9999:
-            raise AssertionError(f"fp head kernel agrees with plain on {agree} < 0.9999")
-        if not fp and not torch.equal(got, want):
-            raise AssertionError(f"int8 head kernel differs from plain (agreement {agree})")
-        del got, want
+        check = k2_check(fp, x, sv, wt, epi)
         fns = {"plain": (lambda: hk._blocked_head_argmax_plain(x, sv, wt, epi, NCLS, fp), 3),
                "kernel": (lambda: hk.blocked_head_argmax(x, sv, wt, epi, NCLS, fp=fp), 20)}
         events = {"plain": [], "kernel": []}
@@ -461,13 +479,12 @@ def phase_kernels(seed: int, dev) -> dict:
         nbytes = (x.numel() * x.element_size() + sv.numel() * 4
                   + wt.numel() * wt.element_size() + epi.numel() * 4 + b * 4 * h * w * 4)
         ops = 2 * b * h * w * c4 * 4 * NCLS
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / PEAK_OPS["bf16" if fp else "int8"] * 1e3
+        t_bytes = bytes_ms(nbytes)
+        t_ops = ops_ms(ops, "bf16" if fp else "int8")
         bound = max(t_bytes, t_ops)
         ms, ev_ms = sum(device["kernel"]) / 2, sum(events["kernel"]) / 2
         out["fp" if fp else "int8"] = r = {
-            "route": route, "agree": agree, "max_abs_err": max_err,
-            "ms": ms, "ms_runs": device["kernel"],
+            **check, "ms": ms, "ms_runs": device["kernel"],
             "events_ms": ev_ms, "events_ms_runs": events["kernel"],
             "plain_ms": sum(device["plain"]) / 2, "plain_ms_runs": device["plain"],
             "plain_events_ms": sum(events["plain"]) / 2,
@@ -475,7 +492,8 @@ def phase_kernels(seed: int, dev) -> dict:
             "bound_ms": bound, "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "share_of_bound": bound / ms, "events_share_of_bound": bound / ev_ms,
             "bytes": nbytes, "ops": ops}
-        log(f"head kernel fp={fp} ({route} route): agree {agree}; device time (L2 flushed) "
+        log(f"head kernel fp={fp} ({r['route']} route): agree {r['agree']}; device time "
+            f"(L2 flushed) "
             f"{device['kernel'][0]:.4f} / {device['kernel'][1]:.4f} ms "
             f"({r['share_of_bound']:.1%} of bound), events {events['kernel'][0]:.4f} / "
             f"{events['kernel'][1]:.4f} ms ({r['events_share_of_bound']:.1%}); plain "
@@ -529,13 +547,46 @@ def eager_dense_head(x, sv, wt, epi, fp: bool, op=None):
     return torch.argmax(y, dim=-1).to(torch.int32)
 
 
+def k6_check(fp: bool, x, sv, wt, epi, op) -> dict:
+    """K6 on ``dense_head_inputs`` against its plain version: one launch on
+    the mma route, the int8 head bit-equal, the fp head on >= 0.9999 of
+    labels; the eager chain it replaced (:func:`eager_dense_head`, ``op``
+    the int8 head's K3 weights) on >= 0.9999, and class 1 taking between 1%
+    and 99% of the labels."""
+    import torch
+
+    from tpuseg_torch.infer import head_kernel as hk
+
+    before = hk.DENSE_LAUNCHES
+    got = hk.dense_head_argmax(x, sv, wt, epi, NCLS, fp=fp)
+    want = hk._dense_head_argmax_plain(x, sv, wt, epi, NCLS, fp)
+    eager = eager_dense_head(x, sv, wt, epi, fp, op)
+    torch.cuda.synchronize()
+    if hk.DENSE_LAUNCHES != before + 1 or hk.LAST_ROUTE != "mma":
+        raise AssertionError(f"K6 fp={fp}: {hk.DENSE_LAUNCHES - before} launches on the "
+                             f"{hk.LAST_ROUTE} route, not one on mma")
+    if got.shape != x.shape[:3] or got.dtype != torch.int32:
+        raise AssertionError(f"K6 returned {tuple(got.shape)} {got.dtype}")
+    agree = (got == want).double().mean().item()
+    eager_agree = (eager == want).double().mean().item()
+    class1 = (want == 1).double().mean().item()
+    if fp and agree < 0.9999:
+        raise AssertionError(f"fp K6 agrees with plain on {agree} < 0.9999")
+    if not fp and not torch.equal(got, want):
+        raise AssertionError(f"int8 K6 differs from plain (agreement {agree})")
+    if eager_agree < 0.9999 or not 0.01 < class1 < 0.99:
+        raise AssertionError(f"K6 fp={fp}: the eager chain agrees with plain on "
+                             f"{eager_agree}, class 1 takes {class1} of labels")
+    return {"route": "mma", "agree": agree, "max_abs_err": (got - want).abs().max().item(),
+            "eager_agree": eager_agree, "class1_share": class1}
+
+
 def phase_dense_head(seed: int, dev) -> dict:
     """K6 at the dense walk's shape ([8, 1024, 1024, 64], 2 classes), both
-    heads on the mma route: against its plain version (int8 head bit-equal,
-    fp head >= 0.9999 of labels), then timed in turns by profiler device
-    time with the L2 flushed before each call (plain, kernel, kernel,
-    plain), beside the eager chain it replaced (:func:`eager_dense_head`)
-    and its bound. No single PyTorch call computes head + argmax."""
+    heads, checked (:func:`k6_check`), then timed in turns by profiler
+    device time with the L2 flushed before each call (plain, kernel,
+    kernel, plain), beside the eager chain it replaced
+    (:func:`eager_dense_head`) and its bound. No single PyTorch call computes head + argmax."""
     import numpy as np
     import torch
 
@@ -548,28 +599,7 @@ def phase_dense_head(seed: int, dev) -> dict:
         x, sv, wt, epi = dense_head_inputs(fp, seed, dev)
         op = None if fp else int8_conv.Int8ConvWeights(
             np.ascontiguousarray(wt.cpu().numpy().T[None, None]))
-        before = hk.DENSE_LAUNCHES
-        got = hk.dense_head_argmax(x, sv, wt, epi, NCLS, fp=fp)
-        want = hk._dense_head_argmax_plain(x, sv, wt, epi, NCLS, fp)
-        eager = eager_dense_head(x, sv, wt, epi, fp, op)
-        torch.cuda.synchronize()
-        if hk.DENSE_LAUNCHES != before + 1 or hk.LAST_ROUTE != "mma":
-            raise AssertionError(f"K6 fp={fp}: {hk.DENSE_LAUNCHES - before} launches on the "
-                                 f"{hk.LAST_ROUTE} route, not one on mma")
-        if got.shape != DENSE_SHAPE[:3] or got.dtype != torch.int32:
-            raise AssertionError(f"K6 returned {tuple(got.shape)} {got.dtype}")
-        agree = (got == want).double().mean().item()
-        eager_agree = (eager == want).double().mean().item()
-        max_err = (got - want).abs().max().item()
-        class1 = (want == 1).double().mean().item()
-        if fp and agree < 0.9999:
-            raise AssertionError(f"fp K6 agrees with plain on {agree} < 0.9999")
-        if not fp and not torch.equal(got, want):
-            raise AssertionError(f"int8 K6 differs from plain (agreement {agree})")
-        if eager_agree < 0.9999 or not 0.01 < class1 < 0.99:
-            raise AssertionError(f"K6 fp={fp}: the eager chain agrees with plain on "
-                                 f"{eager_agree}, class 1 takes {class1} of labels")
-        del got, want, eager
+        check = k6_check(fp, x, sv, wt, epi, op)
         fns = {"plain": lambda: hk._dense_head_argmax_plain(x, sv, wt, epi, NCLS, fp),
                "kernel": lambda: hk.dense_head_argmax(x, sv, wt, epi, NCLS, fp=fp),
                "eager": lambda: eager_dense_head(x, sv, wt, epi, fp, op)}
@@ -580,55 +610,71 @@ def phase_dense_head(seed: int, dev) -> dict:
         nbytes = (x.numel() + sv.numel() * 4 + wt.numel() * wt.element_size()
                   + epi.numel() * 4 + npix * 4)
         ops = 2 * x.numel() * NCLS
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / PEAK_OPS["bf16" if fp else "int8"] * 1e3
+        t_bytes = bytes_ms(nbytes)
+        t_ops = ops_ms(ops, "bf16" if fp else "int8")
         bound = max(t_bytes, t_ops)
         ms = sum(runs["kernel"]) / 2
         out["fp" if fp else "int8"] = r = {
-            "route": "mma", "agree": agree, "max_abs_err": max_err,
-            "eager_agree": eager_agree, "class1_share": class1,
-            "ms": ms, "ms_runs": runs["kernel"],
+            **check, "ms": ms, "ms_runs": runs["kernel"],
             "plain_ms": sum(runs["plain"]) / 2, "plain_ms_runs": runs["plain"],
             "eager_ms": sum(runs["eager"]) / 2, "eager_ms_runs": runs["eager"],
             "bound_ms": bound, "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "share_of_bound": bound / ms, "bytes": nbytes, "ops": ops,
             "shape": list(DENSE_SHAPE)}
-        log(f"K6 dense head fp={fp} (mma route): agree {agree} (eager chain {eager_agree}, "
-            f"class 1 {class1:.3f}); device time (L2 flushed) {runs['kernel'][0]:.4f} / "
-            f"{runs['kernel'][1]:.4f} ms ({r['share_of_bound']:.1%} of bound), plain "
-            f"{r['plain_ms']:.3f} ms, eager chain {r['eager_ms']:.3f} ms; bound {bound:.4f} ms "
-            f"({r['bound_by']})")
+        log(f"K6 dense head fp={fp} (mma route): agree {r['agree']} (eager chain "
+            f"{r['eager_agree']}, class 1 {r['class1_share']:.3f}); device time (L2 flushed) "
+            f"{runs['kernel'][0]:.4f} / {runs['kernel'][1]:.4f} ms ({r['share_of_bound']:.1%} "
+            f"of bound), plain {r['plain_ms']:.3f} ms, eager chain {r['eager_ms']:.3f} ms; "
+            f"bound {bound:.4f} ms ({r['bound_by']})")
         del x, sv, wt, epi, op
         torch.cuda.empty_cache()
     int8_conv.LAUNCHES, int8_conv.ROUTE_LAUNCHES = k3_saved
     return out
 
 
+def shear_inputs(seed: int, dev):
+    """K1's inputs at the training shape: rows of ``SHEAR_WP`` padded
+    pixels, a shift and a fraction a row."""
+    import torch
+
+    n, h, w, wp = SHEAR_N, SHEAR_H, SHEAR_W, SHEAR_WP
+    g = torch.Generator(device=dev).manual_seed(seed)
+    img = torch.rand((n, h, wp), generator=g, device=dev) * 4000
+    shift = torch.randint(0, wp - w, (n, h), generator=g, device=dev, dtype=torch.int32)
+    return img, shift, torch.rand((n, h), generator=g, device=dev)
+
+
+def k1_check(img, shift, frac, w: int) -> dict:
+    """K1 bit-equal (``torch.equal``) to its plain version."""
+    import torch
+
+    from tpuseg_torch.ops import warp
+
+    got = warp._shear_rows(img, shift, frac, w)
+    want = warp._shear_rows_plain(img, shift, frac, w)
+    torch.cuda.synchronize()
+    max_err = (got - want).abs().max().item() if got.shape == want.shape else float("inf")
+    if got.shape != (*img.shape[:2], w) or not torch.equal(got, want):
+        raise AssertionError(f"shear kernel differs from plain: shape {tuple(got.shape)}, "
+                             f"max abs err {max_err}")
+    return {"max_abs_err": max_err, "bit_equal": True}
+
+
 def phase_shear(seed: int, dev) -> dict:
-    """K1 at the training shape: the kernel bit-equal to its plain version,
-    and the kernel, the plain version and F.grid_sample (bilinear,
-    align_corners=True, on [N, 1, H, Wp]: the same 1-D blend, the
-    yardstick) timed in turns by their device time with the L2 flushed
-    before each call. The kernel is shorter than its wrapper's host time,
-    so CUDA events around back-to-back calls (also recorded) time the
-    host, not the kernel."""
+    """K1 at the training shape, checked (:func:`k1_check`); the kernel, the plain
+    version and F.grid_sample (bilinear, align_corners=True, on [N, 1, H,
+    Wp]: the same 1-D blend, the yardstick) timed in turns by their device
+    time with the L2 flushed before each call. The kernel is shorter than
+    its wrapper's host time, so CUDA events around back-to-back calls (also
+    recorded) time the host, not the kernel."""
     import torch
     import torch.nn.functional as F
 
     from tpuseg_torch.ops import warp
 
     n, h, w, wp = SHEAR_N, SHEAR_H, SHEAR_W, SHEAR_WP
-    g = torch.Generator(device=dev).manual_seed(seed)
-    img = torch.rand((n, h, wp), generator=g, device=dev) * 4000
-    shift = torch.randint(0, wp - w, (n, h), generator=g, device=dev, dtype=torch.int32)
-    frac = torch.rand((n, h), generator=g, device=dev)
-    got = warp._shear_rows(img, shift, frac, w)
-    want = warp._shear_rows_plain(img, shift, frac, w)
-    torch.cuda.synchronize()
-    max_err = (got - want).abs().max().item()
-    if got.shape != (n, h, w) or not torch.equal(got, want):
-        raise AssertionError(f"shear kernel differs from plain: shape {tuple(got.shape)}, "
-                             f"max abs err {max_err}")
+    img, shift, frac = shear_inputs(seed, dev)
+    check = k1_check(img, shift, frac, w)
     # grid_sample's sample points: x = s + c + f in padded columns, y = row
     px = shift[..., None].float() + torch.arange(w, device=dev) + frac[..., None]
     gx = 2 * px / (wp - 1) - 1
@@ -639,8 +685,7 @@ def phase_shear(seed: int, dev) -> dict:
     def lib():
         return F.grid_sample(inp, grid, mode="bilinear", align_corners=True)
 
-    lib_err = (lib()[:, 0] - want).abs().max().item()
-    del got, want
+    lib_err = (lib()[:, 0] - warp._shear_rows_plain(img, shift, frac, w)).abs().max().item()
     runs = {"plain": [], "kernel": [], "library": []}
     fns = {"plain": lambda: warp._shear_rows_plain(img, shift, frac, w),
            "kernel": lambda: warp._shear_rows(img, shift, frac, w), "library": lib}
@@ -649,10 +694,9 @@ def phase_shear(seed: int, dev) -> dict:
             runs[k].append(device_ms_cold(fns[k], 20))
     events_ms = cuda_ms(fns["kernel"], 50)
     nbytes = n * h * ((w + 1) * 4 + w * 4 + 8)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 3 * n * h * w / F32_OPS * 1e3
-    out = {"max_abs_err": max_err, "bit_equal": True,
-           "ms": sum(runs["kernel"]) / 2, "ms_runs": runs["kernel"],
+    t_bytes = bytes_ms(nbytes)
+    t_ops = ops_ms(3 * n * h * w, "float32")
+    out = {**check, "ms": sum(runs["kernel"]) / 2, "ms_runs": runs["kernel"],
            "events_ms_back_to_back": events_ms,
            "plain_ms": sum(runs["plain"]) / 2, "plain_ms_runs": runs["plain"],
            "library_ms": sum(runs["library"]) / 2, "library_ms_runs": runs["library"],
@@ -751,36 +795,39 @@ def k3_eager_edge(y, form: dict, skip):
     return torch.cat([skip, quant._d2s(y) if form["d2s"] else y], dim=-1)
 
 
-def k3_form_block(name: str, x, op, epi, form: dict, seed: int, dev) -> dict:
-    """K3's store form at one block: the fused call against the plain
-    version's forms on the same concat buffer (the other channels random
-    codes; the buffer and the pooled codes ``torch.equal``), then in turns
-    with the L2 flushed (CUDA events around each call): the fused call, the
-    old K3 call plus the eager op it replaces (:func:`k3_eager_edge`), the
-    eager op alone, the plain version's forms, for a 2x2 pool the old call
-    at the pooled patch width (64) beside the cost model's (128), and for a
-    phase max the call at N tile 256 (one tile for the four phases, checked
-    equal) beside the rule's width."""
+def k3_form_buffer(x, op, form: dict, seed: int, dev):
+    """The concat buffer of a block's store form (random codes from
+    ``seed``) and the channels [offset, offset + C) K3 stores into."""
+    import torch
+
+    b, h, w, _ = x.shape
+    c = op.cout // 4 if form["d2s"] else op.cout
+    oh, ow = (2 * h, 2 * w) if form["d2s"] else (h, w)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    buf = torch.randint(-127, 128, (b, oh, ow, form["ctot"]), generator=g, device=dev,
+                        dtype=torch.int8)
+    return buf, slice(form["offset"], form["offset"] + c)
+
+
+def k3_form_check(name: str, x, op, epi, form: dict, seed: int, dev) -> dict:
+    """K3's store form at one block: the fused call, one launch on the
+    wgmma route, against the plain version's forms on the same concat
+    buffer (the other channels random codes; the buffer and the pooled
+    codes ``torch.equal``); a phase max also at N tile 256 (one tile for
+    the four phases), equal to the rule's width."""
     import torch
 
     from tpuseg_torch.infer import int8_conv as k3
 
-    b, h, w, _ = x.shape
-    d2s, pool, off = form["d2s"], form["pool"], form["offset"]
-    c = op.cout // 4 if d2s else op.cout
-    oh, ow = (2 * h, 2 * w) if d2s else (h, w)
-    g = torch.Generator(device=dev).manual_seed(seed)
-    buf = torch.randint(-127, 128, (b, oh, ow, form["ctot"]), generator=g, device=dev,
-                        dtype=torch.int8)
+    d2s, pool = form["d2s"], form["pool"]
+    buf, ch = k3_form_buffer(x, op, form, seed, dev)
     buf_plain = buf.clone()
-    out, out_plain = buf[..., off:off + c], buf_plain[..., off:off + c]
-    skip = buf[..., :off].contiguous()
     launches = k3.LAUNCHES
-    got = k3.int8_conv(x, op, epi, out=out, d2s=d2s, pool=pool)
+    got = k3.int8_conv(x, op, epi, out=buf[..., ch], d2s=d2s, pool=pool)
     if k3.LAUNCHES != launches + 1 or k3.LAST_ROUTE != "wgmma":
         raise AssertionError(f"K3 {name} with its forms: {k3.LAUNCHES - launches} launches on "
                              f"{k3.LAST_ROUTE}")
-    want = k3._int8_conv_plain(x, op, epi, out_plain, d2s, pool)
+    want = k3._int8_conv_plain(x, op, epi, buf_plain[..., ch], d2s, pool)
     torch.cuda.synchronize()
     got_pool = got[1] if pool else None
     want_pool = want[1] if pool else None
@@ -791,12 +838,31 @@ def k3_form_block(name: str, x, op, epi, form: dict, seed: int, dev) -> dict:
                              f"version's (buffer max abs err {err})")
     if pool:
         err = max(err, (got_pool.float() - want_pool.float()).abs().max().item())
-    if pool == "phase":
-        buf_wide = torch.zeros_like(buf)
-        buf_wide[..., :off] = buf[..., :off]
-        buf_wide[..., off + c:] = buf[..., off + c:]
-        buf_check, pooled_check = buf.clone(), got_pool.clone()
-    del got, want, got_pool, want_pool, buf_plain, out_plain
+    if pool == "phase":  # the other width that takes it: all four phases in one tile
+        buf_plain[..., ch] = 0
+        wide = k3._launch(x, op, epi, out=buf_plain[..., ch], pool=pool, bn=256)[1]
+        torch.cuda.synchronize()
+        if not torch.equal(buf_plain, buf) or not torch.equal(wide, got_pool):
+            raise AssertionError(f"K3 {name}: the phase max at N tile 256 differs from the "
+                                 "rule's width")
+    return {"form": form, "form_max_abs_err": err}
+
+
+def k3_form_block(name: str, x, op, epi, form: dict, seed: int, dev) -> dict:
+    """K3's store form at one block: checked (:func:`k3_form_check`), then
+    in turns with the L2 flushed (CUDA events around each call): the fused
+    call, the old K3 call plus the eager op it replaces
+    (:func:`k3_eager_edge`), the eager op alone, the plain version's forms,
+    for a 2x2 pool the old call at the pooled patch width (64) beside the
+    cost model's (128), and for a phase max the call at N tile 256 beside
+    the rule's width."""
+    from tpuseg_torch.infer import int8_conv as k3
+
+    check = k3_form_check(name, x, op, epi, form, seed, dev)
+    d2s, pool = form["d2s"], form["pool"]
+    h, w = x.shape[1:3]
+    buf, ch = k3_form_buffer(x, op, form, seed, dev)
+    out, skip = buf[..., ch], buf[..., :ch.start].contiguous()
     y = k3.int8_conv(x, op, epi)
     fns = {"fused": (lambda: k3.int8_conv(x, op, epi, out=out, d2s=d2s, pool=pool), 5),
            "unfused": (lambda: k3_eager_edge(k3.int8_conv(x, op, epi), form, skip), 5),
@@ -804,15 +870,8 @@ def k3_form_block(name: str, x, op, epi, form: dict, seed: int, dev) -> dict:
            "plain": (lambda: k3._int8_conv_plain(x, op, epi, out, d2s, pool), 1)}
     if pool == "spatial":
         fns["unfused_k3_bw64"] = (lambda: k3._launch(x, op, epi, bw=64), 5)
-    if pool == "phase":  # the other width that takes it: all four phases in one tile
-        wide = k3._launch(x, op, epi, out=buf_wide[..., off:off + c], pool=pool, bn=256)[1]
-        torch.cuda.synchronize()
-        if not torch.equal(buf_wide, buf_check) or not torch.equal(wide, pooled_check):
-            raise AssertionError(f"K3 {name}: the phase max at N tile 256 differs from the "
-                                 "rule's width")
-        del wide, buf_check, pooled_check
-        fns["fused_bn256"] = (lambda: k3._launch(x, op, epi, out=buf_wide[..., off:off + c],
-                                                 pool=pool, bn=256), 5)
+    if pool == "phase":
+        fns["fused_bn256"] = (lambda: k3._launch(x, op, epi, out=out, pool=pool, bn=256), 5)
     runs = {n: [] for n in fns}
     for order in (list(fns), list(fns)[::-1]):
         for n in order:
@@ -820,13 +879,13 @@ def k3_form_block(name: str, x, op, epi, form: dict, seed: int, dev) -> dict:
             runs[n].append(events_ms_cold(fn, reps))
     ms = {n: sum(r) / 2 for n, r in runs.items()}
     route_bn = k3.n_tile_width("wgmma", op.cout, op.kernel(dev).host_counts, pool)
-    return {"form": form, "fused_bn": route_bn, "fused_bw": k3.patch_width(h, w, pool),
-            "form_max_abs_err": err, "fused_ms": ms["fused"], "fused_ms_runs": runs["fused"],
+    return {**check, "fused_bn": route_bn, "fused_bw": k3.patch_width(h, w, pool),
+            "fused_ms": ms["fused"], "fused_ms_runs": runs["fused"],
             "unfused_ms": ms["unfused"], "unfused_ms_runs": runs["unfused"],
             "edge_ms": ms["edge"], "plain_form_ms": ms["plain"],
             "unfused_k3_bw64_ms": ms.get("unfused_k3_bw64"),
             "fused_bn256_ms": ms.get("fused_bn256"),
-            "pooled_bytes": b * h * w * op.cout // 4 if pool else 0}
+            "pooled_bytes": x.shape[0] * h * w * op.cout // 4 if pool else 0}
 
 
 def k3_reset() -> None:
@@ -902,12 +961,41 @@ def k3_build_report() -> dict:
     return report
 
 
+def k3_check(name: str, x, op, epi) -> dict:
+    """K3 on ``k3_inputs`` through both routes, each the route asked for,
+    bit-equal (``torch.equal``) to the plain version, on codes that are not
+    degenerate (>= 64 distinct, at most half clipped)."""
+    import torch
+
+    from tpuseg_torch.infer import int8_conv as k3
+
+    want = k3._int8_conv_plain(x, op, epi)
+    got = {}
+    for route in k3.ROUTES:
+        got[route] = k3._launch(x, op, epi, route=route)
+        if k3.LAST_ROUTE != route:
+            raise AssertionError(f"K3 {name}: asked for {route}, ran {k3.LAST_ROUTE}")
+    torch.cuda.synchronize()
+    err = 0.0
+    for route, y in got.items():
+        e = (y.float() - want.float()).abs().max().item() if y.shape == want.shape \
+            else float("inf")
+        err = max(err, e)
+        if y.shape != want.shape or y.dtype != torch.int8 or not torch.equal(y, want):
+            raise AssertionError(f"K3 {name} {tuple(x.shape)} {route} route: differs from "
+                                 f"plain (max abs err {e})")
+    codes = torch.unique(want).numel()
+    clipped = (want.abs() == 127).float().mean().item()
+    if codes < 64 or clipped > 0.5:
+        raise AssertionError(f"K3 {name}: degenerate codes ({codes} distinct, "
+                             f"{clipped:.1%} clipped)")
+    return {"codes": codes, "clipped": clipped, "max_abs_err": err}
+
+
 def phase_int8_conv(seed: int, dev) -> dict:
     """K3 at each of the 21 block shapes of a main-path predict call, on the
-    main path's kind of weights (the blocked edge convs' codes blocked):
-    both routes bit-equal (``torch.equal``) to the plain version on
-    non-degenerate codes (>= 64 distinct, at most half clipped); then, in
-    turns with the L2 flushed, by CUDA events around each call
+    main path's kind of weights (the blocked edge convs' codes blocked),
+    checked (:func:`k3_check`); then, in turns with the L2 flushed, by CUDA events around each call
     (:func:`events_ms_cold`), the ``"wgmma"`` route as the wrapper picks
     it, the ``"mma"`` route (with skipping), the plain version, the GEMM
     alone (``torch._int_mm`` on the prebuilt im2col matrix, zeros
@@ -932,27 +1020,7 @@ def phase_int8_conv(seed: int, dev) -> dict:
     out = {"build": k3_build_report(), "blocks": [], "dense_form_blocks": []}
     for i, (name, shape, k, cout, mode) in enumerate(k3_blocks() + K3_DENSE_FORM_BLOCKS):
         x, op, epi = k3_inputs(name, shape, k, cout, mode, seed + i, dev)
-        want = k3._int8_conv_plain(x, op, epi)
-        got = {}
-        for route in k3.ROUTES:
-            got[route] = k3._launch(x, op, epi, route=route)
-            if k3.LAST_ROUTE != route:
-                raise AssertionError(f"K3 {name}: asked for {route}, ran {k3.LAST_ROUTE}")
-        torch.cuda.synchronize()
-        err = 0.0
-        for route, y in got.items():
-            e = (y.float() - want.float()).abs().max().item() if y.shape == want.shape \
-                else float("inf")
-            err = max(err, e)
-            if y.shape != want.shape or y.dtype != torch.int8 or not torch.equal(y, want):
-                raise AssertionError(f"K3 {name} {shape} {route} route: differs from plain "
-                                     f"(max abs err {e})")
-        codes = torch.unique(want).numel()
-        clipped = (want.abs() == 127).float().mean().item()
-        del got, want
-        if codes < 64 or clipped > 0.5:
-            raise AssertionError(f"K3 {name}: degenerate codes ({codes} distinct, "
-                                 f"{clipped:.1%} clipped)")
+        check = k3_check(name, x, op, epi)
         route = k3.kernel_route(shape[-1])
         kw_ = op.kernel(dev)
         bn = k3.n_tile_width(route, cout, kw_.host_counts)
@@ -976,16 +1044,15 @@ def phase_int8_conv(seed: int, dev) -> dict:
         ops, ops_dense = 2 * m * macs, 2 * m * kk * cout
         nbytes = m * cin + cout * kk + 4 * cout * (3 if mode == "affine_requant" else 4) + 4 \
             + m * cout
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops, t_dense = (o / PEAK_OPS["int8"] * 1e3 for o in (ops, ops_dense))
+        t_bytes = bytes_ms(nbytes)
+        t_ops, t_dense = ops_ms(ops, "int8"), ops_ms(ops_dense, "int8")
         ms = {n: sum(r) / 2 for n, r in runs.items()}
         r = {"block": name, "shape": list(shape), "k": k, "cout": cout, "mode": mode,
              "blocked": name in K3_BLOCKED, "route": route, "bn": bn,
              "bw": k3.patch_width(h, w), "ksteps": kw_.wm.shape[1] // 64,
              "ksteps_run_per_tile": {str(width): kw_.host_counts[width].tolist()
                                      for width in sorted(kw_.host_counts)},
-             "codes": codes, "clipped": clipped, "max_abs_err": err,
-             "ms": ms["wgmma"], "ms_runs": runs["wgmma"],
+             **check, "ms": ms["wgmma"], "ms_runs": runs["wgmma"],
              "mma_ms": ms["mma"], "mma_ms_runs": runs["mma"],
              "plain_ms": ms["plain"], "plain_ms_runs": runs["plain"],
              "library_ms": ms["library"], "library_ms_runs": runs["library"],
@@ -1001,7 +1068,7 @@ def phase_int8_conv(seed: int, dev) -> dict:
         r["ops_ms"], r["walk_bytes_ms"] = t_ops, t_bytes
         if form is not None:
             r.update(k3_form_block(name, x, op, epi, form, seed + 100 + i, dev))
-            t_fused = (nbytes + r["pooled_bytes"]) / HBM_BYTES_PER_S * 1e3
+            t_fused = bytes_ms(nbytes + r["pooled_bytes"])
             r["walk_ms"], r["walk_bound_ms"] = r["fused_ms"], max(t_ops, t_fused)
             r["walk_bytes_ms"] = t_fused
             r["fused_bound_by"] = "operations" if t_ops >= t_fused else "bytes"
@@ -1016,7 +1083,7 @@ def phase_int8_conv(seed: int, dev) -> dict:
                 + f"; plain {r['plain_form_ms']:.3f}")
         out["dense_form_blocks" if name.startswith("dense_") else "blocks"].append(r)
         log(f"K3 {name:<11} {shape} {k}x{k} -> {cout:<4} {mode}: both routes bit-equal, "
-            f"{codes} codes, {clipped:.2%} clipped; wgmma bn {bn} bw {r['bw']} "
+            f"{check['codes']} codes, {check['clipped']:.2%} clipped; wgmma bn {bn} bw {r['bw']} "
             f"{r['ms_runs'][0]:.3f} / {r['ms_runs'][1]:.3f} ms ({r['share_of_bound']:.1%} of "
             f"{r['bound_ms']:.3f} ms, {r['bound_by']}; dense bound {r['bound_dense_ms']:.3f}), "
             f"by bn " + " / ".join(f"{v:.3f}" for v in r["wgmma_ms_by_bn"].values())
@@ -1218,25 +1285,68 @@ def k5_division_check(so, count: int, seed: int) -> dict:
     return r
 
 
-def phase_input_conv(seed: int, dev) -> dict:
-    """K5 at the main path's shapes (BATCH tiles of TILE^2, C 1, F BASE,
-    bf16 operands), in both layouts, and at C 3: the kernel bit-equal
-    (``torch.equal``) to its plain version on non-degenerate codes, and
-    beside the eager path it replaced (cuDNN's conv and eager passes; its
-    sums run in another order, so its codes are reported, not gated); its
-    launch plan (persistent grid, resident blocks an SM); its reciprocal
-    requantize against the true division on every f32 value for the scale
-    of these inputs and on 2^24 values each for 256 random scales; its
-    SASS instructions per output and the issue floor they set at the
-    card's ``clocks.max.sm``; then, in turns with the L2 flushed, by CUDA
-    events around each call (:func:`events_ms_cold`), the kernel, the
-    plain version and the eager path in both layouts, and cuDNN's
-    ``F.conv2d`` alone (f32 out, TF32 off, on the rounded operands, as
-    ``_conv_fp`` runs it: the product, a yardstick the port no longer calls
-    for enc1a). The bound: the input, weights and vectors read once and the
-    codes written once at the card's memory rate, or the multiply-adds at
-    the f32 CUDA-core peak, whichever is longer."""
+def k5_division_cases(so, seed: int, dev) -> dict:
+    """The arguments of :func:`k5_division_check` for the output scale
+    ``so`` on every f32 value and for ``K5_RANDOM_SCALES`` scales drawn over
+    2^-64..2^64 on ``K5_RANDOM_VALUES`` values each."""
     import numpy as np
+    import torch
+
+    scales = 2.0 ** np.random.default_rng(seed).uniform(-64, 64, K5_RANDOM_SCALES)
+    return {"phase2_scale_every_value": (so.reshape(1), 0, seed),
+            "random_scales": (torch.tensor(scales, dtype=torch.float32, device=dev),
+                              K5_RANDOM_VALUES, seed)}
+
+
+def k5_check(args: list, dtype, blocked: bool) -> dict:
+    """K5 on ``k5_inputs``: one launch, bit-equal (``torch.equal``) to its
+    plain version, on codes that are not degenerate (>= 64 distinct, at most
+    half clipped); beside the eager path it replaced
+    (:func:`eager_input_block`: its sums run in another order, so its codes
+    are reported, not gated)."""
+    import torch
+
+    from tpuseg_torch.infer import input_conv as k5
+
+    c = args[0].shape[-1]
+    before = k5.LAUNCHES
+    got = k5.input_conv(*args, dtype, blocked)
+    want = k5._input_conv_plain(*args, dtype, blocked)
+    eager = eager_input_block(args, dtype, blocked)()
+    torch.cuda.synchronize()
+    if k5.LAUNCHES != before + 1:
+        raise AssertionError(f"K5 C {c} blocked={blocked}: the wrapper did not launch")
+    err = (got.float() - want.float()).abs().max().item() \
+        if got.shape == want.shape else float("inf")
+    if got.shape != want.shape or got.dtype != torch.int8 or not torch.equal(got, want):
+        raise AssertionError(f"K5 C {c} blocked={blocked}: {tuple(got.shape)} "
+                             f"{got.dtype} differs from plain (max abs err {err})")
+    codes = torch.unique(want).numel()
+    clipped = (want.abs() == 127).float().mean().item()
+    if codes < 64 or clipped > 0.5:
+        raise AssertionError(f"K5 C {c}: degenerate codes ({codes} distinct, "
+                             f"{clipped:.1%} clipped)")
+    diff = (eager.int() - want.int()).abs()
+    return {"c": c, "blocked": blocked, "shape": list(got.shape), "max_abs_err": err,
+            "codes": codes, "clipped": clipped,
+            "eager_codes_equal": (diff == 0).double().mean().item(),
+            "eager_max_code_diff": diff.max().item()}
+
+
+def phase_input_conv(seed: int, dev) -> dict:
+    """K5 at the main path's shapes (BATCH tiles of TILE^2, C 1, F BASE, bf16
+    operands), in both layouts, and at C 3, checked (:func:`k5_check`); its
+    reciprocal requantize (:func:`k5_division_cases`); its launch plan
+    (persistent grid, resident blocks an SM); its SASS instructions per
+    output and the issue floor they set at the card's ``clocks.max.sm``;
+    then, in turns with the L2 flushed, by CUDA events around each call
+    (:func:`events_ms_cold`), the kernel, the plain version and the eager
+    path in both layouts, and cuDNN's ``F.conv2d`` alone (f32 out, TF32
+    off, on the rounded operands, as ``_conv_fp`` runs it: the product, a
+    yardstick the port no longer calls for enc1a). The bound: the input,
+    weights and vectors read once and the codes written once at the card's
+    memory rate, or the multiply-adds at the f32 CUDA-core peak, whichever
+    is longer."""
     import torch
     import torch.nn.functional as F
 
@@ -1249,44 +1359,18 @@ def phase_input_conv(seed: int, dev) -> dict:
     for c in (1, 3):
         args = k5_inputs(c, seed + c, dev)
         for blocked in (False, True):
-            before = k5.LAUNCHES
-            got = k5.input_conv(*args, dtype, blocked)
-            want = k5._input_conv_plain(*args, dtype, blocked)
-            eager = eager_input_block(args, dtype, blocked)()
-            torch.cuda.synchronize()
-            if k5.LAUNCHES != before + 1:
-                raise AssertionError(f"K5 C {c} blocked={blocked}: the wrapper did not launch")
-            err = (got.float() - want.float()).abs().max().item() \
-                if got.shape == want.shape else float("inf")
-            if got.shape != want.shape or got.dtype != torch.int8 or not torch.equal(got, want):
-                raise AssertionError(f"K5 C {c} blocked={blocked}: {tuple(got.shape)} "
-                                     f"{got.dtype} differs from plain (max abs err {err})")
-            codes = torch.unique(want).numel()
-            clipped = (want.abs() == 127).float().mean().item()
-            if codes < 64 or clipped > 0.5:
-                raise AssertionError(f"K5 C {c}: degenerate codes ({codes} distinct, "
-                                     f"{clipped:.1%} clipped)")
-            diff = (eager.int() - want.int()).abs()
-            r = {"c": c, "blocked": blocked, "shape": list(got.shape), "max_abs_err": err,
-                 "codes": codes, "clipped": clipped,
-                 "eager_codes_equal": (diff == 0).double().mean().item(),
-                 "eager_max_code_diff": diff.max().item()}
-            out["cases"].append(r)
-            log(f"K5 C {c} {'blocked' if blocked else 'dense'} {tuple(got.shape)}: bit-equal to "
-                f"plain, {codes} codes, {clipped:.2%} clipped; the eager path's codes equal on "
-                f"{r['eager_codes_equal']:.6f} (max diff {r['eager_max_code_diff']})")
-            del got, want, eager, diff
+            out["cases"].append(r := k5_check(args, dtype, blocked))
+            log(f"K5 C {c} {'blocked' if blocked else 'dense'} {tuple(r['shape'])}: bit-equal "
+                f"to plain, {r['codes']} codes, {r['clipped']:.2%} clipped; the eager path's "
+                f"codes equal on {r['eager_codes_equal']:.6f} (max diff "
+                f"{r['eager_max_code_diff']})")
         del args
         torch.cuda.empty_cache()
 
     args = k5_inputs(1, seed + 1, dev)
     x, w = args[0], args[1]
-    rng = np.random.default_rng(seed)
-    scales = 2.0 ** rng.uniform(-64, 64, K5_RANDOM_SCALES)
-    out["division"] = {
-        "phase2_scale_every_value": k5_division_check(args[5].reshape(1), 0, seed),
-        "random_scales": k5_division_check(torch.tensor(scales, dtype=torch.float32, device=dev),
-                                           K5_RANDOM_VALUES, seed)}
+    out["division"] = {name: k5_division_check(*case)
+                       for name, case in k5_division_cases(args[5], seed, dev).items()}
     layouts = {"dense": False, "blocked": True}
     out["plan"] = {lay: k5.launch_plan(tuple(x.shape), BASE, dtype, blocked, dev)
                    for lay, blocked in layouts.items()}
@@ -1326,7 +1410,7 @@ def phase_input_conv(seed: int, dev) -> dict:
     b, h, wd, c = x.shape
     nbytes = 4 * (x.numel() + w.numel() + 3 * BASE + 1) + b * h * wd * BASE
     macs = b * h * wd * 9 * c * BASE
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, 2 * macs / F32_OPS * 1e3
+    t_bytes, t_ops = bytes_ms(nbytes), ops_ms(2 * macs, "float32")
     out.update({"shape": list(x.shape), "f": BASE, "dtype": "bfloat16",
                 "ms": ms["kernel_blocked"], "ms_runs": runs["kernel_blocked"],
                 "dense_ms": ms["kernel_dense"], "dense_ms_runs": runs["kernel_dense"],
@@ -1386,7 +1470,15 @@ def k4_inputs(shape, dtype, seed: int, dev):
     return x, bias, gamma, beta, rows(1e-3, 0.0)
 
 
-def k4_sum_check(name: str, got, plain, terms, plan) -> dict:
+def bits(t):
+    """``t``'s bit patterns, every NaN as one pattern (its payload aside)."""
+    import torch
+
+    t = torch.where(torch.isnan(t), torch.full_like(t, float("nan")), t)
+    return t.contiguous().view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def k4_sum_check(name: str, got, plain, terms, plan, faults: dict | None = None) -> dict:
     """The sums ``got[k]`` of a K4 reduction against the float64 sums of
     ``terms`` (callables, each giving float64 ``[C, M]`` terms in the
     kernel's row order, exact: products taken in float64) and the bound of
@@ -1394,10 +1486,11 @@ def k4_sum_check(name: str, got, plain, terms, plan) -> dict:
     ``d = min(plan["depth"], M - 1)``: the most f32 additions between a term
     and its sum in the library's plan (a thread's rows, the block's row
     lanes, the blocks). The plain f32 sums ``plain`` (PyTorch's order, not
-    stated) are held to the kernel's bound counted twice, once for each of
-    the two sums. Then faults planted in ``got`` must fail the same check:
-    the first block's rows dropped, and each sum set to zero in turn.
-    Returns the largest errors and their largest share of the bound."""
+    stated), unless None, are held to the kernel's bound counted twice,
+    once for each of the two sums. Then faults planted in ``got`` must fail
+    the same check: the first block's rows dropped, each sum set to zero in
+    turn, and the sums ``faults`` names. Returns the largest errors and
+    their largest share of the bound."""
     import torch
 
     exact, mag, first = [], [], []
@@ -1421,11 +1514,11 @@ def k4_sum_check(name: str, got, plain, terms, plan) -> dict:
         k, c = divmod(int((err - bound).argmax()), err.shape[1])
         raise AssertionError(f"K4 {name} sum {k}: error {err[k, c].item()} beyond the bound "
                              f"{bound[k, c].item()} of its summation (depth {d})")
-    plain_diff = (plain.double() - got.double()).abs()
+    plain_diff = (plain.double() - got.double()).abs() if plain is not None else err * 0
     if not bool((plain_diff <= 2 * bound).all()):
         raise AssertionError(f"K4 {name}: the plain f32 sums differ by {plain_diff.max().item()}"
                              f", beyond twice the kernel's summation bound")
-    faults = {"first block dropped": got.double() - first}
+    faults = {"first block dropped": got.double() - first, **(faults or {})}
     for k in range(got.shape[0]):
         zeroed = got.double().clone()
         zeroed[k] = 0
@@ -1534,85 +1627,102 @@ K4_AFTER_SHAPES = {"conv_more": (16, 512, 32, 32), "block0": (16, 256, 64, 64),
                    "element": (4, 3, 40, 24)}
 
 
-def k4_after(seed: int, dev) -> dict:
-    """K4's order after (TransUNet's conv -> BatchNorm -> ReLU, no bias) at
-    the decoder's shapes, bf16 (and block3 in f32 too): (b) and (d), train
+def k4_after_check(name: str, x, gamma, beta, gy) -> dict:
+    """K4's order after (TransUNet's conv -> BatchNorm -> ReLU, no bias) on
+    ``k4_inputs``: six launches counted in ``AFTER``; (b) and (d), train
     and eval, bit-equal (``torch.equal``) to their plain versions given the
-    same vectors; (a) and (c) within the bound of their summation
-    (:func:`k4_sum_check`, with its planted faults); each layer's four
-    kernels timed against their plain versions (:func:`events_ms_cold`),
-    with the bytes they must move at the card's rate as the bound. Run it
-    alone with ``python -c "import torch, chip_smoke;
-    chip_smoke.k4_after(0, torch.device('cuda'))"``."""
+    same vectors; the running statistics bit-equal to the two-line update;
+    no negative y; (a) and (c) within the bound of their summation
+    (:func:`k4_sum_check`, with its planted faults)."""
+    import torch
+
+    from tpuseg_torch.ops import batchnorm as bn
+
+    after, dev, c = bn.RELU_AFTER, x.device, x.shape[1]
+    running = (torch.randn(c, device=dev) * 0.3, torch.rand(c, device=dev) + 0.5)
+    run = tuple(t.clone() for t in running)
+    before = dict(bn.AFTER)
+    stats = bn.batch_stats(x, None, after)
+    y, vec = bn.bn_apply_train(x, None, after, stats, gamma, beta, 1e-5, *run, 0.9)
+    sums = bn.backward_reduce(x, None, after, gy, vec[0], vec[2], vec[3], beta)
+    dx, _ = bn.backward_apply_train(x, None, after, gy, stats, vec, sums, sums, beta)
+    ye = bn.bn_apply_eval(x, None, after, *running, gamma, beta, 1e-5)
+    rstd_e = torch.rsqrt(running[1] + 1e-5)
+    mul_e = rstd_e * gamma
+    zero = torch.zeros_like(gamma)
+    dxe = bn.backward_apply(x, None, after, gy, running[0], rstd_e, mul_e, zero, zero, beta)
+    torch.cuda.synchronize()
+    if bn.AFTER["launches"] != before["launches"] + 6:
+        raise AssertionError(f"K4 after {name}: launches {bn.AFTER} after {before}")
+    mean, rstd, mul = vec[0], vec[2], vec[3]
+    k1 = sums[0] / stats[2]
+    k2 = torch.where(vec[4] != 0, sums[1] / stats[2], 0.0)
+    plain = {"apply": bn._apply_plain(x, None, after, mean, mul, beta),
+             "backward_apply": bn._backward_apply_plain(x, None, after, gy, mean, rstd, mul,
+                                                        k1, k2, beta),
+             "eval_apply": bn._apply_eval_plain(x, None, after, *running, gamma, beta, 1e-5),
+             "eval_backward_apply": bn._backward_apply_plain(
+                 x, None, after, gy, running[0], rstd_e, mul_e, zero, zero, beta)}
+    got = {"apply": y, "backward_apply": dx, "eval_apply": ye, "eval_backward_apply": dxe}
+    differ = [k for k in got if not torch.equal(got[k], plain[k])]
+    if differ:
+        raise AssertionError(f"K4 after {name}: {differ} differ from the plain versions")
+    if not (torch.equal(run[0], 0.9 * running[0] + (1 - 0.9) * mean)
+            and torch.equal(run[1], 0.9 * running[1] + (1 - 0.9) * vec[1])):
+        raise AssertionError(f"K4 after {name}: the running statistics differ from the "
+                             "two-line update")
+    if bool((y < 0).any()):
+        raise AssertionError(f"K4 after {name}: (b) wrote a negative y")
+    kept = float((plain["apply"] > 0).float().mean())
+    del y, dx, ye, dxe, plain, got
+
+    def rows(t):  # f32 [C, M], in the kernel's row order
+        return t.float().permute(1, 0, 2, 3).reshape(c, -1)
+
+    def gprime():  # g' as the kernel takes it: g where relu(y) > 0
+        ypre = bn._apply_plain(x, None, bn.RELU_NONE, mean, mul, beta)
+        return rows(torch.where(ypre <= 0, torch.zeros((), dtype=gy.dtype, device=dev),
+                                gy)).double()
+
+    def ahat():
+        return (rows(x) - mean[:, None]) * rstd[:, None]
+
+    check_a = k4_sum_check(f"after {name} stats", stats[:2], bn._stats_plain(x, None, after),
+                           [lambda: rows(x).double(), lambda: rows(x).double() ** 2],
+                           bn.reduce_plan(x, bn.row_stride(x)))
+    check_c = k4_sum_check(f"after {name} backward reduce", sums,
+                           bn._backward_reduce_plain(x, None, after, gy, mean, rstd, mul, beta),
+                           [gprime, lambda: gprime() * ahat().double()],
+                           bn.reduce_plan(x, bn.row_stride(x), gy, bn.row_stride(gy), 2))
+    return {"kept_share": kept, "sum_check": {"stats": check_a, "backward_reduce": check_c}}
+
+
+K4_AFTER_CASES = [(k, "bfloat16") for k in K4_AFTER_SHAPES] + [("block3", "float32")]
+
+
+def k4_after(seed: int, dev) -> dict:
+    """K4's order after at the decoder's shapes, bf16 (and block3 in f32
+    too), checked (:func:`k4_after_check`); each layer's four kernels timed
+    against their plain versions (:func:`events_ms_cold`), with the bytes
+    they must move at the card's rate as the bound. Run it alone with
+    ``python -c "import torch, chip_smoke; chip_smoke.k4_after(0,
+    torch.device('cuda'))"``."""
     import torch
 
     from tpuseg_torch.ops import batchnorm as bn
 
     after = bn.RELU_AFTER
-    cases = [(k, torch.bfloat16) for k in K4_AFTER_SHAPES] + [("block3", torch.float32)]
     out = {"cases": {}}
-    for i, (where, dtype) in enumerate(cases):
+    for i, (where, dtype) in enumerate(K4_AFTER_CASES):
         shape = K4_AFTER_SHAPES[where]
-        name = f"{where}_{str(dtype).split('.')[-1]}"
-        x, _, gamma, beta, gy = k4_inputs(shape, dtype, seed + 100 + i, dev)
-        c = shape[1]
-        running = (torch.randn(c, device=dev) * 0.3, torch.rand(c, device=dev) + 0.5)
-        run = tuple(t.clone() for t in running)
-        before = dict(bn.AFTER)
+        name = f"{where}_{dtype}"
+        x, _, gamma, beta, gy = k4_inputs(shape, getattr(torch, dtype), seed + 100 + i, dev)
+        check = k4_after_check(name, x, gamma, beta, gy)
+        run = (torch.zeros(shape[1], device=dev), torch.ones(shape[1], device=dev))
         stats = bn.batch_stats(x, None, after)
-        y, vec = bn.bn_apply_train(x, None, after, stats, gamma, beta, 1e-5, *run, 0.9)
-        sums = bn.backward_reduce(x, None, after, gy, vec[0], vec[2], vec[3], beta)
-        dx, _ = bn.backward_apply_train(x, None, after, gy, stats, vec, sums, sums, beta)
-        ye = bn.bn_apply_eval(x, None, after, *running, gamma, beta, 1e-5)
-        rstd_e = torch.rsqrt(running[1] + 1e-5)
-        mul_e = rstd_e * gamma
-        zero = torch.zeros_like(gamma)
-        dxe = bn.backward_apply(x, None, after, gy, running[0], rstd_e, mul_e, zero, zero, beta)
-        torch.cuda.synchronize()
-        if bn.AFTER["launches"] != before["launches"] + 6:
-            raise AssertionError(f"K4 after {name}: launches {bn.AFTER} after {before}")
+        vec = bn.bn_apply_train(x, None, after, stats, gamma, beta, 1e-5)[1]
         mean, rstd, mul = vec[0], vec[2], vec[3]
-        k1 = sums[0] / stats[2]
-        k2 = torch.where(vec[4] != 0, sums[1] / stats[2], 0.0)
-        plain = {"apply": bn._apply_plain(x, None, after, mean, mul, beta),
-                 "backward_apply": bn._backward_apply_plain(x, None, after, gy, mean, rstd, mul,
-                                                            k1, k2, beta),
-                 "eval_apply": bn._apply_eval_plain(x, None, after, *running, gamma, beta,
-                                                    1e-5),
-                 "eval_backward_apply": bn._backward_apply_plain(
-                     x, None, after, gy, running[0], rstd_e, mul_e, zero, zero, beta)}
-        got = {"apply": y, "backward_apply": dx, "eval_apply": ye, "eval_backward_apply": dxe}
-        differ = [k for k in got if not torch.equal(got[k], plain[k])]
-        if differ:
-            raise AssertionError(f"K4 after {name}: {differ} differ from the plain versions")
-        if not (torch.equal(run[0], 0.9 * running[0] + (1 - 0.9) * mean)
-                and torch.equal(run[1], 0.9 * running[1] + (1 - 0.9) * vec[1])):
-            raise AssertionError(f"K4 after {name}: the running statistics differ from the "
-                                 "two-line update")
-        if bool((y < 0).any()):
-            raise AssertionError(f"K4 after {name}: (b) wrote a negative y")
-
-        def rows(t):  # f32 [C, M], in the kernel's row order
-            return t.float().permute(1, 0, 2, 3).reshape(c, -1)
-
-        def gprime():  # g' as the kernel takes it: g where relu(y) > 0
-            ypre = bn._apply_plain(x, None, bn.RELU_NONE, mean, mul, beta)
-            return rows(torch.where(ypre <= 0, torch.zeros((), dtype=gy.dtype, device=dev),
-                                    gy)).double()
-
-        def ahat():
-            return (rows(x) - mean[:, None]) * rstd[:, None]
-
-        check_a = k4_sum_check(f"after {name} stats", stats[:2],
-                               bn._stats_plain(x, None, after),
-                               [lambda: rows(x).double(), lambda: rows(x).double() ** 2],
-                               bn.reduce_plan(x, bn.row_stride(x)))
-        check_c = k4_sum_check(f"after {name} backward reduce", sums,
-                               bn._backward_reduce_plain(x, None, after, gy, mean, rstd, mul,
-                                                         beta),
-                               [gprime, lambda: gprime() * ahat().double()],
-                               bn.reduce_plan(x, bn.row_stride(x), gy, bn.row_stride(gy), 2))
-        kept = float((plain["apply"] > 0).float().mean())
+        sums = bn.backward_reduce(x, None, after, gy, mean, rstd, mul, beta)
         fns = {
             "kernel_stats": (lambda: bn.batch_stats(x, None, after), 10),
             "kernel_apply": (lambda: bn.bn_apply_train(x, None, after, stats, gamma, beta, 1e-5,
@@ -1631,39 +1741,110 @@ def k4_after(seed: int, dev) -> dict:
         }
         ms = {k: events_ms_cold(fn, reps) for k, (fn, reps) in fns.items()}
         act = x.numel() * x.element_size()
-        moved = {"stats": act, "apply": 2 * act, "backward_reduce": 2 * act,
-                 "backward_apply": 3 * act}
-        share = {k: moved[k] / HBM_BYTES_PER_S * 1e3 / ms[f"kernel_{k}"] for k in K4_KINDS}
-        out["cases"][name] = {"shape": list(shape), "dtype": str(dtype), "ms": ms,
-                              "share_of_bound": share, "kept_share": kept,
-                              "sum_check": {"stats": check_a, "backward_reduce": check_c}}
+        share = {k: bytes_ms(bench("work.k4").TENSORS[k] * act) / ms[f"kernel_{k}"]
+                 for k in K4_KINDS}
+        out["cases"][name] = {"shape": list(shape), "dtype": str(getattr(torch, dtype)),
+                              "ms": ms, "share_of_bound": share, **check}
         log(f"K4 after {name} {tuple(shape)}: (b), (d) train and eval bit-equal to plain; "
-            f"(a), (c) within their summation bound; {kept:.1%} of y above 0; ms " + ", ".join(
-                f"{k} {ms['kernel_' + k]:.4f} ({share[k]:.1%} of its bound; plain "
-                f"{ms['plain_' + k]:.3f})" for k in K4_KINDS))
-        del x, gamma, beta, gy, y, dx, ye, dxe, plain, got, fns
+            f"(a), (c) within their summation bound; {check['kept_share']:.1%} of y above 0; "
+            "ms " + ", ".join(f"{k} {ms['kernel_' + k]:.4f} ({share[k]:.1%} of its bound; "
+                              f"plain {ms['plain_' + k]:.3f})" for k in K4_KINDS))
+        del x, gamma, beta, gy, fns
         torch.cuda.empty_cache()
     return out
 
 
+def k4_check(name: str, x, bias, gamma, beta, gy) -> dict:
+    """K4's four kernels on ``k4_inputs`` as a conv block feeds them (bias
+    and ReLU on), (b) and (d) in their train forms: one launch each; (a)'s
+    count row; (b) and (d) bit-equal (``torch.equal``) to their plain
+    versions given the same vectors, and channels-last; what they derive
+    (:func:`k4_vector_check`); (a) and (c) within the bound of the summation
+    they do, from the library's plan, of the float64 sums (stated in
+    :func:`k4_sum_check`, not tuned; planted faults must fail it); the
+    reductions the same bits twice more."""
+    import torch
+
+    from tpuseg_torch.ops import batchnorm as bn
+
+    dev = x.device
+    n, c = x.shape[0] * x.shape[2] * x.shape[3], x.shape[1]
+    before = dict(bn.LAUNCHES)
+    running = (torch.randn(c, device=dev) * 0.3, torch.rand(c, device=dev) + 0.5)
+    run = tuple(t.clone() for t in running)
+    stats = bn.batch_stats(x, bias, True)
+    y, vec = bn.bn_apply_train(x, bias, True, stats, gamma, beta, 1e-3, *run, 0.99)
+    sums = bn.backward_reduce(x, bias, True, gy, vec[0], vec[2])
+    dx, dbias = bn.backward_apply_train(x, bias, True, gy, stats, vec, sums, sums)
+    torch.cuda.synchronize()
+    if any(bn.LAUNCHES[k] != before[k] + 1 for k in K4_KINDS):
+        raise AssertionError(f"K4 {name}: launches {bn.LAUNCHES} after {before}")
+    if not bool((stats[2] == n).all()):
+        raise AssertionError(f"K4 {name}: (a)'s count row {stats[2].unique()} is not {n}")
+    vectors = k4_vector_check(name, x, bias, gy, gamma, beta, stats, vec, sums, dx, dbias,
+                              running, run)
+    mean, rstd, mul = vec[0], vec[2], vec[3]
+    k1 = sums[0] / stats[2]
+    k2 = torch.where(vec[4] != 0, sums[1] / stats[2], 0.0)
+    y_plain = bn._apply_plain(x, bias, True, mean, mul, beta)
+    dx_plain = bn._backward_apply_plain(x, bias, True, gy, mean, rstd, mul, k1, k2)
+    if not (torch.equal(y, y_plain) and torch.equal(dx, dx_plain)):
+        raise AssertionError(f"K4 {name}: (b) or (d) differs from its plain version")
+    elt_err = {"apply": (y.float() - y_plain.float()).abs().max().item(),
+               "backward_apply": (dx.float() - dx_plain.float()).abs().max().item()}
+    del y_plain, dx_plain
+    if bn.row_stride(y) != c or bn.row_stride(dx) != c:
+        raise AssertionError(f"K4 {name}: outputs not channels-last")
+    del y, dx
+    for _ in range(2):
+        if not (torch.equal(bn.batch_stats(x, bias, True), stats) and torch.equal(
+                bn.backward_reduce(x, bias, True, gy, mean, rstd), sums)):
+            raise AssertionError(f"K4 {name}: a reduction changed from launch to launch")
+
+    def act():  # a as f32 [C, M], in the kernel's row order
+        return bn.activation(x, bias, True).float().permute(1, 0, 2, 3).reshape(c, -1)
+
+    def ahat():  # rounded as the kernel rounds it
+        return (act() - mean[:, None]) * rstd[:, None]
+
+    def grad():
+        return gy.permute(1, 0, 2, 3).reshape(c, -1).double()
+
+    def pos():
+        return act() > 0
+
+    check_a = k4_sum_check(f"{name} stats", stats[:2], bn._stats_plain(x, bias, True),
+                           [lambda: act().double(), lambda: act().double() ** 2],
+                           bn.reduce_plan(x, bn.row_stride(x)))
+    check_c = k4_sum_check(
+        f"{name} backward reduce", sums,
+        bn._backward_reduce_plain(x, bias, True, gy, mean, rstd),
+        [grad, lambda: grad() * ahat().double(),
+         lambda: torch.where(pos(), grad(), 0.0), lambda: pos().double(),
+         lambda: torch.where(pos(), ahat(), 0.0).double()],
+        bn.reduce_plan(x, bn.row_stride(x), gy, bn.row_stride(gy), 5))
+    torch.cuda.empty_cache()
+    return {"vectors": vectors,
+            "max_abs_err": {"stats": check_a["max_abs_err"], **elt_err,
+                            "backward_reduce": check_c["max_abs_err"]},
+            "sum_check": {"stats": check_a, "backward_reduce": check_c},
+            "clipped_channels": int((vec[4] == 0).sum())}
+
+
 def phase_batchnorm(seed: int, dev) -> dict:
-    """K4 at the training main path's shapes, enc1's [8, 64, 512, 512] and
-    the head's [8, 2, 512, 512], bf16 (the main path's) and f32, as a conv
-    block feeds it (bias and ReLU on): (b) and (d) bit-equal (``torch.equal``)
-    to their plain versions given the same vectors, (a) and (c) within the
-    bound of the summation they do, from the library's plan, of the float64
-    sums (stated in :func:`k4_sum_check`, not tuned; planted faults must
-    fail it), the reductions deterministic from
-    launch to launch; then each kernel, its plain version, one PyTorch call
-    that computes its function on the same inputs (PyTorch's own sync-BN
-    kernels: ``torch.batch_norm_stats``, ``batch_norm_elemt``,
-    ``batch_norm_backward_reduce``, ``batch_norm_backward_elemt``; BN alone,
-    without the bias and ReLU, so less work), ``F.batch_norm`` in train
-    forward, eval forward and backward (BN alone too), and the eager chain
-    K4 replaced, timed in turns with the L2 flushed by CUDA events around
-    each call (:func:`events_ms_cold`). Each kernel's bound: the bytes it
-    must move (x read, g read, the output written; (a) and (c) read
-    only) at the card's memory rate."""
+    """K4 at the training main path's shapes, enc1's [8, 64, 512, 512] and the
+    head's [8, 2, 512, 512], bf16 (the main path's) and f32, as a conv
+    block feeds it (bias and ReLU on), checked (:func:`k4_check`); then
+    each kernel, its plain version, one PyTorch call that computes its
+    function on the same inputs (PyTorch's own sync-BN kernels:
+    ``torch.batch_norm_stats``, ``batch_norm_elemt``,
+    ``batch_norm_backward_reduce``, ``batch_norm_backward_elemt``; BN
+    alone, without the bias and ReLU, so less work), ``F.batch_norm`` in
+    train forward, eval forward and backward (BN alone too), and the eager
+    chain K4 replaced, timed in turns with the L2 flushed by CUDA events
+    around each call (:func:`events_ms_cold`). Each kernel's bound: the
+    bytes it must move (x read, g read, the output written; (a) and (c)
+    read only) at the card's memory rate."""
     import torch
     import torch.nn.functional as F
 
@@ -1678,68 +1859,15 @@ def phase_batchnorm(seed: int, dev) -> dict:
                                   for d in (torch.bfloat16, torch.float32)]:
         name = f"{where}_{str(dtype).split('.')[-1]}"
         x, bias, gamma, beta, gy = k4_inputs(shape, dtype, seed + len(out["cases"]), dev)
-        before = dict(bn.LAUNCHES)
+        check = k4_check(name, x, bias, gamma, beta, gy)
+        check_a, check_c = check["sum_check"]["stats"], check["sum_check"]["backward_reduce"]
         n = shape[0] * shape[2] * shape[3]
-        running = (torch.randn(shape[1], device=dev) * 0.3, torch.rand(shape[1], device=dev) + 0.5)
-        run = tuple(t.clone() for t in running)
+        running = run = (torch.zeros(shape[1], device=dev), torch.ones(shape[1], device=dev))
         stats = bn.batch_stats(x, bias, True)
-        y, vec = bn.bn_apply_train(x, bias, True, stats, gamma, beta, 1e-3, *run, 0.99)
-        sums = bn.backward_reduce(x, bias, True, gy, vec[0], vec[2])
-        dx, dbias = bn.backward_apply_train(x, bias, True, gy, stats, vec, sums, sums)
-        torch.cuda.synchronize()
-        if any(bn.LAUNCHES[k] != before[k] + 1 for k in K4_KINDS):
-            raise AssertionError(f"K4 {name}: launches {bn.LAUNCHES} after {before}")
-        if not bool((stats[2] == n).all()):
-            raise AssertionError(f"K4 {name}: (a)'s count row {stats[2].unique()} is not {n}")
-        vectors = k4_vector_check(name, x, bias, gy, gamma, beta, stats, vec, sums, dx, dbias,
-                                  running, run)
-        mean, rstd, mul = vec[0], vec[2], vec[3]
-        k1 = sums[0] / stats[2]
-        k2 = torch.where(vec[4] != 0, sums[1] / stats[2], 0.0)
-        y_plain = bn._apply_plain(x, bias, True, mean, mul, beta)
-        dx_plain = bn._backward_apply_plain(x, bias, True, gy, mean, rstd, mul, k1, k2)
-        if not (torch.equal(y, y_plain) and torch.equal(dx, dx_plain)):
-            raise AssertionError(f"K4 {name}: (b) or (d) differs from its plain version")
-        elt_err = {"apply": (y.float() - y_plain.float()).abs().max().item(),
-                   "backward_apply": (dx.float() - dx_plain.float()).abs().max().item()}
-        del y_plain, dx_plain
-        if bn.row_stride(y) != shape[1] or bn.row_stride(dx) != shape[1]:
-            raise AssertionError(f"K4 {name}: outputs not channels-last")
-        for _ in range(2):
-            if not (torch.equal(bn.batch_stats(x, bias, True), stats) and torch.equal(
-                    bn.backward_reduce(x, bias, True, gy, mean, rstd), sums)):
-                raise AssertionError(f"K4 {name}: a reduction changed from launch to launch")
-        c = shape[1]
-        unclipped = vec[4] != 0
-
-        def act():  # a as f32 [C, M], in the kernel's row order
-            return bn.activation(x, bias, True).float().permute(1, 0, 2, 3).reshape(c, -1)
-
-        def ahat():  # rounded as the kernel rounds it
-            return (act() - mean[:, None]) * rstd[:, None]
-
-        def grad():
-            return gy.permute(1, 0, 2, 3).reshape(c, -1).double()
-
-        def pos():
-            return act() > 0
-
-        check_a = k4_sum_check(f"{name} stats", stats[:2], bn._stats_plain(x, bias, True),
-                               [lambda: act().double(), lambda: act().double() ** 2],
-                               bn.reduce_plan(x, bn.row_stride(x)))
-        check_c = k4_sum_check(
-            f"{name} backward reduce", sums,
-            bn._backward_reduce_plain(x, bias, True, gy, mean, rstd),
-            [grad, lambda: grad() * ahat().double(),
-             lambda: torch.where(pos(), grad(), 0.0), lambda: pos().double(),
-             lambda: torch.where(pos(), ahat(), 0.0).double()],
-            bn.reduce_plan(x, bn.row_stride(x), gy, bn.row_stride(gy), 5))
-        torch.cuda.empty_cache()
-        clipped = int((~unclipped).sum())
-
-        invstd = rstd
+        vec = bn.bn_apply_train(x, bias, True, stats, gamma, beta, 1e-3)[1]
+        mean, rstd = vec[0], vec[2]
+        sums = bn.backward_reduce(x, bias, True, gy, mean, rstd)
         count = torch.tensor([n], dtype=torch.int32, device=dev)
-        running = (torch.zeros(shape[1], device=dev), torch.ones(shape[1], device=dev))
         xr = x.detach().requires_grad_()
         g_, b_ = gamma.detach().requires_grad_(), beta.detach().requires_grad_()
         y_lib = F.batch_norm(xr, running[0].clone(), running[1].clone(), g_, b_, True, 0.01, 1e-3)
@@ -1764,12 +1892,12 @@ def phase_batchnorm(seed: int, dev) -> dict:
             "plain_backward_apply": (lambda: bn._backward_apply_train_plain(
                 x, bias, True, gy, stats, vec, sums, sums), 3),
             "library_stats": (lambda: torch.batch_norm_stats(x, 1e-3), 10),
-            "library_apply": (lambda: torch.batch_norm_elemt(x, gamma, beta, mean, invstd, 1e-3),
+            "library_apply": (lambda: torch.batch_norm_elemt(x, gamma, beta, mean, rstd, 1e-3),
                               10),
             "library_backward_reduce": (lambda: torch.batch_norm_backward_reduce(
-                gy, x, mean, invstd, gamma, True, True, True), 10),
+                gy, x, mean, rstd, gamma, True, True, True), 10),
             "library_backward_apply": (lambda: torch.batch_norm_backward_elemt(
-                gy, x, mean, invstd, gamma, sums[0], sums[1], count), 10),
+                gy, x, mean, rstd, gamma, sums[0], sums[1], count), 10),
             "F.batch_norm_train_forward": (lambda: F.batch_norm(
                 x, running[0].clone(), running[1].clone(), gamma, beta, True, 0.01, 1e-3), 10),
             "F.batch_norm_eval_forward": (lambda: F.batch_norm(
@@ -1791,15 +1919,9 @@ def phase_batchnorm(seed: int, dev) -> dict:
         ms = {k: sum(v) / 2 for k, v in runs.items()}
         es = x.element_size()
         act = n * shape[1] * es
-        moved = {"stats": act, "apply": 2 * act, "backward_reduce": 2 * act,
-                 "backward_apply": 3 * act}
-        r = {"shape": list(shape), "dtype": str(dtype), "ms": ms, "ms_runs": runs,
-             "vectors": vectors,
-             "bytes": moved, "bound_ms": {k: b / HBM_BYTES_PER_S * 1e3 for k, b in moved.items()},
-             "max_abs_err": {"stats": check_a["max_abs_err"], **elt_err,
-                             "backward_reduce": check_c["max_abs_err"]},
-             "sum_check": {"stats": check_a, "backward_reduce": check_c},
-             "clipped_channels": clipped}
+        moved = {k: bench("work.k4").TENSORS[k] * act for k in K4_KINDS}
+        r = {"shape": list(shape), "dtype": str(dtype), "ms": ms, "ms_runs": runs, **check,
+             "bytes": moved, "bound_ms": {k: bytes_ms(b) for k, b in moved.items()}}
         r["share_of_bound"] = {k: r["bound_ms"][k] / ms[f"kernel_{k}"] for k in K4_KINDS}
         # a kernel too small for half its bound is held to its bound plus
         # an empty kernel's launch plus 2 us (reported, not gated: a time)
@@ -1812,9 +1934,10 @@ def phase_batchnorm(seed: int, dev) -> dict:
             f"{max(check_a['share_of_bound'], check_c['share_of_bound']):.3g} of the bound; "
             f"plain f32 sums within twice it; {check_a['faults_caught']} + "
             f"{check_c['faults_caught']} planted faults caught); deterministic; "
-            f"{clipped} channels clipped")
+            f"{check['clipped_channels']} channels clipped")
+        v = check["vectors"]
         log(f"  vectors: mean, var and mask bit-equal to finalize, group and none; rstd and "
-            f"mul {vectors['rstd_ulps']} and {vectors['mul_ulps']} ulps off torch.rsqrt's "
+            f"mul {v['rstd_ulps']} and {v['mul_ulps']} ulps off torch.rsqrt's "
             f"(gate {K4_RSQRT_ULPS}); running statistics, k1, k2 and dbias bit-equal")
         log("  ms: " + ", ".join(
             f"{k} {ms['kernel_' + k]:.4f} ({r['share_of_bound'][k]:.1%} of "
@@ -1825,7 +1948,7 @@ def phase_batchnorm(seed: int, dev) -> dict:
                 ms["F.batch_norm_train_forward"], ms["F.batch_norm_eval_forward"],
                 ms["F.batch_norm_backward"], ms["eager_train_forward"],
                 ms["eager_eval_forward"], ms["eager_backward"]))
-        del x, bias, gamma, beta, gy, y, dx, xr, y_lib, xe, y_eager, fns
+        del x, bias, gamma, beta, gy, xr, y_lib, xe, y_eager, fns
         torch.cuda.empty_cache()
     out["max_abs_err"] = {k: max(r["max_abs_err"][k] for r in out["cases"].values())
                           for k in K4_KINDS}
@@ -1835,30 +1958,34 @@ def phase_batchnorm(seed: int, dev) -> dict:
     return out
 
 
-def k4_forms(seed: int, dev) -> dict:
-    """K4's eval store forms at enc1b of a serving call (``K4_FORM_SHAPE``,
-    bf16, bias and ReLU on): the slice form (y into the first half of the
-    level's concat buffer) and the pooled form (also the 2x2/2 max), held bit
-    for bit to the eager ops they replace, (b) alone followed by
-    ``torch.cat`` with the deconv half and ``F.max_pool2d``; then each form,
-    (b) alone, the max pool and the concat timed in turns with the L2
-    flushed (:func:`events_ms_cold`), each beside its bytes at the card's
-    memory rate (slice: x and y; pooled: x, y and y/4; the pool: y and y/4;
-    the concat: both halves read and written). The old path's share of a
-    skip is (b) + the pool + half the concat."""
+def k4_form_inputs(seed: int, dev):
+    """(b)'s eval arguments at ``K4_FORM_SHAPE`` (bf16, bias and ReLU on,
+    running statistics), and the deconv's half of the concat buffer."""
     import torch
-    import torch.nn.functional as F
 
-    from tpuseg_torch.ops import batchnorm as bn
-
-    n, c, h, w = K4_FORM_SHAPE
+    c = K4_FORM_SHAPE[1]
     x, bias, gamma, beta, _ = k4_inputs(K4_FORM_SHAPE, torch.bfloat16, seed, dev)
     up = k4_inputs(K4_FORM_SHAPE, torch.bfloat16, seed + 1, dev)[0]
     g = torch.Generator(device=dev).manual_seed(seed + 2)
     rm = torch.randn(c, generator=g, device=dev) * 0.3
     rv = torch.rand(c, generator=g, device=dev) * 1.5 + 0.5
-    args = (x, bias, True, rm, rv, gamma, beta, 1e-3)
-    buf = torch.empty((n, 2 * c, h, w), dtype=x.dtype, device=dev,
+    return (x, bias, True, rm, rv, gamma, beta, 1e-3), up
+
+
+def k4_forms_check(args: tuple, up) -> dict:
+    """(b)'s eval store forms on ``k4_form_inputs``: the slice form (y into
+    the first half of the level's concat buffer), then the pooled form
+    (also the 2x2/2 max), held bit for bit to the eager ops they replace,
+    (b) alone followed by ``torch.cat`` with the deconv half and
+    ``F.max_pool2d``."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpuseg_torch.ops import batchnorm as bn
+
+    x = args[0]
+    n, c, h, w = x.shape
+    buf = torch.empty((n, 2 * c, h, w), dtype=x.dtype, device=x.device,
                       memory_format=torch.channels_last)
     y_old = bn.bn_apply_eval(*args)
     want_pool = F.max_pool2d(y_old, 2)
@@ -1877,8 +2004,30 @@ def k4_forms(seed: int, dev) -> dict:
     if not (slice_equal and pool_equal):
         raise AssertionError(f"K4's store forms differ from (b) + torch.cat + F.max_pool2d: "
                              f"slice {slice_equal}, pooled {pool_equal}")
-    del want_pool, want_cat, pooled
+    return {"bit_equal": True}
+
+
+def k4_forms(seed: int, dev) -> dict:
+    """K4's eval store forms at enc1b of a serving call (``K4_FORM_SHAPE``,
+    bf16, bias and ReLU on), checked (:func:`k4_forms_check`); then each form,
+    (b) alone, the max pool and the concat timed in turns with the L2
+    flushed (:func:`events_ms_cold`), each beside its bytes at the card's
+    memory rate (slice: x and y; pooled: x, y and y/4; the pool: y and y/4;
+    the concat: both halves read and written). The old path's share of a
+    skip is (b) + the pool + half the concat."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpuseg_torch.ops import batchnorm as bn
+
+    n, c, h, w = K4_FORM_SHAPE
+    args, up = k4_form_inputs(seed, dev)
+    check = k4_forms_check(args, up)
     torch.cuda.empty_cache()
+    x = args[0]
+    buf = torch.empty((n, 2 * c, h, w), dtype=x.dtype, device=dev,
+                      memory_format=torch.channels_last)
+    y_old = bn.bn_apply_eval(*args)
     fns = {"form_pool": lambda: bn.bn_apply_eval(*args, out=buf[:, :c], pool=True),
            "form_slice": lambda: bn.bn_apply_eval(*args, out=buf[:, :c]),
            "apply": lambda: bn.bn_apply_eval(*args),
@@ -1892,11 +2041,11 @@ def k4_forms(seed: int, dev) -> dict:
     act = n * c * h * w * x.element_size()
     moved = {"form_pool": 2.25 * act, "form_slice": 2 * act, "apply": 2 * act,
              "max_pool": 1.25 * act, "cat": 4 * act}
-    bound = {k: b / HBM_BYTES_PER_S * 1e3 for k, b in moved.items()}
+    bound = {k: bytes_ms(b) for k, b in moved.items()}
     old = ms["apply"] + ms["max_pool"] + ms["cat"] / 2
     out = {"shape": list(K4_FORM_SHAPE), "dtype": "torch.bfloat16", "ms": ms, "ms_runs": runs,
            "bound_ms": bound, "share_of_bound": {k: bound[k] / ms[k] for k in ms},
-           "old_skip_ms": old, "bit_equal": True}
+           "old_skip_ms": old, **check}
     log(f"K4 store forms {K4_FORM_SHAPE} bf16, bit-equal to (b) + torch.cat + F.max_pool2d; "
         "ms: " + ", ".join(f"{k} {ms[k]:.4f} ({out['share_of_bound'][k]:.1%} of "
                            f"{bound[k]:.4f})" for k in fns)
@@ -1909,24 +2058,147 @@ def k4_forms(seed: int, dev) -> dict:
 K4_TRAIN_FORM_SHAPE = (16, BASE, 512, 512)  # enc1b of a batch-16, 512^2 train step
 
 
+def k4_pooled_backward_check(x, bias, beta, gs, gp, stats, vec) -> dict:
+    """The pooled (c) and (d) of a skip's producer (bias and ReLU on; (a)'s
+    ``stats``, (b)'s ``vec``) on the slice's gradient ``gs`` and the pooled
+    output's ``gp``, against the eager path they replace (the pool's
+    backward on (b)'s y, autograd's add, (c) and (d)): one launch of (d) and
+    two of (c), the same bits, in the pooled form; the pooled gradient
+    bit-equal to ``_pooled_gradient``'s; the pooled (d) bit-equal to its
+    plain version given the same sums; the pooled (c)'s sums within the
+    bound of its own plan of the float64 sums of that gradient's terms
+    (:func:`k4_sum_check`: the plain pooled (c) within twice it, and (c) on
+    the slice's gradient alone, what a pooled (c) that dropped gp gives,
+    among the planted faults), and within 1e-4 of their largest of (c) on
+    the eager path's gradient, where gp dropped must fall outside."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpuseg_torch.ops import batchnorm as bn
+
+    c = x.shape[1]
+    mean, rstd, mul = vec[0], vec[2], vec[3]
+    before, forms = dict(bn.LAUNCHES), bn.TRAIN_FORMS["pooled_backward"]
+    sums = bn.backward_reduce(x, bias, True, gs, mean, rstd, mul, beta, gp=gp)
+    again = bn.backward_reduce(x, bias, True, gs, mean, rstd, mul, beta, gp=gp)
+    dx, dbias = bn.backward_apply_train(x, bias, True, gs, stats, vec, sums, sums, beta, gp=gp)
+    torch.cuda.synchronize()
+    launched = [bn.LAUNCHES[k] - before[k] for k in ("backward_reduce", "backward_apply")]
+    if launched != [2, 1] or bn.TRAIN_FORMS["pooled_backward"] != forms + 1:
+        raise AssertionError(f"K4's pooled backward: {launched} launches of (c) and (d), "
+                             f"{bn.TRAIN_FORMS['pooled_backward'] - forms} pooled")
+    want_dx, want_dbias = bn._backward_apply_train_plain(x, bias, True, gs, stats, vec, sums,
+                                                         sums, beta, gp=gp)
+    y = bn._apply_plain(x, bias, True, mean, mul, beta)
+    idx = F.max_pool2d(y, 2, return_indices=True)[1]
+    geff = gs + torch.ops.aten.max_pool2d_with_indices_backward(gp, y, [2, 2], [2, 2], [0, 0],
+                                                                [1, 1], False, idx)
+    checks = {"same_bits": torch.equal(sums, again),
+              "dx": torch.equal(bits(dx), bits(want_dx)) and torch.equal(dbias, want_dbias),
+              "pooled_gradient": torch.equal(
+                  bits(geff), bits(bn._pooled_gradient(x, bias, True, gs, gp, mean, mul, beta)))}
+    del y, idx, dx, want_dx, again
+    eager = bn.backward_reduce(x, bias, True, geff, mean, rstd)
+    dropped = bn.backward_reduce(x, bias, True, gs, mean, rstd)
+
+    def gap(a):
+        return float(((a - eager).abs() / eager.abs().amax(1, keepdim=True)).max())
+
+    sums_gap, dropped_gap = gap(sums), gap(dropped)
+    if not all(checks.values()) or sums_gap > 1e-4 or dropped_gap <= 1e-4:
+        raise AssertionError(f"K4's pooled backward differs from the eager path: {checks}, sums "
+                             f"{sums_gap:.3g} of their largest (gp dropped: {dropped_gap:.3g})")
+
+    def act():  # a as f32 [C, M], in the kernel's row order
+        return bn.activation(x, bias, True).float().permute(1, 0, 2, 3).reshape(c, -1)
+
+    def ahat():  # rounded as the kernel rounds it
+        return (act() - mean[:, None]) * rstd[:, None]
+
+    def grad():  # the pooled gradient, checked above to be the one the kernel forms
+        return geff.float().permute(1, 0, 2, 3).reshape(c, -1).double()
+
+    def pos():
+        return act() > 0
+
+    sum_check = k4_sum_check(
+        "pooled backward reduce", sums,
+        bn._backward_reduce_plain(x, bias, True, gs, mean, rstd, mul, beta, gp=gp),
+        [grad, lambda: grad() * ahat().double(), lambda: torch.where(pos(), grad(), 0.0),
+         lambda: pos().double(), lambda: torch.where(pos(), ahat(), 0.0).double()],
+        bn.reduce_plan(x, bn.row_stride(x), gs, bn.row_stride(gs), 5, gp=gp),
+        {"gp dropped": dropped.double()})
+    del geff
+    torch.cuda.empty_cache()
+    return {"checks": checks, "sums_gap": sums_gap, "dropped_gap": dropped_gap,
+            "sum_check": sum_check}
+
+
+def k4_train_forms_check(x, bias, gamma, beta, up, gcat, gp) -> dict:
+    """K4's train forms of a skip's producer (bias and ReLU on) and of the
+    deconv beside it (``up``, neither), against the eager path they
+    replace: (b)'s pooled form and the deconv's slice form write the concat
+    buffer (two launches, counted in ``TRAIN_FORMS``; each leaves the other
+    half as it was) and the pooled output bit-equal to ``torch.cat`` and
+    ``F.max_pool2d`` of (b)'s output without forms, with the same vectors
+    and running statistics, and that output to (b)'s plain version; then
+    the pooled backward on the concat buffer's gradient ``gcat`` and the
+    pooled output's ``gp`` (:func:`k4_pooled_backward_check`)."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpuseg_torch.ops import batchnorm as bn
+
+    n, c, h, w = x.shape
+    dev = x.device
+    stats, up_stats = bn.batch_stats(x, bias, True), bn.batch_stats(up, None, False)
+    run = [torch.rand(c, device=dev) + 0.5 for _ in range(4)]
+    want_run = [r.clone() for r in run]
+    y_old, want_vec = bn.bn_apply_train(x, bias, True, stats, gamma, beta, 1e-3, *want_run[:2],
+                                        0.99)
+    up_old, _ = bn.bn_apply_train(up, None, False, up_stats, gamma, beta, 1e-3, *want_run[2:],
+                                  0.99)
+    buf = torch.full((n, 2 * c, h, w), 7.0, dtype=x.dtype, device=dev).contiguous(
+        memory_format=torch.channels_last)
+    before, forms = bn.LAUNCHES["apply"], dict(bn.TRAIN_FORMS)
+    (y, pooled), vec = bn.bn_apply_train(x, bias, True, stats, gamma, beta, 1e-3, *run[:2], 0.99,
+                                         out=buf[:, :c], pool=True)
+    other_half = torch.equal(bits(buf[:, c:]), bits(torch.full_like(up_old, 7.0)))
+    bn.bn_apply_train(up, None, False, up_stats, gamma, beta, 1e-3, *run[2:], 0.99,
+                      out=buf[:, c:])
+    torch.cuda.synchronize()
+    counted = {k: bn.TRAIN_FORMS[k] - forms[k] for k in forms}
+    checks = {
+        "plain": torch.equal(bits(y_old), bits(bn._apply_plain(x, bias, True, want_vec[0],
+                                                               want_vec[3], beta))),
+        "launches": bn.LAUNCHES["apply"] == before + 2 and y.data_ptr() == buf.data_ptr()
+        and counted == {"slice": 2, "pool": 1, "pooled_backward": 0},
+        "other_half": other_half,
+        "concat": torch.equal(bits(buf), bits(torch.cat([y_old, up_old], 1))),
+        "pooled": bn.row_stride(pooled) == c
+        and torch.equal(bits(pooled), bits(F.max_pool2d(y_old, 2))),
+        "vectors": torch.equal(vec, want_vec)
+        and all(torch.equal(a, r) for a, r in zip(run, want_run))}
+    if not all(checks.values()):
+        raise AssertionError(f"K4's train forms differ from the eager path: {checks}")
+    del y_old, up_old, buf, y, pooled
+    torch.cuda.empty_cache()
+    res = k4_pooled_backward_check(x, bias, beta, gcat[:, :c], gp, stats, vec)
+    return {**res, "checks": {**checks, **res["checks"]}}
+
+
 def k4_train_forms(seed: int, dev) -> dict:
     """K4's train forms at enc1b of a batch-16, 512^2 train step
     (``K4_TRAIN_FORM_SHAPE``, bf16, bias and ReLU on) against the eager path
-    they replace: forward, (b) then ``F.max_pool2d`` with its indices and
-    half a ``torch.cat``, against (b)'s pooled form into the concat buffer;
-    backward, the pool's backward, autograd's add of the skip's two
-    gradients, (c) and (d), against the pooled (c) and (d). Checked: y and
-    the pooled output bit for bit, the pooled gradient (the pool's backward
-    plus the add) bit-equal to ``_pooled_gradient``'s, the pooled (d)
-    bit-equal to its plain version on its sums, the pooled (c)'s sums
-    against the float64 sums of that gradient's terms within the bound of
-    its own plan (:func:`k4_sum_check`, the plain pooled (c) against it too),
-    and the two paths' sums within 1e-4 of their largest, where (c) on the
-    slice's gradient alone (gp dropped) must fall outside. Then each call timed in turns with the L2 flushed
-    (:func:`events_ms_cold`), beside its bytes at the card's memory rate
-    (in activations: (b) 2 and pooled 2.25; the pool 1.25 + int64 indices
-    1; its backward 0.25 + 1 + 1; the add 3; (c) 2 and pooled 2.25; (d) 3
-    and pooled 3.25)."""
+    they replace (:func:`k4_train_forms_check`): forward, (b) then
+    ``F.max_pool2d`` with its indices and half a ``torch.cat``, against
+    (b)'s pooled form into the concat buffer; backward, the pool's
+    backward, autograd's add of the skip's two gradients, (c) and (d),
+    against the pooled (c) and (d). Then each call timed in turns with the
+    L2 flushed (:func:`events_ms_cold`), beside its bytes at the card's
+    memory rate (in activations: (b) 2 and pooled 2.25; the pool 1.25 +
+    int64 indices 1; its backward 0.25 + 1 + 1; the add 3; (c) 2 and pooled
+    2.25; (d) 3 and pooled 3.25)."""
     import torch
     import torch.nn.functional as F
 
@@ -1943,67 +2215,18 @@ def k4_train_forms(seed: int, dev) -> dict:
             0, 3, 1, 2)
 
     gcat, gp = rows(2 * c, h, w), rows(c, h // 2, w // 2)
+    check = k4_train_forms_check(x, bias, gamma, beta, up, gcat, gp)
     gs = gcat[:, :c]
     buf = torch.empty((n, 2 * c, h, w), dtype=bf16, device=dev, memory_format=torch.channels_last)
     stats = bn.batch_stats(x, bias, True)
     y, vec = bn.bn_apply_train(x, bias, True, stats, gamma, beta, 1e-3)
-    pooled, idx = F.max_pool2d(y, 2, return_indices=True)
-
-    def bits(t):
-        return t.contiguous().view(torch.int16)
-
-    (_, form_pooled), _ = bn.bn_apply_train(x, bias, True, stats, gamma, beta, 1e-3,
-                                            out=buf[:, :c], pool=True)
+    idx = F.max_pool2d(y, 2, return_indices=True)[1]
+    sums = bn.backward_reduce(x, bias, True, gs, vec[0], vec[2], vec[3], beta, gp=gp)
 
     def pool_backward():
         return torch.ops.aten.max_pool2d_with_indices_backward(gp, y, [2, 2], [2, 2], [0, 0],
                                                                [1, 1], False, idx)
 
-    geff = gs + pool_backward()
-    old_sums = bn.backward_reduce(x, bias, True, geff, vec[0], vec[2])
-    sums = bn.backward_reduce(x, bias, True, gs, vec[0], vec[2], vec[3], beta, gp=gp)
-    dx, _ = bn.backward_apply_train(x, bias, True, gs, stats, vec, sums, sums, beta, gp=gp)
-    want_dx, _ = bn._backward_apply_train_plain(x, bias, True, gs, stats, vec, sums, sums, beta,
-                                                gp=gp)
-    checks = {"y": torch.equal(bits(buf[:, :c]), bits(y)),
-              "pooled": torch.equal(bits(form_pooled), bits(pooled)),
-              "pooled_gradient": torch.equal(
-                  bits(geff), bits(bn._pooled_gradient(x, bias, True, gs, gp, vec[0], vec[3],
-                                                       beta))),
-              "dx": torch.equal(bits(dx), bits(want_dx))}
-    def gap(a):
-        return float(((a - old_sums).abs() / old_sums.abs().amax(1, keepdim=True)).max())
-
-    sums_gap = gap(sums)
-    # what a pooled (c) that dropped gp would give: the same check must fail it
-    dropped_gap = gap(bn.backward_reduce(x, bias, True, gs, vec[0], vec[2]))
-    if not all(checks.values()) or sums_gap > 1e-4 or dropped_gap <= 1e-4:
-        raise AssertionError(f"K4's train forms differ from the eager path: {checks}, sums "
-                             f"{sums_gap:.3g} of their largest (gp dropped: {dropped_gap:.3g})")
-    del want_dx, dx, form_pooled
-    torch.cuda.empty_cache()
-    mean, rstd = vec[0], vec[2]
-
-    def act():  # a as f32 [C, M], in the kernel's row order
-        return bn.activation(x, bias, True).float().permute(1, 0, 2, 3).reshape(c, -1)
-
-    def ahat():  # rounded as the kernel rounds it
-        return (act() - mean[:, None]) * rstd[:, None]
-
-    def grad():  # the pooled gradient, checked above to be the one the kernel forms
-        return geff.permute(1, 0, 2, 3).reshape(c, -1).double()
-
-    def pos():
-        return act() > 0
-
-    sum_check = k4_sum_check(
-        "train forms pooled backward reduce", sums,
-        bn._backward_reduce_plain(x, bias, True, gs, mean, rstd, vec[3], beta, gp=gp),
-        [grad, lambda: grad() * ahat().double(), lambda: torch.where(pos(), grad(), 0.0),
-         lambda: pos().double(), lambda: torch.where(pos(), ahat(), 0.0).double()],
-        bn.reduce_plan(x, bn.row_stride(x), gs, bn.row_stride(gs), 5, gp=gp))
-    del geff
-    torch.cuda.empty_cache()
     fns = {"apply": lambda: bn.bn_apply_train(x, bias, True, stats, gamma, beta, 1e-3),
            "form_pool": lambda: bn.bn_apply_train(x, bias, True, stats, gamma, beta, 1e-3,
                                                   out=buf[:, :c], pool=True),
@@ -2028,42 +2251,25 @@ def k4_train_forms(seed: int, dev) -> dict:
     moved = {"apply": 2, "form_pool": 2.25, "max_pool": 2.25, "cat": 4, "pool_backward": 2.25,
              "add": 3, "reduce": 2, "apply_backward": 3, "reduce_pooled": 2.25,
              "apply_backward_pooled": 3.25}
-    bound = {k: moved[k] * act / HBM_BYTES_PER_S * 1e3 for k in moved}
+    bound = {k: bytes_ms(moved[k] * act) for k in moved}
     old = {"forward": ms["apply"] + ms["max_pool"] + ms["cat"] / 2,
            "backward": ms["pool_backward"] + ms["add"] + ms["reduce"] + ms["apply_backward"]}
     new = {"forward": ms["form_pool"], "backward": ms["reduce_pooled"]
            + ms["apply_backward_pooled"]}
     out = {"shape": list(K4_TRAIN_FORM_SHAPE), "dtype": "torch.bfloat16", "ms": ms,
            "ms_runs": runs, "bound_ms": bound, "share_of_bound": {k: bound[k] / ms[k] for k in ms},
-           "old_ms": old, "new_ms": new, "checks": checks, "sums_gap": sums_gap,
-           "dropped_gap": dropped_gap, "sum_check": sum_check}
+           "old_ms": old, "new_ms": new, **check}
     log(f"K4 train forms {K4_TRAIN_FORM_SHAPE} bf16, checked; ms: "
         + ", ".join(f"{k} {ms[k]:.4f} ({out['share_of_bound'][k]:.1%} of {bound[k]:.4f})"
                     for k in fns)
         + f"; a skip's forward {old['forward']:.4f} -> {new['forward']:.4f}, backward "
           f"{old['backward']:.4f} -> {new['backward']:.4f}; pooled (c) at "
-          f"{sum_check['share_of_bound']:.3g} of its bound (depth {sum_check['depth']}), sums "
-          f"{sums_gap:.3g} off the eager path's (gp dropped: {dropped_gap:.3g})")
+          f"{check['sum_check']['share_of_bound']:.3g} of its bound (depth "
+          f"{check['sum_check']['depth']}), sums {check['sums_gap']:.3g} off the eager path's "
+          f"(gp dropped: {check['dropped_gap']:.3g})")
     del x, up, buf, y, idx, gcat, gp, fns, pooled_grad
     torch.cuda.empty_cache()
     return out
-
-
-def make_model(seed: int):
-    """Full-width U-Net (base 64, 1 channel, 2 classes) with Keras-init
-    random weights and jittered BN running statistics, from ``seed``."""
-    import torch
-
-    from tpuseg_torch.models.unet import UNet, init_unet
-
-    g = torch.Generator().manual_seed(seed)
-    model = init_unet(UNet(NCLS, 1, BASE, dtype=torch.float32), g)
-    with torch.no_grad():
-        for m in model.modules():
-            if isinstance(m, torch.nn.BatchNorm2d):
-                m.running_mean.copy_(torch.randn(m.num_features, generator=g) * 0.3)
-                m.running_var.copy_(torch.rand(m.num_features, generator=g) * 1.5 + 0.5)
-    return model.eval()
 
 
 def write_images(folder: str, seed: int) -> dict:
@@ -2280,6 +2486,7 @@ def phase_main(seed: int, work: str, dev, card: str) -> dict:
     from tpuseg_torch.infer.runner import InferenceConfig, _quantized_predict_fn
     from tpuseg_torch.infer.tiled import (inference_single_batch, inference_tiled,
                                           make_predict_fn)
+    from tpuseg_torch.models.unet import UNet
     from tpuseg_torch.ops import batchnorm as bn_mod
     from tpuseg_torch.utils.checkpoint import load_model, save_model
     from tpuseg_torch.utils.imagio import imread
@@ -2287,13 +2494,28 @@ def phase_main(seed: int, work: str, dev, card: str) -> dict:
     res: dict = {}
     imgdir = os.path.join(work, "images")
     shapes = write_images(imgdir, seed)
-    ckpt = os.path.join(work, "model.pt")
-    model = make_model(seed)
-    save_model(ckpt, model)
-    res["reference"] = phase_reference(model, seed, dev)
     big = imread(os.path.join(imgdir, "big.tif"))
-    res["head_shift"] = balance_model(ckpt, big, dev)
-    log(f"balanced model: head BatchNorm shift for class 1 moved by {res['head_shift']:.4f}")
+    # the benchmark's seeded weights (Keras init, jittered running
+    # statistics) with its head shaped over the centre of ``big``: about
+    # half the pixels take each class, many near a tie, so the masks
+    # compared below and in phases 7-8 can differ where they would
+    with open(os.path.join(BENCH, "configs", "unet-nist-bf16.json")) as f:
+        cfg = json.load(f)
+    weights = bench("harness.weights").make(cfg, seed, dev)
+    res["head"] = bench("drivers.serve_tiled").shape_head(cfg, weights, [big], TILE, dev)
+    model = UNet(NCLS, 1, BASE, dtype=torch.float32)
+    missing, unexpected = model.load_state_dict({k: v.cpu() for k, v in weights.items()},
+                                                strict=False)
+    if unexpected or any(not k.endswith("num_batches_tracked") for k in missing):
+        raise AssertionError(f"the benchmark's weights do not fit the model: missing {missing}, "
+                             f"unexpected {unexpected}")
+    del weights
+    model.eval()
+    ckpt = os.path.join(work, "model.pt")
+    save_model(ckpt, model)
+    log(f"shaped head: class-1 shift {res['head']['head_shift']:.4f}, bias lift "
+        f"{res['head']['head_lift']}")
+    res["reference"] = phase_reference(model, seed, dev)
     cal = os.path.join(work, "cal.json")
     common = ["--checkpoint_filepath", ckpt, "--image_folder", imgdir,
               "--number_classes", str(NCLS), "--number_channels", "1",
@@ -2688,38 +2910,36 @@ def phase_train_reference(seed: int, dev) -> dict:
     return res
 
 
-def blob_pair(rng, n: int, width: int = 0):
-    """An n x width (default n^2) uint16 image and its uint8 mask: the mask
-    thresholds a smoothed random field (blobs) and the image is brighter
-    inside them, under smooth and pixel noise: a learnable task."""
+def blob_pairs(n: int, height: int, width: int, seed: int) -> list:
+    """``n`` of the benchmark's learnable pairs (``traffic/blobs.py``: a
+    uint16 image brighter inside the blobs of its uint8 mask, under smooth
+    and pixel noise), made on the card from ``seed`` and cut to ``height``
+    x ``width``, as numpy ``(image, mask)`` pairs."""
     import numpy as np
-    from scipy.ndimage import gaussian_filter
+    import torch
 
-    shape = (n, width or n)
-    field = gaussian_filter(rng.normal(0, 1, shape), 12)
-    msk = (field > 0).astype(np.uint8)
-    shade = gaussian_filter(rng.normal(0, 1, shape), 40)
-    img = 2000.0 + 1200.0 * msk + 400.0 * shade / shade.std() + rng.normal(0, 250, shape)
-    return np.clip(img, 0, 65535).astype(np.uint16), msk
+    dev = "cuda" if torch.cuda.is_available() else "cpu"
+    img, msk = bench("traffic.blobs").make_pool({"pool": n, "size": max(height, width)}, seed,
+                                                dev)
+    img = img[:, :height, :width, 0].cpu().numpy().astype(np.uint16)
+    return list(zip(img, msk[:, :height, :width].cpu().numpy()))
 
 
 def write_train_dbs(work: str, seed: int, size: int = TRAIN_SIZE, n_train: int = N_TRAIN,
                     n_test: int = N_TEST):
-    """``n_train`` + ``n_test`` records of ``size``^2 ``blob_pair``s in
+    """``n_train`` + ``n_test`` records of ``size``^2 :func:`blob_pairs` in
     ``work``, in the record layout of bench.py (keys tileNNNN:0,1)."""
-    import numpy as np
-
     from tpuseg_torch.data.build_db import serialize_image_mask_pair
     from tpuseg_torch.data.recordstore import RecordWriter
 
-    rng = np.random.default_rng(seed + 3)
+    pairs = iter(blob_pairs(n_train + n_test, size, size, seed + 3))
     paths = []
     os.makedirs(work, exist_ok=True)
     for name, n in (("train", n_train), ("test", n_test)):
         path = os.path.join(work, f"{name}.lmdb")
         with RecordWriter(path) as w:
             for i in range(n):
-                w.put(f"tile{i:04d}:0,1", serialize_image_mask_pair(*blob_pair(rng, size)))
+                w.put(f"tile{i:04d}:0,1", serialize_image_mask_pair(*next(pairs)))
         paths.append(path)
     return paths
 
@@ -3467,11 +3687,10 @@ def phase_slide_data(seed: int, work: str, dev) -> dict:
     folders = {k: os.path.join(work, f"slide_{k}") for k in ("images", "masks")}
     for d in folders.values():
         os.makedirs(d, exist_ok=True)
-    rng = np.random.default_rng(seed + 5)
     masks = {}
-    for i in range(N_SLIDES):
+    for i, (img, msk) in enumerate(blob_pairs(N_SLIDES, SLIDE, SLIDE, seed + 5)):
         name = f"slide{i}.tif"
-        img, masks[name] = blob_pair(rng, SLIDE)
+        masks[name] = msk
         write_bigtiff(os.path.join(folders["images"], name), img, tile=(STREAM_TILE, STREAM_TILE))
         write_bigtiff(os.path.join(folders["masks"], name), masks[name],
                       tile=(STREAM_TILE, STREAM_TILE))
@@ -3542,33 +3761,6 @@ def phase_slide_data(seed: int, work: str, dev) -> dict:
     if not (np.isfinite(result.train_losses).all() and np.isfinite(result.test_loss).all()):
         raise AssertionError(f"non-finite losses: {result.train_losses} {result.test_loss}")
     return res
-
-
-def balance_model(ckpt: str, big, dev) -> float:
-    """The random U-Net labels nearly every pixel of ``big`` 0. Move the
-    head's BatchNorm shift for class 1 by the median logit margin over the
-    centre of ``big`` (f32, on the card) and save the result over ``ckpt``:
-    about half the pixels then take each class, many near a tie, so the
-    masks compared in phases 4 and 7 can differ where they would. Returns
-    the shift."""
-    import numpy as np
-    import torch
-
-    from tpuseg_torch.data.preprocess import zscore_stats
-    from tpuseg_torch.infer.tiled import _zscore
-    from tpuseg_torch.utils.checkpoint import load_model, save_model
-
-    model = load_model(ckpt, dtype="float32", device=dev)
-    mean, std = (torch.from_numpy(np.asarray(s, np.float32).reshape(-1)).to(dev)
-                 for s in zscore_stats(big))
-    c, h = BIG // 2, TILE // 2
-    crop = torch.from_numpy(big[c - h:c + h, c - h:c + h].astype(np.float32)).to(dev)
-    with torch.no_grad():
-        logits = model(_zscore(crop[None, ..., None], mean, std))
-        shift = (logits[..., 0] - logits[..., 1]).median().item()
-        model.head.bn.bias[1] += shift
-    save_model(ckpt, model)
-    return shift
 
 
 def phase_stream(seed: int, work: str, dev, radius: int) -> dict:
@@ -3892,8 +4084,7 @@ def dp_worker(rank: int, world: int, port: int, seed: int, out_path: str,
         mesh = mesh_lib.make_mesh(dev, spatial=spatial)
         tstep, estep = mesh_lib.make_parallel_raw_steps(state.model, mesh, NCLS,
                                                         shard_optimizer=world > 1, state=state)
-        rng = np.random.default_rng(seed + 9)
-        pairs = [blob_pair(rng, height, DP_SIZE) for _ in range(DP_STEPS * 2 * DP_BATCH)]
+        pairs = blob_pairs(DP_STEPS * 2 * DP_BATCH, height, DP_SIZE, seed + 9)
         per = 2 * DP_BATCH // mesh.data
 
         def batch(step):
@@ -4088,7 +4279,6 @@ def phase_multigpu_gloo(seed: int, work: str, dev) -> dict:
     order) pass through the f32 variance E[x^2] - E[x]^2, which cancels on
     channels whose mean is large against their spread, and Keras Adam's
     normalized update and the following steps amplify what is left."""
-    import numpy as np
     import torch
 
     port = free_port()
@@ -4173,7 +4363,6 @@ def phase_multigpu_serving(seed: int, work: str, dev, main_res: dict) -> dict:
     calibration scales equal on both ranks)."""
     import copy
 
-    import numpy as np
     import torch
 
     from tpuseg_torch.data.preprocess import zscore_stats
@@ -4906,10 +5095,10 @@ def main() -> int:
     })
     enc1 = k4["cases"]["enc1_bfloat16"]
     library_calls = {"stats": "torch.batch_norm_stats(x, eps)",
-                     "apply": "torch.batch_norm_elemt(x, gamma, beta, mean, invstd, eps)",
-                     "backward_reduce": "torch.batch_norm_backward_reduce(g, x, mean, invstd, "
+                     "apply": "torch.batch_norm_elemt(x, gamma, beta, mean, rstd, eps)",
+                     "backward_reduce": "torch.batch_norm_backward_reduce(g, x, mean, rstd, "
                                         "gamma, True, True, True)",
-                     "backward_apply": "torch.batch_norm_backward_elemt(g, x, mean, invstd, "
+                     "backward_apply": "torch.batch_norm_backward_elemt(g, x, mean, rstd, "
                                        "gamma, sum_dy, sum_dy_xmu, count)"}
     for kind in K4_KINDS:
         kernels.append({

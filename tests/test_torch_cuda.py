@@ -1,10 +1,15 @@
 """Tests that need the card: the CUDA kernels against their plain PyTorch
 versions. They skip without an NVIDIA card (a CUDA kernel has no CPU mode).
+At the main path's shapes they call ``chip_smoke.py``'s checks, the ones
+its kernel phases run before they time each kernel.
 
 This file imports no jax, so it also runs where jax is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
+
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -14,6 +19,9 @@ from tpuseg_torch.infer import head_kernel
 from tpuseg_torch.infer import input_conv as k5
 from tpuseg_torch.infer import int8_conv as k3
 from tpuseg_torch.ops import batchnorm as k4
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+import chip_smoke as smoke  # noqa: E402
 
 
 @pytest.fixture
@@ -92,6 +100,12 @@ def test_head_kernel_mma_serving_width(cuda, fp):
     """The serving width (C4 = 256, ncls = 2) at a small b, h, w whose
     widths are not multiples of 16 (3*40*37 = 4440 pixels)."""
     _check_mma_case(cuda, 2, fp, 11, 3, 40, 37, 256)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fp", [True, False])
+def test_head_kernel_at_the_serving_shape(cuda, fp):
+    smoke.k2_check(fp, *smoke.head_inputs(fp, 0, cuda))
 
 
 @pytest.mark.cuda
@@ -181,6 +195,14 @@ def test_dense_head_kernel_matches_plain(cuda, shape, ncls, variant):
         assert (got == want).float().mean().item() >= 0.999
     else:
         assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fp", [True, False])
+def test_dense_head_kernel_at_the_dense_walk_shape(cuda, fp):
+    x, sv, wt, epi = smoke.dense_head_inputs(fp, 0, cuda)
+    op = None if fp else k3.Int8ConvWeights(np.ascontiguousarray(wt.cpu().numpy().T[None, None]))
+    smoke.k6_check(fp, x, sv, wt, epi, op)
 
 
 @pytest.mark.cuda
@@ -400,6 +422,22 @@ def test_int8_conv_empty_skip_list(cuda, route, bn, mode):
     counts = op.kernel(cuda).host_counts[bn]
     assert counts[-1] == 0
     _k3_route_check(cuda, x, op, epi, route, bn)
+
+
+_K3_WALK_BLOCKS = smoke.k3_blocks() + smoke.K3_DENSE_FORM_BLOCKS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", _K3_WALK_BLOCKS, ids=[b[0] for b in _K3_WALK_BLOCKS])
+def test_int8_conv_at_the_walks_block_shapes(cuda, block):
+    """Each block of a predict call, and the dense walk's two form blocks,
+    through both routes and in its store forms."""
+    name, shape, k, cout, mode = block
+    x, op, epi = smoke.k3_inputs(name, shape, k, cout, mode, 0, cuda)
+    smoke.k3_check(name, x, op, epi)
+    form = smoke.k3_form(name, cout)
+    if form is not None:
+        smoke.k3_form_check(name, x, op, epi, form, 1, cuda)
 
 
 @pytest.mark.cuda
@@ -800,6 +838,20 @@ def test_input_conv_kernel_scales_outside_the_reciprocal_range(cuda, scale):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("blocked", [False, True])
+@pytest.mark.parametrize("c", [1, 3])
+def test_input_conv_kernel_at_the_serving_shape(cuda, c, blocked):
+    smoke.k5_check(smoke.k5_inputs(c, c, cuda), torch.bfloat16, blocked)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["phase2_scale_every_value", "random_scales"])
+def test_input_conv_requant_every_value_and_many_scales(cuda, case):
+    so = smoke.k5_inputs(1, 1, cuda)[5]
+    smoke.k5_division_check(*smoke.k5_division_cases(so, 0, cuda)[case])
+
+
+@pytest.mark.cuda
 def test_input_conv_kernel_back_to_back_shapes(cuda):
     """Two launches of different shapes and plans queued on one stream, no
     synchronisation between them."""
@@ -887,6 +939,11 @@ def test_shear_kernel_bit_equal_to_plain(cuda, n, h, wp, w):
     want = warp._shear_rows_plain(img, shift, frac, w)
     assert got.shape == (n, h, w) and got.dtype == torch.float32
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_shear_kernel_at_the_training_shape(cuda):
+    smoke.k1_check(*smoke.shear_inputs(0, cuda), smoke.SHEAR_W)
 
 
 @pytest.mark.cuda
@@ -1055,25 +1112,6 @@ def _k4_case(shape, dtype, seed, dev, bias, strided):
     return x, g, b, vec
 
 
-def _within_sum_bound(got, terms, plan):
-    """|got - sum| <= gamma_d * sum |t| per row of sums, d the most f32
-    additions between a term and its sum in the library's plan (at most
-    M - 1), the exact sum taken in float64 of exact float64 terms [K, C, M];
-    and a dropped first block or any one sum zeroed falls outside it."""
-    exact, mag = terms.sum(-1), terms.abs().sum(-1)
-    d = max(min(plan["depth"], terms.shape[-1] - 1), 1)
-    bound = d * 2.0 ** -24 / (1 - d * 2.0 ** -24) * mag
-
-    def within(sums):
-        return bool(((sums.double() - exact).abs() <= bound).all())
-
-    faults = [got.double() - terms[..., :plan["rows_per_block"]].sum(-1)]
-    for k in range(got.shape[0]):
-        faults.append(got.double().clone())
-        faults[-1][k] = 0
-    return within(got) and not any(within(f) for f in faults)
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("relu, bias", [(True, True), (False, False)])
@@ -1085,7 +1123,7 @@ def _within_sum_bound(got, terms, plan):
 def test_batchnorm_kernels_match_plain(cuda, shape, strided, relu, bias, dtype):
     """(b) and (d) bit-equal to their plain versions given the same vectors,
     (a) and (c) within the bound of their summation, which planted faults
-    fail, and (a)'s count row n; odd M (105, 81 and 2310 rows), C 1, 2 (the
+    fail (``chip_smoke.k4_sum_check``), and (a)'s count row n; odd M (105, 81 and 2310 rows), C 1, 2 (the
     head) and 4 (the packed narrow path where the rows divide 16 bytes,
     its last load masked; one element a thread where g is a channel
     slice), 3, 24 (not a multiple of 8: bf16's narrow path), 64, 200 (4
@@ -1106,8 +1144,8 @@ def test_batchnorm_kernels_match_plain(cuda, shape, strided, relu, bias, dtype):
     assert stats.shape == (3, shape[1])
     assert (stats[2] == shape[0] * shape[2] * shape[3]).all()
     ad = a.double()
-    assert _within_sum_bound(stats[:2], torch.stack([ad, ad * ad]),
-                             k4.reduce_plan(x, k4.row_stride(x)))
+    smoke.k4_sum_check("stats", stats[:2], None, [lambda: ad, lambda: ad * ad],
+                       k4.reduce_plan(x, k4.row_stride(x)))
     gf = g.float().permute(1, 0, 2, 3).reshape(shape[1], -1).double()
     ah = ((a - v["mean"][:, None]) * v["rstd"][:, None]).double()
     terms = [gf, gf * ah]
@@ -1115,8 +1153,8 @@ def test_batchnorm_kernels_match_plain(cuda, shape, strided, relu, bias, dtype):
         m = (a > 0) if relu else torch.ones_like(a, dtype=torch.bool)
         terms += [torch.where(m, gf, 0.0), m.double(), torch.where(m, ah, 0.0)]
     assert sums.shape == (len(terms), shape[1])
-    assert _within_sum_bound(sums, torch.stack(terms),
-                             k4.reduce_plan(x, k4.row_stride(x), g, k4.row_stride(g), len(terms)))
+    smoke.k4_sum_check("backward reduce", sums, None, [lambda t=t: t for t in terms],
+                       k4.reduce_plan(x, k4.row_stride(x), g, k4.row_stride(g), len(terms)))
 
 
 def _ulps(a, b) -> int:
@@ -1203,6 +1241,13 @@ def test_train_conv_bn_on_card_issues_only_k4(cuda):
                         "view", "as_strided", "detach"}, sorted(set(ops))
     assert k4.LAUNCHES == {"stats": 1, "apply": 1, "backward_reduce": 1, "backward_apply": 1}
     assert x.grad is not None and b.grad is not None and norm.weight.grad is not None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("where", sorted(smoke.K4_SHAPES))
+def test_batchnorm_at_the_train_path_shapes(cuda, where, dtype):
+    smoke.k4_check(where, *smoke.k4_inputs(smoke.K4_SHAPES[where], dtype, 0, cuda))
 
 
 @pytest.mark.cuda
@@ -1324,6 +1369,11 @@ def test_batchnorm_store_forms_bit_equal_to_plain(cuda, shape, dtype, nan):
 
 
 @pytest.mark.cuda
+def test_batchnorm_eval_forms_at_the_serving_shape(cuda):
+    smoke.k4_forms_check(*smoke.k4_form_inputs(0, cuda))
+
+
+@pytest.mark.cuda
 def test_batchnorm_store_forms_refused(cuda):
     x, _, b, stats = _k4_eval_case((2, 8, 6, 10), torch.bfloat16, 1, cuda, False)
     odd = _k4_eval_case((2, 8, 5, 10), torch.bfloat16, 1, cuda, False)[0]
@@ -1423,61 +1473,9 @@ def test_batchnorm_train_forms_bit_equal_to_plain(cuda, shape, dtype):
     """At enc1b-enc3b's and dec1up-dec3up's shapes of a batch-16, 512^2
     train step and at ragged even shapes (C 24 and 3: one element a thread;
     C 4: the packed width, which the forms take one element a thread; C
-    200: a partial channel tile): (b)'s train forms write the concat buffer
-    and the pooled output bit-equal to ``torch.cat`` and ``F.max_pool2d`` of
-    (b)'s output without forms, with the same vectors and running
-    statistics, and to (b)'s plain version on those vectors; the pooled (d)
-    bit-equal to its plain version given the same sums; the pooled (c)
-    within its summation bound of the exact sums of ``_pooled_gradient``'s
-    terms (planted faults outside it) and the same bits twice. One launch
-    of each kernel."""
-    import torch.nn.functional as F
-
-    n, c, h, w = shape
+    200: a partial channel tile): ``chip_smoke.k4_train_forms_check``."""
     x, up, b, gamma, beta, gcat, gp = _k4_train_case(shape, dtype, sum(shape), cuda)
-    stats, up_stats = k4.batch_stats(x, b, True), k4.batch_stats(up, None, False)
-    run = [torch.rand(c, device=cuda) + 0.5 for _ in range(4)]
-    want_run = [r.clone() for r in run]
-    y_old, want_vec = k4.bn_apply_train(x, b, True, stats, gamma, beta, 1e-3, *want_run[:2], 0.99)
-    up_old, _ = k4.bn_apply_train(up, None, False, up_stats, gamma, beta, 1e-3, *want_run[2:],
-                                  0.99)
-    assert torch.equal(_bits(y_old), _bits(k4._apply_plain(x, b, True, want_vec[0], want_vec[3],
-                                                           beta)))
-    buf = torch.full((n, 2 * c, h, w), 7.0, dtype=dtype, device=cuda).contiguous(
-        memory_format=torch.channels_last)
-    k4.reset_counts()
-    (y, pooled), vec = k4.bn_apply_train(x, b, True, stats, gamma, beta, 1e-3, *run[:2], 0.99,
-                                         out=buf[:, :c], pool=True)
-    assert torch.equal(_bits(buf[:, c:]), _bits(torch.full_like(up_old, 7.0)))
-    k4.bn_apply_train(up, None, False, up_stats, gamma, beta, 1e-3, *run[2:], 0.99,
-                      out=buf[:, c:])
-    torch.cuda.synchronize()
-    assert k4.LAUNCHES["apply"] == 2 and y.data_ptr() == buf.data_ptr()
-    assert k4.TRAIN_FORMS == {"slice": 2, "pool": 1, "pooled_backward": 0}
-    assert torch.equal(_bits(buf), _bits(torch.cat([y_old, up_old], 1)))
-    assert k4.row_stride(pooled) == c
-    assert torch.equal(_bits(pooled), _bits(F.max_pool2d(y_old, 2)))
-    assert torch.equal(vec, want_vec) and all(torch.equal(a, r) for a, r in zip(run, want_run))
-
-    g = gcat[:, :c]
-    sums = k4.backward_reduce(x, b, True, g, vec[0], vec[2], vec[3], beta, gp=gp)
-    again = k4.backward_reduce(x, b, True, g, vec[0], vec[2], vec[3], beta, gp=gp)
-    dx, dbias = k4.backward_apply_train(x, b, True, g, stats, vec, sums, sums, beta, gp=gp)
-    torch.cuda.synchronize()
-    assert k4.LAUNCHES["backward_reduce"] == 2 and k4.LAUNCHES["backward_apply"] == 1
-    assert k4.TRAIN_FORMS["pooled_backward"] == 1 and torch.equal(sums, again)
-    want_dx, want_dbias = k4._backward_apply_train_plain(x, b, True, g, stats, vec, sums, sums,
-                                                         beta, gp=gp)
-    assert torch.equal(_bits(dx), _bits(want_dx)) and torch.equal(dbias, want_dbias)
-    geff = k4._pooled_gradient(x, b, True, g, gp, vec[0], vec[3], beta)
-    a = k4.activation(x, b, True).float().permute(1, 0, 2, 3).reshape(c, -1)
-    gf = geff.float().permute(1, 0, 2, 3).reshape(c, -1).double()
-    ah = ((a - vec[0][:, None]) * vec[2][:, None]).double()
-    m = a > 0
-    terms = torch.stack([gf, gf * ah, torch.where(m, gf, 0.0), m.double(),
-                         torch.where(m, ah, 0.0)])
-    del a, gf, ah, m, geff
-    assert _within_sum_bound(sums, terms, k4.reduce_plan(x, c, g, 2 * c, 5, gp))
+    smoke.k4_train_forms_check(x, b, gamma, beta, up, gcat, gp)
 
 
 @pytest.mark.cuda
@@ -1528,3 +1526,12 @@ def test_unet_train_forms_on_card(cuda, dtype, monkeypatch):
             for (name, p), q in zip(forms.named_parameters(), swapped.parameters())}
     print("largest gradient gaps:", sorted(gaps.items(), key=lambda kv: -kv[1])[:4])
     assert max(gaps.values()) <= tol
+
+
+@pytest.mark.cuda
+def test_unet_train_steps_through_k4_and_its_plain_versions(cuda):
+    from tpuseg_torch.aug.device import DeviceAugmentParams
+
+    spec = {"pool": smoke.TRAIN_BATCH, "size": smoke.TRAIN_SIZE}
+    raw_img, raw_msk = smoke.bench("traffic.blobs").make_pool(spec, 3, cuda)
+    smoke.k4_parity(0, cuda, raw_img, raw_msk, DeviceAugmentParams())

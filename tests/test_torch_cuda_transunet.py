@@ -8,11 +8,17 @@ This file imports no jax, so it also runs where jax is not installed:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda_transunet.py
 """
 
+import os
+import sys
+
 import pytest
 import torch
 
 from tpuseg_torch.models import transunet as tu
 from tpuseg_torch.ops import batchnorm as k4
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+import chip_smoke as smoke  # noqa: E402
 
 TINY = dict(width=32, block_units=(1, 1, 1), hidden=64, num_layers=2, num_heads=4, mlp_dim=128,
             img_size=64)
@@ -80,6 +86,17 @@ def test_k4_after_matches_plain(cuda, shape, grad_rows, dtype):
     dxe = k4.backward_apply(x, None, after, gy, rm, rs, rs * gamma, zero, zero, beta)
     assert torch.equal(dxe, k4._backward_apply_plain(x, None, after, gy, rm, rs, rs * gamma,
                                                      zero, zero, beta))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where, dtype", smoke.K4_AFTER_CASES,
+                         ids=[f"{k}-{d}" for k, d in smoke.K4_AFTER_CASES])
+def test_k4_after_at_the_decoder_shapes(cuda, where, dtype):
+    """The decoder's batch-16, 512^2 shapes, then the packed narrow path
+    and the element path: ``chip_smoke.k4_after_check``."""
+    shape = smoke.K4_AFTER_SHAPES[where]
+    x, _, gamma, beta, gy = smoke.k4_inputs(shape, getattr(torch, dtype), 100, cuda)
+    smoke.k4_after_check(f"{where}_{dtype}", x, gamma, beta, gy)
 
 
 @pytest.mark.cuda

@@ -14,6 +14,7 @@ compare.
   tags and steps of tpuseg's tensorboardX files for the same config.
 """
 
+import contextlib
 import glob
 import json
 import os
@@ -133,9 +134,57 @@ def test_kernel_groups():
     assert trace_analysis.kernel_group(
         "void head_mma_kernel<true, 1, true>(...)") == "K2 head_argmax"
     assert trace_analysis.kernel_group("sm90_xmma_fprop_implicit_gemm") == "cuDNN / GEMM"
+    assert trace_analysis.kernel_group(
+        "ncclDevKernel_AllReduce_Sum_f32_RING_LL(ncclDevComm*, unsigned long, ncclWork*)") == "NCCL"
     assert trace_analysis.kernel_group("something_else") == "other"
     with pytest.raises(IOError, match="profile_steps"):
         trace_analysis.analyze(os.path.dirname(os.path.abspath(__file__)) + "/no-such-dir")
+
+
+class _StubLibrary:
+    """A loaded library's stand-in: one C function that records its
+    arguments and returns ``err``, and the error-string entry."""
+
+    def __init__(self, err):
+        self.err, self.calls = err, []
+
+    def tpuseg_stub(self, *args):
+        self.calls.append(args)
+        return self.err
+
+    def tpuseg_cuda_error_string(self, err):
+        return f"stub error {err}".encode()
+
+
+@pytest.mark.parametrize("err", [0, 2])
+@pytest.mark.parametrize("index, guarded", [(0, False), (None, False), (1, True)],
+                         ids=["current", "no_index", "other"])
+def test_launch_path(monkeypatch, index, guarded, err):
+    """``build.launch`` on a stub library, no card: the stream handle goes
+    last, a device guard is entered only for a device that is not the
+    current one, and a non-zero return raises with the caller's text, the
+    library's message, the code and the caller's note."""
+    from tpuseg_torch.kernels import build
+
+    lib = _StubLibrary(err)
+    guards = []
+    monkeypatch.setitem(build._LIBS, "stub", lib)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda device: guards.append(device) or contextlib.nullcontext())
+    dev = torch.device("cuda", index) if index is not None else torch.device("cuda")
+    args = ("stub", "tpuseg_stub", dev, 1234, 7, 8.5, None)
+    if err:
+        with pytest.raises(RuntimeError) as info:
+            build.launch(*args, what="stub kernel launch failed", note="; a note")
+        assert str(info.value) == "stub kernel launch failed: stub error 2 (2; a note)"
+    else:
+        build.launch(*args, what="stub kernel launch failed")
+    assert lib.calls == [(7, 8.5, None, 1234)]
+    assert guards == ([dev] if guarded else [])
+    build.check(lib, 0, "never raised")
+    with pytest.raises(RuntimeError, match=r"^plan failed: stub error 9 \(9\)$"):
+        build.check(lib, 9, "plan failed")
 
 
 def _accumulate(folder):

@@ -145,22 +145,16 @@ def _check(x, sv, wt, epi, ncls: int, fp: bool) -> None:
 
 def _launch(x, sv, wt, epi, ncls: int, fp: bool) -> torch.Tensor:
     global LAUNCHES, LAST_ROUTE
-    from tpuseg_torch.kernels.build import load
+    from tpuseg_torch.kernels.build import current_stream, launch
 
     _check(x, sv, wt, epi, ncls, fp)
     route = kernel_route(x.dtype, wt.dtype, fp)
-    lib = load("head_argmax")
     b, h, w, c4 = x.shape
     out = torch.empty((b, 2 * h, 2 * w), dtype=torch.int32, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.tpuseg_head_argmax(
-            x.data_ptr(), _DTYPE_CODES[x.dtype], sv.data_ptr(), wt.data_ptr(),
-            _DTYPE_CODES[wt.dtype], epi.data_ptr(), out.data_ptr(),
-            b, h, w, c4, ncls, int(fp), _ROUTE_CODES[route], stream)
-    if err:
-        msg = lib.tpuseg_cuda_error_string(err).decode()
-        raise RuntimeError(f"head_argmax kernel launch failed ({route} route): {msg} ({err})")
+    launch("head_argmax", "tpuseg_head_argmax", x.device, current_stream(x.device),
+           x.data_ptr(), _DTYPE_CODES[x.dtype], sv.data_ptr(), wt.data_ptr(),
+           _DTYPE_CODES[wt.dtype], epi.data_ptr(), out.data_ptr(), b, h, w, c4, ncls, int(fp),
+           _ROUTE_CODES[route], what=f"head_argmax kernel launch failed ({route} route)")
     LAUNCHES += 1
     LAST_ROUTE = route
     return out
@@ -222,23 +216,17 @@ def _check_dense(x, sv, wt, epi, ncls: int, fp: bool) -> None:
 
 def _launch_dense(x, sv, wt, epi, ncls: int, fp: bool) -> torch.Tensor:
     global DENSE_LAUNCHES, LAST_ROUTE
-    from tpuseg_torch.kernels.build import load
+    from tpuseg_torch.kernels.build import current_stream, launch
 
     if x.data_ptr() % 16 or wt.data_ptr() % 16:
         raise ValueError("x and wt must be 16-byte aligned for vector loads")
     route = kernel_route(x.dtype, wt.dtype, fp)
-    lib = load("head_argmax")
     b, h, w, c = x.shape
     out = torch.empty((b, h, w), dtype=torch.int32, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.tpuseg_dense_head_argmax(
-            x.data_ptr(), sv.data_ptr(), wt.data_ptr(), _DTYPE_CODES[wt.dtype],
-            epi.data_ptr(), out.data_ptr(), b * h * w, c, ncls, int(fp),
-            _ROUTE_CODES[route], stream)
-    if err:
-        msg = lib.tpuseg_cuda_error_string(err).decode()
-        raise RuntimeError(f"dense head kernel launch failed ({route} route): {msg} ({err})")
+    launch("head_argmax", "tpuseg_dense_head_argmax", x.device, current_stream(x.device),
+           x.data_ptr(), sv.data_ptr(), wt.data_ptr(), _DTYPE_CODES[wt.dtype], epi.data_ptr(),
+           out.data_ptr(), b * h * w, c, ncls, int(fp), _ROUTE_CODES[route],
+           what=f"dense head kernel launch failed ({route} route)")
     DENSE_LAUNCHES += 1
     LAST_ROUTE = route
     return out

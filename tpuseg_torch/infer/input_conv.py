@@ -115,24 +115,19 @@ def _check(x, w, b, s, t, so, dtype) -> None:
 def _launch(x, w, b, s, t, so, dtype, blocked) -> torch.Tensor:
     """One kernel launch, planned by the library."""
     global LAUNCHES
-    from tpuseg_torch.kernels.build import load
+    from tpuseg_torch.kernels.build import current_stream, launch
 
     _check(x, w, b, s, t, so, dtype)
     bsz, h, wd, c = x.shape
     f = w.shape[3]
-    lib = load("input_conv")
     shape = (bsz, h // 2, wd // 2, 4 * f) if blocked else (bsz, h, wd, f)
     out = torch.empty(shape, dtype=torch.int8, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.tpuseg_input_conv(
-            x.data_ptr(), w.data_ptr(), b.data_ptr(), s.data_ptr(), t.data_ptr(), so.data_ptr(),
-            out.data_ptr(), bsz, h, wd, c, f, DTYPE_CODES[dtype], int(blocked), stream)
-    if err:
-        raise RuntimeError(f"input_conv kernel launch failed for x {tuple(x.shape)} and {f} "
-                           f"output channels: {lib.tpuseg_cuda_error_string(err).decode()} "
-                           f"({err}; the plan refuses C >= 120, whose weights leave no room in "
-                           f"shared memory)")
+    launch("input_conv", "tpuseg_input_conv", x.device, current_stream(x.device), x.data_ptr(),
+           w.data_ptr(), b.data_ptr(), s.data_ptr(), t.data_ptr(), so.data_ptr(), out.data_ptr(),
+           bsz, h, wd, c, f, DTYPE_CODES[dtype], int(blocked),
+           what=f"input_conv kernel launch failed for x {tuple(x.shape)} and {f} output "
+                f"channels",
+           note="; the plan refuses C >= 120, whose weights leave no room in shared memory")
     LAUNCHES += 1
     return out
 
@@ -145,17 +140,15 @@ def launch_plan(shape, f: int, dtype: torch.dtype, blocked: bool, device) -> dic
     the codes leave by bulk copy (``staged``)."""
     import ctypes
 
-    from tpuseg_torch.kernels.build import load
+    from tpuseg_torch.kernels.build import check, load
 
     bsz, h, wd, c = shape
     lib = load("input_conv")
     out = (ctypes.c_int * 10)()
-    with torch.cuda.device(device):
+    with torch.cuda.device(device):  # the plan reads the current device's SMs
         err = lib.tpuseg_input_conv_plan(bsz, h, wd, c, f, DTYPE_CODES[dtype], int(blocked),
                                          out)
-    if err:
-        raise RuntimeError(f"input_conv plan failed for {tuple(shape)} and {f} output "
-                           f"channels: {lib.tpuseg_cuda_error_string(err).decode()}")
+    check(lib, err, f"input_conv plan failed for {tuple(shape)} and {f} output channels")
     keys = ("grid", "resident_per_sm", "sms", "tiles", "smem_bytes", "tile_h", "tile_w", "fc",
             "stages", "staged")
     plan = dict(zip(keys, out))
@@ -174,20 +167,16 @@ def requant_mismatches(so: torch.Tensor, count: int = 0, seed: int = 0) -> dict:
     and |v| among the values whose quotients differ (``largest_quotient``,
     ``largest_value``), and up to 8 ``(so, v)`` whose codes differ
     (``examples``)."""
-    from tpuseg_torch.kernels.build import load
+    from tpuseg_torch.kernels.build import current_stream, launch
 
     if so.dtype != torch.float32 or so.device.type != "cuda" or so.dim() != 1:
         raise ValueError(f"so must be a CUDA float32 vector, got {so.dtype} {tuple(so.shape)} "
                          f"on {so.device}")
-    lib = load("input_conv")
     so = so.contiguous()
     out = torch.zeros(21, dtype=torch.int64, device=so.device)
-    with torch.cuda.device(so.device):
-        err = lib.tpuseg_input_conv_check_requant(
-            so.data_ptr(), so.numel(), count, int(count == 0), seed, out.data_ptr(),
-            torch.cuda.current_stream(so.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"requant check failed: {lib.tpuseg_cuda_error_string(err).decode()}")
+    launch("input_conv", "tpuseg_input_conv_check_requant", so.device, current_stream(so.device),
+           so.data_ptr(), so.numel(), count, int(count == 0), seed, out.data_ptr(),
+           what="requant check failed")
     codes, quotients, normal, *bits = out.tolist()
 
     def floats(words):

@@ -506,7 +506,7 @@ def _launch(x: torch.Tensor, weights: Int8ConvWeights, epilogue: Epilogue,
     wide (default :func:`patch_width`); ``chip_smoke.py`` passes them to
     time the routes, widths and patches side by side."""
     global LAUNCHES, LAST_ROUTE
-    from tpuseg_torch.kernels.build import load
+    from tpuseg_torch.kernels.build import current_stream, launch
 
     b, h, w, cin = x.shape
     route = kernel_route(cin) if route is None else route
@@ -521,7 +521,6 @@ def _launch(x: torch.Tensor, weights: Int8ConvWeights, epilogue: Epilogue,
         raise ValueError(f"patch width {bw} not in {PATCH_WIDTHS}")
     _check(x, weights, epilogue, route, bn, bw)
     _check_forms(x, weights, epilogue, out, d2s, pool, route=route, bn=bn, bw=bw)
-    lib = load("int8_conv")
     cout = weights.cout
     if out is None:
         dtype = torch.float32 if epilogue.mode == "relu_f32" else torch.int8
@@ -538,17 +537,12 @@ def _launch(x: torch.Tensor, weights: Int8ConvWeights, epilogue: Epilogue,
         return None if t is None else t.data_ptr()
 
     steps = op.steps[bn]
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.tpuseg_int8_conv(
-            x.data_ptr(), op.wm.data_ptr(), e.ws.data_ptr(), ptr(e.b), e.s.data_ptr(),
-            e.t.data_ptr(), ptr(e.so), out.data_ptr(), out.stride(2), int(d2s), ptr(pooled),
-            POOLS[pool], steps.data_ptr(), op.counts[bn].data_ptr(), steps.shape[1], b, h, w,
-            cin, cout, weights.kh, weights.kw, op.wm.shape[1], MODES[e.mode],
-            _ROUTE_CODES[route], bn, bw, stream)
-    if err:
-        msg = lib.tpuseg_cuda_error_string(err).decode()
-        raise RuntimeError(f"int8_conv kernel launch failed ({route} route): {msg} ({err})")
+    launch("int8_conv", "tpuseg_int8_conv", x.device, current_stream(x.device),
+           x.data_ptr(), op.wm.data_ptr(), e.ws.data_ptr(), ptr(e.b), e.s.data_ptr(),
+           e.t.data_ptr(), ptr(e.so), out.data_ptr(), out.stride(2), int(d2s), ptr(pooled),
+           POOLS[pool], steps.data_ptr(), op.counts[bn].data_ptr(), steps.shape[1], b, h, w, cin,
+           cout, weights.kh, weights.kw, op.wm.shape[1], MODES[e.mode], _ROUTE_CODES[route], bn,
+           bw, what=f"int8_conv kernel launch failed ({route} route)")
     LAUNCHES += 1
     ROUTE_LAUNCHES[route] += 1
     LAST_ROUTE = route

@@ -8,6 +8,11 @@ named by a hash of the source and flags, so an edited source rebuilds and
 an unchanged one loads at once. Nothing builds at import: the first
 :func:`load` builds what it needs, and :func:`build` starts one ``nvcc``
 per missing source, all in parallel.
+
+Every launch goes through :func:`launch`: the C entries take the stream's
+handle (:func:`current_stream`) last and return 0 or a ``cudaError_t``,
+which :func:`check` turns into a ``RuntimeError`` with the library's own
+message.
 """
 
 from __future__ import annotations
@@ -20,13 +25,16 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# library name -> (source, {C function: (restype, argtypes)})
+# library name -> (source, {C function: (restype, argtypes)}); every library
+# also exports ``ERROR_STRING``
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 SOURCES = {
     "batchnorm": ("batchnorm.cu", {
@@ -39,13 +47,11 @@ SOURCES = {
         "tpuseg_bn_backward_apply": (_I, [_P, _L, _P, _L, _P, _L, _L, _I, _P, _I, _P, _P, _P,
                                           _P, _I, _P, _P, _P, _P, _P, _P, _P, _L, _I, _P, _L,
                                           _P]),
-        "tpuseg_cuda_error_string": (ctypes.c_char_p, [_I]),
     }),
     "head_argmax": ("head_argmax.cu", {
         "tpuseg_head_argmax": (_I, [_P, _I, _P, _P, _I, _P, _P,
                                     _I, _I, _I, _I, _I, _I, _I, _P]),
         "tpuseg_dense_head_argmax": (_I, [_P, _P, _P, _I, _P, _P, _L, _I, _I, _I, _I, _P]),
-        "tpuseg_cuda_error_string": (ctypes.c_char_p, [_I]),
     }),
     "input_conv": ("input_conv.cu", {
         "tpuseg_input_conv": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
@@ -53,19 +59,18 @@ SOURCES = {
         "tpuseg_input_conv_plan": (_I, [_I, _I, _I, _I, _I, _I, _I, _P]),
         "tpuseg_input_conv_check_requant": (_I, [_P, _I, ctypes.c_longlong, _I,
                                                  ctypes.c_ulonglong, _P, _P]),
-        "tpuseg_cuda_error_string": (ctypes.c_char_p, [_I]),
     }),
     "int8_conv": ("int8_conv.cu", {
         "tpuseg_int8_conv": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _P, _P,
                                   _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
         "tpuseg_int8_conv_smem_bytes": (_I, [_I, _I]),
-        "tpuseg_cuda_error_string": (ctypes.c_char_p, [_I]),
     }),
     "shear_rows": ("shear_rows.cu", {
         "tpuseg_shear_rows": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
-        "tpuseg_cuda_error_string": (ctypes.c_char_p, [_I]),
     }),
 }
+
+ERROR_STRING = ("tpuseg_cuda_error_string", (ctypes.c_char_p, [_I]))
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # ptxas register/shared-memory report of each library built by this process
@@ -124,8 +129,37 @@ def load(name: str) -> ctypes.CDLL:
     lib = _LIBS.get(name)
     if lib is None:
         lib = ctypes.CDLL(str(build([name])[name]))
-        for fn, (restype, argtypes) in SOURCES[name][1].items():
+        for fn, (restype, argtypes) in [*SOURCES[name][1].items(), ERROR_STRING]:
             getattr(lib, fn).restype = restype
             getattr(lib, fn).argtypes = argtypes
         _LIBS[name] = lib
     return lib
+
+
+def current_stream(device: torch.device) -> int:
+    """The handle of ``device``'s current CUDA stream."""
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def check(lib: ctypes.CDLL, err: int, what: str, note: str = "") -> None:
+    """Raise ``RuntimeError("<what>: <message> (<err><note>)")`` if ``err``,
+    the return of one of ``lib``'s C functions, is not 0; the message is
+    the library's ``tpuseg_cuda_error_string`` of it."""
+    if err:
+        raise RuntimeError(f"{what}: {lib.tpuseg_cuda_error_string(err).decode()} "
+                           f"({err}{note})")
+
+
+def launch(name: str, fn: str, device: torch.device, stream: int, *args, what: str,
+           note: str = "") -> None:
+    """Call the C function ``fn`` of library ``name`` with ``args`` and the
+    stream handle ``stream`` last, with ``device`` current: a device guard
+    is entered only where another device is current. A non-zero return
+    raises as :func:`check` does, after ``what``."""
+    lib = load(name)
+    if device.index is None or device.index == torch.cuda.current_device():
+        err = getattr(lib, fn)(*args, stream)
+    else:
+        with torch.cuda.device(device):
+            err = getattr(lib, fn)(*args, stream)
+    check(lib, err, what, note)

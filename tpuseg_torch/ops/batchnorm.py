@@ -97,6 +97,8 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from tpuseg_torch.kernels.build import current_stream, launch, load
+
 # Kernel launches since the counts were last reset, by kernel (CPU calls
 # don't count).
 LAUNCHES: Dict[str, int] = {"stats": 0, "apply": 0, "backward_reduce": 0,
@@ -346,20 +348,7 @@ def _backward_apply_train_plain(x, bias, relu, g, stats, vec, sums, totals, beta
 _COUNTERS: Dict[tuple, torch.Tensor] = {}
 _SCRATCH: Dict[tuple, torch.Tensor] = {}
 _PLANS: Dict[tuple, Dict[str, int]] = {}
-_LIB = None
-
-
-def _lib():
-    global _LIB
-    if _LIB is None:
-        from tpuseg_torch.kernels.build import load
-
-        _LIB = load("batchnorm")
-    return _LIB
-
-
-def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+_FAILED = {kind: f"batchnorm {kind} kernel launch failed" for kind in LAUNCHES}
 
 
 def _counters(device: torch.device, stream: int) -> torch.Tensor:
@@ -370,8 +359,7 @@ def _counters(device: torch.device, stream: int) -> torch.Tensor:
     CUDA context takes no further launches."""
     t = _COUNTERS.get((device, stream))
     if t is None:
-        with torch.cuda.device(device):
-            t = _COUNTERS[(device, stream)] = torch.zeros(64, dtype=torch.int32, device=device)
+        t = _COUNTERS[(device, stream)] = torch.zeros(64, dtype=torch.int32, device=device)
     return t
 
 
@@ -381,27 +369,13 @@ def _scratch(device: torch.device, stream: int, floats: int) -> torch.Tensor:
     launch, so launches in stream order share them."""
     t = _SCRATCH.get((device, stream))
     if t is None or t.numel() < floats:
-        with torch.cuda.device(device):
-            t = _SCRATCH[(device, stream)] = torch.empty(max(floats, 1 << 16),
-                                                         dtype=torch.float32, device=device)
+        t = _SCRATCH[(device, stream)] = torch.empty(max(floats, 1 << 16), dtype=torch.float32,
+                                                     device=device)
     return t
 
 
 def _ptr(v: Optional[torch.Tensor]) -> Optional[int]:
     return None if v is None else v.data_ptr()
-
-
-def _run(kind: str, fn, device: torch.device, stream: int, *args) -> None:
-    lib = _lib()
-    if device.index is None or device.index == torch.cuda.current_device():
-        err = getattr(lib, fn)(*args, stream)
-    else:
-        with torch.cuda.device(device):
-            err = getattr(lib, fn)(*args, stream)
-    if err:
-        raise RuntimeError(f"batchnorm {kind} kernel launch failed: "
-                           f"{lib.tpuseg_cuda_error_string(err).decode()} ({err})")
-    LAUNCHES[kind] += 1
 
 
 def _rows(x: torch.Tensor):
@@ -436,8 +410,8 @@ def reduce_plan(x: torch.Tensor, ldx: int, g: Optional[torch.Tensor] = None, ldg
     plan = _PLANS.get(key)
     if plan is None:
         out = (ctypes.c_longlong * len(PLAN_KEYS))()
-        if _lib().tpuseg_bn_reduce_plan(x.data_ptr(), ldx, _ptr(g), ldg, *pooled,
-                                        DTYPE_CODES[x.dtype], m, c, nsums, out):
+        if load("batchnorm").tpuseg_bn_reduce_plan(x.data_ptr(), ldx, _ptr(g), ldg, *pooled,
+                                                   DTYPE_CODES[x.dtype], m, c, nsums, out):
             raise ValueError(f"K4 refuses [{m}, {c}] (at most 64 channel tiles)")
         plan = _PLANS[key] = dict(zip(PLAN_KEYS, out))
     return plan
@@ -446,16 +420,17 @@ def reduce_plan(x: torch.Tensor, ldx: int, g: Optional[torch.Tensor] = None, ldg
 def _reduce_out(x, ldx, g, ldg, nsums: int, rows: int, gp=None):
     """The reduction's output ``[rows, C]`` and its partials."""
     plan = reduce_plan(x, ldx, g, ldg, nsums, gp)
-    stream = _stream(x.device)
+    stream = current_stream(x.device)
     out = torch.empty((rows, x.shape[1]), dtype=torch.float32, device=x.device)
     return out, _scratch(x.device, stream, plan["scratch"]), stream
 
 
 def _launch_stats(x, bias, relu, *, ldx) -> torch.Tensor:
     out, scratch, stream = _reduce_out(x, ldx, None, 0, 2, 3)
-    _run("stats", "tpuseg_bn_stats", x.device, stream, x.data_ptr(), ldx, DTYPE_CODES[x.dtype],
-         _ptr(bias), int(relu), *_rows(x), out.data_ptr(), scratch.data_ptr(),
-         _counters(x.device, stream).data_ptr())
+    launch("batchnorm", "tpuseg_bn_stats", x.device, stream, x.data_ptr(), ldx,
+           DTYPE_CODES[x.dtype], _ptr(bias), int(relu), *_rows(x), out.data_ptr(),
+           scratch.data_ptr(), _counters(x.device, stream).data_ptr(), what=_FAILED["stats"])
+    LAUNCHES["stats"] += 1
     return out
 
 
@@ -466,10 +441,12 @@ def _apply(x, bias, relu, train, stats, gamma, eps, vec, running_mean, running_v
     n, c, h, w = x.shape
     y = _channels_last(x.shape, x.dtype, x.device) if out is None else out
     pooled = _channels_last((n, c, h // 2, w // 2), x.dtype, x.device) if pool else None
-    _run("apply", "tpuseg_bn_apply", x.device, _stream(x.device), x.data_ptr(), ldx,
-         DTYPE_CODES[x.dtype], _ptr(bias), int(relu), int(train), _ptr(stats), gamma.data_ptr(),
-         eps, _ptr(vec), _ptr(running_mean), _ptr(running_var), momentum, 1 - momentum,
-         beta.data_ptr(), *_rows(x), y.data_ptr(), row_stride(y), _ptr(pooled), w)
+    launch("batchnorm", "tpuseg_bn_apply", x.device, current_stream(x.device), x.data_ptr(),
+           ldx, DTYPE_CODES[x.dtype], _ptr(bias), int(relu), int(train), _ptr(stats),
+           gamma.data_ptr(), eps, _ptr(vec), _ptr(running_mean), _ptr(running_var), momentum,
+           1 - momentum, beta.data_ptr(), *_rows(x), y.data_ptr(), row_stride(y), _ptr(pooled), w,
+           what=_FAILED["apply"])
+    LAUNCHES["apply"] += 1
     return y if pooled is None else (y, pooled)
 
 
@@ -491,21 +468,25 @@ def _launch_backward_reduce(x, bias, relu, g, mean, rstd, mul=None, beta=None, *
                             gp=None) -> torch.Tensor:
     nsums = 2 if bias is None else 5
     out, scratch, stream = _reduce_out(x, ldx, g, ldg, nsums, nsums, gp)
-    _run("backward_reduce", "tpuseg_bn_backward_reduce", x.device, stream, x.data_ptr(), ldx,
-         g.data_ptr(), ldg, *_pooled_args(x, gp), DTYPE_CODES[x.dtype], _ptr(bias), int(relu),
-         mean.data_ptr(), rstd.data_ptr(), _ptr(mul), _ptr(beta), *_rows(x), nsums,
-         out.data_ptr(), scratch.data_ptr(), _counters(x.device, stream).data_ptr())
+    launch("batchnorm", "tpuseg_bn_backward_reduce", x.device, stream, x.data_ptr(), ldx,
+           g.data_ptr(), ldg, *_pooled_args(x, gp), DTYPE_CODES[x.dtype], _ptr(bias), int(relu),
+           mean.data_ptr(), rstd.data_ptr(), _ptr(mul), _ptr(beta), *_rows(x), nsums,
+           out.data_ptr(), scratch.data_ptr(), _counters(x.device, stream).data_ptr(),
+           what=_FAILED["backward_reduce"])
+    LAUNCHES["backward_reduce"] += 1
     return out
 
 
 def _backward(x, bias, relu, g, mean, rstd, mul, beta, train, k1, k2, stats, totals, unclipped,
               sums, dbias, *, ldx, ldg, gp=None) -> torch.Tensor:
     dx = _channels_last(x.shape, x.dtype, x.device)
-    _run("backward_apply", "tpuseg_bn_backward_apply", x.device, _stream(x.device),
-         x.data_ptr(), ldx, g.data_ptr(), ldg, *_pooled_args(x, gp), DTYPE_CODES[x.dtype],
-         _ptr(bias), int(relu), mean.data_ptr(), rstd.data_ptr(), mul.data_ptr(), _ptr(beta),
-         int(train), _ptr(k1), _ptr(k2), _ptr(stats), _ptr(totals), _ptr(unclipped),
-         _ptr(sums), _ptr(dbias), *_rows(x), dx.data_ptr(), x.shape[1])
+    launch("batchnorm", "tpuseg_bn_backward_apply", x.device, current_stream(x.device),
+           x.data_ptr(), ldx, g.data_ptr(), ldg, *_pooled_args(x, gp), DTYPE_CODES[x.dtype],
+           _ptr(bias), int(relu), mean.data_ptr(), rstd.data_ptr(), mul.data_ptr(), _ptr(beta),
+           int(train), _ptr(k1), _ptr(k2), _ptr(stats), _ptr(totals), _ptr(unclipped),
+           _ptr(sums), _ptr(dbias), *_rows(x), dx.data_ptr(), x.shape[1],
+           what=_FAILED["backward_apply"])
+    LAUNCHES["backward_apply"] += 1
     return dx
 
 

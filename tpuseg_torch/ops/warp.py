@@ -81,7 +81,7 @@ def _check_shear(img_padded, shift, frac, out_width: int) -> None:
 
 def _launch_shear(img_padded, shift, frac, out_width: int) -> torch.Tensor:
     global LAUNCHES
-    from tpuseg_torch.kernels.build import load
+    from tpuseg_torch.kernels.build import current_stream, launch
 
     for name, t in (("img_padded", img_padded), ("shift", shift), ("frac", frac)):
         if not t.is_contiguous():
@@ -92,14 +92,10 @@ def _launch_shear(img_padded, shift, frac, out_width: int) -> torch.Tensor:
         return out
     if n * h >= 2 ** 31:
         raise ValueError(f"{n * h} rows exceed the kernel's int32 row range")
-    lib = load("shear_rows")
-    with torch.cuda.device(img_padded.device):
-        stream = torch.cuda.current_stream(img_padded.device).cuda_stream
-        err = lib.tpuseg_shear_rows(img_padded.data_ptr(), shift.data_ptr(), frac.data_ptr(),
-                                    out.data_ptr(), n, h, wp, out_width, stream)
-    if err:
-        msg = lib.tpuseg_cuda_error_string(err).decode()
-        raise RuntimeError(f"shear_rows kernel launch failed: {msg} ({err})")
+    dev = img_padded.device
+    launch("shear_rows", "tpuseg_shear_rows", dev, current_stream(dev), img_padded.data_ptr(),
+           shift.data_ptr(), frac.data_ptr(), out.data_ptr(), n, h, wp, out_width,
+           what="shear_rows kernel launch failed")
     LAUNCHES += 1
     return out
 

@@ -30,10 +30,11 @@ from typing import Dict, List, Optional, Tuple
 KERNEL_GROUPS = (
     ("K1 shear_rows", ("shear_rows",)),
     ("K6 dense_head_argmax", ("dense_head_mma_kernel", "dense_head_fp_kernel")),
-    ("K2 head_argmax", ("head_mma_kernel", "head_fp_kernel", "head_s8_kernel")),
+    ("K2 head_argmax", ("head_mma_kernel", "head_fp_kernel")),
     ("K3 int8_conv", ("int8_conv_kernel", "int8_conv_wgmma_kernel")),
     ("K5 input_conv", ("input_conv_kernel",)),
     ("K4 batchnorm", ("bn_reduce_kernel", "bn_apply_kernel")),
+    ("NCCL", ("nccl", "ncclDevKernel", "ncclKernel")),
     ("layout transposes", ("nchwToNhwc", "nhwcToNchw")),
     ("cuDNN / GEMM", ("cudnn", "xmma", "gemm", "cutlass", "sm90_", "sm80_", "wgrad", "dgrad")),
     ("reductions", ("reduce_kernel",)),
