@@ -63,7 +63,10 @@ uses them). Phases, each fatal on failure:
    through K6's int8 route and through its plain version, masks equal on
    every pixel; K4's apply 23 times a predict call of ``none``, whose
    masks through K4 equal those through K4's plain versions on every
-   pixel) and profile one pass of int8_blocked, int8 and none each (device
+   pixel; each mode's pass through the copy pipeline equal on every pixel
+   to a whole-image stitch, in two passes in a row, and the copies that
+   its schedule overlaps crossing, in the device trace, while kernels
+   ran) and profile one pass of int8_blocked, int8 and none each (device
    time by kernel and group, K3's, K5's, K2's or K6's and K4's shares,
    busy share; in the int8 passes no eager edge kernel on int8 codes, the
    ``amax`` of a max-pool, a concat, a depth-to-space copy or a phase max,
@@ -2465,6 +2468,130 @@ def edge_kernels(prof: dict) -> dict:
             "upload_copies": sum(n for _, n in upload)}
 
 
+def whole_image_stitch(img, fn, radius: int, stats, dev, tile: int = TILE,
+                       batch: int = BATCH, ncls: int = NCLS):
+    """The tiled pass without its copy pipeline: the whole image padded,
+    up at once and z-scored on the card, its windows through ``fn``
+    ``batch`` at a time, every zone stitched, the cropped mask down at once
+    (numpy, uint8 at <= 256 classes)."""
+    import numpy as np
+    import torch
+
+    from tpuseg_torch.infer.tiled import _zor_placements
+
+    h0, w0 = img.shape[:2]
+    img = img.reshape(h0, w0, -1)
+    h, w = -(-h0 // 16) * 16, -(-w0 // 16) * 16
+    img = np.pad(img, ((0, h - h0), (0, w - w0), (0, 0)), mode="reflect")
+    img = np.pad(img, ((0, max(0, tile - h)), (0, max(0, tile - w)), (0, 0)), mode="reflect")
+    x = torch.from_numpy(img.astype(np.float32)).to(dev)
+    mean, std = (torch.from_numpy(np.asarray(s, np.float32).reshape(-1)).to(dev) for s in stats)
+    x = torch.where(std <= 1.0, x - mean, (x - mean) / std)
+    placements = _zor_placements(h, w, tile - 2 * radius, tile, radius, img.shape[0],
+                                 img.shape[1])
+    mask = torch.zeros((h, w), dtype=torch.uint8 if ncls <= 256 else torch.int32, device=dev)
+    for s in range(0, len(placements), batch):
+        part = placements[s:s + batch]
+        out = fn(torch.stack([x[ys:ys + tile, xs:xs + tile] for (_, _, _, _, ys, xs) in part]))
+        for k, (i, j, ye, xe, ys, xs) in enumerate(part):
+            mask[i:ye, j:xe] = out[k, i - ys:ye - ys, j - xs:xe - xs]
+    return mask[:h0, :w0].cpu().numpy()
+
+
+def copy_overlap(run) -> list:
+    """``run()`` under ``torch.profiler``, behind :func:`profiler_lead_in`:
+    :func:`copy_shares` of the window's device trace."""
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        profiler_lead_in(LEAD_IN)
+        run()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        prof.export_chrome_trace(os.path.join(d, "trace.json"))
+        with open(os.path.join(d, "trace.json")) as f:
+            return copy_shares(json.load(f)["traceEvents"])
+
+
+def _host_copy(e) -> bool:
+    return e.get("cat") == "gpu_memcpy" and ("HtoD" in e["name"] or "DtoH" in e["name"])
+
+
+def copy_shares(events) -> list:
+    """Each host-device copy of at least 64 KiB among the Chrome trace's
+    ``events``, in order, as ``(direction, bytes, share)``: ``HtoD``,
+    ``DtoH`` or ``other``, and the part of the copy's time in which the
+    card worked on something else (a kernel other than a lead-in spin, a
+    copy on the card, a memset)."""
+    busy = []  # the union of the card's own work, in µs
+    for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                       if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+                       and "spin_kernel" not in e["name"] and not _host_copy(e)):
+        if busy and a <= busy[-1][1]:
+            busy[-1][1] = max(busy[-1][1], b)
+        else:
+            busy.append([a, b])
+    out = []
+    for e in sorted((e for e in events if e.get("cat") == "gpu_memcpy"
+                     and e.get("args", {}).get("bytes", 0) >= 1 << 16), key=lambda e: e["ts"]):
+        a, b = e["ts"], e["ts"] + e["dur"]
+        ran = sum(max(0.0, min(b, y) - max(a, x)) for x, y in busy)
+        out.append(("HtoD" if "HtoD" in e["name"] else "DtoH" if "DtoH" in e["name"] else "other",
+                    e["args"]["bytes"], ran / max(b - a, 1e-9)))
+    return out
+
+
+def tiled_pipeline_check(img, fn, radius: int, stats, dev) -> dict:
+    """``inference_tiled``'s copy pipeline on the card against
+    :func:`whole_image_stitch` with the same predict function: masks equal
+    on every pixel in two passes straight after each other (a staging
+    buffer reused under a copy still in flight would show in the second),
+    ``PIPELINE`` the same in both, and in the second pass's device trace
+    (:func:`copy_overlap`) the copies that the schedule sends while a call
+    runs did cross, for most of their time, while the card worked: every
+    upload byte below the first call's read limit and every download byte
+    above the last call's rows, and no other. (A copy queued behind the
+    call it should overlap runs while the card waits for it: its share is
+    near 0.) Raises on failure."""
+    import numpy as np
+    import torch
+
+    from tpuseg_torch.infer import tiled
+
+    want = whole_image_stitch(img, fn, radius, stats, dev)
+    masks, counts = [tiled.inference_tiled(img, fn, TILE, radius, BATCH, NCLS, stats, dev)], []
+    counts.append(dict(tiled.PIPELINE))
+    copies = copy_overlap(lambda: masks.append(
+        tiled.inference_tiled(img, fn, TILE, radius, BATCH, NCLS, stats, dev)))
+    counts.append(dict(tiled.PIPELINE))
+    h16, w16 = -(-img.shape[0] // 16) * 16, -(-img.shape[1] // 16) * 16  # the mask's
+    h, w = max(TILE, h16), max(TILE, w16)  # the shipped image's
+    plan = tiled._plan(tiled._zor_placements(h16, w16, TILE - 2 * radius, TILE, radius, h, w),
+                       TILE, BATCH, img.shape[0])
+    row_up = w * img.dtype.itemsize * (img.size // (img.shape[0] * img.shape[1]))
+    row_down = w16 * np.dtype(np.uint8 if NCLS <= 256 else np.int32).itemsize
+    last_down = [a for a, z in plan.downs if z > a][-1]
+    overlapped = {d: sum(n for k, n, share in copies if k == d and share > 0.5)
+                  for d in ("HtoD", "DtoH")}
+    res = {"pixels_differing": [int((m != want).sum()) if m.shape == want.shape else -1
+                                for m in masks],
+           "dtype": str(masks[0].dtype), "pipeline": counts[0],
+           "copies": [(k, n, round(share, 4)) for k, n, share in copies],
+           "overlapped_bytes": overlapped,
+           "want_overlapped_bytes": {"HtoD": (h - plan.reads[0]) * row_up,
+                                     "DtoH": last_down * row_down},
+           "class1_share": float((want == 1).mean())}
+    if any(res["pixels_differing"]) or masks[0].dtype != want.dtype or counts[0] != counts[1] \
+            or overlapped != res["want_overlapped_bytes"]:
+        raise AssertionError(f"the tiled copy pipeline against the whole-image stitch: {res}; "
+                             f"PIPELINE of the two passes {counts}")
+    return res
+
+
 def phase_profile(fn, big, radius: int, stats, dev, mode: str) -> dict:
     """One tiled pass of ``mode``'s predict function over the BIG^2 image,
     profiled."""
@@ -2473,6 +2600,29 @@ def phase_profile(fn, big, radius: int, stats, dev, mode: str) -> dict:
     return device_profile(
         lambda: inference_tiled(big, fn, TILE, radius, BATCH, NCLS, stats, dev),
         f"tiled {mode}")
+
+
+def serving_unet(seed: int, img, dev):
+    """The benchmark's seeded serving U-Net (Keras init, jittered running
+    statistics), in float32 on the CPU and in eval mode, with its head
+    shaped over the centre of ``img`` (``drivers/serve_tiled.py::
+    shape_head``): about half the pixels take each class, many near a tie.
+    Returns the model and the shaping's numbers."""
+    import torch
+
+    from tpuseg_torch.models.unet import UNet
+
+    with open(os.path.join(BENCH, "configs", "unet-nist-bf16.json")) as f:
+        cfg = json.load(f)
+    weights = bench("harness.weights").make(cfg, seed, dev)
+    head = bench("drivers.serve_tiled").shape_head(cfg, weights, [img], TILE, dev)
+    model = UNet(NCLS, 1, BASE, dtype=torch.float32)
+    missing, unexpected = model.load_state_dict({k: v.cpu() for k, v in weights.items()},
+                                                strict=False)
+    if unexpected or any(not k.endswith("num_batches_tracked") for k in missing):
+        raise AssertionError(f"the benchmark's weights do not fit the model: missing {missing}, "
+                             f"unexpected {unexpected}")
+    return model.eval(), head
 
 
 def phase_main(seed: int, work: str, dev, card: str) -> dict:
@@ -2486,7 +2636,6 @@ def phase_main(seed: int, work: str, dev, card: str) -> dict:
     from tpuseg_torch.infer.runner import InferenceConfig, _quantized_predict_fn
     from tpuseg_torch.infer.tiled import (inference_single_batch, inference_tiled,
                                           make_predict_fn)
-    from tpuseg_torch.models.unet import UNet
     from tpuseg_torch.ops import batchnorm as bn_mod
     from tpuseg_torch.utils.checkpoint import load_model, save_model
     from tpuseg_torch.utils.imagio import imread
@@ -2495,22 +2644,9 @@ def phase_main(seed: int, work: str, dev, card: str) -> dict:
     imgdir = os.path.join(work, "images")
     shapes = write_images(imgdir, seed)
     big = imread(os.path.join(imgdir, "big.tif"))
-    # the benchmark's seeded weights (Keras init, jittered running
-    # statistics) with its head shaped over the centre of ``big``: about
-    # half the pixels take each class, many near a tie, so the masks
-    # compared below and in phases 7-8 can differ where they would
-    with open(os.path.join(BENCH, "configs", "unet-nist-bf16.json")) as f:
-        cfg = json.load(f)
-    weights = bench("harness.weights").make(cfg, seed, dev)
-    res["head"] = bench("drivers.serve_tiled").shape_head(cfg, weights, [big], TILE, dev)
-    model = UNet(NCLS, 1, BASE, dtype=torch.float32)
-    missing, unexpected = model.load_state_dict({k: v.cpu() for k, v in weights.items()},
-                                                strict=False)
-    if unexpected or any(not k.endswith("num_batches_tracked") for k in missing):
-        raise AssertionError(f"the benchmark's weights do not fit the model: missing {missing}, "
-                             f"unexpected {unexpected}")
-    del weights
-    model.eval()
+    # the benchmark's U-Net with its head shaped over ``big``, so that the
+    # masks compared below and in phases 7-8 can differ where they would
+    model, res["head"] = serving_unet(seed, big, dev)
     ckpt = os.path.join(work, "model.pt")
     save_model(ckpt, model)
     log(f"shaped head: class-1 shift {res['head']['head_shift']:.4f}, bias lift "
@@ -2813,6 +2949,13 @@ def phase_main(seed: int, work: str, dev, card: str) -> dict:
     log(f"none through K4: {K4_LAYERS} applies a predict call ({calls} calls), masks equal to "
         f"the plain versions' on every pixel (class 1 {res['class1_share_big_none']:.4f})")
     del masks_k4, masks_plain
+    # the copy pipeline of each mode's pass against the whole-image stitch
+    res["tiled_pipeline"] = {m: tiled_pipeline_check(big, fns[m], radius, stats, dev)
+                             for m in fns}
+    log("tiled copy pipeline: masks equal to the whole-image stitch's on every pixel in "
+        f"{', '.join(fns)}, two passes each; PIPELINE "
+        f"{res['tiled_pipeline']['none']['pipeline']}; bytes crossed while the card worked "
+        f"{res['tiled_pipeline']['none']['overlapped_bytes']}")
     times = {m: [] for m in fns}
     for rnd in range(3):
         for mode in (fns if rnd % 2 == 0 else list(fns)[::-1]):

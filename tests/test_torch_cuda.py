@@ -1448,6 +1448,42 @@ def test_tiled_none_forms_masks_equal_grad_path(cuda):
     assert (got == want).all()
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["none", "int8_blocked"])
+def test_tiled_pipeline_at_the_cells_geometry(cuda, mode):
+    """The serving cells' pass (4096^2 uint16, tile 1024, radius 96, calls
+    of 8) through the copy pipeline, with the cells' U-Net (its head
+    shaped so that both classes take many pixels): masks equal on every
+    pixel to the whole-image stitch with the same predict function, twice
+    in a row; 2 of the 4 calls queued before the last band's wait, 3 of
+    the 4 download bands before the last call; in the device trace the
+    upload below row 1760 and the download above row 3328 crossed, for
+    most of their time, while the card worked on the calls."""
+    from tpuseg_torch.data.preprocess import zscore_stats
+    from tpuseg_torch.infer import quant
+    from tpuseg_torch.infer.tiled import make_predict_fn
+    from tpuseg_torch.models.unet import UNet
+
+    img = np.random.default_rng(7).normal(2000, 300, (4096, 4096)).clip(0, 65535)
+    img = img.astype(np.uint16)
+    stats = zscore_stats(img)
+    model, _ = smoke.serving_unet(3, img, cuda)
+    if mode == "none":
+        bf16 = UNet(2, 1, 64, dtype=torch.bfloat16)
+        bf16.load_state_dict(model.state_dict())
+        fn = make_predict_fn(bf16.to(cuda).eval())
+    else:
+        folded = quant.fold_variables(model.to(cuda))
+        crop = (img[1536:2560, 1536:2560, None].astype(np.float32) - stats[0]) / stats[1]
+        fn = quant.make_quantized_predict_fn(
+            folded, quant.calibrate(folded, [crop], device=cuda), blocked_edges=True)
+    res = smoke.tiled_pipeline_check(img, fn, 96, stats, cuda)
+    assert res["pipeline"] == {"upload_bands": 3, "early_calls": 2, "download_bands": 4,
+                               "early_downloads": 3}
+    assert res["overlapped_bytes"] == {"HtoD": (4096 - 1760) * 4096 * 2, "DtoH": 3328 * 4096}
+    assert 0.01 < res["class1_share"] < 0.99
+
+
 # K4's train forms: (b)'s store forms in train mode, and the pooled (c) and
 # (d), which take the pool's gradient at each window's argmax
 

@@ -15,7 +15,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from tpuseg_torch.aug.device import DeviceAugmentParams
-from tpuseg_torch.infer.tiled import _zor_placements, inference_tiled, make_predict_fn
+from tpuseg_torch.infer.tiled import _plan, _zor_placements, inference_tiled, make_predict_fn
 from tpuseg_torch.models.unet import UNet, init_unet
 from tpuseg_torch.train.steps import create_train_state, make_raw_steps
 from tpuseg_torch.utils import profiling
@@ -110,9 +110,30 @@ def test_a_tiled_image_gives_its_tree(tmp_path):
     assert len(roots) == 1 and re.fullmatch(r"tiled\.image#\d+", roots[0][0])
     n_tiles = len(_zor_placements(80, 80, TILE - 2 * RADIUS, TILE, RADIUS, 80, 80))
     assert calls == [min(BATCH, n_tiles - s) for s in range(0, n_tiles, BATCH)]
-    assert _children(spans, roots[0]) == (["tiled.prepare", "tiled.upload", "tiled.zscore"]
-                                          + ["tiled.windows", "tiled.predict"] * len(calls)
-                                          + ["tiled.stitch", "tiled.download"])
+    # the banded pass: a call's bands go up and are z-scored before it; once
+    # it is queued the next call's bands are staged and sent, it is
+    # stitched, its finished rows are sent down, and earlier rows land
+    # while it runs
+    up, zs, stitch, down, land = ("tiled.upload", "tiled.zscore", "tiled.stitch",
+                                  "tiled.download", "tiled.land")
+    call = ["tiled.windows", "tiled.predict"]
+    children = _children(spans, roots[0])
+    assert children == (["tiled.prepare", up, zs] + call + [stitch]
+                        + call + [stitch, down]
+                        + call + [up, stitch, land]
+                        + [zs] + call + [stitch, down]
+                        + call + [up, stitch, down, land]
+                        + [zs] + call + [stitch, land]
+                        + call + [stitch, down]
+                        + call + [stitch, land]
+                        + call + [stitch, down, land])
+    plan = _plan(_zor_placements(80, 80, TILE - 2 * RADIUS, TILE, RADIUS, 80, 80), TILE,
+                 BATCH, 80)
+    predicts = [k for k, name in enumerate(children) if name == "tiled.predict"]
+    assert len(predicts) == len(plan.calls) == len(calls)
+    for c, k in enumerate(predicts):  # every band a call reads is up and z-scored before it
+        assert children[:k].count(up) >= plan.needs[c] and children[:k].count(zs) >= plan.needs[c]
+    assert children.count(up) == children.count(zs) == len(plan.bands)
     assert all(roots[0][1] <= s[1] and s[2] <= roots[0][2] for s in spans)
 
 

@@ -4,6 +4,7 @@ exactly; the masks of the halo-tiled and the batched small-image engines
 must equal tpuseg's for the same f32 model and the same uint16 image."""
 
 import os
+import sys
 
 import jax
 import numpy as np
@@ -25,6 +26,9 @@ from tpuseg_torch.utils.jax_bridge import unet_from_flax
 
 from test_torch_unet import jax_model_and_vars
 from torch_threads import one_cpu_thread  # noqa: F401 (autouse)
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+import chip_smoke as smoke  # noqa: E402
 
 
 @pytest.fixture(scope="module")
@@ -148,3 +152,110 @@ def test_minimize_dtype_matches():
         got, want = tt.minimize_dtype(mask), jt.minimize_dtype(mask)
         assert got.dtype == want.dtype
         np.testing.assert_array_equal(got, want)
+
+
+# The one-device pass as a copy pipeline: the band and zone schedule, the
+# masks against a whole-image stitch, and PIPELINE
+
+def _conv_predict(ncls, channels, seed=0):
+    """NHWC float batch -> int32 labels of a fixed 3x3 conv with zero
+    padding: a label depends on where the window was cut, so a tile
+    stitched from the wrong window shows."""
+    w = torch.randn(ncls, channels, 3, 3, generator=torch.Generator().manual_seed(seed))
+
+    def predict(x):
+        y = torch.nn.functional.conv2d(x.permute(0, 3, 1, 2), w, padding=1)
+        return y.argmax(1).to(torch.int32)
+
+    return predict
+
+
+# (image, tile, radius, batch): the serving cells' slide, a one-call
+# image, a skinny image padded up to a tile, a non-multiple-of-16 image;
+# then each call's read limit, the mask rows each call finishes, and
+# PIPELINE after a pass
+SCHEDULES = {
+    "cells_4096": ((4096, 4096), 1024, 96, 8, [1760, 3424, 4096, 4096],
+                   [(0, 832), (832, 2496), (2496, 3328), (3328, 4096)],
+                   {"upload_bands": 3, "early_calls": 2, "download_bands": 4,
+                    "early_downloads": 3}),
+    "one_call": ((100, 140), 64, 16, 32, [112], [(0, 100)],
+                 {"upload_bands": 1, "early_calls": 0, "download_bands": 1,
+                  "early_downloads": 0}),
+    "skinny": ((40, 200), 64, 16, 4, [64, 64, 64, 64], [(0, 0), (0, 32), (32, 32), (32, 40)],
+               {"upload_bands": 1, "early_calls": 0, "download_bands": 2,
+                "early_downloads": 1}),
+    "not_x16": ((130, 97), 64, 16, 4, [64, 80, 112, 144, 144],
+                [(0, 32), (32, 64), (64, 96), (96, 128), (128, 130)],
+                {"upload_bands": 4, "early_calls": 3, "download_bands": 5,
+                 "early_downloads": 4}),
+}
+
+
+@pytest.mark.parametrize("name", list(SCHEDULES))
+def test_band_and_zone_schedule(name):
+    """Each call reads rows below its limit and waits for the bands that
+    cover them and no more; the bands tile the image's rows in order and
+    end at the read limits; each call finishes the zone rows whose last
+    tile it holds; PIPELINE counts the pass."""
+    (h0, w0), tile, radius, batch, reads, downs, counts = SCHEDULES[name]
+    h, w = max(tile, -(-h0 // 16) * 16), max(tile, -(-w0 // 16) * 16)
+    placements = tt._zor_placements(-(-h0 // 16) * 16, -(-w0 // 16) * 16,
+                                    tile - 2 * radius, tile, radius, h, w)
+    plan = tt._plan(placements, tile, batch, h0)
+    assert plan.reads == reads and plan.downs == downs
+    assert [r0 for r0, _ in plan.bands] == [0] + [r1 for _, r1 in plan.bands[:-1]]
+    assert plan.bands[-1][1] == h
+    assert [r1 for _, r1 in plan.bands] == sorted(set(reads))
+    for c, r in enumerate(reads):
+        assert plan.bands[plan.needs[c] - 1][1] >= r > plan.bands[plan.needs[c] - 1][0]
+        windows = placements[plan.calls[c][0]:plan.calls[c][1]]
+        assert max(p[4] for p in windows) + tile <= r
+    img = np.random.default_rng(4).integers(0, 60000, (h0, w0)).astype(np.uint16)
+    mask = tt.inference_tiled(img, lambda x: torch.ones(x.shape[:3], dtype=torch.int32), tile,
+                              radius, batch, 2, (np.float32([3e4]), np.float32([1.7e4])), "cpu")
+    assert mask.shape == (h0, w0) and (mask == 1).all()
+    assert tt.PIPELINE == counts and counts["upload_bands"] == len(plan.bands)
+
+
+@pytest.mark.parametrize("device_output", [False, True])
+@pytest.mark.parametrize("ncls", [2, 300])
+@pytest.mark.parametrize("kind", ["uint16", "float32", "uint16_c3"])
+def test_pipelined_pass_equals_whole_image_stitch(kind, ncls, device_output):
+    """The banded pass gives, on every pixel, the mask of a plain
+    whole-image z-score and stitch with the same predict function
+    (``chip_smoke.whole_image_stitch``, which the card test uses): uint8
+    at <= 256 classes, int32 above, a fresh contiguous array (or the
+    cropped tensor with ``device_output``)."""
+    rng = np.random.default_rng(5)
+    shape = (130, 97, 3) if kind == "uint16_c3" else (130, 97)
+    img = (rng.normal(5, 3, shape).astype(np.float32) if kind == "float32"
+           else rng.integers(0, 60000, shape).astype(np.uint16))
+    channels = img.reshape(130, 97, -1).shape[2]
+    stats = (img.reshape(-1, channels).mean(0).astype(np.float32),
+             img.reshape(-1, channels).std(0).astype(np.float32))
+    predict = _conv_predict(ncls, channels)
+    want = smoke.whole_image_stitch(img, predict, 16, stats, "cpu", 64, 3, ncls)
+    got = tt.inference_tiled(img, predict, 64, 16, 3, ncls, stats, "cpu",
+                             device_output=device_output)
+    if device_output:
+        assert tt.PIPELINE["download_bands"] == 0
+        got = got.numpy()
+    else:
+        assert tt.PIPELINE["download_bands"] > 1 and got.flags["C_CONTIGUOUS"]
+    assert got.dtype == (np.uint8 if ncls <= 256 else np.int32) and got.shape == (130, 97)
+    assert len(np.unique(want)) > 1
+    np.testing.assert_array_equal(got, want)
+
+
+def test_a_devices_list_takes_the_whole_image_pass():
+    """A ``devices`` list keeps the whole-image pass (PIPELINE stays zero)
+    and gives the pipelined pass's mask."""
+    img = np.random.default_rng(6).integers(0, 60000, (100, 140)).astype(np.uint16)
+    stats = (np.float32([3e4]), np.float32([1.7e4]))
+    predict = _conv_predict(2, 1)
+    banded = tt.inference_tiled(img, predict, 64, 16, 3, 2, stats, "cpu")
+    assert tt.PIPELINE["upload_bands"] > 1
+    whole = tt.inference_tiled(img, predict, 64, 16, 3, 2, stats, "cpu", devices=["cpu"])
+    assert all(v == 0 for v in tt.PIPELINE.values())
+    np.testing.assert_array_equal(banded, whole)

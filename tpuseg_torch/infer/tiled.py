@@ -6,10 +6,11 @@ tile shape per image with slide-to-fit edge windows, a zone of
 responsibility of ``tile - 2*radius`` around the ERF-measured radius,
 reflect padding to x16, the same trim order. What changes with PyTorch:
 
-- the image crosses to the device once in its native dtype, the z-score
+- the image crosses to the device in its native dtype, the z-score
   (with the reference's std<=1 guard) runs there, tiles are cut, run in
   ``batch_size`` chunks by a Python loop (``lax.map`` in JAX) and stitched
-  on the device, and the mask crosses back once;
+  on the device, and the mask crosses back; on one card the crossings are
+  a pipeline of row bands that overlaps the predict calls (``PIPELINE``);
 - eager execution needs no program cache and no static-shape padding: a
   short last chunk simply runs as a smaller batch;
 - ``devices`` (a list) shards each group of ``batch_size x len(devices)``
@@ -29,7 +30,7 @@ its masks equal :func:`inference_tiled`'s given the same statistics.
 from __future__ import annotations
 
 import itertools
-from typing import Any, Callable, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -45,6 +46,13 @@ MAX_AUTO_TILE = 1536
 PredictFn = Callable[[torch.Tensor], torch.Tensor]
 
 _IMAGES = itertools.count()  # numbers each inference_tiled call's span
+
+# What the last inference_tiled pass on one device overlapped (a pass over
+# ``devices`` leaves zeros): its upload bands, the predict calls queued
+# before the compute stream waited for the last band, its download bands,
+# and those queued before the last predict call.
+PIPELINE: Dict[str, int] = {"upload_bands": 0, "early_calls": 0, "download_bands": 0,
+                            "early_downloads": 0}
 
 
 def max_auto_tile(per_device_batch: int) -> int:
@@ -252,6 +260,16 @@ def inference_single_batch(imgs: List[np.ndarray], predict_fn: PredictFn,
     return [p[:h - pad_y, :w - pad_x] for p in preds]
 
 
+def _predict_call(fn, img: torch.Tensor, windows, tile_size: int) -> torch.Tensor:
+    """One predict call of ``fn`` on the windows at ``(window_y,
+    window_x)`` of the device image ``img``."""
+    with span("tiled.windows"):
+        x = torch.stack([img[y_st:y_st + tile_size, x_st:x_st + tile_size]
+                         for (y_st, x_st) in windows])
+    with span("tiled.predict"):
+        return fn(x)
+
+
 def _forward_tiles(shards, padded: torch.Tensor, windows, tile_size: int,
                    chunk: int) -> List[torch.Tensor]:
     """Cut the windows at ``(window_y, window_x)`` out of the device image
@@ -269,17 +287,190 @@ def _forward_tiles(shards, padded: torch.Tensor, windows, tile_size: int,
     for s in range(0, len(windows), group):
         outs = []
         for i, (d, fn) in enumerate(zip(devs, fns)):
-            part = windows[s + i * chunk:s + (i + 1) * chunk]
             img = images.get(d)
             if img is None:
                 img = images[d] = padded.to(d)
-            with span("tiled.windows"):
-                x = torch.stack([img[y_st:y_st + tile_size, x_st:x_st + tile_size]
-                                 for (y_st, x_st) in part])
-            with span("tiled.predict"):
-                outs.append(fn(x))
+            outs.append(_predict_call(fn, img, windows[s + i * chunk:s + (i + 1) * chunk],
+                                      tile_size))
         preds.extend(o.to(padded.device) for o in outs)
     return preds
+
+
+def _stitch(mask: torch.Tensor, placements, preds: torch.Tensor) -> None:
+    """Write each tile's trimmed zone of ``preds`` (one tile a placement,
+    in order) into ``mask``."""
+    for k, (i, j, y_end_z, x_end_z, y_st, x_st) in enumerate(placements):
+        mask[i:y_end_z, j:x_end_z] = preds[k, i - y_st:y_end_z - y_st,
+                                           j - x_st:x_end_z - x_st]
+
+
+def _device_stats(norm_stats, device):
+    """``norm_stats`` as per-channel ``(mean, std)`` tensors on ``device``,
+    or ``(None, None)``."""
+    if norm_stats is None:
+        return None, None
+    return tuple(torch.from_numpy(np.asarray(s, np.float32).reshape(-1)).to(device)
+                 for s in norm_stats)
+
+
+class _Plan(NamedTuple):
+    """The band and zone schedule of one pass (:func:`_plan`)."""
+
+    calls: List[Tuple[int, int]]  # the tiles [s, e) of each predict call
+    reads: List[int]  # the rows each call's windows read lie below this
+    bands: List[Tuple[int, int]]  # the upload's row bands [r0, r1), in order
+    needs: List[int]  # per call, how many bands (a prefix) it waits for
+    downs: List[Tuple[int, int]]  # per call, the mask rows [a, z) it finishes
+
+
+def _plan(placements, tile_size: int, chunk: int, crop_h: int) -> _Plan:
+    """Which rows each predict call reads and which zone rows it finishes.
+
+    Calls take the (row-major) placements ``chunk`` at a time. The upload's
+    bands end at the calls' read limits, so a call waits only for the rows
+    its windows read. Zone rows finish in order, so the mask rows that are
+    whole after a call are a prefix: ``downs[c]`` is what call ``c`` adds
+    to it, clipped to the first ``crop_h`` rows (empty where it finishes no
+    zone row)."""
+    n = len(placements)
+    calls = [(s, min(s + chunk, n)) for s in range(0, n, chunk)]
+    reads = list(itertools.accumulate(
+        (max(p[4] for p in placements[s:e]) + tile_size for s, e in calls), max))
+    cuts = sorted(set(reads))
+    bands = list(zip([0] + cuts[:-1], cuts))
+    needs = [cuts.index(r) + 1 for r in reads]
+    last = {}  # zone row -> (index of its last tile, its end row)
+    for k, p in enumerate(placements):
+        last[p[0]] = (k, p[2])
+    downs, done = [], 0
+    for _, e in calls:
+        whole = max([end for k, end in last.values() if k < e], default=0)
+        downs.append((min(done, crop_h), min(whole, crop_h)))
+        done = whole
+    return _Plan(calls, reads, bands, needs, downs)
+
+
+def _banded_pass(host: torch.Tensor, uint16: bool, predict_fn, placements, tile_size: int,
+                 chunk: int, norm_stats, device: torch.device, mask_shape, crop,
+                 mask_dtype, device_output: bool):
+    """One device's pass as a copy pipeline (:func:`inference_tiled`).
+
+    On a card each band is staged into pinned memory and sent without
+    blocking on an upload stream; the current (compute) stream waits for a
+    band's copy only where it z-scores that band, just before the first
+    call that reads it. The first call's band goes first; once a call is
+    queued, the next call's bands are staged and sent, so they cross while
+    the call runs. Each call is stitched at once; the mask rows it
+    finishes go down on a download stream into pinned memory behind an
+    event of the compute stream, and land in the numpy result while the
+    card runs the next call. Neither copy stream waits for the other. Off
+    a card the same schedule runs in order, with no copies."""
+    plan = _plan(placements, tile_size, chunk, crop[0])
+    on_card = device.type == "cuda"
+    mean, std = _device_stats(norm_stats, device)
+    image = torch.empty(host.shape, dtype=torch.float32, device=device)
+    mask = torch.zeros(mask_shape, dtype=mask_dtype, device=device)
+    raw, ups = host, []  # the shipped image on the device; each band's copy event
+    if on_card:
+        compute = torch.cuda.current_stream(device)
+        up, down = torch.cuda.Stream(device), torch.cuda.Stream(device)
+        # the upload stream writes memory that work still queued on the
+        # compute stream may have freed: it starts behind that work
+        up.wait_stream(compute)
+        staged = torch.empty(host.shape, dtype=host.dtype, pin_memory=True)
+        raw = torch.empty(host.shape, dtype=host.dtype, device=device)
+        raw.record_stream(up)
+        mask.record_stream(down)
+    if not device_output:
+        result = torch.from_numpy(np.empty(crop, np.uint8 if mask_dtype == torch.uint8
+                                           else np.int32))
+        landing = torch.empty((crop[0], mask_shape[1]), dtype=mask_dtype,
+                              pin_memory=True) if on_card else mask
+    pending = []  # download bands on their way: (a, z, event)
+
+    def upload(b):
+        r0, r1 = plan.bands[b]
+        with span("tiled.upload"):
+            if on_card:
+                staged[r0:r1].copy_(host[r0:r1])
+                with torch.cuda.stream(up):
+                    raw[r0:r1].copy_(staged[r0:r1], non_blocking=True)
+                ups.append(up.record_event())
+        PIPELINE["upload_bands"] += 1
+
+    def normalize(b):
+        r0, r1 = plan.bands[b]
+        with span("tiled.zscore"):
+            if on_card:
+                compute.wait_event(ups[b])
+            x = _widen(raw[r0:r1], uint16)
+            image[r0:r1] = x if mean is None else _zscore(x, mean, std)
+
+    def download(a, z):
+        with span("tiled.download"):
+            event = None
+            if on_card:
+                down.wait_event(compute.record_event())
+                with torch.cuda.stream(down):
+                    landing[a:z].copy_(mask[a:z], non_blocking=True)
+                event = down.record_event()
+            pending.append((a, z, event))
+        PIPELINE["download_bands"] += 1
+
+    def land(n):
+        with span("tiled.land"):
+            for a, z, event in pending[:n]:
+                if event is not None:
+                    event.synchronize()
+                result[a:z] = landing[a:z, :crop[1]]
+            del pending[:n]
+
+    issued = ready = 0  # bands staged and sent; bands z-scored
+    last = len(plan.calls) - 1
+    for c, (s, e) in enumerate(plan.calls):
+        while issued < plan.needs[c]:
+            upload(issued)
+            issued += 1
+        while ready < plan.needs[c]:
+            normalize(ready)
+            ready += 1
+        PIPELINE["early_calls"] += ready < len(plan.bands)
+        preds = _predict_call(predict_fn, image, [p[4:] for p in placements[s:e]], tile_size)
+        while issued < plan.needs[min(c + 1, last)]:
+            upload(issued)
+            issued += 1
+        with span("tiled.stitch"):
+            _stitch(mask, placements[s:e], preds)
+        earlier = len(pending)
+        a, z = plan.downs[c]
+        if z > a and not device_output:
+            download(a, z)
+            PIPELINE["early_downloads"] += c < last
+        if earlier:
+            land(earlier)  # the earlier calls' rows, while this call runs
+    if device_output:
+        return mask[:crop[0], :crop[1]]
+    land(len(pending))
+    return result.numpy()
+
+
+def _whole_pass(img: np.ndarray, shards, placements, tile_size: int, chunk: int,
+                norm_stats, device, mask_shape, crop, mask_dtype, device_output: bool):
+    """The pass over ``devices``: the whole image up at once, the tiles
+    sharded (:func:`_forward_tiles`), the mask stitched on ``device`` and
+    brought down at once."""
+    with span("tiled.upload"):
+        padded = _to_device(img, device)
+    if norm_stats is not None:
+        with span("tiled.zscore"):
+            padded = _zscore(padded, *_device_stats(norm_stats, device))
+    preds = _forward_tiles(shards, padded, [p[4:] for p in placements], tile_size, chunk)
+    with span("tiled.stitch"):
+        mask = torch.zeros(mask_shape, dtype=mask_dtype, device=padded.device)
+        _stitch(mask, placements, torch.cat(preds))
+    with span("tiled.download"):
+        mask = mask[:crop[0], :crop[1]]
+        return mask if device_output else mask.cpu().numpy()
 
 
 def inference_tiled(
@@ -299,14 +490,21 @@ def inference_tiled(
     ``devices``, tile groups sharded over them (the module docstring) and
     the mask stitched on ``device``.
 
+    On one device the pass is a copy pipeline (:func:`_banded_pass`): the
+    image goes up in row bands, each predict call waits only for the rows
+    its windows read, and finished zone rows come down while later calls
+    run; ``PIPELINE`` counts what overlapped. With ``devices`` the image
+    goes up, and the mask comes down, whole.
+
     ``norm_stats`` (per-channel ``(mean, std)`` from ``zscore_stats``): when
     given, ``img`` ships in its native dtype and the z-score runs on the
     device; otherwise ``img`` is taken as already normalized.
 
-    Returns the mask as uint8 when ``num_classes <= 256`` was given (the
-    device emits bytes — a quarter of the transfer), int32 otherwise; with
-    ``device_output`` as the cropped tensor on the device, for callers that
-    keep post-processing (metrics, encoding) there.
+    Returns the mask as a numpy array of its own, uint8 when
+    ``num_classes <= 256`` was given (the device emits bytes — a quarter
+    of the transfer), int32 otherwise; with ``device_output`` as the
+    cropped tensor on the device, for callers that keep post-processing
+    (metrics, encoding) there.
     """
     with span("tiled.image", next(_IMAGES)):
         if img.ndim not in (2, 3):
@@ -327,28 +525,19 @@ def inference_tiled(
             full_h, full_w = img.shape[0], img.shape[1]
             placements = _zor_placements(height, width, zor, tile_size, radius,
                                          full_h, full_w)
-
-        with span("tiled.upload"):
-            padded = _to_device(img, device)
-        if norm_stats is not None:
-            with span("tiled.zscore"):
-                mean, std = (torch.from_numpy(np.asarray(s, np.float32).reshape(-1)).to(device)
-                             for s in norm_stats)
-                padded = _zscore(padded, mean, std)
-        preds = _forward_tiles(_shards(predict_fn, device, devices), padded,
-                               [p[4:] for p in placements], tile_size, batch_size)
-
-        with span("tiled.stitch"):
-            preds = torch.cat(preds)
             shrink_u8 = num_classes is not None and num_classes <= 256
-            mask = torch.zeros((height, width), dtype=torch.uint8 if shrink_u8 else torch.int32,
-                               device=padded.device)
-            for k, (i, j, y_end_z, x_end_z, y_st, x_st) in enumerate(placements):
-                mask[i:y_end_z, j:x_end_z] = preds[k, i - y_st:y_end_z - y_st,
-                                                   j - x_st:x_end_z - x_st]
-        with span("tiled.download"):
-            mask = mask[:height - pad_y, :width - pad_x]
-            return mask if device_output else mask.cpu().numpy()
+            mask_dtype = torch.uint8 if shrink_u8 else torch.int32
+            crop = (height - pad_y, width - pad_x)
+        for k in PIPELINE:
+            PIPELINE[k] = 0
+        if devices is not None:
+            return _whole_pass(img, _shards(predict_fn, device, devices), placements,
+                               tile_size, batch_size, norm_stats, device, (height, width),
+                               crop, mask_dtype, device_output)
+        return _banded_pass(_host_tensor(img), img.dtype == np.uint16, predict_fn,
+                            placements, tile_size, batch_size, norm_stats,
+                            _as_device(device), (height, width), crop, mask_dtype,
+                            device_output)
 
 
 def _strip_row(shards, strip: torch.Tensor, xs, tile_size: int,
